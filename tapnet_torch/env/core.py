@@ -1,0 +1,244 @@
+"""Batched TAP environment core (SPEC.md §3-§9), the port of
+`tapnet_tpu/env/core.py`.
+
+Every function takes a leading batch axis (the batch dimension written out
+in place of `vmap`): Instance / EnvState fields are [B, ...] tensors, the
+integer env math is the same, and `step` is bit-equal to the JAX env for the
+`lb` placement rule. The `mcs` rule (exact u64/u128 score fractions) raises
+NotImplementedError until a later slice ports it (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tapnet_torch.config import TAPConfig
+from tapnet_torch.types import EnvState, Instance
+
+BIG = 2**30
+
+
+def _ar(n, dev):
+    return torch.arange(n, dtype=torch.int32, device=dev)
+
+
+def reset(instances: Instance, cfg: TAPConfig) -> EnvState:
+    B, N = instances.dims.shape[:2]
+    dev = instances.dims.device
+    packed = _ar(N, dev)[None] >= instances.n_total[:, None]
+    return EnvState(
+        heightmap=torch.zeros((B, cfg.num_containers, cfg.target_width,
+                               cfg.target_depth), dtype=torch.int32,
+                              device=dev),
+        packed=packed,
+        placements=torch.full((B, N, 6), -1, dtype=torch.int32, device=dev),
+        t=torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _accessibility(instances: Instance, packed: torch.Tensor):
+    """acc0[b, i]: removable straight-up; accr: removable with rotation."""
+    unpacked = ~packed
+    blocked0 = (instances.up & unpacked[:, :, None]).any(dim=1)
+    acc0 = unpacked & ~blocked0
+    blockedr = (instances.rot & unpacked[:, :, None]).any(dim=1)
+    return acc0, acc0 & ~blockedr
+
+
+def rotated_dims_all(dims: torch.Tensor, r: int, cfg: TAPConfig):
+    """dims [..., 3] of every block under the static rotation state r."""
+    if r == 0:
+        return dims
+    ax0, ax1 = cfg.rot_axes
+    perm = [ax1 if k == ax0 else ax0 if k == ax1 else k for k in range(3)]
+    return dims[..., perm]
+
+
+def rotated_dims(instances: Instance, b: torch.Tensor, r: torch.Tensor,
+                 cfg: TAPConfig):
+    """(w, d, h) [B] of block b [B] under rotation state r [B]."""
+    bi = torch.arange(b.shape[0], device=b.device)
+    dims = instances.dims[bi, b.long()]                       # [B, 3]
+    dims = torch.where((r == 1)[:, None], rotated_dims_all(dims, 1, cfg),
+                       dims)
+    return dims[:, 0], dims[:, 1], dims[:, 2]
+
+
+def action_mask(state: EnvState, instances: Instance,
+                cfg: TAPConfig) -> torch.Tensor:
+    """Feasibility over the flat (block, rot, container) action space [B, A]."""
+    B, N = instances.dims.shape[:2]
+    acc0, accr = _accessibility(instances, state.packed)
+    if cfg.window > 0:
+        a0 = acc0.int()
+        observable = acc0 & ((a0.cumsum(1) - a0) < cfg.window)
+    else:
+        observable = acc0
+    masks_br = []
+    for r in range(cfg.num_rot):
+        ok = observable if r == 0 else (observable & accr)
+        dims = rotated_dims_all(instances.dims, r, cfg)
+        fits = ((dims[..., 0] <= cfg.target_width)
+                & (dims[..., 1] <= cfg.target_depth))
+        masks_br.append(ok & fits)
+    mask_br = torch.stack(masks_br, dim=2)                    # [B, N, R]
+
+    R_, C = cfg.num_rot, cfg.num_containers
+    if cfg.target_height > 0:
+        # finite cap: require >= 1 candidate with l + h <= cap (SPEC.md §5)
+        place_ok = torch.empty((B, N, R_, C), dtype=torch.bool,
+                               device=mask_br.device)
+        for r in range(R_):
+            dims = rotated_dims_all(instances.dims, r, cfg).reshape(B * N, 3)
+            for c in range(C):
+                hm = state.heightmap[:, c].repeat_interleave(N, dim=0)
+                _, _, valid = candidate_scan(hm, dims[:, 0], dims[:, 1],
+                                             dims[:, 2], cfg)
+                place_ok[:, :, r, c] = valid.flatten(1).any(1).reshape(B, N)
+        mask = mask_br[..., None] & place_ok
+    else:
+        mask = mask_br[..., None].expand(B, N, R_, C)
+    return mask.reshape(B, cfg.num_actions)
+
+
+def _window(a, n, W, fill, axis, op):
+    """out[.., x, ..] = op over o < n[b] of a[.., x + o, ..] along `axis`
+    (1 = x, 2 = y of a [B, W, D]), `fill` beyond the edge."""
+    pad_shape = list(a.shape)
+    pad_shape[axis] = W
+    pad = torch.cat([a, torch.full(pad_shape, fill, dtype=a.dtype,
+                                   device=a.device)], dim=axis)
+    out = None
+    for o in range(W):
+        s = pad.narrow(axis, o, a.shape[axis])
+        s = torch.where((o < n)[:, None, None], s, torch.zeros_like(s))
+        out = s if out is None else op(out, s)
+    return out
+
+
+def candidate_scan(hm: torch.Tensor, w, d, h, cfg: TAPConfig):
+    """Landing height, stability, validity of every offset of a (w, d, h)
+    block: hm int32[B, Wt, Dt], w/d/h [B] -> three [B, Wt, Dt] tensors."""
+    Wt, Dt = cfg.target_width, cfg.target_depth
+    dev = hm.device
+    mx = torch.maximum
+    rowmax = hm if Dt == 1 else _window(hm, d, Dt, 0, 2, mx)
+    colmax = _window(hm, w, Wt, 0, 1, mx)
+    landing = _window(rowmax, w, Wt, 0, 1, mx)
+    xs = _ar(Wt, dev)[None, :, None]
+    ys = _ar(Dt, dev)[None, None, :]
+
+    def extent(src, n, size, axis, idx):
+        # min/max doubled coordinate of rows/cols equal to landing in the
+        # footprint (fill -1 beyond the edge never matches)
+        pad_shape = list(src.shape)
+        pad_shape[axis] = size
+        pad = torch.cat([src, torch.full(pad_shape, -1, dtype=src.dtype,
+                                         device=dev)], dim=axis)
+        lo = torch.full_like(src, BIG)
+        hi = torch.full_like(src, -BIG)
+        for o in range(size):
+            s = pad.narrow(axis, o, src.shape[axis])
+            sup = (o < n)[:, None, None] & (s == landing)
+            i2 = 2 * (idx + o)
+            lo = torch.where(sup, torch.minimum(lo, i2), lo)
+            hi = torch.where(sup, torch.maximum(hi, i2), hi)
+        return lo, hi
+
+    minx, maxx = extent(rowmax, w, Wt, 1, xs)
+    cx2 = 2 * xs + w[:, None, None] - 1
+    sup_ok = (minx <= cx2) & (cx2 <= maxx)
+    if Dt > 1:
+        miny, maxy = extent(colmax, d, Dt, 2, ys)
+        cy2 = 2 * ys + d[:, None, None] - 1
+        sup_ok = sup_ok & (miny <= cy2) & (cy2 <= maxy)
+    stable = (landing == 0) | sup_ok
+    valid = ((xs <= Wt - w[:, None, None]) & (ys <= Dt - d[:, None, None])
+             & (landing + h[:, None, None] <= cfg.height_cap))
+    return landing, stable, valid
+
+
+def choose_placement(hm: torch.Tensor, w, d, h, cfg: TAPConfig):
+    """`lb` placement (SPEC.md §6.4): the lowest/leftmost/frontmost valid
+    offset by the injective key (l*Wt + x)*Dt + y; the hard variant prefers
+    stable offsets and falls back to soft. Returns (x, y, l, stable,
+    any_valid), each [B]."""
+    if cfg.placement_rule == "mcs":
+        raise NotImplementedError(
+            "mcs placement is not ported yet (ROADMAP.md, port Queue 2)")
+    Wt, Dt = cfg.target_width, cfg.target_depth
+    landing, stable, valid = candidate_scan(hm, w, d, h, cfg)
+    xs = _ar(Wt, hm.device)[None, :, None]
+    ys = _ar(Dt, hm.device)[None, None, :]
+    key = (landing * Wt + xs) * Dt + ys
+    key_soft = torch.where(valid, key, BIG)
+    key_used = key_soft
+    if cfg.placement_variant == "hard":
+        key_hard = torch.where(valid & stable, key, BIG)
+        use_hard = (key_hard < BIG).flatten(1).any(1)
+        key_used = torch.where(use_hard[:, None, None], key_hard, key_soft)
+    flat = torch.argmin(key_used.flatten(1), dim=1)
+    x, y = flat // Dt, flat % Dt
+    bi = torch.arange(hm.shape[0], device=hm.device)
+    return (x.int(), y.int(), landing[bi, x, y], stable[bi, x, y],
+            (key_soft < BIG).flatten(1).any(1))
+
+
+def step(state: EnvState, action: torch.Tensor, instances: Instance,
+         cfg: TAPConfig) -> EnvState:
+    """Place the block selected by `action` [B] (negative => no-op)."""
+    B = action.shape[0]
+    dev = action.device
+    bi = torch.arange(B, device=dev)
+    do = action >= 0
+    b, r, c = cfg.decompose_action(action.clamp(min=0))
+    w, d, h = rotated_dims(instances, b, r, cfg)
+    hm = state.heightmap[bi, c.long()]
+    x, y, l, stable, any_valid = choose_placement(hm, w, d, h, cfg)
+    do = do & any_valid
+
+    xs = _ar(cfg.target_width, dev)[None, :, None]
+    ys = _ar(cfg.target_depth, dev)[None, None, :]
+    fp = ((xs >= x[:, None, None]) & (xs < (x + w)[:, None, None])
+          & (ys >= y[:, None, None]) & (ys < (y + d)[:, None, None]))
+    hm_new = torch.where(fp, (l + h)[:, None, None], hm)
+    sel_c = _ar(cfg.num_containers, dev)[None] == c[:, None]   # [B, C]
+    heightmap = torch.where((sel_c & do[:, None])[:, :, None, None],
+                            hm_new[:, None], state.heightmap)
+    sel_b = _ar(state.packed.shape[1], dev)[None] == b[:, None]
+    packed = state.packed | (sel_b & do[:, None])
+    row = torch.stack([c, r, x, y, l, stable.int()], dim=1).int()
+    placements = torch.where((sel_b & do[:, None])[:, :, None],
+                             row[:, None, :], state.placements)
+    return EnvState(heightmap=heightmap, packed=packed,
+                    placements=placements, t=state.t + do.int())
+
+
+def reward_terms(state: EnvState, instances: Instance, cfg: TAPConfig):
+    """Integer reward numerators/denominators [B] each (SPEC.md §7)."""
+    placed = state.placements[..., 0] >= 0
+    vol = torch.where(placed, instances.dims.prod(-1), 0).sum(1)
+    maxh = state.heightmap.amax(dim=(2, 3))                    # [B, C]
+    under = state.heightmap.sum(dim=(2, 3))
+    used = maxh > 0
+    area = cfg.target_width * cfg.target_depth
+    denom_c = torch.where(used, area * maxh, 0).sum(1)
+    denom_p = torch.where(used, under, 0).sum(1)
+    s_num = torch.where(placed, state.placements[..., 5], 0).sum(1)
+    s_den = placed.int().sum(1)
+    return tuple(v.int() for v in (vol, denom_c, denom_p, s_num, s_den))
+
+
+def reward(state: EnvState, instances: Instance,
+           cfg: TAPConfig) -> torch.Tensor:
+    """float32 reward [B] = sum of the configured C/P/S terms."""
+    vol, denom_c, denom_p, s_num, s_den = reward_terms(state, instances, cfg)
+
+    def f(n, d):
+        q = n.float() / d.clamp(min=1).float()
+        return torch.where(d > 0, q, torch.zeros_like(q))
+
+    terms = {"C": f(vol, denom_c), "P": f(vol, denom_p), "S": f(s_num, s_den)}
+    out = None
+    for t in cfg.reward_terms:
+        out = terms[t] if out is None else out + terms[t]
+    return out
