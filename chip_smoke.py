@@ -20,7 +20,28 @@ source, all started at once), then runs, and fails on the first fault:
    rewards in (0, 3], the launch counters up by N per rollout, and a small
    batch agreeing with the CPU reference path;
 5. times (CUDA events, median of 25): each kernel per launch, its plain
-   version, and a whole pack() per policy.
+   version, and a whole pack() per policy;
+6. heightmap_reductions (K3) vs its plain version, bit-equal, on the final
+   heightmaps of sampled rollouts (2d-basic at batch 4096, 3d-basic and
+   multi-container at 512) and on all-zero heightmaps;
+7. replay_logp forward and backward (K5) vs their plain versions on the
+   card's own rollout records: 2d-basic at 4096, 2d-rot, 3d-basic,
+   multi-container and multi-container-capped at 512, 2d-basic at a
+   ragged 100, a padded 8-block config at temperature 0.7, a 3D config
+   with 4 containers at 512; values within
+   1e-5 relative, every gradient within 5e-5 of the plain result's max
+   magnitude (sums over instances in another order); two backward
+   launches bit-identical; the forward against the rollout's own logp
+   (the train step's primal) within the same value tolerance;
+8. the train path: `init_train_state` + `make_train_step` on 2d-basic at
+   hidden 128 and batch 4096 for 5 steps, the launch counts per step
+   (actor_select_step 10, replay backward 1, heightmap_reductions 1,
+   replay forward 0) and finite metrics; one step repeated from a copy of
+   the state bit for bit; a step at batch 256 against the CPU reference
+   path; `train()` for 2 epochs x 5 steps with metrics and checkpoints, and
+   a resume from the epoch-1 checkpoint ending on the same params;
+9. times: K3 and K5 per launch with their plain versions (K3 also against
+   amax + sum), and the whole train step (host clock, median of 10).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -33,6 +54,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,6 +66,7 @@ REPS = 25
 TOL = 1e-5            # logits / logp, kernel vs plain (accumulation order)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 F32_OPS_S = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
+B_MAIN = 4096          # the main paths' batch
 
 
 def log(msg):
@@ -322,6 +345,236 @@ def actor_ops_count(cfg, B, h):
     return B * (2 * macs + T * C * h * 4)
 
 
+# ------------------------------------------------------------------ #
+# phase 6: heightmap_reductions (K3) vs its plain version
+
+def check_reward(cfg, B, actor, dev):
+    """K3 on the final heightmaps of a sampled rollout: bit-equal to the
+    plain version. Returns the heightmaps."""
+    from tapnet_torch import random as R
+    from tapnet_torch.ops import reward as RW
+    from tapnet_torch.train import rollout as RO
+
+    inst = _instances(cfg, B, dev, SEED + 8)
+    states, _, _ = RO.rollout_batch_record(actor, inst,
+                                           R.split(R.key(SEED + 9, dev), B),
+                                           cfg)
+    for hm in (states.heightmap, torch.zeros_like(states.heightmap)):
+        got = RW.heightmap_reductions(hm)
+        want = RW.heightmap_reductions_ref(hm)
+        _equal("heightmap_reductions max", got[0], want[0])
+        _equal("heightmap_reductions sum", got[1], want[1])
+    return states.heightmap
+
+
+# ------------------------------------------------------------------ #
+# phase 7: replay_logp forward / backward (K5) vs their plain versions
+
+GRAD_TOL = 5e-5       # K5b vs plain, of the plain result's max magnitude
+
+
+def replay_operands(actor, cfg, B, dev, seed, temperature):
+    """Replay operands in `replay_logp_fwd` order from a sampled rollout on
+    the card at `temperature`, and the rollout's own logp [B]."""
+    from tapnet_torch import random as R
+    from tapnet_torch.train import rollout as RO
+
+    inst = _instances(cfg, B, dev, seed)
+    with torch.no_grad():
+        _, rec, lp0 = RO.rollout_batch_record(
+            actor, inst, R.split(R.key(seed + 1, dev), B), cfg,
+            temperature=temperature)
+        (flags, hms, masks, acts, statp, statm), se, ctx, params = \
+            RO.replay_operands(actor, inst, rec, cfg, grad=False)
+    return (flags, hms, masks, acts, se, ctx, statp, statm, params), lp0
+
+
+def check_replay(cfg, B, actor, dev, temperature=1.0, repeat=False):
+    """K5f values within 1e-5 relative and K5b outputs within GRAD_TOL of
+    the plain results' max magnitude; with `repeat`, two K5b launches
+    bit-identical; K5f also agrees with the rollout's own logp. Returns
+    (operands, dlp, fwd max abs err, (bwd max scaled err, bwd max abs
+    err), max abs diff of K5f and the rollout's logp)."""
+    from tapnet_torch.ops import replay as RP
+
+    ops, lp0 = replay_operands(actor, cfg, B, dev, SEED + 10, temperature)
+    dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+    with torch.no_grad():
+        got = RP.replay_logp_fwd(*ops, cfg, temperature)
+        want = RP.replay_logp_fwd_ref(*ops, cfg, temperature)
+        d = (got - want).abs()
+        if not bool((d <= TOL * want.abs() + 1e-6).all()):
+            raise AssertionError(f"replay_logp_fwd: max err {d.max().item()}")
+        f_err = d.max().item()
+        # the train step's value is the rollout's logp (the primal): the
+        # rollout head and the replay head must agree on it
+        d0 = (got - lp0).abs()
+        if not bool((d0 <= TOL * lp0.abs() + 1e-5).all()):
+            raise AssertionError(f"replay_logp_fwd vs the rollout's logp: "
+                                 f"max err {d0.max().item()}")
+        g1 = RP.replay_logp_bwd(dlp, *ops, cfg, temperature)
+        gr = RP.replay_logp_bwd_ref(dlp, *ops, cfg, temperature)
+        flat = lambda g: [g[0], g[1], *g[2]]
+        b_err = b_abs = 0.0
+        names = ["d_se", "d_ctx"] + [f"d_params[{i}]" for i in range(11)]
+        for name, a, w in zip(names, flat(g1), flat(gr)):
+            e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
+            if not e <= GRAD_TOL:
+                raise AssertionError(f"replay_logp_bwd {name}: scaled err {e}")
+            b_err = max(b_err, e)
+            b_abs = max(b_abs, (a - w).abs().max().item())
+        if repeat:
+            g2 = RP.replay_logp_bwd(dlp, *ops, cfg, temperature)
+            for name, a, b in zip(names, flat(g1), flat(g2)):
+                _equal(f"replay_logp_bwd repeat {name}", a, b)
+    return ops, dlp, f_err, (b_err, b_abs), d0.max().item()
+
+
+def replay_ops_count(cfg, B, h, bwd):
+    """f32 operations of the replay over B instances and N steps: the
+    forward per step as actor_ops_count; the backward adds the weight
+    gradients (2 per multiply-add), the input gradients of Wq (3h of its
+    columns), W2 and Wp, and ~6 elementwise per (token, container, unit)."""
+    N, R_, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
+    WD, T = cfg.target_width * cfg.target_depth, N * R_
+    fwd = actor_ops_count(cfg, B, h) * N
+    if not bwd:
+        return fwd
+    FQ = 3 * h + 8
+    wgrad = C * (h * FQ + h * h + h * (WD + 2)) + T * (h * 32 + 32 * 8)
+    igrad = C * (h * 3 * h + h * h) + T * 32 * h
+    return fwd + B * N * (2 * (wgrad + igrad) + T * C * h * 6)
+
+
+# ------------------------------------------------------------------ #
+# phase 8: the train path
+
+def _state_dicts(ts):
+    return {**{f"actor.{k}": v for k, v in ts.actor.state_dict().items()},
+            **{f"critic.{k}": v for k, v in ts.critic.state_dict().items()}}
+
+
+def train_main_path(cfg, dev):
+    """init_train_state + 5 steps of make_train_step(batch=4096) on the
+    card; launch counts per step: actor_select_step 10, replay_logp_bwd 1,
+    heightmap_reductions 1, replay_logp_fwd 0. Returns the counts, the
+    state and the step."""
+    from tapnet_torch import init_train_state, make_train_step
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import replay as RP
+    from tapnet_torch.ops import reward as RW
+
+    ts = init_train_state(SEED, cfg, hidden=HIDDEN, device=dev)
+    step = make_train_step(cfg, batch=B_MAIN, hidden=HIDDEN, device=dev)
+    counters = {"actor_select_step": AS.actor_select_step,
+                "replay_logp_bwd": RP.replay_logp_bwd,
+                "replay_logp_fwd": RP.replay_logp_fwd,
+                "heightmap_reductions": RW.heightmap_reductions}
+    for f in counters.values():
+        f.launches = 0
+    per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
+                "replay_logp_fwd": 0, "heightmap_reductions": 1}
+    for i in range(5):
+        before = {k: f.launches for k, f in counters.items()}
+        ts, m = step(ts)
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        if got != per_step:
+            raise AssertionError(f"train step {i} launches {got}, expected "
+                                 f"{per_step}")
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"train step {i}: metrics {vals}")
+        log(f"  train step {i}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in vals.items()))
+    return {k: f.launches for k, f in counters.items()}, ts, step
+
+
+def check_train_against_cpu(cfg, ts, dev):
+    """One step at B=256 on the card and on the CPU reference path from the
+    same state: instances equal, >= 95% of the trajectories equal, R/C/P/S
+    exactly equal on those; then the whole step on both."""
+    import copy
+
+    from tapnet_torch import make_train_step
+    from tapnet_torch import random as R
+    from tapnet_torch.env.sampler import sample_batch
+    from tapnet_torch.ops.reward import batched_reward_terms
+    from tapnet_torch.train import reinforce as TR
+    from tapnet_torch.train import rollout as RO
+
+    B = 256
+    gpu = copy.deepcopy(ts)
+    cpu = TR.train_state(copy.deepcopy(ts.actor).cpu(),
+                         copy.deepcopy(ts.critic).cpu(), ts.key.cpu())
+    side = {}
+    for name, st in (("card", gpu), ("cpu", cpu)):
+        ks = R.split(st.key, 3)
+        inst = sample_batch(ks[1], B, cfg)
+        states, rec, _ = RO.rollout_batch_record(st.actor, inst,
+                                                 R.split(ks[2], B), cfg)
+        terms = batched_reward_terms(states.heightmap, states.placements,
+                                     inst.dims)
+        side[name] = (inst, rec.action.T, terms)
+    for a, b in zip(side["card"][0], side["cpu"][0]):
+        _equal("train instances card vs CPU", a.cpu(), b)
+    same = (side["card"][1].cpu() == side["cpu"][1]).all(1)
+    frac = same.float().mean().item()
+    if frac < 0.95:
+        raise AssertionError(f"train rollout card vs CPU: only {frac} of the "
+                             "trajectories agree")
+    for a, b in zip(side["card"][2], side["cpu"][2]):
+        _equal("train R/C/P/S terms card vs CPU", a.cpu()[same], b[same])
+    _, m_g = make_train_step(cfg, batch=B, hidden=HIDDEN, device=dev)(gpu)
+    _, m_c = make_train_step(cfg, batch=B, hidden=HIDDEN, device="cpu")(cpu)
+    diffs = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_g}
+    log(f"  train step B=256 card vs CPU: {frac:.4f} of trajectories equal, "
+        f"their reward terms equal; |metric diff| {diffs}")
+    return frac
+
+
+def check_trainer(cfg, dev, tmp):
+    """train() for 2 epochs x 5 steps writes metrics and checkpoints; a
+    resume from the epoch-1 checkpoint ends on the same params."""
+    import json
+    import os
+    import shutil
+
+    from tapnet_torch import TrainLoopConfig, train
+    from tapnet_torch.train import checkpoints as ckpt
+
+    loop = TrainLoopConfig(epochs=2, steps_per_epoch=5, batch=B_MAIN,
+                           hidden=HIDDEN, valid_batch=B_MAIN,
+                           ckpt_dir=os.path.join(tmp, "a"),
+                           metrics_path=os.path.join(tmp, "a.jsonl"))
+    full = train(cfg, loop, device=dev)
+    lines = [json.loads(x) for x in open(loop.metrics_path)]
+    epochs = [r for r in lines if "epoch" in r]
+    if len(epochs) != 2 or not all(np.isfinite(r["loss_actor"])
+                                   for r in epochs):
+        raise AssertionError(f"train() metrics: {lines}")
+    first = os.path.join(loop.ckpt_dir, "ckpt_00000005.pt")
+    resumed_dir = os.path.join(tmp, "b")
+    os.makedirs(resumed_dir)
+    shutil.copy(first, resumed_dir)
+    with open(os.path.join(resumed_dir, "latest.json"), "w") as f:
+        json.dump({"step": 5, "path": os.path.join(
+            resumed_dir, "ckpt_00000005.pt")}, f)
+    loop_b = TrainLoopConfig(epochs=2, steps_per_epoch=5, batch=B_MAIN,
+                             hidden=HIDDEN, valid_batch=B_MAIN,
+                             ckpt_dir=resumed_dir)
+    resumed = train(cfg, loop_b, device=dev)
+    a, b = _state_dicts(full), _state_dicts(resumed)
+    for k in a:
+        _equal(f"resumed params {k}", b[k], a[k])
+    if not ckpt.latest_checkpoint(resumed_dir).endswith("ckpt_00000010.pt"):
+        raise AssertionError("resumed run wrote no step-10 checkpoint")
+    rewards = [(r["step"], round(r["reward"], 6)) for r in epochs]
+    log(f"  train(): epoch lines (step, reward) {rewards}, "
+        f"valid_reward {epochs[-1]['valid_reward']:.6f}, "
+        f"{epochs[-1]['env_steps_per_s']:.0f} env-steps/s; resume from "
+        "step 5 ends on bit-identical params")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -417,6 +670,94 @@ def main() -> int:
             f"{cfg.num_blocks} steps = {rows * cfg.num_blocks / ms * 1e3:.0f}"
             " env-steps/s")
 
+    # ---- phase 6: K3 on final heightmaps of sampled rollouts
+    from tapnet_torch.ops import reward as RW
+    hm_main = check_reward(cfg, 4096, actor, dev)
+    for name in ("3d-basic", "multi-container"):
+        check_reward(configs[name], 512, actors[name], dev)
+    log("phase 6 heightmap_reductions == plain, bit-equal: 2d-basic "
+        "B=4096, 3d-basic and multi-container B=512, all-zero heightmaps")
+
+    # ---- phase 7: K5 forward and backward on the card's own records
+    from tapnet_torch.ops import replay as RP
+    configs["padded"] = TAPConfig(num_blocks=8, min_blocks=4,
+                                  container_width=8, container_height=8,
+                                  target_width=8, allow_rot=True)
+    configs["4-container"] = TAPConfig(
+        dim=3, container_width=8, container_depth=8, container_height=8,
+        target_width=8, target_depth=8, num_containers=4, allow_rot=True)
+    for name in ("multi-container-capped", "padded", "4-container"):
+        actors[name] = init_params(SEED, configs[name], HIDDEN, dev)
+    k5f_err = k5b_err = 0.0
+    kept_k5 = None
+    for name, B, temp in (("2d-basic", 4096, 1.0), ("2d-rot", 512, 1.0),
+                          ("3d-basic", 512, 1.0),
+                          ("multi-container", 512, 1.0),
+                          ("multi-container-capped", 512, 1.0),
+                          ("2d-basic", 100, 1.0), ("padded", 512, 0.7),
+                          ("4-container", 512, 1.0)):
+        main_shape = (name, B) == ("2d-basic", 4096)
+        ops, dlp, fe, (be, ba), e0 = check_replay(
+            configs[name], B, actors[name], dev, temp, repeat=main_shape)
+        if main_shape:
+            kept_k5 = (ops, dlp)
+        k5f_err, k5b_err = max(k5f_err, fe), max(k5b_err, ba)
+        log(f"phase 7 replay_logp == plain: {name} B={B} temperature "
+            f"{temp}: fwd max err {fe:.3e}, bwd max err {ba:.3e} (scaled "
+            f"{be:.3e}); fwd vs the rollout's logp {e0:.3e}"
+            + ("; two bwd launches bit-identical" if main_shape else ""))
+    torch.cuda.synchronize()
+
+    # ---- phase 8: the train path
+    from tapnet_torch.train.trainer import assert_deterministic
+    train_launches, ts, step = train_main_path(cfg, dev)
+    log(f"phase 8 train path launches (5 steps): {train_launches}")
+    assert_deterministic(step, ts)
+    log("phase 8 one train step run twice from a copy of one state: params, "
+        "optimizer state, key and metrics bit-identical")
+    check_train_against_cpu(cfg, ts, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_trainer(cfg, dev, tmp)
+
+    # ---- phase 9: times of K3, K5 and the train step (2d-basic, B=4096)
+    C = cfg.num_containers
+    k3_ms = time_gpu(lambda: RW.heightmap_reductions(hm_main))
+    k3_plain = time_gpu(lambda: RW.heightmap_reductions_ref(hm_main))
+    k3_lib = time_gpu(lambda: (hm_main.amax((2, 3)), hm_main.sum((2, 3))))
+    k3_bytes = nbytes([hm_main]) + 2 * 4 * B_MAIN * C
+    k3_bound = 1e3 * k3_bytes / HBM_BYTES_S
+    ops, dlp = kept_k5
+    k5f_ms = time_gpu(lambda: RP.replay_logp_fwd(*ops, cfg))
+    k5f_plain = time_gpu(lambda: RP.replay_logp_fwd_ref(*ops, cfg),
+                         sleep_cycles=100_000_000)
+    k5b_ms = time_gpu(lambda: RP.replay_logp_bwd(dlp, *ops, cfg))
+    k5b_plain = time_gpu(lambda: RP.replay_logp_bwd_ref(dlp, *ops, cfg),
+                         sleep_cycles=200_000_000)
+    in_bytes = nbytes(ops[:8]) + nbytes(ops[8])
+    d_se, d_ctx, d_par = RP.replay_logp_bwd(dlp, *ops, cfg)
+    k5f_b = in_bytes + 4 * B_MAIN
+    k5b_b = in_bytes + nbytes([dlp, d_se, d_ctx]) + nbytes(d_par)
+    k5f_o = replay_ops_count(cfg, B_MAIN, HIDDEN, False)
+    k5b_o = replay_ops_count(cfg, B_MAIN, HIDDEN, True)
+    bound = lambda b, o: (max(1e3 * b / HBM_BYTES_S, 1e3 * o / F32_OPS_S),
+                          "operations" if o / F32_OPS_S >= b / HBM_BYTES_S
+                          else "bytes")
+    k5f_bound, k5f_by = bound(k5f_b, k5f_o)
+    k5b_bound, k5b_by = bound(k5b_b, k5b_o)
+    log(f"phase 9 heightmap_reductions: {k3_ms:.4f} ms/launch (plain "
+        f"{k3_plain:.4f}, library amax+sum {k3_lib:.4f}), {k3_bytes} B, "
+        f"bound {k3_bound:.5f} ms")
+    log(f"phase 9 replay_logp_fwd: {k5f_ms:.4f} ms/launch (plain "
+        f"{k5f_plain:.4f}), {k5f_b} B, {k5f_o} f32 ops, bound "
+        f"{k5f_bound:.4f} ms ({k5f_by})")
+    log(f"phase 9 replay_logp_bwd: {k5b_ms:.4f} ms/launch (plain "
+        f"{k5b_plain:.4f}), {k5b_b} B, {k5b_o} f32 ops, bound "
+        f"{k5b_bound:.4f} ms ({k5b_by})")
+    step_ms = time_host(lambda: step(ts), reps=10)
+    log(f"phase 9 train step 2d-basic hidden {HIDDEN} batch {B_MAIN}: "
+        f"{step_ms:.3f} ms/step = "
+        f"{B_MAIN * cfg.num_blocks / step_ms * 1e3:.0f} env-steps/s")
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
@@ -432,6 +773,24 @@ def main() -> int:
          "bound_ms": max(k2_bound_b, k2_bound_o),
          "bound_by": "operations" if k2_bound_o >= k2_bound_b else "bytes",
          "library_ms": None},
+        {"name": "reward_reductions", "route": "cuda",
+         "source": "tapnet_torch/csrc/reward.cu",
+         "replaces": "tapnet_tpu/ops/pallas_reward.py:39",
+         "launches": train_launches["heightmap_reductions"],
+         "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib},
+        {"name": "replay_logp_fwd", "route": "cuda",
+         "source": "tapnet_torch/csrc/replay.cu",
+         "replaces": "tapnet_tpu/ops/pallas_replay.py:562",
+         "launches": train_launches["replay_logp_fwd"],
+         "max_abs_err": k5f_err, "ms": k5f_ms, "plain_ms": k5f_plain,
+         "bound_ms": k5f_bound, "bound_by": k5f_by, "library_ms": None},
+        {"name": "replay_logp_bwd", "route": "cuda",
+         "source": "tapnet_torch/csrc/replay.cu",
+         "replaces": "tapnet_tpu/ops/pallas_replay.py:610",
+         "launches": train_launches["replay_logp_bwd"],
+         "max_abs_err": k5b_err, "ms": k5b_ms, "plain_ms": k5b_plain,
+         "bound_ms": k5b_bound, "bound_by": k5b_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

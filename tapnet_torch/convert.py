@@ -1,6 +1,6 @@
-"""Flax actor parameters -> the port's `TAPNetActor.state_dict()`.
+"""Flax parameters -> the port's `TAPNetActor` / `TAPNetCritic` state dicts.
 
-Input: the actor's flax tree as nested dicts of numpy arrays, e.g.
+Input: an actor's or critic's flax tree as nested dicts of numpy arrays, e.g.
 `jax.tree.map(np.asarray, init_params(key, cfg, h)["actor"])`, with or
 without the outer {"params": ...} level. Dense kernels are [in, out] in flax
 and [out, in] in `nn.Linear`, so each is transposed; everything else maps
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from tapnet_torch.config import TAPConfig
-from tapnet_torch.models.tapnet import TAPNetActor
+from tapnet_torch.models.tapnet import TAPNetActor, TAPNetCritic
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -50,3 +50,20 @@ def actor_from_flax(flax_params: Mapping, cfg: TAPConfig, hidden: int,
     actor = TAPNetActor(cfg, hidden)
     actor.load_state_dict(flax_to_state_dict(flax_params), strict=True)
     return actor.to(device).eval()
+
+
+def critic_from_flax(flax_params: Mapping, cfg: TAPConfig, hidden: int,
+                     device=None) -> TAPNetCritic:
+    """A TAPNetCritic holding the flax critic's weights (flax names its
+    Denses Dense_0..3 and hm_enc.Dense_0/1, as the module does)."""
+    critic = TAPNetCritic(cfg, hidden)
+    critic.load_state_dict(flax_to_state_dict(flax_params), strict=True)
+    return critic.to(device)
+
+
+def params_from_flax(tree: Mapping, cfg: TAPConfig, hidden: int,
+                     device=None):
+    """(actor, critic) from the {"actor", "critic"} tree of the JAX
+    package's `init_params` (or a TrainState's params), as numpy arrays."""
+    return (actor_from_flax(tree["actor"], cfg, hidden, device),
+            critic_from_flax(tree["critic"], cfg, hidden, device))

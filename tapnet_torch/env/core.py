@@ -231,14 +231,21 @@ def reward_terms(state: EnvState, instances: Instance, cfg: TAPConfig):
 def reward(state: EnvState, instances: Instance,
            cfg: TAPConfig) -> torch.Tensor:
     """float32 reward [B] = sum of the configured C/P/S terms."""
-    vol, denom_c, denom_p, s_num, s_den = reward_terms(state, instances, cfg)
+    return reward_from_terms(reward_terms(state, instances, cfg),
+                             cfg.reward_terms)
+
+
+def reward_from_terms(terms, reward_terms_cfg) -> torch.Tensor:
+    """float32 [B] = the sum of the configured C/P/S fractions of the
+    integer terms (vol, denom_c, denom_p, s_num, s_den)."""
+    vol, denom_c, denom_p, s_num, s_den = terms
 
     def f(n, d):
         q = n.float() / d.clamp(min=1).float()
         return torch.where(d > 0, q, torch.zeros_like(q))
 
-    terms = {"C": f(vol, denom_c), "P": f(vol, denom_p), "S": f(s_num, s_den)}
+    vals = {"C": f(vol, denom_c), "P": f(vol, denom_p), "S": f(s_num, s_den)}
     out = None
-    for t in cfg.reward_terms:
-        out = terms[t] if out is None else out + terms[t]
+    for t in reward_terms_cfg:
+        out = vals[t] if out is None else out + vals[t]
     return out

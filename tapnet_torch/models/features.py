@@ -90,3 +90,23 @@ def merge_tokens(static: torch.Tensor, dynamic: torch.Tensor) -> torch.Tensor:
     """Append the static dims features to the dynamic tokens: [..., T, 8]."""
     target = dynamic.shape[:-1] + static.shape[-1:]
     return torch.cat([dynamic, torch.broadcast_to(static, target)], dim=-1)
+
+
+def dynamic_tokens(instances: Instance, state, cfg: TAPConfig) -> torch.Tensor:
+    """Per (block, rot) dynamic features [B, N*R, 4]: packed / accessible /
+    window / t, from the state's packed bits and step count."""
+    return tokens_from_flags(dynamic_flags(instances, state.packed, cfg),
+                             state.t.float() / cfg.num_blocks, cfg)
+
+
+def heightmap_features(state, cfg: TAPConfig) -> torch.Tensor:
+    """Normalized per-container heightmap grid [B, C, Wt, Dt, 1]."""
+    return heightmap_grid(state.heightmap, cfg)
+
+
+def build_tokens(instances: Instance, state, cfg: TAPConfig):
+    """(static [B, T, 4], dynamic [B, T, 4], heightmap [B, C, Wt, Dt, 1]):
+    the critic's inputs (the dynamic tokens are not merged)."""
+    return (static_tokens(instances, cfg),
+            dynamic_tokens(instances, state, cfg),
+            heightmap_features(state, cfg))

@@ -122,6 +122,36 @@ class TAPNetActor(nn.Module):
         return scores.reshape(scores.shape[0], -1).float()
 
 
+class TAPNetCritic(nn.Module):
+    """State-value baseline over the reset state, the port of
+    `tapnet_tpu.models.tapnet.TAPNetCritic`: one Dense over the (static ++
+    dynamic) token, the heightmap encoder, mean and max pooling of both,
+    then a three-layer MLP to a scalar. Names follow the flax tree
+    (`Dense_0`, `hm_enc`, `Dense_1..3`)."""
+
+    def __init__(self, cfg: TAPConfig, hidden: int = 128):
+        super().__init__()
+        self.cfg = cfg
+        self.hidden = hidden
+        self.Dense_0 = nn.Linear(8, hidden)
+        self.hm_enc = _HeightmapEncoder(
+            hidden, cfg.target_width * cfg.target_depth)
+        self.Dense_1 = nn.Linear(4 * hidden, hidden)
+        self.Dense_2 = nn.Linear(hidden, hidden)
+        self.Dense_3 = nn.Linear(hidden, 1)
+
+    def forward(self, static, dynamic, hm_grid):
+        """V [B] from static [B, T, 4], dynamic [B, T, 4] (not merged) and
+        hm_grid [B, C, W, D, 1]."""
+        tok = torch.relu(self.Dense_0(torch.cat([static, dynamic], -1)))
+        hm = self.hm_enc(hm_grid)                             # [B, C, h]
+        z = torch.cat([tok.mean(-2), tok.amax(-2), hm.mean(-2),
+                       hm.amax(-2)], -1)
+        z = torch.relu(self.Dense_1(z))
+        z = torch.relu(self.Dense_2(z))
+        return self.Dense_3(z)[..., 0].float()
+
+
 def embed_static_T(actor: TAPNetActor, static_t: torch.Tensor) -> torch.Tensor:
     """Transposed twin of `embed_static`: [4, M] -> [h, M], every GEMM as
     W @ X with the M columns last, so the actor kernel's [T, h, B] key
@@ -153,14 +183,8 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):
             torch.empty(t.shape), 0.0, 1.0, -2.0, 2.0, generator=g) * std)
 
 
-def init_params(seed: int, cfg: TAPConfig, hidden: int = 128,
-                device=None) -> TAPNetActor:
-    """A seeded actor, initialised the way flax initialises it (lecun-normal
-    Dense kernels, zero biases, unit LayerNorm scales, normal(1/sqrt(h))
-    embedding rows): same law, torch's own draws."""
-    g = torch.Generator().manual_seed(int(seed))
-    actor = TAPNetActor(cfg, hidden)
-    for m in actor.modules():
+def _init_(module: nn.Module, g: torch.Generator, hidden: int):
+    for m in module.modules():
         if isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.in_features, g)
             if m.bias is not None:
@@ -169,5 +193,25 @@ def init_params(seed: int, cfg: TAPConfig, hidden: int = 128,
             with torch.no_grad():
                 m.weight.copy_(torch.randn(m.weight.shape, generator=g)
                                / math.sqrt(hidden))
+
+
+def init_params(seed: int, cfg: TAPConfig, hidden: int = 128,
+                device=None) -> TAPNetActor:
+    """A seeded actor, initialised the way flax initialises it (lecun-normal
+    Dense kernels, zero biases, unit LayerNorm scales, normal(1/sqrt(h))
+    embedding rows): same law, torch's own draws."""
+    g = torch.Generator().manual_seed(int(seed))
+    actor = TAPNetActor(cfg, hidden)
+    _init_(actor, g, hidden)
     _lecun_normal_(actor.v, hidden, g)
     return actor.to(device).eval()
+
+
+def init_critic(seed: int, cfg: TAPConfig, hidden: int = 128,
+                device=None) -> TAPNetCritic:
+    """A seeded critic, initialised by flax's law (lecun-normal kernels,
+    zero biases) from its own generator stream (seed + 1)."""
+    g = torch.Generator().manual_seed(int(seed) + 1)
+    critic = TAPNetCritic(cfg, hidden)
+    _init_(critic, g, hidden)
+    return critic.to(device)

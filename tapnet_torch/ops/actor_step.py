@@ -61,11 +61,15 @@ def _num_limbs(N: int) -> int:
     return (N + 30) // 31
 
 
-def head_operands(actor, cfg: TAPConfig):
+def head_operands(actor, cfg: TAPConfig, grad: bool = False):
     """The actor head's weights in the kernel's [out, in] layout (W @ X with
     the batch as the last axis), f32, contiguous, in the kernel's order:
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v."""
-    f = lambda t: t.detach().float().contiguous()
+    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v.
+
+    Detached for the rollout; with `grad=True` they keep the autograd graph
+    (transposes and column views of the parameters), so the replay's
+    gradients reach `actor.dyn_hidden.weight` and the others."""
+    f = lambda t: (t if grad else t.detach()).float().contiguous()
     col = lambda b: f(b)[:, None].contiguous()
     hm = actor.hm_enc
     return (f(actor.dyn_hidden.weight), col(actor.dyn_hidden.bias),
@@ -75,6 +79,14 @@ def head_operands(actor, cfg: TAPConfig):
             f(actor.prev_embed.weight.T),
             f(actor.query.weight), col(actor.query.bias),
             f(actor.v))
+
+
+def head_shapes(cfg: TAPConfig, h: int):
+    """Shapes of the 11 head operands, in `head_operands` order."""
+    WD = cfg.target_width * cfg.target_depth
+    A = cfg.num_actions
+    return [(32, 8), (32, 1), (h, 32), (h, WD + 2), (h, 1), (h, h), (h, 1),
+            (h, A + 1), (h, 3 * h + 8), (h, 1), (h, 1)]
 
 
 def precedence_bitmasks(instances, cfg: TAPConfig):
@@ -220,11 +232,8 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
               ("fits", fits, (R * N, B), i32), ("g", g, (A, B), f32),
               ("se", se, (T, h, B), f32), ("ctx", ctx, (h, B), f32),
               ("statp", statp, (4, T, B), f32), ("statm", statm, (4, B), f32)]
-    WD = W * D
-    pshapes = [(32, 8), (32, 1), (h, 32), (h, WD + 2), (h, 1), (h, h), (h, 1),
-               (h, A + 1), (h, 3 * h + 8), (h, 1), (h, 1)]
     shapes += [(f"params[{k}]", p, s, f32)
-               for k, (p, s) in enumerate(zip(params, pshapes))]
+               for k, (p, s) in enumerate(zip(params, head_shapes(cfg, h)))]
     for name, t, shape, dt in shapes:
         _check(t, name, shape, dt, dev)
     outs = (torch.empty_like(packed), torch.empty_like(hm),

@@ -19,6 +19,10 @@ wrappers run their plain versions, which is how the tests drive the fused
 paths without a card. The decode loop is a Python loop over the N steps.
 Sampling is gumbel-argmax with the JAX draws gumbel(fold_in(keys[b], t)),
 so a seed samples the same trajectories on both sides.
+
+`replay_logp_sum` is the differentiable half: sum_t log pi(a_t | s_t) of a
+recorded rollout, through the replay kernel (`ops/replay.py`) on the card
+or through autograd of `TAPNetActor.head` over all N steps on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tapnet_torch import random as R
 from tapnet_torch.config import TAPConfig
@@ -36,6 +41,7 @@ from tapnet_torch.models.features import (dynamic_flags, heightmap_grid,
 from tapnet_torch.models.tapnet import TAPNetActor, embed_static_T
 from tapnet_torch.ops import actor_step as AS
 from tapnet_torch.ops import policy_step as PS
+from tapnet_torch.ops import replay as RP
 from tapnet_torch.types import EnvState, Instance
 
 NEG = -1e9
@@ -242,6 +248,117 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
         packed, hm, prev = packed_n, hm_n, a[None]
     record = _stack_record(recs)
     return _final_state(packed, hm, plc, record.action, cfg), record, logp_sum
+
+
+# ------------------------------------------------------------------ #
+# replay: differentiable log-probs of a recorded rollout
+
+def replay_logp_sum(actor: TAPNetActor, instances: Instance,
+                    record: RolloutRecord, cfg: TAPConfig,
+                    temperature: float = 1.0, chunk: int = 0, kernel=None,
+                    logp0=None) -> torch.Tensor:
+    """Differentiable sum_t log pi(a_t | s_t) [B] of the recorded actions.
+
+    kernel (auto: on for CUDA tensors): the replay kernel path,
+    `_replay_logp_kernel`; on CPU tensors `kernel=True` runs the kernels'
+    plain versions through the same autograd Function. On the card a
+    config the kernel does not cover raises NotImplementedError; pass
+    `kernel=False` for the general replay. `logp0` (kernel path only) is the
+    rollout's own logp, returned as the value while the gradient comes from
+    the replay backward (the JAX custom VJP's primal).
+
+    The general replay (`kernel=False`) differentiates the actor head over
+    all N steps and all tokens at once (a rolling window enters through the
+    recorded flags and the mask; the JAX package's windowed replay, which
+    scores only the window's tokens, is not ported); `chunk` > 0 (0 = auto:
+    at most ~40960 decode rows live) runs the step axis in chunks
+    recomputed in the backward (torch.utils.checkpoint)."""
+    if kernel is None:
+        kernel = record.action.is_cuda
+    if kernel:
+        return _replay_logp_kernel(actor, instances, record, cfg,
+                                   temperature, logp0)
+    return _replay_logp_general(actor, instances, record, cfg, temperature,
+                                chunk)
+
+
+def replay_operands(actor, instances, record, cfg, grad: bool = True):
+    """The replay kernels' operands, batch-last: (flags, hms, masks, acts,
+    statp, statm) from the record and the instances, and se [T, h, B], ctx
+    [h, B] and the head operands from the actor. With `grad` the
+    embed_static_T chain, ctx = mean(se) and the head operands keep the
+    autograd graph, so d_se, d_ctx and the weight gradients flow back into
+    the actor's parameters."""
+    B = record.action.shape[1]
+    N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
+                  cfg.num_containers)
+    T = N * cfg.num_rot
+    static = static_tokens(instances, cfg)                    # [B, T, 4]
+    static_t4 = static.permute(2, 1, 0).reshape(4, T * B)
+    with torch.set_grad_enabled(grad and torch.is_grad_enabled()):
+        se_htb = embed_static_T(actor, static_t4).reshape(-1, T, B)
+        se = se_htb.permute(1, 0, 2).contiguous()             # [T, h, B]
+        ctx = se_htb.mean(1).contiguous()                     # [h, B]
+    data = (record.flags.int().transpose(1, 2).contiguous(),  # [S, N, B]
+            record.heightmap.permute(0, 2, 3, 4, 1).reshape(
+                N, C * W, D, B).int().contiguous(),
+            record.mask.transpose(1, 2).int().contiguous(),   # [S, A, B]
+            record.action.int().contiguous(),
+            static_t4.reshape(4, T, B).contiguous(),
+            static.mean(1).T.contiguous())
+    return data, se, ctx, AS.head_operands(actor, cfg, grad=grad)
+
+
+def _replay_logp_kernel(actor, instances, record, cfg, temperature, logp0):
+    data, se, ctx, params = replay_operands(actor, instances, record, cfg)
+    if logp0 is not None:
+        logp0 = logp0.detach().float()
+    return RP.ReplayLogp.apply(cfg, float(temperature), logp0, *data, se,
+                               ctx, *params)
+
+
+def _replay_logp_general(actor, instances, record, cfg, temperature, chunk):
+    N = cfg.num_blocks
+    B = record.action.shape[1]
+    if chunk <= 0:
+        chunk = max(1, min(N, 40960 // max(B, 1)))
+    while N % chunk:
+        chunk -= 1
+    static = static_tokens(instances, cfg)                    # [B, T, 4]
+    static_emb = actor.embed_static(static)                   # [B, T, h]
+    ts = torch.arange(N, device=record.action.device)
+    prev = torch.cat([torch.full_like(record.action[:1], -1),
+                      record.action[:-1]], 0)
+
+    def logp_steps(se, flags_c, hm_c, mask_c, act_c, prev_c, ts_c):
+        """logp [K, B] of a slab of K decode steps."""
+        K = ts_c.shape[0]
+        if cfg.target_height == 0:
+            mask_c = mask_from_flags(flags_c, instances, cfg)
+        dynamic = merge_tokens(static, tokens_from_flags(
+            flags_c, ts_c[:, None].float() / N, cfg))        # [K, B, T, 8]
+        hmg = heightmap_grid(hm_c, cfg)                 # [K, B, C, W, D, 1]
+        se_kb = se.expand((K,) + se.shape).reshape((K * B,) + se.shape[1:])
+        logits = actor.head(se_kb, dynamic.flatten(0, 1), hmg.flatten(0, 1),
+                            prev_c.flatten(0, 1)).reshape(K, B, -1)
+        masked = _masked_logits(logits, mask_c, temperature)
+        lsm = torch.log_softmax(masked, dim=-1)
+        onehot = (act_c.clamp(min=0).long()[..., None]
+                  == torch.arange(masked.shape[-1], device=masked.device))
+        lp = torch.where(onehot, lsm, 0.0).sum(-1)
+        return torch.where(act_c >= 0, lp, 0.0)
+
+    xs = (record.flags, record.heightmap, record.mask, record.action, prev,
+          ts)
+    if chunk >= N:
+        return logp_steps(static_emb, *xs).sum(0)
+    total = torch.zeros(B, device=record.action.device)
+    for s0 in range(0, N, chunk):
+        args = tuple(x[s0:s0 + chunk] for x in xs)
+        total = total + checkpoint(
+            lambda se, *a: logp_steps(se, *a).sum(0), static_emb, *args,
+            use_reentrant=False)
+    return total
 
 
 # ------------------------------------------------------------------ #

@@ -1,6 +1,6 @@
-"""tapnet_torch stands alone: importing it pulls in no JAX, no flax and
-nothing of tapnet_tpu. Checked in a fresh interpreter, since this test
-process has JAX loaded already (tests/conftest.py)."""
+"""tapnet_torch stands alone: importing it pulls in no JAX, no flax, no
+optax and nothing of tapnet_tpu. Checked in a fresh interpreter, since this
+test process has JAX loaded already (tests/conftest.py)."""
 
 import os
 import subprocess
@@ -16,8 +16,13 @@ import tapnet_torch.env.core, tapnet_torch.env.sampler
 import tapnet_torch.models.tapnet, tapnet_torch.models.features
 import tapnet_torch.ops.actor_step, tapnet_torch.ops.policy_step
 import tapnet_torch.train.rollout
+import tapnet_torch.ops.reward, tapnet_torch.ops.replay
+import tapnet_torch.train.reinforce, tapnet_torch.train.metrics
+import tapnet_torch.train.checkpoints, tapnet_torch.train.trainer
+import tapnet_torch.profile_pack
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tapnet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "tapnet_tpu"))
 print("BAD", bad)
 """
 
@@ -34,5 +39,5 @@ def test_chip_smoke_imports_no_jax():
     """chip_smoke.py imports the port only: its module-level imports pull in
     no JAX either (it exits non-zero without a card before doing work)."""
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    for name in ("jax", "flax", "tapnet_tpu"):
+    for name in ("jax", "flax", "optax", "tapnet_tpu"):
         assert f"import {name}" not in src and f"from {name}" not in src

@@ -1,0 +1,150 @@
+"""Port replay (plain versions of the K5 kernels) vs tapnet_tpu's replay.
+
+The port's `replay_logp_sum(kernel=True)` on CPU tensors runs the plain
+forward and backward of the replay kernels through `ReplayLogp`, the
+autograd Function the card runs with the CUDA kernels. On records of JAX
+rollouts with the same weights (flax init_params through convert.py) its
+value and every actor-parameter gradient, the token encoder included
+(through embed_static_T), are held to `jax.value_and_grad` of the JAX
+replay: value rtol 1e-5; each gradient within atol 5e-5 of its leaf's max
+magnitude (accumulation order, as tests/test_pallas_replay.py scales it).
+The JAX side runs at matmul precision "highest" (exact f32 dots).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tapnet_tpu.config import CONFIGS as JCONFIGS
+from tapnet_tpu.config import TAPConfig as JTAPConfig
+from tapnet_tpu.env.sampler import sample_batch
+from tapnet_tpu.models.tapnet import init_params
+from tapnet_tpu.train import rollout as JRO
+from tapnet_torch.config import CONFIGS, TAPConfig
+from tapnet_torch.convert import actor_from_flax, flax_to_state_dict
+from tapnet_torch.ops import replay as RP
+from tapnet_torch.train import rollout as RO
+from tapnet_torch.types import Instance
+
+PADDED = dict(num_blocks=8, min_blocks=4, container_width=8,
+              container_height=8, target_width=8, allow_rot=True)
+
+
+@functools.cache
+def _setup(name, B=64, hidden=32, seed=3):
+    if name == "padded":
+        jcfg, cfg = JTAPConfig(**PADDED), TAPConfig(**PADDED)
+    else:
+        jcfg, cfg = JCONFIGS[name], CONFIGS[name]
+    key = jax.random.key(seed)
+    params = jax.jit(init_params, static_argnums=(1, 2))(
+        key, jcfg, hidden)["actor"]
+    instances = jax.jit(sample_batch, static_argnums=(1, 2))(key, B, jcfg)
+    keys = jax.random.split(jax.random.key(seed + 4), B)
+    with jax.default_matmul_precision("highest"):
+        _, record, _ = jax.jit(lambda p, i, k: JRO.rollout_batch_record(
+            p, i, k, jcfg, hidden=hidden, step_kernel=False,
+            actor_kernel=False, with_logp=False))(params, instances, keys)
+    t = lambda x: torch.from_numpy(np.array(x))
+    actor = actor_from_flax(jax.tree.map(np.asarray, params), cfg, hidden)
+    return (jcfg, cfg, params, instances, record, actor,
+            Instance(*(t(x) for x in instances)),
+            RO.RolloutRecord(*(t(x) for x in record)))
+
+
+def _port_value_and_grad(actor, inst, rec, cfg, temperature=1.0, **kw):
+    actor.zero_grad(set_to_none=True)
+    lp = RO.replay_logp_sum(actor, inst, rec, cfg, temperature, **kw)
+    lp.sum().backward()
+    return lp.detach(), {n: p.grad.clone() for n, p in
+                         actor.named_parameters()}
+
+
+def _assert_grads_close(want_tree, got, atol=5e-5):
+    want = flax_to_state_dict(jax.tree.map(np.asarray, want_tree))
+    assert set(want) == set(got)
+    for name, w in want.items():
+        scale = float(w.abs().max()) + 1e-9
+        np.testing.assert_allclose(got[name].numpy() / scale,
+                                   w.numpy() / scale, atol=atol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("name,temperature", [
+    ("2d-basic", 1.0), ("2d-rot", 1.0), ("multi-container-capped", 1.0),
+    ("padded", 0.7)])
+def test_plain_kernels_match_jax_replay(name, temperature):
+    jcfg, cfg, params, instances, record, actor, inst, rec = _setup(name)
+    if name == "padded":
+        assert (rec.action == -1).any()
+    with jax.default_matmul_precision("highest"):
+        vals, grads = jax.jit(jax.value_and_grad(
+            lambda p: JRO.replay_logp_sum(
+                p, instances, record, jcfg, hidden=32,
+                temperature=temperature, kernel=False).sum()))(params)
+    lp, got = _port_value_and_grad(actor, inst, rec, cfg, temperature,
+                                   kernel=True)
+    np.testing.assert_allclose(float(lp.sum()), float(vals), rtol=1e-5)
+    _assert_grads_close(grads, got)
+
+
+def test_plain_kernels_match_jax_kernels_interpret():
+    """Against the Pallas replay kernels themselves (interpret mode), per
+    instance: 2d-basic, batch 128, hidden 32."""
+    jcfg, cfg, params, instances, record, actor, inst, rec = _setup(
+        "2d-basic", B=128)
+    with jax.default_matmul_precision("highest"):
+        f = lambda p: JRO.replay_logp_sum(p, instances, record, jcfg,
+                                          hidden=32, kernel=True,
+                                          interpret=True)
+        lp_j, vjp = jax.jit(lambda p: jax.vjp(f, p))(params)
+        grads = vjp(jnp.ones_like(lp_j))[0]
+    lp, got = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lp_j), rtol=1e-5,
+                               atol=1e-5)
+    _assert_grads_close(grads, got)
+
+
+def test_primal_mode_returns_logp0_with_identical_gradients():
+    _, cfg, _, _, _, actor, inst, rec = _setup("2d-basic")
+    B = rec.action.shape[1]
+    logp0 = torch.linspace(-3.0, -1.0, B)
+    v1, g1 = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
+    v0, g0 = _port_value_and_grad(actor, inst, rec, cfg, kernel=True,
+                                  logp0=logp0)
+    assert torch.equal(v0, logp0)
+    for n in g1:
+        assert torch.equal(g0[n], g1[n]), n
+    assert not torch.equal(v1, logp0)
+
+
+@pytest.mark.parametrize("chunk", [0, 2])
+def test_general_replay_matches_plain_kernels(chunk):
+    """The port's general replay (autograd through TAPNetActor.head over
+    all N steps; chunk=2 with checkpointed chunks) vs its plain K5."""
+    _, cfg, _, _, _, actor, inst, rec = _setup("2d-rot")
+    vk, gk = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
+    vg, gg = _port_value_and_grad(actor, inst, rec, cfg, kernel=False,
+                                  chunk=chunk)
+    np.testing.assert_allclose(vg.numpy(), vk.numpy(), rtol=1e-5, atol=1e-5)
+    for n in gk:
+        scale = float(gk[n].abs().max()) + 1e-9
+        np.testing.assert_allclose(gg[n].numpy() / scale,
+                                   gk[n].numpy() / scale, atol=5e-5,
+                                   err_msg=n)
+
+
+def test_kernel_coverage():
+    assert RP.eligible(CONFIGS["2d-basic"], 128)
+    assert RP.eligible(CONFIGS["multi-container"], 128)
+    assert not RP.eligible(CONFIGS["2d-rolling"], 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RP._check_cfg(CONFIGS["2d-rolling"], 128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RP._check_cfg(TAPConfig(num_blocks=34, min_blocks=20,
+                                container_width=8, container_height=40,
+                                target_width=8), 32)
