@@ -41,7 +41,26 @@ source, all started at once), then runs, and fails on the first fault:
    path; `train()` for 2 epochs x 5 steps with metrics and checkpoints, and
    a resume from the epoch-1 checkpoint ending on the same params;
 9. times: K3 and K5 per launch with their plain versions (K3 also against
-   amax + sum), and the whole train step (host clock, median of 10).
+   amax + sum), and the whole train step (host clock, median of 10);
+10. fused_rollout_batch (K4) vs its plain version, bit-equal on every state
+   field, the actions and the rewards, for `first` and `random`: the six
+   CONFIGS (2d-rolling too: 50 blocks, window 10, ragged block counts) and
+   one case per remaining branch (lb-hard with rotation, two containers
+   uncapped, a tight cap that strands blocks, capped with 2 and 3
+   containers, 3D capped, a 3D rolling window, five mcs cases) at batch
+   512, 2d-basic at a ragged 100 and at 4096;
+11. select_step (K1) and actor_select_step (K2) under the mcs placement rule
+   vs their plain versions, lockstep rollouts as in 2 and 3, on a 2D
+   mcs-soft and a 3D two-container mcs-hard config at batch 512;
+12. the heuristic main path: `pack(policy="first")` and `pack("random")` on
+   each of the six CONFIGS at batch 4096: one K4 and one K3 launch per
+   call, plans complete (or, under a cap, every unpacked block a no-op
+   step), heightmaps replayed from the placements; then a repeated call
+   bit-identical, the card against the `device="cpu"` path on every field
+   at batch 256, and `evaluate(baselines=True)` against the CPU path;
+13. times: K4 per launch for `random` on each of the six CONFIGS at batch
+   4096 with the plain version beside it, and `pack(first)` /
+   `pack(random)` on 2d-basic (host clock, median of 20).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -66,6 +85,10 @@ REPS = 25
 TOL = 1e-5            # logits / logp, kernel vs plain (accumulation order)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 F32_OPS_S = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
+# int32 adds, compares and max: the data sheet's f32 rate counts 2 operations
+# per FMA on 128 lanes per SM; integer instructions run on 64 lanes per SM
+# and count 1 each (132 SMs x 64 lanes x 1.98 GHz)
+I32_OPS_S = F32_OPS_S / 4
 B_MAIN = 4096          # the main paths' batch
 
 
@@ -575,6 +598,212 @@ def check_trainer(cfg, dev, tmp):
         "step 5 ends on bit-identical params")
 
 
+# ------------------------------------------------------------------ #
+# phases 10-13: the heuristic whole-rollout kernel (K4) and the mcs rule
+
+def heuristic_cases():
+    """Configs beyond CONFIGS, one per branch of the rollout kernel."""
+    from tapnet_torch import TAPConfig as T
+    cube6 = dict(dim=3, container_width=6, container_depth=6,
+                 container_height=6, target_width=6, target_depth=6)
+    cube8 = dict(dim=3, container_width=8, container_depth=8,
+                 container_height=8, target_width=8, target_depth=8)
+    return {
+        "2d-rot-lb-hard": T(allow_rot=True, reward_type="C+P+S-lb-hard"),
+        "2d-two-containers": T(num_containers=2, container_height=20,
+                               allow_rot=True),
+        "2d-capped-tight": T(target_height=3, reward_type="C+P-lb-soft"),
+        "2d-capped-mc": T(container_height=20, target_height=7,
+                          num_containers=2, allow_rot=True),
+        "2d-capped-3c": T(container_height=24, target_height=5,
+                          num_containers=3, allow_rot=True),
+        "3d-capped": T(**cube8, target_height=5, allow_rot=True),
+        "3d-window": T(**cube6, num_blocks=16, min_blocks=8, window=4,
+                       allow_rot=True),
+        "2d-mcs-soft": T(reward_type="C+P+S-mcs-soft"),
+        "2d-mcs-hard": T(allow_rot=True, reward_type="C+P-mcs-hard"),
+        "3d-mcs-soft": T(**cube6, allow_rot=True,
+                         reward_type="C+S-mcs-soft"),
+        "3d-mcs-hard-multicont": T(**cube6, num_blocks=8, min_blocks=8,
+                                   num_containers=2,
+                                   reward_type="C+P+S-mcs-hard"),
+        "3d-capped-mc-mcs": T(**cube6, target_height=4, num_containers=2,
+                              allow_rot=True,
+                              reward_type="C+P+S-mcs-hard"),
+    }
+
+
+def check_fused_rollout(cfg, B, dev, policy):
+    """K4 against its plain version on the same instances and keys: every
+    state field, the actions and the rewards bit-equal. Returns the number
+    of no-op steps (blocks a cap stranded, and padding steps)."""
+    from tapnet_torch import random as R
+    from tapnet_torch.ops import env as OE
+
+    inst = _instances(cfg, B, dev, SEED + 20)
+    keys = R.split(R.key(SEED + 21, dev), B)
+    s_k, a_k, r_k = OE.fused_rollout_batch(inst, keys, cfg, policy)
+    s_p, a_p, r_p = OE.fused_rollout_batch_ref(inst, keys, cfg, policy)
+    for f in s_k._fields:
+        _equal(f"fused_rollout_batch {policy} {f}", getattr(s_k, f),
+               getattr(s_p, f))
+    _equal(f"fused_rollout_batch {policy} actions", a_k, a_p)
+    _equal(f"fused_rollout_batch {policy} rewards", r_k, r_p)
+    return int((a_k < 0).sum())
+
+
+def check_heuristic_plan(plan, inst, cfg, name):
+    """A heuristic plan: complete without a cap; under a cap every block
+    left unpacked is a no-op step. Heightmaps replayed from the placements,
+    rewards in (0, 3]."""
+    B = len(plan)
+    stranded = int((~plan.states.packed).sum())
+    if cfg.target_height == 0 and stranded:
+        raise AssertionError(f"{name}: incomplete plans")
+    real = inst.n_total.cpu().numpy()
+    noop = (plan.actions < 0).sum(1) - (cfg.num_blocks - real)
+    if not np.array_equal(noop, (~plan.states.packed).sum(1)):
+        raise AssertionError(f"{name}: no-op steps and unpacked blocks "
+                             "disagree")
+    r = plan.rewards
+    placed_any = (plan.actions >= 0).any(1)
+    if not (np.isfinite(r).all() and (r[placed_any] > 0).all()
+            and (r[~placed_any] == 0).all() and (r <= 3).all()):
+        raise AssertionError(f"{name}: rewards outside (0, 3]")
+    replay_heightmaps(plan, inst.dims.cpu().numpy(), cfg)
+    log(f"  {name}: B={B}, {stranded} blocks stranded, heightmaps replayed, "
+        f"reward mean {r.mean():.6f} min {r.min():.6f} max {r.max():.6f}")
+
+
+def _plans_equal(name, a, b):
+    for f in a.states._fields:
+        if not np.array_equal(getattr(a.states, f), getattr(b.states, f)):
+            raise AssertionError(f"{name}: {f} differs")
+    if not (np.array_equal(a.actions, b.actions)
+            and np.array_equal(a.rewards, b.rewards)):
+        raise AssertionError(f"{name}: actions or rewards differ")
+
+
+def heuristic_main_path(configs, dev):
+    """pack(first) and pack(random) on every config at B_MAIN: one K4 and
+    one K3 launch per call. Returns the launch counts of the run, the plans
+    and the instances."""
+    from tapnet_torch import pack
+    from tapnet_torch.ops import env as OE
+    from tapnet_torch.ops import reward as RW
+
+    insts = {n: _instances(cfg, B_MAIN, dev, SEED + 22)
+             for n, cfg in configs.items()}
+    OE.fused_rollout_batch.launches = 0
+    RW.heightmap_reductions.launches = 0
+    plans = {}
+    for name, cfg in configs.items():
+        for policy in ("first", "random"):
+            k4, k3 = (OE.fused_rollout_batch.launches,
+                      RW.heightmap_reductions.launches)
+            plans[name, policy] = pack(insts[name], cfg, policy=policy,
+                                       key=SEED + 23)
+            got = (OE.fused_rollout_batch.launches - k4,
+                   RW.heightmap_reductions.launches - k3)
+            if got != (1, 1):
+                raise AssertionError(
+                    f"pack({policy}) on {name}: launches (fused_rollout_batch"
+                    f", heightmap_reductions) = {got}, expected (1, 1)")
+    launches = {"fused_rollout_batch": OE.fused_rollout_batch.launches,
+                "heightmap_reductions": RW.heightmap_reductions.launches}
+    return launches, plans, insts
+
+
+def check_heuristic_against_cpu(configs, insts, actor, dev):
+    """Two card calls bit-identical; the card against the CPU path on every
+    field at B=256; evaluate(baselines=True) on the card against the CPU."""
+    from tapnet_torch import TrainLoopConfig, pack
+    from tapnet_torch.train.trainer import evaluate
+
+    for name, cfg in configs.items():
+        small = insts[name].index(slice(0, 256))
+        for policy in ("first", "random"):
+            a = pack(small, cfg, policy=policy, key=SEED + 24)
+            _plans_equal(f"pack({policy}) {name} repeated", a,
+                         pack(small, cfg, policy=policy, key=SEED + 24))
+            _plans_equal(f"pack({policy}) {name} card vs CPU", a,
+                         pack(small.to("cpu"), cfg, policy=policy,
+                              key=SEED + 24, device="cpu"))
+        log(f"  pack(first/random) {name} B=256: two calls bit-identical, "
+            "card == CPU path on every field")
+    cfg = configs["2d-basic"]
+    loop = TrainLoopConfig(valid_batch=256, hidden=HIDDEN)
+    on_card = evaluate(actor, cfg, loop, baselines=True, device=dev)
+    actor_cpu = type(actor)(cfg, actor.hidden)
+    actor_cpu.load_state_dict({k: v.cpu() for k, v in
+                               actor.state_dict().items()})
+    on_cpu = evaluate(actor_cpu, cfg, loop, baselines=True, device="cpu")
+    for k in ("random_reward", "first_reward"):
+        a, b = float(on_card[k]), float(on_cpu[k])
+        if not (np.isfinite(a) and abs(a - b) <= 1e-6):
+            raise AssertionError(f"evaluate(baselines=True) {k}: card {a}, "
+                                 f"CPU {b}")
+    log("  evaluate(baselines=True) 2d-basic B=256: random_reward "
+        f"{float(on_card['random_reward']):.6f}, first_reward "
+        f"{float(on_card['first_reward']):.6f}, equal to the CPU path's "
+        "within 1e-6")
+
+
+def rollout_int_ops(cfg, ops, actions, plc):
+    """int32 operations this run's rollouts need, counted from their own
+    actions and placements: per step with an action, 2 per (block, graph) for
+    accessibility, 1 per (block, rot) for the fit, 1 per block for the rank,
+    and per offset the block may take a max and a compare per footprint cell
+    plus 4 for the key and the running best (mcs: a sum per cell and ~24 for
+    the fraction and its comparison). The placeability scans a finite cap
+    adds to the mask are not counted."""
+    N, R_, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
+    W, D = cfg.target_width, cfg.target_depth
+    dw, dd, dh = (o.long() for o in ops[:3])                 # [N, B]
+    live = actions >= 0
+    blk = (actions.clamp(min=0) // (R_ * C)).long()          # [N, B]
+    rot = plc.reshape(N, 6, -1)[:, 1].long().gather(0, blk)
+    w0, d0, h0 = (x.gather(0, blk) for x in (dw, dd, dh))
+    if cfg.dim == 2:
+        w, d = torch.where(rot == 1, h0, w0), d0
+    else:
+        w, d = torch.where(rot == 1, d0, w0), torch.where(rot == 1, w0, d0)
+    offsets = (W - w + 1) * (D - d + 1)
+    per_offset = 2 * w * d + 4
+    if cfg.placement_rule == "mcs":
+        per_offset = per_offset + w * d + 24
+    per_step = 2 * N * R_ + N * R_ + N + offsets * per_offset
+    return int(torch.where(live, per_step, 0).sum())
+
+
+def time_fused_rollout(cfg, B, dev):
+    """K4 on prebuilt operands (`random` draws) and the plain loop on the
+    same draws. Returns (ms, plain ms, bytes moved, int32 operations,
+    max |kernel - plain| over the outputs)."""
+    from tapnet_torch import random as R
+    from tapnet_torch.env import core as E
+    from tapnet_torch.ops import env as OE
+
+    inst = _instances(cfg, B, dev, SEED + 25)
+    rbits = E.policy_bits(R.split(R.key(SEED + 26, dev), B), cfg, "random")
+    ops = OE.rollout_operands(inst, rbits, cfg)
+    ms = time_gpu(lambda: OE.rollout_kernel(ops, cfg))
+    plain = time_gpu(lambda: E.rollout_bits(inst, rbits, cfg), reps=3,
+                     sleep_cycles=200_000_000)
+    hm, packed, actions, plc = OE.rollout_kernel(ops, cfg)
+    state, a_p = E.rollout_bits(inst, rbits, cfg)
+    N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
+                  cfg.num_containers)
+    err = max((actions.T - a_p).abs().max().item(),
+              (hm.reshape(C, W, D, B).permute(3, 0, 1, 2)
+               - state.heightmap).abs().max().item(),
+              (plc.reshape(N, 6, B).permute(2, 0, 1)
+               - state.placements).abs().max().item(),
+              (packed.T - state.packed.int()).abs().max().item())
+    moved = nbytes(ops) + nbytes((hm, packed, actions, plc))
+    return ms, plain, moved, rollout_int_ops(cfg, ops, actions, plc), err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -739,9 +968,9 @@ def main() -> int:
     k5b_b = in_bytes + nbytes([dlp, d_se, d_ctx]) + nbytes(d_par)
     k5f_o = replay_ops_count(cfg, B_MAIN, HIDDEN, False)
     k5b_o = replay_ops_count(cfg, B_MAIN, HIDDEN, True)
-    bound = lambda b, o: (max(1e3 * b / HBM_BYTES_S, 1e3 * o / F32_OPS_S),
-                          "operations" if o / F32_OPS_S >= b / HBM_BYTES_S
-                          else "bytes")
+    bound = lambda b, o, rate=F32_OPS_S: (
+        max(1e3 * b / HBM_BYTES_S, 1e3 * o / rate),
+        "operations" if o / rate >= b / HBM_BYTES_S else "bytes")
     k5f_bound, k5f_by = bound(k5f_b, k5f_o)
     k5b_bound, k5b_by = bound(k5b_b, k5b_o)
     log(f"phase 9 heightmap_reductions: {k3_ms:.4f} ms/launch (plain "
@@ -757,6 +986,64 @@ def main() -> int:
     log(f"phase 9 train step 2d-basic hidden {HIDDEN} batch {B_MAIN}: "
         f"{step_ms:.3f} ms/step = "
         f"{B_MAIN * cfg.num_blocks / step_ms * 1e3:.0f} env-steps/s")
+
+    # ---- phase 10: K4 vs its plain version, bit-equal
+    from tapnet_torch.ops import env as OE
+    extra = heuristic_cases()
+    k4_cases = ([(n, CONFIGS[n], 512) for n in CONFIGS]
+                + [(n, c, 512) for n, c in extra.items()]
+                + [("2d-basic", cfg, 100), ("2d-basic", cfg, B_MAIN)])
+    for name, c4, B4 in k4_cases:
+        noops = [check_fused_rollout(c4, B4, dev, policy)
+                 for policy in ("first", "random")]
+        log(f"phase 10 fused_rollout_batch == plain, bit-equal: {name} "
+            f"B={B4}, first and random ({noops[0]} and {noops[1]} no-op "
+            "steps)")
+    torch.cuda.synchronize()
+
+    # ---- phase 11: K1 and K2 under the mcs rule
+    mcs_cases = {
+        "2d-mcs-soft": extra["2d-mcs-soft"],
+        "3d-mcs-hard-2c": TAPConfig(
+            dim=3, container_width=6, container_depth=6, container_height=6,
+            target_width=6, target_depth=6, num_containers=2, allow_rot=True,
+            reward_type="C+P+S-mcs-hard")}
+    for name, cm in mcs_cases.items():
+        actor_m = init_params(SEED, cm, HIDDEN, dev)
+        check_select_step(cm, 512, actor_m, dev)
+        _, err = check_actor_step(cm, 512, actor_m, dev)
+        k2_err = max(k2_err, err)
+        log(f"phase 11 select_step and actor_select_step == plain under "
+            f"mcs: {name} B=512, max logit/logp err {err:.3e}")
+    torch.cuda.synchronize()
+
+    # ---- phase 12: the heuristic main path
+    heur_launches, plans, insts = heuristic_main_path(CONFIGS, dev)
+    log(f"phase 12 heuristic main path launches (12 pack calls): "
+        f"{heur_launches}")
+    for (name, policy), plan in plans.items():
+        check_heuristic_plan(plan, insts[name], CONFIGS[name],
+                             f"pack({policy}) {name}")
+    check_heuristic_against_cpu(CONFIGS, insts, actor, dev)
+
+    # ---- phase 13: times of K4 and of pack(first/random)
+    k4 = {}
+    for name, c4 in CONFIGS.items():
+        k4[name] = time_fused_rollout(c4, B_MAIN, dev)
+        ms, plain, moved, iops, _ = k4[name]
+        log(f"phase 13 fused_rollout_batch {name} B={B_MAIN} random: "
+            f"{ms:.4f} ms/launch (plain {plain:.3f}), {moved} B, {iops} "
+            f"int32 ops, bound "
+            f"{1e3 * max(moved / HBM_BYTES_S, iops / I32_OPS_S):.5f} ms = "
+            f"{B_MAIN * c4.num_blocks / ms * 1e3:.0f} env-steps/s")
+    k4_ms, k4_plain, k4_bytes, k4_iops, k4_err = k4["2d-basic"]
+    k4_bound, k4_by = bound(k4_bytes, k4_iops, I32_OPS_S)
+    for policy in ("first", "random"):
+        ms = time_host(lambda: pack(insts["2d-basic"], cfg, policy=policy,
+                                    key=SEED + 7), reps=20)
+        log(f"phase 13 pack({policy}): {ms:.3f} ms for {B_MAIN} rollouts x "
+            f"{cfg.num_blocks} steps = "
+            f"{B_MAIN * cfg.num_blocks / ms * 1e3:.0f} env-steps/s")
 
     kernels = [
         {"name": "select_step", "route": "cuda",
@@ -776,9 +1063,16 @@ def main() -> int:
         {"name": "reward_reductions", "route": "cuda",
          "source": "tapnet_torch/csrc/reward.cu",
          "replaces": "tapnet_tpu/ops/pallas_reward.py:39",
-         "launches": train_launches["heightmap_reductions"],
+         "launches": (train_launches["heightmap_reductions"]
+                      + heur_launches["heightmap_reductions"]),
          "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain,
          "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib},
+        {"name": "fused_rollout_batch", "route": "cuda",
+         "source": "tapnet_torch/csrc/env.cu",
+         "replaces": "tapnet_tpu/ops/pallas_env.py:669",
+         "launches": heur_launches["fused_rollout_batch"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
         {"name": "replay_logp_fwd", "route": "cuda",
          "source": "tapnet_torch/csrc/replay.cu",
          "replaces": "tapnet_tpu/ops/pallas_replay.py:562",

@@ -81,6 +81,8 @@ __device__ void matvec(const float* __restrict__ Wm, int rows, int cols,
   }
 }
 
+// One instantiation per placement rule (MCS), as in policy_step.cu.
+template <bool MCS>
 __global__ void __launch_bounds__(TB * NWARP)
 actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
                   int B, int h, float inv_s, float temperature) {
@@ -230,8 +232,8 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
       sel[a * TB + lane] = m + ai.g[a * B + b];
       mx = a == 0 ? m : fmaxf(mx, m);
     }
-    const int act = tapnet::select_place(c, SScore{sel, lane},
-                                         SMask{maskS, lane}, io, B, b);
+    const int act = tapnet::select_place<MCS>(c, SScore{sel, lane},
+                                              SMask{maskS, lane}, io, B, b);
     float se = 0.f;
     for (int a = 0; a < A; ++a) se += expf(scores[a * TB + lane] - mx);
     const float lp = (scores[max(act, 0) * TB + lane] - mx) - logf(se);
@@ -254,14 +256,13 @@ static size_t smem_bytes(int N, int R, int C, int WD, int h) {
 //       tf, prev, upm, rotm, fits, g, se, ctx, statp, statm,           (6-15)
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,                (16-26)
 //       packed_o, hm_o, plc_o, act_o, flags_o, mask_o, logits_o, logp_o (27-34)
-// ints: B, N, W, D, R, C, hard, cap, two_d, h
+// ints: B, the EnvCfg fields (select_place.cuh env_cfg), h
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                                         float inv_s, float temperature,
                                         void* stream) {
-  const int B = ints[0], h = ints[9];
-  const tapnet::EnvCfg c{ints[1], ints[2], ints[3], ints[4], ints[5],
-                         ints[6], ints[7], ints[8]};
+  const int B = ints[0], h = ints[1 + tapnet::ENV_INTS];
+  const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
   if (c.N > 31 || c.C > MAX_C || c.W * c.D > tapnet::MAX_WD)
     return (int)cudaErrorInvalidValue;
   const tapnet::StepIO io{
@@ -280,12 +281,12 @@ extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                  (const float*)p[22], (const float*)p[23], (const float*)p[24],
                  (const float*)p[25], (const float*)p[26]};
   const size_t smem = smem_bytes(c.N, c.R, c.C, c.W * c.D, h);
+  auto kernel = c.mcs ? actor_step_kernel<true> : actor_step_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      actor_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TB, NWARP);
-  actor_step_kernel<<<(B + TB - 1) / TB, block, smem, (cudaStream_t)stream>>>(
+  kernel<<<(B + TB - 1) / TB, block, smem, (cudaStream_t)stream>>>(
       c, io, ai, hw, B, h, inv_s, temperature);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
 """Serving surface: instances in, packing plans out. Port of
-`tapnet_tpu/infer.py` for the learned policy.
+`tapnet_tpu/infer.py`.
 
 `pack()` turns a batch of instances into executable transport-and-pack
-plans with the pointer actor: greedy decode, sampled decode, or best-of-K
-sampled decode. It runs on `cuda` unless the caller passes `device="cpu"`;
-on the card the decode steps go through the port's CUDA kernels
-(`select_step` for greedy, `actor_select_step` for sample and best).
+plans, with the pointer actor (greedy decode, sampled decode, or best-of-K
+sampled decode) or with a fixed heuristic (`first`: the lowest feasible
+action, `random`: a uniform feasible action). It runs on `cuda` unless the
+caller passes `device="cpu"`; on the card the decode steps go through the
+port's CUDA kernels (`select_step` for greedy, `actor_select_step` for
+sample and best) and a heuristic rollout is one launch of
+`fused_rollout_batch`.
 """
 
 from __future__ import annotations
@@ -89,18 +92,15 @@ def pack(instances: Instance, cfg: TAPConfig,
     `device`); actor: a TAPNetActor (`models.tapnet.init_params`, or
     `convert.actor_from_flax` for flax weights), moved to `device`;
     policy: "greedy" | "sample" | "best" (best-of-`n_samples` sampled
-    decodes per instance); key: an int seed or a threefry key [2]
+    decodes per instance) need the actor; "first" | "random" are the fixed
+    heuristics and need none; key: an int seed or a threefry key [2]
     (default seed 0; per-instance keys are split(key, B), as in the JAX
     package); device: "cuda" by default, "cpu" for the reference path.
     """
-    if policy in ("first", "random"):
-        raise NotImplementedError(
-            f"pack(policy={policy!r}) needs the fused heuristic rollout "
-            "kernel (pallas_env, K4), which is not ported yet (ROADMAP.md, "
-            "port Queue 2)")
-    if policy not in ("greedy", "sample", "best"):
+    heuristic = policy in ("first", "random")
+    if not heuristic and policy not in ("greedy", "sample", "best"):
         raise ValueError(policy)
-    if actor is None:
+    if actor is None and not heuristic:
         raise ValueError(f"policy={policy!r} needs an actor")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -110,9 +110,15 @@ def pack(instances: Instance, cfg: TAPConfig,
                                             policy_rollout_best_of)
 
     instances = instances.to(device)
-    actor = actor.to(device)
     key = _as_key(key, device)
     B = instances.dims.shape[0]
+    if heuristic:
+        from tapnet_torch.env.core import rollout_batch
+        from tapnet_torch.ops.env import fused_rollout_batch
+        run = fused_rollout_batch if device.type == "cuda" else rollout_batch
+        return PackingPlan(*run(instances, R.split(key, B), cfg, policy),
+                           cfg)
+    actor = actor.to(device)
     if policy == "best":
         states, actions, rewards = policy_rollout_best_of(
             actor, instances, key, cfg, n_samples=n_samples,

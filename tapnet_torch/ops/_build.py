@@ -11,6 +11,11 @@ edited source is rebuilt and an unchanged one is loaded as it is. The
 wrappers pass device pointers and the current stream as `c_void_p`.
 Nothing here runs when a module is imported: `load(name)` builds on the
 first call, and `build_all()` starts one nvcc per source at once.
+
+    python -m tapnet_torch.ops._build [--csrc DIR]
+
+prints what ptxas reports for every kernel of every source in DIR (default:
+the package's `csrc/`): registers, spills, stack and shared memory.
 """
 
 from __future__ import annotations
@@ -108,3 +113,32 @@ def int_array(values) -> ctypes.Array:
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def ptxas_report(csrc: Path = CSRC) -> str:
+    """`nvcc -Xptxas -v` for every csrc/*.cu (compiled to nowhere): one line
+    per kernel with its registers, stack frame, spills and shared memory."""
+    import re
+    flags = [f for f in FLAGS if f != "-shared"]
+    procs = [(p.name, subprocess.Popen(
+        [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull, str(p)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p in sorted(Path(csrc).glob("*.cu"))]
+    lines = []
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        # "Compiling entry function 'X'", then its properties on two lines
+        for m in re.finditer(r"entry function '([^']+)'[^\n]*\n(?:[^\n]*\n)?"
+                             r"[^\n]*?(\d+ bytes stack frame[^\n]*)\n"
+                             r"[^\n]*?(Used \d+ registers[^\n]*)", log):
+            lines.append(f"{name} {m.group(1)}: {m.group(3)}; {m.group(2)}")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description="ptxas report of the kernels")
+    ap.add_argument("--csrc", default=str(CSRC))
+    print(ptxas_report(Path(ap.parse_args().csrc)))

@@ -16,9 +16,10 @@ to accumulation-order tolerance.
 - `actor_select_step`: on a CUDA tensor it launches `csrc/actor_step.cu` on
   the current stream and counts it in `actor_select_step.launches`.
 
-Coverage: unbounded height, no rolling window, N <= 31 (one precedence
-limb). The in-kernel window and two-limb precedence raise
-NotImplementedError until a later slice ports them (ROADMAP.md).
+Coverage: both placement rules (`lb`, `mcs`), unbounded height, no rolling
+window, N <= 31 (one precedence limb). The in-kernel window and two-limb
+precedence raise NotImplementedError until a later slice ports them
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from tapnet_torch.config import TAPConfig
 from tapnet_torch.env.core import rotated_dims_all
 from tapnet_torch.models.features import _scale
 from tapnet_torch.ops import _build
-from tapnet_torch.ops.policy_step import (MAX_WD, _check, _check_rule,
-                                          env_ints, select_place_ref)
+from tapnet_torch.ops.policy_step import (MAX_WD, _check, env_ints,
+                                          select_place_ref)
 
 NEG = -1e9
 MAX_C = 4  # csrc/actor_step.cu
@@ -42,13 +43,12 @@ MAX_C = 4  # csrc/actor_step.cu
 def eligible(cfg: TAPConfig) -> bool:
     """Configs the port's actor kernel covers in this slice."""
     return (cfg.target_height == 0 and cfg.window == 0
-            and cfg.num_blocks <= 31 and cfg.placement_rule == "lb"
+            and cfg.num_blocks <= 31
             and cfg.num_containers <= MAX_C
             and cfg.target_width * cfg.target_depth <= MAX_WD)
 
 
 def _check_cfg(cfg: TAPConfig):
-    _check_rule(cfg)
     if cfg.window > 0 or cfg.num_blocks > 31:
         raise NotImplementedError(
             "actor_select_step: the rolling window and two-limb precedence "

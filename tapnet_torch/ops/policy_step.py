@@ -2,8 +2,9 @@
 
 Port of `tapnet_tpu/ops/pallas_policy_step.py`. Given the f32 score the
 general path feeds argmax (masked logits, + gumbel when sampling), it takes
-the lowest index attaining the max, places the chosen block by the `lb` rule
-and updates the env state, bit-equal to `env.core.step(state, argmax(score))`.
+the lowest index attaining the max, places the chosen block by the config's
+rule (`lb` or `mcs`) and updates the env state, bit-equal to
+`env.core.step(state, argmax(score))`.
 
 - `select_place_ref`: the plain PyTorch version (argmax + the env's own
   candidate scan and placement), used on CPU tensors and as the reference
@@ -12,8 +13,6 @@ and updates the env state, bit-equal to `env.core.step(state, argmax(score))`.
   `csrc/policy_step.cu` (body `csrc/select_place.cuh`) on the current
   stream and counts the launch in `select_step.launches`; on a CPU tensor it
   runs `select_place_ref`.
-
-The `mcs` placement rule raises NotImplementedError in both (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,18 +29,14 @@ from tapnet_torch.ops import _build
 MAX_WD = 256  # csrc/select_place.cuh: heightmap cells held per thread
 
 
-def _check_rule(cfg: TAPConfig):
-    if cfg.placement_rule == "mcs":
-        raise NotImplementedError(
-            "select_step: mcs placement is not ported yet (ROADMAP.md, "
-            "port Queue 2)")
-
-
 def env_ints(cfg: TAPConfig):
-    """The kernels' EnvCfg fields: N, W, D, R, C, hard, cap, two_d."""
+    """The kernels' EnvCfg fields (csrc/select_place.cuh): N, W, D, R, C,
+    hard, cap, two_d, mcs, terms (a bit per reward term: C 1, P 2, S 4)."""
+    terms = sum({"C": 1, "P": 2, "S": 4}[t] for t in cfg.reward_terms)
     return [cfg.num_blocks, cfg.target_width, cfg.target_depth, cfg.num_rot,
             cfg.num_containers, int(cfg.placement_variant == "hard"),
-            cfg.height_cap, int(cfg.dim == 2)]
+            cfg.height_cap, int(cfg.dim == 2),
+            int(cfg.placement_rule == "mcs"), terms]
 
 
 def select_place_ref(cfg: TAPConfig, score, mask, packed, hm, plc,
@@ -49,7 +44,6 @@ def select_place_ref(cfg: TAPConfig, score, mask, packed, hm, plc,
     """Plain version. score f32[A, B], mask i32[A, B], packed i32[N, B],
     hm i32[C*W, D, B], plc i32[N*6, B], dims_* i32[N, B] (unrotated).
     Returns (packed', hm', plc', act i32[B])."""
-    _check_rule(cfg)
     N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
                   cfg.num_containers)
     B = score.shape[1]
@@ -58,14 +52,18 @@ def select_place_ref(cfg: TAPConfig, score, mask, packed, hm, plc,
     a_sel = torch.argmax(score, dim=0).int()                 # first max
     valid = mask.amax(0) > 0
     b, r, c = cfg.decompose_action(a_sel)
-    dims = torch.stack([dims_w, dims_d, dims_h], -1).transpose(0, 1)
+    dims_all = torch.stack([dims_w, dims_d, dims_h], -1).transpose(0, 1)
     dims = torch.where((r == 1)[:, None],
-                       E.rotated_dims_all(dims[bi, b.long()], 1, cfg),
-                       dims[bi, b.long()])
+                       E.rotated_dims_all(dims_all[bi, b.long()], 1, cfg),
+                       dims_all[bi, b.long()])
     w, d, h = dims[:, 0], dims[:, 1], dims[:, 2]
     hm_b = hm.reshape(C, W, D, B).permute(3, 0, 1, 2)        # [B, C, W, D]
+    ctx = None
+    if cfg.placement_rule == "mcs":
+        ctx = E.terms_of(hm_b, plc.reshape(N, 6, B).permute(2, 0, 1),
+                         dims_all)
     x, y, l, stable, any_valid = E.choose_placement(
-        hm_b[bi, c.long()], w, d, h, cfg)
+        hm_b[bi, c.long()], w, d, h, cfg, ctx)
     do = valid & any_valid
 
     xs = torch.arange(W, device=dev)[None, :, None]
@@ -113,7 +111,6 @@ def select_step(score, mask, packed, hm, plc, dims_w, dims_d, dims_h,
     if not score.is_cuda:
         return select_place_ref(cfg, score, mask, packed, hm, plc,
                                 dims_w, dims_d, dims_h)
-    _check_rule(cfg)
     N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
                   cfg.num_containers)
     if W * D > MAX_WD:

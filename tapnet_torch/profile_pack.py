@@ -2,9 +2,11 @@
 torch.profiler breakdown.
 
     python -m tapnet_torch.profile_pack [--config 2d-basic] [--batch 4096]
-        [--hidden 128] [--calls 5] [--train] [--out profile_pack.json]
+        [--hidden 128] [--calls 5] [--policies greedy,sample,best]
+        [--train] [--out profile_pack.json]
 
-For each policy (greedy, sample, best-of-16 on batch/16 instances), or with
+For each policy (greedy, sample, best-of-16 on batch/16 instances; `first`
+and `random`, the heuristic rollouts, when named in `--policies`), or with
 `--train` for one REINFORCE train step (`make_train_step`, batch `--batch`),
 it warms up, times `--calls` calls on the host clock, then profiles as many
 more and prints the device time of every kernel name per call, the wall
@@ -71,6 +73,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--policies", default="greedy,sample,best",
+                    help="comma-separated pack() policies: greedy, sample, "
+                    "best, first, random")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of pack()")
     ap.add_argument("--out", default="")
@@ -100,7 +105,7 @@ def main(argv=None) -> int:
                      inst if policy != "best"
                      else inst.index(slice(0, args.batch // 16)),
                      cfg, actor, policy=policy, key=1, n_samples=16))
-                for policy in ("greedy", "sample", "best")]
+                for policy in args.policies.split(",")]
     for label, run in runs:
         res = profile_calls(label, run, args.calls)
         out["runs"].append(res)

@@ -21,6 +21,7 @@ from tapnet_torch import random as R
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
 from tapnet_torch.env.sampler import sample_batch
+from tapnet_torch.ops.env import fused_rollout_batch
 from tapnet_torch.train import checkpoints as ckpt
 from tapnet_torch.train.metrics import MetricsLogger
 from tapnet_torch.train.reinforce import (TrainState, resolve_device,
@@ -66,13 +67,10 @@ def _check_supported(loop: TrainLoopConfig):
 def evaluate(actor, cfg: TAPConfig, loop: TrainLoopConfig,
              baselines: bool = False, device="cuda"):
     """Greedy-decode validation on a fixed held-out instance stream: mean
-    reward, C/P/S, best-of-K when asked, and the per-container share of
-    placed blocks. Runs on `cuda` (the actor is moved there) unless
-    `device="cpu"`."""
-    if baselines:
-        raise NotImplementedError(
-            "heuristic baselines need the fused heuristic rollout kernel "
-            "(pallas_env, K4), not ported yet (ROADMAP.md, port Queue 2)")
+    reward, C/P/S, best-of-K when asked, the per-container share of placed
+    blocks and, with `baselines`, the mean rewards of the `random` and
+    `first` heuristics on the same instances and keys. Runs on `cuda` (the
+    actor is moved there) unless `device="cpu"`."""
     if loop.mixed_p2d > 0:
         raise NotImplementedError("sample_batch_mixed is not ported yet "
                                   "(ROADMAP.md, port Queue 1)")
@@ -96,6 +94,11 @@ def evaluate(actor, cfg: TAPConfig, loop: TrainLoopConfig,
         placed_n = (cont >= 0).sum().clamp(min=1)
         for c in range(cfg.num_containers):
             out[f"valid_container{c}_frac"] = (cont == c).sum() / placed_n
+    if baselines:
+        run = fused_rollout_batch if dev.type == "cuda" else E.rollout_batch
+        for policy in ("random", "first"):
+            out[f"{policy}_reward"] = run(instances, keys, cfg,
+                                          policy)[2].mean()
     return out
 
 

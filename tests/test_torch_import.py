@@ -17,6 +17,7 @@ import tapnet_torch.models.tapnet, tapnet_torch.models.features
 import tapnet_torch.ops.actor_step, tapnet_torch.ops.policy_step
 import tapnet_torch.train.rollout
 import tapnet_torch.ops.reward, tapnet_torch.ops.replay
+import tapnet_torch.ops.env
 import tapnet_torch.train.reinforce, tapnet_torch.train.metrics
 import tapnet_torch.train.checkpoints, tapnet_torch.train.trainer
 import tapnet_torch.profile_pack

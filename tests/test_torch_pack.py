@@ -101,11 +101,21 @@ def test_fused_rollout_paths_match_jax(setup, path):
 
 
 def test_heuristic_policies_raise(setup):
-    _, cfg, _, _, actor, inst_np = setup
+    """The heuristic policies need no actor and give the JAX package's
+    plans; what raises is an unknown policy and a learned policy without an
+    actor (ValueError)."""
+    jcfg, cfg, _, instances, _, inst_np = setup
+    jkey, tkey = _key(17)
     for policy in ("first", "random"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapnet_torch.pack(inst_np, cfg, actor, policy=policy,
-                              device="cpu")
+        want = tapnet_tpu.pack(instances, jcfg, policy=policy, key=jkey,
+                               prefer_fused=False)
+        got = tapnet_torch.pack(inst_np, cfg, policy=policy, key=tkey,
+                                device="cpu")
+        _assert_plans_equal(got, want, cfg, B)
+    with pytest.raises(ValueError):
+        tapnet_torch.pack(inst_np, cfg, policy="second", device="cpu")
+    with pytest.raises(ValueError, match="needs an actor"):
+        tapnet_torch.pack(inst_np, cfg, policy="greedy", device="cpu")
 
 
 def test_policy_rollout_single_instance_matches_jax(setup):

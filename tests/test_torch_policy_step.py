@@ -81,10 +81,18 @@ def test_select_place_ref_matches_jax_kernel(name):
 
 
 def test_mcs_raises():
+    """Under the mcs rule nothing raises: on an empty state with an empty
+    mask the step is a no-op (act -1, nothing written), and the kernels'
+    EnvCfg carries the rule and the reward-term set. The rule itself is
+    held to the JAX kernel in tests/test_torch_mcs.py."""
     cfg = TAPConfig(reward_type="C+P+S-mcs-soft")
     z = torch.zeros((cfg.num_actions, 4))
     zi = torch.zeros((cfg.num_blocks, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        PS.select_step(z, z.int(), zi, torch.zeros((10, 1, 4), dtype=torch.int32),
-                       torch.zeros((60, 4), dtype=torch.int32), zi, zi, zi,
-                       cfg=cfg)
+    hm = torch.zeros((10, 1, 4), dtype=torch.int32)
+    plc = torch.full((60, 4), -1, dtype=torch.int32)
+    packed, hm_n, plc_n, act = PS.select_step(
+        z, z.int(), zi, hm, plc, zi + 1, zi + 1, zi + 1, cfg=cfg)
+    assert (act == -1).all() and torch.equal(hm_n, hm)
+    assert torch.equal(plc_n, plc) and torch.equal(packed, zi)
+    assert PS.env_ints(cfg)[-2:] == [1, 7]
+    assert PS.env_ints(TAPConfig(reward_type="P+S-lb-hard"))[-2:] == [0, 6]
