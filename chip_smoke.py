@@ -60,7 +60,28 @@ source, all started at once), then runs, and fails on the first fault:
    at batch 256, and `evaluate(baselines=True)` against the CPU path;
 13. times: K4 per launch for `random` on each of the six CONFIGS at batch
    4096 with the plain version beside it, and `pack(first)` /
-   `pack(random)` on 2d-basic (host clock, median of 20).
+   `pack(random)` on 2d-basic (host clock, median of 20);
+14. actor_select_step (K2) with a rolling window and two precedence limbs vs
+   its plain version, lockstep rollouts as in 3: 2d-rolling (50 blocks,
+   window 10), a 12-block window-4 config with rotation, a 34-block
+   window-6 config (two limbs) and a 3D window config, at batch 512 and a
+   ragged 100, 2d-rolling also at 4096;
+15. the step-grid replay (K5f-steps, K5b-steps) vs its plain version on the
+   same configs' records (tolerances of 7), forced onto 2d-basic at 4096
+   against the monolithic kernels, against the rollout's own logp, and two
+   backward launches bit-identical;
+16. the rolling main path, 2d-rolling at hidden 128: `pack()` greedy and
+   sample at 4096, best-of-16 on 256 (K1 x50 per greedy call, K2 x50 per
+   sampled one), plans complete and replayed, card vs CPU at 256; 3 train
+   steps at batch 4096 (per step K2 50, K5b-steps 1, K3 1, no forward
+   replay), a bit-identical repeat, a step at batch 64 against the CPU path,
+   `train()` for 2 epochs x 2 steps with a resume; then one train step of
+   multi-container-capped at batch 256 (K1 x10, K5b x1 on the recorded mask,
+   K3 x1) against the CPU path;
+17. times at 2d-rolling, batch 4096: K2 per launch, K5f-steps and K5b-steps
+   per call, each with its plain version and its bound counted over the
+   (instance, step) pairs that have an action in this run; `pack()` per
+   policy and the train step (host clock).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -321,11 +342,11 @@ def check_against_cpu(cfg, actor, inst, dev):
 # ------------------------------------------------------------------ #
 # phase 5: times
 
-def time_gpu(fn, reps=REPS, sleep_cycles=2_000_000):
+def time_gpu(fn, reps=REPS, sleep_cycles=2_000_000, warm=3):
     """Median device time of fn() in ms. Each rep first queues a spin kernel
     so the host has enqueued fn's launches before the start event runs:
     the event pair then brackets device time, not host overhead."""
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -412,61 +433,112 @@ def replay_operands(actor, cfg, B, dev, seed, temperature):
     return (flags, hms, masks, acts, se, ctx, statp, statm, params), lp0
 
 
-def check_replay(cfg, B, actor, dev, temperature=1.0, repeat=False):
-    """K5f values within 1e-5 relative and K5b outputs within GRAD_TOL of
-    the plain results' max magnitude; with `repeat`, two K5b launches
-    bit-identical; K5f also agrees with the rollout's own logp. Returns
-    (operands, dlp, fwd max abs err, (bwd max scaled err, bwd max abs
-    err), max abs diff of K5f and the rollout's logp)."""
+def replay_fns(ops, cfg, temperature, steps):
+    """(fwd, fwd plain, bwd(dlp), bwd plain(dlp)) of one schedule on the
+    operands of `replay_operands`."""
     from tapnet_torch.ops import replay as RP
 
+    if not steps:
+        return (lambda: RP.replay_logp_fwd(*ops, cfg, temperature),
+                lambda: RP.replay_logp_fwd_ref(*ops, cfg, temperature),
+                lambda d: RP.replay_logp_bwd(d, *ops, cfg, temperature),
+                lambda d: RP.replay_logp_bwd_ref(d, *ops, cfg, temperature))
+    so = ops[:4] + (RP._prev_rows(ops[3]),) + ops[4:]
+    return (lambda: RP.replay_logp_fwd_steps(*so, cfg, temperature),
+            lambda: RP.replay_logp_fwd_steps_ref(*so, cfg, temperature),
+            lambda d: RP.replay_logp_bwd_steps(d, *so, cfg, temperature),
+            lambda d: RP.replay_logp_bwd_steps_ref(d, *so, cfg, temperature))
+
+
+def _flat_grads(g):
+    return [g[0], g[1], *g[2]]
+
+
+GRAD_NAMES = ["d_se", "d_ctx"] + [f"d_params[{i}]" for i in range(11)]
+
+
+def check_replay(cfg, B, actor, dev, temperature=1.0, repeat=False,
+                 steps=False):
+    """K5f values within 1e-5 relative and K5b outputs within GRAD_TOL of
+    the plain results' max magnitude (`steps`: the step-grid kernels and
+    their plain versions); with `repeat`, two K5b launches bit-identical;
+    K5f also agrees with the rollout's own logp. Returns (operands, dlp,
+    fwd max abs err, (bwd max scaled err, bwd max abs err), max abs diff of
+    K5f and the rollout's logp)."""
     ops, lp0 = replay_operands(actor, cfg, B, dev, SEED + 10, temperature)
+    fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, temperature, steps)
+    what = "replay_logp_fwd_steps" if steps else "replay_logp_fwd"
     dlp = torch.linspace(-1.0, 1.0, B, device=dev)
     with torch.no_grad():
-        got = RP.replay_logp_fwd(*ops, cfg, temperature)
-        want = RP.replay_logp_fwd_ref(*ops, cfg, temperature)
+        got = fwd()
+        want = fwd_ref()
         d = (got - want).abs()
         if not bool((d <= TOL * want.abs() + 1e-6).all()):
-            raise AssertionError(f"replay_logp_fwd: max err {d.max().item()}")
+            raise AssertionError(f"{what}: max err {d.max().item()}")
         f_err = d.max().item()
         # the train step's value is the rollout's logp (the primal): the
         # rollout head and the replay head must agree on it
         d0 = (got - lp0).abs()
         if not bool((d0 <= TOL * lp0.abs() + 1e-5).all()):
-            raise AssertionError(f"replay_logp_fwd vs the rollout's logp: "
-                                 f"max err {d0.max().item()}")
-        g1 = RP.replay_logp_bwd(dlp, *ops, cfg, temperature)
-        gr = RP.replay_logp_bwd_ref(dlp, *ops, cfg, temperature)
-        flat = lambda g: [g[0], g[1], *g[2]]
+            raise AssertionError(f"{what} vs the rollout's logp: max err "
+                                 f"{d0.max().item()}")
+        g1 = bwd(dlp)
+        gr = bwd_ref(dlp)
         b_err = b_abs = 0.0
-        names = ["d_se", "d_ctx"] + [f"d_params[{i}]" for i in range(11)]
-        for name, a, w in zip(names, flat(g1), flat(gr)):
+        for name, a, w in zip(GRAD_NAMES, _flat_grads(g1), _flat_grads(gr)):
             e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
             if not e <= GRAD_TOL:
-                raise AssertionError(f"replay_logp_bwd {name}: scaled err {e}")
+                raise AssertionError(f"{what} backward {name}: scaled err "
+                                     f"{e}")
             b_err = max(b_err, e)
             b_abs = max(b_abs, (a - w).abs().max().item())
         if repeat:
-            g2 = RP.replay_logp_bwd(dlp, *ops, cfg, temperature)
-            for name, a, b in zip(names, flat(g1), flat(g2)):
-                _equal(f"replay_logp_bwd repeat {name}", a, b)
+            g2 = bwd(dlp)
+            for name, a, b in zip(GRAD_NAMES, _flat_grads(g1),
+                                  _flat_grads(g2)):
+                _equal(f"{what} backward repeat {name}", a, b)
     return ops, dlp, f_err, (b_err, b_abs), d0.max().item()
 
 
-def replay_ops_count(cfg, B, h, bwd):
+def check_steps_against_monolithic(ops, dlp, cfg):
+    """The step-grid kernels forced onto a config the monolithic ones cover:
+    the same value within TOL and the same gradients within GRAD_TOL."""
+    fwd, _, bwd, _ = replay_fns(ops, cfg, 1.0, False)
+    fwd_s, _, bwd_s, _ = replay_fns(ops, cfg, 1.0, True)
+    with torch.no_grad():
+        a, b = fwd(), fwd_s()
+        d = (a - b).abs()
+        if not bool((d <= TOL * a.abs() + 1e-6).all()):
+            raise AssertionError("replay_logp_fwd_steps vs monolithic: max "
+                                 f"err {d.max().item()}")
+        worst = 0.0
+        for name, x, y in zip(GRAD_NAMES, _flat_grads(bwd(dlp)),
+                              _flat_grads(bwd_s(dlp))):
+            e = ((x - y).abs().max() / (x.abs().max() + 1e-12)).item()
+            if not e <= GRAD_TOL:
+                raise AssertionError("replay_logp_bwd_steps vs monolithic "
+                                     f"{name}: scaled err {e}")
+            worst = max(worst, e)
+    return d.max().item(), worst
+
+
+def replay_ops_count(cfg, B, h, bwd, pairs=None):
     """f32 operations of the replay over B instances and N steps: the
     forward per step as actor_ops_count; the backward adds the weight
     gradients (2 per multiply-add), the input gradients of Wq (3h of its
-    columns), W2 and Wp, and ~6 elementwise per (token, container, unit)."""
+    columns), W2 and Wp, and ~6 elementwise per (token, container, unit).
+    `pairs`: the (instance, step) pairs to count instead of all B * N (a
+    step without an action adds nothing to the value or the gradients)."""
     N, R_, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD, T = cfg.target_width * cfg.target_depth, N * R_
-    fwd = actor_ops_count(cfg, B, h) * N
+    pairs = B * N if pairs is None else pairs
+    fwd = actor_ops_count(cfg, 1, h) * pairs
     if not bwd:
         return fwd
     FQ = 3 * h + 8
     wgrad = C * (h * FQ + h * h + h * (WD + 2)) + T * (h * 32 + 32 * 8)
     igrad = C * (h * 3 * h + h * h) + T * 32 * h
-    return fwd + B * N * (2 * (wgrad + igrad) + T * C * h * 6)
+    return fwd + pairs * (2 * (wgrad + igrad) + T * C * h * 6)
 
 
 # ------------------------------------------------------------------ #
@@ -477,33 +549,44 @@ def _state_dicts(ts):
             **{f"critic.{k}": v for k, v in ts.critic.state_dict().items()}}
 
 
-def train_main_path(cfg, dev):
-    """init_train_state + 5 steps of make_train_step(batch=4096) on the
-    card; launch counts per step: actor_select_step 10, replay_logp_bwd 1,
-    heightmap_reductions 1, replay_logp_fwd 0. Returns the counts, the
-    state and the step."""
-    from tapnet_torch import init_train_state, make_train_step
+def train_counters():
     from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import policy_step as PS
     from tapnet_torch.ops import replay as RP
     from tapnet_torch.ops import reward as RW
+    return {"select_step": PS.select_step,
+            "actor_select_step": AS.actor_select_step,
+            "replay_logp_bwd": RP.replay_logp_bwd,
+            "replay_logp_fwd": RP.replay_logp_fwd,
+            "replay_logp_bwd_steps": RP.replay_logp_bwd_steps,
+            "replay_logp_fwd_steps": RP.replay_logp_fwd_steps,
+            "heightmap_reductions": RW.heightmap_reductions}
+
+
+def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN):
+    """init_train_state + `n_steps` steps of make_train_step(batch) on the
+    card with the launch counts of every step held to `per_step` (default:
+    the monolithic-replay route, actor_select_step N, replay_logp_bwd 1,
+    heightmap_reductions 1, nothing else). Returns the counts, the state
+    and the step."""
+    from tapnet_torch import init_train_state, make_train_step
 
     ts = init_train_state(SEED, cfg, hidden=HIDDEN, device=dev)
-    step = make_train_step(cfg, batch=B_MAIN, hidden=HIDDEN, device=dev)
-    counters = {"actor_select_step": AS.actor_select_step,
-                "replay_logp_bwd": RP.replay_logp_bwd,
-                "replay_logp_fwd": RP.replay_logp_fwd,
-                "heightmap_reductions": RW.heightmap_reductions}
+    step = make_train_step(cfg, batch=batch, hidden=HIDDEN, device=dev)
+    counters = train_counters()
     for f in counters.values():
         f.launches = 0
-    per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
-                "replay_logp_fwd": 0, "heightmap_reductions": 1}
-    for i in range(5):
+    want = dict.fromkeys(counters, 0)
+    want.update(per_step or {"actor_select_step": cfg.num_blocks,
+                             "replay_logp_bwd": 1,
+                             "heightmap_reductions": 1})
+    for i in range(n_steps):
         before = {k: f.launches for k, f in counters.items()}
         ts, m = step(ts)
         got = {k: f.launches - before[k] for k, f in counters.items()}
-        if got != per_step:
+        if got != want:
             raise AssertionError(f"train step {i} launches {got}, expected "
-                                 f"{per_step}")
+                                 f"{want}")
         vals = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"train step {i}: metrics {vals}")
@@ -512,10 +595,11 @@ def train_main_path(cfg, dev):
     return {k: f.launches for k, f in counters.items()}, ts, step
 
 
-def check_train_against_cpu(cfg, ts, dev):
-    """One step at B=256 on the card and on the CPU reference path from the
-    same state: instances equal, >= 95% of the trajectories equal, R/C/P/S
-    exactly equal on those; then the whole step on both."""
+def check_train_against_cpu(cfg, ts, dev, B=256):
+    """One step at batch B on the card and on the CPU reference path from
+    the same state: instances equal, >= 95% of the trajectories equal,
+    R/C/P/S exactly equal on those; then the whole step on both, the losses
+    within 1e-4 relative when every trajectory agrees."""
     import copy
 
     from tapnet_torch import make_train_step
@@ -525,7 +609,6 @@ def check_train_against_cpu(cfg, ts, dev):
     from tapnet_torch.train import reinforce as TR
     from tapnet_torch.train import rollout as RO
 
-    B = 256
     gpu = copy.deepcopy(ts)
     cpu = TR.train_state(copy.deepcopy(ts.actor).cpu(),
                          copy.deepcopy(ts.critic).cpu(), ts.key.cpu())
@@ -550,13 +633,18 @@ def check_train_against_cpu(cfg, ts, dev):
     _, m_g = make_train_step(cfg, batch=B, hidden=HIDDEN, device=dev)(gpu)
     _, m_c = make_train_step(cfg, batch=B, hidden=HIDDEN, device="cpu")(cpu)
     diffs = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_g}
-    log(f"  train step B=256 card vs CPU: {frac:.4f} of trajectories equal, "
+    if frac == 1.0:
+        for k in ("loss_actor", "loss_critic"):
+            if diffs[k] > 1e-4 * max(1.0, abs(float(m_c[k]))):
+                raise AssertionError(f"train step card vs CPU: {k} differs "
+                                     f"by {diffs[k]}")
+    log(f"  train step B={B} card vs CPU: {frac:.4f} of trajectories equal, "
         f"their reward terms equal; |metric diff| {diffs}")
     return frac
 
 
-def check_trainer(cfg, dev, tmp):
-    """train() for 2 epochs x 5 steps writes metrics and checkpoints; a
+def check_trainer(cfg, dev, tmp, spe=5):
+    """train() for 2 epochs x `spe` steps writes metrics and checkpoints; a
     resume from the epoch-1 checkpoint ends on the same params."""
     import json
     import os
@@ -565,7 +653,7 @@ def check_trainer(cfg, dev, tmp):
     from tapnet_torch import TrainLoopConfig, train
     from tapnet_torch.train import checkpoints as ckpt
 
-    loop = TrainLoopConfig(epochs=2, steps_per_epoch=5, batch=B_MAIN,
+    loop = TrainLoopConfig(epochs=2, steps_per_epoch=spe, batch=B_MAIN,
                            hidden=HIDDEN, valid_batch=B_MAIN,
                            ckpt_dir=os.path.join(tmp, "a"),
                            metrics_path=os.path.join(tmp, "a.jsonl"))
@@ -575,27 +663,29 @@ def check_trainer(cfg, dev, tmp):
     if len(epochs) != 2 or not all(np.isfinite(r["loss_actor"])
                                    for r in epochs):
         raise AssertionError(f"train() metrics: {lines}")
-    first = os.path.join(loop.ckpt_dir, "ckpt_00000005.pt")
+    name = f"ckpt_{spe:08d}.pt"
+    first = os.path.join(loop.ckpt_dir, name)
     resumed_dir = os.path.join(tmp, "b")
     os.makedirs(resumed_dir)
     shutil.copy(first, resumed_dir)
     with open(os.path.join(resumed_dir, "latest.json"), "w") as f:
-        json.dump({"step": 5, "path": os.path.join(
-            resumed_dir, "ckpt_00000005.pt")}, f)
-    loop_b = TrainLoopConfig(epochs=2, steps_per_epoch=5, batch=B_MAIN,
+        json.dump({"step": spe, "path": os.path.join(resumed_dir, name)}, f)
+    loop_b = TrainLoopConfig(epochs=2, steps_per_epoch=spe, batch=B_MAIN,
                              hidden=HIDDEN, valid_batch=B_MAIN,
                              ckpt_dir=resumed_dir)
     resumed = train(cfg, loop_b, device=dev)
     a, b = _state_dicts(full), _state_dicts(resumed)
     for k in a:
         _equal(f"resumed params {k}", b[k], a[k])
-    if not ckpt.latest_checkpoint(resumed_dir).endswith("ckpt_00000010.pt"):
-        raise AssertionError("resumed run wrote no step-10 checkpoint")
+    if not ckpt.latest_checkpoint(resumed_dir).endswith(
+            f"ckpt_{2 * spe:08d}.pt"):
+        raise AssertionError(f"resumed run wrote no step-{2 * spe} "
+                             "checkpoint")
     rewards = [(r["step"], round(r["reward"], 6)) for r in epochs]
     log(f"  train(): epoch lines (step, reward) {rewards}, "
         f"valid_reward {epochs[-1]['valid_reward']:.6f}, "
         f"{epochs[-1]['env_steps_per_s']:.0f} env-steps/s; resume from "
-        "step 5 ends on bit-identical params")
+        f"step {spe} ends on bit-identical params")
 
 
 # ------------------------------------------------------------------ #
@@ -802,6 +892,22 @@ def time_fused_rollout(cfg, B, dev):
               (packed.T - state.packed.int()).abs().max().item())
     moved = nbytes(ops) + nbytes((hm, packed, actions, plc))
     return ms, plain, moved, rollout_int_ops(cfg, ops, actions, plc), err
+
+
+def rolling_cases():
+    """Configs that need K2's window or its second precedence limb, and the
+    step-grid replay."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import TAPConfig as T
+    return {
+        "2d-rolling": CONFIGS["2d-rolling"],
+        "rolling-small": T(num_blocks=12, min_blocks=6, container_width=8,
+                           container_height=12, target_width=8, window=4,
+                           allow_rot=True),
+        "two-limb": T(num_blocks=34, min_blocks=20, container_width=8,
+                      container_height=40, target_width=8, window=6),
+        "3d-window": heuristic_cases()["3d-window"],
+    }
 
 
 def main() -> int:
@@ -1045,17 +1151,144 @@ def main() -> int:
             f"{cfg.num_blocks} steps = "
             f"{B_MAIN * cfg.num_blocks / ms * 1e3:.0f} env-steps/s")
 
+    # ---- phase 14: K2 with a rolling window / two precedence limbs
+    roll = rolling_cases()
+    roll_actors = {n: init_params(SEED, c, HIDDEN, dev)
+                   for n, c in roll.items()}
+    rcfg, ractor = roll["2d-rolling"], roll_actors["2d-rolling"]
+    kept_k2r = None
+    for name, Br in ([(n, b) for n in roll for b in (512, 100)]
+                     + [("2d-rolling", B_MAIN)]):
+        k, err = check_actor_step(roll[name], Br, roll_actors[name], dev,
+                                  keep=(name, Br) == ("2d-rolling", B_MAIN))
+        kept_k2r = kept_k2r or k
+        k2_err = max(k2_err, err)
+        log(f"phase 14 actor_select_step == plain (window {roll[name].window}"
+            f", {AS._num_limbs(roll[name].num_blocks)} limb(s)): {name} "
+            f"B={Br}, {roll[name].num_blocks} steps, max logit/logp err "
+            f"{err:.3e}")
+    torch.cuda.synchronize()
+
+    # ---- phase 15: the step-grid replay on the card's own records
+    k5fs_err = k5bs_err = 0.0
+    kept_k5s = None
+    for name, Br in ([(n, b) for n in roll for b in (512, 100)]
+                     + [("2d-rolling", B_MAIN)]):
+        main_shape = (name, Br) == ("2d-rolling", B_MAIN)
+        ops_s, dlp_s, fe, (be, ba), e0 = check_replay(
+            roll[name], Br, roll_actors[name], dev, repeat=main_shape,
+            steps=True)
+        if main_shape:
+            kept_k5s = (ops_s, dlp_s)
+        k5fs_err, k5bs_err = max(k5fs_err, fe), max(k5bs_err, ba)
+        log(f"phase 15 step-grid replay == plain: {name} B={Br} "
+            f"({RP.step_chunks(roll[name], Br)} step chunks): fwd max err "
+            f"{fe:.3e}, bwd max err {ba:.3e} (scaled {be:.3e}); fwd vs the "
+            f"rollout's logp {e0:.3e}"
+            + ("; two bwd launches bit-identical" if main_shape else ""))
+    fe, be = check_steps_against_monolithic(*kept_k5, cfg)
+    log(f"phase 15 step-grid replay forced onto 2d-basic B={B_MAIN} == "
+        f"monolithic kernels: fwd max err {fe:.3e}, bwd max scaled err "
+        f"{be:.3e}")
+    torch.cuda.synchronize()
+
+    # ---- phase 16: the rolling main path (2d-rolling, hidden 128)
+    roll_launches, rinst = main_path(rcfg, ractor, dev)
+    log(f"phase 16 rolling main path launches: {roll_launches}")
+    check_against_cpu(rcfg, ractor, rinst, dev)
+    roll_step = {"actor_select_step": rcfg.num_blocks,
+                 "replay_logp_bwd_steps": 1, "heightmap_reductions": 1}
+    roll_train, rts, rstep = train_main_path(rcfg, dev, roll_step, n_steps=3)
+    log(f"phase 16 rolling train path launches (3 steps): {roll_train}")
+    assert_deterministic(rstep, rts)
+    log("phase 16 one rolling train step run twice from a copy of one "
+        "state: params, optimizer state, key and metrics bit-identical")
+    check_train_against_cpu(rcfg, rts, dev, B=64)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_trainer(rcfg, dev, tmp, spe=2)
+    ccfg = CONFIGS["multi-container-capped"]
+    capped_step = {"select_step": ccfg.num_blocks, "replay_logp_bwd": 1,
+                   "heightmap_reductions": 1}
+    capped_train, cts, _ = train_main_path(ccfg, dev, capped_step, n_steps=1,
+                                           batch=256)
+    log(f"phase 16 capped train step (multi-container-capped, batch 256) "
+        f"launches: {capped_train}")
+    check_train_against_cpu(ccfg, cts, dev)
+
+    # ---- phase 17: times at 2d-rolling, batch 4096
+    live = lambda acts: int((acts >= 0).sum())
+    k2r_ms = time_gpu(lambda: AS.actor_select_step(*kept_k2r, rcfg))
+    k2r_plain = time_gpu(lambda: AS.actor_select_step_ref(*kept_k2r, rcfg),
+                         reps=5, sleep_cycles=200_000_000)
+    k2r_out = AS.actor_select_step(*kept_k2r, rcfg)
+    k2r_bytes = (nbytes(kept_k2r[:16]) + nbytes(kept_k2r[16])
+                 + nbytes(k2r_out))
+    k2r_ops = actor_ops_count(rcfg, live(k2r_out[3]), HIDDEN)
+    k2r_bound, k2r_by = bound(k2r_bytes, k2r_ops)
+    log(f"phase 17 actor_select_step 2d-rolling B={B_MAIN} step "
+        f"{rcfg.num_blocks // 2}: {k2r_ms:.4f} ms/launch (plain "
+        f"{k2r_plain:.4f}), {k2r_bytes} B, {k2r_ops} f32 ops over "
+        f"{live(k2r_out[3])} instances with an action, bound "
+        f"{k2r_bound:.4f} ms ({k2r_by})")
+    ops_s, dlp_s = kept_k5s
+    fwd_s, fwd_s_ref, bwd_s, bwd_s_ref = replay_fns(ops_s, rcfg, 1.0, True)
+    k5fs_ms = time_gpu(fwd_s, reps=10)
+    k5fs_plain = time_gpu(fwd_s_ref, reps=2, sleep_cycles=400_000_000,
+                          warm=1)
+    k5bs_ms = time_gpu(lambda: bwd_s(dlp_s), reps=10)
+    k5bs_plain = time_gpu(lambda: bwd_s_ref(dlp_s), reps=2,
+                          sleep_cycles=400_000_000, warm=1)
+    pairs = live(ops_s[3])
+    in_bytes_s = nbytes(ops_s[:8]) + nbytes(ops_s[8]) + nbytes([ops_s[3]])
+    d_se, d_ctx, d_par = bwd_s(dlp_s)
+    k5fs_b = in_bytes_s + 4 * B_MAIN
+    k5bs_b = in_bytes_s + nbytes([dlp_s, d_se, d_ctx]) + nbytes(d_par)
+    del d_se, d_ctx, d_par
+    k5fs_o = replay_ops_count(rcfg, B_MAIN, HIDDEN, False, pairs)
+    k5bs_o = replay_ops_count(rcfg, B_MAIN, HIDDEN, True, pairs)
+    k5fs_bound, k5fs_by = bound(k5fs_b, k5fs_o)
+    k5bs_bound, k5bs_by = bound(k5bs_b, k5bs_o)
+    scratch = RP.scratch_bytes(rcfg, B_MAIN, HIDDEN)
+    log(f"phase 17 replay_logp_fwd_steps 2d-rolling B={B_MAIN}: "
+        f"{k5fs_ms:.4f} ms/call (plain {k5fs_plain:.3f}), {k5fs_b} B, "
+        f"{k5fs_o} f32 ops over {pairs} (instance, step) pairs with an "
+        f"action of {B_MAIN * rcfg.num_blocks}, bound {k5fs_bound:.4f} ms "
+        f"({k5fs_by})")
+    log(f"phase 17 replay_logp_bwd_steps 2d-rolling B={B_MAIN}: "
+        f"{k5bs_ms:.4f} ms/call (plain {k5bs_plain:.3f}), {k5bs_b} B, "
+        f"{k5bs_o} f32 ops, bound {k5bs_bound:.4f} ms ({k5bs_by}); scratch "
+        f"{scratch}")
+    rbest = rinst.index(slice(0, 256))
+    for policy, x in (("greedy", rinst), ("sample", rinst),
+                      ("best", rbest)):
+        ms = time_host(lambda: pack(x, rcfg, ractor, policy=policy,
+                                    key=SEED + 7, n_samples=16), reps=5)
+        rows = x.dims.shape[0] * (16 if policy == "best" else 1)
+        log(f"phase 17 pack({policy}) 2d-rolling: {ms:.3f} ms for {rows} "
+            f"rollouts x {rcfg.num_blocks} steps = "
+            f"{rows * rcfg.num_blocks / ms * 1e3:.0f} env-steps/s")
+    rstep_ms = time_host(lambda: rstep(rts), reps=5)
+    log(f"phase 17 train step 2d-rolling hidden {HIDDEN} batch {B_MAIN}: "
+        f"{rstep_ms:.3f} ms/step = "
+        f"{B_MAIN * rcfg.num_blocks / rstep_ms * 1e3:.0f} env-steps/s")
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
          "replaces": "tapnet_tpu/ops/pallas_policy_step.py:298",
-         "launches": launches["select_step"], "max_abs_err": k1_err,
+         "launches": (launches["select_step"] + roll_launches["select_step"]
+                      + capped_train["select_step"]),
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "actor_select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/actor_step.cu",
          "replaces": "tapnet_tpu/ops/pallas_actor_step.py:316",
-         "launches": launches["actor_select_step"], "max_abs_err": k2_err,
+         "launches": (launches["actor_select_step"]
+                      + train_launches["actor_select_step"]
+                      + roll_launches["actor_select_step"]
+                      + roll_train["actor_select_step"]),
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": max(k2_bound_b, k2_bound_o),
          "bound_by": "operations" if k2_bound_o >= k2_bound_b else "bytes",
@@ -1064,7 +1297,9 @@ def main() -> int:
          "source": "tapnet_torch/csrc/reward.cu",
          "replaces": "tapnet_tpu/ops/pallas_reward.py:39",
          "launches": (train_launches["heightmap_reductions"]
-                      + heur_launches["heightmap_reductions"]),
+                      + heur_launches["heightmap_reductions"]
+                      + roll_train["heightmap_reductions"]
+                      + capped_train["heightmap_reductions"]),
          "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain,
          "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib},
         {"name": "fused_rollout_batch", "route": "cuda",
@@ -1082,9 +1317,22 @@ def main() -> int:
         {"name": "replay_logp_bwd", "route": "cuda",
          "source": "tapnet_torch/csrc/replay.cu",
          "replaces": "tapnet_tpu/ops/pallas_replay.py:610",
-         "launches": train_launches["replay_logp_bwd"],
+         "launches": (train_launches["replay_logp_bwd"]
+                      + capped_train["replay_logp_bwd"]),
          "max_abs_err": k5b_err, "ms": k5b_ms, "plain_ms": k5b_plain,
          "bound_ms": k5b_bound, "bound_by": k5b_by, "library_ms": None},
+        {"name": "replay_logp_fwd_steps", "route": "cuda",
+         "source": "tapnet_torch/csrc/replay.cu",
+         "replaces": "tapnet_tpu/ops/pallas_replay.py:582",
+         "launches": roll_train["replay_logp_fwd_steps"],
+         "max_abs_err": k5fs_err, "ms": k5fs_ms, "plain_ms": k5fs_plain,
+         "bound_ms": k5fs_bound, "bound_by": k5fs_by, "library_ms": None},
+        {"name": "replay_logp_bwd_steps", "route": "cuda",
+         "source": "tapnet_torch/csrc/replay.cu",
+         "replaces": "tapnet_tpu/ops/pallas_replay.py:635",
+         "launches": roll_train["replay_logp_bwd_steps"],
+         "max_abs_err": k5bs_err, "ms": k5bs_ms, "plain_ms": k5bs_plain,
+         "bound_ms": k5bs_bound, "bound_by": k5bs_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,9 @@
 // actor_select_step: one whole sampled decode step of the learned policy.
 //
 // Replaces: tapnet_tpu/ops/pallas_actor_step.py::actor_select_step (kernel
-// body `_kernel`): accessibility from precedence bitmasks, flags, the action
-// mask, the heightmap encoder, the previous-action embedding, the query, the
+// body `_kernel`): accessibility from precedence bitmasks (one or two 31-bit
+// limbs, N <= 62), the rolling-window cut, flags, the action mask, the
+// heightmap encoder, the previous-action embedding, the query, the
 // per-token dyn MLP, additive attention v.tanh(key + dyn + q), masked
 // (tempered) logits + gumbel, select/place (select_place.cuh, shared with
 // the select_step kernel) and log pi of the chosen action.
@@ -25,7 +26,17 @@
 // each phase needs them, and shared memory holds only live intermediates:
 // the encoder input, the query input [3h+8], the C queries, one token's
 // dyn-MLP hidden layer, the per-warp partial scores and the A scores, 94 KB
-// at 2d-basic and h = 128. All sums are f32 multiply-adds, never TF32.
+// at 2d-basic and h = 128 (131 KB at 2d-rolling: A = 100). All sums are f32
+// multiply-adds, never TF32.
+//
+// Window and limbs: the packed / accessible / window sets of an instance are
+// bit words held by its thread of warp 0. Configs with a rolling window or
+// N > 31 run the WIDE instantiation, whose words are 64-bit; the window is a
+// running count over the accessible blocks in index order (the TPU kernel's
+// strictly-lower-triangular matmul was a prefix sum for lanes without one).
+// The others keep the 32-bit instantiation, whose window word is acc0.
+#include <type_traits>
+
 #include "select_place.cuh"
 
 namespace {
@@ -33,6 +44,7 @@ namespace {
 constexpr int TB = 32;      // instances per block
 constexpr int NWARP = 16;   // warps per block
 constexpr int MAX_C = 4;    // containers
+constexpr int MAX_N = 62;   // blocks: two 31-bit precedence limbs
 constexpr float NEG = -1e9f;
 
 struct HeadW {
@@ -42,8 +54,8 @@ struct HeadW {
 struct ActorIO {
   const float* tf;     // [1]
   const int* prev;     // [B]
-  const int* upm;      // [N, B] column bitmasks of the up graph
-  const int* rotm;     // [N, B]
+  const int* upm;      // [L*N, B] column bitmasks of the up graph, L limbs
+  const int* rotm;     // [L*N, B]
   const int* fits;     // [R*N, B]
   const float* g;      // [A, B] gumbel (zeros = greedy)
   const float* se;     // [T, h, B] static keys
@@ -81,11 +93,30 @@ __device__ void matvec(const float* __restrict__ Wm, int rows, int cols,
   }
 }
 
-// One instantiation per placement rule (MCS), as in policy_step.cu.
-template <bool MCS>
+__device__ __forceinline__ int popw(unsigned x) { return __popc(x); }
+__device__ __forceinline__ int popw(unsigned long long x) {
+  return __popcll(x);
+}
+
+// Column bitmask of block i over the unpacked-set word: one 31-bit limb, or
+// two joined into 62 bits (the layout of ops/actor_step.py
+// precedence_bitmasks).
+template <class Word>
+__device__ __forceinline__ Word column(const int* m, int i, int N, int B,
+                                       int b) {
+  Word v = (unsigned)m[i * B + b];
+  if (sizeof(Word) == 8 && N > 31)
+    v |= (Word)(unsigned)m[(N + i) * B + b] << 31;
+  return v;
+}
+
+// One instantiation per placement rule (MCS), as in policy_step.cu, and per
+// word width (WIDE: a rolling window or N > 31).
+template <bool MCS, bool WIDE>
 __global__ void __launch_bounds__(TB * NWARP)
 actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
-                  int B, int h, float inv_s, float temperature) {
+                  int B, int h, float inv_s, float temperature, int window) {
+  using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
   extern __shared__ float smem[];
   const int N = c.N, R = c.R, C = c.C, WD = c.W * c.D;
   const int T = N * R, A = T * C, FQ = 3 * h + 8;
@@ -104,28 +135,38 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
   float* scores = part + NWARP * C * TB;  // [A, TB]
   float* sel = scores + A * TB;         // [A, TB]
   int* maskS = (int*)(sel + A * TB);    // [A, TB]
-  int* bits = maskS + A * TB;           // [3, TB]: packed, acc0, accr
+  // [4, TB] words: packed, acc0, accr, win
+  Word* bits = reinterpret_cast<Word*>(maskS + A * TB);
 
   const float tf = ai.tf[0];
 
   // ---- phase 0: accessibility, flags, mask, count summary (warp 0)
   if (wy == 0) {
-    int pk = 0, a0m = 0, arm = 0, ub = 0;
+    Word pk = 0, a0m = 0, arm = 0, wnm = 0, ub = 0;
     for (int j = 0; j < N; ++j) {
       const int p = active ? io.packed[j * B + b] : 1;
-      pk |= (p != 0) << j;
-      ub += (1 - p) << j;
+      pk |= (Word)(p != 0) << j;
+      ub |= (Word)(p == 0) << j;
     }
+    int seen = 0;  // accessible blocks before i (WIDE: the window rank)
     for (int i = 0; i < N; ++i) {
       const bool unpk = !((pk >> i) & 1);
-      const bool acc0 = unpk && (ai.upm[i * B + bb] & ub) == 0;
-      const bool accr = acc0 && (ai.rotm[i * B + bb] & ub) == 0;
-      a0m |= acc0 << i;
-      arm |= accr << i;
-      const int p = (pk >> i) & 1;
-      if (active) ai.flags_o[i * B + b] = p + 2 * acc0 + 4 * accr + 8 * acc0;
+      const bool acc0 =
+          unpk && (column<Word>(ai.upm, i, N, B, bb) & ub) == 0;
+      const bool accr =
+          acc0 && (column<Word>(ai.rotm, i, N, B, bb) & ub) == 0;
+      bool win = acc0;
+      if (WIDE) {
+        win = acc0 && (window == 0 || seen < window);
+        seen += acc0;
+      }
+      a0m |= (Word)acc0 << i;
+      arm |= (Word)accr << i;
+      wnm |= (Word)win << i;
+      const int p = (int)((pk >> i) & 1);
+      if (active) ai.flags_o[i * B + b] = p + 2 * acc0 + 4 * accr + 8 * win;
       for (int r = 0; r < R; ++r) {
-        const int ok = (r == 0 ? acc0 : (acc0 && accr)) *
+        const int ok = (r == 0 ? win : (win && accr)) *
                        ai.fits[(r * N + i) * B + bb];
         for (int cc = 0; cc < C; ++cc) {
           const int a = (i * R + r) * C + cc;
@@ -137,13 +178,14 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
     bits[lane] = pk;
     bits[TB + lane] = a0m;
     bits[2 * TB + lane] = arm;
-    const float fpk = (float)__popc(pk), fa0 = (float)__popc(a0m);
-    const float far = (float)__popc(arm);
+    bits[3 * TB + lane] = wnm;
+    const float fpk = (float)popw(pk), fa0 = (float)popw(a0m);
+    const float far = (float)popw(arm);
     const float acc_mean = R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
     float* ds = qin + 3 * h * TB;
     ds[0 * TB + lane] = fpk / (float)N;
     ds[1 * TB + lane] = acc_mean;
-    ds[2 * TB + lane] = fa0 / (float)N;  // window bits == acc0 (no window)
+    ds[2 * TB + lane] = (float)popw(wnm) / (float)N;
     ds[3 * TB + lane] = tf;
     for (int k = 0; k < 4; ++k) ds[(4 + k) * TB + lane] = ai.statm[k * B + bb];
   }
@@ -186,13 +228,14 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
   }
 
   // ---- phase 2: per token, dyn MLP + additive attention scores
-  const int pk = bits[lane], a0m = bits[TB + lane], arm = bits[2 * TB + lane];
+  const Word pk = bits[lane], a0m = bits[TB + lane];
+  const Word arm = bits[2 * TB + lane], wnm = bits[3 * TB + lane];
   for (int t = 0; t < T; ++t) {
     const int i = t / R, r = t % R;
     if (wy == 0) {
       x8[0 * TB + lane] = (float)((pk >> i) & 1);
       x8[1 * TB + lane] = (float)(((r == 0 ? a0m : arm) >> i) & 1);
-      x8[2 * TB + lane] = (float)((a0m >> i) & 1);
+      x8[2 * TB + lane] = (float)((wnm >> i) & 1);
       x8[3 * TB + lane] = tf;
       for (int k = 0; k < 4; ++k)
         x8[(4 + k) * TB + lane] = ai.statp[(k * T + t) * B + bb];
@@ -248,7 +291,7 @@ static size_t smem_bytes(int N, int R, int C, int WD, int h) {
   const int A = N * R * C;
   const size_t floats = (size_t)TB * ((WD + 2) + h + (3 * h + 8) + C * h + 8 +
                                       32 + NWARP * C + 2 * A);
-  const size_t ints = (size_t)TB * (A + 3);
+  const size_t ints = (size_t)TB * (A + 8);  // mask, then 4 words of 64 bits
   return 4 * (floats + ints);
 }
 
@@ -256,15 +299,17 @@ static size_t smem_bytes(int N, int R, int C, int WD, int h) {
 //       tf, prev, upm, rotm, fits, g, se, ctx, statp, statm,           (6-15)
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,                (16-26)
 //       packed_o, hm_o, plc_o, act_o, flags_o, mask_o, logits_o, logp_o (27-34)
-// ints: B, the EnvCfg fields (select_place.cuh env_cfg), h
+// ints: B, the EnvCfg fields (select_place.cuh env_cfg), h, window
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                                         float inv_s, float temperature,
                                         void* stream) {
   const int B = ints[0], h = ints[1 + tapnet::ENV_INTS];
+  const int window = ints[2 + tapnet::ENV_INTS];
   const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
-  if (c.N > 31 || c.C > MAX_C || c.W * c.D > tapnet::MAX_WD)
+  if (c.N > MAX_N || c.C > MAX_C || c.W * c.D > tapnet::MAX_WD)
     return (int)cudaErrorInvalidValue;
+  const bool wide = window > 0 || c.N > 31;
   const tapnet::StepIO io{
       (const int*)p[0], (const int*)p[1], (const int*)p[2],
       (const int*)p[3], (const int*)p[4], (const int*)p[5],
@@ -281,12 +326,15 @@ extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                  (const float*)p[22], (const float*)p[23], (const float*)p[24],
                  (const float*)p[25], (const float*)p[26]};
   const size_t smem = smem_bytes(c.N, c.R, c.C, c.W * c.D, h);
-  auto kernel = c.mcs ? actor_step_kernel<true> : actor_step_kernel<false>;
+  auto kernel = wide ? (c.mcs ? actor_step_kernel<true, true>
+                              : actor_step_kernel<false, true>)
+                     : (c.mcs ? actor_step_kernel<true, false>
+                              : actor_step_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TB, NWARP);
   kernel<<<(B + TB - 1) / TB, block, smem, (cudaStream_t)stream>>>(
-      c, io, ai, hw, B, h, inv_s, temperature);
+      c, io, ai, hw, B, h, inv_s, temperature, window);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 // replay_logp: the REINFORCE replay of the actor head, forward and backward.
 //
-// Replaces: tapnet_tpu/ops/pallas_replay.py::replay_logp_fused, monolithic
-// schedule: `_fwd_kernel` (sum_t log pi(a_t | s_t) from the rollout record)
-// and `_bwd_kernel` / `_bwd_step` (the hand-derived backward: d_se, d_ctx
-// and the gradients of the 11 head weights, summed over the batch).
+// Replaces: tapnet_tpu/ops/pallas_replay.py::replay_logp_fused, both
+// schedules: monolithic, `_fwd_kernel` (sum_t log pi(a_t | s_t) from the
+// rollout record) and `_bwd_kernel` / `_bwd_step` (the hand-derived backward:
+// d_se, d_ctx and the gradients of the 11 head weights, summed over the
+// batch); and step-grid, `_fwd_kernel_steps` / `_bwd_kernel_steps` (rolling
+// windows and N > 31: the same math on a grid over batch tiles and steps).
 //
 // Per decode step k of one instance the head is re-run from the recorded
 // flags, heightmap, mask and previous action: accessibility bits -> the
@@ -49,10 +51,29 @@
 //   scratch [C*h, Bp] (L2-resident) so that shared memory does not grow
 //   with C; configs above the 227 KB a block may hold are refused by the
 //   wrapper. All sums are f32 multiply-adds, never TF32.
+//
+// Step-grid schedule (STEPS instantiations; rolling windows, N <= 62). The
+// TPU ran a grid (batch tiles, S) in order and carried logp, d_se and d_ctx
+// across the step axis and the weight gradients across the whole grid. CUDA
+// blocks run in no order, so here the grid is (batch tiles, step chunks):
+// block (i, j) walks steps [j*len, (j+1)*len) of tile i with the step body
+// above and writes partials of its own: logp [chunks, B], d_se
+// [chunks, T, h, B], d_ctx [chunks, h, B], one weight-gradient row per
+// (tile, chunk); `reduce_tiles` then sums each over its rows in a fixed
+// order (no atomics: two launches are bit-identical). The wrapper picks the
+// number of chunks (enough blocks to fill the card, scratch kept small:
+// a d_se partial is 210 MB per chunk at 2d-rolling, batch 4096, h = 128).
+// Differences from the monolithic kernel: the bit words of a block set are
+// 64-bit (flags of up to 62 blocks), the previous action arrives as its own
+// operand `prev` [S, B] (a chunk's first step needs the step before it),
+// and the per-block scratch of queries is per chunk as well.
+//
 // The head's device code is a copy of actor_step.cu's, not a shared header:
 // the padded layout and the saved-activation buffers differ, and K2's
 // results stay as they were.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,6 +82,8 @@ constexpr int LD = TB + 1;  // padded row stride of [feature][lane] arrays
 constexpr int NWARP = 16;   // warps per block
 constexpr int NT = TB * NWARP;
 constexpr int MAX_C = 4;
+constexpr int MAX_N_MONO = 31;   // monolithic: one 32-bit word per block set
+constexpr int MAX_N_STEPS = 62;  // step-grid: 64-bit words
 constexpr float NEG = -1e9f;
 
 struct Dims {
@@ -76,6 +99,7 @@ struct ReplayIn {
   const int* hms;      // [S, C*W*D, B]
   const int* masks;    // [S, A, B]
   const int* acts;     // [S, B]
+  const int* prev;     // [S, B], acts shifted by a step (step-grid only)
   const float* se;     // [T, h, B]
   const float* ctx;    // [h, B]
   const float* statp;  // [4, T, B]
@@ -177,11 +201,25 @@ __device__ inline float warp_sum(float x) {
   return x;
 }
 
-template <bool BWD>
+__device__ __forceinline__ int popw(int x) { return __popc((unsigned)x); }
+__device__ __forceinline__ int popw(unsigned long long x) {
+  return __popcll(x);
+}
+
+// Shared-memory ints behind the float regions: four words per lane (packed,
+// acc0, accr, win), the previous action's embedding row and the action.
+__host__ __device__ inline int tail_ints(bool steps) {
+  return (steps ? 8 : 4) * TB + 2 * TB;
+}
+
+// STEPS: the step-grid schedule; blockIdx.y is the step chunk and `len` the
+// steps per chunk. Monolithic: one chunk of all S steps.
+template <bool BWD, bool STEPS>
 __global__ void __launch_bounds__(NT)
 replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
               float inv_temp, float* logp_o, float* dse_o, float* dctx_o,
-              float* part_o, float* qg, float* dqg) {
+              float* part_o, float* qg, float* dqg, int len) {
+  using Word = std::conditional_t<STEPS, unsigned long long, int>;
   extern __shared__ float smem[];
   const int N = d.N, R = d.R, C = d.C, h = d.h, B = d.B;
   const int WD = d.W * d.D, T = N * R, A = T * C, FQ = 3 * h + 8, S = N;
@@ -190,16 +228,32 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
   const GOff go = goff(d);
+  const int chunk = STEPS ? blockIdx.y : 0;
+  const int k0 = STEPS ? chunk * len : 0;
+  const int k1 = STEPS ? min(k0 + len, S) : S;
   // queries and their gradients, [C*h][Bp] in global scratch (L1/L2
   // resident), Bp = the batch padded to whole tiles; this block's columns
+  // (of this chunk's slab)
   const size_t Bp = (size_t)gridDim.x * TB;
-  float* q = qg + (size_t)blockIdx.x * TB;
-  float* dq = BWD ? dqg + (size_t)blockIdx.x * TB : nullptr;
+  const size_t slab = (size_t)chunk * C * h * Bp + (size_t)blockIdx.x * TB;
+  float* q = qg + slab;
+  float* dq = BWD ? dqg + slab : nullptr;
+  if (STEPS) {  // this chunk's partial outputs
+    if (BWD) {
+      dse_o += (size_t)chunk * T * h * B;
+      dctx_o += (size_t)chunk * h * B;
+    } else {
+      logp_o += (size_t)chunk * B;
+    }
+  }
 
   float* gs = smem;                                  // [A][LD]
   float* gW = gs + A * LD;                           // token-loop grads
   float* U = gW + (BWD ? token_grad_floats(d) : 0);  // union region
-  int* ib = (int*)(U + union_rows(d, BWD) * LD);     // [6][TB]
+  int* ib = (int*)(U + union_rows(d, BWD) * LD);
+  if (STEPS && ((ib - (int*)smem) & 1)) ++ib;        // 8-byte aligned words
+  Word* wb = reinterpret_cast<Word*>(ib);            // [4][TB] words
+  int* ia = ib + (STEPS ? 8 : 4) * TB;               // [2][TB]: prev row, act
   // encoder / query view of U
   float* feats = U;                   // [WD+2][LD]
   float* e1 = feats + (WD + 2) * LD;  // [h][LD]
@@ -217,7 +271,9 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
   float* g_w8 = g_wp + h * 32;        // [32*8]
   float* g_b8 = g_w8 + 32 * 8;        // [32]
   float* g_v = g_b8 + 32;             // [h]
-  float* prow = BWD ? part_o + (size_t)blockIdx.x * go.P : nullptr;
+  float* prow = BWD ? part_o + ((size_t)blockIdx.x * (STEPS ? gridDim.y : 1)
+                                + chunk) * go.P
+                    : nullptr;
 
   if (BWD) {
     for (int e = tid; e < go.P; e += NT) prow[e] = 0.f;
@@ -228,16 +284,16 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
 
   // shared rows of qin: ctx, the previous action's embedding, dsum
   auto fill_qin = [&](int k) {
-    const int idx = ib[4 * TB + lane];
+    const int idx = ia[lane];
     for (int j = wy; j < h; j += NWARP) {
       qin[(h + j) * LD + lane] = in.ctx[(size_t)j * B + bb];
       qin[(2 * h + j) * LD + lane] = __ldg(w.et + (size_t)j * (A + 1) + idx);
     }
     if (wy == 0) {
-      const float fpk = (float)__popc(ib[lane]);
-      const float fa0 = (float)__popc(ib[TB + lane]);
-      const float far = (float)__popc(ib[2 * TB + lane]);
-      const float fwn = (float)__popc(ib[3 * TB + lane]);
+      const float fpk = (float)popw(wb[lane]);
+      const float fa0 = (float)popw(wb[TB + lane]);
+      const float far = (float)popw(wb[2 * TB + lane]);
+      const float fwn = (float)popw(wb[3 * TB + lane]);
       float* ds = qin + 3 * h * LD;
       ds[0 * LD + lane] = fpk / (float)N;
       ds[1 * LD + lane] = R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
@@ -278,9 +334,9 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
   auto token_h1 = [&](int k, int t) {
     if (wy == 0) {
       const int i = t / R, r = t % R;
-      x8[0 * LD + lane] = (float)((ib[lane] >> i) & 1);
-      x8[1 * LD + lane] = (float)((ib[(r == 0 ? 1 : 2) * TB + lane] >> i) & 1);
-      x8[2 * LD + lane] = (float)((ib[3 * TB + lane] >> i) & 1);
+      x8[0 * LD + lane] = (float)((wb[lane] >> i) & 1);
+      x8[1 * LD + lane] = (float)((wb[(r == 0 ? 1 : 2) * TB + lane] >> i) & 1);
+      x8[2 * LD + lane] = (float)((wb[3 * TB + lane] >> i) & 1);
       x8[3 * LD + lane] = (float)k / (float)S;
       for (int m = 0; m < 4; ++m)
         x8[(4 + m) * LD + lane] = in.statp[((size_t)m * T + t) * B + bb];
@@ -292,24 +348,25 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
     __syncthreads();
   };
 
-  for (int k = 0; k < S; ++k) {
+  for (int k = k0; k < k1; ++k) {
     // ---- phase 0: flags -> bits (packed, acc0, accr, win), prev, action
     if (wy == 0) {
-      int pk = 0, a0 = 0, ar = 0, wn = 0;
+      Word pk = 0, a0 = 0, ar = 0, wn = 0;
       for (int i = 0; i < N; ++i) {
         const int f = in.flags[((size_t)k * N + i) * B + bb];
-        pk |= (f & 1) << i;
-        a0 |= ((f >> 1) & 1) << i;
-        ar |= ((f >> 2) & 1) << i;
-        wn |= ((f >> 3) & 1) << i;
+        pk |= (Word)(f & 1) << i;
+        a0 |= (Word)((f >> 1) & 1) << i;
+        ar |= (Word)((f >> 2) & 1) << i;
+        wn |= (Word)((f >> 3) & 1) << i;
       }
-      ib[lane] = pk;
-      ib[TB + lane] = a0;
-      ib[2 * TB + lane] = ar;
-      ib[3 * TB + lane] = wn;
-      const int prev = k > 0 ? in.acts[(size_t)(k - 1) * B + bb] : -1;
-      ib[4 * TB + lane] = min(max(prev + 1, 0), A);
-      ib[5 * TB + lane] = active ? in.acts[(size_t)k * B + b] : -1;
+      wb[lane] = pk;
+      wb[TB + lane] = a0;
+      wb[2 * TB + lane] = ar;
+      wb[3 * TB + lane] = wn;
+      const int prev = STEPS ? in.prev[(size_t)k * B + bb]
+                     : k > 0 ? in.acts[(size_t)(k - 1) * B + bb] : -1;
+      ia[lane] = min(max(prev + 1, 0), A);
+      ia[TB + lane] = active ? in.acts[(size_t)k * B + b] : -1;
     }
     __syncthreads();
 
@@ -358,7 +415,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
       }
       float se = 0.f;
       for (int a = 0; a < A; ++a) se += expf(gs[a * LD + lane] - mx);
-      const int act = ib[5 * TB + lane];
+      const int act = ia[TB + lane];
       const float lp = (gs[max(act, 0) * LD + lane] - mx) - logf(se);
       lp_sum += act >= 0 ? lp : 0.f;
       if (BWD) {
@@ -395,7 +452,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         }
         if (active) {
           float* p = dse_t + (size_t)j * B + b;
-          *p = (k == 0 ? 0.f : *p) + dd;
+          *p = (k == k0 ? 0.f : *p) + dd;
         }
         d_dyn[j * LD + lane] = dd;
         dv = warp_sum(dv);
@@ -427,7 +484,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         } else if (m < 2 * h) {
           if (active) {
             float* p = dctx_o + (size_t)(m - h) * B + b;
-            *p = (k == 0 && c == 0 ? 0.f : *p) + acc;
+            *p = (k == k0 && c == 0 ? 0.f : *p) + acc;
           }
         } else {
           d_prev[(m - 2 * h) * LD + lane] += acc;
@@ -450,7 +507,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
       const int j = e / (A + 1), a = e - j * (A + 1);
       float acc = 0.f;
       for (int l = 0; l < TB; ++l)
-        if (ib[4 * TB + l] == a) acc += d_prev[j * LD + l];
+        if (ia[l] == a) acc += d_prev[j * LD + l];
       prow[go.et + e] += acc;
     }
     __syncthreads();
@@ -484,61 +541,104 @@ __global__ void reduce_tiles(const float* __restrict__ part, int tiles, int P,
 
 // Dynamic shared memory of one block of the forward (bwd = 0) or backward
 // (bwd = 1) kernel, in bytes; the wrapper refuses configs above the limit.
-static long long smem_bytes(const int* ints, int bwd) {
-  const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
+// The step-grid kernels hold 64-bit words (and a word of padding).
+static long long smem_bytes(const Dims& d, int bwd, bool steps) {
   const int A = d.N * d.R * d.C;
   const long long rows = A + union_rows(d, bwd != 0);
   const long long floats = rows * LD + (bwd ? token_grad_floats(d) : 0);
-  return 4 * (floats + 6 * TB);
+  return 4 * (floats + tail_ints(steps) + (steps ? 1 : 0));
+}
+
+template <bool STEPS>
+static int launch(int bwd, void* const* p, const Dims& d, int chunks,
+                  float inv_s, float temperature, float inv_temp,
+                  void* stream) {
+  const ReplayIn in{(const int*)p[0],   (const int*)p[1],
+                    (const int*)p[2],   (const int*)p[3],
+                    (const int*)p[27],  (const float*)p[4],
+                    (const float*)p[5], (const float*)p[6],
+                    (const float*)p[7], (const float*)p[8]};
+  const HeadW w{(const float*)p[9],  (const float*)p[10], (const float*)p[11],
+                (const float*)p[12], (const float*)p[13], (const float*)p[14],
+                (const float*)p[15], (const float*)p[16], (const float*)p[17],
+                (const float*)p[18], (const float*)p[19]};
+  const size_t smem = (size_t)smem_bytes(d, bwd, STEPS);
+  const int tiles = (d.B + TB - 1) / TB;
+  const int S = d.N;
+  const int len = (S + chunks - 1) / chunks;  // steps per chunk
+  const int nc = (S + len - 1) / len;         // chunks that hold a step
+  const dim3 grid(tiles, STEPS ? nc : 1);
+  const dim3 block(TB, NWARP);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int T = d.N * d.R;
+  cudaError_t err;
+  if (!bwd) {
+    auto kernel = replay_kernel<false, STEPS>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    // one chunk writes logp itself; more write partials [nc, B] to p[21]
+    float* lp = nc > 1 ? (float*)p[21] : (float*)p[20];
+    kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
+                                      lp, nullptr, nullptr, nullptr,
+                                      (float*)p[25], nullptr, len);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || nc == 1) return (int)err;
+    reduce_tiles<<<(d.B + 255) / 256, 256, 0, st>>>(lp, nc, d.B,
+                                                    (float*)p[20]);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = replay_kernel<true, STEPS>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // one chunk writes d_se and d_ctx itself; more write partials
+  // [nc, T, h, B] to p[28] and [nc, h, B] to p[29]
+  float* dse = nc > 1 ? (float*)p[28] : (float*)p[21];
+  float* dctx = nc > 1 ? (float*)p[29] : (float*)p[22];
+  kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
+                                    nullptr, dse, dctx, (float*)p[23],
+                                    (float*)p[25], (float*)p[26], len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int P = goff(d).P;
+  reduce_tiles<<<(P + 255) / 256, 256, 0, st>>>((const float*)p[23],
+                                                tiles * nc, P, (float*)p[24]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nc == 1) return (int)err;
+  const long long n_se = (long long)T * d.h * d.B, n_ctx = (long long)d.h * d.B;
+  reduce_tiles<<<(unsigned)((n_se + 255) / 256), 256, 0, st>>>(
+      dse, nc, (int)n_se, (float*)p[21]);
+  reduce_tiles<<<(unsigned)((n_ctx + 255) / 256), 256, 0, st>>>(
+      dctx, nc, (int)n_ctx, (float*)p[22]);
+  return (int)cudaGetLastError();
 }
 
 // ptrs: flags, hms, masks, acts, se, ctx, statp, statm, dlp,          (0-8)
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,              (9-19)
-//       logp_o, dse_o, dctx_o, part, grads_o, q_scratch, dq_scratch  (20-26)
-// ints: B, N, W, D, R, C, h. Forward (bwd = 0) writes logp_o [B]; backward
-// writes dse_o [T, h, B], dctx_o [h, B], part [tiles, P] and grads_o [P].
-// The scratches are [C*h, tiles*32] floats (dq_scratch backward only).
+//       logp_o, dse_o, dctx_o, part, grads_o, q_scratch, dq_scratch, (20-26)
+//       prev, dse_part, dctx_part                                    (27-29)
+// ints: B, N, W, D, R, C, h, steps, chunks. Forward (bwd = 0) writes logp_o
+// [B]; backward writes dse_o [T, h, B], dctx_o [h, B], part [rows, P] and
+// grads_o [P], rows = tiles x chunks. The scratches are [chunks, C*h,
+// tiles*32] floats (dq_scratch backward only). steps = 0: the monolithic
+// schedule (chunks ignored, 27-29 unused, the forward's 21 unused);
+// steps = 1: the step-grid schedule over `chunks` step chunks, with prev
+// [S, B] and, for more than one chunk, the forward's partials [chunks, B] in
+// slot 21 and the backward's in slots 28 and 29.
 // Launches on `stream`; returns the first CUDA error of the launches.
 extern "C" int tapnet_replay_logp(int bwd, void* const* p, const int* ints,
                                   float inv_s, float temperature,
                                   float inv_temp, void* stream) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
-  if (d.N > 31 || d.C > MAX_C || d.B <= 0) return (int)cudaErrorInvalidValue;
-  const ReplayIn in{(const int*)p[0],   (const int*)p[1],
-                    (const int*)p[2],   (const int*)p[3],
-                    (const float*)p[4], (const float*)p[5],
-                    (const float*)p[6], (const float*)p[7],
-                    (const float*)p[8]};
-  const HeadW w{(const float*)p[9],  (const float*)p[10], (const float*)p[11],
-                (const float*)p[12], (const float*)p[13], (const float*)p[14],
-                (const float*)p[15], (const float*)p[16], (const float*)p[17],
-                (const float*)p[18], (const float*)p[19]};
-  const size_t smem = (size_t)smem_bytes(ints, bwd);
-  const int tiles = (d.B + TB - 1) / TB;
-  const dim3 block(TB, NWARP);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (!bwd) {
-    err = cudaFuncSetAttribute(replay_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    replay_kernel<false><<<tiles, block, smem, st>>>(
-        d, in, w, inv_s, temperature, inv_temp, (float*)p[20], nullptr,
-        nullptr, nullptr, (float*)p[25], nullptr);
-    return (int)cudaGetLastError();
-  }
-  err = cudaFuncSetAttribute(replay_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  replay_kernel<true><<<tiles, block, smem, st>>>(
-      d, in, w, inv_s, temperature, inv_temp, nullptr, (float*)p[21],
-      (float*)p[22], (float*)p[23], (float*)p[25], (float*)p[26]);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int P = goff(d).P;
-  reduce_tiles<<<(P + 255) / 256, 256, 0, st>>>((const float*)p[23], tiles, P,
-                                                (float*)p[24]);
-  return (int)cudaGetLastError();
+  const int steps = ints[7], chunks = ints[8];
+  if (d.N > (steps ? MAX_N_STEPS : MAX_N_MONO) || d.C > MAX_C || d.B <= 0 ||
+      (steps && (chunks < 1 || chunks > d.N)))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)d.N * d.R * d.h * d.B >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  return steps ? launch<true>(bwd, p, d, chunks, inv_s, temperature, inv_temp,
+                              stream)
+               : launch<false>(bwd, p, d, 1, inv_s, temperature, inv_temp,
+                               stream);
 }

@@ -9,7 +9,8 @@ maps a flax actor tree onto this module's `state_dict`):
 - `head`: score[t, c] = v . tanh(key_t + dyn_t + q_c), where dyn_t is a
   narrow MLP over the merged (dynamic flags ++ static dims) token and q_c a
   query over [heightmap encoding, mean key, previous-action embedding, mean
-  merged token] for container c.
+  merged token] for container c; `head_ctx` is the same head with the two
+  means passed in and any subset of the tokens scored.
 
 Module names follow the flax tree (`token_enc.Dense_0`, `hm_enc.Dense_1`,
 ...). `nn.Linear` stores [out, in]; flax kernels are [in, out].
@@ -105,8 +106,17 @@ class TAPNetActor(nn.Module):
         """Pointer logits [B, A] f32 from static keys [B, T, h], merged
         tokens [B, T, 8], hm_grid [B, C, W, D, 1] and the previous action
         [B] in [-1, A) (-1 = decode start)."""
-        ctx = static_emb.mean(1)                              # [B, h]
-        dsum = dynamic.mean(1)                                # [B, 8]
+        return self.head_ctx(static_emb, dynamic, hm_grid, prev_action,
+                             static_emb.mean(1), dynamic.mean(1))
+
+    def head_ctx(self, static_emb, dynamic, hm_grid, prev_action, ctx, dsum):
+        """`head` with the two full-token summaries passed in (ctx = mean
+        static key [B, h], dsum = mean merged token [B, 8]) and the token
+        inputs allowed to be a subset of the T tokens: static_emb
+        [B, Tk, h] and dynamic [B, Tk, 8] give scores [B, Tk*C] for exactly
+        the tokens given, token-major and container-minor. The windowed
+        head and the windowed replay of rolling configs score only the
+        window's tokens through it (train/rollout.py)."""
         dyn = self.dyn_proj(torch.relu(self.dyn_hidden(dynamic)))
         hm = self.hm_enc(hm_grid)                             # [B, C, h]
         idx = (prev_action.long() + 1).clamp(0, self.cfg.num_actions)
@@ -117,8 +127,8 @@ class TAPNetActor(nn.Module):
                          dsum[:, None].expand(-1, C, -1)], dim=-1)
         q = self.query(qin)                                   # [B, C, h]
         act = torch.tanh(static_emb[:, :, None, :] + dyn[:, :, None, :]
-                         + q[:, None, :, :])                  # [B, T, C, h]
-        scores = (act @ self.v)[..., 0]                       # [B, T, C]
+                         + q[:, None, :, :])                  # [B, Tk, C, h]
+        scores = (act @ self.v)[..., 0]                       # [B, Tk, C]
         return scores.reshape(scores.shape[0], -1).float()
 
 

@@ -16,10 +16,15 @@ to accumulation-order tolerance.
 - `actor_select_step`: on a CUDA tensor it launches `csrc/actor_step.cu` on
   the current stream and counts it in `actor_select_step.launches`.
 
-Coverage: both placement rules (`lb`, `mcs`), unbounded height, no rolling
-window, N <= 31 (one precedence limb). The in-kernel window and two-limb
-precedence raise NotImplementedError until a later slice ports them
-(ROADMAP.md).
+Coverage, as the JAX kernel's: both placement rules (`lb`, `mcs`),
+unbounded height, N <= 62. The precedence graphs arrive as column bitmasks
+in L = ceil(N/31) limbs of 31 bits; a rolling window is cut inside the
+kernel (rank[i] = accessible blocks before i, win = acc0 & rank < window),
+written to flag bit 3 and used for the mask, the count summary and the token
+input. All T tokens are scored and the ones outside the window masked to
+-1e9, which gives the windowed head's softmax exactly (exp(-1e9 - max) is
+0). A finite height cap is not covered, here as there: its mask needs a
+candidate scan per action, and such configs decode through `select_step`.
 """
 
 from __future__ import annotations
@@ -38,27 +43,41 @@ from tapnet_torch.ops.policy_step import (MAX_WD, _check, env_ints,
 
 NEG = -1e9
 MAX_C = 4  # csrc/actor_step.cu
+SMEM_LIMIT = 232448  # bytes of shared memory a block may hold
+
+
+MAX_N = 62  # two 31-bit precedence limbs
 
 
 def eligible(cfg: TAPConfig) -> bool:
-    """Configs the port's actor kernel covers in this slice."""
-    return (cfg.target_height == 0 and cfg.window == 0
-            and cfg.num_blocks <= 31
+    """Unbounded height and bitmask-size precedence (N <= 62), as the JAX
+    kernel; rolling windows are cut inside the kernel. The port's own
+    limits: at most 4 containers and W*D <= 256 cells."""
+    return (cfg.target_height == 0 and cfg.num_blocks <= MAX_N
             and cfg.num_containers <= MAX_C
             and cfg.target_width * cfg.target_depth <= MAX_WD)
 
 
 def _check_cfg(cfg: TAPConfig):
-    if cfg.window > 0 or cfg.num_blocks > 31:
-        raise NotImplementedError(
-            "actor_select_step: the rolling window and two-limb precedence "
-            "(N > 31) are not ported yet (ROADMAP.md, port Queue 2)")
     if not eligible(cfg):
-        raise NotImplementedError(f"actor_select_step does not cover {cfg}")
+        raise NotImplementedError(
+            f"actor_select_step covers unbounded height, N <= {MAX_N}, C <= "
+            f"{MAX_C} and W*D <= {MAX_WD}, not {cfg}")
 
 
 def _num_limbs(N: int) -> int:
+    """31-bit int32 bitmask limbs covering N blocks (sign bit unused)."""
     return (N + 30) // 31
+
+
+def smem_bytes(cfg: TAPConfig, h: int) -> int:
+    """Shared memory of one block, in bytes, as
+    csrc/actor_step.cu::smem_bytes computes it."""
+    C, A = cfg.num_containers, cfg.num_actions
+    WD = cfg.target_width * cfg.target_depth
+    floats = 32 * ((WD + 2) + h + (3 * h + 8) + C * h + 8 + 32 + 16 * C
+                   + 2 * A)
+    return 4 * (floats + 32 * (A + 8))
 
 
 def head_operands(actor, cfg: TAPConfig, grad: bool = False):
@@ -121,8 +140,8 @@ def actor_select_step_ref(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
                           upm, rotm, fits, g, se, ctx, statp, statm, params,
                           cfg: TAPConfig, temperature: float = 1.0):
     """Plain version. tf f32[1, 1] (t/N), packed i32[N, B], hm i32[C*W, D, B],
-    plc i32[N*6, B], prev i32[1, B], dims_* i32[N, B], upm/rotm i32[N, B],
-    fits i32[R*N, B], g f32[A, B] (zeros = greedy), se f32[T, h, B],
+    plc i32[N*6, B], prev i32[1, B], dims_* i32[N, B], upm/rotm i32[L*N, B]
+    (`precedence_bitmasks`), fits i32[R*N, B], g f32[A, B] (zeros = greedy), se f32[T, h, B],
     ctx f32[h, B], statp f32[4, T, B], statm f32[4, B],
     params = head_operands(...).
 
@@ -138,14 +157,29 @@ def actor_select_step_ref(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
     f32 = torch.float32
     w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
 
-    # accessibility from the bitmasks (env.core._accessibility semantics)
+    # accessibility from the bitmask limbs (env.core._accessibility
+    # semantics: blocked[i] = any_j graph[j, i] & unpacked[j])
     unpk = 1 - packed
-    pw = (1 << torch.arange(N, device=dev, dtype=torch.int32))[:, None]
-    ub = (unpk * pw).sum(0, keepdim=True).int()               # [1, B]
-    acc0 = (unpk == 1) & ((upm & ub) == 0)
-    accr = acc0 & ((rotm & ub) == 0)
+    iota = torch.arange(N, device=dev)
+    blocked0 = torch.zeros((N, B), dtype=torch.bool, device=dev)
+    blockedr = torch.zeros((N, B), dtype=torch.bool, device=dev)
+    for limb in range(_num_limbs(N)):
+        in_l = (iota >= 31 * limb) & (iota < 31 * (limb + 1))
+        pw = torch.where(in_l, 1 << (iota - 31 * limb).clamp(0, 30),
+                         0).int()[:, None]
+        ub = (unpk * pw).sum(0, keepdim=True).int()           # [1, B]
+        blocked0 |= (upm[limb * N:(limb + 1) * N] & ub) != 0
+        blockedr |= (rotm[limb * N:(limb + 1) * N] & ub) != 0
+    acc0 = (unpk == 1) & ~blocked0
+    accr = acc0 & ~blockedr
     acc0_i, accr_i = acc0.int(), accr.int()
-    win_i = acc0_i                                            # no window
+    if cfg.window > 0:
+        # rolling window: the first `window` accessible blocks in index
+        # order (features.dynamic_flags)
+        rank = acc0_i.cumsum(0) - acc0_i
+        win_i = acc0_i * (rank < cfg.window).int()
+    else:
+        win_i = acc0_i
     flags = packed + 2 * acc0_i + 4 * accr_i + 8 * win_i
 
     ok = torch.stack([win_i, win_i * accr_i][:R], 0)         # [R, N, B]
@@ -223,12 +257,17 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
                   cfg.num_containers)
     R, A = cfg.num_rot, cfg.num_actions
     T, B, h = N * R, packed.shape[1], se.shape[1]
+    L = _num_limbs(N)
+    if smem_bytes(cfg, h) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"actor_select_step: {smem_bytes(cfg, h)} B of shared memory per "
+            f"block at hidden {h} exceed the {SMEM_LIMIT} B a block may hold")
     dev, i32, f32 = packed.device, torch.int32, torch.float32
     shapes = [("tf", tf, (1, 1), f32), ("packed", packed, (N, B), i32),
               ("hm", hm, (C * W, D, B), i32), ("plc", plc, (N * 6, B), i32),
               ("prev", prev, (1, B), i32), ("dims_w", dims_w, (N, B), i32),
               ("dims_d", dims_d, (N, B), i32), ("dims_h", dims_h, (N, B), i32),
-              ("upm", upm, (N, B), i32), ("rotm", rotm, (N, B), i32),
+              ("upm", upm, (L * N, B), i32), ("rotm", rotm, (L * N, B), i32),
               ("fits", fits, (R * N, B), i32), ("g", g, (A, B), f32),
               ("se", se, (T, h, B), f32), ("ctx", ctx, (h, B), f32),
               ("statp", statp, (4, T, B), f32), ("statm", statm, (4, B), f32)]
@@ -248,7 +287,7 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
         ptrs = _build.ptr_array(
             (packed, hm, plc, dims_w, dims_d, dims_h, tf, prev, upm, rotm,
              fits, g, se, ctx, statp, statm) + tuple(params) + outs)
-        ints = _build.int_array([B] + env_ints(cfg) + [h])
+        ints = _build.int_array([B] + env_ints(cfg) + [h, cfg.window])
         err = fn(ctypes.cast(ptrs, ctypes.c_void_p),
                  ctypes.cast(ints, ctypes.c_void_p),
                  ctypes.c_float(1.0 / _scale(cfg)),

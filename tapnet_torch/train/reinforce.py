@@ -9,7 +9,8 @@ mean((V - R)^2), a global-norm clip without epsilon (as optax's
 2. roll the actor out without gradients, one `actor_select_step` kernel
    launch per decode step on the card, keeping its per-instance logp;
 3. replay the record differentiably (`rollout.replay_logp_sum`): on the
-   card the replay kernel's backward, with the rollout's logp as the value;
+   card the replay kernel's backward (the step-grid schedule for rolling
+   configs and N > 31), with the rollout's logp as the value;
 4. the C/P/S rewards through the `heightmap_reductions` kernel;
 5. the critic on the reset state; the losses; clip; Adam.
 

@@ -5,14 +5,20 @@
 and returns (states, RolloutRecord, logp_sum). It picks a path as the JAX
 package does:
 
-- sampled decode on a CUDA device, for configs the actor kernel covers:
+- sampled decode on a CUDA device, for configs the actor kernel covers
+  (unbounded height, N <= 62, rolling windows included):
   `_rollout_record_actorfused`, one `actor_select_step` launch per step;
-- otherwise on a CUDA device (greedy decode, or configs the actor kernel
-  does not cover): `_rollout_record_stepfused`, the actor head as PyTorch
-  ops and one `select_step` launch per step. Greedy decode stays off the
-  actor kernel because it sits on argmax ties between duplicate blocks
-  (SPEC.md §12);
+- otherwise on a CUDA device (greedy decode, or a finite height cap):
+  `_rollout_record_stepfused`, the actor head as PyTorch ops and one
+  `select_step` launch per step. Greedy decode stays off the actor kernel
+  because it sits on argmax ties between duplicate blocks (SPEC.md §12);
 - on the CPU: `_rollout_record_general`, the reference path.
+
+On rolling unbounded configs (`_use_windowed_head`) the general and the
+step-fused rollout score only the window's tokens per step
+(`_make_windowed_head`: gather the <= window observable blocks, score them
+through `TAPNetActor.head_ctx`, scatter back to [B, A]); the actor kernel
+scores all tokens and masks the rest, which gives the same softmax.
 
 `step_kernel` / `actor_kernel` force a path; on CPU tensors the kernel
 wrappers run their plain versions, which is how the tests drive the fused
@@ -21,8 +27,11 @@ Sampling is gumbel-argmax with the JAX draws gumbel(fold_in(keys[b], t)),
 so a seed samples the same trajectories on both sides.
 
 `replay_logp_sum` is the differentiable half: sum_t log pi(a_t | s_t) of a
-recorded rollout, through the replay kernel (`ops/replay.py`) on the card
-or through autograd of `TAPNetActor.head` over all N steps on the CPU.
+recorded rollout, through the replay kernels (`ops/replay.py`: the
+monolithic schedule, or the step-grid one for rolling configs and N > 31)
+on the card, or on the CPU through autograd of `TAPNetActor.head` over all
+N steps (`_replay_logp_general`) or, for rolling unbounded configs, of
+`head_ctx` over the window's tokens only (`_replay_logp_windowed`).
 """
 
 from __future__ import annotations
@@ -111,6 +120,115 @@ def _log_softmax_at(masked, a):
     return lsm.gather(-1, a.clamp(min=0).long()[:, None])[:, 0]
 
 
+def _use_windowed_head(cfg: TAPConfig) -> bool:
+    """Rolling unbounded-height configs score only the <= window observable
+    tokens per decode step (`_make_windowed_head`, `_replay_logp_windowed`)."""
+    return 0 < cfg.window < cfg.num_blocks and cfg.target_height == 0
+
+
+def _window_plan(f: torch.Tensor, Kw: int):
+    """The window gather plan from int32 flag words [..., N]: (win [..., N],
+    rank [..., N], bidx [..., Kw], validw [..., Kw]). Slot w of the window
+    holds block bidx[..., w], the w-th block (in index order) with flag bit
+    3 set; an empty slot has bidx == N and validw False. The rollout head
+    and the replay share it, so both score the same tokens."""
+    N = f.shape[-1]
+    win = (f >> 3) & 1
+    rank = win.cumsum(-1) - win
+    slot = torch.where(win == 1, rank, Kw).long()             # Kw = nowhere
+    blocks = torch.arange(N, device=f.device).expand(f.shape)
+    bidx = torch.full(f.shape[:-1] + (Kw + 1,), N, dtype=torch.long,
+                      device=f.device).scatter(-1, slot, blocks)[..., :Kw]
+    return win, rank, bidx, bidx < N
+
+
+def _pad_blocks(x: torch.Tensor) -> torch.Tensor:
+    """[B, N, F] -> [B, N + 1, F] with a zero row for the empty slots."""
+    return torch.cat([x, torch.zeros_like(x[:, :1])], 1)
+
+
+def _gather_blocks(x_pad: torch.Tensor, bidx: torch.Tensor) -> torch.Tensor:
+    """x_pad [B, N + 1, F] at bidx [..., B, Kw] -> [..., B, Kw, F] (zeros at
+    empty slots, as a one-hot contraction would give)."""
+    lead = bidx.shape[:-2]
+    x = x_pad.expand(lead + x_pad.shape)
+    idx = bidx[..., None].expand(bidx.shape + x_pad.shape[-1:])
+    return x.gather(-2, idx)
+
+
+def _window_dsum(f, win, t_frac, stat_mean, cfg: TAPConfig):
+    """The head's mean merged token [..., 8] from integer bit counts of the
+    flag words f [..., N] and the static-feature means stat_mean [..., 4];
+    t_frac broadcasts against f[..., 0]."""
+    N, R_ = cfg.num_blocks, cfg.num_rot
+    pk = (f & 1).sum(-1).float()
+    a0 = ((f >> 1) & 1).sum(-1).float()
+    ar = ((f >> 2) & 1).sum(-1).float()
+    wn = win.sum(-1).float()
+    acc_mean = (a0 + ar) / (N * R_) if R_ == 2 else a0 / N
+    tf = torch.broadcast_to(
+        torch.as_tensor(t_frac, dtype=torch.float32, device=f.device),
+        pk.shape)
+    dyn4 = torch.stack([pk / N, acc_mean, wn / N, tf], -1)
+    return torch.cat([dyn4, torch.broadcast_to(
+        stat_mean, dyn4.shape[:-1] + (4,))], -1)
+
+
+def _make_windowed_head(actor, instances, static, static_emb,
+                        cfg: TAPConfig):
+    """Per-step head of a rolling config: gather the <= window observable
+    blocks, score their tokens only (`head_ctx`), scatter the scores back
+    to the full [B, A] logit vector (0 at the other positions, all of them
+    masked). At the window's positions the logits are those of the full
+    head: the gathers copy values, and the two full-token summaries are
+    ctx (per instance) and exact bit counts of the flags. An index gather
+    and a scatter stand where the JAX package contracts one-hots.
+
+    Returns fn(flags u8[B, N], heightmap [B, C, W, D], prev [B], t_frac)
+    -> logits f32[B, A]."""
+    N, R_, C, Kw = (cfg.num_blocks, cfg.num_rot, cfg.num_containers,
+                    cfg.window)
+    B, h = static_emb.shape[0], static_emb.shape[-1]
+    ctx = static_emb.mean(1)                                  # [B, h]
+    stat_mean = static.mean(1)                                # [B, 4]
+    se_pad = _pad_blocks(static_emb.reshape(B, N, R_ * h))
+    static_pad = _pad_blocks(static.reshape(B, N, R_ * 4))
+
+    def win_head(flags, heightmap, prev, t_frac):
+        f = flags.int()                                       # [B, N]
+        win, _, bidx, validw = _window_plan(f, Kw)            # [B, Kw]
+        se_g = _gather_blocks(se_pad, bidx).reshape(B, Kw * R_, h)
+        gf = torch.cat([f, torch.zeros_like(f[:, :1])], 1).gather(1, bidx)
+        static_g = _gather_blocks(static_pad, bidx).reshape(B, Kw * R_, 4)
+        t_frac = torch.as_tensor(t_frac, dtype=torch.float32,
+                                 device=f.device)
+        merged = torch.cat([tokens_from_flags(gf, t_frac, cfg), static_g],
+                           -1)                                # [B, Kw*R, 8]
+        dsum = _window_dsum(f, win, t_frac, stat_mean, cfg)   # [B, 8]
+        scores = actor.head_ctx(se_g, merged, heightmap_grid(heightmap, cfg),
+                                prev, ctx, dsum)              # [B, Kw*R*C]
+        full = torch.zeros((B, N + 1, R_ * C), dtype=scores.dtype,
+                           device=scores.device)
+        full.scatter_(1, bidx[..., None].expand(B, Kw, R_ * C),
+                      scores.reshape(B, Kw, R_ * C))
+        return full[:, :N].reshape(B, cfg.num_actions)
+
+    return win_head
+
+
+def _step_head(actor, instances, static, static_emb, cfg):
+    """fn(flags, heightmap, prev, t) -> logits [B, A] of one decode step:
+    the windowed head on rolling unbounded configs, else the full head."""
+    if _use_windowed_head(cfg):
+        win_head = _make_windowed_head(actor, instances, static, static_emb,
+                                       cfg)
+        return lambda flags, hm, prev, t: win_head(
+            flags, hm, prev,
+            torch.as_tensor(t, device=flags.device).float() / cfg.num_blocks)
+    return lambda flags, hm, prev, t: _head_logits(
+        actor, static, static_emb, flags, hm, prev, t, cfg)
+
+
 def _rollout_record_general(actor, instances, keys, cfg, greedy,
                             temperature, with_logp):
     B = instances.dims.shape[0]
@@ -118,6 +236,7 @@ def _rollout_record_general(actor, instances, keys, cfg, greedy,
     state = E.reset(instances, cfg)
     static = static_tokens(instances, cfg)                   # [B, T, 4]
     static_emb = actor.embed_static(static)                  # [B, T, h]
+    head = _step_head(actor, instances, static, static_emb, cfg)
     g_all = None if greedy else _gumbel_all(keys, cfg)
     prev = torch.full((B,), -1, dtype=torch.int32, device=dev)
     logp_sum = torch.zeros(B, device=dev)
@@ -125,8 +244,7 @@ def _rollout_record_general(actor, instances, keys, cfg, greedy,
     for t in range(cfg.num_blocks):
         flags = dynamic_flags(instances, state.packed, cfg)
         mask = _step_mask(flags, state, instances, cfg)
-        logits = _head_logits(actor, static, static_emb, flags,
-                              state.heightmap, prev, state.t, cfg)
+        logits = head(flags, state.heightmap, prev, state.t)
         masked = _masked_logits(logits, mask, temperature)
         score = masked if greedy else masked + g_all[t]
         a = torch.argmax(score, dim=-1).int()
@@ -176,12 +294,14 @@ def _hm_batch_major(hm_bl, cfg):
 
 def _rollout_record_stepfused(actor, instances, keys, cfg, greedy,
                               temperature, with_logp):
-    """Actor head as PyTorch ops; one `select_step` per decode step places
-    the block on the batch-last env state."""
+    """Actor head as PyTorch ops (windowed on rolling configs); one
+    `select_step` per decode step places the block on the batch-last env
+    state."""
     B = instances.dims.shape[0]
     dev = instances.dims.device
     static = static_tokens(instances, cfg)
     static_emb = actor.embed_static(static)
+    head = _step_head(actor, instances, static, static_emb, cfg)
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = None if greedy else _gumbel_all(keys, cfg)
     prev = torch.full((B,), -1, dtype=torch.int32, device=dev)
@@ -194,8 +314,7 @@ def _rollout_record_stepfused(actor, instances, keys, cfg, greedy,
         state_b = EnvState(heightmap=hm_b, packed=packed_b,
                            placements=None, t=None)
         mask = _step_mask(flags, state_b, instances, cfg)
-        logits = _head_logits(actor, static, static_emb, flags, hm_b, prev,
-                              t, cfg)
+        logits = head(flags, hm_b, prev, t)
         masked = _masked_logits(logits, mask, temperature)
         score = masked if greedy else masked + g_all[t]
         packed, hm_n, plc, a = PS.select_step(
@@ -256,28 +375,40 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
 def replay_logp_sum(actor: TAPNetActor, instances: Instance,
                     record: RolloutRecord, cfg: TAPConfig,
                     temperature: float = 1.0, chunk: int = 0, kernel=None,
-                    logp0=None) -> torch.Tensor:
+                    logp0=None, windowed=None) -> torch.Tensor:
     """Differentiable sum_t log pi(a_t | s_t) [B] of the recorded actions.
 
     kernel (auto: on for CUDA tensors): the replay kernel path,
-    `_replay_logp_kernel`; on CPU tensors `kernel=True` runs the kernels'
-    plain versions through the same autograd Function. On the card a
-    config the kernel does not cover raises NotImplementedError; pass
-    `kernel=False` for the general replay. `logp0` (kernel path only) is the
-    rollout's own logp, returned as the value while the gradient comes from
-    the replay backward (the JAX custom VJP's primal).
+    `_replay_logp_kernel`, whose schedule `ops.replay` picks per config
+    (monolithic, or step-grid for rolling windows and N > 31); on CPU
+    tensors `kernel=True` runs the kernels' plain versions through the same
+    autograd Function. On the card a config the kernels do not cover raises
+    NotImplementedError; pass `kernel=False` for the replays below.
+    `logp0` (kernel path only) is the rollout's own logp, returned as the
+    value while the gradient comes from the replay backward (the JAX custom
+    VJP's primal).
 
-    The general replay (`kernel=False`) differentiates the actor head over
-    all N steps and all tokens at once (a rolling window enters through the
-    recorded flags and the mask; the JAX package's windowed replay, which
-    scores only the window's tokens, is not ported); `chunk` > 0 (0 = auto:
-    at most ~40960 decode rows live) runs the step axis in chunks
-    recomputed in the backward (torch.utils.checkpoint)."""
+    windowed (auto: on for rolling unbounded-height configs, kernel off):
+    `_replay_logp_windowed`, which scores only the <= window observable
+    tokens of each decode row. Otherwise the general replay differentiates
+    the actor head over all N steps and all tokens (a window then enters
+    through the recorded flags and the mask); `chunk` > 0 (0 = auto: at
+    most ~40960 decode rows live) runs the step axis in chunks recomputed
+    in the backward (torch.utils.checkpoint)."""
     if kernel is None:
-        kernel = record.action.is_cuda
+        kernel = record.action.is_cuda and windowed is None
     if kernel:
         return _replay_logp_kernel(actor, instances, record, cfg,
                                    temperature, logp0)
+    if windowed is None:
+        windowed = _use_windowed_head(cfg)
+    if windowed:
+        if cfg.window <= 0 or cfg.target_height != 0:
+            raise ValueError("the windowed replay needs a rolling window and "
+                             "an unbounded height (it rebuilds the mask from "
+                             "the flags)")
+        return _replay_logp_windowed(actor, instances, record, cfg,
+                                     temperature, chunk)
     return _replay_logp_general(actor, instances, record, cfg, temperature,
                                 chunk)
 
@@ -359,6 +490,102 @@ def _replay_logp_general(actor, instances, record, cfg, temperature, chunk):
             lambda se, *a: logp_steps(se, *a).sum(0), static_emb, *args,
             use_reentrant=False)
     return total
+
+
+def _replay_logp_windowed(actor, instances, record, cfg, temperature,
+                          chunk: int = 0):
+    """Windowed replay: per decode row, gather the <= window observable
+    blocks and compute logits for those tokens only.
+
+    Every action outside the window is masked to -1e9 and exp(-1e9 - max)
+    is exactly 0 in float32, so the full softmax's logp equals the softmax
+    over the window's candidates alone. The head's only full-token inputs
+    are ctx (per instance) and the mean merged token, which is exact
+    bit-count arithmetic over the recorded flags (`_window_dsum`).
+
+    The integer plan (which block sits in which slot, the candidates' mask,
+    the chosen action's position) is built once for all N steps; the float
+    pass runs over slabs of instances, recomputed in the backward
+    (torch.utils.checkpoint) when the batch is cut. `chunk` counts decode
+    steps as in the general replay: a slab holds chunk * B / N instances;
+    0 = one slab while ~6 tensors of [B, N, Kw*R, h] stay under 8 GB, else
+    slabs of ~163840 decode rows."""
+    N, R_, C, Kw = (cfg.num_blocks, cfg.num_rot, cfg.num_containers,
+                    cfg.window)
+    B = record.action.shape[1]
+    dev = record.action.device
+    h = actor.hidden
+    if chunk <= 0:
+        est = B * N * Kw * R_ * h * 4 * 6
+        chunk = N if est <= 8e9 else max(1, min(N, 163840 // max(B, 1)))
+    while N % chunk:
+        chunk -= 1
+
+    static = static_tokens(instances, cfg)                    # [B, T, 4]
+    static_emb = actor.embed_static(static)                   # [B, T, h]
+    ctx = static_emb.mean(1)                                  # [B, h]
+    stat_mean = static.mean(1)                                # [B, 4]
+    se_bn = static_emb.reshape(B, N, R_ * h)
+    static_pad = _pad_blocks(static.reshape(B, N, R_ * 4))
+    ts = torch.arange(N, device=dev)
+    t_frac = ts[:, None].float() / N                          # [N, 1]
+    act = record.action
+    prev = torch.cat([torch.full_like(act[:1], -1), act[:-1]], 0)
+
+    # ---- the plan: every integer tensor of every step, built once
+    f = record.flags.int()                                    # [N, B, Nb]
+    win, rank, bidx, validw = _window_plan(f, Kw)             # [N, B, Kw]
+    zero = torch.zeros_like(f[..., :1])
+    gf = torch.cat([f, zero], -1).gather(-1, bidx)            # [N, B, Kw]
+    static_g = _gather_blocks(static_pad, bidx)               # [N,B,Kw,R*4]
+    merged = torch.cat([tokens_from_flags(gf, t_frac, cfg),
+                        static_g.reshape(N, B, Kw * R_, 4)], -1)
+    accr_g = ((gf >> 2) & 1).bool()
+    per_rot = []
+    for r in range(R_):
+        d = E.rotated_dims_all(instances.dims, r, cfg)
+        fits = ((d[..., 0] <= cfg.target_width)
+                & (d[..., 1] <= cfg.target_depth))            # [B, N]
+        fits_g = torch.cat([fits, torch.zeros_like(fits[:, :1])], 1).expand(
+            N, B, N + 1).gather(-1, bidx)
+        per_rot.append((validw if r == 0 else validw & accr_g) & fits_g)
+    mask_g = torch.stack(per_rot, -1)[..., None].expand(
+        N, B, Kw, R_, C).reshape(N, B, Kw * R_ * C)
+    dsum = _window_dsum(f, win, t_frac, stat_mean[None], cfg)  # [N, B, 8]
+    rc = R_ * C
+    a0 = act.clamp(min=0).long()
+    rank_a = rank.gather(-1, (a0 // rc)[..., None])[..., 0]   # [N, B]
+    pos = (rank_a * rc + a0 % rc).clamp(0, Kw * rc - 1)
+
+    def logp_rows(se_bn_c, ctx_c, bidx_c, merged_c, mask_c, dsum_c, hm_c,
+                  prev_c, pos_c, act_c):
+        """logp [Bc] of a slab of instances (step-major [N, Bc, ...])."""
+        Bc = bidx_c.shape[1]
+        se_g = _gather_blocks(_pad_blocks(se_bn_c), bidx_c).reshape(
+            N * Bc, Kw * R_, h)
+        hmg = heightmap_grid(hm_c, cfg).flatten(0, 1)
+        ctx_ns = ctx_c.expand((N,) + ctx_c.shape).reshape(N * Bc, -1)
+        scores = actor.head_ctx(se_g, merged_c.flatten(0, 1), hmg,
+                                prev_c.flatten(0, 1), ctx_ns,
+                                dsum_c.flatten(0, 1)).reshape(N, Bc, -1)
+        lsm = torch.log_softmax(_masked_logits(scores, mask_c, temperature),
+                                -1)
+        lp = lsm.gather(-1, pos_c[..., None])[..., 0]         # [N, Bc]
+        return torch.where(act_c >= 0, lp, 0.0).sum(0)
+
+    plan = (bidx, merged, mask_g, dsum, record.heightmap, prev, pos, act)
+    bc = max(1, chunk * B // N if chunk < N else B)
+    while B % bc:
+        bc -= 1
+    if bc >= B:
+        return logp_rows(se_bn, ctx, *plan)
+    parts = []
+    for b0 in range(0, B, bc):
+        sl = slice(b0, b0 + bc)
+        parts.append(checkpoint(logp_rows, se_bn[sl], ctx[sl],
+                                *(x[:, sl] for x in plan),
+                                use_reentrant=False))
+    return torch.cat(parts, 0)
 
 
 # ------------------------------------------------------------------ #

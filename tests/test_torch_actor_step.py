@@ -6,7 +6,12 @@ version the CUDA kernel is held to on the card — against
 for one sampled decode step at hidden 48, batch 128, on the same weights
 (flax init_params through convert.py) and the same mid-rollout state:
 integer outputs bit-equal, logits and logp within rtol = atol = 1e-5
-(accumulation order, SPEC.md §12 tier 2).
+(accumulation order, SPEC.md §12 tier 2). The same on a rolling config
+(12 blocks, window 4, rotation) and on a two-limb one (34 blocks, window 6):
+the window rank, flag bit 3, the windowed mask and the second precedence
+limb against the Pallas kernel, one step each, and a whole sampled rollout
+of the 12-block config through `rollout_batch_record(actor_kernel=True)`
+on both sides (12 interpret-mode steps).
 """
 
 import jax
@@ -16,6 +21,9 @@ import pytest
 import torch
 
 from tapnet_tpu.config import CONFIGS as JCONFIGS
+from tapnet_tpu.config import TAPConfig as JTAPConfig
+from tapnet_tpu.env.sampler import sample_batch as jax_sample_batch
+from tapnet_tpu.train import rollout as JRO
 from tapnet_tpu.models.tapnet import init_params as jax_init_params
 from tapnet_tpu.ops import pallas_actor_step as JAS
 from tapnet_torch import random as R
@@ -26,8 +34,23 @@ from tapnet_torch.env.sampler import sample_batch
 from tapnet_torch.models.features import static_tokens
 from tapnet_torch.models.tapnet import embed_static_T
 from tapnet_torch.ops import actor_step as AS
+from tapnet_torch.train import rollout as RO
+from tapnet_torch.types import Instance
 
 HIDDEN, B = 48, 128
+ROLLING = {
+    "rolling-small": dict(num_blocks=12, min_blocks=6, container_width=8,
+                          container_height=12, target_width=8, window=4,
+                          allow_rot=True),
+    "two-limb": dict(num_blocks=34, min_blocks=20, container_width=8,
+                     container_height=40, target_width=8, window=6),
+}
+
+
+def _configs(name):
+    if name in ROLLING:
+        return TAPConfig(**ROLLING[name]), JTAPConfig(**ROLLING[name])
+    return CONFIGS[name], JCONFIGS[name]
 
 
 def _operands(cfg, actor, seed=5):
@@ -65,9 +88,10 @@ def _operands(cfg, actor, seed=5):
     return [np.ascontiguousarray(o) for o in ops]
 
 
-@pytest.mark.parametrize("name", ["2d-basic", "2d-rot"])
+@pytest.mark.parametrize("name", ["2d-basic", "2d-rot", "rolling-small",
+                                  "two-limb"])
 def test_actor_select_step_ref_matches_jax_kernel(name):
-    cfg, jcfg = CONFIGS[name], JCONFIGS[name]
+    cfg, jcfg = _configs(name)
     flax_params = jax_init_params(jax.random.key(3), jcfg, HIDDEN)["actor"]
     actor = actor_from_flax(jax.tree.map(np.asarray, flax_params), cfg,
                             HIDDEN)
@@ -89,15 +113,65 @@ def test_actor_select_step_ref_matches_jax_kernel(name):
                                        err_msg=label)
         else:
             np.testing.assert_array_equal(g, w, err_msg=label)
-    assert (got[3].numpy() >= 0).all()
+    if cfg.min_blocks == cfg.num_blocks:
+        assert (got[3].numpy() >= 0).all()
+    else:   # ragged block counts: the shortest instances are done
+        assert (got[3].numpy() >= 0).any()
+    if cfg.window > 0:   # window bits: accessible blocks, at most `window`
+        flags = got[4].numpy()
+        assert (((flags >> 3) & 1).sum(0) <= cfg.window).all()
+        assert (((flags >> 3) & 1) <= ((flags >> 1) & 1)).all()
+    assert ops[8].shape[0] == AS._num_limbs(cfg.num_blocks) * cfg.num_blocks
+
+
+def test_rolling_rollout_matches_jax_kernel_rollout():
+    """A whole sampled rollout of the 12-block rolling config, hidden 32:
+    the port's actor-fused path (plain K2 on CPU tensors) vs the JAX
+    actor-fused path with the Pallas kernel in interpret mode."""
+    cfg, jcfg = _configs("rolling-small")
+    hidden = 32
+    params = jax_init_params(jax.random.key(4), jcfg, hidden)["actor"]
+    instances = jax_sample_batch(jax.random.key(5), B, jcfg)
+    jkeys = jax.random.split(jax.random.key(6), B)
+    with jax.default_matmul_precision("highest"):
+        s_j, r_j, lp_j = jax.jit(lambda p, i, k: JRO.rollout_batch_record(
+            p, i, k, jcfg, hidden=hidden, actor_kernel=True,
+            interpret=True))(params, instances, jkeys)
+    actor = actor_from_flax(jax.tree.map(np.asarray, params), cfg, hidden)
+    t = lambda x: torch.from_numpy(np.array(x))
+    keys = torch.from_numpy(
+        np.asarray(jax.random.key_data(jkeys)).astype(np.int64))
+    s_t, r_t, lp_t = RO.rollout_batch_record(
+        actor, Instance(*(t(x) for x in instances)), keys, cfg,
+        actor_kernel=True)
+    for f in r_t._fields:
+        np.testing.assert_array_equal(getattr(r_t, f).numpy(),
+                                      np.asarray(getattr(r_j, f)), err_msg=f)
+    for f in s_t._fields:
+        np.testing.assert_array_equal(getattr(s_t, f).numpy(),
+                                      np.asarray(getattr(s_j, f)), err_msg=f)
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_window_and_two_limbs_raise():
-    assert not AS.eligible(CONFIGS["2d-rolling"])
-    assert AS.eligible(CONFIGS["2d-basic"])
-    with pytest.raises(NotImplementedError):
-        AS._check_cfg(CONFIGS["2d-rolling"])
-    with pytest.raises(NotImplementedError):
-        AS._check_cfg(TAPConfig(num_blocks=34, min_blocks=20,
-                                container_width=8, container_height=40,
-                                target_width=8))
+    """Coverage of the actor kernel: rolling windows and two limbs are in
+    (they no longer raise), a finite cap and N > 62 are out, as in the JAX
+    kernel."""
+    two_limb = TAPConfig(**ROLLING["two-limb"])
+    for cfg in (CONFIGS["2d-basic"], CONFIGS["2d-rolling"], two_limb,
+                CONFIGS["multi-container"]):
+        assert AS.eligible(cfg)
+        AS._check_cfg(cfg)
+        assert AS.eligible(cfg) == JAS.eligible(
+            JTAPConfig(**{f: getattr(cfg, f) for f in
+                          cfg.__dataclass_fields__}))
+    assert AS._num_limbs(31) == 1 and AS._num_limbs(32) == 2
+    assert AS._num_limbs(62) == 2
+    too_many = TAPConfig(num_blocks=63, min_blocks=20, container_width=8,
+                         container_height=40, target_width=8)
+    for cfg in (CONFIGS["multi-container-capped"], too_many):
+        assert not AS.eligible(cfg)
+        with pytest.raises(NotImplementedError):
+            AS._check_cfg(cfg)
+    assert AS.smem_bytes(CONFIGS["2d-rolling"], 128) <= AS.SMEM_LIMIT

@@ -6,7 +6,9 @@ sides, the port on its CPU reference path. Sampled and best-of-K decodes
 must give equal actions, placements and heightmaps and rewards within 1e-6;
 greedy too, since both sides take the lowest index on exact ties. The fused
 rollout paths (the kernels' plain versions on CPU tensors) must reproduce
-the JAX trajectories as well.
+the JAX trajectories as well. The same three policies on a rolling config
+(12 blocks of which 6-12 are real, window 4, rotation), where both sides
+decode through the windowed head.
 """
 
 import dataclasses
@@ -41,6 +43,22 @@ def setup():
     return jcfg, cfg, flax_params, instances, actor, inst_np
 
 
+ROLLING = dict(num_blocks=12, min_blocks=6, container_width=8,
+               container_height=12, target_width=8, window=4, allow_rot=True)
+
+
+@pytest.fixture(scope="module")
+def rolling_setup():
+    jcfg = tapnet_tpu.TAPConfig(**ROLLING)
+    cfg = tapnet_torch.TAPConfig(**ROLLING)
+    flax_params = jax_init_params(jax.random.key(31), jcfg, HIDDEN)["actor"]
+    instances = jax_sample_batch(jax.random.key(32), 32, jcfg)
+    actor = actor_from_flax(jax.tree.map(np.asarray, flax_params), cfg,
+                            HIDDEN)
+    return (jcfg, cfg, flax_params, instances, actor,
+            Instance(*(np.array(x) for x in instances)))
+
+
 def _key(seed):
     k = jax.random.key(seed)
     return k, torch.from_numpy(
@@ -73,6 +91,22 @@ def test_pack_matches_jax(setup, policy):
     got = tapnet_torch.pack(inst_np, cfg, actor, policy=policy, key=tkey,
                             n_samples=4, device="cpu")
     _assert_plans_equal(got, want, cfg, B)
+
+
+@pytest.mark.parametrize("policy", ["greedy", "sample", "best"])
+def test_pack_rolling_matches_jax(rolling_setup, policy):
+    jcfg, cfg, flax_params, instances, actor, inst_np = rolling_setup
+    jkey, tkey = _key(6)
+    with jax.default_matmul_precision("highest"):
+        want = tapnet_tpu.pack(instances, jcfg, actor_params=flax_params,
+                               hidden=HIDDEN, policy=policy, key=jkey,
+                               n_samples=4)
+    got = tapnet_torch.pack(inst_np, cfg, actor, policy=policy, key=tkey,
+                            n_samples=4, device="cpu")
+    _assert_plans_equal(got, want, cfg, 32)
+    n_total = np.asarray(instances.n_total)
+    assert n_total.min() < cfg.num_blocks       # ragged block counts
+    assert [len(got.steps(i)) for i in range(32)] == list(n_total)
 
 
 @pytest.mark.parametrize("path", ["step_kernel", "actor_kernel"])

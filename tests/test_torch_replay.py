@@ -9,6 +9,13 @@ value and every actor-parameter gradient, the token encoder included
 replay: value rtol 1e-5; each gradient within atol 5e-5 of its leaf's max
 magnitude (accumulation order, as tests/test_pallas_replay.py scales it).
 The JAX side runs at matmul precision "highest" (exact f32 dots).
+
+Rolling configs (a 12-block window-4 config with rotation, a 34-block
+window-6 config) go through the step-grid schedule: the plain step-grid
+forward and backward are held to `jax.value_and_grad` of the JAX replay in
+the same way, to the Pallas step-grid kernels in interpret mode (12-block
+config, batch 128), to the plain monolithic version on 2d-basic, and to the
+port's windowed replay.
 """
 
 import functools
@@ -32,12 +39,20 @@ from tapnet_torch.types import Instance
 
 PADDED = dict(num_blocks=8, min_blocks=4, container_width=8,
               container_height=8, target_width=8, allow_rot=True)
+CUSTOM = {
+    "padded": PADDED,
+    "rolling-small": dict(num_blocks=12, min_blocks=6, container_width=8,
+                          container_height=12, target_width=8, window=4,
+                          allow_rot=True),
+    "two-limb": dict(num_blocks=34, min_blocks=20, container_width=8,
+                     container_height=40, target_width=8, window=6),
+}
 
 
 @functools.cache
 def _setup(name, B=64, hidden=32, seed=3):
-    if name == "padded":
-        jcfg, cfg = JTAPConfig(**PADDED), TAPConfig(**PADDED)
+    if name in CUSTOM:
+        jcfg, cfg = JTAPConfig(**CUSTOM[name]), TAPConfig(**CUSTOM[name])
     else:
         jcfg, cfg = JCONFIGS[name], CONFIGS[name]
     key = jax.random.key(seed)
@@ -76,10 +91,12 @@ def _assert_grads_close(want_tree, got, atol=5e-5):
 
 @pytest.mark.parametrize("name,temperature", [
     ("2d-basic", 1.0), ("2d-rot", 1.0), ("multi-container-capped", 1.0),
-    ("padded", 0.7)])
+    ("padded", 0.7), ("rolling-small", 1.0), ("two-limb", 0.7)])
 def test_plain_kernels_match_jax_replay(name, temperature):
-    jcfg, cfg, params, instances, record, actor, inst, rec = _setup(name)
-    if name == "padded":
+    jcfg, cfg, params, instances, record, actor, inst, rec = (
+        _setup(name, B=16) if name == "two-limb" else _setup(name))
+    assert RP._steps_grid(cfg) == (name in ("rolling-small", "two-limb"))
+    if name in CUSTOM:
         assert (rec.action == -1).any()
     with jax.default_matmul_precision("highest"):
         vals, grads = jax.jit(jax.value_and_grad(
@@ -109,8 +126,76 @@ def test_plain_kernels_match_jax_kernels_interpret():
     _assert_grads_close(grads, got)
 
 
+def test_plain_step_grid_matches_jax_step_grid_interpret():
+    """Against the Pallas step-grid kernels (interpret mode), per instance:
+    the 12-block rolling config, batch 128, hidden 32."""
+    jcfg, cfg, params, instances, record, actor, inst, rec = _setup(
+        "rolling-small", B=128)
+    with jax.default_matmul_precision("highest"):
+        f = lambda p: JRO.replay_logp_sum(p, instances, record, jcfg,
+                                          hidden=32, kernel=True,
+                                          interpret=True)
+        lp_j, vjp = jax.jit(lambda p: jax.vjp(f, p))(params)
+        grads = vjp(jnp.ones_like(lp_j))[0]
+    lp, got = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lp_j), rtol=1e-5,
+                               atol=1e-5)
+    _assert_grads_close(grads, got)
+
+
+def _operands(name):
+    _, cfg, _, _, _, actor, inst, rec = _setup(name)
+    with torch.no_grad():
+        (flags, hms, masks, acts, statp, statm), se, ctx, params = \
+            RO.replay_operands(actor, inst, rec, cfg, grad=False)
+    return cfg, (flags, hms, masks, acts, se, ctx, statp, statm, params)
+
+
+@pytest.mark.parametrize("chunks", [1, 3, 10])
+def test_plain_step_grid_matches_plain_monolithic(chunks, monkeypatch):
+    """The step-grid schedule forced onto 2d-basic: the same value and
+    gradients as the monolithic one, for any number of step chunks (the
+    count a larger batch or another card would get from `step_chunks`)."""
+    cfg, ops = _operands("2d-basic")
+    monkeypatch.setattr(RP, "step_chunks", lambda cfg, B: chunks)
+    so = ops[:4] + (RP._prev_rows(ops[3]),) + ops[4:]
+    dlp = torch.linspace(-1.0, 1.0, ops[3].shape[1])
+    np.testing.assert_allclose(
+        RP.replay_logp_fwd_steps(*so, cfg).numpy(),
+        RP.replay_logp_fwd(*ops, cfg).numpy(), rtol=1e-6, atol=1e-6)
+    want = RP.replay_logp_bwd(dlp, *ops, cfg)
+    got = RP.replay_logp_bwd_steps(dlp, *so, cfg)
+    for a, w in zip([got[0], got[1], *got[2]], [want[0], want[1], *want[2]]):
+        scale = float(w.abs().max()) + 1e-9
+        np.testing.assert_allclose(a.numpy() / scale, w.numpy() / scale,
+                                   atol=5e-6)
+
+
+def test_step_grid_replay_matches_windowed_replay():
+    """Rolling: the kernel route (all tokens scored, the rest masked) and
+    the windowed replay (the window's tokens only) give the same value and
+    gradients."""
+    _, cfg, _, _, _, actor, inst, rec = _setup("rolling-small")
+    vk, gk = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
+    vw, gw = _port_value_and_grad(actor, inst, rec, cfg, kernel=False)
+    np.testing.assert_allclose(vw.numpy(), vk.numpy(), rtol=1e-5, atol=1e-5)
+    for n in gk:
+        scale = float(gk[n].abs().max()) + 1e-9
+        np.testing.assert_allclose(gw[n].numpy() / scale,
+                                   gk[n].numpy() / scale, atol=5e-5,
+                                   err_msg=n)
+
+
 def test_primal_mode_returns_logp0_with_identical_gradients():
-    _, cfg, _, _, _, actor, inst, rec = _setup("2d-basic")
+    _check_primal_mode("2d-basic")
+
+
+def test_primal_mode_step_grid():
+    _check_primal_mode("rolling-small")
+
+
+def _check_primal_mode(name):
+    _, cfg, _, _, _, actor, inst, rec = _setup(name)
     B = rec.action.shape[1]
     logp0 = torch.linspace(-3.0, -1.0, B)
     v1, g1 = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
@@ -139,12 +224,26 @@ def test_general_replay_matches_plain_kernels(chunk):
 
 
 def test_kernel_coverage():
-    assert RP.eligible(CONFIGS["2d-basic"], 128)
-    assert RP.eligible(CONFIGS["multi-container"], 128)
-    assert not RP.eligible(CONFIGS["2d-rolling"], 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RP._check_cfg(CONFIGS["2d-rolling"], 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RP._check_cfg(TAPConfig(num_blocks=34, min_blocks=20,
-                                container_width=8, container_height=40,
-                                target_width=8), 32)
+    """Every shipped config is covered at hidden 128, rolling and N > 31 by
+    the step-grid schedule; N = 63 and the monolithic schedule at N > 31
+    are refused."""
+    for name, cfg in CONFIGS.items():
+        assert RP.eligible(cfg, 128), name
+        assert RP._steps_grid(cfg) == (name == "2d-rolling")
+        assert RP.smem_bytes(cfg, 128, True) <= RP.SMEM_LIMIT
+        RP._check_cfg(cfg, 128, RP._steps_grid(cfg))
+    two_limb = TAPConfig(**CUSTOM["two-limb"])
+    assert RP.eligible(two_limb, 32) and RP._steps_grid(two_limb)
+    with pytest.raises(NotImplementedError, match="monolithic"):
+        RP._check_cfg(two_limb, 32, False)
+    too_many = TAPConfig(num_blocks=63, min_blocks=20, container_width=8,
+                         container_height=40, target_width=8)
+    assert not RP.eligible(too_many, 32)
+    with pytest.raises(NotImplementedError, match="N <= 62"):
+        RP._check_cfg(too_many, 32, True)
+    # the step chunks fill the card and never outnumber the steps
+    rolling = CONFIGS["2d-rolling"]
+    assert RP.step_chunks(rolling, 4096) == 2
+    assert RP.step_chunks(rolling, 32) == 50
+    assert RP.scratch_bytes(rolling, 4096, 128)["d_se_partials"] == \
+        2 * 100 * 128 * 4096 * 4

@@ -7,7 +7,10 @@ instances and actions are bit-equal and the per-instance R, C, P, S exactly
 equal; loss_critic within rtol 1e-5, loss_actor and grad_norm within rtol
 1e-4; every actor and critic gradient of the whole loss within atol 5e-5 of
 its leaf's max magnitude. The JAX side runs at matmul precision "highest".
-The clip + Adam update is held to optax's chain at rtol 1e-6.
+The clip + Adam update is held to optax's chain at rtol 1e-6. One step of a
+rolling config (12 blocks, window 4, rotation, ragged block counts; batch
+16) is held to the JAX step in the same way: there the port rolls out with
+the windowed head and replays through the windowed replay.
 """
 
 import copy
@@ -124,6 +127,69 @@ def test_train_step_matches_jax(jax_state):
     for k, w in want.items():
         np.testing.assert_allclose(got[k].numpy(), w.numpy(), atol=1.1e-3,
                                    err_msg=k)
+
+
+ROLLING = dict(num_blocks=12, min_blocks=6, container_width=8,
+               container_height=12, target_width=8, window=4, allow_rot=True)
+
+
+def test_rolling_train_step_matches_jax():
+    from tapnet_tpu.config import TAPConfig as JTAPConfig
+    jcfg, cfg = JTAPConfig(**ROLLING), T.TAPConfig(**ROLLING)
+    Br = 16
+    jts = jax.jit(JR.init_train_state, static_argnums=(1, 2))(
+        jax.random.key(1), jcfg, HIDDEN)
+    ts = _port_state(jts, cfg)
+    with jax.default_matmul_precision("highest"):
+        jts1, m_j = JR.make_train_step(jcfg, batch=Br, hidden=HIDDEN)(jts)
+    ts1, m = T.make_train_step(cfg, batch=Br, hidden=HIDDEN,
+                               device="cpu")(ts)
+    for k in ("reward", "C", "P", "S"):
+        np.testing.assert_allclose(float(m[k]), float(m_j[k]), rtol=1e-6,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(m["loss_critic"]),
+                               float(m_j["loss_critic"]), rtol=1e-5)
+    for k in ("loss_actor", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(m_j[k]), rtol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_array_equal(
+        ts1.key.numpy(), np.asarray(jax.random.key_data(jts1.key)))
+    got = {**{f"a.{k}": v for k, v in ts1.actor.state_dict().items()},
+           **{f"c.{k}": v for k, v in ts1.critic.state_dict().items()}}
+    want = {**{f"a.{k}": v for k, v in
+               flax_to_state_dict(_np(jts1.params["actor"])).items()},
+            **{f"c.{k}": v for k, v in
+               flax_to_state_dict(_np(jts1.params["critic"])).items()}}
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), atol=1.1e-3,
+                                   err_msg=k)
+
+
+def test_rolling_train_step_kernel_route_on_cpu():
+    """The card's route rehearsed on CPU tensors: the actor-fused rollout
+    (plain K2) with its logp as the primal and the step-grid replay (plain
+    K5b-steps) give the losses of the CPU reference route."""
+    cfg = T.TAPConfig(**ROLLING)
+    ts = T.init_train_state(0, cfg, hidden=HIDDEN, device="cpu")
+    inst = sample_batch(R.key(3), 16, cfg)
+    keys = R.split(R.key(4), 16)
+    a0, c0, _, _ = TR._batch_losses(ts.actor, ts.critic, inst, keys, cfg, 1.0)
+    _, rec, lp0 = RO.rollout_batch_record(ts.actor, inst, keys, cfg,
+                                          actor_kernel=True)
+    lp = RO.replay_logp_sum(ts.actor, inst, rec, cfg, kernel=True, logp0=lp0)
+    assert torch.equal(lp.detach(), lp0)
+    lp_ref = RO.replay_logp_sum(ts.actor, inst, rec, cfg, kernel=False)
+    np.testing.assert_allclose(lp.detach().numpy(), lp_ref.detach().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    g1 = torch.autograd.grad(lp.sum(), list(ts.actor.parameters()),
+                             allow_unused=True)
+    g2 = torch.autograd.grad(lp_ref.sum(), list(ts.actor.parameters()),
+                             allow_unused=True)
+    for (n, _), a, b in zip(ts.actor.named_parameters(), g1, g2):
+        scale = float(b.abs().max()) + 1e-9
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale,
+                                   atol=5e-5, err_msg=n)
+    assert np.isfinite(float(a0.detach())) and np.isfinite(float(c0.detach()))
 
 
 def _jax_reward(terms, jcfg):
