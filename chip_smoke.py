@@ -27,8 +27,8 @@ source, all started at once), then runs, and fails on the first fault:
 7. replay_logp forward and backward (K5) vs their plain versions on the
    card's own rollout records: 2d-basic at 4096, 2d-rot, 3d-basic,
    multi-container and multi-container-capped at 512, 2d-basic at a
-   ragged 100, a padded 8-block config at temperature 0.7, a 3D config
-   with 4 containers at 512; values within
+   ragged 100, a padded 8-block config at temperature 0.7, a 3D and a 2D
+   config with 4 containers at 512; values within
    1e-5 relative, every gradient within 5e-5 of the plain result's max
    magnitude (sums over instances in another order); two backward
    launches bit-identical; the forward against the rollout's own logp
@@ -41,7 +41,8 @@ source, all started at once), then runs, and fails on the first fault:
    path; `train()` for 2 epochs x 5 steps with metrics and checkpoints, and
    a resume from the epoch-1 checkpoint ending on the same params;
 9. times: K3 and K5 per launch with their plain versions (K3 also against
-   amax + sum), and the whole train step (host clock, median of 10);
+   amax + sum; K5's bound over its live columns, the all-token bound
+   beside it), and the whole train step (host clock, median of 10);
 10. fused_rollout_batch (K4) vs its plain version, bit-equal on every state
    field, the actions and the rewards, for `first` and `random`: the six
    CONFIGS (2d-rolling too: 50 blocks, window 10, ragged block counts) and
@@ -67,7 +68,8 @@ source, all started at once), then runs, and fails on the first fault:
    window-6 config (two limbs) and a 3D window config, at batch 512 and a
    ragged 100, 2d-rolling also at 4096;
 15. the step-grid replay (K5f-steps, K5b-steps) vs its plain version on the
-   same configs' records (tolerances of 7), forced onto 2d-basic at 4096
+   same configs' records and a 4-container window config (tolerances of
+   7), forced onto 2d-basic at 4096
    against the monolithic kernels, against the rollout's own logp, and two
    backward launches bit-identical;
 16. the rolling main path, 2d-rolling at hidden 128: `pack()` greedy and
@@ -80,8 +82,10 @@ source, all started at once), then runs, and fails on the first fault:
    K3 x1) against the CPU path;
 17. times at 2d-rolling, batch 4096: K2 per launch, K5f-steps and K5b-steps
    per call, each with its plain version and its bound counted over the
-   (instance, step) pairs that have an action in this run; `pack()` per
-   policy and the train step (host clock).
+   (instance, step) pairs that have an action in this run (the replay's
+   token work over the live (instance, step, token) triples only, whose
+   share it prints; the all-token bound beside it); `pack()` per policy
+   and the train step (host clock).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -522,23 +526,39 @@ def check_steps_against_monolithic(ops, dlp, cfg):
     return d.max().item(), worst
 
 
-def replay_ops_count(cfg, B, h, bwd, pairs=None):
-    """f32 operations of the replay over B instances and N steps: the
-    forward per step as actor_ops_count; the backward adds the weight
-    gradients (2 per multiply-add), the input gradients of Wq (3h of its
-    columns), W2 and Wp, and ~6 elementwise per (token, container, unit).
-    `pairs`: the (instance, step) pairs to count instead of all B * N (a
-    step without an action adds nothing to the value or the gradients)."""
+def replay_ops_count(cfg, B, h, bwd, pairs=None, tokens=None):
+    """f32 operations of the replay over B instances and N steps: per
+    (instance, step) pair the encoder and the query, per token the dyn MLP
+    and the attention (4 per (container, unit)), 2 per multiply-add; the
+    backward adds the weight gradients, the input gradients of Wq (3h of
+    its columns), W2 and Wp, and ~6 elementwise per (token, container,
+    unit). `pairs`: the (instance, step) pairs to count instead of all
+    B * N (a step without an action adds nothing); `tokens`: the
+    (instance, step, token) triples to count for the token work instead of
+    pairs * T (a token the mask rules out adds exact zeros)."""
     N, R_, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD, T = cfg.target_width * cfg.target_depth, N * R_
+    FQ = 3 * h + 8
     pairs = B * N if pairs is None else pairs
-    fwd = actor_ops_count(cfg, 1, h) * pairs
+    tokens = pairs * T if tokens is None else tokens
+    enc = C * (h * (WD + 2) + h * h + h * FQ)
+    fwd = pairs * 2 * enc + tokens * (2 * (32 * 8 + 32 * h) + C * h * 4)
     if not bwd:
         return fwd
-    FQ = 3 * h + 8
-    wgrad = C * (h * FQ + h * h + h * (WD + 2)) + T * (h * 32 + 32 * 8)
-    igrad = C * (h * 3 * h + h * h) + T * 32 * h
-    return fwd + pairs * (2 * (wgrad + igrad) + T * C * h * 6)
+    enc_grad = C * (h * FQ + h * h + h * (WD + 2)) + C * (h * 3 * h + h * h)
+    tok_grad = (h * 32 + 32 * 8) + 32 * h
+    return (fwd + pairs * 2 * enc_grad
+            + tokens * (2 * tok_grad + C * h * 6))
+
+
+def live_counts(cfg, masks, acts):
+    """(pairs, triples): the (instance, step) pairs with an action and the
+    (instance, step, token) triples among them whose mask allows the token
+    in some container: the live columns of the replay kernels."""
+    T, C = cfg.num_blocks * cfg.num_rot, cfg.num_containers
+    live = ((masks.reshape(masks.shape[0], T, C, -1) == 1).any(2)
+            & (acts >= 0)[:, None])
+    return int((acts >= 0).sum()), int(live.sum())
 
 
 # ------------------------------------------------------------------ #
@@ -1021,7 +1041,11 @@ def main() -> int:
     configs["4-container"] = TAPConfig(
         dim=3, container_width=8, container_depth=8, container_height=8,
         target_width=8, target_depth=8, num_containers=4, allow_rot=True)
-    for name in ("multi-container-capped", "padded", "4-container"):
+    configs["2d-4-container"] = TAPConfig(num_containers=4,
+                                          container_height=20,
+                                          allow_rot=True)
+    for name in ("multi-container-capped", "padded", "4-container",
+                 "2d-4-container"):
         actors[name] = init_params(SEED, configs[name], HIDDEN, dev)
     k5f_err = k5b_err = 0.0
     kept_k5 = None
@@ -1030,7 +1054,8 @@ def main() -> int:
                           ("multi-container", 512, 1.0),
                           ("multi-container-capped", 512, 1.0),
                           ("2d-basic", 100, 1.0), ("padded", 512, 0.7),
-                          ("4-container", 512, 1.0)):
+                          ("4-container", 512, 1.0),
+                          ("2d-4-container", 512, 1.0)):
         main_shape = (name, B) == ("2d-basic", 4096)
         ops, dlp, fe, (be, ba), e0 = check_replay(
             configs[name], B, actors[name], dev, temp, repeat=main_shape)
@@ -1072,8 +1097,11 @@ def main() -> int:
     d_se, d_ctx, d_par = RP.replay_logp_bwd(dlp, *ops, cfg)
     k5f_b = in_bytes + 4 * B_MAIN
     k5b_b = in_bytes + nbytes([dlp, d_se, d_ctx]) + nbytes(d_par)
-    k5f_o = replay_ops_count(cfg, B_MAIN, HIDDEN, False)
-    k5b_o = replay_ops_count(cfg, B_MAIN, HIDDEN, True)
+    pairs, triples = live_counts(cfg, ops[2], ops[3])
+    k5f_o = replay_ops_count(cfg, B_MAIN, HIDDEN, False, pairs, triples)
+    k5b_o = replay_ops_count(cfg, B_MAIN, HIDDEN, True, pairs, triples)
+    k5f_all = replay_ops_count(cfg, B_MAIN, HIDDEN, False)
+    k5b_all = replay_ops_count(cfg, B_MAIN, HIDDEN, True)
     bound = lambda b, o, rate=F32_OPS_S: (
         max(1e3 * b / HBM_BYTES_S, 1e3 * o / rate),
         "operations" if o / rate >= b / HBM_BYTES_S else "bytes")
@@ -1082,12 +1110,18 @@ def main() -> int:
     log(f"phase 9 heightmap_reductions: {k3_ms:.4f} ms/launch (plain "
         f"{k3_plain:.4f}, library amax+sum {k3_lib:.4f}), {k3_bytes} B, "
         f"bound {k3_bound:.5f} ms")
+    log(f"phase 9 replay live columns 2d-basic B={B_MAIN}: {pairs} "
+        f"(instance, step) pairs with an action, {triples} of "
+        f"{B_MAIN * cfg.num_blocks * cfg.num_blocks * cfg.num_rot} "
+        "(instance, step, token) triples live")
     log(f"phase 9 replay_logp_fwd: {k5f_ms:.4f} ms/launch (plain "
-        f"{k5f_plain:.4f}), {k5f_b} B, {k5f_o} f32 ops, bound "
-        f"{k5f_bound:.4f} ms ({k5f_by})")
+        f"{k5f_plain:.4f}), {k5f_b} B, {k5f_o} f32 ops over live columns "
+        f"({k5f_all} over all tokens), bound {k5f_bound:.4f} ms ({k5f_by}; "
+        f"all tokens {bound(k5f_b, k5f_all)[0]:.4f})")
     log(f"phase 9 replay_logp_bwd: {k5b_ms:.4f} ms/launch (plain "
-        f"{k5b_plain:.4f}), {k5b_b} B, {k5b_o} f32 ops, bound "
-        f"{k5b_bound:.4f} ms ({k5b_by})")
+        f"{k5b_plain:.4f}), {k5b_b} B, {k5b_o} f32 ops over live columns "
+        f"({k5b_all} over all tokens), bound {k5b_bound:.4f} ms ({k5b_by}; "
+        f"all tokens {bound(k5b_b, k5b_all)[0]:.4f})")
     step_ms = time_host(lambda: step(ts), reps=10)
     log(f"phase 9 train step 2d-basic hidden {HIDDEN} batch {B_MAIN}: "
         f"{step_ms:.3f} ms/step = "
@@ -1172,17 +1206,23 @@ def main() -> int:
     # ---- phase 15: the step-grid replay on the card's own records
     k5fs_err = k5bs_err = 0.0
     kept_k5s = None
-    for name, Br in ([(n, b) for n in roll for b in (512, 100)]
+    # plus four containers under a rolling window
+    roll_k5 = dict(roll, **{"rolling-4c": TAPConfig(
+        num_blocks=12, min_blocks=6, container_width=8, container_height=12,
+        target_width=8, window=4, num_containers=4, allow_rot=True)})
+    k5_actors = dict(roll_actors, **{"rolling-4c": init_params(
+        SEED, roll_k5["rolling-4c"], HIDDEN, dev)})
+    for name, Br in ([(n, b) for n in roll_k5 for b in (512, 100)]
                      + [("2d-rolling", B_MAIN)]):
         main_shape = (name, Br) == ("2d-rolling", B_MAIN)
         ops_s, dlp_s, fe, (be, ba), e0 = check_replay(
-            roll[name], Br, roll_actors[name], dev, repeat=main_shape,
+            roll_k5[name], Br, k5_actors[name], dev, repeat=main_shape,
             steps=True)
         if main_shape:
             kept_k5s = (ops_s, dlp_s)
         k5fs_err, k5bs_err = max(k5fs_err, fe), max(k5bs_err, ba)
         log(f"phase 15 step-grid replay == plain: {name} B={Br} "
-            f"({RP.step_chunks(roll[name], Br)} step chunks): fwd max err "
+            f"({RP.step_chunks(roll_k5[name], Br)} step chunks): fwd max err "
             f"{fe:.3e}, bwd max err {ba:.3e} (scaled {be:.3e}); fwd vs the "
             f"rollout's logp {e0:.3e}"
             + ("; two bwd launches bit-identical" if main_shape else ""))
@@ -1238,26 +1278,35 @@ def main() -> int:
     k5bs_ms = time_gpu(lambda: bwd_s(dlp_s), reps=10)
     k5bs_plain = time_gpu(lambda: bwd_s_ref(dlp_s), reps=2,
                           sleep_cycles=400_000_000, warm=1)
-    pairs = live(ops_s[3])
+    pairs, triples = live_counts(rcfg, ops_s[2], ops_s[3])
+    T_r = rcfg.num_blocks * rcfg.num_rot
+    log(f"phase 17 replay live columns 2d-rolling B={B_MAIN}: {pairs} of "
+        f"{B_MAIN * rcfg.num_blocks} (instance, step) pairs with an action, "
+        f"{triples} of {B_MAIN * rcfg.num_blocks * T_r} (instance, step, "
+        f"token) triples live = "
+        f"{triples / (B_MAIN * rcfg.num_blocks * T_r):.6f}")
     in_bytes_s = nbytes(ops_s[:8]) + nbytes(ops_s[8]) + nbytes([ops_s[3]])
     d_se, d_ctx, d_par = bwd_s(dlp_s)
     k5fs_b = in_bytes_s + 4 * B_MAIN
     k5bs_b = in_bytes_s + nbytes([dlp_s, d_se, d_ctx]) + nbytes(d_par)
     del d_se, d_ctx, d_par
-    k5fs_o = replay_ops_count(rcfg, B_MAIN, HIDDEN, False, pairs)
-    k5bs_o = replay_ops_count(rcfg, B_MAIN, HIDDEN, True, pairs)
+    k5fs_o = replay_ops_count(rcfg, B_MAIN, HIDDEN, False, pairs, triples)
+    k5bs_o = replay_ops_count(rcfg, B_MAIN, HIDDEN, True, pairs, triples)
+    k5fs_all = replay_ops_count(rcfg, B_MAIN, HIDDEN, False)
+    k5bs_all = replay_ops_count(rcfg, B_MAIN, HIDDEN, True)
     k5fs_bound, k5fs_by = bound(k5fs_b, k5fs_o)
     k5bs_bound, k5bs_by = bound(k5bs_b, k5bs_o)
     scratch = RP.scratch_bytes(rcfg, B_MAIN, HIDDEN)
     log(f"phase 17 replay_logp_fwd_steps 2d-rolling B={B_MAIN}: "
         f"{k5fs_ms:.4f} ms/call (plain {k5fs_plain:.3f}), {k5fs_b} B, "
-        f"{k5fs_o} f32 ops over {pairs} (instance, step) pairs with an "
-        f"action of {B_MAIN * rcfg.num_blocks}, bound {k5fs_bound:.4f} ms "
-        f"({k5fs_by})")
+        f"{k5fs_o} f32 ops over the live columns ({k5fs_all} over all "
+        f"pairs and tokens), bound {k5fs_bound:.4f} ms ({k5fs_by}; all "
+        f"tokens {bound(k5fs_b, k5fs_all)[0]:.4f})")
     log(f"phase 17 replay_logp_bwd_steps 2d-rolling B={B_MAIN}: "
         f"{k5bs_ms:.4f} ms/call (plain {k5bs_plain:.3f}), {k5bs_b} B, "
-        f"{k5bs_o} f32 ops, bound {k5bs_bound:.4f} ms ({k5bs_by}); scratch "
-        f"{scratch}")
+        f"{k5bs_o} f32 ops over the live columns ({k5bs_all} over all "
+        f"pairs and tokens), bound {k5bs_bound:.4f} ms ({k5bs_by}; all "
+        f"tokens {bound(k5bs_b, k5bs_all)[0]:.4f}); scratch {scratch}")
     rbest = rinst.index(slice(0, 256))
     for policy, x in (("greedy", rinst), ("sample", rinst),
                       ("best", rbest)):

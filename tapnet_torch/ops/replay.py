@@ -24,13 +24,20 @@ gradients of the 11 head weights summed over the batch.
 - `ReplayLogp`: the `torch.autograd.Function` around them, routing by
   `_steps_grid(cfg)`. With `logp0` given (the rollout kernel's own logp,
   `use_primal` of the JAX custom VJP) the forward returns it and launches
-  nothing; the backward is the same.
+  nothing; the backward is the same;
+- `live_columns`, `replay_logp_fwd_live` / `replay_logp_bwd_live`: the
+  kernels' rule in plain PyTorch. The kernels do the token work only for
+  the live columns of a step, (instance, token) pairs whose instance has an
+  action and whose mask allows the token; every other token scores -1e9 and
+  adds exact zeros. The live replay computes the same value and gradients
+  from those columns alone.
 
-Coverage: every unbounded or capped config with N <= 62 and at most 4
-containers whose shared-memory plan fits a block (`eligible`). A rolling
-window enters the replay only through the recorded flag bit 3 and the
-recorded mask: all T tokens are scored and the ones outside the window
-masked to -1e9, which is the windowed softmax exactly.
+Coverage: every unbounded or capped config with N <= 62, at most 4
+containers and a hidden width that is a multiple of 32 up to 128 whose
+shared-memory plan fits a block (`eligible`). A rolling window enters the
+replay only through the recorded flag bit 3 and the recorded mask: a token
+outside the window is masked to -1e9, which is the windowed softmax
+exactly, and is not a live column.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from tapnet_torch.ops.policy_step import _check
 NEG = -1e9
 MAX_C = 4
 TB, LD, NWARP = 32, 33, 16         # csrc/replay.cu
+G = 4 * NWARP                      # columns per token group
+MAX_H = 128                        # hidden: a multiple of 32, at most 128
 SMEM_LIMIT = 232448                # bytes of shared memory a block may hold
 
 
@@ -68,26 +77,30 @@ def _steps_grid(cfg: TAPConfig) -> bool:
 
 
 def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None) -> int:
-    """Shared memory of one block, in bytes, as
-    csrc/replay.cu::smem_bytes computes it (`steps`: the schedule; auto by
+    """Shared memory of one block, in bytes, as csrc/replay.cu::smem_bytes
+    computes it (`layout` and `n_ints`; `steps`: the schedule, auto by
     `_steps_grid`)."""
     if steps is None:
         steps = _steps_grid(cfg)
-    C, A = cfg.num_containers, cfg.num_actions
+    C, T = cfg.num_containers, cfg.num_blocks * cfg.num_rot
     WD = cfg.target_width * cfg.target_depth
-    FQ = 3 * h + 8
-    union = max(WD + 2 + h + FQ + (3 * h if bwd else 0),
-                8 + 32 + h + 32 + NWARP * C)
-    rows = A + union
-    floats = rows * LD + ((h * 32 + 256 + 32 + h) if bwd else 0)
-    return 4 * (floats + (10 * TB + 1 if steps else 6 * TB))
+    up4 = lambda x: (x + 3) & ~3
+    floats = (up4(32 * h) + 256 + 32 + up4(h) + up4(h * LD) * (2 if bwd else 1)
+              + up4(TB * T * C)
+              + up4((WD + 2 + h + 3 * h + 8 + (h if bwd else 0)) * LD)
+              + max(40 * G + ((G * (h + 4) + 32 * G) if bwd else 0), 64 * h,
+                    (cfg.num_blocks + T) * TB))
+    ints = (8 if steps else 4) * TB + 5 * TB + 2 + TB * T
+    return 4 * (floats + ints)
 
 
 def eligible(cfg: TAPConfig, h: int = 128) -> bool:
     """Configs the replay kernels cover: N <= 62 (N > 31 and rolling
-    windows on the step-grid schedule), C <= 4, and a backward block that
-    fits. A finite height cap is covered: the mask is the recorded one."""
+    windows on the step-grid schedule), C <= 4, hidden a multiple of 32 up
+    to 128, and a backward block that fits. A finite height cap is covered:
+    the mask is the recorded one."""
     return (cfg.num_blocks <= MAX_N and cfg.num_containers <= MAX_C
+            and h % 32 == 0 and 0 < h <= MAX_H
             and smem_bytes(cfg, h, True) <= SMEM_LIMIT)
 
 
@@ -97,20 +110,20 @@ def _check_cfg(cfg: TAPConfig, h: int, steps: bool):
             "replay_logp: the monolithic schedule holds N <= 31; N > 31 "
             "runs the step-grid schedule (replay_logp_fwd_steps)")
     smem = smem_bytes(cfg, h, True, steps)
-    if (cfg.num_blocks > MAX_N or cfg.num_containers > MAX_C
-            or smem > SMEM_LIMIT):
+    if not eligible(cfg, h):
         raise NotImplementedError(
-            f"replay_logp kernels cover N <= {MAX_N} and C <= {MAX_C} with "
-            f"at most {SMEM_LIMIT} B of shared memory per block, not {cfg} "
-            f"at hidden {h} ({smem} B); pass kernel=False")
+            f"replay_logp kernels cover N <= {MAX_N} and C <= {MAX_C} at a "
+            f"hidden width that is a multiple of 32 up to {MAX_H}, with at "
+            f"most {SMEM_LIMIT} B of shared memory per block, not {cfg} at "
+            f"hidden {h} ({smem} B); pass kernel=False")
 
 
 def step_chunks(cfg: TAPConfig, B: int) -> int:
     """Step chunks of the step-grid schedule at batch B: the fewest that
     give every SM a block (tiles x chunks >= 132), at most one per step.
-    More chunks buy nothing once the card is full (a block holds most of
-    an SM's shared memory, so one runs per SM), and each costs a d_se
-    partial of T*h*B floats: 2 chunks and 420 MB at 2d-rolling, batch 4096,
+    A backward block holds up to ~219 KB of shared memory (one per SM), so
+    more chunks than that buy no residency, and each costs a d_se partial
+    of B*T*h floats: 2 chunks and 420 MB at 2d-rolling, batch 4096,
     hidden 128."""
     tiles = (B + TB - 1) // TB
     S = cfg.num_blocks
@@ -122,10 +135,12 @@ def step_chunks(cfg: TAPConfig, B: int) -> int:
 # ------------------------------------------------------------------ #
 # plain versions
 
-def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
-              params, temperature):
-    """Head of decode step k from the record, batch-last. Returns
-    (masked [A, B], mask_f [A, B], saved activations)."""
+def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
+    """The step-k part of the head that does not depend on the token: the
+    bit planes of the flags, the step fraction and per container the
+    encoder and the query, batch-last over the B columns given. Returns
+    (bits (packed, acc0, accr, win) [N, B], tf, queries [C] of [h, B],
+    saved activations)."""
     N, W, D = cfg.num_blocks, cfg.target_width, cfg.target_depth
     R, C, A = cfg.num_rot, cfg.num_containers, cfg.num_actions
     T = N * R
@@ -133,10 +148,8 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
     dev = flags_k.device
     f32 = torch.float32
     w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
-    packed = flags_k & 1
-    acc0 = (flags_k >> 1) & 1
-    accr = (flags_k >> 2) & 1
-    win = (flags_k >> 3) & 1
+    bits = tuple((flags_k >> i) & 1 for i in range(4))
+    packed, acc0, accr, win = bits
     tf = torch.tensor(k, dtype=f32, device=dev) / cfg.num_blocks
     pk = packed.sum(0, keepdim=True).to(f32)
     a0 = acc0.sum(0, keepdim=True).to(f32)
@@ -161,7 +174,22 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
         qs.append(wqt @ qin + bq)
         hm_saved.append((feats, e1))
         qins.append(qin)
+    return bits, tf, qs, dict(hm=hm_saved, qins=qins, oh_prev=oh_prev)
 
+
+def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
+              params, temperature):
+    """Head of decode step k from the record, batch-last. Returns
+    (masked [A, B], mask_f [A, B], saved activations)."""
+    R, A = cfg.num_rot, cfg.num_actions
+    T = cfg.num_blocks * R
+    B = flags_k.shape[1]
+    dev = flags_k.device
+    f32 = torch.float32
+    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    (packed, acc0, accr, win), tf, qs, saved = _head_queries(
+        cfg, k, flags_k, hm_k, prev, ctx, statm, params)
+    ones = torch.ones(1, B, dtype=f32, device=dev)
     ac = torch.stack([acc0, accr][:R], 1).reshape(T, B).to(f32)
     x = torch.stack([packed.to(f32).repeat_interleave(R, 0), ac,
                      win.to(f32).repeat_interleave(R, 0),
@@ -175,8 +203,7 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
     mask_f = mask_k.to(f32)
     masked = torch.where(mask_k == 1, scores / temperature,
                          torch.tensor(NEG, dtype=f32, device=dev))
-    saved = dict(hm=hm_saved, qins=qins, oh_prev=oh_prev, x=x, h1=h1,
-                 act=act)
+    saved.update(x=x, h1=h1, act=act)
     return masked, mask_f, saved
 
 
@@ -272,23 +299,33 @@ def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
         dh1 = torch.einsum("hk,thb->ktb", wpt, d_dyn) * (h1 > 0)
         dw8t += torch.einsum("ktb,mtb->km", dh1, sv["x"])
         db8 += dh1.sum((1, 2))[:, None]
-        d_prev = torch.zeros_like(ctx)
-        for c in range(C):
-            qin = sv["qins"][c]
-            dwqt += dqs[c] @ qin.T
-            dbq += dqs[c].sum(1, keepdim=True)
-            dqin = wqt.T @ dqs[c]
-            d_hm = dqin[0:h]
-            dctx += dqin[h:2 * h]
-            d_prev += dqin[2 * h:3 * h]
-            feats, e1 = sv["hm"][c]
-            dw2t += d_hm @ e1.T
-            db2 += d_hm.sum(1, keepdim=True)
-            de1 = (w2t.T @ d_hm) * (e1 > 0)
-            dw1t += de1 @ feats.T
-            db1 += de1.sum(1, keepdim=True)
-        det += d_prev @ sv["oh_prev"].T
+        _query_bwd(dqs, sv, params, g, dctx)
     return dse, dctx, tuple(g)
+
+
+def _query_bwd(dqs, sv, params, g, dctx):
+    """The query and encoder backward of one step from the query gradients
+    dqs [C] of [h, B]: adds the weight gradients into g (the 11 of
+    `head_operands`) and d_ctx into dctx [h, B]."""
+    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    (dw8t, db8, dwpt, dw1t, db1, dw2t, db2, det, dwqt, dbq, dv) = g
+    h = wqt.shape[0]
+    d_prev = torch.zeros_like(dqs[0])
+    for c, dq in enumerate(dqs):
+        qin = sv["qins"][c]
+        dwqt += dq @ qin.T
+        dbq += dq.sum(1, keepdim=True)
+        dqin = wqt.T @ dq
+        d_hm = dqin[0:h]
+        dctx += dqin[h:2 * h]
+        d_prev += dqin[2 * h:3 * h]
+        feats, e1 = sv["hm"][c]
+        dw2t += d_hm @ e1.T
+        db2 += d_hm.sum(1, keepdim=True)
+        de1 = (w2t.T @ d_hm) * (e1 > 0)
+        dw1t += de1 @ feats.T
+        db1 += de1.sum(1, keepdim=True)
+    det += d_prev @ sv["oh_prev"].T
 
 
 def replay_logp_bwd_ref(dlp, flags, hms, masks, acts, se, ctx, statp, statm,
@@ -317,6 +354,145 @@ def replay_logp_bwd_steps_ref(dlp, flags, hms, masks, acts, prev, se, ctx,
             for acc, x in zip(total, (dse, dctx, *g)):
                 acc += x
     return total[0], total[1], tuple(total[2:])
+
+
+def live_columns(mask_k, act_k, cfg: TAPConfig):
+    """The live columns of one decode step, the rule the kernels apply:
+    pairs (instance b, token t) whose instance has an action (act >= 0) and
+    whose recorded mask allows t in some container. Returns (b [n], t [n])
+    ordered by instance, then token, so the columns of batch tile b // TB
+    are one contiguous run in the kernels' order. Every other token scores
+    -1e9 and adds exact zeros to the value and to every gradient."""
+    T, C = cfg.num_blocks * cfg.num_rot, cfg.num_containers
+    live = ((mask_k.reshape(T, C, -1) == 1).any(1)
+            & (act_k >= 0)[None])                             # [T, B]
+    b, t = live.T.nonzero(as_tuple=True)
+    return b, t
+
+
+def _live_step(cfg, k, flags_k, hm_k, mask_k, act_k, prev, se, ctx, statp,
+               statm, params, temperature):
+    """Decode step k over its live columns only: the queries of the
+    instances that act, then the token MLP and the scores of the live
+    columns. Returns None when no instance acts, else a dict of the
+    columns, their masked scores [n, C] and what the backward needs."""
+    R, C = cfg.num_rot, cfg.num_containers
+    T = cfg.num_blocks * R
+    f32 = torch.float32
+    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    inst = (act_k >= 0).nonzero()[:, 0]
+    if inst.numel() == 0:
+        return None
+    b, t = live_columns(mask_k, act_k, cfg)
+    (packed, acc0, accr, win), tf, qs, sv = _head_queries(
+        cfg, k, flags_k[:, inst], hm_k[..., inst], prev[inst], ctx[:, inst],
+        statm[:, inst], params)
+    col = torch.searchsorted(inst, b)          # the column's instance row
+    i, r = t // R, t % R
+    n = b.numel()
+    x = torch.stack([packed[i, col].to(f32),
+                     torch.where(r == 0, acc0[i, col], accr[i, col]).to(f32),
+                     win[i, col].to(f32), tf.expand(n),
+                     statp[0, t, b], statp[1, t, b], statp[2, t, b],
+                     statp[3, t, b]], 0)                      # [8, n]
+    h1 = torch.relu(w8t @ x + b8)                             # [32, n]
+    sd = se[t, :, b].T + wpt @ h1                             # [h, n]
+    act = torch.stack([torch.tanh(sd + q[:, col]) for q in qs], 0)
+    scores = (act * v[None]).sum(1).T                         # [n, C]
+    mk = mask_k.reshape(T, C, -1)[t, :, b]                    # [n, C]
+    masked = torch.where(mk == 1, scores / temperature,
+                         torch.tensor(NEG, dtype=f32, device=se.device))
+    a_col = t[:, None] * C + torch.arange(C, device=se.device)[None]
+    return dict(inst=inst, b=b, t=t, col=col, x=x, h1=h1, act=act,
+                masked=masked, mask_f=mk.to(f32), a_col=a_col, sv=sv)
+
+
+def _live_logp(st, act_k, A):
+    """Per acting instance: lp [n_inst] and the softmax p [n, C] over its
+    live columns (its other actions have p = 0 exactly). An instance whose
+    every action is masked gets the full version's uniform -log(A)."""
+    inst, col, masked = st["inst"], st["col"], st["masked"]
+    C = masked.shape[1]
+    ni = inst.numel()
+    dev = masked.device
+    seg = col[:, None].expand(-1, C).reshape(-1)
+    m = masked.reshape(-1)
+    neg = torch.full((ni,), NEG, dtype=torch.float32, device=dev)
+    mx = neg.scatter_reduce(0, seg, m, "amax", include_self=False)
+    e = torch.exp(m - mx[seg])
+    ssum = torch.zeros(ni, dtype=torch.float32, device=dev).index_add(
+        0, seg, e)
+    count = torch.zeros(ni, device=dev).index_add(0, seg, torch.ones_like(m))
+    ssum = torch.where(count > 0, ssum, torch.full_like(ssum, float(A)))
+    hit = (st["a_col"] == act_k[st["b"]][:, None]).reshape(-1)
+    la = neg.index_put((seg[hit],), m[hit])
+    lp = (la - mx) - torch.log(ssum)
+    return lp, (e / ssum[seg]).reshape(-1, C), hit.reshape(-1, C)
+
+
+def replay_logp_fwd_live(flags, hms, masks, acts, se, ctx, statp, statm,
+                         params, cfg: TAPConfig, temperature: float = 1.0):
+    """Plain forward over the live columns only (`live_columns`); operands
+    and result as in `replay_logp_fwd_ref`, equal to it up to the grouping
+    of the sums."""
+    prev = _prev_rows(acts)
+    total = torch.zeros(acts.shape[1], dtype=torch.float32,
+                        device=acts.device)
+    for k in range(cfg.num_blocks):
+        st = _live_step(cfg, k, flags[k], hms[k], masks[k], acts[k], prev[k],
+                        se, ctx, statp, statm, params, temperature)
+        if st is not None:
+            lp, _, _ = _live_logp(st, acts[k], cfg.num_actions)
+            total = total.index_add(0, st["inst"], lp)
+    return total
+
+
+def replay_logp_bwd_live(dlp, flags, hms, masks, acts, se, ctx, statp, statm,
+                         params, cfg: TAPConfig, temperature: float = 1.0):
+    """Plain backward over the live columns only; operands and results as
+    in `replay_logp_bwd_ref`: per step the token MLP's chain runs on the
+    live columns, the query gradients are per-instance sums over them, and
+    the query and encoder backward runs on the instances that act."""
+    T, h = cfg.num_blocks * cfg.num_rot, se.shape[1]
+    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    g = [torch.zeros_like(p) for p in params]
+    (dw8t, db8, dwpt, dw1t, db1, dw2t, db2, det, dwqt, dbq, dv) = g
+    dse = torch.zeros_like(se)
+    dctx = torch.zeros_like(ctx)
+    prev = _prev_rows(acts)
+    for k in range(cfg.num_blocks):
+        st = _live_step(cfg, k, flags[k], hms[k], masks[k], acts[k], prev[k],
+                        se, ctx, statp, statm, params, temperature)
+        if st is None:
+            continue
+        _, p, onehot = _live_logp(st, acts[k], cfg.num_actions)
+        gsc = ((dlp[st["b"]][:, None] * (onehot.float() - p))
+               * st["mask_f"]) * (1.0 / temperature)          # [n, C]
+        act, h1, x = st["act"], st["h1"], st["x"]             # [C, h, n]
+        gc = gsc.T[:, None, :]                                # [C, 1, n]
+        # gv cancels (the g of an instance sum to 0 over its actions): it is
+        # summed in the full [T, C, h, B] layout, as the full version sums
+        # it, the dead entries exact zeros there as well
+        full = torch.zeros((T,) + act.shape[:2] + (dlp.shape[0],),
+                           dtype=act.dtype, device=act.device)
+        full.permute(0, 3, 1, 2)[st["t"], st["b"]] = (
+            (act * gc).permute(2, 0, 1))
+        dv += full.sum((0, 1, 3))[:, None]
+        dpre = (v[None] * gc) * (1.0 - act * act)
+        d_dyn = dpre.sum(0)                                   # [h, n]
+        dse.permute(0, 2, 1).index_put_((st["t"], st["b"]), d_dyn.T,
+                                        accumulate=True)
+        ni = st["inst"].numel()
+        dqs = [torch.zeros(h, ni, dtype=se.dtype, device=se.device)
+               .index_add_(1, st["col"], dpre[c]) for c in range(act.shape[0])]
+        dwpt += d_dyn @ h1.T
+        dh1 = (wpt.T @ d_dyn) * (h1 > 0)
+        dw8t += dh1 @ x.T
+        db8 += dh1.sum(1, keepdim=True)
+        dctx_i = torch.zeros(h, ni, dtype=se.dtype, device=se.device)
+        _query_bwd(dqs, st["sv"], params, g, dctx_i)
+        dctx[:, st["inst"]] += dctx_i
+    return dse, dctx, tuple(g)
 
 
 # ------------------------------------------------------------------ #
@@ -354,14 +530,6 @@ def _check_operands(flags, hms, masks, acts, se, ctx, statp, statm, params,
     return B, h, dev
 
 
-def _scratch(cfg, B, h, dev, chunks=1):
-    """[chunks, C*h, tiles*TB] f32 for the kernels' per-instance queries
-    (and their gradients)."""
-    tiles = (B + TB - 1) // TB
-    return torch.empty((chunks, cfg.num_containers * h, tiles * TB),
-                       dtype=torch.float32, device=dev)
-
-
 def _launch(bwd, ptrs, cfg, B, h, temperature, dev, chunks=0):
     """`chunks` = 0: the monolithic schedule; else the step-grid one."""
     fn = _lib()
@@ -377,6 +545,17 @@ def _launch(bwd, ptrs, cfg, B, h, temperature, dev, chunks=0):
     return err
 
 
+def _se_rows(se):
+    """se [T, h, B] as [B, T, h]: a live column's keys are one contiguous
+    row, gathered coalesced by the kernels."""
+    return se.permute(2, 0, 1).contiguous()
+
+
+def _transposed(params):
+    """W1, W2 and Wq as [in, h]: the forward products stream their rows."""
+    return tuple(params[i].T.contiguous() for i in (3, 5, 8))
+
+
 def _fwd_kernel(ops, prev, cfg, temperature, chunks):
     flags, hms, masks, acts, se, ctx, statp, statm, params = ops
     B, h, dev = _check_operands(*ops, cfg, chunks > 0, prev)
@@ -385,11 +564,11 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
     none = torch.empty(0, device=dev)
     part = (torch.empty((chunks, B), dtype=f32, device=dev) if chunks > 1
             else none)
-    ptrs = ((flags, hms, masks, acts, se, ctx, statp, statm, none)
+    ptrs = ((flags, hms, masks, acts, _se_rows(se), ctx, statp, statm, none)
             + tuple(params)
-            + (logp, part, none, none, none,
-               _scratch(cfg, B, h, dev, max(chunks, 1)), none,
-               none if prev is None else prev, none, none))
+            + (logp, none, none, none, none,
+               none if prev is None else prev, part, none, none)
+            + _transposed(params))
     return logp, _launch(False, ptrs, cfg, B, h, temperature, dev, chunks)
 
 
@@ -402,20 +581,20 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
     P = sum(a * b for a, b in shapes)
     tiles = (B + TB - 1) // TB
     nc = max(chunks, 1)
+    T = se.shape[0]
     dse = torch.empty_like(se)
     dctx = torch.empty_like(ctx)
     part = torch.empty((tiles * nc, P), dtype=f32, device=dev)
     flat = torch.empty(P, dtype=f32, device=dev)
     none = torch.empty(0, device=dev)
-    dse_part = (torch.empty((nc,) + se.shape, dtype=f32, device=dev)
-                if nc > 1 else none)
+    dse_part = torch.empty((nc, B, T, h), dtype=f32, device=dev)
     dctx_part = (torch.empty((nc,) + ctx.shape, dtype=f32, device=dev)
                  if nc > 1 else none)
-    ptrs = ((flags, hms, masks, acts, se, ctx, statp, statm, dlp)
+    ptrs = ((flags, hms, masks, acts, _se_rows(se), ctx, statp, statm, dlp)
             + tuple(params)
-            + (none, dse, dctx, part, flat, _scratch(cfg, B, h, dev, nc),
-               _scratch(cfg, B, h, dev, nc),
-               none if prev is None else prev, dse_part, dctx_part))
+            + (none, dse, dctx, part, flat,
+               none if prev is None else prev, none, dse_part, dctx_part)
+            + _transposed(params))
     err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks)
     grads, off = [], 0
     for a, b in shapes:
@@ -500,20 +679,18 @@ replay_logp_bwd_steps.launches = 0
 
 
 def scratch_bytes(cfg: TAPConfig, B: int, h: int) -> dict:
-    """Device scratch of one step-grid backward call, in bytes: the d_se
-    and d_ctx partials (none for one chunk), the weight-gradient partial
-    rows and the two query scratches."""
+    """Device scratch of one step-grid backward call, in bytes: the [B, T,
+    h] copy of se, the d_se partials (one per chunk), the d_ctx partials
+    (none for one chunk) and the weight-gradient partial rows."""
     chunks = step_chunks(cfg, B)
     tiles = (B + TB - 1) // TB
     T = cfg.num_blocks * cfg.num_rot
     P = sum(a * b for a, b in head_shapes(cfg, h))
-    multi = chunks > 1
     return {"chunks": chunks,
-            "d_se_partials": 4 * chunks * T * h * B * multi,
-            "d_ctx_partials": 4 * chunks * h * B * multi,
-            "weight_partials": 4 * tiles * chunks * P,
-            "query_scratch": 2 * 4 * chunks * cfg.num_containers * h
-            * tiles * TB}
+            "se_rows": 4 * B * T * h,
+            "d_se_partials": 4 * chunks * T * h * B,
+            "d_ctx_partials": 4 * chunks * h * B * (chunks > 1),
+            "weight_partials": 4 * tiles * chunks * P}
 
 
 class ReplayLogp(torch.autograd.Function):

@@ -143,8 +143,8 @@ def test_plain_step_grid_matches_jax_step_grid_interpret():
     _assert_grads_close(grads, got)
 
 
-def _operands(name):
-    _, cfg, _, _, _, actor, inst, rec = _setup(name)
+def _operands(name, B=64):
+    _, cfg, _, _, _, actor, inst, rec = _setup(name, B=B)
     with torch.no_grad():
         (flags, hms, masks, acts, statp, statm), se, ctx, params = \
             RO.replay_operands(actor, inst, rec, cfg, grad=False)
@@ -247,3 +247,89 @@ def test_kernel_coverage():
     assert RP.step_chunks(rolling, 32) == 50
     assert RP.scratch_bytes(rolling, 4096, 128)["d_se_partials"] == \
         2 * 100 * 128 * 4096 * 4
+
+
+# ------------------------------------------------------------------ #
+# the live-column compaction (the rule the replay kernels apply)
+
+def test_live_columns_rule():
+    """`live_columns` lists exactly the (instance, token) pairs whose
+    instance acts and whose mask allows the token in some container, in
+    (instance, token) order; on a rolling record they are a small share of
+    all pairs."""
+    cfg, ops = _operands("rolling-small")
+    masks, acts = ops[2].numpy(), ops[3].numpy()
+    T, C = cfg.num_blocks * cfg.num_rot, cfg.num_containers
+    total = 0
+    for k in range(cfg.num_blocks):
+        b, t = RP.live_columns(ops[2][k], ops[3][k], cfg)
+        want = [(bi, ti) for bi in range(acts.shape[1]) for ti in range(T)
+                if acts[k, bi] >= 0
+                and any(masks[k, ti * C + c, bi] == 1 for c in range(C))]
+        assert list(zip(b.tolist(), t.tolist())) == want
+        total += len(want)
+    assert 0 < total < 0.5 * acts.size * T
+
+
+@pytest.mark.parametrize("name,temperature", [
+    ("2d-basic", 1.0), ("padded", 0.7), ("rolling-small", 1.0),
+    ("two-limb", 0.7)])
+def test_live_replay_matches_full_plain(name, temperature):
+    """The plain replay over the live columns only against the full plain
+    versions: logp within 1e-6 relative, every gradient within 1e-6 of its
+    max magnitude (only the grouping of the sums differs)."""
+    cfg, ops = _operands(name, B=16 if name == "two-limb" else 64)
+    if name != "2d-basic":
+        assert (ops[3] == -1).any()     # instances that finish early
+    dlp = torch.linspace(-1.0, 1.0, ops[3].shape[1])
+    np.testing.assert_allclose(
+        RP.replay_logp_fwd_live(*ops, cfg, temperature).numpy(),
+        RP.replay_logp_fwd_ref(*ops, cfg, temperature).numpy(), rtol=1e-6)
+    got = RP.replay_logp_bwd_live(dlp, *ops, cfg, temperature)
+    want = RP.replay_logp_bwd_ref(dlp, *ops, cfg, temperature)
+    for i, (a, w) in enumerate(zip([got[0], got[1], *got[2]],
+                                   [want[0], want[1], *want[2]])):
+        scale = float(w.abs().max()) + 1e-12
+        np.testing.assert_allclose(a.numpy() / scale, w.numpy() / scale,
+                                   atol=1e-6, rtol=0, err_msg=f"output {i}")
+
+
+@pytest.mark.parametrize("name,temperature", [
+    ("2d-basic", 1.0), ("rolling-small", 1.0), ("two-limb", 0.7)])
+def test_live_replay_matches_jax_replay(name, temperature, monkeypatch):
+    """The plain live-column replay, routed through `ReplayLogp` in place of
+    the kernels' full plain versions, against `jax.value_and_grad` of the
+    JAX replay at the tolerances of `test_plain_kernels_match_jax_replay`."""
+    jcfg, cfg, params, instances, record, actor, inst, rec = (
+        _setup(name, B=16) if name == "two-limb" else _setup(name))
+    monkeypatch.setattr(RP, "replay_logp_fwd", RP.replay_logp_fwd_live)
+    monkeypatch.setattr(RP, "replay_logp_bwd", RP.replay_logp_bwd_live)
+    monkeypatch.setattr(
+        RP, "replay_logp_fwd_steps",
+        lambda f, h, m, a, prev, *rest: RP.replay_logp_fwd_live(
+            f, h, m, a, *rest))
+    monkeypatch.setattr(
+        RP, "replay_logp_bwd_steps",
+        lambda d, f, h, m, a, prev, *rest: RP.replay_logp_bwd_live(
+            d, f, h, m, a, *rest))
+    with jax.default_matmul_precision("highest"):
+        vals, grads = jax.jit(jax.value_and_grad(
+            lambda p: JRO.replay_logp_sum(
+                p, instances, record, jcfg, hidden=32,
+                temperature=temperature, kernel=False).sum()))(params)
+    lp, got = _port_value_and_grad(actor, inst, rec, cfg, temperature,
+                                   kernel=True)
+    np.testing.assert_allclose(float(lp.sum()), float(vals), rtol=1e-5)
+    _assert_grads_close(grads, got)
+
+
+def test_kernel_hidden_widths():
+    """The kernels tile hidden rows by 32 lanes: widths that are multiples
+    of 32 up to 128 are covered, others are refused (raise, no fallback)."""
+    cfg = CONFIGS["2d-basic"]
+    for h in (32, 64, 96, 128):
+        assert RP.eligible(cfg, h), h
+    for h in (16, 48, 160, 256):
+        assert not RP.eligible(cfg, h), h
+        with pytest.raises(NotImplementedError, match="multiple of 32"):
+            RP._check_cfg(cfg, h, False)
