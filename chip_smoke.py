@@ -12,15 +12,19 @@ source, all started at once), then runs, and fails on the first fault:
    2d-basic at a ragged batch of 100 and a capped lb-hard 2D config), every
    step through both on the same scores; every integer output equal;
 3. actor_select_step (K2) vs its plain version: sampled rollouts of the same
-   configs (less the capped one) at hidden 128, every step through both on
-   the same inputs; integer outputs equal, logits and logp within 1e-5;
+   configs (less the capped one) at hidden 128, every step through both
+   modes and the full plain version on the same inputs: the full mode's
+   integer outputs equal, logits and logp within 1e-5; the main path's
+   mode (live columns, no logits) integer outputs equal, logp within 1e-5;
 4. the main path: `tapnet_torch.pack()` on 2d-basic, hidden 128, seeded
    weights: greedy and sample at batch 4096, best-of-16 on 256 instances;
    every instance complete, heightmaps replayed from the placements,
    rewards in (0, 3], the launch counters up by N per rollout, and a small
    batch agreeing with the CPU reference path;
 5. times (CUDA events, median of 25): each kernel per launch, its plain
-   version, and a whole pack() per policy;
+   version (K2: both modes, the live columns of the timed step, the bound
+   over them and the all-token bound beside it, its registers and spills
+   from ptxas), and a whole pack() per policy;
 6. heightmap_reductions (K3) vs its plain version, bit-equal, on the final
    heightmaps of sampled rollouts (2d-basic at batch 4096, 3d-basic and
    multi-container at 512) and on all-zero heightmaps;
@@ -50,9 +54,10 @@ source, all started at once), then runs, and fails on the first fault:
    uncapped, a tight cap that strands blocks, capped with 2 and 3
    containers, 3D capped, a 3D rolling window, five mcs cases) at batch
    512, 2d-basic at a ragged 100 and at 4096;
-11. select_step (K1) and actor_select_step (K2) under the mcs placement rule
-   vs their plain versions, lockstep rollouts as in 2 and 3, on a 2D
-   mcs-soft and a 3D two-container mcs-hard config at batch 512;
+11. select_step (K1) and actor_select_step (K2, both modes) under the mcs
+   placement rule vs their plain versions, lockstep rollouts as in 2 and
+   3, on a 2D mcs-soft and a 3D two-container mcs-hard config at batch
+   512;
 12. the heuristic main path: `pack(policy="first")` and `pack("random")` on
    each of the six CONFIGS at batch 4096: one K4 and one K3 launch per
    call, plans complete (or, under a cap, every unpacked block a no-op
@@ -62,8 +67,9 @@ source, all started at once), then runs, and fails on the first fault:
 13. times: K4 per launch for `random` on each of the six CONFIGS at batch
    4096 with the plain version beside it, and `pack(first)` /
    `pack(random)` on 2d-basic (host clock, median of 20);
-14. actor_select_step (K2) with a rolling window and two precedence limbs vs
-   its plain version, lockstep rollouts as in 3: 2d-rolling (50 blocks,
+14. actor_select_step (K2, both modes) with a rolling window and two
+   precedence limbs vs its plain version, lockstep rollouts as in 3:
+   2d-rolling (50 blocks,
    window 10), a 12-block window-4 config with rotation, a 34-block
    window-6 config (two limbs) and a 3D window config, at batch 512 and a
    ragged 100, 2d-rolling also at 4096;
@@ -80,12 +86,19 @@ source, all started at once), then runs, and fails on the first fault:
    `train()` for 2 epochs x 2 steps with a resume; then one train step of
    multi-container-capped at batch 256 (K1 x10, K5b x1 on the recorded mask,
    K3 x1) against the CPU path;
-17. times at 2d-rolling, batch 4096: K2 per launch, K5f-steps and K5b-steps
-   per call, each with its plain version and its bound counted over the
-   (instance, step) pairs that have an action in this run (the replay's
-   token work over the live (instance, step, token) triples only, whose
-   share it prints; the all-token bound beside it); `pack()` per policy
-   and the train step (host clock).
+17. times at 2d-rolling, batch 4096: K2 per launch (both modes, as in 5),
+   K5f-steps and K5b-steps per call, each with its plain version and its
+   bound counted over the (instance, step) pairs that have an action in
+   this run (the token work over the live columns only, whose share it
+   prints; the all-token bound beside it); `pack()` per policy and the
+   train step (host clock);
+18. past a kernel's coverage, the fallbacks the routers pick
+   (`train.rollout.routes`) on the card: 2 train steps of 2d-basic at
+   hidden 256, batch 256 (K1 x10 and K3 x1 per step, no K2, no K5: the
+   general replay) and a step against the CPU path; sampled pack() at
+   hidden 256 (K1 x10) against the CPU path; pack(first/random) on a
+   17 x 16 3D target (no K4) equal to the CPU path; and K2, K5b, K1 and K4
+   called directly outside their coverage raise NotImplementedError.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -188,18 +201,24 @@ def actor_operands(actor, inst, cfg, keys):
     se_htb = embed_static_T(actor, static_t4).reshape(-1, T, B)
     upm, rotm = AS.precedence_bitmasks(inst, cfg)
     g_all = RO._gumbel_all(keys, cfg).transpose(1, 2).contiguous()
-    return dict(se=se_htb.permute(1, 0, 2).contiguous(),
+    o = dict(se=se_htb.permute(2, 1, 0).contiguous(),
                 ctx=se_htb.mean(1).contiguous(),
                 statp=static_t4.reshape(4, T, B).contiguous(),
                 statm=static.mean(1).T.contiguous(), upm=upm, rotm=rotm,
                 fits=AS.fits_planes(inst, cfg),
                 params=AS.head_operands(actor, cfg), g_all=g_all)
+    o["params_t"] = AS.transposed(o["params"])
+    return o
 
 
 def check_actor_step(cfg, B, actor, dev, keep=None):
-    """Sampled rollout; at every step actor_select_step and its plain
-    version get the same inputs: integer outputs equal, logits and logp
-    within TOL. Returns the middle step's operands when `keep` is set."""
+    """Sampled rollout; at every step both modes of actor_select_step and
+    the full plain version get the same inputs. The full mode: integer
+    outputs equal, logits and logp within TOL; the main path's mode
+    (logits=False, live columns): integer outputs equal to the full plain
+    version's, logp within TOL. The rollout advances on the main-path
+    mode's outputs. Returns the middle step's operands when `keep` is set
+    and the max logit/logp error."""
     from tapnet_torch import random as R
     from tapnet_torch.ops import actor_step as AS
     from tapnet_torch.train import rollout as RO
@@ -207,6 +226,7 @@ def check_actor_step(cfg, B, actor, dev, keep=None):
     N = cfg.num_blocks
     inst = _instances(cfg, B, dev, SEED + 2)
     kept, err = None, 0.0
+    names = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
     with torch.no_grad():
         o = actor_operands(actor, inst, cfg, R.split(R.key(SEED + 3, dev), B))
         (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
@@ -218,21 +238,25 @@ def check_actor_step(cfg, B, actor, dev, keep=None):
                    o["statp"], o["statm"], o["params"])
             if keep and t == N // 2:
                 kept = ops
-            got = AS.actor_select_step(*ops, cfg)
             want = AS.actor_select_step_ref(*ops, cfg)
-            names = ("packed", "hm", "plc", "act", "flags", "mask",
-                     "logits", "logp")
-            for name, g, w in zip(names, got, want):
-                if name in ("logits", "logp"):
-                    d = (g - w).abs()
-                    lim = TOL + TOL * w.abs()
-                    if not bool((d <= lim).all()):
-                        raise AssertionError(
-                            f"actor_select_step {name} step {t}: max err "
-                            f"{d.max().item()}")
-                    err = max(err, d.max().item())
-                else:
-                    _equal(f"actor_select_step {name} step {t}", g, w)
+            for logits in (True, False):
+                got = AS.actor_select_step(*ops, cfg, logits=logits,
+                                           params_t=o["params_t"])
+                what = f"actor_select_step(logits={logits})"
+                for name, g, w in zip(names, got, want):
+                    if name == "logits" and not logits:
+                        if g is not None:
+                            raise AssertionError(f"{what} returned logits")
+                    elif name in ("logits", "logp"):
+                        d = (g - w).abs()
+                        lim = TOL + TOL * w.abs()
+                        if not bool((d <= lim).all()):
+                            raise AssertionError(
+                                f"{what} {name} step {t}: max err "
+                                f"{d.max().item()}")
+                        err = max(err, d.max().item())
+                    else:
+                        _equal(f"{what} {name} step {t}", g, w)
             packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
     return kept, err
 
@@ -383,14 +407,69 @@ def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def actor_ops_count(cfg, B, h):
+def actor_ops_count(cfg, B, h, tokens=None):
     """f32 operations of one actor_select_step on B instances: 2 per
     multiply-add of every matrix-vector product, plus tanh, the +v and the
-    score adds of the attention (4 per (token, container, unit))."""
+    score adds of the attention (4 per (token, container, unit)).
+    `tokens`: the (instance, token) columns to count for the token work
+    instead of B * T (the live columns of the main path's mode)."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD, T = cfg.target_width * cfg.target_depth, N * R
-    macs = C * (h * (WD + 2) + h * h + h * (3 * h + 8)) + T * (32 * 8 + 32 * h)
-    return B * (2 * macs + T * C * h * 4)
+    tokens = B * T if tokens is None else tokens
+    enc = C * (h * (WD + 2) + h * h + h * (3 * h + 8))
+    return 2 * B * enc + tokens * (2 * (32 * 8 + 32 * h) + C * h * 4)
+
+
+def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
+    """Both modes of K2 on one step's operands (CUDA events) and the full
+    plain version; the bound of the main path's mode counted over its
+    acting instances and live columns (bytes: every operand but the keys
+    and the gumbel rows, the keys of the live columns, the gumbel of the
+    valid actions, the outputs), the all-token bound beside it. Returns a
+    dict."""
+    from tapnet_torch.ops import actor_step as AS
+
+    pt = AS.transposed(ops[16])  # as the decode loop: once per rollout
+    ms = time_gpu(lambda: AS.actor_select_step(*ops, cfg, logits=False,
+                                               params_t=pt))
+    full = time_gpu(lambda: AS.actor_select_step(*ops, cfg, params_t=pt))
+    plain = time_gpu(lambda: AS.actor_select_step_ref(*ops, cfg),
+                     reps=plain_reps, sleep_cycles=plain_sleep)
+    out = AS.actor_select_step(*ops, cfg, logits=False, params_t=pt)
+    out_full = AS.actor_select_step(*ops, cfg, params_t=pt)
+    B = ops[1].shape[1]
+    b, _ = AS.live_columns(out[5], cfg)
+    cols = int(b.numel())
+    acting = int((out[3] >= 0).sum())
+    valid = int((out[5] == 1).sum())
+    se, g = ops[12], ops[11]
+    rest = nbytes([x for i, x in enumerate(ops[:16]) if i not in (11, 12)])
+    outs = nbytes([x for x in out if x is not None])
+    live_b = rest + nbytes(ops[16]) + cols * h * 4 + valid * 4 + outs
+    all_b = nbytes(ops[:16]) + nbytes(ops[16]) + nbytes(out_full)
+    live_o = actor_ops_count(cfg, acting, h, cols)
+    all_o = actor_ops_count(cfg, B, h)
+    bound = max(1e3 * live_b / HBM_BYTES_S, 1e3 * live_o / F32_OPS_S)
+    return {"ms": ms, "full_ms": full, "plain_ms": plain, "cols": cols,
+            "acting": acting, "pairs": B * cfg.num_blocks * cfg.num_rot,
+            "bytes": live_b, "ops": live_o, "bound": bound,
+            "bound_by": ("operations" if live_o / F32_OPS_S
+                         >= live_b / HBM_BYTES_S else "bytes"),
+            "all_bound": max(1e3 * all_b / HBM_BYTES_S,
+                             1e3 * all_o / F32_OPS_S),
+            "all_ops": all_o, "se_bytes": nbytes([se]), "g_bytes":
+            nbytes([g])}
+
+
+def log_actor_times(tag, cfg, k):
+    log(f"{tag} actor_select_step {cfg.num_blocks}-block step "
+        f"{cfg.num_blocks // 2}: main-path mode (live columns) "
+        f"{k['ms']:.4f} ms/launch, full mode {k['full_ms']:.4f} ms/launch "
+        f"(plain {k['plain_ms']:.4f}); {k['acting']} instances act, "
+        f"{k['cols']} of {k['pairs']} (instance, token) columns live; "
+        f"{k['bytes']} B, {k['ops']} f32 ops over the live columns, bound "
+        f"{k['bound']:.5f} ms ({k['bound_by']}); all tokens {k['all_ops']} "
+        f"f32 ops, bound {k['all_bound']:.5f} ms")
 
 
 # ------------------------------------------------------------------ #
@@ -583,7 +662,8 @@ def train_counters():
             "heightmap_reductions": RW.heightmap_reductions}
 
 
-def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN):
+def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN,
+                    hidden=HIDDEN):
     """init_train_state + `n_steps` steps of make_train_step(batch) on the
     card with the launch counts of every step held to `per_step` (default:
     the monolithic-replay route, actor_select_step N, replay_logp_bwd 1,
@@ -591,8 +671,8 @@ def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN):
     and the step."""
     from tapnet_torch import init_train_state, make_train_step
 
-    ts = init_train_state(SEED, cfg, hidden=HIDDEN, device=dev)
-    step = make_train_step(cfg, batch=batch, hidden=HIDDEN, device=dev)
+    ts = init_train_state(SEED, cfg, hidden=hidden, device=dev)
+    step = make_train_step(cfg, batch=batch, hidden=hidden, device=dev)
     counters = train_counters()
     for f in counters.values():
         f.launches = 0
@@ -615,7 +695,7 @@ def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN):
     return {k: f.launches for k, f in counters.items()}, ts, step
 
 
-def check_train_against_cpu(cfg, ts, dev, B=256):
+def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
     """One step at batch B on the card and on the CPU reference path from
     the same state: instances equal, >= 95% of the trajectories equal,
     R/C/P/S exactly equal on those; then the whole step on both, the losses
@@ -650,8 +730,8 @@ def check_train_against_cpu(cfg, ts, dev, B=256):
                              "trajectories agree")
     for a, b in zip(side["card"][2], side["cpu"][2]):
         _equal("train R/C/P/S terms card vs CPU", a.cpu()[same], b[same])
-    _, m_g = make_train_step(cfg, batch=B, hidden=HIDDEN, device=dev)(gpu)
-    _, m_c = make_train_step(cfg, batch=B, hidden=HIDDEN, device="cpu")(cpu)
+    _, m_g = make_train_step(cfg, batch=B, hidden=hidden, device=dev)(gpu)
+    _, m_c = make_train_step(cfg, batch=B, hidden=hidden, device="cpu")(cpu)
     diffs = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_g}
     if frac == 1.0:
         for k in ("loss_actor", "loss_critic"):
@@ -930,6 +1010,114 @@ def rolling_cases():
     }
 
 
+# ------------------------------------------------------------------ #
+# phase 18: configs past a kernel's coverage take the fallbacks
+
+def check_fallback_routes(dev):
+    """On the card, configs a kernel does not cover run through the path
+    `routes` picks instead, with the CPU path's results: a train step and
+    sampled pack() at hidden 256 (past K2 and the replay kernels: K1 and
+    the general replay), pack(first/random) on a 17 x 16 target (past K4,
+    K1 and K2: the env's own rollout). The wrappers called directly
+    outside their coverage still raise. Returns the launch counts of the
+    run."""
+    from tapnet_torch import CONFIGS, TAPConfig, pack
+    from tapnet_torch import random as R
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import env as OE
+    from tapnet_torch.ops import policy_step as PS
+    from tapnet_torch.ops import replay as RP
+    from tapnet_torch.train import rollout as RO
+
+    cfg, h = CONFIGS["2d-basic"], 256
+    want = RO.Routes("step", False, True)
+    if RO.routes(cfg, True, h) != want:
+        raise AssertionError(f"routes at hidden {h}: "
+                             f"{RO.routes(cfg, True, h)}")
+    per_step = {"select_step": cfg.num_blocks, "heightmap_reductions": 1}
+    counts, ts, _ = train_main_path(cfg, dev, per_step, n_steps=2, batch=256,
+                                    hidden=h)
+    log(f"phase 18 train step 2d-basic hidden {h} batch 256 (no K2, no K5): "
+        f"launches (2 steps) {counts}")
+    check_train_against_cpu(cfg, ts, dev, B=256, hidden=h)
+
+    actor = init_params(SEED, cfg, h, dev)
+    actor_cpu = type(actor)(cfg, h)
+    actor_cpu.load_state_dict({k: v.cpu() for k, v in
+                               actor.state_dict().items()})
+    inst = _instances(cfg, 256, dev, SEED + 30)
+    k1, k2 = PS.select_step.launches, AS.actor_select_step.launches
+    a = pack(inst, cfg, actor, policy="sample", key=SEED + 31)
+    got = (PS.select_step.launches - k1, AS.actor_select_step.launches - k2)
+    if got != (cfg.num_blocks, 0):
+        raise AssertionError(f"pack(sample) hidden {h}: launches "
+                             f"(select_step, actor_select_step) = {got}")
+    b = pack(inst.to("cpu"), cfg, actor_cpu, policy="sample", key=SEED + 31,
+             device="cpu")
+    same = (a.actions == b.actions).all(axis=1)
+    if same.mean() < 0.95 or not np.allclose(a.rewards[same],
+                                             b.rewards[same], atol=1e-6):
+        raise AssertionError(f"pack(sample) hidden {h} card vs CPU: "
+                             f"{same.mean()} of the trajectories agree")
+    log(f"phase 18 pack(sample) 2d-basic hidden {h} B=256: select_step x"
+        f"{got[0]}, actor_select_step x0; {same.mean():.4f} of the "
+        "trajectories equal to the CPU path's, their rewards within 1e-6")
+
+    wide = TAPConfig(dim=3, container_width=17, container_depth=16,
+                     container_height=8, target_width=17, target_depth=16,
+                     allow_rot=True)
+    if RO.routes(wide, True, HIDDEN) != RO.Routes("general", True, False):
+        raise AssertionError(f"routes on 17 x 16: {RO.routes(wide, True)}")
+    inst_w = _instances(wide, 256, dev, SEED + 32)
+    k4 = OE.fused_rollout_batch.launches
+    for policy in ("first", "random"):
+        plan = pack(inst_w, wide, policy=policy, key=SEED + 33)
+        check_heuristic_plan(plan, inst_w, wide, f"phase 18 pack({policy}) "
+                             "17 x 16 target (no K4)")
+        _plans_equal(f"pack({policy}) 17 x 16 card vs CPU", plan,
+                     pack(inst_w.to("cpu"), wide, policy=policy,
+                          key=SEED + 33, device="cpu"))
+    if OE.fused_rollout_batch.launches != k4:
+        raise AssertionError("pack(first/random) on a 17 x 16 target "
+                             "launched fused_rollout_batch")
+    log("phase 18 pack(first/random) 17 x 16 target B=256: no K4 launch, "
+        "plans equal to the CPU path's on every field")
+
+    # the wrappers outside their coverage: NotImplementedError, no fallback
+    keys = R.split(R.key(SEED + 34, dev), 256)
+    o = actor_operands(actor, inst, cfg, keys)
+    (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
+    tf = torch.zeros((1, 1), device=dev)
+    prev = torch.full((1, 256), -1, dtype=torch.int32, device=dev)
+    ops_r, _ = replay_operands(actor, cfg, 256, dev, SEED + 35, 1.0)
+    score = torch.zeros((wide.num_actions, 256), device=dev)
+    _, packed_w, hm_w, plc_w = RO._batch_last(inst_w, wide)
+    (dw_w, dd_w, dh_w), _, _, _ = RO._batch_last(inst_w, wide)
+    refusals = {
+        f"actor_select_step hidden {h}": lambda: AS.actor_select_step(
+            tf, packed, hm, plc, prev, dw, dd, dh, o["upm"], o["rotm"],
+            o["fits"], o["g_all"][0], o["se"], o["ctx"], o["statp"],
+            o["statm"], o["params"], cfg, logits=False),
+        f"replay_logp_bwd hidden {h}": lambda: RP.replay_logp_bwd(
+            torch.zeros(256, device=dev), *ops_r, cfg),
+        "select_step 17 x 16": lambda: PS.select_step(
+            score, score.int(), packed_w, hm_w, plc_w, dw_w, dd_w, dh_w,
+            wide),
+        "fused_rollout_batch 17 x 16": lambda: OE.fused_rollout_batch(
+            inst_w, keys, wide, "first"),
+    }
+    for name, call in refusals.items():
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{name} did not raise")
+    log("phase 18 called directly outside their coverage, "
+        f"{', '.join(refusals)} raise NotImplementedError")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -992,27 +1180,20 @@ def main() -> int:
     k1_ms = time_gpu(lambda: PS.select_step(*kept_k1, cfg=cfg))
     k1_plain = time_gpu(lambda: PS.select_place_ref(cfg, *kept_k1),
                         sleep_cycles=50_000_000)
-    k2_ms = time_gpu(lambda: AS.actor_select_step(*kept_k2, cfg))
-    k2_plain = time_gpu(lambda: AS.actor_select_step_ref(*kept_k2, cfg),
-                        sleep_cycles=100_000_000)
     k1_out = PS.select_step(*kept_k1, cfg=cfg)
-    k2_out = AS.actor_select_step(*kept_k2, cfg)
-    B = 4096
     k1_bytes = nbytes(kept_k1) + nbytes(k1_out)
-    k2_bytes = (nbytes(kept_k2[:16]) + nbytes(kept_k2[16])
-                + nbytes(k2_out))
-    k2_ops = actor_ops_count(cfg, B, HIDDEN)
     k1_bound = 1e3 * k1_bytes / HBM_BYTES_S
-    k2_bound_b = 1e3 * k2_bytes / HBM_BYTES_S
-    k2_bound_o = 1e3 * k2_ops / F32_OPS_S
     k1_err = 0.0
     for g, w in zip(k1_out, PS.select_place_ref(cfg, *kept_k1)):
         k1_err = max(k1_err, (g - w).abs().max().item())
     log(f"phase 5 select_step: {k1_ms:.4f} ms/launch (plain {k1_plain:.4f}),"
         f" {k1_bytes} B moved, bound {k1_bound:.4f} ms")
-    log(f"phase 5 actor_select_step: {k2_ms:.4f} ms/launch (plain "
-        f"{k2_plain:.4f}), {k2_bytes} B, {k2_ops} f32 ops, bound "
-        f"{max(k2_bound_b, k2_bound_o):.4f} ms")
+    k2 = time_actor_step(kept_k2, cfg, HIDDEN)
+    log_actor_times("phase 5", cfg, k2)
+    ptxas = _build.ptxas_report()
+    for line in ptxas.splitlines():
+        if line.startswith("actor_step.cu"):
+            log(f"phase 5 ptxas {line}")
 
     from tapnet_torch import pack
     best_inst = inst.index(slice(0, 256))
@@ -1256,20 +1437,9 @@ def main() -> int:
     check_train_against_cpu(ccfg, cts, dev)
 
     # ---- phase 17: times at 2d-rolling, batch 4096
-    live = lambda acts: int((acts >= 0).sum())
-    k2r_ms = time_gpu(lambda: AS.actor_select_step(*kept_k2r, rcfg))
-    k2r_plain = time_gpu(lambda: AS.actor_select_step_ref(*kept_k2r, rcfg),
-                         reps=5, sleep_cycles=200_000_000)
-    k2r_out = AS.actor_select_step(*kept_k2r, rcfg)
-    k2r_bytes = (nbytes(kept_k2r[:16]) + nbytes(kept_k2r[16])
-                 + nbytes(k2r_out))
-    k2r_ops = actor_ops_count(rcfg, live(k2r_out[3]), HIDDEN)
-    k2r_bound, k2r_by = bound(k2r_bytes, k2r_ops)
-    log(f"phase 17 actor_select_step 2d-rolling B={B_MAIN} step "
-        f"{rcfg.num_blocks // 2}: {k2r_ms:.4f} ms/launch (plain "
-        f"{k2r_plain:.4f}), {k2r_bytes} B, {k2r_ops} f32 ops over "
-        f"{live(k2r_out[3])} instances with an action, bound "
-        f"{k2r_bound:.4f} ms ({k2r_by})")
+    k2r = time_actor_step(kept_k2r, rcfg, HIDDEN, plain_reps=5,
+                          plain_sleep=200_000_000)
+    log_actor_times("phase 17", rcfg, k2r)
     ops_s, dlp_s = kept_k5s
     fwd_s, fwd_s_ref, bwd_s, bwd_s_ref = replay_fns(ops_s, rcfg, 1.0, True)
     k5fs_ms = time_gpu(fwd_s, reps=10)
@@ -1321,6 +1491,9 @@ def main() -> int:
         f"{rstep_ms:.3f} ms/step = "
         f"{B_MAIN * rcfg.num_blocks / rstep_ms * 1e3:.0f} env-steps/s")
 
+    # ---- phase 18: past a kernel's coverage, the fallbacks on the card
+    fallback = check_fallback_routes(dev)
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
@@ -1338,9 +1511,8 @@ def main() -> int:
                       + roll_launches["actor_select_step"]
                       + roll_train["actor_select_step"]),
          "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": max(k2_bound_b, k2_bound_o),
-         "bound_by": "operations" if k2_bound_o >= k2_bound_b else "bytes",
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound"], "bound_by": k2["bound_by"],
          "library_ms": None},
         {"name": "reward_reductions", "route": "cuda",
          "source": "tapnet_torch/csrc/reward.cu",

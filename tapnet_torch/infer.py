@@ -8,7 +8,8 @@ action, `random`: a uniform feasible action). It runs on `cuda` unless the
 caller passes `device="cpu"`; on the card the decode steps go through the
 port's CUDA kernels (`select_step` for greedy, `actor_select_step` for
 sample and best) and a heuristic rollout is one launch of
-`fused_rollout_batch`.
+`fused_rollout_batch`, each where it covers the config
+(`train.rollout.routes`), else the general path.
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ def pack(instances: Instance, cfg: TAPConfig,
         raise RuntimeError("pack(device='cuda') needs a CUDA device; pass "
                            "device='cpu' for the reference path")
     from tapnet_torch.train.rollout import (policy_rollout_batch,
-                                            policy_rollout_best_of)
+                                            policy_rollout_best_of, routes)
 
     instances = instances.to(device)
     key = _as_key(key, device)
@@ -115,7 +116,9 @@ def pack(instances: Instance, cfg: TAPConfig,
     if heuristic:
         from tapnet_torch.env.core import rollout_batch
         from tapnet_torch.ops.env import fused_rollout_batch
-        run = fused_rollout_batch if device.type == "cuda" else rollout_batch
+        on_card = device.type == "cuda"
+        run = (fused_rollout_batch if routes(cfg, on_card).rollout
+               else rollout_batch)
         return PackingPlan(*run(instances, R.split(key, B), cfg, policy),
                            cfg)
     actor = actor.to(device)

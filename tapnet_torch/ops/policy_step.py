@@ -29,6 +29,13 @@ from tapnet_torch.ops import _build
 MAX_WD = 256  # csrc/select_place.cuh: heightmap cells held per thread
 
 
+def eligible(cfg: TAPConfig) -> bool:
+    """Configs the kernel covers: every rule, variant, cap, window and
+    container count, with at most MAX_WD heightmap cells per container
+    (the JAX kernel covers every config)."""
+    return cfg.target_width * cfg.target_depth <= MAX_WD
+
+
 def env_ints(cfg: TAPConfig):
     """The kernels' EnvCfg fields (csrc/select_place.cuh): N, W, D, R, C,
     hard, cap, two_d, mcs, terms (a bit per reward term: C 1, P 2, S 4)."""
@@ -113,7 +120,7 @@ def select_step(score, mask, packed, hm, plc, dims_w, dims_d, dims_h,
                                 dims_w, dims_d, dims_h)
     N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
                   cfg.num_containers)
-    if W * D > MAX_WD:
+    if not eligible(cfg):
         raise NotImplementedError(f"select_step kernel holds at most "
                                   f"{MAX_WD} heightmap cells per container")
     A, B = cfg.num_actions, score.shape[1]

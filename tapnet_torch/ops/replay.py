@@ -50,7 +50,7 @@ import torch
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.models.features import _scale
 from tapnet_torch.ops import _build
-from tapnet_torch.ops.actor_step import head_shapes
+from tapnet_torch.ops.actor_step import head_shapes, transposed
 from tapnet_torch.ops.policy_step import _check
 
 NEG = -1e9
@@ -551,11 +551,6 @@ def _se_rows(se):
     return se.permute(2, 0, 1).contiguous()
 
 
-def _transposed(params):
-    """W1, W2 and Wq as [in, h]: the forward products stream their rows."""
-    return tuple(params[i].T.contiguous() for i in (3, 5, 8))
-
-
 def _fwd_kernel(ops, prev, cfg, temperature, chunks):
     flags, hms, masks, acts, se, ctx, statp, statm, params = ops
     B, h, dev = _check_operands(*ops, cfg, chunks > 0, prev)
@@ -568,7 +563,7 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
             + tuple(params)
             + (logp, none, none, none, none,
                none if prev is None else prev, part, none, none)
-            + _transposed(params))
+            + transposed(params))
     return logp, _launch(False, ptrs, cfg, B, h, temperature, dev, chunks)
 
 
@@ -594,7 +589,7 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
             + tuple(params)
             + (none, dse, dctx, part, flat,
                none if prev is None else prev, none, dse_part, dctx_part)
-            + _transposed(params))
+            + transposed(params))
     err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks)
     grads, off = [], 0
     for a, b in shapes:

@@ -2,23 +2,26 @@
 `tapnet_tpu/train/rollout.py`.
 
 `rollout_batch_record` rolls a batch with the actor under `torch.no_grad()`
-and returns (states, RolloutRecord, logp_sum). It picks a path as the JAX
-package does:
+and returns (states, RolloutRecord, logp_sum). It picks a path by `routes`,
+as the JAX package does, each kernel only where its `eligible` covers the
+config at the actor's hidden width:
 
-- sampled decode on a CUDA device, for configs the actor kernel covers
-  (unbounded height, N <= 62, rolling windows included):
-  `_rollout_record_actorfused`, one `actor_select_step` launch per step;
-- otherwise on a CUDA device (greedy decode, or a finite height cap):
+- sampled decode on a CUDA device where the actor kernel covers the config
+  (unbounded height, N <= 62, rolling windows included, C <= 4, hidden a
+  multiple of 32 up to 128): `_rollout_record_actorfused`, one
+  `actor_select_step` launch per step in its live-column mode;
+- otherwise on a CUDA device where `select_step` covers it (W*D <= 256):
   `_rollout_record_stepfused`, the actor head as PyTorch ops and one
   `select_step` launch per step. Greedy decode stays off the actor kernel
   because it sits on argmax ties between duplicate blocks (SPEC.md §12);
-- on the CPU: `_rollout_record_general`, the reference path.
+- otherwise, and on the CPU: `_rollout_record_general`, the reference path.
 
 On rolling unbounded configs (`_use_windowed_head`) the general and the
 step-fused rollout score only the window's tokens per step
 (`_make_windowed_head`: gather the <= window observable blocks, score them
 through `TAPNetActor.head_ctx`, scatter back to [B, A]); the actor kernel
-scores all tokens and masks the rest, which gives the same softmax.
+scores the live (instance, token) columns, the window's unpacked blocks that
+fit, and masks the rest, which gives the same softmax.
 
 `step_kernel` / `actor_kernel` force a path; on CPU tensors the kernel
 wrappers run their plain versions, which is how the tests drive the fused
@@ -29,9 +32,10 @@ so a seed samples the same trajectories on both sides.
 `replay_logp_sum` is the differentiable half: sum_t log pi(a_t | s_t) of a
 recorded rollout, through the replay kernels (`ops/replay.py`: the
 monolithic schedule, or the step-grid one for rolling configs and N > 31)
-on the card, or on the CPU through autograd of `TAPNetActor.head` over all
-N steps (`_replay_logp_general`) or, for rolling unbounded configs, of
-`head_ctx` over the window's tokens only (`_replay_logp_windowed`).
+on the card where they cover the config, else through autograd of
+`TAPNetActor.head` over all N steps (`_replay_logp_general`) or, for
+rolling unbounded configs, of `head_ctx` over the window's tokens only
+(`_replay_logp_windowed`).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from tapnet_torch.models.features import (dynamic_flags, heightmap_grid,
                                           static_tokens, tokens_from_flags)
 from tapnet_torch.models.tapnet import TAPNetActor, embed_static_T
 from tapnet_torch.ops import actor_step as AS
+from tapnet_torch.ops import env as OE
 from tapnet_torch.ops import policy_step as PS
 from tapnet_torch.ops import replay as RP
 from tapnet_torch.types import EnvState, Instance
@@ -79,6 +84,33 @@ def _gumbel_all(keys: torch.Tensor, cfg: TAPConfig) -> torch.Tensor:
     return R.gumbel(kt, (cfg.num_actions,))
 
 
+class Routes(NamedTuple):
+    """The kernels a call takes (`routes`)."""
+
+    decode: str    # "actor" (K2), "step" (K1) or "general": the decode loop
+    replay: bool   # K5, the replay of a train step
+    rollout: bool  # K4, pack(first/random) and evaluate(baselines=True)
+
+
+def routes(cfg: TAPConfig, on_card: bool, hidden: int = 128,
+           greedy: bool = False) -> Routes:
+    """The kernels the routers take for `cfg` at hidden width `hidden`: on
+    the card each kernel where its `eligible` covers the config, as the JAX
+    package's routers ask; on the CPU none. Sampled decode takes K2, else
+    K1, else the general loop (greedy decode skips K2); the replay takes K5,
+    else the windowed or the general replay; a heuristic rollout takes K4,
+    else `env.core.rollout_batch`. A pure function of its arguments: the
+    CPU tests rehearse the card's choices with on_card=True."""
+    if on_card and not greedy and AS.eligible(cfg, hidden):
+        decode = "actor"
+    elif on_card and PS.eligible(cfg):
+        decode = "step"
+    else:
+        decode = "general"
+    return Routes(decode, on_card and RP.eligible(cfg, hidden),
+                  on_card and OE.eligible(cfg))
+
+
 @torch.no_grad()
 def rollout_batch_record(actor: TAPNetActor, instances: Instance,
                          keys: torch.Tensor, cfg: TAPConfig,
@@ -86,15 +118,12 @@ def rollout_batch_record(actor: TAPNetActor, instances: Instance,
                          with_logp: bool = True, step_kernel=None,
                          actor_kernel=None):
     """Roll a batch; returns (states, RolloutRecord, logp_sum [B])."""
-    on_card = instances.dims.is_cuda
-    if actor_kernel is None:
-        actor_kernel = on_card and not greedy and AS.eligible(cfg)
-    if actor_kernel:
+    r = routes(cfg, instances.dims.is_cuda, actor.hidden,
+               greedy=greedy or actor_kernel is False)
+    if actor_kernel or (actor_kernel is None and r.decode == "actor"):
         return _rollout_record_actorfused(actor, instances, keys, cfg,
                                           greedy, temperature, with_logp)
-    if step_kernel is None:
-        step_kernel = on_card
-    if step_kernel:
+    if step_kernel or (step_kernel is None and r.decode == "step"):
         return _rollout_record_stepfused(actor, instances, keys, cfg,
                                          greedy, temperature, with_logp)
     return _rollout_record_general(actor, instances, keys, cfg, greedy,
@@ -332,9 +361,11 @@ def _rollout_record_stepfused(actor, instances, keys, cfg, greedy,
 
 def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
                                temperature, with_logp):
-    """One `actor_select_step` per decode step: flags, mask, the head, the
+    """One `actor_select_step` per decode step in its live-column mode
+    (`logits=False`): flags, mask, the head over the live columns, the
     gumbel argmax, select/place and log pi in one launch. Only the static
-    embedding and the gumbel sweep run as PyTorch ops."""
+    embedding (as the kernel's [B, T, h] rows, built once), the transposed
+    W1, W2, Wq (once) and the gumbel sweep run as PyTorch ops."""
     B = instances.dims.shape[0]
     dev = instances.dims.device
     N, R_, A = cfg.num_blocks, cfg.num_rot, cfg.num_actions
@@ -342,13 +373,14 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     static = static_tokens(instances, cfg)                   # [B, T, 4]
     static_t4 = static.permute(2, 1, 0).reshape(4, T * B)    # [4, T*B]
     se_htb = embed_static_T(actor, static_t4).reshape(-1, T, B)
-    se = se_htb.permute(1, 0, 2).contiguous()                # [T, h, B]
+    se = se_htb.permute(2, 1, 0).contiguous()                # [B, T, h]
     ctx = se_htb.mean(1).contiguous()                        # [h, B]
     statp = static_t4.reshape(4, T, B).contiguous()
     statm = static.mean(1).T.contiguous()                    # [4, B]
     upm, rotm = AS.precedence_bitmasks(instances, cfg)
     fits = AS.fits_planes(instances, cfg)
     params = AS.head_operands(actor, cfg)
+    params_t = AS.transposed(params)
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = (torch.zeros((N, A, B), device=dev) if greedy
              else _gumbel_all(keys, cfg).transpose(1, 2).contiguous())
@@ -359,7 +391,8 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
         tf = torch.full((1, 1), t, dtype=torch.float32, device=dev) / N
         packed_n, hm_n, plc, a, flags, mask, _, lp = AS.actor_select_step(
             tf, packed, hm, plc, prev, dw, dd, dh, upm, rotm, fits, g_all[t],
-            se, ctx, statp, statm, params, cfg, temperature)
+            se, ctx, statp, statm, params, cfg, temperature, logits=False,
+            params_t=params_t)
         if with_logp:
             logp_sum = logp_sum + lp
         recs.append((flags.T.to(torch.uint8), _hm_batch_major(hm, cfg),
@@ -378,12 +411,13 @@ def replay_logp_sum(actor: TAPNetActor, instances: Instance,
                     logp0=None, windowed=None) -> torch.Tensor:
     """Differentiable sum_t log pi(a_t | s_t) [B] of the recorded actions.
 
-    kernel (auto: on for CUDA tensors): the replay kernel path,
-    `_replay_logp_kernel`, whose schedule `ops.replay` picks per config
-    (monolithic, or step-grid for rolling windows and N > 31); on CPU
-    tensors `kernel=True` runs the kernels' plain versions through the same
-    autograd Function. On the card a config the kernels do not cover raises
-    NotImplementedError; pass `kernel=False` for the replays below.
+    kernel (auto: on for CUDA tensors where `routes` takes the replay
+    kernels, i.e. `ops.replay.eligible(cfg, hidden)`): the replay kernel
+    path, `_replay_logp_kernel`, whose schedule `ops.replay` picks per
+    config (monolithic, or step-grid for rolling windows and N > 31); on
+    CPU tensors `kernel=True` runs the kernels' plain versions through the
+    same autograd Function. A config the kernels do not cover takes the
+    replays below, on the card too.
     `logp0` (kernel path only) is the rollout's own logp, returned as the
     value while the gradient comes from the replay backward (the JAX custom
     VJP's primal).
@@ -396,7 +430,8 @@ def replay_logp_sum(actor: TAPNetActor, instances: Instance,
     most ~40960 decode rows live) runs the step axis in chunks recomputed
     in the backward (torch.utils.checkpoint)."""
     if kernel is None:
-        kernel = record.action.is_cuda and windowed is None
+        kernel = windowed is None and routes(
+            cfg, record.action.is_cuda, actor.hidden).replay
     if kernel:
         return _replay_logp_kernel(actor, instances, record, cfg,
                                    temperature, logp0)

@@ -23,6 +23,7 @@ from tapnet_torch.env import core as E
 from tapnet_torch.env.sampler import sample_batch
 from tapnet_torch.ops.env import fused_rollout_batch
 from tapnet_torch.train import checkpoints as ckpt
+from tapnet_torch.train import rollout as RO
 from tapnet_torch.train.metrics import MetricsLogger
 from tapnet_torch.train.reinforce import (TrainState, resolve_device,
                                           init_train_state, make_train_step)
@@ -95,7 +96,9 @@ def evaluate(actor, cfg: TAPConfig, loop: TrainLoopConfig,
         for c in range(cfg.num_containers):
             out[f"valid_container{c}_frac"] = (cont == c).sum() / placed_n
     if baselines:
-        run = fused_rollout_batch if dev.type == "cuda" else E.rollout_batch
+        on_card = dev.type == "cuda"
+        run = (fused_rollout_batch if RO.routes(cfg, on_card).rollout
+               else E.rollout_batch)
         for policy in ("random", "first"):
             out[f"{policy}_reward"] = run(instances, keys, cfg,
                                           policy)[2].mean()

@@ -1,7 +1,7 @@
-"""Port actor_select_step (plain version) vs the JAX actor_select_step kernel.
+"""Port actor_select_step (plain versions) vs the JAX actor_select_step kernel.
 
 `tapnet_torch.ops.actor_step.actor_select_step_ref` — the plain PyTorch
-version the CUDA kernel is held to on the card — against
+version of the full mode the CUDA kernel is held to on the card — against
 `tapnet_tpu.ops.pallas_actor_step.actor_select_step(..., interpret=True)`
 for one sampled decode step at hidden 48, batch 128, on the same weights
 (flax init_params through convert.py) and the same mid-rollout state:
@@ -9,8 +9,15 @@ integer outputs bit-equal, logits and logp within rtol = atol = 1e-5
 (accumulation order, SPEC.md §12 tier 2). The same on a rolling config
 (12 blocks, window 4, rotation) and on a two-limb one (34 blocks, window 6):
 the window rank, flag bit 3, the windowed mask and the second precedence
-limb against the Pallas kernel, one step each, and a whole sampled rollout
-of the 12-block config through `rollout_batch_record(actor_kernel=True)`
+limb against the Pallas kernel, one step each.
+
+The decode loop's mode, `actor_select_step_live_ref` (token work on the
+live columns only, no logits): the live-column rule on a hand-built mask;
+against the full plain version on 2d-basic, the 12-block rolling config
+and a two-container mcs config (integer outputs equal, logp within 1e-6);
+against the Pallas kernel on the same inputs (integer outputs equal, logp
+within 1e-5 relative); and a whole sampled rollout of the 12-block config
+through `rollout_batch_record(actor_kernel=True)`, which runs that mode,
 on both sides (12 interpret-mode steps).
 """
 
@@ -47,9 +54,15 @@ ROLLING = {
 }
 
 
+# two containers under the mcs rule
+CUSTOM = dict(ROLLING, **{"mcs-2c": dict(num_containers=2,
+                                         container_height=20, allow_rot=True,
+                                         reward_type="C+P+S-mcs-soft")})
+
+
 def _configs(name):
-    if name in ROLLING:
-        return TAPConfig(**ROLLING[name]), JTAPConfig(**ROLLING[name])
+    if name in CUSTOM:
+        return TAPConfig(**CUSTOM[name]), JTAPConfig(**CUSTOM[name])
     return CONFIGS[name], JCONFIGS[name]
 
 
@@ -88,6 +101,14 @@ def _operands(cfg, actor, seed=5):
     return [np.ascontiguousarray(o) for o in ops]
 
 
+def _port_ops(ops):
+    """The port's operands from the JAX kernel's: se [T, h, B] as the rows
+    [B, T, h]."""
+    t = [torch.from_numpy(o) for o in ops]
+    t[12] = t[12].permute(2, 0, 1).contiguous()
+    return t
+
+
 @pytest.mark.parametrize("name", ["2d-basic", "2d-rot", "rolling-small",
                                   "two-limb"])
 def test_actor_select_step_ref_matches_jax_kernel(name):
@@ -101,9 +122,8 @@ def test_actor_select_step_ref_matches_jax_kernel(name):
             *(jnp.asarray(o) for o in ops),
             JAS.head_operands(flax_params, jcfg, jnp.float32),
             cfg=jcfg, temperature=0.7, interpret=True)
-    got = AS.actor_select_step(
-        *(torch.from_numpy(o) for o in ops), AS.head_operands(actor, cfg),
-        cfg, temperature=0.7)
+    got = AS.actor_select_step(*_port_ops(ops), AS.head_operands(actor, cfg),
+                               cfg, temperature=0.7)
     labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
     for label, w, g in zip(labels, want, got):
         w, g = np.asarray(w), g.numpy()
@@ -124,10 +144,87 @@ def test_actor_select_step_ref_matches_jax_kernel(name):
     assert ops[8].shape[0] == AS._num_limbs(cfg.num_blocks) * cfg.num_blocks
 
 
-def test_rolling_rollout_matches_jax_kernel_rollout():
+def test_live_columns_rule():
+    """Columns: (instance, token) pairs whose mask allows the token in some
+    container, by instance then token; an instance without a valid action
+    has none."""
+    cfg = TAPConfig(num_blocks=3, min_blocks=3, container_width=4,
+                    container_height=4, target_width=4, allow_rot=True,
+                    num_containers=2)
+    T_, C = 6, 2
+    mask = torch.zeros((T_, C, 3), dtype=torch.int32)
+    mask[4, :, 0] = mask[1, :, 0] = 1       # instance 0: tokens 1, 4
+    mask[0, :, 2] = 1                       # instance 2: token 0
+    b, t = AS.live_columns(mask.reshape(T_ * C, 3), cfg)
+    assert b.tolist() == [0, 0, 2] and t.tolist() == [1, 4, 0]
+
+
+def _plain_ops(name, seed=5):
+    cfg, _ = _configs(name)
+    actor = actor_from_flax(jax.tree.map(np.asarray, jax_init_params(
+        jax.random.key(3), _configs(name)[1], HIDDEN)["actor"]), cfg, HIDDEN)
+    return cfg, actor, _operands(cfg, actor, seed)
+
+
+@pytest.mark.parametrize("name", ["2d-basic", "rolling-small", "mcs-2c"])
+def test_live_ref_matches_full_ref(name):
+    """The decode loop's mode against the full plain version on the same
+    inputs: integer outputs equal, logp within 1e-6, no logits."""
+    cfg, actor, ops = _plain_ops(name)
+    ops = _port_ops(ops)
+    params = AS.head_operands(actor, cfg)
+    full = AS.actor_select_step_ref(*ops, params, cfg, temperature=0.7)
+    live = AS.actor_select_step(*ops, params, cfg, temperature=0.7,
+                                logits=False)
+    labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+    for label, f, g in zip(labels, full, live):
+        if label == "logits":
+            assert g is None
+        elif label == "logp":
+            np.testing.assert_allclose(g.numpy(), f.numpy(), rtol=0,
+                                       atol=1e-6)
+        else:
+            assert torch.equal(g, f), label
+    # some instances act, and most tokens are dead
+    b, _ = AS.live_columns(full[5], cfg)
+    assert 0 < b.numel() < ops[1].shape[1] * cfg.num_blocks * cfg.num_rot
+
+
+@pytest.mark.parametrize("name", ["2d-basic", "rolling-small", "mcs-2c"])
+def test_live_ref_matches_jax_kernel(name):
+    cfg, jcfg = _configs(name)
+    flax_params = jax_init_params(jax.random.key(3), jcfg, HIDDEN)["actor"]
+    actor = actor_from_flax(jax.tree.map(np.asarray, flax_params), cfg,
+                            HIDDEN)
+    ops = _operands(cfg, actor, seed=7)
+    with jax.default_matmul_precision("highest"):
+        want = JAS.actor_select_step(
+            *(jnp.asarray(o) for o in ops),
+            JAS.head_operands(flax_params, jcfg, jnp.float32),
+            cfg=jcfg, temperature=1.0, interpret=True)
+    got = AS.actor_select_step_live_ref(*_port_ops(ops),
+                                        AS.head_operands(actor, cfg), cfg)
+    labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+    for label, w, g in zip(labels, want, got):
+        if label == "logits":
+            assert g is None
+        elif label == "logp":
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-6, err_msg=label)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=label)
+
+
+def test_rolling_rollout_matches_jax_kernel_rollout(monkeypatch):
     """A whole sampled rollout of the 12-block rolling config, hidden 32:
-    the port's actor-fused path (plain K2 on CPU tensors) vs the JAX
-    actor-fused path with the Pallas kernel in interpret mode."""
+    the port's actor-fused path (plain K2 on CPU tensors, in the decode
+    loop's live-column mode, every step) vs the JAX actor-fused path with
+    the Pallas kernel in interpret mode."""
+    live_steps = []
+    live_ref = AS.actor_select_step_live_ref
+    monkeypatch.setattr(AS, "actor_select_step_live_ref", lambda *a, **k: (
+        live_steps.append(1), live_ref(*a, **k))[1])
     cfg, jcfg = _configs("rolling-small")
     hidden = 32
     params = jax_init_params(jax.random.key(4), jcfg, hidden)["actor"]
@@ -152,6 +249,7 @@ def test_rolling_rollout_matches_jax_kernel_rollout():
                                       np.asarray(getattr(s_j, f)), err_msg=f)
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), rtol=1e-4,
                                atol=1e-4)
+    assert len(live_steps) == cfg.num_blocks
 
 
 def test_window_and_two_limbs_raise():

@@ -290,9 +290,10 @@ def test_actor_select_step_ref_mcs_matches_jax_kernel(name):
             *(jnp.asarray(o) for o in ops),
             JAS.head_operands(flax_params, jcfg, jnp.float32),
             cfg=jcfg, temperature=0.7, interpret=True)
-    got = AS.actor_select_step(
-        *(torch.from_numpy(o) for o in ops), AS.head_operands(actor, cfg),
-        cfg, temperature=0.7)
+    port_ops = [torch.from_numpy(o) for o in ops]
+    port_ops[12] = port_ops[12].permute(2, 0, 1).contiguous()  # [B, T, h]
+    got = AS.actor_select_step(*port_ops, AS.head_operands(actor, cfg),
+                               cfg, temperature=0.7)
     labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
     for label, w, g in zip(labels, want, got):
         w, g = np.asarray(w), g.numpy()
