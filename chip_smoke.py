@@ -23,8 +23,8 @@ source, all started at once), then runs, and fails on the first fault:
    batch agreeing with the CPU reference path;
 5. times (CUDA events, median of 25): each kernel per launch, its plain
    version (K2: both modes, the live columns of the timed step, the bound
-   over them and the all-token bound beside it, its registers and spills
-   from ptxas), and a whole pack() per policy;
+   over them and the all-token bound beside it), the registers, stack and
+   spills of K1, K2 and K4 from ptxas, and a whole pack() per policy;
 6. heightmap_reductions (K3) vs its plain version, bit-equal, on the final
    heightmaps of sampled rollouts (2d-basic at batch 4096, 3d-basic and
    multi-container at 512) and on all-zero heightmaps;
@@ -52,7 +52,8 @@ source, all started at once), then runs, and fails on the first fault:
    CONFIGS (2d-rolling too: 50 blocks, window 10, ragged block counts) and
    one case per remaining branch (lb-hard with rotation, two containers
    uncapped, a tight cap that strands blocks, capped with 2 and 3
-   containers, 3D capped, a 3D rolling window, five mcs cases) at batch
+   containers, 3D capped, a 3D target 20 cells deep under a cap, a 3D
+   rolling window, five mcs cases) at batch
    512, 2d-basic at a ragged 100 and at 4096;
 11. select_step (K1) and actor_select_step (K2, both modes) under the mcs
    placement rule vs their plain versions, lockstep rollouts as in 2 and
@@ -87,7 +88,10 @@ source, all started at once), then runs, and fails on the first fault:
    multi-container-capped at batch 256 (K1 x10, K5b x1 on the recorded mask,
    K3 x1) against the CPU path;
 17. times at 2d-rolling, batch 4096: K2 per launch (both modes, as in 5),
-   K5f-steps and K5b-steps per call, each with its plain version and its
+   K1 per launch (also at the capped train step's shape,
+   multi-container-capped at batch 256, each after a lockstep greedy
+   rollout against its plain version), K5f-steps and K5b-steps per call,
+   each with its plain version and its
    bound counted over the (instance, step) pairs that have an action in
    this run (the token work over the live columns only, whose share it
    prints; the all-token bound beside it); `pack()` per policy and the
@@ -98,7 +102,14 @@ source, all started at once), then runs, and fails on the first fault:
    general replay) and a step against the CPU path; sampled pack() at
    hidden 256 (K1 x10) against the CPU path; pack(first/random) on a
    17 x 16 3D target (no K4) equal to the CPU path; and K2, K5b, K1 and K4
-   called directly outside their coverage raise NotImplementedError.
+   called directly outside their coverage raise NotImplementedError;
+19. K1 and K4 where a split-and-join placement can go wrong (the configs
+   of tests/test_torch_place_edges.py: duplicate score rows and equal
+   landing heights, lb-hard with and without a stable offset, mcs ties,
+   a 16 x 16 target with 8 containers, where K4 keeps its heightmaps out of
+   shared memory, 62 blocks under a window, 16 (rotation, container) pairs
+   under a cap, a tight cap) at batch 37 and 512: bit-equal to their plain
+   versions and two launches bit-identical.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -405,6 +416,27 @@ def time_host(fn, reps=REPS):
 
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_select_step(ops, cfg):
+    """K1 on one step's operands and its plain version (CUDA events), the
+    bytes the step must move and its byte bound, the max difference."""
+    from tapnet_torch.ops import policy_step as PS
+    ms = time_gpu(lambda: PS.select_step(*ops, cfg=cfg))
+    plain = time_gpu(lambda: PS.select_place_ref(cfg, *ops),
+                     sleep_cycles=50_000_000)
+    out = PS.select_step(*ops, cfg=cfg)
+    err = max((g - w).abs().max().item()
+              for g, w in zip(out, PS.select_place_ref(cfg, *ops)))
+    moved = nbytes(ops) + nbytes(out)
+    return {"ms": ms, "plain_ms": plain, "bytes": moved,
+            "bound": 1e3 * moved / HBM_BYTES_S, "err": err}
+
+
+def log_select_times(tag, name, B, k):
+    log(f"{tag} select_step {name} B={B}: {k['ms']:.4f} ms/launch (plain "
+        f"{k['plain_ms']:.4f}), {k['bytes']} B moved, bound "
+        f"{k['bound']:.5f} ms (bytes)")
 
 
 def actor_ops_count(cfg, B, h, tokens=None):
@@ -820,14 +852,21 @@ def heuristic_cases():
         "3d-capped-mc-mcs": T(**cube6, target_height=4, num_containers=2,
                               allow_rot=True,
                               reward_type="C+P+S-mcs-hard"),
+        # a target deeper than 16 cells: K4's min-landing table from shared
+        # memory rather than register rows
+        "3d-deep-capped": T(dim=3, container_width=4, container_depth=20,
+                            container_height=4, target_width=4,
+                            target_depth=20, target_height=3, allow_rot=True),
     }
 
 
-def check_fused_rollout(cfg, B, dev, policy):
+def check_fused_rollout(cfg, B, dev, policy, repeat=False):
     """K4 against its plain version on the same instances and keys: every
-    state field, the actions and the rewards bit-equal. Returns the number
-    of no-op steps (blocks a cap stranded, and padding steps)."""
+    state field, the actions and the rewards bit-equal; with `repeat`, a
+    second launch on the same operands bit-identical to the first. Returns
+    the number of no-op steps (blocks a cap stranded, and padding steps)."""
     from tapnet_torch import random as R
+    from tapnet_torch.env import core as E
     from tapnet_torch.ops import env as OE
 
     inst = _instances(cfg, B, dev, SEED + 20)
@@ -839,6 +878,13 @@ def check_fused_rollout(cfg, B, dev, policy):
                getattr(s_p, f))
     _equal(f"fused_rollout_batch {policy} actions", a_k, a_p)
     _equal(f"fused_rollout_batch {policy} rewards", r_k, r_p)
+    if repeat:
+        ops = OE.rollout_operands(inst, E.policy_bits(keys, cfg, policy),
+                                  cfg)
+        for name, a, b in zip(("hm", "packed", "actions", "plc"),
+                              OE.rollout_kernel(ops, cfg),
+                              OE.rollout_kernel(ops, cfg)):
+            _equal(f"fused_rollout_batch {policy} {name} repeated", a, b)
     return int((a_k < 0).sum())
 
 
@@ -1118,6 +1164,141 @@ def check_fallback_routes(dev):
     return counts
 
 
+# ------------------------------------------------------------------ #
+# phase 19: K1 and K4 where a split-and-join placement can go wrong
+
+def edge_cases():
+    """The configs of tests/test_torch_place_edges.py, where the plain
+    versions are held to the JAX package: duplicate score rows and equal lb
+    keys (2d-basic from the empty state), lb-hard, mcs ties, a 16 x 16
+    target with 8 containers (K4 keeps its heightmaps out of shared memory
+    there), 62 blocks under a window, 16 (rotation, container) pairs under a
+    cap, a tight cap that strands blocks."""
+    from tapnet_torch import TAPConfig as T
+    return {
+        "2d-basic": T(),
+        "2d-lb-hard": T(allow_rot=True, reward_type="C+P+S-lb-hard"),
+        "2d-mcs-soft": T(reward_type="C+P+S-mcs-soft"),
+        "3d-mcs-hard": T(dim=3, container_width=6, container_depth=6,
+                         container_height=6, target_width=6, target_depth=6,
+                         num_containers=2, reward_type="C+P+S-mcs-hard"),
+        "3d-16x16": T(dim=3, container_width=16, container_depth=16,
+                      container_height=16, target_width=16, target_depth=16,
+                      num_containers=8, allow_rot=True),
+        "2d-62-window": T(num_blocks=62, min_blocks=40, container_width=16,
+                          container_height=40, target_width=16, window=6,
+                          allow_rot=True),
+        "2d-rc16-capped": T(num_containers=8, container_height=30,
+                            allow_rot=True, target_height=9),
+        "2d-capped-tight": T(target_height=3, reward_type="C+P-lb-soft"),
+    }
+
+
+def select_operands(cfg, inst, state, score):
+    """select_step's operands at `state`, batch-last, the scores masked as
+    the decode loop masks them."""
+    from tapnet_torch.env import core as E
+    N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
+                  cfg.num_containers)
+    mask = E.action_mask(state, inst, cfg).T.int().contiguous()
+    score = torch.where(mask == 1, score, torch.full_like(score, -1e9))
+    return (score.contiguous(), mask, state.packed.T.int().contiguous(),
+            state.heightmap.permute(1, 2, 3, 0).reshape(C * W, D, -1)
+            .contiguous(),
+            state.placements.permute(1, 2, 0).reshape(N * 6, -1).contiguous(),
+            *(inst.dims[:, :, k].T.int().contiguous() for k in range(3)))
+
+
+def check_select_edges(name, ops, cfg):
+    """K1 against its plain version on `ops`, and a second launch
+    bit-identical to the first. Returns the number of acting instances."""
+    from tapnet_torch.ops import policy_step as PS
+    got = PS.select_step(*ops, cfg=cfg)
+    again = PS.select_step(*ops, cfg=cfg)
+    for field, g, a, w in zip(("packed", "hm", "plc", "act"), got, again,
+                              PS.select_place_ref(cfg, *ops)):
+        _equal(f"select_step {name} {field}", g, w)
+        _equal(f"select_step {name} {field} repeated", a, g)
+    return int((got[3] >= 0).sum())
+
+
+def k1_edges(name, cfg, B, dev):
+    """Two steps as in the CPU test: from the empty state with every score
+    row duplicated from its neighbour, then after N/2 random steps."""
+    from tapnet_torch.env import core as E
+    inst = _instances(cfg, B, dev, SEED + 40)
+    state = E.reset(inst, cfg)
+    g = torch.Generator().manual_seed(SEED + 41)
+    A = cfg.num_actions
+    score = torch.randn((A, B), generator=g)
+    score[1::2] = score[0::2][:A // 2]
+    acts = [check_select_edges(f"{name} B={B} empty", select_operands(
+        cfg, inst, state, score.to(dev)), cfg)]
+    for _ in range(cfg.num_blocks // 2):
+        mask = E.action_mask(state, inst, cfg)
+        u = torch.rand(mask.shape, generator=g).to(dev) * mask
+        a = torch.where(mask.any(1), u.argmax(1), -1).int()
+        state = E.step(state, a, inst, cfg)
+    score = torch.randn((A, B), generator=g).to(dev)
+    acts.append(check_select_edges(f"{name} B={B} mid", select_operands(
+        cfg, inst, state, score), cfg))
+    return acts
+
+
+def k1_hard_without_stable(dev, B=37):
+    """lb-hard where no offset is stable (heights alternate 5, 0 under a
+    2-wide block) for half the batch and a flat top makes one stable for
+    the other half, as in the CPU test."""
+    from tapnet_torch.env import core as E
+    cfg = edge_cases()["2d-lb-hard"]
+    inst = _instances(cfg, B, dev, SEED + 42)
+    dims = inst.dims.clone()
+    dims[:, :, 0], dims[:, :, 2] = 2, 3
+    inst = inst._replace(dims=dims)
+    hm = torch.zeros((B, 1, cfg.target_width, 1), dtype=torch.int32,
+                     device=dev)
+    hm[:, 0, 0::2, 0] = 5
+    hm[B // 2:, 0, 4:7, 0] = 5
+    state = E.reset(inst, cfg)._replace(heightmap=hm)
+    score = torch.full((cfg.num_actions, B), -5.0, device=dev)
+    score[0] = 1.0
+    ops = list(select_operands(cfg, inst, state, score))
+    ops[0], ops[1] = score, torch.ones_like(ops[1])
+    check_select_edges("2d-lb-hard without a stable offset", ops, cfg)
+    from tapnet_torch.ops import policy_step as PS
+    stable = PS.select_step(*ops, cfg=cfg)[2][5]
+    if not (bool((stable[:B // 2] == 0).all())
+            and bool((stable[B // 2:] == 1).all())):
+        raise AssertionError("lb-hard: the stable flags of the chosen "
+                             "offsets are not the expected ones")
+
+
+def check_edges(dev):
+    """Phase 19: K1 and K4 bit-equal to their plain versions on the edge
+    cases, at a batch of 37 and 512, and two launches bit-identical."""
+    from tapnet_torch.ops import env as OE
+    plans = {}
+    for name, cfg in edge_cases().items():
+        acts = []
+        for B in (37, 512):
+            acts += k1_edges(name, cfg, B, dev)
+            noops = [check_fused_rollout(cfg, B, dev, p, repeat=True)
+                     for p in ("first", "random")]
+        plans[name] = "shared" if OE.onchip(cfg) else "global"
+        log(f"phase 19 {name}: select_step == plain, bit-equal and "
+            f"repeated bit-identical, from the empty state and mid-rollout "
+            f"at B=37 and 512 ({acts} instances act); fused_rollout_batch "
+            f"== plain and repeated bit-identical at B=37 and 512, first and "
+            f"random ({noops} no-op steps at 512), heightmaps in "
+            f"{plans[name]} memory")
+    k1_hard_without_stable(dev)
+    log("phase 19 2d-lb-hard without a stable offset: select_step == plain, "
+        "the soft winner where no offset is stable, the stable one where "
+        "one is")
+    if "global" not in plans.values():
+        raise AssertionError("no edge case ran K4's second storage plan")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1177,22 +1358,12 @@ def main() -> int:
     check_against_cpu(cfg, actor, inst, dev)
 
     # ---- phase 5: times at the main path's shapes (2d-basic, B=4096)
-    k1_ms = time_gpu(lambda: PS.select_step(*kept_k1, cfg=cfg))
-    k1_plain = time_gpu(lambda: PS.select_place_ref(cfg, *kept_k1),
-                        sleep_cycles=50_000_000)
-    k1_out = PS.select_step(*kept_k1, cfg=cfg)
-    k1_bytes = nbytes(kept_k1) + nbytes(k1_out)
-    k1_bound = 1e3 * k1_bytes / HBM_BYTES_S
-    k1_err = 0.0
-    for g, w in zip(k1_out, PS.select_place_ref(cfg, *kept_k1)):
-        k1_err = max(k1_err, (g - w).abs().max().item())
-    log(f"phase 5 select_step: {k1_ms:.4f} ms/launch (plain {k1_plain:.4f}),"
-        f" {k1_bytes} B moved, bound {k1_bound:.4f} ms")
+    k1 = time_select_step(kept_k1, cfg)
+    log_select_times("phase 5", "2d-basic", B_MAIN, k1)
     k2 = time_actor_step(kept_k2, cfg, HIDDEN)
     log_actor_times("phase 5", cfg, k2)
-    ptxas = _build.ptxas_report()
-    for line in ptxas.splitlines():
-        if line.startswith("actor_step.cu"):
+    for line in _build.ptxas_report().splitlines():
+        if line.split()[0] in ("actor_step.cu", "policy_step.cu", "env.cu"):
             log(f"phase 5 ptxas {line}")
 
     from tapnet_torch import pack
@@ -1436,10 +1607,18 @@ def main() -> int:
         f"launches: {capped_train}")
     check_train_against_cpu(ccfg, cts, dev)
 
-    # ---- phase 17: times at 2d-rolling, batch 4096
+    # ---- phase 17: times at 2d-rolling, batch 4096 (K1 also on the
+    # capped train step's shape)
     k2r = time_actor_step(kept_k2r, rcfg, HIDDEN, plain_reps=5,
                           plain_sleep=200_000_000)
     log_actor_times("phase 17", rcfg, k2r)
+    for name, c1, B1 in (("2d-rolling", rcfg, B_MAIN),
+                         ("multi-container-capped", ccfg, 256)):
+        kept = check_select_step(c1, B1, init_params(SEED, c1, HIDDEN, dev),
+                                 dev, keep=True)
+        log(f"phase 17 select_step == plain: {name} B={B1}, "
+            f"{c1.num_blocks} steps")
+        log_select_times("phase 17", name, B1, time_select_step(kept, c1))
     ops_s, dlp_s = kept_k5s
     fwd_s, fwd_s_ref, bwd_s, bwd_s_ref = replay_fns(ops_s, rcfg, 1.0, True)
     k5fs_ms = time_gpu(fwd_s, reps=10)
@@ -1494,14 +1673,17 @@ def main() -> int:
     # ---- phase 18: past a kernel's coverage, the fallbacks on the card
     fallback = check_fallback_routes(dev)
 
+    # ---- phase 19: K1 and K4 on the edge cases of the split placement
+    check_edges(dev)
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
          "replaces": "tapnet_tpu/ops/pallas_policy_step.py:298",
          "launches": (launches["select_step"] + roll_launches["select_step"]
                       + capped_train["select_step"]),
-         "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "max_abs_err": k1["err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "actor_select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/actor_step.cu",

@@ -5,9 +5,8 @@
 // limbs, N <= 62), the rolling-window cut, flags, the action mask, the
 // heightmap encoder, the previous-action embedding, the query, the
 // per-token dyn MLP, additive attention v.tanh(key + dyn + q), masked
-// (tempered) logits + gumbel, select/place (the placement body
-// select_place.cuh's place_block, shared with K1 and K4) and log pi of the
-// chosen action.
+// (tempered) logits + gumbel, select/place (the placement body of
+// select_place.cuh, shared with K1 and K4) and log pi of the chosen action.
 //
 // Two modes, a template flag each: LOGITS = true is the full function,
 // every token of every instance scored and the logits [A, B] written (the
@@ -73,15 +72,16 @@
 //   dims into shared memory; warp 0 joins the partials per instance (the
 //   lowest action attaining the max, as select_place's scan) and sums log
 //   pi over the instance's columns in action order; every warp then walks
-//   a share of the candidate offsets of place_block (`place_part`: the
-//   candidates are totally ordered, so the warps' winners join into
-//   place_block's) and writes a share of the new state rows (packed,
-//   heightmap, placements). select_place.cuh does all of this from one
-//   thread per instance, which at 2d-rolling costs ~0.17 ms per launch
-//   (K1). `python -m tapnet_torch.profile_phases` gives every phase's
-//   share of a launch.
+//   a share of the candidate offsets (select_place.cuh `place_part`: the
+//   candidates are totally ordered, so the warps' winners join into the
+//   winner over all offsets), warp 0 joins them (`place_gather`,
+//   `place_resolve`), and every warp writes a share of the new state rows
+//   (packed, heightmap, placements), as K1 and K4 do. `python -m
+//   tapnet_torch.profile_phases` gives every phase's share of a launch.
 // - 128 registers, no spills (ptxas); shared memory 142,680 B at 2d-basic
-//   and 178,552 B at 2d-rolling (h = 128): one block of 16 warps per SM.
+//   and 178,552 B at 2d-rolling (h = 128): one block of 16 warps per SM,
+//   which the launch bound tells ptxas (without it, ptxas may trade
+//   registers for a second block that can never be resident, and spill).
 //   The wrapper refuses a plan above the 227 KB a block may hold; h must
 //   be a multiple of 32, at most 128.
 //
@@ -244,26 +244,6 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
     if (r < RW) emit(wy * RW + r, acc[r]);
 }
 
-// store(r, load(r)) for the rows r = wy, wy + NWARP, ... < n of a warp,
-// eight loads in flight at a time.
-template <class Load, class Store>
-__device__ __forceinline__ void rows8(int n, int wy, Load load, Store store) {
-  using V = decltype(load(0));
-  for (int r0 = wy; r0 < n; r0 += 8 * NWARP) {
-    V v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int r = r0 + u * NWARP;
-      v[u] = r < n ? load(r) : V();
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int r = r0 + u * NWARP;
-      if (r < n) store(r, v[u]);
-    }
-  }
-}
-
 __device__ inline float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
@@ -302,97 +282,10 @@ __device__ __forceinline__ Word column(const int* m, int i, int N, int lane) {
   return v;
 }
 
-// select_place.cuh's place_block over the candidate offsets x = x0,
-// x0 + NWARP, ... of a (w, d, h) block on the heightmap hm[k*TB] (a column
-// of the tile's rows in shared memory): the best soft and hard lb
-// candidates (key, stable; the key (l*W + x)*D + y gives l, x, y), or under
-// MCS the best (class, exact score, key). The order is total, so the
-// winners of the warps' shares combine (`place_join`) into place_block's.
-struct PlacePart {
-  int ks, ss, kh, cls;
-  unsigned long long n, d;
-};
-
-template <bool MCS>
-__device__ PlacePart place_part(const tapnet::EnvCfg& c, const int* hm,
-                                int w, int d, int h,
-                                const tapnet::ScoreCtx& sc, int x0) {
-  const int W = c.W, D = c.D;
-  PlacePart b{tapnet::BIG, 0, tapnet::BIG, 0, 0ull, 0ull};
-  int cur_maxh = 0;
-  if (MCS)
-    for (int k = 0; k < W * D; ++k) cur_maxh = max(cur_maxh, hm[k * TB]);
-  for (int x = x0; x + w <= W; x += NWARP) {
-    for (int y = 0; y + d <= D; ++y) {
-      int l = 0;
-      for (int i = x; i < x + w; ++i)
-        for (int j = y; j < y + d; ++j) l = max(l, hm[(i * D + j) * TB]);
-      if (l + h > c.cap) continue;
-      bool st = true;
-      if (l > 0) {
-        int imin = tapnet::BIG, imax = -tapnet::BIG;
-        int jmin = tapnet::BIG, jmax = -tapnet::BIG;
-        for (int i = x; i < x + w; ++i)
-          for (int j = y; j < y + d; ++j)
-            if (hm[(i * D + j) * TB] == l) {
-              imin = min(imin, i);
-              imax = max(imax, i);
-              jmin = min(jmin, j);
-              jmax = max(jmax, j);
-            }
-        const int cx2 = 2 * x + w - 1, cy2 = 2 * y + d - 1;
-        st = 2 * imin <= cx2 && cx2 <= 2 * imax && 2 * jmin <= cy2 &&
-             cy2 <= 2 * jmax;
-      }
-      const int key = (l * W + x) * D + y;
-      if (MCS) {
-        int fpsum = 0;
-        for (int i = x; i < x + w; ++i)
-          for (int j = y; j < y + d; ++j) fpsum += hm[(i * D + j) * TB];
-        const int top = l + h;
-        unsigned long long n, dn;
-        tapnet::mcs_fraction(c.terms, sc.vol + w * d * h,
-                             sc.denc + W * D * (max(cur_maxh, top) - cur_maxh),
-                             sc.denp + w * d * top - fpsum, sc.snum + (int)st,
-                             sc.sden + 1, n, dn);
-        const int cls = 1 + (c.hard && st);
-        bool gt, eq;
-        tapnet::frac_cmp(n, dn, b.n, b.d, gt, eq);
-        if (cls > b.cls || (cls == b.cls && (gt || (eq && key < b.ks))))
-          b = PlacePart{key, st, tapnet::BIG, cls, n, dn};
-      } else {
-        if (key < b.ks) {
-          b.ks = key;
-          b.ss = st;
-        }
-        if (st && key < b.kh) b.kh = key;
-      }
-    }
-  }
-  return b;
-}
-
-// Whether partial winner q beats the running winner b (place_part's
-// order); the soft and hard lb candidates are taken apart.
-template <bool MCS>
-__device__ void place_join(PlacePart& b, const PlacePart& q) {
-  if (MCS) {
-    if (q.ks >= tapnet::BIG) return;
-    bool gt, eq;
-    tapnet::frac_cmp(q.n, q.d, b.n, b.d, gt, eq);
-    if (q.cls > b.cls || (q.cls == b.cls && (gt || (eq && q.ks < b.ks))))
-      b = q;
-  } else {
-    if (q.ks < b.ks) {
-      b.ks = q.ks;
-      b.ss = q.ss;
-    }
-    if (q.kh < b.kh) b.kh = q.kh;
-  }
-}
+using tapnet::PlacePart;
 
 template <bool MCS, bool WIDE, bool LOGITS>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
                   int B, int h, float inv_s, float temperature, int window) {
   using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
@@ -440,7 +333,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
     // rows: packed, the two graphs' limbs, the fits; then ctx and the
     // previous action's embedding into qin
     const int nr = N + 2 * NL * N + R * N;
-    rows8(nr, wy, [&](int j) {
+    tapnet::rows8<NWARP>(nr, wy, [&](int j) {
       if (j < N) return active ? io.packed[j * B + b] : 1;
       j -= N;
       if (j < NL * N) return ai.upm[(size_t)j * B + bb];
@@ -449,7 +342,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
       return ai.fits[(size_t)(j - NL * N) * B + bb];
     }, [&](int j, int v) { pkS[j * TB + lane] = v; });
     const int idx = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
-    rows8(2 * h, wy, [&](int j) {
+    tapnet::rows8<NWARP>(2 * h, wy, [&](int j) {
       return j < h ? ai.ctx[(size_t)j * B + bb]
                    : __ldg(hw.et + (size_t)(j - h) * (A + 1) + idx);
     }, [&](int j, float v) { qin[(h + j) * LD + lane] = v; });
@@ -709,7 +602,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
   if (active) {
     float mx = NEG, best = 0.f;
     int idx = -1;  // the lowest of this warp's actions attaining `best`
-    rows8(A, wy, [&](int a) {
+    tapnet::rows8<NWARP>(A, wy, [&](int a) {
       const int t = tok_of(a, C);
       return (tw[(t >> 5) * TB + lane] >> (t & 31)) & 1u ? ai.g[a * B + b]
                                                          : NEG;
@@ -730,7 +623,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
     pmx[wy * TB + lane] = mx;
     pbest[wy * TB + lane] = best;
     pidx[wy * TB + lane] = idx;
-    rows8(C * WD + 3 * N, wy, [&](int j) {
+    tapnet::rows8<NWARP>(C * WD + 3 * N, wy, [&](int j) {
       if (j < C * WD) return io.hm[j * B + b];
       j -= C * WD;
       return j < N ? io.dims_w[j * B + b]
@@ -790,40 +683,18 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
       s = tapnet::ScoreCtx{dec[7 * TB + lane], dec[8 * TB + lane],
                            dec[9 * TB + lane], dec[10 * TB + lane],
                            dec[11 * TB + lane]};
-    const PlacePart q =
-        place_part<MCS>(c, hmS + cs * WD * TB + lane, w, d, hb, s, wy);
-    const int pv[8] = {q.ks, q.ss, q.kh, q.cls, (int)(unsigned)q.n,
-                       (int)(unsigned)(q.n >> 32), (int)(unsigned)q.d,
-                       (int)(unsigned)(q.d >> 32)};
-    for (int k = 0; k < 8; ++k) ppl[(k * NWARP + wy) * TB + lane] = pv[k];
+    tapnet::place_put<MCS, TB, NWARP>(
+        ppl, wy, lane,
+        tapnet::place_part<MCS, TB, NWARP>(c, hmS + cs * WD * TB + lane, w,
+                                           d, hb, s, wy));
   }
   __syncthreads();
   if (wy == 0 && active) {
-    PlacePart pb{tapnet::BIG, 0, tapnet::BIG, 0, 0ull, 0ull};
-    for (int w = 0; w < NWARP; ++w) {
-      int pv[8];
-      for (int k = 0; k < 8; ++k) pv[k] = ppl[(k * NWARP + w) * TB + lane];
-      const PlacePart q{pv[0], pv[1], pv[2], pv[3],
-                        (unsigned long long)(unsigned)pv[4] |
-                            (unsigned long long)(unsigned)pv[5] << 32,
-                        (unsigned long long)(unsigned)pv[6] |
-                            (unsigned long long)(unsigned)pv[7] << 32};
-      place_join<MCS>(pb, q);
-    }
-    // place_block's result: the hard variant prefers the stable candidate
-    const bool hard = !MCS && c.hard && pb.kh < tapnet::BIG;
-    const int key = hard ? pb.kh : pb.ks, W = c.W, D = c.D;
-    const int valid = dec[6 * TB + lane];
-    const int pv[6] = {(key / D) % W, key % D, key / (W * D), hard || pb.ss,
-                       key / (W * D) + dec[5 * TB + lane],
-                       valid && pb.ks < tapnet::BIG};
-    if (pb.ks >= tapnet::BIG) {  // no candidate: place_block's zeros
-      for (int k = 0; k < 4; ++k) dec[(7 + k) * TB + lane] = 0;
-      dec[11 * TB + lane] = dec[5 * TB + lane];
-    } else {
-      for (int k = 0; k < 5; ++k) dec[(7 + k) * TB + lane] = pv[k];
-    }
-    dec[12 * TB + lane] = pv[5];
+    PlacePart pb = tapnet::place_gather<MCS, TB, NWARP>(ppl, lane);
+    const tapnet::Placement p = tapnet::place_resolve<MCS>(c, pb);
+    const int pv[6] = {p.x, p.y, p.l, p.stable, p.l + dec[5 * TB + lane],
+                       dec[6 * TB + lane] && p.any_valid};
+    for (int k = 0; k < 6; ++k) dec[(7 + k) * TB + lane] = pv[k];
   }
   __syncthreads();
   // the state writes of select_place, every warp a share of the rows
@@ -840,7 +711,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
     }
     // packed rows, then the placement rows: container, rotation, x, y,
     // landing height, stable
-    rows8(N + N * 6, wy, [&](int k) {
+    tapnet::rows8<NWARP>(N + N * 6, wy, [&](int k) {
       return k < N ? io.packed[k * B + b] : io.plc[(k - N) * B + b];
     }, [&](int k, int v) {
       if (k < N) {

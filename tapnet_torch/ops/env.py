@@ -11,13 +11,17 @@ heightmap reductions kernel on the card), as in the JAX package.
   action_mask / select_action / step loop on the same draws), used on CPU
   tensors and as the reference the kernel is held to;
 - `fused_rollout_batch`: on CUDA tensors it launches the hand-written kernel
-  `csrc/env.cu` (placement body `csrc/select_place.cuh`) on the current
-  stream (`rollout_kernel`) and counts the launch in
-  `fused_rollout_batch.launches`.
+  `csrc/env.cu` (tiles of 32 instances over 16 warps, the instance's state
+  in shared memory, the placement body `csrc/select_place.cuh` shared with
+  K1 and K2) on the current stream (`rollout_kernel`) and counts the launch
+  in `fused_rollout_batch.launches`.
 
 Coverage: both placement rules, soft/hard, 2D/3D, rotation, rolling window,
 finite caps, any container count with rot x containers <= 16, up to 62
-blocks (two precedence limbs) and 256 heightmap cells per container.
+blocks (two precedence limbs) and 256 heightmap cells per container. Where
+the heightmaps of all containers do not fit in shared memory beside the
+rest (`onchip` false), the kernel keeps them in its output and stages the
+chosen container per step.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ MAX_RC = 16  # csrc/env.cu: feasibility bits per block
 
 def eligible(cfg: TAPConfig) -> bool:
     """Configs the rollout kernel covers: every rule, variant, window, cap
-    and dimension, within the kernel's per-thread sizes."""
+    and dimension, within the kernel's sizes (its bit words and its
+    shared-memory plans)."""
     return (cfg.num_blocks <= MAX_N
             and cfg.num_rot * cfg.num_containers <= MAX_RC
             and cfg.target_width * cfg.target_depth <= MAX_WD)
@@ -62,6 +67,21 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _ints(cfg: TAPConfig, B: int):
+    return _build.int_array([B] + env_ints(cfg)
+                            + [cfg.window, int(cfg.target_height > 0)])
+
+
+def onchip(cfg: TAPConfig) -> bool:
+    """Whether the kernel keeps every heightmap of a rollout in shared
+    memory (else in its output, the chosen container staged per step).
+    Asks the built kernel library, so it needs nvcc."""
+    fn = _build.load("env").tapnet_rollout_onchip
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return bool(fn(ctypes.cast(_ints(cfg, 1), ctypes.c_void_p)))
 
 
 def rollout_operands(instances: Instance, rbits: torch.Tensor,
@@ -102,10 +122,9 @@ def rollout_kernel(ops, cfg: TAPConfig):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = _build.ptr_array(tuple(ops) + outs)
-        ints = _build.int_array([B] + env_ints(cfg)
-                                + [cfg.window, int(cfg.target_height > 0)])
         err = fn(ctypes.cast(ptrs, ctypes.c_void_p),
-                 ctypes.cast(ints, ctypes.c_void_p), ctypes.c_void_p(stream))
+                 ctypes.cast(_ints(cfg, B), ctypes.c_void_p),
+                 ctypes.c_void_p(stream))
     fused_rollout_batch.launches += 1
     _build.check(err, "fused_rollout_batch")
     return outs

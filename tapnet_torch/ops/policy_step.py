@@ -10,9 +10,10 @@ rule (`lb` or `mcs`) and updates the env state, bit-equal to
   candidate scan and placement), used on CPU tensors and as the reference
   the kernel is held to;
 - `select_step`: on a CUDA tensor it launches the hand-written kernel
-  `csrc/policy_step.cu` (body `csrc/select_place.cuh`) on the current
-  stream and counts the launch in `select_step.launches`; on a CPU tensor it
-  runs `select_place_ref`.
+  `csrc/policy_step.cu` on the current stream (tiles of 32 instances, one
+  per lane, over 16 warps; the placement body `csrc/select_place.cuh` is
+  the one K2 and K4 run) and counts the launch in `select_step.launches`;
+  on a CPU tensor it runs `select_place_ref`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
 from tapnet_torch.ops import _build
 
-MAX_WD = 256  # csrc/select_place.cuh: heightmap cells held per thread
+MAX_WD = 256  # csrc/select_place.cuh: heightmap cells of one container
 
 
 def eligible(cfg: TAPConfig) -> bool:

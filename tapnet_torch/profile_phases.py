@@ -1,16 +1,28 @@
-"""Where one actor_select_step launch spends its cycles, phase by phase.
+"""Where one actor_select_step or fused_rollout_batch launch spends its
+cycles, phase by phase.
 
     python -m tapnet_torch.profile_phases [--config 2d-rolling]
         [--batch 4096] [--hidden 128] [--out phases.json]
+    python -m tapnet_torch.profile_phases --kernel fused_rollout_batch
+        [--config 2d-basic,2d-rolling] [--batch 4096]
 
-Builds a copy of `csrc/actor_step.cu` in which thread 0 of every block
-reads `clock64()` at the phase boundaries (each right after the barrier
-that ends a phase), rolls a sampled batch out to its middle decode step
-with the real kernel, then launches the copy on that step's operands in
-both modes and prints, per phase, the mean cycles over the blocks and the
-share of a block's total, with the launch's time (CUDA events, median of
-10). The reads add a few cycles per phase. Needs a CUDA device and nvcc;
-the copy is built into `tapnet_torch/_build/phases/`.
+actor_select_step (K2): builds a copy of `csrc/actor_step.cu` in which
+thread 0 of every block reads `clock64()` at the phase boundaries (each
+right after the barrier that ends a phase), rolls a sampled batch out to
+its middle decode step with the real kernel, then launches the copy on
+that step's operands in both modes and prints, per phase, the mean cycles
+over the blocks and the share of a block's total, with the launch's time
+(CUDA events, median of 10).
+
+fused_rollout_batch (K4): a copy of `csrc/env.cu` in which thread 0 of
+every block adds the cycles since its last read to the phase it just
+ended, over all N steps (the phases repeat every step; inside warp 0's
+selection too), launched on `random` draws of each named config; it
+prints the mean cycles per phase over the blocks, their share, and the
+copy's time per launch (CUDA events, median of 15).
+
+The reads add a few cycles per phase. Needs a CUDA device and nvcc; the
+copies are built into `tapnet_torch/_build/phases/`.
 """
 
 from __future__ import annotations
@@ -76,17 +88,142 @@ extern "C" int tapnet_prof_read(long long* out, int n) {
 
 
 def build():
-    """The instrumented library (ctypes) built with the kernels' flags."""
+    """The instrumented K2 library (ctypes), built with the kernels'
+    flags."""
+    from tapnet_torch.ops import _build
+    return _build_copy("actor_step", instrumented_source(
+        (_build.CSRC / "actor_step.cu").read_text()))
+
+
+# fused_rollout_batch: (text in csrc/env.cu before which thread 0 adds the
+# cycles since its last read to a slot, the slot), in the order a step
+# runs them; slot 6 is read at the top of the step loop
+ROLLOUT_MARKS = [
+    ("  // ---- warp 0 owns the instance's selection state", 0),
+    ("  for (int t = 0; t < N; ++t) {\n", 1),
+    ("    // ---- the placing warps (wy % 4 != 0): a share of the candidate", 2),
+    ("    u64 w0 = a0;\n", 9),
+    ("    const u64 wr = ar & w0;\n", 10),
+    ("    int w = dimS[lo * TB], d = dimS[(N + lo) * TB];\n", 11),
+    ("    nx[BLK * TB] = lo;\n", 12),
+    ("    // ---- the join and the placement: warp 0 records it (under mcs it", 3),
+    ("    if (capped) {\n      // every warp: the changed container's", 4),
+    ("    __syncthreads();\n  }\n\n  // ---- the final state", 5),
+    ("  // ---- the final state, every warp a share of the rows", 7),
+]
+ROLLOUT_PHASES = [
+    "staging, transposes", "first selection (its end) and barrier",
+    "a step's decision read "
+    "(+ staging the column)", "placement (12 warps) beside warp 0's "
+    "selection, to the barrier", "the join; warp 0's record, the footprint",
+    "capped: min-landing table, words, selection", "end-of-step barrier",
+    "after the loop", "final writes", "selection: accessibility",
+    "selection: window", "selection: count and rank",
+    "selection: the block's dims"]
+RSLOTS = 14
+
+
+def rollout_source(src: str) -> str:
+    """`src` (csrc/env.cu) with thread 0's cycle accumulators per phase,
+    stored to prof_ts[block * RSLOTS + k] at the end of the kernel."""
+    mark = ("if (threadIdx.x == 0 && threadIdx.y == 0) {{ long long nw = "
+            "clock64(); prof_acc[{}] += nw - prof_last; prof_last = nw; }}\n")
+    for text, k in ROLLOUT_MARKS:
+        if src.count(text) != 1:
+            raise RuntimeError(f"phase mark not found once: {text!r}")
+        src = src.replace(text, mark.format(k) + text)
+    loop = "  for (int t = 0; t < N; ++t) {\n"
+    src = src.replace(loop, loop + mark.format(6))
+    start = "  const Plan P = plan(N, R, C, WD, capped, MCS, onchip);\n"
+    end = ("                      [&](int q, int v) { io.hm_o[q * B + b] = v;"
+           " });\n}\n")
+    for text in (start, end):
+        if src.count(text) != 1:
+            raise RuntimeError(f"kernel bound not found once: {text!r}")
+    src = src.replace(start, start + f"  long long prof_acc[{RSLOTS}] = "
+                      "{0}; long long prof_last = clock64();\n")
+    src = src.replace(end, end[:-2] + mark.format(8) + "  if (threadIdx.x "
+                      f"== 0 && threadIdx.y == 0) for (int k = 0; k < "
+                      f"{RSLOTS}; ++k) prof_ts[blockIdx.x * {RSLOTS} + k] = "
+                      "prof_acc[k];\n}\n")
+    src = src.replace("namespace {\n", "__device__ long long prof_ts[8192 * "
+                      f"{RSLOTS}];\nnamespace {{\n", 1)
+    return src + '''
+extern "C" int tapnet_prof_read(long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, prof_ts,
+                                   sizeof(long long) * %d * n);
+}
+''' % RSLOTS
+
+
+def _build_copy(name: str, source: str):
     from tapnet_torch.ops import _build
     out = _build.BUILD / "phases"
     out.mkdir(parents=True, exist_ok=True)
     shutil.copy(_build.CSRC / "select_place.cuh", out)
-    (out / "actor_step.cu").write_text(
-        instrumented_source((_build.CSRC / "actor_step.cu").read_text()))
-    lib = out / "actor_step_phases.so"
+    (out / f"{name}.cu").write_text(source)
+    lib = out / f"{name}_phases.so"
     subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(lib),
-                    str(out / "actor_step.cu")], check=True)
+                    str(out / f"{name}.cu")], check=True)
     return ctypes.CDLL(str(lib))
+
+
+def rollout_phases(names, batch: int, dev) -> dict:
+    """K4's cycles per phase on `random` draws of each config in `names`
+    (the instrumented copy launched through ops.env.rollout_kernel)."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import random as R
+    from tapnet_torch.env import core as E
+    from tapnet_torch.env.sampler import sample_batch
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import env as OE
+
+    lib = _build_copy("env", rollout_source(
+        (_build.CSRC / "env.cu").read_text()))
+    fn = lib.tapnet_fused_rollout
+    fn.argtypes = [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    nb = (batch + 31) // 32
+    res = {"device": torch.cuda.get_device_name(0), "batch": batch,
+           "configs": []}
+    lib_of = OE._lib
+    OE._lib = lambda: fn
+    try:
+        for name in names:
+            cfg = CONFIGS[name]
+            inst = sample_batch(R.key(1, dev), batch, cfg)
+            rbits = E.policy_bits(R.split(R.key(2, dev), batch), cfg,
+                                  "random")
+            ops = OE.rollout_operands(inst, rbits, cfg)
+            times = []
+            for _ in range(18):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(2_000_000)  # the launch queued behind it
+                start.record()
+                OE.rollout_kernel(ops, cfg)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            buf = (ctypes.c_longlong * (RSLOTS * nb))()
+            if lib.tapnet_prof_read(buf, nb):
+                raise RuntimeError("reading the clocks failed")
+            per = [statistics.mean(buf[b * RSLOTS + k] for b in range(nb))
+                   for k in range(RSLOTS - 1)]
+            total = sum(per)
+            entry = {"config": name, "ms": statistics.median(times[3:]),
+                     "block_cycles": total,
+                     "phases": {p: c for p, c in zip(ROLLOUT_PHASES, per)
+                                if p}}
+            res["configs"].append(entry)
+            print(f"fused_rollout_batch {name} B={batch} random: "
+                  f"{entry['ms']:.4f} ms/launch, {total:.0f} cycles per "
+                  "block (mean)")
+            for p, c in entry["phases"].items():
+                print(f"    {c:9.0f} cycles  {c / total:6.3f}  {p}")
+    finally:
+        OE._lib = lib_of
+    return res
 
 
 def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0):
@@ -118,7 +255,11 @@ def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default="2d-rolling")
+    ap.add_argument("--kernel", default="actor_select_step",
+                    choices=("actor_select_step", "fused_rollout_batch"))
+    ap.add_argument("--config", default="2d-rolling",
+                    help="a config name (fused_rollout_batch: a comma "
+                         "list)")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--out", default="")
@@ -130,6 +271,12 @@ def main(argv=None) -> int:
     from tapnet_torch.ops import actor_step as AS
 
     dev = torch.device("cuda:0")
+    if args.kernel == "fused_rollout_batch":
+        res = rollout_phases(args.config.split(","), args.batch, dev)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
+        return 0
     cfg = CONFIGS[args.config]
     ops, params_t = mid_step_operands(cfg, args.batch, args.hidden, dev)
     lib = build()

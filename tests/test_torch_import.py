@@ -20,7 +20,8 @@ import tapnet_torch.ops.reward, tapnet_torch.ops.replay
 import tapnet_torch.ops.env
 import tapnet_torch.train.reinforce, tapnet_torch.train.metrics
 import tapnet_torch.train.checkpoints, tapnet_torch.train.trainer
-import tapnet_torch.profile_pack
+import tapnet_torch.profile_pack, tapnet_torch.profile_phases
+import tapnet_torch.kernel_times
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "tapnet_tpu"))
