@@ -25,9 +25,10 @@ source, all started at once), then runs, and fails on the first fault:
    version (K2: both modes, the live columns of the timed step, the bound
    over them and the all-token bound beside it), the registers, stack and
    spills of K1, K2 and K4 from ptxas, and a whole pack() per policy;
-6. heightmap_reductions (K3) vs its plain version, bit-equal, on the final
-   heightmaps of sampled rollouts (2d-basic at batch 4096, 3d-basic and
-   multi-container at 512) and on all-zero heightmaps;
+6. heightmap_reductions (K3's reductions alone) vs its plain version,
+   bit-equal, on the final heightmaps of sampled rollouts (2d-basic at
+   batch 4096, 3d-basic and multi-container at 512) and on all-zero
+   heightmaps;
 7. replay_logp forward and backward (K5) vs their plain versions on the
    card's own rollout records: 2d-basic at 4096, 2d-rot, 3d-basic,
    multi-container and multi-container-capped at 512, 2d-basic at a
@@ -39,8 +40,8 @@ source, all started at once), then runs, and fails on the first fault:
    (the train step's primal) within the same value tolerance;
 8. the train path: `init_train_state` + `make_train_step` on 2d-basic at
    hidden 128 and batch 4096 for 5 steps, the launch counts per step
-   (actor_select_step 10, replay backward 1, heightmap_reductions 1,
-   replay forward 0) and finite metrics; one step repeated from a copy of
+   (actor_select_step 10, replay backward 1, heightmap_reductions 1 (the
+   whole reward in one launch), replay forward 0) and finite metrics; one step repeated from a copy of
    the state bit for bit; a step at batch 256 against the CPU reference
    path; `train()` for 2 epochs x 5 steps with metrics and checkpoints, and
    a resume from the epoch-1 checkpoint ending on the same params;
@@ -109,7 +110,25 @@ source, all started at once), then runs, and fails on the first fault:
    a 16 x 16 target with 8 containers, where K4 keeps its heightmaps out of
    shared memory, 62 blocks under a window, 16 (rotation, container) pairs
    under a cap, a tight cap) at batch 37 and 512: bit-equal to their plain
-   versions and two launches bit-identical.
+   versions and two launches bit-identical;
+20. the whole C/P/S reward in one launch (`reward_kernel`, K3 redesigned)
+   vs its plain version on the same tensors, bit-equal on maxh, under, the
+   five terms and the reward: the pack(first/random) plans of the six
+   CONFIGS at batch 4096, zero heightmaps and a capped plan that strands
+   blocks; then its time, its plain version's, amax + sum, and the
+   launches and device time per call of the fused launch and of the path it
+   replaced (the reductions, then the composition as PyTorch ops);
+21. `make_train_step(steps_per_call=k)` as a CUDA graph: 2d-basic at batch
+   4096 (k = 8), 2d-rolling at 4096 (k = 4), multi-container-capped at 256
+   (k = 4, the K1 route) and 2d-basic at hidden 256, batch 256 (k = 2, the
+   fallback route): one step captured and replayed k times, the launches
+   counted by the capture (1 x the per-step counts; the eager warm-up step
+   on a copy the same), none counted by a call of k replays, one call
+   bit-identical to
+   k single steps (params, Adam state, key, metrics), a deterministic
+   repeat, and the wall ms per step with the device's idle share at k and
+   at 1; then `train()` with `steps_per_call=2` at batch 256: epoch lines
+   at the JAX trainer's step numbers and an exact resume.
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -775,9 +794,22 @@ def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
     return frac
 
 
-def check_trainer(cfg, dev, tmp, spe=5):
-    """train() for 2 epochs x `spe` steps writes metrics and checkpoints; a
-    resume from the epoch-1 checkpoint ends on the same params."""
+def jax_loop_steps(epochs, spe, spc):
+    """The step numbers of the JAX trainer's epoch lines
+    (tapnet_tpu/train/trainer.py: one untimed call of spc steps, then
+    (n - 1) // spc calls)."""
+    step, out = 0, []
+    while step < epochs * spe:
+        n = spe - step % spe
+        step += spc * (1 + max(0, (n - 1) // spc))
+        out.append(step)
+    return out
+
+
+def check_trainer(cfg, dev, tmp, spe=5, spc=1, batch=B_MAIN):
+    """train() for 2 epochs x `spe` steps (`spc` steps a call) writes
+    metrics and checkpoints at the JAX trainer's step numbers; a resume
+    from the epoch-1 checkpoint ends on the same params."""
     import json
     import os
     import shutil
@@ -785,39 +817,42 @@ def check_trainer(cfg, dev, tmp, spe=5):
     from tapnet_torch import TrainLoopConfig, train
     from tapnet_torch.train import checkpoints as ckpt
 
-    loop = TrainLoopConfig(epochs=2, steps_per_epoch=spe, batch=B_MAIN,
-                           hidden=HIDDEN, valid_batch=B_MAIN,
+    loop = TrainLoopConfig(epochs=2, steps_per_epoch=spe, batch=batch,
+                           hidden=HIDDEN, valid_batch=batch,
+                           steps_per_call=spc,
                            ckpt_dir=os.path.join(tmp, "a"),
                            metrics_path=os.path.join(tmp, "a.jsonl"))
     full = train(cfg, loop, device=dev)
     lines = [json.loads(x) for x in open(loop.metrics_path)]
     epochs = [r for r in lines if "epoch" in r]
-    if len(epochs) != 2 or not all(np.isfinite(r["loss_actor"])
-                                   for r in epochs):
+    steps = [r["step"] for r in epochs]
+    if (steps != jax_loop_steps(2, spe, spc)
+            or not all(np.isfinite(r["loss_actor"]) for r in epochs)):
         raise AssertionError(f"train() metrics: {lines}")
-    name = f"ckpt_{spe:08d}.pt"
+    name = f"ckpt_{steps[0]:08d}.pt"
     first = os.path.join(loop.ckpt_dir, name)
     resumed_dir = os.path.join(tmp, "b")
     os.makedirs(resumed_dir)
     shutil.copy(first, resumed_dir)
     with open(os.path.join(resumed_dir, "latest.json"), "w") as f:
-        json.dump({"step": spe, "path": os.path.join(resumed_dir, name)}, f)
-    loop_b = TrainLoopConfig(epochs=2, steps_per_epoch=spe, batch=B_MAIN,
-                             hidden=HIDDEN, valid_batch=B_MAIN,
-                             ckpt_dir=resumed_dir)
+        json.dump({"step": steps[0],
+                   "path": os.path.join(resumed_dir, name)}, f)
+    loop_b = TrainLoopConfig(epochs=2, steps_per_epoch=spe, batch=batch,
+                             hidden=HIDDEN, valid_batch=batch,
+                             steps_per_call=spc, ckpt_dir=resumed_dir)
     resumed = train(cfg, loop_b, device=dev)
     a, b = _state_dicts(full), _state_dicts(resumed)
     for k in a:
         _equal(f"resumed params {k}", b[k], a[k])
     if not ckpt.latest_checkpoint(resumed_dir).endswith(
-            f"ckpt_{2 * spe:08d}.pt"):
-        raise AssertionError(f"resumed run wrote no step-{2 * spe} "
+            f"ckpt_{steps[-1]:08d}.pt"):
+        raise AssertionError(f"resumed run wrote no step-{steps[-1]} "
                              "checkpoint")
     rewards = [(r["step"], round(r["reward"], 6)) for r in epochs]
     log(f"  train(): epoch lines (step, reward) {rewards}, "
         f"valid_reward {epochs[-1]['valid_reward']:.6f}, "
         f"{epochs[-1]['env_steps_per_s']:.0f} env-steps/s; resume from "
-        f"step {spe} ends on bit-identical params")
+        f"step {steps[0]} ends on bit-identical params")
 
 
 # ------------------------------------------------------------------ #
@@ -1299,6 +1334,181 @@ def check_edges(dev):
         raise AssertionError("no edge case ran K4's second storage plan")
 
 
+# ------------------------------------------------------------------ #
+# phase 20: the whole reward in one launch (reward_kernel)
+
+def _plan_tensors(plan, inst, dev):
+    """(heightmaps, placements, dims) of a PackingPlan on the card."""
+    st = plan.states
+    return (torch.from_numpy(st.heightmap).to(dev),
+            torch.from_numpy(st.placements).to(dev), inst.dims)
+
+
+def check_fused_reward_case(name, hm, plc, dims, terms_cfg):
+    """fused_reward (one launch) == its plain version on the same CUDA
+    tensors: maxh, under, the five terms and the reward, bit for bit."""
+    from tapnet_torch.ops import reward as RW
+    got = RW.fused_reward(hm, plc, dims, terms_cfg)
+    want = RW.fused_reward_ref(hm, plc, dims, terms_cfg)
+    _equal(f"fused reward {name} maxh", got[0], want[0])
+    _equal(f"fused reward {name} under", got[1], want[1])
+    for t, a, b in zip(("vol", "denom_c", "denom_p", "s_num", "s_den"),
+                       got[2], want[2]):
+        _equal(f"fused reward {name} {t}", a, b)
+    _equal(f"fused reward {name} reward bits",
+           got[3].view(torch.int32), want[3].view(torch.int32))
+
+
+def check_fused_reward(plans, insts, dev):
+    """The final plans of pack(first/random) on the six CONFIGS at B_MAIN
+    (phase 12), zero heightmaps and a capped plan that strands blocks (-1
+    rows below n_total). Returns the number of stranded blocks."""
+    from tapnet_torch import CONFIGS, TAPConfig, pack
+
+    for (name, policy), plan in plans.items():
+        check_fused_reward_case(f"{name} {policy}",
+                                *_plan_tensors(plan, insts[name], dev),
+                                CONFIGS[name].reward_terms)
+    hm, plc, dims = _plan_tensors(plans["2d-basic", "first"],
+                                  insts["2d-basic"], dev)
+    check_fused_reward_case("zero heightmaps", torch.zeros_like(hm),
+                            torch.full_like(plc, -1), dims, ("C", "P", "S"))
+    tight = TAPConfig(num_containers=2, container_width=6,
+                      container_height=8, target_width=6, target_height=3,
+                      allow_rot=True)
+    inst = _instances(tight, B_MAIN, dev, SEED + 40)
+    hm, plc, dims = _plan_tensors(pack(inst, tight, policy="first",
+                                       key=SEED + 41, device=dev), inst, dev)
+    real = (torch.arange(tight.num_blocks, device=dev)[None]
+            < inst.n_total[:, None])
+    stranded = int(((plc[:, :, 0] < 0) & real).sum())
+    if stranded == 0:
+        raise AssertionError("the capped plan strands no block")
+    check_fused_reward_case("capped partial plan", hm, plc, dims,
+                            tight.reward_terms)
+    return stranded
+
+
+def _launches_per_call(label, fn, calls=5):
+    """(kernel launches, device busy ms) per call of fn (torch.profiler)."""
+    from tapnet_torch.profile_pack import profile_calls
+    res = profile_calls(label, fn, calls)
+    return sum(k["launches"] for k in res["kernels"]), res["device_busy_ms"]
+
+
+def time_fused_reward(hm, plc, dims, cfg):
+    """The fused launch, its plain version, the path it replaced (the
+    reductions alone, then the composition as PyTorch ops), amax + sum;
+    the launches and device time per call of the fused and the replaced
+    path (profiler); the bound over this run's bytes and int32 operations.
+    """
+    from tapnet_torch.env.core import reward_from_terms
+    from tapnet_torch.ops import reward as RW
+
+    terms_cfg = cfg.reward_terms
+    B, C, W, D = hm.shape
+    N = plc.shape[1]
+
+    def fused():
+        return RW.fused_reward(hm, plc, dims, terms_cfg)
+
+    def replaced():
+        maxh, under = RW.heightmap_reductions(hm)
+        return reward_from_terms(RW.terms_from_reductions(
+            maxh, under, plc, dims, W * D), terms_cfg)
+
+    ms = time_gpu(fused)
+    plain = time_gpu(lambda: RW.fused_reward_ref(hm, plc, dims, terms_cfg))
+    old_ms = time_gpu(replaced)
+    lib = time_gpu(lambda: (hm.amax((2, 3)), hm.sum((2, 3))))
+    new_n, new_busy = _launches_per_call("fused reward", fused)
+    old_n, old_busy = _launches_per_call("replaced reward", replaced)
+    # each input read once (placements: the two columns read), each output
+    # written once; int32 operations: a max and an add per cell, the C/P
+    # sums per container, five per block (compare, 2 multiplies, 2 adds)
+    moved = (nbytes([hm, dims]) + 2 * 4 * B * N
+             + 4 * (2 * B * C + 5 * B) + 4 * B)
+    iops = 2 * B * C * W * D + 4 * B * C + 5 * B * N
+    bound = max(1e3 * moved / HBM_BYTES_S, 1e3 * iops / I32_OPS_S)
+    by = "operations" if iops / I32_OPS_S >= moved / HBM_BYTES_S else "bytes"
+    return {"ms": ms, "plain_ms": plain, "old_ms": old_ms, "lib_ms": lib,
+            "launches": new_n, "busy": new_busy, "old_launches": old_n,
+            "old_busy": old_busy, "bytes": moved, "iops": iops,
+            "bound": bound, "bound_by": by}
+
+
+# ------------------------------------------------------------------ #
+# phase 21: steps_per_call as a CUDA graph over the train step
+
+def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN):
+    """make_train_step(steps_per_call=k) on the card: the launches counted
+    by its eager warm-up step (on a copy of the state) and by the capture
+    of one step, each `per_step`; none counted by a call (k replays); one
+    call bit-identical to k single steps (params, Adam state, key,
+    metrics); assert_deterministic; wall ms per step and the device's idle
+    share at k and at 1 (profiler)."""
+    import copy
+
+    from tapnet_torch import init_train_state, make_train_step
+    from tapnet_torch.profile_pack import profile_calls
+    from tapnet_torch.train.trainer import _state_tensors, assert_deterministic
+
+    ts0 = init_train_state(SEED, cfg, hidden=hidden, device=dev)
+    single = make_train_step(cfg, batch=batch, hidden=hidden, device=dev)
+    multi = make_train_step(cfg, batch=batch, hidden=hidden,
+                            steps_per_call=k, device=dev)
+    a = copy.deepcopy(ts0)
+    for _ in range(k):
+        a, m_a = single(a)
+    b = copy.deepcopy(ts0)
+    counters = train_counters()
+    want = dict.fromkeys(counters, 0)
+    want.update(per_step)
+    for stage, run in (("warm-up", multi.graphed.warm_up),
+                       ("capture", multi.graphed.capture)):
+        for f in counters.values():
+            f.launches = 0
+        run(b)
+        got = {n: f.launches for n, f in counters.items()}
+        if got != want:
+            raise AssertionError(f"{name} {stage} launches {got}, expected "
+                                 f"{want}")
+    b, m_b = multi(b)
+    replay = {n: f.launches - got[n] for n, f in counters.items()}
+    if any(replay.values()) or b.step != k:
+        raise AssertionError(f"{name}: a call counted launches {replay} "
+                             f"or left step {b.step} (expected {k})")
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        _equal(f"{name} k={k} call vs {k} single steps (state)", y, x)
+    sa, sb = _state_dicts(a), _state_dicts(b)
+    for n in sa:
+        _equal(f"{name} params {n}", sb[n], sa[n])
+    for n in m_a:
+        _equal(f"{name} metric {n}", m_b[n], m_a[n])
+    assert_deterministic(multi, b)
+    rows = {}
+    for label, run, steps in ((f"k={k}", lambda: multi(b), k),
+                              ("k=1", lambda: single(a), 1)):
+        res = profile_calls(label, run, 3)
+        rows[label] = (res["wall_ms"] / steps, res["idle_share"],
+                       res["device_busy_ms"] / steps)
+    dev_ms = time_gpu(lambda: multi(b), reps=3, warm=1,
+                      sleep_cycles=20_000_000) / k
+    counted = {n: v for n, v in got.items() if v}
+    log(f"phase 21 {name} batch {batch} hidden {hidden}, steps_per_call "
+        f"{k}: one step captured and replayed k times; the capture counts "
+        f"{counted} (1 x the per-step launches; the eager warm-up the "
+        f"same), a call counts none; one call == "
+        f"{k} single steps bit for bit (params, Adam state, key, metrics); "
+        f"deterministic")
+    log(f"phase 21 {name}: wall ms/step {rows[f'k={k}'][0]:.3f} at k={k} "
+        f"(idle share {rows[f'k={k}'][1]:.3f}, busy ms/step "
+        f"{rows[f'k={k}'][2]:.3f}; device ms/step by events {dev_ms:.3f}) "
+        f"vs {rows['k=1'][0]:.3f} at k=1 (idle {rows['k=1'][1]:.3f}, busy "
+        f"{rows['k=1'][2]:.3f})")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1459,7 +1669,8 @@ def main() -> int:
         "operations" if o / rate >= b / HBM_BYTES_S else "bytes")
     k5f_bound, k5f_by = bound(k5f_b, k5f_o)
     k5b_bound, k5b_by = bound(k5b_b, k5b_o)
-    log(f"phase 9 heightmap_reductions: {k3_ms:.4f} ms/launch (plain "
+    log(f"phase 9 heightmap_reductions (the reductions alone): "
+        f"{k3_ms:.4f} ms/launch (plain "
         f"{k3_plain:.4f}, library amax+sum {k3_lib:.4f}), {k3_bytes} B, "
         f"bound {k3_bound:.5f} ms")
     log(f"phase 9 replay live columns 2d-basic B={B_MAIN}: {pairs} "
@@ -1676,6 +1887,41 @@ def main() -> int:
     # ---- phase 19: K1 and K4 on the edge cases of the split placement
     check_edges(dev)
 
+    # ---- phase 20: the whole reward in one launch (K3 redesigned)
+    stranded = check_fused_reward(plans, insts, dev)
+    log(f"phase 20 fused reward == plain, bit-equal (maxh, under, the five "
+        f"terms, the reward bits): pack(first/random) plans of the six "
+        f"CONFIGS at B={B_MAIN}, zero heightmaps, a capped plan with "
+        f"{stranded} stranded blocks")
+    k3 = time_fused_reward(*_plan_tensors(plans["2d-basic", "first"],
+                                          insts["2d-basic"], dev), cfg)
+    log(f"phase 20 reward_kernel 2d-basic B={B_MAIN}: {k3['ms']:.4f} "
+        f"ms/launch (plain {k3['plain_ms']:.4f}, library amax+sum "
+        f"{k3['lib_ms']:.4f}), {k3['bytes']} B, {k3['iops']} int32 ops, "
+        f"bound {k3['bound']:.5f} ms ({k3['bound_by']}); per call "
+        f"{k3['launches']} launch(es), device {k3['busy']:.4f} ms; the "
+        f"replaced path (reductions, then the composition) "
+        f"{k3['old_ms']:.4f} ms, {k3['old_launches']} launches, device "
+        f"{k3['old_busy']:.4f} ms")
+
+    # ---- phase 21: steps_per_call as a CUDA graph over the train step
+    for name, c, per_step, k, Bg, h in (
+            ("2d-basic", cfg, {"actor_select_step": cfg.num_blocks,
+                               "replay_logp_bwd": 1,
+                               "heightmap_reductions": 1}, 8, B_MAIN, HIDDEN),
+            ("2d-rolling", rcfg, roll_step, 4, B_MAIN, HIDDEN),
+            ("multi-container-capped", ccfg, capped_step, 4, 256, HIDDEN),
+            ("2d-basic hidden 256", cfg, {"select_step": cfg.num_blocks,
+                                          "heightmap_reductions": 1},
+             2, 256, 256)):
+        check_graph_steps(name, c, dev, per_step, k, Bg, h)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_trainer(cfg, dev, tmp, spe=3, spc=2, batch=256)
+    log(f"phase 21 train() 2d-basic batch 256, steps_per_call 2, 3 steps an "
+        f"epoch: epoch lines at steps {jax_loop_steps(2, 3, 2)}, the JAX "
+        f"trainer's; a resume from the first checkpoint ends on the same "
+        f"params")
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
@@ -1703,8 +1949,9 @@ def main() -> int:
                       + heur_launches["heightmap_reductions"]
                       + roll_train["heightmap_reductions"]
                       + capped_train["heightmap_reductions"]),
-         "max_abs_err": 0.0, "ms": k3_ms, "plain_ms": k3_plain,
-         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib},
+         "max_abs_err": 0.0, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound"], "bound_by": k3["bound_by"],
+         "library_ms": k3["lib_ms"]},
         {"name": "fused_rollout_batch", "route": "cuda",
          "source": "tapnet_torch/csrc/env.cu",
          "replaces": "tapnet_tpu/ops/pallas_env.py:669",
@@ -1737,6 +1984,8 @@ def main() -> int:
          "max_abs_err": k5bs_err, "ms": k5bs_ms, "plain_ms": k5bs_plain,
          "bound_ms": k5bs_bound, "bound_by": k5bs_by, "library_ms": None},
     ]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s"
+        " (build included)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,9 @@ def rotated_dims_all(dims: torch.Tensor, r: int, cfg: TAPConfig):
         return dims
     ax0, ax1 = cfg.rot_axes
     perm = [ax1 if k == ax0 else ax0 if k == ax1 else k for k in range(3)]
-    return dims[..., perm]
+    # a column stack, not dims[..., perm]: a list index is copied to the
+    # device from the host, which a CUDA graph capture refuses
+    return torch.stack([dims[..., k] for k in perm], -1)
 
 
 def rotated_dims(instances: Instance, b: torch.Tensor, r: torch.Tensor,

@@ -15,6 +15,15 @@ def _scale(cfg: TAPConfig) -> float:
                      cfg.container_height, cfg.target_width, cfg.target_depth))
 
 
+def f32_on(x, device) -> torch.Tensor:
+    """`x`, a Python number or a tensor, as float32 on `device`. A number
+    becomes a fill on the device, never a host-to-device copy, so the
+    caller can be captured in a CUDA graph."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def static_tokens(instances: Instance, cfg: TAPConfig) -> torch.Tensor:
     """Per (block, rot) static features [B, N*R, 4]: rotated dims + volume."""
     s = _scale(cfg)
@@ -53,7 +62,7 @@ def tokens_from_flags(flags: torch.Tensor, t_frac,
     acc0 = ((f >> 1) & 1).float()
     accr = ((f >> 2) & 1).float()
     win = ((f >> 3) & 1).float()
-    tf = torch.as_tensor(t_frac, dtype=torch.float32, device=f.device)
+    tf = f32_on(t_frac, f.device)
     tf = torch.broadcast_to(tf[..., None], packed.shape)
     per_rot = [torch.stack([packed, acc0 if r == 0 else accr, win, tf], -1)
                for r in range(cfg.num_rot)]

@@ -235,7 +235,7 @@ def _head_state(tf, packed, hm, prev, upm, rotm, fits, ctx, statm, params,
     dsum = torch.cat([pk / N, acc_mean, wn / N, tf_row, statm], 0)
 
     # heightmap encoder per container, then the query
-    inv_s = torch.tensor(1.0 / _scale(cfg), dtype=f32, device=dev)
+    inv_s = torch.full((), 1.0 / _scale(cfg), dtype=f32, device=dev)
     idx = (prev + 1).clamp(0, A).long()[0]                    # [B]
     prev_emb = et[:, idx]                                     # [h, B]
     qs = []
@@ -300,9 +300,7 @@ def actor_select_step_ref(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
     sd = se.permute(1, 2, 0) + dyn
     scores = torch.stack([(torch.tanh(sd + q[None]) * v[None]).sum(1)
                           for q in qs], 1).reshape(A, B)      # [A, B]
-    masked = torch.where(mask == 1, scores / temperature,
-                         torch.tensor(NEG, dtype=scores.dtype,
-                                      device=scores.device))
+    masked = torch.where(mask == 1, scores / temperature, NEG)
     p_n, h_n, l_n, a_n, logp = _select_logp(masked, g, mask, packed, hm, plc,
                                             dims_w, dims_d, dims_h, cfg)
     return p_n, h_n, l_n, a_n, flags, mask, scores, logp

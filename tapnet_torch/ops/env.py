@@ -4,8 +4,8 @@ Port of `tapnet_tpu/ops/pallas_env.py`: a drop-in for
 `env.core.rollout_batch` (policies `first` and `random`), bit-equal to it on
 every field. The policy's threefry draws are computed once outside
 (`env.core.policy_bits`), so the kernel and the general path consume the
-same numbers; the rewards come from `ops.reward.batched_reward` (the
-heightmap reductions kernel on the card), as in the JAX package.
+same numbers; the rewards come from `ops.reward.batched_reward` (one
+`reward_kernel` launch on the card), as in the JAX package.
 
 - `fused_rollout_batch_ref`: the plain PyTorch version (the general env's
   action_mask / select_action / step loop on the same draws), used on CPU

@@ -150,7 +150,7 @@ def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
     w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
     bits = tuple((flags_k >> i) & 1 for i in range(4))
     packed, acc0, accr, win = bits
-    tf = torch.tensor(k, dtype=f32, device=dev) / cfg.num_blocks
+    tf = torch.full((), k, dtype=f32, device=dev) / cfg.num_blocks
     pk = packed.sum(0, keepdim=True).to(f32)
     a0 = acc0.sum(0, keepdim=True).to(f32)
     ar = accr.sum(0, keepdim=True).to(f32)
@@ -159,7 +159,7 @@ def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
     ones = torch.ones(1, B, dtype=f32, device=dev)
     dsum = torch.cat([pk / N, acc_mean, wn / N, ones * tf, statm], 0)
 
-    inv_s = torch.tensor(1.0 / _scale(cfg), dtype=f32, device=dev)
+    inv_s = torch.full((), 1.0 / _scale(cfg), dtype=f32, device=dev)
     idx = (prev + 1).clamp(0, A).long()
     oh_prev = (torch.arange(A + 1, device=dev)[:, None] == idx[None]).to(f32)
     prev_emb = et[:, idx]                                     # [h, B]
@@ -201,8 +201,7 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
     act = torch.stack([torch.tanh(sd + q[None]) for q in qs], 1)  # [T,C,h,B]
     scores = (act * v[None, None]).sum(2).reshape(A, B)
     mask_f = mask_k.to(f32)
-    masked = torch.where(mask_k == 1, scores / temperature,
-                         torch.tensor(NEG, dtype=f32, device=dev))
+    masked = torch.where(mask_k == 1, scores / temperature, NEG)
     saved.update(x=x, h1=h1, act=act)
     return masked, mask_f, saved
 
@@ -279,8 +278,8 @@ def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
     (dw8t, db8, dwpt, dw1t, db1, dw2t, db2, det, dwqt, dbq, dv) = g
     dse = torch.zeros_like(se)
     dctx = torch.zeros_like(ctx)
-    inv_temp = torch.tensor(1.0 / temperature, dtype=torch.float32,
-                            device=se.device)
+    inv_temp = torch.full((), 1.0 / temperature, dtype=torch.float32,
+                          device=se.device)
     for k in range(k0, k1):
         masked, mask_f, sv = _head_fwd(cfg, k, flags[k], hms[k], masks[k],
                                        prev[k], se, ctx, statp, statm,
@@ -400,8 +399,7 @@ def _live_step(cfg, k, flags_k, hm_k, mask_k, act_k, prev, se, ctx, statp,
     act = torch.stack([torch.tanh(sd + q[:, col]) for q in qs], 0)
     scores = (act * v[None]).sum(1).T                         # [n, C]
     mk = mask_k.reshape(T, C, -1)[t, :, b]                    # [n, C]
-    masked = torch.where(mk == 1, scores / temperature,
-                         torch.tensor(NEG, dtype=f32, device=se.device))
+    masked = torch.where(mk == 1, scores / temperature, NEG)
     a_col = t[:, None] * C + torch.arange(C, device=se.device)[None]
     return dict(inst=inst, b=b, t=t, col=col, x=x, h1=h1, act=act,
                 masked=masked, mask_f=mk.to(f32), a_col=a_col, sv=sv)

@@ -3,22 +3,27 @@ torch.profiler breakdown.
 
     python -m tapnet_torch.profile_pack [--config 2d-basic] [--batch 4096]
         [--hidden 128] [--calls 5] [--policies greedy,sample,best]
-        [--train] [--out profile_pack.json]
+        [--train] [--steps-per-call 1] [--tree DIR] [--out profile_pack.json]
 
 For each policy (greedy, sample, best-of-16 on batch/16 instances; `first`
 and `random`, the heuristic rollouts, when named in `--policies`), or with
-`--train` for one REINFORCE train step (`make_train_step`, batch `--batch`),
-it warms up, times `--calls` calls on the host clock, then profiles as many
-more and prints the device time of every kernel name per call, the wall
-time per call (unprofiled), the device busy time per call (the sum of
-kernel times; one stream, so kernels do not overlap) and the device's idle
-share of the wall time. Needs a CUDA device.
+`--train` for one call of the REINFORCE train step (`make_train_step`,
+batch `--batch`, `--steps-per-call` steps a call), it warms up, times
+`--calls` calls on the host clock, then profiles as many more and prints
+the device time and launches of every kernel name per call, the kernel
+launches per call, the wall time per call (unprofiled), the device busy
+time per call (the sum of kernel times; one stream, so kernels do not
+overlap) and the device's idle share of the wall time. `--tree DIR` runs
+the same measurement on the checkout at DIR (its `tapnet_torch`), so two
+trees compare in one call. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
 import time
 
@@ -63,6 +68,7 @@ def profile_calls(label, run, calls):
     busy = sum(r[1] for r in rows)
     return {"run": label, "wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms,
+            "launches": sum(r[2] for r in rows),
             "kernels": [{"name": k[:80], "ms": ms, "launches": n}
                         for k, ms, n in rows[:25]]}
 
@@ -78,8 +84,24 @@ def main(argv=None) -> int:
                     "best, first, random")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of pack()")
+    ap.add_argument("--steps-per-call", type=int, default=1,
+                    help="train steps per call (--train)")
+    ap.add_argument("--tree", default="",
+                    help="profile the checkout at this path")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
+    if args.tree:
+        rest = list(argv if argv is not None else sys.argv[1:])
+        i = rest.index("--tree")
+        rest = rest[:i] + rest[i + 2:]
+        if args.out:
+            j = rest.index("--out")
+            rest[j + 1] = os.path.abspath(args.out)
+        code = ("import runpy, sys; sys.argv = ['profile_pack'] + "
+                f"{rest!r}; runpy.run_path({os.path.abspath(__file__)!r}, "
+                "run_name='__main__')")
+        return subprocess.run([sys.executable, "-c", code],
+                              cwd=args.tree).returncode
     if not torch.cuda.is_available():
         print("profile_pack: no CUDA device", file=sys.stderr)
         return 2
@@ -95,8 +117,9 @@ def main(argv=None) -> int:
            "batch": args.batch, "hidden": args.hidden, "runs": []}
     if args.train:
         ts = init_train_state(0, cfg, args.hidden, device=dev)
-        step = make_train_step(cfg, args.batch, args.hidden, device=dev)
-        runs = [("train_step", lambda: step(ts))]
+        step = make_train_step(cfg, args.batch, args.hidden, device=dev,
+                               steps_per_call=args.steps_per_call)
+        runs = [(f"train_step x{args.steps_per_call}", lambda: step(ts))]
     else:
         actor = init_params(0, cfg, args.hidden, dev)
         inst = sample_batch(R.key(4, dev), args.batch, cfg)
@@ -111,7 +134,7 @@ def main(argv=None) -> int:
         out["runs"].append(res)
         print(f"{label}: wall {res['wall_ms']:.3f} ms/call, device busy "
               f"{res['device_busy_ms']:.3f} ms, idle share "
-              f"{res['idle_share']:.3f}")
+              f"{res['idle_share']:.3f}, {res['launches']} launches/call")
         for k in res["kernels"][:12]:
             print(f"    {k['ms']:8.4f} ms  x{k['launches']:<4d} {k['name']}")
     if args.out:

@@ -12,7 +12,9 @@ so that one seed means one instance and one gumbel draw on both sides:
 - `uniform` and `gumbel` follow `jax._src.random._uniform` / `_gumbel`
   (mode "low") in float32.
 
-Every function is batched over the leading axes of `key`.
+Every function is batched over the leading axes of `key`. Python scalars
+become device tensors by fills, never by host-to-device copies, so the
+draws can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ def key(seed: int, device=None) -> torch.Tensor:
     seed = int(seed)
     if not -2**31 <= seed < 2**32:
         raise ValueError(f"seed {seed} is not a 32-bit integer")
-    return torch.tensor([0, seed & M32], dtype=torch.int64, device=device)
+    k = torch.zeros(2, dtype=torch.int64, device=device)
+    k[1:].fill_(seed & M32)
+    return k
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -65,7 +69,11 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """[..., 2] -> [..., 2]; `data` an int or an int tensor broadcasting
     against the key's leading axes."""
     k1, k2 = key[..., 0], key[..., 1]
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & M32
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & M32
+    else:
+        d = torch.full((), int(data) & M32, dtype=torch.int64,
+                       device=key.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
@@ -91,8 +99,8 @@ def _bits_to_unit(b: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     f = _bits_to_unit(bits(key, shape))
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

@@ -1,4 +1,4 @@
-"""Actor-critic REINFORCE: one train step, the port of
+"""Actor-critic REINFORCE: the train step, the port of
 `tapnet_tpu/train/reinforce.py`.
 
 loss_actor = -mean((R - V).detach() * sum_t log pi), loss_critic =
@@ -11,16 +11,24 @@ mean((V - R)^2), a global-norm clip without epsilon (as optax's
 3. replay the record differentiably (`rollout.replay_logp_sum`): on the
    card the replay kernel's backward (the step-grid schedule for rolling
    configs and N > 31), with the rollout's logp as the value;
-4. the C/P/S rewards through the `heightmap_reductions` kernel;
-5. the critic on the reset state; the losses; clip; Adam.
+4. the C/P/S reward terms and the reward in one `reward_kernel` launch
+   (`ops.reward.fused_reward`);
+5. the critic on the reset state; the losses; clip; Adam (`Adam`: optax's
+   arithmetic on flat float32 moments, the same on the CPU and the card).
 
 The key schedule is the JAX package's: `key, k_inst, k_act = split(key, 3)`,
 instances from `split(k_inst, batch)`, action keys `split(k_act, batch)`,
 so a key samples the same instances and trajectories on both sides.
+
+`steps_per_call = k > 1` runs k steps per call on the same key stream as k
+calls at k = 1 and returns the last step's metrics, as the JAX package's
+`lax.scan` of steps does. On the CPU that is k eager steps; on the card one
+step captured as a CUDA graph (`GraphedSteps`) and replayed k times.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -32,9 +40,81 @@ from tapnet_torch.env.sampler import sample_batch
 from tapnet_torch.models.features import build_tokens
 from tapnet_torch.models.tapnet import (TAPNetActor, TAPNetCritic,
                                         init_critic, init_params)
-from tapnet_torch.ops.reward import batched_reward_terms
+from tapnet_torch.ops.reward import fused_reward
 from tapnet_torch.train.rollout import replay_logp_sum, rollout_batch_record
 from tapnet_torch.types import Instance
+
+
+class Adam(torch.optim.Optimizer):
+    """optax.adam(lr, b1, b2, eps) over one parameter group:
+
+        mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu;  count += 1
+        p -= lr * (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
+
+    The moments of all parameters live in two flat float32 buffers and the
+    count in one float32 0-d tensor, all on the parameters' device and
+    updated in place (about 20 launches a step, whatever the number of
+    parameters), and no step reads a host value, so a step can be captured
+    in a CUDA graph. The same arithmetic runs on the CPU and on the card.
+    `state[p]` holds views of the buffers under torch.optim.Adam's keys
+    (step, exp_avg, exp_avg_sq), so state dicts keep that layout."""
+
+    def __init__(self, params, lr: float = 5e-4, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        if len(self.param_groups) != 1:
+            raise ValueError("Adam takes one parameter group")
+        ps = self.param_groups[0]["params"]
+        n = sum(p.numel() for p in ps)
+        self._mu = torch.zeros(n, dtype=torch.float32, device=ps[0].device)
+        self._nu = torch.zeros_like(self._mu)
+        self._count = torch.zeros((), dtype=torch.float32,
+                                  device=ps[0].device)
+        self._bind()
+
+    def _bind(self):
+        off = 0
+        for p in self.param_groups[0]["params"]:
+            n = p.numel()
+            self.state[p] = {"step": self._count,
+                             "exp_avg": self._mu[off:off + n].view_as(p),
+                             "exp_avg_sq": self._nu[off:off + n].view_as(p)}
+            off += n
+
+    def __getstate__(self):
+        return {**super().__getstate__(), "_mu": self._mu, "_nu": self._nu,
+                "_count": self._count}
+
+    def load_state_dict(self, state_dict):
+        """Copy a state dict (this class's or torch.optim.Adam's) into the
+        buffers, which keep their identity."""
+        super().load_state_dict(state_dict)
+        loaded = dict(self.state)
+        self._bind()
+        with torch.no_grad():
+            for p, s in loaded.items():
+                for k in ("exp_avg", "exp_avg_sq"):
+                    self.state[p][k].copy_(s[k])
+                self._count.copy_(s["step"])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        group = self.param_groups[0]
+        b1, b2 = group["betas"]
+        lr, eps = group["lr"], group["eps"]
+        ps = group["params"]
+        g = torch.cat([(p.grad if p.grad is not None
+                        else torch.zeros_like(p)).reshape(-1) for p in ps])
+        self._mu.mul_(b1).add_(g * (1 - b1))
+        self._nu.mul_(b2).add_(g * g * (1 - b2))
+        self._count.add_(1)
+        mu_hat = self._mu / (1 - torch.pow(b1, self._count))
+        nu_hat = self._nu / (1 - torch.pow(b2, self._count))
+        upd = mu_hat.div_(nu_hat.sqrt_().add_(eps)).mul_(-lr)
+        torch._foreach_add_(ps, [u.view_as(p) for u, p in zip(
+            upd.split([p.numel() for p in ps]), ps)])
 
 
 @dataclasses.dataclass
@@ -45,7 +125,7 @@ class TrainState:
 
     actor: TAPNetActor
     critic: TAPNetCritic
-    opt: torch.optim.Adam
+    opt: Adam
     step: int
     key: torch.Tensor
 
@@ -53,10 +133,10 @@ class TrainState:
         return list(self.actor.parameters()) + list(self.critic.parameters())
 
 
-def make_optimizer(params, lr: float = 5e-4) -> torch.optim.Adam:
+def make_optimizer(params, lr: float = 5e-4) -> Adam:
     """Adam as optax.adam(lr): betas (0.9, 0.999), eps 1e-8 outside the
     square root. The clip is `clip_by_global_norm_`, applied first."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -113,13 +193,77 @@ def _batch_losses(actor, critic, instances: Instance, keys, cfg: TAPConfig,
     static, dynamic, hm = build_tokens(instances, E.reset(instances, cfg),
                                        cfg)
     V = critic(static, dynamic, hm)
-    terms = batched_reward_terms(states.heightmap, states.placements,
-                                 instances.dims)
-    Rw = E.reward_from_terms(terms, cfg.reward_terms)
+    _, _, terms, Rw = fused_reward(states.heightmap, states.placements,
+                                   instances.dims, cfg.reward_terms)
     adv = Rw - V.detach()
     actor_loss = -(adv * logp).mean()
     critic_loss = ((V - Rw) ** 2).mean()
     return actor_loss, critic_loss, Rw, terms
+
+
+class GraphedSteps:
+    """`steps_per_call` train steps per call on the card: one step captured
+    as a CUDA graph, replayed k times.
+
+    The graph reads and writes the parameters, gradients and Adam buffers
+    of the TrainState it was captured for, and a static key buffer: a call
+    copies the state's key in, replays, and hands back a copy of the new
+    key and copies of the last step's metrics. A call with any other state
+    (a deep copy, other modules or another optimizer) captures anew for
+    it, after `warm_up`: one eager step on a side stream, on a copy of the
+    state, so kernels are built and libraries initialised outside the
+    capture. A capture that fails raises; nothing runs eagerly instead."""
+
+    def __init__(self, body, k: int, device: torch.device):
+        self.body, self.k, self.device = body, k, device
+        self.graph = self._sig = self._key = self._metrics = None
+
+    @staticmethod
+    def _signature(ts: TrainState):
+        tensors = [t for m in (ts.actor, ts.critic)
+                   for t in list(m.parameters()) + list(m.buffers())]
+        tensors += [p.grad for p in ts.parameters()]
+        tensors += [v for s in ts.opt.state.values() for v in s.values()
+                    if isinstance(v, torch.Tensor)]
+        return tuple(None if t is None else (t.data_ptr(), t.shape)
+                     for t in tensors)
+
+    def warm_up(self, ts: TrainState):
+        """One eager step on a deep copy of `ts` on a side stream; `ts`
+        stays as it is."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            warm = copy.deepcopy(ts)
+            self.body(warm, warm.key)
+            del warm
+        torch.cuda.current_stream(self.device).wait_stream(side)
+
+    def capture(self, ts: TrainState):
+        """Capture one step bound to `ts`, dropping any earlier graph (after
+        a `warm_up`)."""
+        self.graph = self._sig = self._key = self._metrics = None
+        for p in ts.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        key = ts.key.clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new_key, metrics = self.body(ts, key)
+            key.copy_(new_key)
+        self.graph, self._key, self._metrics = graph, key, metrics
+        self._sig = self._signature(ts)
+
+    def __call__(self, ts: TrainState):
+        if self.graph is None or self._signature(ts) != self._sig:
+            self.warm_up(ts)
+            self.capture(ts)
+        self._key.copy_(ts.key)
+        for _ in range(self.k):
+            self.graph.replay()
+        ts.key = self._key.clone()
+        ts.step += self.k
+        return ts, {k: v.clone() for k, v in self._metrics.items()}
 
 
 def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
@@ -132,51 +276,49 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
     state in place. With from_dataset=True it is (TrainState, Instance
     batch) -> (TrainState, metrics). Metrics are 0-d tensors on the device:
     loss_actor, loss_critic, reward, C, P, S and grad_norm (before the
-    clip). Runs on `cuda` unless `device="cpu"`."""
+    clip). `steps_per_call` > 1: that many steps per call (on the card as
+    replays of a CUDA graph), the last one's metrics. Runs on `cuda` unless
+    `device="cpu"`."""
     if mesh is not None:
         raise NotImplementedError("data parallelism (parallel/) is not "
                                   "ported yet (ROADMAP.md, port Queue 1)")
     if mixed_p2d > 0:
         raise NotImplementedError("sample_batch_mixed is not ported yet "
                                   "(ROADMAP.md, port Queue 1)")
-    if steps_per_call != 1:
-        raise NotImplementedError("steps_per_call > 1 (CUDA graphs over "
-                                  "several steps) is not ported yet "
-                                  "(ROADMAP.md, port Queue 1)")
     if compute_dtype not in (None, torch.float32, "float32"):
         raise NotImplementedError("the port trains in float32 only "
                                   "(ROADMAP.md, port Queue 1)")
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call {steps_per_call} < 1")
+    if from_dataset and steps_per_call != 1:
+        raise ValueError("steps_per_call > 1 needs on-device sampling "
+                         "(from_dataset=False)")
     device = resolve_device(device)
 
-    def train_step(ts: TrainState, instances: Instance = None):
-        if ts.key.device != device:
-            raise ValueError(f"TrainState is on {ts.key.device}, the step "
-                             f"on {device}")
-        if ts.actor.hidden != hidden:
-            raise ValueError(f"actor hidden {ts.actor.hidden} != {hidden}")
-        ks = R.split(ts.key, 3)
-        key, k_inst, k_act = ks[0], ks[1], ks[2]
+    def body(ts: TrainState, key: torch.Tensor, instances: Instance = None):
+        """One step from `key`: updates the parameters and the Adam state
+        in place; returns the next key and the metrics."""
+        ks = R.split(key, 3)
+        new_key, k_inst, k_act = ks[0], ks[1], ks[2]
         if instances is None:
             instances = sample_batch(k_inst, batch, cfg)
         act_keys = R.split(k_act, instances.dims.shape[0])
         params = ts.parameters()
-        ts.opt.zero_grad(set_to_none=True)
-        actor_loss, critic_loss, Rw, terms = _batch_losses(
-            ts.actor, ts.critic, instances, act_keys, cfg, temperature)
-        (actor_loss + critic_weight * critic_loss).backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        torch._foreach_zero_([p.grad for p in params])
+        actor_loss, critic_loss, Rw, terms = _batch_losses(
+            ts.actor, ts.critic, instances, act_keys, cfg, temperature)
+        (actor_loss + critic_weight * critic_loss).backward()
         gnorm = clip_by_global_norm_([p.grad for p in params], clip)
         for g in ts.opt.param_groups:
             g["lr"] = lr
         ts.opt.step()
-        ts.step += 1
-        ts.key = key
 
         vol, denom_c, denom_p, s_num, s_den = terms
         f = lambda n, d: (n.float() / d.clamp(min=1).float()).mean()
-        metrics = {
+        return new_key, {
             "loss_actor": actor_loss.detach(),
             "loss_critic": critic_loss.detach(),
             "reward": Rw.mean(),
@@ -185,8 +327,37 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
             "S": f(s_num, s_den),
             "grad_norm": gnorm,
         }
+
+    def check(ts: TrainState):
+        if ts.key.device != device:
+            raise ValueError(f"TrainState is on {ts.key.device}, the step "
+                             f"on {device}")
+        if ts.actor.hidden != hidden:
+            raise ValueError(f"actor hidden {ts.actor.hidden} != {hidden}")
+
+    def train_step(ts: TrainState, instances: Instance = None):
+        check(ts)
+        ts.key, metrics = body(ts, ts.key, instances)
+        ts.step += 1
         return ts, metrics
 
     if from_dataset:
         return train_step
-    return lambda ts: train_step(ts)
+    if steps_per_call == 1:
+        return lambda ts: train_step(ts)
+    if device.type == "cuda":
+        graphed = GraphedSteps(body, steps_per_call, device)
+
+        def graph_steps(ts: TrainState):
+            check(ts)
+            return graphed(ts)
+
+        graph_steps.graphed = graphed
+        return graph_steps
+
+    def cpu_steps(ts: TrainState):
+        for _ in range(steps_per_call):
+            ts, metrics = train_step(ts)
+        return ts, metrics
+
+    return cpu_steps

@@ -48,9 +48,10 @@ from torch.utils.checkpoint import checkpoint
 from tapnet_torch import random as R
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
-from tapnet_torch.models.features import (dynamic_flags, heightmap_grid,
-                                          mask_from_flags, merge_tokens,
-                                          static_tokens, tokens_from_flags)
+from tapnet_torch.models.features import (dynamic_flags, f32_on,
+                                          heightmap_grid, mask_from_flags,
+                                          merge_tokens, static_tokens,
+                                          tokens_from_flags)
 from tapnet_torch.models.tapnet import TAPNetActor, embed_static_T
 from tapnet_torch.ops import actor_step as AS
 from tapnet_torch.ops import env as OE
@@ -72,9 +73,7 @@ class RolloutRecord(NamedTuple):
 
 
 def _masked_logits(logits, mask, temperature):
-    return torch.where(mask, logits / temperature,
-                       torch.tensor(NEG, dtype=logits.dtype,
-                                    device=logits.device))
+    return torch.where(mask, logits / temperature, NEG)
 
 
 def _gumbel_all(keys: torch.Tensor, cfg: TAPConfig) -> torch.Tensor:
@@ -138,7 +137,7 @@ def _step_mask(flags, state, instances, cfg):
 
 def _head_logits(actor, static, static_emb, flags, heightmap, prev, t, cfg):
     """Logits [B, A]; `t` steps taken, an int or an int tensor [B]."""
-    t_frac = torch.as_tensor(t, device=flags.device).float() / cfg.num_blocks
+    t_frac = f32_on(t, flags.device) / cfg.num_blocks
     dynamic = merge_tokens(static, tokens_from_flags(flags, t_frac, cfg))
     return actor.head(static_emb, dynamic, heightmap_grid(heightmap, cfg),
                       prev)
@@ -195,9 +194,7 @@ def _window_dsum(f, win, t_frac, stat_mean, cfg: TAPConfig):
     ar = ((f >> 2) & 1).sum(-1).float()
     wn = win.sum(-1).float()
     acc_mean = (a0 + ar) / (N * R_) if R_ == 2 else a0 / N
-    tf = torch.broadcast_to(
-        torch.as_tensor(t_frac, dtype=torch.float32, device=f.device),
-        pk.shape)
+    tf = torch.broadcast_to(f32_on(t_frac, f.device), pk.shape)
     dyn4 = torch.stack([pk / N, acc_mean, wn / N, tf], -1)
     return torch.cat([dyn4, torch.broadcast_to(
         stat_mean, dyn4.shape[:-1] + (4,))], -1)
@@ -229,8 +226,7 @@ def _make_windowed_head(actor, instances, static, static_emb,
         se_g = _gather_blocks(se_pad, bidx).reshape(B, Kw * R_, h)
         gf = torch.cat([f, torch.zeros_like(f[:, :1])], 1).gather(1, bidx)
         static_g = _gather_blocks(static_pad, bidx).reshape(B, Kw * R_, 4)
-        t_frac = torch.as_tensor(t_frac, dtype=torch.float32,
-                                 device=f.device)
+        t_frac = f32_on(t_frac, f.device)
         merged = torch.cat([tokens_from_flags(gf, t_frac, cfg), static_g],
                            -1)                                # [B, Kw*R, 8]
         dsum = _window_dsum(f, win, t_frac, stat_mean, cfg)   # [B, 8]
@@ -252,8 +248,7 @@ def _step_head(actor, instances, static, static_emb, cfg):
         win_head = _make_windowed_head(actor, instances, static, static_emb,
                                        cfg)
         return lambda flags, hm, prev, t: win_head(
-            flags, hm, prev,
-            torch.as_tensor(t, device=flags.device).float() / cfg.num_blocks)
+            flags, hm, prev, f32_on(t, flags.device) / cfg.num_blocks)
     return lambda flags, hm, prev, t: _head_logits(
         actor, static, static_emb, flags, hm, prev, t, cfg)
 

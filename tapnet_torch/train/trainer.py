@@ -3,9 +3,12 @@ and checkpoints, the port of `tapnet_tpu/train/trainer.py`.
 
 An epoch is `steps_per_epoch` train steps (instances sampled on the
 device), then a greedy-decode validation on a fixed held-out key, one
-metrics line and a checkpoint. Every field of the JAX package's
-TrainLoopConfig is kept; the ones this port does not support yet raise
-NotImplementedError when set.
+metrics line and a checkpoint. With `steps_per_call` = k each call runs k
+steps, and the loop counts steps as the JAX trainer does: one call that is
+not timed, then (n - 1) // k timed calls, so step numbers, metrics lines
+and checkpoint names are the JAX trainer's for the same settings. Every
+field of the JAX package's TrainLoopConfig is kept; the ones this port does
+not support yet raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ class TrainLoopConfig:
     metrics_path: Optional[str] = None
     trace_dir: Optional[str] = None   # not ported: raises
     mixed_p2d: float = 0.0            # not ported: raises
-    steps_per_call: int = 1           # not ported beyond 1: raises
+    steps_per_call: int = 1           # steps per call (a CUDA graph)
     tb_dir: Optional[str] = None      # not ported: raises
     deterministic: bool = False       # assert bit-identical repeat of a step
     nan_checks: bool = False          # not ported: raises
@@ -56,8 +59,7 @@ class TrainLoopConfig:
 
 def _check_supported(loop: TrainLoopConfig):
     for name, unset in (("trace_dir", None), ("mixed_p2d", 0.0),
-                        ("steps_per_call", 1), ("tb_dir", None),
-                        ("nan_checks", False)):
+                        ("tb_dir", None), ("nan_checks", False)):
         if getattr(loop, name) != unset:
             raise NotImplementedError(
                 f"TrainLoopConfig.{name} is not ported yet (ROADMAP.md, port "
@@ -145,24 +147,26 @@ def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
             if path:
                 ts = ckpt.restore_checkpoint(path, ts)
                 logger.log(ts.step, {}, event="resumed", ckpt=path)
+        spc = max(1, loop.steps_per_call)
         train_step = make_train_step(cfg, loop.batch, loop.hidden, loop.lr,
                                      loop.clip, loop.temperature,
-                                     device=dev)
+                                     steps_per_call=spc, device=dev)
         if loop.deterministic:
             assert_deterministic(train_step, ts)
             logger.log(ts.step, {}, event="deterministic-check-passed")
         total = loop.epochs * loop.steps_per_epoch
-        metrics = {}
         while ts.step < total:
             epoch = ts.step // loop.steps_per_epoch
             n_steps = loop.steps_per_epoch - ts.step % loop.steps_per_epoch
+            ts, metrics = train_step(ts)  # may capture a graph: not timed
             _sync(dev)
             t0 = time.perf_counter()
-            for _ in range(n_steps):
+            calls = max(0, (n_steps - 1) // spc)
+            for _ in range(calls):
                 ts, metrics = train_step(ts)
             _sync(dev)
             dt = time.perf_counter() - t0
-            sps = n_steps * loop.batch * cfg.num_blocks / max(dt, 1e-9)
+            sps = calls * spc * loop.batch * cfg.num_blocks / max(dt, 1e-9)
             valid = evaluate(ts.actor, cfg, loop, device=dev)
             logger.log(ts.step, metrics, epoch=epoch,
                        env_steps_per_s=round(sps, 1), **valid)

@@ -14,6 +14,7 @@ the windowed head and replays through the windowed replay.
 """
 
 import copy
+import dataclasses
 import json
 
 import jax
@@ -35,7 +36,7 @@ from tapnet_torch.env.sampler import sample_batch
 from tapnet_torch.train import checkpoints as ckpt
 from tapnet_torch.train import reinforce as TR
 from tapnet_torch.train import rollout as RO
-from tapnet_torch.train.trainer import assert_deterministic
+from tapnet_torch.train.trainer import _state_tensors, assert_deterministic
 from tapnet_torch.types import Instance
 
 HIDDEN, B = 32, 32
@@ -322,9 +323,206 @@ def test_train_writes_metrics_and_checkpoints(tmp_path):
 def test_unported_options_raise():
     cfg = T.CONFIGS[NAME]
     for kw in ({"mesh": object()}, {"mixed_p2d": 0.5},
-               {"steps_per_call": 2}, {"compute_dtype": torch.bfloat16}):
+               {"compute_dtype": torch.bfloat16}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.make_train_step(cfg, batch=8, device="cpu", **kw)
     for kw in ({"tb_dir": "x"}, {"trace_dir": "x"}, {"nan_checks": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.train(cfg, T.TrainLoopConfig(**kw), device="cpu")
+
+
+# ---- steps_per_call: k steps per call (on the card a CUDA graph; here k
+# eager steps), the JAX package's lax.scan of steps
+
+def _named(ts, tree=None):
+    """{a.name / c.name: tensor} of the port's params, or of a JAX tree of
+    {"actor", "critic"} leaves converted to the port's names."""
+    if tree is None:
+        return {**{f"a.{k}": v for k, v in ts.actor.state_dict().items()},
+                **{f"c.{k}": v for k, v in ts.critic.state_dict().items()}}
+    return {**{f"a.{k}": v for k, v in
+               flax_to_state_dict(_np(tree["actor"])).items()},
+            **{f"c.{k}": v for k, v in
+               flax_to_state_dict(_np(tree["critic"])).items()}}
+
+
+def test_steps_per_call_matches_jax(jax_state):
+    """Two steps in one call, B=8: the first step's actions bit-equal, the
+    last step's metrics, the params and optax's Adam moments at the
+    tolerances of test_train_step_matches_jax (the moments like the
+    gradients, scaled by their leaf's max magnitude)."""
+    jcfg, jts = jax_state
+    cfg = T.CONFIGS[NAME]
+    Bs, k = 8, 2
+    ts = _port_state(jts, cfg)
+    # the first step's actions, from the step's own key schedule
+    _, k_inst, k_act = jax.random.split(jts.key, 3)
+    inst_j = jax.jit(lambda kk: jax.vmap(
+        lambda x: sample_instance(x, jcfg))(jax.random.split(kk, Bs)))(k_inst)
+    with jax.default_matmul_precision("highest"):
+        _, rec_j, _ = jax.jit(lambda p, i, kk: JRO.rollout_batch_record(
+            p, i, kk, jcfg, hidden=HIDDEN, step_kernel=False,
+            actor_kernel=False))(jts.params["actor"], inst_j,
+                                 jax.random.split(k_act, Bs))
+        jts2, m_j = JR.make_train_step(jcfg, batch=Bs, hidden=HIDDEN,
+                                       steps_per_call=k)(jts)
+    ks = R.split(ts.key, 3)
+    _, rec, _ = RO.rollout_batch_record(
+        ts.actor, sample_batch(ks[1], Bs, cfg), R.split(ks[2], Bs), cfg)
+    np.testing.assert_array_equal(rec.action.numpy(),
+                                  np.asarray(rec_j.action))
+    ts2, m = T.make_train_step(cfg, batch=Bs, hidden=HIDDEN,
+                               steps_per_call=k, device="cpu")(ts)
+    assert ts2.step == k
+    np.testing.assert_array_equal(
+        ts2.key.numpy(), np.asarray(jax.random.key_data(jts2.key)))
+    for name in ("reward", "C", "P", "S"):
+        np.testing.assert_allclose(float(m[name]), float(m_j[name]),
+                                   rtol=1e-6, err_msg=name)
+    np.testing.assert_allclose(float(m["loss_critic"]),
+                               float(m_j["loss_critic"]), rtol=1e-5)
+    for name in ("loss_actor", "grad_norm"):
+        np.testing.assert_allclose(float(m[name]), float(m_j[name]),
+                                   rtol=1e-4, err_msg=name)
+    got = _named(ts2)
+    for name, w in _named(None, jts2.params).items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=1.1e-3,
+                                   err_msg=name)
+    adam = jts2.opt_state[1][0]          # chain(clip, adam): ScaleByAdamState
+    for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        for side, mod in (("actor", ts2.actor), ("critic", ts2.critic)):
+            _leaf_close(tree[side], {n: ts2.opt.state[p][key]
+                                     for n, p in mod.named_parameters()})
+    assert all(float(s["step"]) == int(adam.count)
+               for s in ts2.opt.state.values())
+
+
+def test_steps_per_call_equals_single_steps():
+    """One k-step call is k single steps, bit for bit, and leaves its
+    metrics unshared with the state."""
+    a, b = _small_state(), _small_state()
+    single = _step()
+    for _ in range(3):
+        a, m_a = single(a)
+    b, m_b = T.make_train_step(T.CONFIGS[NAME], batch=8, hidden=HIDDEN,
+                               steps_per_call=3, device="cpu")(b)
+    _equal_states(a, b)
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert torch.equal(x, y)
+    for k in m_a:
+        assert torch.equal(m_a[k], m_b[k]), k
+
+
+def test_steps_per_call_from_dataset_raises():
+    with pytest.raises(ValueError, match="steps_per_call"):
+        T.make_train_step(T.CONFIGS[NAME], batch=8, hidden=HIDDEN,
+                          from_dataset=True, steps_per_call=2, device="cpu")
+
+
+def test_adam_state_copies_and_reloads():
+    """The flat Adam buffers survive a deep copy (views stay views of the
+    copy's buffers) and a state-dict round trip, including a state dict of
+    torch.optim.Adam (the layout of earlier checkpoints)."""
+    ts, _ = _step()(_small_state())
+    cp = copy.deepcopy(ts)
+    ts2, _ = _step()(ts)
+    cp2, _ = _step()(cp)
+    _equal_states(ts2, cp2)
+    for x, y in zip(_state_tensors(ts2), _state_tensors(cp2)):
+        assert torch.equal(x, y)
+    assert float(cp2.opt.state[cp2.parameters()[0]]["step"]) == 2.0
+    fresh = _small_state()
+    fresh.opt.load_state_dict(ts2.opt.state_dict())
+    for p, q in zip(fresh.parameters(), ts2.parameters()):
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(fresh.opt.state[p][k], ts2.opt.state[q][k])
+    ref = torch.optim.Adam(ts2.parameters(), lr=5e-4)
+    for p in ts2.parameters():
+        p.grad = torch.ones_like(p)
+    ref.step()
+    fresh.opt.load_state_dict(ref.state_dict())
+    for p, q in zip(fresh.parameters(), ts2.parameters()):
+        assert torch.equal(fresh.opt.state[p]["exp_avg"],
+                           ref.state[q]["exp_avg"])
+        assert float(fresh.opt.state[p]["step"]) == 1.0
+
+
+def _jax_train_lines(loop_kw, tmp):
+    from tapnet_tpu.train.trainer import TrainLoopConfig as JLoop
+    from tapnet_tpu.train.trainer import train as jtrain
+    loop = JLoop(**loop_kw, ckpt_dir=str(tmp / "jck"),
+                 metrics_path=str(tmp / "j.jsonl"))
+    with jax.default_matmul_precision("highest"):
+        jtrain(JCONFIGS[NAME], loop)
+    lines = [json.loads(x) for x in open(tmp / "j.jsonl")]
+    names = sorted(p.name.split(".")[0] for p in (tmp / "jck").iterdir()
+                   if p.name.startswith("ckpt_"))
+    return [(r["step"], r["epoch"]) for r in lines if "epoch" in r], names
+
+
+def test_train_steps_per_call_follows_jax_loop(tmp_path):
+    """train() with steps_per_call=2 and 3 steps per epoch: the JAX
+    trainer's step numbers, epochs and checkpoint names (an epoch overshoots
+    by one step, as there), and a resume from the first checkpoint ends on
+    the same state."""
+    kw = dict(epochs=2, steps_per_epoch=3, batch=8, hidden=HIDDEN,
+              valid_batch=8, steps_per_call=2)
+    want_lines, want_ckpts = _jax_train_lines(kw, tmp_path)
+    loop = T.TrainLoopConfig(**kw, ckpt_dir=str(tmp_path / "ck"),
+                             metrics_path=str(tmp_path / "m.jsonl"))
+    ts = T.train(T.CONFIGS[NAME], loop, device="cpu")
+    lines = [json.loads(x) for x in open(tmp_path / "m.jsonl")]
+    assert [(r["step"], r["epoch"]) for r in lines] == want_lines
+    assert want_lines == [(4, 0), (6, 1)]
+    names = sorted(p.name.split(".")[0] for p in (tmp_path / "ck").iterdir()
+                   if p.name.startswith("ckpt_") and p.suffix == ".pt")
+    assert names == want_ckpts
+    for r in lines:
+        assert np.isfinite(r["env_steps_per_s"]) and np.isfinite(r["reward"])
+    # resume from the step-4 checkpoint: the same final state
+    rdir = tmp_path / "resumed"
+    rdir.mkdir()
+    first = tmp_path / "ck" / "ckpt_00000004.pt"
+    (rdir / first.name).write_bytes(first.read_bytes())
+    (rdir / "latest.json").write_text(json.dumps(
+        {"step": 4, "path": str(rdir / first.name)}))
+    resumed = T.train(T.CONFIGS[NAME], dataclasses.replace(
+        loop, ckpt_dir=str(rdir), metrics_path=None), device="cpu")
+    _equal_states(ts, resumed)
+    for x, y in zip(_state_tensors(ts), _state_tensors(resumed)):
+        assert torch.equal(x, y)
+
+
+# ---- the capture-safe rewrites (fills in place of host-to-device copies)
+# give the old forms' values bit for bit
+
+def test_fill_rewrites_match_old_forms():
+    from tapnet_torch.models.features import f32_on
+    key = R.split(R.key(7), 4)                                 # [4, 2]
+    for data in (0, 5, 10**6, 2**33 + 3, -1):
+        old = torch.as_tensor(data, dtype=torch.int64) & R.M32
+        k1, k2 = key[..., 0], key[..., 1]
+        b1, b2 = R.threefry2x32(k1, k2, torch.zeros_like(old), old)
+        want = torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+        assert torch.equal(R.fold_in(key, data), want), data
+    ts = torch.arange(10)
+    assert torch.equal(R.fold_in(key[:, None], ts[None]),
+                       R.fold_in(key[:, None], ts[None].int()))
+    for lo, hi in ((0.0, 1.0), (R._TINY, 1.0), (-2.5, 3.1)):
+        f = R._bits_to_unit(R.bits(key, (64,)))
+        lo_t = torch.tensor(lo, dtype=torch.float32)
+        hi_t = torch.tensor(hi, dtype=torch.float32)
+        want = torch.maximum(lo_t, f * (hi_t - lo_t) + lo_t)
+        got = R.uniform(key, (64,), minval=lo, maxval=hi)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for t in (0, 3, 9):
+        old = torch.as_tensor(t).float() / 10
+        assert torch.equal(f32_on(t, "cpu") / 10, old)
+    t = torch.tensor([0, 4, 9], dtype=torch.int32)
+    assert torch.equal(f32_on(t, "cpu") / 10, torch.as_tensor(t).float() / 10)
+    assert torch.equal(R.key(2**32 - 1), torch.tensor([0, 2**32 - 1]))
+    logits = torch.randn(3, 5)
+    mask = logits > 0
+    assert torch.equal(RO._masked_logits(logits, mask, 0.7),
+                       torch.where(mask, logits / 0.7,
+                                   torch.tensor(RO.NEG, dtype=torch.float32)))
