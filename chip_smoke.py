@@ -128,7 +128,30 @@ source, all started at once), then runs, and fails on the first fault:
    k single steps (params, Adam state, key, metrics), a deterministic
    repeat, and the wall ms per step with the device's idle share at k and
    at 1; then `train()` with `steps_per_call=2` at batch 256: epoch lines
-   at the JAX trainer's step numbers and an exact resume.
+   at the JAX trainer's step numbers and an exact resume;
+22. driver config 5, mixed 2D/3D batches (multi-container, hidden 128,
+   p2d 0.5): `sample_batch_mixed` at batch 4096 on the card == on the CPU
+   (flat blocks one cell deep at y = 0, volumes conserved); K1, K2 (both
+   modes), K5f/K5b, K4 (first, random) and the one-launch reward against
+   their plain versions on mixed batches (512 and a ragged 100, p2d 0.5
+   and 1.0, and a two-container mcs config), as phases 2, 3, 7, 10, 20;
+   3 mixed train steps at batch 4096 (K2 10, K5b 1, K3 1 per step), a
+   bit-identical repeat, a step at 256 against the CPU path, and
+   `steps_per_call=4` as a graph (phase 21's checks, the wall ms per step
+   and idle share at k = 4 and 1); `evaluate(mixed_p2d, baselines=True)`
+   at 4096 with the launches the routes imply (K1 10, K4 2, K3 2), at 256
+   against the CPU path; `python -m tapnet_torch.cli` train (steps per
+   call 2, a trace, nan checks; epoch lines at the JAX trainer's steps
+   with its keys), eval (one JSON line) and generate (the file equal to
+   sample_batch on the CPU chunk by chunk, the instances per second), a
+   from_dataset step at 4096 fed by PackDataset over that file;
+   `train(nan_checks=True)` on a NaN parameter raising
+   FloatingPointError naming it; K1, K2, K4 and K5b per launch on mixed
+   and on 3D-only batches at 4096, each held against its plain version on
+   the same operands there (K1, K4 bit-equal, K2 within TOL, K5b within
+   GRAD_TOL), and K3's reductions and the one-launch reward bit-equal at
+   4096 on a mixed batch (a sampled rollout's final state, pack
+   first/random).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -167,9 +190,12 @@ def log(msg):
 # ------------------------------------------------------------------ #
 # phases 2 and 3: kernels vs plain versions, lockstep rollouts
 
-def _instances(cfg, B, dev, seed):
+def _instances(cfg, B, dev, seed, p2d=0.0):
+    """B instances from key(seed); with p2d > 0 a mixed 2D/3D batch."""
     from tapnet_torch import random as R
-    from tapnet_torch.env.sampler import sample_batch
+    from tapnet_torch.env.sampler import sample_batch, sample_batch_mixed
+    if p2d > 0:
+        return sample_batch_mixed(R.key(seed, dev), B, cfg, p2d)
     return sample_batch(R.key(seed, dev), B, cfg)
 
 
@@ -179,7 +205,7 @@ def _equal(name, got, want):
         raise AssertionError(f"{name}: {bad} of {got.numel()} differ")
 
 
-def check_select_step(cfg, B, actor, dev, keep=None):
+def check_select_step(cfg, B, actor, dev, keep=None, p2d=0.0):
     """Greedy rollout; at every step select_step and select_place_ref get
     the same scores and state and must agree on every output. Returns the
     operands of the middle step when `keep` is set (for timing)."""
@@ -188,7 +214,7 @@ def check_select_step(cfg, B, actor, dev, keep=None):
     from tapnet_torch.train import rollout as RO
     from tapnet_torch.types import EnvState
 
-    inst = _instances(cfg, B, dev, SEED + 1)
+    inst = _instances(cfg, B, dev, SEED + 1, p2d)
     static = static_tokens(inst, cfg)
     kept = None
     with torch.no_grad():
@@ -241,7 +267,7 @@ def actor_operands(actor, inst, cfg, keys):
     return o
 
 
-def check_actor_step(cfg, B, actor, dev, keep=None):
+def check_actor_step(cfg, B, actor, dev, keep=None, p2d=0.0):
     """Sampled rollout; at every step both modes of actor_select_step and
     the full plain version get the same inputs. The full mode: integer
     outputs equal, logits and logp within TOL; the main path's mode
@@ -254,7 +280,7 @@ def check_actor_step(cfg, B, actor, dev, keep=None):
     from tapnet_torch.train import rollout as RO
 
     N = cfg.num_blocks
-    inst = _instances(cfg, B, dev, SEED + 2)
+    inst = _instances(cfg, B, dev, SEED + 2, p2d)
     kept, err = None, 0.0
     names = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
     with torch.no_grad():
@@ -526,14 +552,14 @@ def log_actor_times(tag, cfg, k):
 # ------------------------------------------------------------------ #
 # phase 6: heightmap_reductions (K3) vs its plain version
 
-def check_reward(cfg, B, actor, dev):
+def check_reward(cfg, B, actor, dev, p2d=0.0):
     """K3 on the final heightmaps of a sampled rollout: bit-equal to the
     plain version. Returns the heightmaps."""
     from tapnet_torch import random as R
     from tapnet_torch.ops import reward as RW
     from tapnet_torch.train import rollout as RO
 
-    inst = _instances(cfg, B, dev, SEED + 8)
+    inst = _instances(cfg, B, dev, SEED + 8, p2d)
     states, _, _ = RO.rollout_batch_record(actor, inst,
                                            R.split(R.key(SEED + 9, dev), B),
                                            cfg)
@@ -551,13 +577,13 @@ def check_reward(cfg, B, actor, dev):
 GRAD_TOL = 5e-5       # K5b vs plain, of the plain result's max magnitude
 
 
-def replay_operands(actor, cfg, B, dev, seed, temperature):
+def replay_operands(actor, cfg, B, dev, seed, temperature, p2d=0.0):
     """Replay operands in `replay_logp_fwd` order from a sampled rollout on
     the card at `temperature`, and the rollout's own logp [B]."""
     from tapnet_torch import random as R
     from tapnet_torch.train import rollout as RO
 
-    inst = _instances(cfg, B, dev, seed)
+    inst = _instances(cfg, B, dev, seed, p2d)
     with torch.no_grad():
         _, rec, lp0 = RO.rollout_batch_record(
             actor, inst, R.split(R.key(seed + 1, dev), B), cfg,
@@ -592,14 +618,15 @@ GRAD_NAMES = ["d_se", "d_ctx"] + [f"d_params[{i}]" for i in range(11)]
 
 
 def check_replay(cfg, B, actor, dev, temperature=1.0, repeat=False,
-                 steps=False):
+                 steps=False, p2d=0.0):
     """K5f values within 1e-5 relative and K5b outputs within GRAD_TOL of
     the plain results' max magnitude (`steps`: the step-grid kernels and
     their plain versions); with `repeat`, two K5b launches bit-identical;
     K5f also agrees with the rollout's own logp. Returns (operands, dlp,
     fwd max abs err, (bwd max scaled err, bwd max abs err), max abs diff of
     K5f and the rollout's logp)."""
-    ops, lp0 = replay_operands(actor, cfg, B, dev, SEED + 10, temperature)
+    ops, lp0 = replay_operands(actor, cfg, B, dev, SEED + 10, temperature,
+                               p2d)
     fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, temperature, steps)
     what = "replay_logp_fwd_steps" if steps else "replay_logp_fwd"
     dlp = torch.linspace(-1.0, 1.0, B, device=dev)
@@ -714,7 +741,7 @@ def train_counters():
 
 
 def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN,
-                    hidden=HIDDEN):
+                    hidden=HIDDEN, p2d=0.0):
     """init_train_state + `n_steps` steps of make_train_step(batch) on the
     card with the launch counts of every step held to `per_step` (default:
     the monolithic-replay route, actor_select_step N, replay_logp_bwd 1,
@@ -723,7 +750,8 @@ def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN,
     from tapnet_torch import init_train_state, make_train_step
 
     ts = init_train_state(SEED, cfg, hidden=hidden, device=dev)
-    step = make_train_step(cfg, batch=batch, hidden=hidden, device=dev)
+    step = make_train_step(cfg, batch=batch, hidden=hidden, mixed_p2d=p2d,
+                           device=dev)
     counters = train_counters()
     for f in counters.values():
         f.launches = 0
@@ -746,7 +774,7 @@ def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN,
     return {k: f.launches for k, f in counters.items()}, ts, step
 
 
-def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
+def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN, p2d=0.0):
     """One step at batch B on the card and on the CPU reference path from
     the same state: instances equal, >= 95% of the trajectories equal,
     R/C/P/S exactly equal on those; then the whole step on both, the losses
@@ -755,7 +783,7 @@ def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
 
     from tapnet_torch import make_train_step
     from tapnet_torch import random as R
-    from tapnet_torch.env.sampler import sample_batch
+    from tapnet_torch.env.sampler import sample_batch, sample_batch_mixed
     from tapnet_torch.ops.reward import batched_reward_terms
     from tapnet_torch.train import reinforce as TR
     from tapnet_torch.train import rollout as RO
@@ -766,7 +794,8 @@ def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
     side = {}
     for name, st in (("card", gpu), ("cpu", cpu)):
         ks = R.split(st.key, 3)
-        inst = sample_batch(ks[1], B, cfg)
+        inst = (sample_batch_mixed(ks[1], B, cfg, p2d) if p2d > 0
+                else sample_batch(ks[1], B, cfg))
         states, rec, _ = RO.rollout_batch_record(st.actor, inst,
                                                  R.split(ks[2], B), cfg)
         terms = batched_reward_terms(states.heightmap, states.placements,
@@ -781,8 +810,10 @@ def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
                              "trajectories agree")
     for a, b in zip(side["card"][2], side["cpu"][2]):
         _equal("train R/C/P/S terms card vs CPU", a.cpu()[same], b[same])
-    _, m_g = make_train_step(cfg, batch=B, hidden=hidden, device=dev)(gpu)
-    _, m_c = make_train_step(cfg, batch=B, hidden=hidden, device="cpu")(cpu)
+    _, m_g = make_train_step(cfg, batch=B, hidden=hidden, mixed_p2d=p2d,
+                             device=dev)(gpu)
+    _, m_c = make_train_step(cfg, batch=B, hidden=hidden, mixed_p2d=p2d,
+                             device="cpu")(cpu)
     diffs = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_g}
     if frac == 1.0:
         for k in ("loss_actor", "loss_critic"):
@@ -794,14 +825,19 @@ def check_train_against_cpu(cfg, ts, dev, B=256, hidden=HIDDEN):
     return frac
 
 
-def jax_loop_steps(epochs, spe, spc):
+def jax_loop_steps(epochs, spe, spc, traced=False):
     """The step numbers of the JAX trainer's epoch lines
     (tapnet_tpu/train/trainer.py: one untimed call of spc steps, then
-    (n - 1) // spc calls)."""
+    (n - 1) // spc calls; with a trace, min(3, max(n - 1, 1)) traced calls
+    after the first call of the run, and n counted again after them)."""
     step, out = 0, []
     while step < epochs * spe:
         n = spe - step % spe
-        step += spc * (1 + max(0, (n - 1) // spc))
+        step += spc
+        if traced and not out:
+            step += spc * min(3, max(n - 1, 1))
+            n = spe - step % spe
+        step += spc * max(0, (n - 1) // spc)
         out.append(step)
     return out
 
@@ -895,7 +931,7 @@ def heuristic_cases():
     }
 
 
-def check_fused_rollout(cfg, B, dev, policy, repeat=False):
+def check_fused_rollout(cfg, B, dev, policy, repeat=False, p2d=0.0):
     """K4 against its plain version on the same instances and keys: every
     state field, the actions and the rewards bit-equal; with `repeat`, a
     second launch on the same operands bit-identical to the first. Returns
@@ -904,7 +940,7 @@ def check_fused_rollout(cfg, B, dev, policy, repeat=False):
     from tapnet_torch.env import core as E
     from tapnet_torch.ops import env as OE
 
-    inst = _instances(cfg, B, dev, SEED + 20)
+    inst = _instances(cfg, B, dev, SEED + 20, p2d)
     keys = R.split(R.key(SEED + 21, dev), B)
     s_k, a_k, r_k = OE.fused_rollout_batch(inst, keys, cfg, policy)
     s_p, a_p, r_p = OE.fused_rollout_batch_ref(inst, keys, cfg, policy)
@@ -1047,7 +1083,7 @@ def rollout_int_ops(cfg, ops, actions, plc):
     return int(torch.where(live, per_step, 0).sum())
 
 
-def time_fused_rollout(cfg, B, dev):
+def time_fused_rollout(cfg, B, dev, p2d=0.0):
     """K4 on prebuilt operands (`random` draws) and the plain loop on the
     same draws. Returns (ms, plain ms, bytes moved, int32 operations,
     max |kernel - plain| over the outputs)."""
@@ -1055,7 +1091,7 @@ def time_fused_rollout(cfg, B, dev):
     from tapnet_torch.env import core as E
     from tapnet_torch.ops import env as OE
 
-    inst = _instances(cfg, B, dev, SEED + 25)
+    inst = _instances(cfg, B, dev, SEED + 25, p2d)
     rbits = E.policy_bits(R.split(R.key(SEED + 26, dev), B), cfg, "random")
     ops = OE.rollout_operands(inst, rbits, cfg)
     ms = time_gpu(lambda: OE.rollout_kernel(ops, cfg))
@@ -1440,7 +1476,8 @@ def time_fused_reward(hm, plc, dims, cfg):
 # ------------------------------------------------------------------ #
 # phase 21: steps_per_call as a CUDA graph over the train step
 
-def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN):
+def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
+                      p2d=0.0):
     """make_train_step(steps_per_call=k) on the card: the launches counted
     by its eager warm-up step (on a copy of the state) and by the capture
     of one step, each `per_step`; none counted by a call (k replays); one
@@ -1454,8 +1491,9 @@ def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN):
     from tapnet_torch.train.trainer import _state_tensors, assert_deterministic
 
     ts0 = init_train_state(SEED, cfg, hidden=hidden, device=dev)
-    single = make_train_step(cfg, batch=batch, hidden=hidden, device=dev)
-    multi = make_train_step(cfg, batch=batch, hidden=hidden,
+    single = make_train_step(cfg, batch=batch, hidden=hidden,
+                             mixed_p2d=p2d, device=dev)
+    multi = make_train_step(cfg, batch=batch, hidden=hidden, mixed_p2d=p2d,
                             steps_per_call=k, device=dev)
     a = copy.deepcopy(ts0)
     for _ in range(k):
@@ -1507,6 +1545,440 @@ def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN):
         f"vs {rows['k=1'][0]:.3f} at k=1 (idle {rows['k=1'][1]:.3f}, busy "
         f"{rows['k=1'][2]:.3f})")
     return rows
+
+
+# ------------------------------------------------------------------ #
+# phase 22: driver config 5 (mixed 2D/3D batches) and the command line
+
+P2D = 0.5             # the mixed configs' share of flat instances
+
+
+def mixed_cases():
+    """Configs run on mixed batches: multi-container (driver config 5) at
+    p2d 0.5 and 1.0 (all flat), and a two-container mcs config."""
+    from tapnet_torch import CONFIGS
+    mc = CONFIGS["multi-container"]
+    mcs = heuristic_cases()["3d-mcs-hard-multicont"]
+    return [("multi-container", mc, P2D, 512),
+            ("multi-container", mc, P2D, 100),
+            ("multi-container", mc, 1.0, 512),
+            ("multi-container", mc, 1.0, 100),
+            ("3d-mcs-hard-multicont", mcs, P2D, 512)]
+
+
+def check_mixed_sampler(cfg, dev, B=B_MAIN):
+    """sample_batch_mixed on the card == on the CPU, every field; a flat
+    instance's real blocks are one cell deep at y = 0; every instance's
+    volume is its initial container's. Returns the share of flat ones."""
+    from tapnet_torch import random as R
+    from tapnet_torch.env.sampler import mix_flat, sample_batch_mixed
+
+    got = sample_batch_mixed(R.key(SEED + 50, dev), B, cfg, P2D)
+    want = sample_batch_mixed(R.key(SEED + 50), B, cfg, P2D)
+    for f, a, b in zip(got._fields, got, want):
+        _equal(f"sample_batch_mixed {f} card vs CPU", a.cpu(), b)
+    flat = mix_flat(R.split(R.key(SEED + 50, dev), B), P2D)
+    real = (torch.arange(cfg.num_blocks, device=dev)[None]
+            < got.n_total[:, None])
+    thin = ((got.dims[..., 1] == 1) & (got.pos0[..., 1] == 0)) | ~real
+    if not bool(thin[flat].all()):
+        raise AssertionError("a flat instance has a block deeper than one "
+                             "cell or off y = 0")
+    vol = torch.where(real, got.dims.long().prod(2), 0).sum(1)
+    depth = torch.where(flat, 1, cfg.container_depth)
+    if not torch.equal(vol, cfg.container_width * depth
+                       * cfg.container_height):
+        raise AssertionError("an instance's volume is not its container's")
+    return flat.float().mean().item()
+
+
+def check_mixed_kernels(dev):
+    """K1, K2 (both modes), K5f/K5b, K4 (first, random) and the one-launch
+    reward against their plain versions on mixed batches, as phases 2, 3,
+    7, 10 and 20 do on 3D ones. Returns the max K2 and K5 errors."""
+    from tapnet_torch import pack
+    from tapnet_torch.models.tapnet import init_params
+
+    k2_err = k5f_err = k5b_err = 0.0
+    for name, cfg, p2d, B in mixed_cases():
+        actor = init_params(SEED, cfg, HIDDEN, dev)
+        check_select_step(cfg, B, actor, dev, p2d=p2d)
+        _, e2 = check_actor_step(cfg, B, actor, dev, p2d=p2d)
+        _, _, fe, (be, ba), e0 = check_replay(cfg, B, actor, dev, p2d=p2d,
+                                              repeat=True)
+        noops = [check_fused_rollout(cfg, B, dev, policy, repeat=True,
+                                     p2d=p2d)
+                 for policy in ("first", "random")]
+        check_reward(cfg, B, actor, dev, p2d=p2d)
+        inst = _instances(cfg, B, dev, SEED + 51, p2d)
+        for policy in ("first", "random"):
+            plan = pack(inst, cfg, policy=policy, key=SEED + 52, device=dev)
+            check_fused_reward_case(f"{name} p2d {p2d} {policy}",
+                                    *_plan_tensors(plan, inst, dev),
+                                    cfg.reward_terms)
+        k2_err, k5f_err, k5b_err = (max(k2_err, e2), max(k5f_err, fe),
+                                    max(k5b_err, ba))
+        log(f"phase 22 kernels == plain on mixed batches: {name} p2d {p2d} "
+            f"B={B}: select_step and fused_rollout_batch bit-equal "
+            f"({noops[0]} / {noops[1]} no-op steps), actor_select_step max "
+            f"err {e2:.3e}, replay fwd {fe:.3e} bwd {ba:.3e} (scaled "
+            f"{be:.3e}, two launches bit-identical), fwd vs the rollout's "
+            f"logp {e0:.3e}, heightmap_reductions and the one-launch "
+            "reward bit-equal")
+    return k2_err, k5f_err, k5b_err
+
+
+def check_mixed_rewards(cfg, actor, dev):
+    """K3 at B_MAIN on a mixed batch (p2d P2D): the reductions on a sampled
+    rollout's final heightmaps (check_reward), and the one-launch reward on
+    that rollout's final state (what the train step hands it) and on
+    pack(first/random)'s plans, bit-equal to their plain versions."""
+    from tapnet_torch import pack
+    from tapnet_torch import random as R
+    from tapnet_torch.train import rollout as RO
+
+    check_reward(cfg, B_MAIN, actor, dev, p2d=P2D)
+    inst = _instances(cfg, B_MAIN, dev, SEED + 53, P2D)
+    with torch.no_grad():
+        states, _, _ = RO.rollout_batch_record(
+            actor, inst, R.split(R.key(SEED + 54, dev), B_MAIN), cfg)
+    check_fused_reward_case(f"p2d {P2D} B={B_MAIN} sampled rollout",
+                            states.heightmap, states.placements, inst.dims,
+                            cfg.reward_terms)
+    for policy in ("first", "random"):
+        plan = pack(inst, cfg, policy=policy, key=SEED + 52, device=dev)
+        check_fused_reward_case(f"p2d {P2D} B={B_MAIN} {policy}",
+                                *_plan_tensors(plan, inst, dev),
+                                cfg.reward_terms)
+
+
+def time_mixed_kernels(cfg, dev):
+    """K1, K2 (main mode), K4 (random) and K5b per launch at B_MAIN on the
+    same config's 3D-only and mixed batches (CUDA events), each with its
+    plain version and its bound, as phases 5, 9 and 13 count them. Each is
+    held against its plain version at that size on those operands: K1 and
+    K2 as check_select_step / check_actor_step do, K4 bit-equal on every
+    output, K5b within GRAD_TOL of the plain result's max magnitude (as
+    check_replay). Returns ({"3d" | "mixed": {kernel: (ms, plain ms,
+    bound ms)}}, (K5b's max scaled err, its max abs err))."""
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import replay as RP
+
+    actor = init_params(SEED, cfg, HIDDEN, dev)
+    out, k5b_err, k5b_abs = {}, 0.0, 0.0
+    for tag, p2d in (("3d", 0.0), ("mixed", P2D)):
+        k1 = time_select_step(check_select_step(
+            cfg, B_MAIN, actor, dev, keep=True, p2d=p2d), cfg)
+        kept, _ = check_actor_step(cfg, B_MAIN, actor, dev, keep=True,
+                                   p2d=p2d)
+        k2 = time_actor_step(kept, cfg, HIDDEN, plain_reps=5)
+        k4 = time_fused_rollout(cfg, B_MAIN, dev, p2d)
+        if k4[4] != 0:
+            raise AssertionError(f"fused_rollout_batch {tag} p2d {p2d} "
+                                 f"B={B_MAIN}: max |kernel - plain| {k4[4]}")
+        ops, _ = replay_operands(actor, cfg, B_MAIN, dev, SEED + 10, 1.0,
+                                 p2d)
+        dlp = torch.linspace(-1.0, 1.0, B_MAIN, device=dev)
+        k5 = time_gpu(lambda: RP.replay_logp_bwd(dlp, *ops, cfg))
+        k5_plain = time_gpu(lambda: RP.replay_logp_bwd_ref(dlp, *ops, cfg),
+                            reps=5, sleep_cycles=200_000_000)
+        with torch.no_grad():
+            got = RP.replay_logp_bwd(dlp, *ops, cfg)
+            want = RP.replay_logp_bwd_ref(dlp, *ops, cfg)
+        for name, a, w in zip(GRAD_NAMES, _flat_grads(got),
+                              _flat_grads(want)):
+            e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
+            if not e <= GRAD_TOL:
+                raise AssertionError(f"replay_logp_bwd {tag} p2d {p2d} "
+                                     f"B={B_MAIN} {name}: scaled err {e}")
+            k5b_err = max(k5b_err, e)
+            k5b_abs = max(k5b_abs, (a - w).abs().max().item())
+        d_se, d_ctx, d_par = got
+        moved = (nbytes(ops[:8]) + nbytes(ops[8])
+                 + nbytes([dlp, d_se, d_ctx]) + nbytes(d_par))
+        pairs, triples = live_counts(cfg, ops[2], ops[3])
+        flops = replay_ops_count(cfg, B_MAIN, HIDDEN, True, pairs, triples)
+        out[tag] = {
+            "K1": (k1["ms"], k1["plain_ms"], k1["bound"]),
+            "K2": (k2["ms"], k2["plain_ms"], k2["bound"]),
+            "K4": (k4[0], k4[1], 1e3 * max(k4[2] / HBM_BYTES_S,
+                                           k4[3] / I32_OPS_S)),
+            "K5b": (k5, k5_plain, 1e3 * max(moved / HBM_BYTES_S,
+                                            flops / F32_OPS_S)),
+        }
+    check_mixed_rewards(cfg, actor, dev)
+    return out, (k5b_err, k5b_abs)
+
+
+def check_mixed_evaluate(cfg, dev, actor):
+    """evaluate(mixed_p2d, baselines=True) at valid_batch B_MAIN with the
+    launches the routes imply (greedy K1 x N, K4 x 2 for the baselines, and
+    K3 x 2: each heuristic rollout's reward); the dict at 256 on the card
+    against the CPU path: the share and count terms equal, the rest within
+    1e-5. Returns (launches, dict, wall ms of a call)."""
+    from tapnet_torch import TrainLoopConfig
+    from tapnet_torch.ops import env as OE
+    from tapnet_torch.ops import reward as RW
+    from tapnet_torch.train import rollout as RO
+    from tapnet_torch.train.trainer import evaluate
+
+    counters = {"select_step": train_counters()["select_step"],
+                "actor_select_step": train_counters()["actor_select_step"],
+                "fused_rollout_batch": OE.fused_rollout_batch,
+                "heightmap_reductions": RW.heightmap_reductions}
+    r = RO.routes(cfg, True, HIDDEN, greedy=True)
+    want = {"select_step": cfg.num_blocks if r.decode == "step" else 0,
+            "actor_select_step": 0,
+            "fused_rollout_batch": 2 if r.rollout else 0,
+            "heightmap_reductions": 2 if r.rollout else 0}
+    loop = TrainLoopConfig(valid_batch=B_MAIN, hidden=HIDDEN, mixed_p2d=P2D)
+    for f in counters.values():
+        f.launches = 0
+    out = evaluate(actor, cfg, loop, baselines=True, device=dev)
+    got = {k: f.launches for k, f in counters.items()}
+    if got != want:
+        raise AssertionError(f"evaluate launches {got}, the routes imply "
+                             f"{want}")
+    if not all(np.isfinite(float(v)) for v in out.values()):
+        raise AssertionError(f"evaluate: {out}")
+    ms = time_host(lambda: evaluate(actor, cfg, loop, baselines=True,
+                                    device=dev), reps=5)
+    small = TrainLoopConfig(valid_batch=256, hidden=HIDDEN, mixed_p2d=P2D)
+    on_card = evaluate(actor, cfg, small, baselines=True, device=dev)
+    actor_cpu = type(actor)(cfg, actor.hidden)
+    actor_cpu.load_state_dict({k: v.cpu() for k, v in
+                               actor.state_dict().items()})
+    on_cpu = evaluate(actor_cpu, cfg, small, baselines=True, device="cpu")
+    if set(on_card) != set(on_cpu):
+        raise AssertionError("evaluate card vs CPU: keys differ")
+    for k in on_cpu:
+        a, b = float(on_card[k]), float(on_cpu[k])
+        exact = k.endswith("_frac")
+        if (a != b) if exact else not abs(a - b) <= 1e-5:
+            raise AssertionError(f"evaluate card vs CPU {k}: {a} vs {b}")
+    return got, {k: float(v) for k, v in out.items()}, ms
+
+
+def _run_cli(args, tmp):
+    """`python -m tapnet_torch.cli ARGS` from the repository root on the
+    card; returns its standard output."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "tapnet_torch.cli", *args],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    log(f"  cli {' '.join(a.replace(tmp, 'D') for a in args)}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res.stdout
+
+
+def _json_lines(text):
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            out.append(json.loads(line))
+    return out
+
+
+def check_cli(cfg, dev, tmp):
+    """train (with steps_per_call, a trace and nan checks), eval and
+    generate through `python -m tapnet_torch.cli` on the card; the dataset
+    equal to sample_batch on the CPU chunk by chunk; its instances per
+    second in this process; then a from_dataset train step at B_MAIN fed
+    by PackDataset over it. Returns (the train step's launches, the
+    generate rate)."""
+    import glob
+    import os
+
+    from tapnet_torch import init_train_state, make_train_step
+    from tapnet_torch import random as R
+    from tapnet_torch.env.sampler import sample_batch
+    from tapnet_torch.train import checkpoints as ckpt
+    from tapnet_torch.utils.data import PackDataset, generate_dataset
+
+    d = os.path.join(tmp, "cli")
+    spe, spc = 3, 2
+    _run_cli(["train", "--config", "multi-container", "--mixed-p2d",
+              str(P2D), "--epochs", "2", "--steps-per-epoch", str(spe),
+              "--batch", "256", "--valid-batch", "256", "--steps-per-call",
+              str(spc), "--ckpt-dir", d, "--metrics",
+              os.path.join(d, "m.jsonl"), "--trace-dir",
+              os.path.join(d, "trace"), "--nan-checks"], tmp)
+    lines = [json.loads(x) for x in open(os.path.join(d, "m.jsonl"))]
+    keys = {"step", "wall", "loss_actor", "loss_critic", "reward", "C", "P",
+            "S", "grad_norm", "epoch", "env_steps_per_s",
+            "env_steps_per_s_per_chip", "valid_reward", "valid_C",
+            "valid_P", "valid_S", "valid_container0_frac",
+            "valid_container1_frac", "valid_2d_frac"}
+    steps = jax_loop_steps(2, spe, spc, traced=True)
+    if ([x["step"] for x in lines] != steps
+            or any(set(x) != keys for x in lines)
+            or not all(np.isfinite(x["loss_actor"]) for x in lines)):
+        raise AssertionError(f"cli train metrics lines: {lines}")
+    traces = glob.glob(os.path.join(d, "trace", "*.json"))
+    if len(traces) != 1 or '"train_step"' not in open(traces[0]).read():
+        raise AssertionError(f"cli train trace: {traces}")
+    path = ckpt.latest_checkpoint(d)
+    if not path or not path.endswith(f"ckpt_{steps[-1]:08d}.pt"):
+        raise AssertionError(f"cli train checkpoint: {path}")
+    log(f"  cli train: epoch lines at steps {steps} (the JAX trainer's, "
+        f"with its trace), the JAX trainer's keys; reward "
+        f"{lines[-1]['reward']:.6f}, valid_2d_frac "
+        f"{lines[-1]['valid_2d_frac']:.4f}, "
+        f"{lines[-1]['env_steps_per_s']:.0f} env-steps/s; the trace names "
+        "train_step; the checkpoint is there")
+    out = _json_lines(_run_cli(["eval", "--config", "multi-container",
+                                "--ckpt-dir", d, "--baselines",
+                                "--mixed-p2d", str(P2D)], tmp))
+    if (len(out) != 1 or out[0]["step"] != steps[-1]
+            or not {"valid_2d_frac", "random_reward",
+                    "first_reward"} <= set(out[0])):
+        raise AssertionError(f"cli eval: {out}")
+    log(f"  cli eval: {json.dumps(out[0]).replace(tmp, 'D')}")
+    ds = os.path.join(d, "ds.npz")
+    num, seed = 5000, 3
+    out = _json_lines(_run_cli(["generate", "--config", "multi-container",
+                                "--num", str(num), "--seed", str(seed),
+                                "--out", ds], tmp))
+    if out != [{"path": ds, "num": num}]:
+        raise AssertionError(f"cli generate: {out}")
+    z = np.load(ds)
+    for i in range(0, num, 512):
+        want = sample_batch(R.fold_in(R.key(seed), i // 512),
+                            min(512, num - i), cfg)
+        for f, w in zip(want._fields, want):
+            if not np.array_equal(z[f][i:i + 512], w.numpy()):
+                raise AssertionError(f"cli generate {f}: chunk {i // 512} "
+                                     "differs from sample_batch on the CPU")
+    generate_dataset(os.path.join(d, "warm.npz"), cfg, 512, device=dev)
+    t0 = time.perf_counter()
+    generate_dataset(os.path.join(d, "timed.npz"), cfg, num, seed,
+                     device=dev)
+    rate = num / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for i in range(0, num, 512):
+        sample_batch(R.fold_in(R.key(seed, dev), i // 512),
+                     min(512, num - i), cfg)
+    torch.cuda.synchronize(dev)
+    sampled = num / (time.perf_counter() - t0)
+    log(f"  cli generate: {num} instances equal to sample_batch on the CPU "
+        f"chunk by chunk; generate_dataset on the card {rate:.0f} "
+        f"instances/s (sampling, the copy to the host, the .npz write), "
+        f"the sampling of the same chunks alone {sampled:.0f}")
+    inst = next(iter(PackDataset(ds, B_MAIN, shuffle_seed=0))).to(dev)
+    ts = init_train_state(SEED, cfg, HIDDEN, device=dev)
+    step = make_train_step(cfg, B_MAIN, HIDDEN, from_dataset=True,
+                           device=dev)
+    counters = train_counters()
+    for f in counters.values():
+        f.launches = 0
+    ts, m = step(ts, inst)
+    got = {k: f.launches for k, f in counters.items() if f.launches}
+    want = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
+            "heightmap_reductions": 1}
+    if got != want or not all(np.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"from_dataset step: launches {got}, metrics "
+                             f"{m}")
+    log(f"  make_train_step(from_dataset=True) batch {B_MAIN} fed by "
+        f"PackDataset over the generated file: launches {got}, reward "
+        f"{float(m['reward']):.6f}")
+    return got, rate
+
+
+def check_nan_checks(cfg, dev, tmp):
+    """train(nan_checks=True) from a checkpoint with one NaN parameter
+    raises FloatingPointError naming it."""
+    import os
+
+    from tapnet_torch import TrainLoopConfig, init_train_state, train
+    from tapnet_torch.train import checkpoints as ckpt
+
+    d = os.path.join(tmp, "nan")
+    ts = init_train_state(SEED, cfg, HIDDEN, device=dev)
+    with torch.no_grad():
+        ts.actor.query.weight[5, 2] = float("nan")
+    ckpt.save_checkpoint(d, ts)
+    loop = TrainLoopConfig(epochs=1, steps_per_epoch=2, batch=256,
+                           valid_batch=256, hidden=HIDDEN, ckpt_dir=d,
+                           mixed_p2d=P2D, nan_checks=True)
+    try:
+        train(cfg, loop, device=dev)
+    except FloatingPointError as e:
+        if "actor.query.weight" not in str(e):
+            raise AssertionError(f"nan_checks named another tensor: {e}")
+        return str(e)
+    raise AssertionError("train(nan_checks=True) ran on a NaN parameter")
+
+
+def phase_22(dev):
+    """Phase 22 (module docstring). Returns the max K2 / K5f / K5b errors
+    and the launches of its main paths: the mixed train steps, evaluate
+    and the from_dataset step."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.train.trainer import assert_deterministic
+
+    mcfg = CONFIGS["multi-container"]
+    share = check_mixed_sampler(mcfg, dev)
+    log(f"phase 22 sample_batch_mixed multi-container p2d {P2D} "
+        f"B={B_MAIN}: card == CPU on every field, {share:.4f} flat; flat "
+        "instances' blocks one cell deep at y = 0; every volume its "
+        "initial container's")
+    e2, e5f, e5b = check_mixed_kernels(dev)
+    mixed_step = {"actor_select_step": mcfg.num_blocks,
+                  "replay_logp_bwd": 1, "heightmap_reductions": 1}
+    mixed_train, mts, mstep = train_main_path(mcfg, dev, mixed_step,
+                                              n_steps=3, p2d=P2D)
+    log(f"phase 22 mixed train path launches (3 steps, multi-container "
+        f"p2d {P2D}, batch {B_MAIN}): {mixed_train}")
+    assert_deterministic(mstep, mts)
+    check_train_against_cpu(mcfg, mts, dev, p2d=P2D)
+    log("phase 22 one mixed train step run twice from a copy of one state: "
+        "bit-identical; a step at batch 256 against the CPU path")
+    mrows = check_graph_steps(f"multi-container mixed p2d {P2D}", mcfg, dev,
+                              mixed_step, 4, B_MAIN, p2d=P2D)
+    eval_launches, valid, eval_ms = check_mixed_evaluate(
+        mcfg, dev, init_params(SEED, mcfg, HIDDEN, dev))
+    log(f"phase 22 evaluate(mixed_p2d={P2D}, baselines=True) valid_batch "
+        f"{B_MAIN}: launches {eval_launches} (the routes' count), "
+        f"{eval_ms:.3f} ms a call (host clock, median of 5), valid_2d_frac "
+        f"{valid['valid_2d_frac']:.4f}, valid_reward "
+        f"{valid['valid_reward']:.6f}, random_reward "
+        f"{valid['random_reward']:.6f}, first_reward "
+        f"{valid['first_reward']:.6f}; at 256 equal to the CPU path (the "
+        "shares exactly, the rest within 1e-5)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds_launches, gen_rate = check_cli(mcfg, dev, tmp)
+        nan_msg = check_nan_checks(mcfg, dev, tmp)
+    log(f"phase 22 train(nan_checks=True) on a NaN parameter: "
+        f"FloatingPointError({nan_msg!r})")
+    mixed_ms, (s5b_main, e5b_main) = time_mixed_kernels(mcfg, dev)
+    e5b = max(e5b, e5b_main)
+    log(f"phase 22 kernels == plain at B={B_MAIN} on multi-container, 3D-only "
+        f"and mixed (p2d {P2D}): select_step, fused_rollout_batch (random) "
+        f"bit-equal, actor_select_step within TOL, replay_logp_bwd max err "
+        f"{e5b_main:.3e} (scaled {s5b_main:.3e}, GRAD_TOL {GRAD_TOL}); on "
+        "the mixed batch heightmap_reductions and the one-launch reward "
+        "(sampled rollout, pack first/random) bit-equal")
+    for k in ("K1", "K2", "K4", "K5b"):
+        (ms, plain, bnd), (ms3, plain3, bnd3) = (mixed_ms["mixed"][k],
+                                                mixed_ms["3d"][k])
+        log(f"phase 22 {k} multi-container B={B_MAIN}: {ms:.4f} ms/launch "
+            f"on mixed batches (p2d {P2D}; plain {plain:.4f}, bound "
+            f"{bnd:.5f}) vs {ms3:.4f} on 3D-only ones (plain {plain3:.4f}, "
+            f"bound {bnd3:.5f})")
+    log(f"phase 22 mixed train step: wall ms/step "
+        f"{mrows['k=4'][0]:.3f} at k=4 (idle {mrows['k=4'][1]:.3f}) vs "
+        f"{mrows['k=1'][0]:.3f} at k=1 (idle {mrows['k=1'][1]:.3f}); "
+        f"evaluate {eval_ms:.3f} ms; generate {gen_rate:.0f} instances/s")
+    return {"k2_err": e2, "k5f_err": e5f, "k5b_err": e5b,
+            "train": mixed_train, "evaluate": eval_launches,
+            "from_dataset": ds_launches}
 
 
 def main() -> int:
@@ -1922,12 +2394,21 @@ def main() -> int:
         f"trainer's; a resume from the first checkpoint ends on the same "
         f"params")
 
+    # ---- phase 22: driver config 5 (mixed 2D/3D batches) and the CLI
+    p22 = phase_22(dev)
+    k2_err, k5f_err, k5b_err = (max(k2_err, p22["k2_err"]),
+                                max(k5f_err, p22["k5f_err"]),
+                                max(k5b_err, p22["k5b_err"]))
+    mixed_train, eval_launches, ds_launches = (
+        p22["train"], p22["evaluate"], p22["from_dataset"])
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
          "replaces": "tapnet_tpu/ops/pallas_policy_step.py:298",
          "launches": (launches["select_step"] + roll_launches["select_step"]
-                      + capped_train["select_step"]),
+                      + capped_train["select_step"]
+                      + eval_launches["select_step"]),
          "max_abs_err": k1["err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound"],
          "bound_by": "bytes", "library_ms": None},
@@ -1937,7 +2418,9 @@ def main() -> int:
          "launches": (launches["actor_select_step"]
                       + train_launches["actor_select_step"]
                       + roll_launches["actor_select_step"]
-                      + roll_train["actor_select_step"]),
+                      + roll_train["actor_select_step"]
+                      + mixed_train["actor_select_step"]
+                      + ds_launches["actor_select_step"]),
          "max_abs_err": k2_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound"], "bound_by": k2["bound_by"],
@@ -1948,14 +2431,18 @@ def main() -> int:
          "launches": (train_launches["heightmap_reductions"]
                       + heur_launches["heightmap_reductions"]
                       + roll_train["heightmap_reductions"]
-                      + capped_train["heightmap_reductions"]),
+                      + capped_train["heightmap_reductions"]
+                      + mixed_train["heightmap_reductions"]
+                      + eval_launches["heightmap_reductions"]
+                      + ds_launches["heightmap_reductions"]),
          "max_abs_err": 0.0, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound"], "bound_by": k3["bound_by"],
          "library_ms": k3["lib_ms"]},
         {"name": "fused_rollout_batch", "route": "cuda",
          "source": "tapnet_torch/csrc/env.cu",
          "replaces": "tapnet_tpu/ops/pallas_env.py:669",
-         "launches": heur_launches["fused_rollout_batch"],
+         "launches": (heur_launches["fused_rollout_batch"]
+                      + eval_launches["fused_rollout_batch"]),
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
         {"name": "replay_logp_fwd", "route": "cuda",
@@ -1968,7 +2455,9 @@ def main() -> int:
          "source": "tapnet_torch/csrc/replay.cu",
          "replaces": "tapnet_tpu/ops/pallas_replay.py:610",
          "launches": (train_launches["replay_logp_bwd"]
-                      + capped_train["replay_logp_bwd"]),
+                      + capped_train["replay_logp_bwd"]
+                      + mixed_train["replay_logp_bwd"]
+                      + ds_launches["replay_logp_bwd"]),
          "max_abs_err": k5b_err, "ms": k5b_ms, "plain_ms": k5b_plain,
          "bound_ms": k5b_bound, "bound_by": k5b_by, "library_ms": None},
         {"name": "replay_logp_fwd_steps", "route": "cuda",

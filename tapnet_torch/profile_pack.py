@@ -3,12 +3,14 @@ torch.profiler breakdown.
 
     python -m tapnet_torch.profile_pack [--config 2d-basic] [--batch 4096]
         [--hidden 128] [--calls 5] [--policies greedy,sample,best]
-        [--train] [--steps-per-call 1] [--tree DIR] [--out profile_pack.json]
+        [--train] [--steps-per-call 1] [--mixed-p2d P] [--tree DIR]
+        [--out profile_pack.json]
 
 For each policy (greedy, sample, best-of-16 on batch/16 instances; `first`
 and `random`, the heuristic rollouts, when named in `--policies`), or with
 `--train` for one call of the REINFORCE train step (`make_train_step`,
-batch `--batch`, `--steps-per-call` steps a call), it warms up, times
+batch `--batch`, `--steps-per-call` steps a call, on mixed 2D/3D batches
+with `--mixed-p2d` > 0), it warms up, times
 `--calls` calls on the host clock, then profiles as many more and prints
 the device time and launches of every kernel name per call, the kernel
 launches per call, the wall time per call (unprofiled), the device busy
@@ -86,6 +88,9 @@ def main(argv=None) -> int:
                     help="profile the train step instead of pack()")
     ap.add_argument("--steps-per-call", type=int, default=1,
                     help="train steps per call (--train)")
+    ap.add_argument("--mixed-p2d", type=float, default=0.0,
+                    help="share of flat instances in the train step's "
+                    "batches (--train; 3D configs)")
     ap.add_argument("--tree", default="",
                     help="profile the checkout at this path")
     ap.add_argument("--out", default="")
@@ -118,7 +123,8 @@ def main(argv=None) -> int:
     if args.train:
         ts = init_train_state(0, cfg, args.hidden, device=dev)
         step = make_train_step(cfg, args.batch, args.hidden, device=dev,
-                               steps_per_call=args.steps_per_call)
+                               steps_per_call=args.steps_per_call,
+                               mixed_p2d=args.mixed_p2d)
         runs = [(f"train_step x{args.steps_per_call}", lambda: step(ts))]
     else:
         actor = init_params(0, cfg, args.hidden, dev)

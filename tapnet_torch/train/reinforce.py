@@ -5,7 +5,8 @@ loss_actor = -mean((R - V).detach() * sum_t log pi), loss_critic =
 mean((V - R)^2), a global-norm clip without epsilon (as optax's
 `clip_by_global_norm`), then Adam. One step:
 
-1. sample the instance batch on the device (`split(k_inst, batch)`);
+1. sample the instance batch on the device (`split(k_inst, batch)`; with
+   `mixed_p2d` > 0 a mixed 2D/3D batch, `sample_batch_mixed`);
 2. roll the actor out without gradients, one `actor_select_step` kernel
    launch per decode step on the card, keeping its per-instance logp;
 3. replay the record differentiably (`rollout.replay_logp_sum`): on the
@@ -36,7 +37,8 @@ import torch
 from tapnet_torch import random as R
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
-from tapnet_torch.env.sampler import sample_batch
+from tapnet_torch.env.sampler import (check_mixed, sample_batch,
+                                      sample_batch_mixed)
 from tapnet_torch.models.features import build_tokens
 from tapnet_torch.models.tapnet import (TAPNetActor, TAPNetCritic,
                                         init_critic, init_params)
@@ -277,14 +279,15 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
     batch) -> (TrainState, metrics). Metrics are 0-d tensors on the device:
     loss_actor, loss_critic, reward, C, P, S and grad_norm (before the
     clip). `steps_per_call` > 1: that many steps per call (on the card as
-    replays of a CUDA graph), the last one's metrics. Runs on `cuda` unless
+    replays of a CUDA graph), the last one's metrics. `mixed_p2d` > 0:
+    each sampled instance is flat (2D) with that probability
+    (`sample_batch_mixed`, 3D configs only). Runs on `cuda` unless
     `device="cpu"`."""
     if mesh is not None:
         raise NotImplementedError("data parallelism (parallel/) is not "
                                   "ported yet (ROADMAP.md, port Queue 1)")
     if mixed_p2d > 0:
-        raise NotImplementedError("sample_batch_mixed is not ported yet "
-                                  "(ROADMAP.md, port Queue 1)")
+        check_mixed(cfg)
     if compute_dtype not in (None, torch.float32, "float32"):
         raise NotImplementedError("the port trains in float32 only "
                                   "(ROADMAP.md, port Queue 1)")
@@ -300,7 +303,9 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
         in place; returns the next key and the metrics."""
         ks = R.split(key, 3)
         new_key, k_inst, k_act = ks[0], ks[1], ks[2]
-        if instances is None:
+        if instances is None and mixed_p2d > 0:
+            instances = sample_batch_mixed(k_inst, batch, cfg, mixed_p2d)
+        elif instances is None:
             instances = sample_batch(k_inst, batch, cfg)
         act_keys = R.split(k_act, instances.dims.shape[0])
         params = ts.parameters()

@@ -2,20 +2,21 @@
 and checkpoints, the port of `tapnet_tpu/train/trainer.py`.
 
 An epoch is `steps_per_epoch` train steps (instances sampled on the
-device), then a greedy-decode validation on a fixed held-out key, one
-metrics line and a checkpoint. With `steps_per_call` = k each call runs k
-steps, and the loop counts steps as the JAX trainer does: one call that is
-not timed, then (n - 1) // k timed calls, so step numbers, metrics lines
-and checkpoint names are the JAX trainer's for the same settings. Every
-field of the JAX package's TrainLoopConfig is kept; the ones this port does
-not support yet raise NotImplementedError when set.
+device; with `mixed_p2d` a mixed 2D/3D batch), then a greedy-decode
+validation on a fixed held-out key, one metrics line and a checkpoint.
+With `steps_per_call` = k each call runs k steps, and the loop counts steps
+as the JAX trainer does: one call that is not timed, then (n - 1) // k timed
+calls, so step numbers, metrics lines and checkpoint names are the JAX
+trainer's for the same settings. `trace_dir` traces 3 calls of epoch 0
+(`utils.profiling.trace`), `nan_checks` checks the state and metrics
+between calls (`utils.debug`). Every field of the JAX package's
+TrainLoopConfig is kept; `tb_dir` is not ported and raises.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from typing import Optional
 
 import torch
@@ -23,7 +24,7 @@ import torch
 from tapnet_torch import random as R
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
-from tapnet_torch.env.sampler import sample_batch
+from tapnet_torch.env.sampler import sample_batch, sample_batch_mixed
 from tapnet_torch.ops.env import fused_rollout_batch
 from tapnet_torch.train import checkpoints as ckpt
 from tapnet_torch.train import rollout as RO
@@ -32,6 +33,8 @@ from tapnet_torch.train.reinforce import (TrainState, resolve_device,
                                           init_train_state, make_train_step)
 from tapnet_torch.train.rollout import (policy_rollout_batch,
                                         policy_rollout_best_of)
+from tapnet_torch.utils.debug import assert_finite
+from tapnet_torch.utils.profiling import StepsPerSecond, annotate, trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,22 +51,13 @@ class TrainLoopConfig:
     valid_seed: int = 10_000
     ckpt_dir: Optional[str] = None
     metrics_path: Optional[str] = None
-    trace_dir: Optional[str] = None   # not ported: raises
-    mixed_p2d: float = 0.0            # not ported: raises
+    trace_dir: Optional[str] = None   # profiler trace of 3 calls of epoch 0
+    mixed_p2d: float = 0.0            # P(instance is flat/2D); 3D envs only
     steps_per_call: int = 1           # steps per call (a CUDA graph)
     tb_dir: Optional[str] = None      # not ported: raises
     deterministic: bool = False       # assert bit-identical repeat of a step
-    nan_checks: bool = False          # not ported: raises
+    nan_checks: bool = False          # finite checks between calls
     eval_best_of: int = 1             # >1: also best-of-K sampled decode
-
-
-def _check_supported(loop: TrainLoopConfig):
-    for name, unset in (("trace_dir", None), ("mixed_p2d", 0.0),
-                        ("tb_dir", None), ("nan_checks", False)):
-        if getattr(loop, name) != unset:
-            raise NotImplementedError(
-                f"TrainLoopConfig.{name} is not ported yet (ROADMAP.md, port "
-                "Queue 1)")
 
 
 @torch.no_grad()
@@ -71,16 +65,18 @@ def evaluate(actor, cfg: TAPConfig, loop: TrainLoopConfig,
              baselines: bool = False, device="cuda"):
     """Greedy-decode validation on a fixed held-out instance stream: mean
     reward, C/P/S, best-of-K when asked, the per-container share of placed
-    blocks and, with `baselines`, the mean rewards of the `random` and
-    `first` heuristics on the same instances and keys. Runs on `cuda` (the
-    actor is moved there) unless `device="cpu"`."""
-    if loop.mixed_p2d > 0:
-        raise NotImplementedError("sample_batch_mixed is not ported yet "
-                                  "(ROADMAP.md, port Queue 1)")
+    blocks, with `mixed_p2d` the share of flat instances (`valid_2d_frac`)
+    and, with `baselines`, the mean rewards of the `random` and `first`
+    heuristics on the same instances and keys. Runs on `cuda` (the actor is
+    moved there) unless `device="cpu"`."""
     dev = resolve_device(device)
     actor = actor.to(dev)
     key = R.key(loop.valid_seed, dev)
-    instances = sample_batch(key, loop.valid_batch, cfg)
+    if loop.mixed_p2d > 0:
+        instances = sample_batch_mixed(key, loop.valid_batch, cfg,
+                                       loop.mixed_p2d)
+    else:
+        instances = sample_batch(key, loop.valid_batch, cfg)
     keys = R.split(key, loop.valid_batch)
     states, _, rewards, _ = policy_rollout_batch(actor, instances, keys, cfg,
                                                  greedy=True)
@@ -97,6 +93,9 @@ def evaluate(actor, cfg: TAPConfig, loop: TrainLoopConfig,
         placed_n = (cont >= 0).sum().clamp(min=1)
         for c in range(cfg.num_containers):
             out[f"valid_container{c}_frac"] = (cont == c).sum() / placed_n
+    if loop.mixed_p2d > 0:
+        out["valid_2d_frac"] = (instances.dims[:, :, 1].amax(1)
+                                == 1).float().mean()
     if baselines:
         on_card = dev.type == "cuda"
         run = (fused_rollout_batch if RO.routes(cfg, on_card).rollout
@@ -132,44 +131,82 @@ def _sync(dev: torch.device):
         torch.cuda.synchronize(dev)
 
 
+def _finite_targets(ts: TrainState, metrics=None) -> dict:
+    """{name: tensor} of what `nan_checks` holds finite: the parameters,
+    both Adam moments and the metrics."""
+    out = {}
+    for part, module in (("actor", ts.actor), ("critic", ts.critic)):
+        for name, p in module.named_parameters():
+            state = ts.opt.state[p]
+            out[f"{part}.{name}"] = p
+            out[f"adam.mu.{part}.{name}"] = state["exp_avg"]
+            out[f"adam.nu.{part}.{name}"] = state["exp_avg_sq"]
+    out.update({f"metrics.{k}": v for k, v in (metrics or {}).items()})
+    return out
+
+
 def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
           device="cuda") -> TrainState:
     """Train for loop.epochs x loop.steps_per_epoch steps (continuing from
-    the newest checkpoint in loop.ckpt_dir when `resume`); returns the
-    final TrainState. Runs on `cuda` unless `device="cpu"`."""
-    _check_supported(loop)
-    ts = init_train_state(loop.seed, cfg, loop.hidden, loop.lr, device)
-    dev = ts.key.device
-    logger = MetricsLogger(loop.metrics_path)
+    the newest checkpoint in loop.ckpt_dir when `resume`, the port's `.pt`
+    or the JAX package's `.msgpack`); returns the final TrainState. Runs on
+    `cuda` unless `device="cpu"`."""
+    check = assert_finite if loop.nan_checks else None
+    logger = MetricsLogger(loop.metrics_path, tb_dir=loop.tb_dir)
     try:
+        ts = init_train_state(loop.seed, cfg, loop.hidden, loop.lr, device)
+        dev = ts.key.device
         if resume and loop.ckpt_dir:
             path = ckpt.latest_checkpoint(loop.ckpt_dir)
             if path:
                 ts = ckpt.restore_checkpoint(path, ts)
                 logger.log(ts.step, {}, event="resumed", ckpt=path)
+        if check:
+            check(_finite_targets(ts), "before the first step")
         spc = max(1, loop.steps_per_call)
-        train_step = make_train_step(cfg, loop.batch, loop.hidden, loop.lr,
-                                     loop.clip, loop.temperature,
-                                     steps_per_call=spc, device=dev)
+        step = make_train_step(cfg, loop.batch, loop.hidden, loop.lr,
+                               loop.clip, loop.temperature,
+                               mixed_p2d=loop.mixed_p2d, steps_per_call=spc,
+                               device=dev)
+
+        def train_step(ts):
+            ts, metrics = step(ts)
+            if check:
+                check(_finite_targets(ts, metrics), f"at step {ts.step}")
+            return ts, metrics
+
         if loop.deterministic:
-            assert_deterministic(train_step, ts)
+            assert_deterministic(step, ts)
             logger.log(ts.step, {}, event="deterministic-check-passed")
         total = loop.epochs * loop.steps_per_epoch
+        # the step runs on one device: there is no mesh in the port yet
+        sps = StepsPerSecond(loop.batch * cfg.num_blocks, n_devices=1)
+        traced = False
         while ts.step < total:
             epoch = ts.step // loop.steps_per_epoch
             n_steps = loop.steps_per_epoch - ts.step % loop.steps_per_epoch
             ts, metrics = train_step(ts)  # may capture a graph: not timed
             _sync(dev)
-            t0 = time.perf_counter()
+            if loop.trace_dir and not traced:
+                # a trace of 3 steady-state calls, as the JAX trainer takes
+                traced = True
+                with trace(loop.trace_dir):
+                    for _ in range(min(3, max(n_steps - 1, 1))):
+                        with annotate("train_step"):
+                            ts, metrics = train_step(ts)
+                    _sync(dev)
+                n_steps = (loop.steps_per_epoch
+                           - ts.step % loop.steps_per_epoch)
+            sps.reset()
             calls = max(0, (n_steps - 1) // spc)
             for _ in range(calls):
                 ts, metrics = train_step(ts)
             _sync(dev)
-            dt = time.perf_counter() - t0
-            sps = calls * spc * loop.batch * cfg.num_blocks / max(dt, 1e-9)
-            valid = evaluate(ts.actor, cfg, loop, device=dev)
-            logger.log(ts.step, metrics, epoch=epoch,
-                       env_steps_per_s=round(sps, 1), **valid)
+            sps.update(calls * spc)
+            rates = sps.metrics()  # the timed calls, before evaluation
+            with annotate("evaluate"):
+                valid = evaluate(ts.actor, cfg, loop, device=dev)
+            logger.log(ts.step, metrics, epoch=epoch, **rates, **valid)
             if loop.ckpt_dir:
                 ckpt.save_checkpoint(loop.ckpt_dir, ts)
     finally:

@@ -1,6 +1,8 @@
 """tapnet_torch stands alone: importing it pulls in no JAX, no flax, no
-optax and nothing of tapnet_tpu. Checked in a fresh interpreter, since this
-test process has JAX loaded already (tests/conftest.py)."""
+optax, nothing of tapnet_tpu and not the `msgpack` package (the port reads
+the JAX package's msgpack checkpoints with its own decoder). Checked in a
+fresh interpreter, since this test process has JAX loaded already
+(tests/conftest.py)."""
 
 import os
 import subprocess
@@ -22,9 +24,12 @@ import tapnet_torch.train.reinforce, tapnet_torch.train.metrics
 import tapnet_torch.train.checkpoints, tapnet_torch.train.trainer
 import tapnet_torch.profile_pack, tapnet_torch.profile_phases
 import tapnet_torch.kernel_times
+import tapnet_torch.cli
+import tapnet_torch.utils.data, tapnet_torch.utils.debug
+import tapnet_torch.utils.msgpack, tapnet_torch.utils.profiling
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "tapnet_tpu"))
+                                    "tapnet_tpu", "msgpack"))
 print("BAD", bad)
 """
 
@@ -41,5 +46,5 @@ def test_chip_smoke_imports_no_jax():
     """chip_smoke.py imports the port only: its module-level imports pull in
     no JAX either (it exits non-zero without a card before doing work)."""
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    for name in ("jax", "flax", "optax", "tapnet_tpu"):
+    for name in ("jax", "flax", "optax", "tapnet_tpu", "msgpack"):
         assert f"import {name}" not in src and f"from {name}" not in src
