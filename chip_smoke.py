@@ -151,7 +151,23 @@ source, all started at once), then runs, and fails on the first fault:
    the same operands there (K1, K4 bit-equal, K2 within TOL, K5b within
    GRAD_TOL), and K3's reductions and the one-launch reward bit-equal at
    4096 on a mixed batch (a sampled rollout's final state, pack
-   first/random).
+   first/random);
+23. the benchmark entry point and data parallelism: `python -m
+   tapnet_torch.benchmarks` (its `main()`) at 2d-basic, batch 4096: the
+   headline record with the oracle and native baselines measured, the
+   device anchors present, positive and no larger than the unprofiled
+   wall time per call of the timed windows (within ANCHOR_OVER_WALL),
+   vs_baseline finite, and the launches of every kernel it ran; the
+   benchmark's grouped call (one CUDA graph of 16 K4 rollouts) against
+   the same rollouts run eagerly with the same keys, checksums bit-equal,
+   and both timed; `python -m tapnet_torch.cli bench` as a subprocess; a
+   world-1 NCCL mesh (`parallel.data_mesh`) train step at batch 4096
+   bit-equal to the unsharded step from the same state over 3 steps
+   (launches K2 10, K5b 1, K3 1 a step) and over one call at
+   steps_per_call=4 (the gradient and metrics all-reduces captured in the
+   graph), with the wall ms per step of both; where two cards are visible,
+   two NCCL ranks against one process within the tier-2 tolerances (one
+   card: logged, no scaling number).
 
 It prints the kernel table as one JSON line, then the nvidia-smi line, then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
@@ -181,6 +197,9 @@ F32_OPS_S = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
 # and count 1 each (132 SMs x 64 lanes x 1.98 GHz)
 I32_OPS_S = F32_OPS_S / 4
 B_MAIN = 4096          # the main paths' batch
+# device anchor / unprofiled wall per call at most: the profiler stretches
+# kernels, up to 1.5% read on the saturated K4 graph of the headline
+ANCHOR_OVER_WALL = 1.03
 
 
 def log(msg):
@@ -1981,6 +2000,238 @@ def phase_22(dev):
             "from_dataset": ds_launches}
 
 
+# ------------------------------------------------------------------ #
+# phase 23: the benchmark entry point and data parallelism (world 1)
+
+def bench_counters():
+    from tapnet_torch.ops import env as OE
+    return dict(train_counters(), fused_rollout_batch=OE.fused_rollout_batch)
+
+
+def _count(run):
+    """The launches of every kernel during run(), counts set to 0 first."""
+    counters = bench_counters()
+    for f in counters.values():
+        f.launches = 0
+    out = run()
+    return {k: f.launches for k, f in counters.items()}, out
+
+
+def check_headline():
+    """`python -m tapnet_torch.benchmarks` (main()) at 2d-basic, batch 4096:
+    the headline record with its device anchors, the oracle and native
+    baselines and vs_baseline; returns (record, launches, seconds)."""
+    import contextlib
+    import io
+
+    from tapnet_torch import benchmarks as BM
+    from tapnet_torch import native
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launches, rc = _count(lambda: BM.main([]))
+    secs = time.perf_counter() - t0
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not native.is_available():
+        raise AssertionError(f"benchmarks.main rc {rc}, native "
+                             f"{native.is_available()}")
+    for k in ("device_ms", "device_env_steps_per_s",
+              "train_device_ms_per_step", "train_device_env_steps_per_s",
+              "host_oracle_steps_per_s", "host_native_1t_steps_per_s"):
+        if not (rec.get(k) or 0) > 0:
+            raise AssertionError(f"headline {k} = {rec.get(k)!r}: {rec}")
+    # a call's device time is at most its wall time: the anchor against the
+    # unprofiled wall of the timed windows (their median)
+    ratios = {}
+    for row, wall, dev_rate in (
+            ("env", "wall_env_steps_per_s", "device_env_steps_per_s"),
+            ("train", "train_env_steps_per_s",
+             "train_device_env_steps_per_s")):
+        ratios[row] = rec[wall] / rec[dev_rate]   # device ms / wall ms
+        if ratios[row] > ANCHOR_OVER_WALL:
+            raise AssertionError(
+                f"{row} device anchor {ratios[row]:.4f}x the unprofiled wall "
+                f"time per call (at most {ANCHOR_OVER_WALL}): {rec}")
+    if not (np.isfinite(rec["vs_baseline"]) and rec["vs_baseline"] > 0):
+        raise AssertionError(f"vs_baseline {rec['vs_baseline']!r}")
+    for k in ("fused_rollout_batch", "actor_select_step", "replay_logp_bwd",
+              "heightmap_reductions"):
+        if launches[k] == 0:
+            raise AssertionError(f"benchmarks.main launched no {k}: "
+                                 f"{launches}")
+    return rec, launches, secs, ratios
+
+
+def check_env_graph(cfg, dev, group=16):
+    """The benchmark's grouped call, one CUDA graph of `group` K4 rollouts,
+    against the same rollouts run eagerly with the same keys: checksums
+    bit-equal over two calls; times of both per rollout."""
+    from tapnet_torch import benchmarks as BM
+    from tapnet_torch import random as R
+    from tapnet_torch.env.sampler import sample_batch
+
+    inst = sample_batch(R.key(SEED + 23, dev), B_MAIN, cfg)
+    keys = BM._key_groups(2, group, B_MAIN, dev)
+    graphed = BM._env_call(cfg, inst, group, True, dev)
+    eager = BM._env_call(cfg, inst, group, True, dev, graph=False)
+    if not isinstance(graphed, BM._GraphedRollouts):
+        raise AssertionError("the fused grouped call is not a graph")
+    sums = []
+    for i in range(2):
+        got = [t.clone() for t in graphed(keys[i])]
+        want = eager(keys[i])
+        _equal(f"grouped graph call {i} checksums", torch.stack(
+            [got[0].double(), got[1].double()]),
+            torch.stack([want[0].double(), want[1].double()]))
+        sums.append((float(got[0]), int(got[1])))
+    g_ms = time_host(lambda: graphed(keys[0]), reps=5) / group
+    e_ms = time_host(lambda: eager(keys[0]), reps=5) / group
+    return sums, g_ms, e_ms
+
+
+def _rank_steps(mesh, name, batch, hidden, n_steps):
+    """Two-rank check (run_ranks): n_steps sharded steps from
+    init_train_state(SEED); the metrics and the parameters, on the CPU."""
+    from tapnet_torch import CONFIGS, init_train_state, make_train_step
+    ts = init_train_state(SEED, CONFIGS[name], hidden, device=mesh.device)
+    step = make_train_step(CONFIGS[name], batch, hidden, mesh=mesh)
+    ms = []
+    for _ in range(n_steps):
+        ts, m = step(ts)
+        ms.append({k: float(v) for k, v in m.items()})
+    return ms, {k: v.cpu() for k, v in _state_dicts(ts).items()}
+
+
+def _state_equal(name, a, b):
+    """Params, Adam buffers, key and step of two TrainStates bit-equal."""
+    for k, v in _state_dicts(a).items():
+        _equal(f"{name} {k}", v, _state_dicts(b)[k])
+    for k in ("_mu", "_nu", "_count"):
+        _equal(f"{name} adam {k}", getattr(a.opt, k), getattr(b.opt, k))
+    _equal(f"{name} key", a.key, b.key)
+    if a.step != b.step:
+        raise AssertionError(f"{name}: step {a.step} != {b.step}")
+
+
+def check_mesh_steps(cfg, dev):
+    """A world-1 NCCL mesh (`parallel.data_mesh`) step at batch 4096 against
+    the unsharded step from the same state: 3 steps, then one call at
+    steps_per_call=4 (the all-reduces captured in the graph), states and
+    metrics bit-equal; launches of the mesh's 3 steps; wall ms per step of
+    both at k = 1 and k = 4. Where two cards are visible, two NCCL ranks
+    against one process within the tier-2 tolerances."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tapnet_torch import init_train_state, make_train_step
+    from tapnet_torch.parallel import data_mesh
+
+    mesh = data_mesh(dev)
+    if mesh.world_size != 1 or "nccl" not in str(dist.get_backend()):
+        raise AssertionError(f"data_mesh: {mesh}, {dist.get_backend()}")
+    ts0 = init_train_state(SEED, cfg, HIDDEN, device=dev)
+    per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
+                "heightmap_reductions": 1}
+    states, metrics, launches, ms = {}, {}, {}, {}
+    for k in (1, 4):
+        for label, m_ in (("unsharded", None), ("mesh", mesh)):
+            ts = copy.deepcopy(ts0)
+            step = make_train_step(cfg, B_MAIN, HIDDEN, mesh=m_,
+                                   steps_per_call=k, device=dev)
+            calls = 3 if k == 1 else 1
+
+            def run():
+                out = []
+                for _ in range(calls):
+                    out.append(step(ts)[1])
+                return out
+
+            counts, out = _count(run)
+            states[label, k] = ts
+            metrics[label, k] = out
+            if label == "mesh" and k == 1:
+                want = {n: 3 * per_step.get(n, 0) for n in counts}
+                if counts != want:
+                    raise AssertionError(f"mesh steps launches {counts}, "
+                                         f"expected {want}")
+                launches = counts
+            tt = copy.deepcopy(ts)
+            ms[label, k] = time_host(lambda: step(tt), reps=5) / k
+        _state_equal(f"world-1 mesh vs unsharded k={k}",
+                     states["mesh", k], states["unsharded", k])
+        for a, b in zip(metrics["mesh", k], metrics["unsharded", k]):
+            for name in a:
+                _equal(f"mesh k={k} metric {name}", a[name], b[name])
+    two = None
+    if torch.cuda.device_count() >= 2:
+        from tapnet_torch.parallel.scaling import run_ranks
+        ranks = run_ranks(_rank_steps, 2, ("2d-basic", B_MAIN, HIDDEN, 3),
+                          device="cuda", timeout_s=300)
+        ref = metrics["unsharded", 1]
+        for (m0, _), (m1, _) in zip(ranks, ranks[1:]):
+            if m0 != m1:
+                raise AssertionError("two ranks' metrics differ")
+        rtol = {"loss_actor": 1e-4, "grad_norm": 1e-4}
+        two = 0.0
+        for got, want in zip(ranks[0][0], ref):
+            for name, v in want.items():
+                err = abs(got[name] - float(v)) / max(abs(float(v)), 1e-12)
+                two = max(two, err)
+                if err > rtol.get(name, 1e-5):
+                    raise AssertionError(f"two ranks vs one: {name} "
+                                         f"{got[name]} vs {float(v)}")
+        for k, v in ranks[0][1].items():
+            if not torch.equal(v, ranks[1][1][k]):
+                raise AssertionError(f"two ranks' {k} differ")
+    dist.destroy_process_group()
+    return launches, ms, two
+
+
+def phase_23(dev):
+    """Phase 23 (module docstring). Returns the launches of its main paths:
+    benchmarks.main()'s headline and the world-1 mesh steps."""
+    from tapnet_torch import CONFIGS
+
+    cfg = CONFIGS["2d-basic"]
+    rec, bench_launches, secs, ratios = check_headline()
+    log(f"phase 23 benchmarks.main() 2d-basic B={B_MAIN} in {secs:.1f} s: "
+        + json.dumps(rec))
+    log("phase 23 device anchor / unprofiled wall per call (1 - it is the "
+        "idle share): " + ", ".join(f"{k} {v!r}" for k, v in ratios.items()))
+    log(f"phase 23 benchmarks.main() launches: {bench_launches}")
+    sums, g_ms, e_ms = check_env_graph(cfg, dev)
+    log(f"phase 23 grouped call, one CUDA graph of 16 K4 rollouts B="
+        f"{B_MAIN} == the same 16 rollouts eagerly, checksums bit-equal "
+        f"over 2 calls {sums}; {g_ms:.4f} ms/rollout as a graph, "
+        f"{e_ms:.4f} eagerly (host clock, median of 5 calls)")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _json_lines(_run_cli(["bench", "--config", "2d-basic",
+                                    "--batch", str(B_MAIN), "--iters",
+                                    "128"], tmp))[-1]
+    if set(out) != {"env_steps_per_s", "batch"} or not (
+            out["env_steps_per_s"] > 0 and out["batch"] == B_MAIN):
+        raise AssertionError(f"cli bench printed {out}")
+    log(f"phase 23 python -m tapnet_torch.cli bench: {json.dumps(out)}")
+    mesh_launches, ms, two = check_mesh_steps(cfg, dev)
+    log(f"phase 23 world-1 NCCL mesh step 2d-basic B={B_MAIN} == unsharded, "
+        f"bit-equal: 3 steps (launches {mesh_launches}) and one call at "
+        f"steps_per_call=4 (all-reduces in the graph)")
+    log(f"phase 23 wall ms/step (host clock, median of 5 calls): mesh "
+        f"{ms['mesh', 1]:.3f} vs unsharded {ms['unsharded', 1]:.3f} at k=1; "
+        f"mesh {ms['mesh', 4]:.3f} vs unsharded {ms['unsharded', 4]:.3f} at "
+        f"k=4")
+    if two is None:
+        log(f"phase 23 {torch.cuda.device_count()} card visible: no "
+            "two-rank check, no scaling number")
+    else:
+        log(f"phase 23 two NCCL ranks vs one process, 3 steps: metrics "
+            f"within {two:.3e} relative, ranks' parameters bit-identical")
+    return bench_launches, mesh_launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2402,6 +2653,9 @@ def main() -> int:
     mixed_train, eval_launches, ds_launches = (
         p22["train"], p22["evaluate"], p22["from_dataset"])
 
+    # ---- phase 23: the benchmark entry point and the world-1 data mesh
+    bench, mesh_l = phase_23(dev)
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
@@ -2420,7 +2674,9 @@ def main() -> int:
                       + roll_launches["actor_select_step"]
                       + roll_train["actor_select_step"]
                       + mixed_train["actor_select_step"]
-                      + ds_launches["actor_select_step"]),
+                      + ds_launches["actor_select_step"]
+                      + bench["actor_select_step"]
+                      + mesh_l["actor_select_step"]),
          "max_abs_err": k2_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound"], "bound_by": k2["bound_by"],
@@ -2434,7 +2690,9 @@ def main() -> int:
                       + capped_train["heightmap_reductions"]
                       + mixed_train["heightmap_reductions"]
                       + eval_launches["heightmap_reductions"]
-                      + ds_launches["heightmap_reductions"]),
+                      + ds_launches["heightmap_reductions"]
+                      + bench["heightmap_reductions"]
+                      + mesh_l["heightmap_reductions"]),
          "max_abs_err": 0.0, "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound"], "bound_by": k3["bound_by"],
          "library_ms": k3["lib_ms"]},
@@ -2442,7 +2700,8 @@ def main() -> int:
          "source": "tapnet_torch/csrc/env.cu",
          "replaces": "tapnet_tpu/ops/pallas_env.py:669",
          "launches": (heur_launches["fused_rollout_batch"]
-                      + eval_launches["fused_rollout_batch"]),
+                      + eval_launches["fused_rollout_batch"]
+                      + bench["fused_rollout_batch"]),
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
         {"name": "replay_logp_fwd", "route": "cuda",
@@ -2457,7 +2716,9 @@ def main() -> int:
          "launches": (train_launches["replay_logp_bwd"]
                       + capped_train["replay_logp_bwd"]
                       + mixed_train["replay_logp_bwd"]
-                      + ds_launches["replay_logp_bwd"]),
+                      + ds_launches["replay_logp_bwd"]
+                      + bench["replay_logp_bwd"]
+                      + mesh_l["replay_logp_bwd"]),
          "max_abs_err": k5b_err, "ms": k5b_ms, "plain_ms": k5b_plain,
          "bound_ms": k5b_bound, "bound_by": k5b_by, "library_ms": None},
         {"name": "replay_logp_fwd_steps", "route": "cuda",

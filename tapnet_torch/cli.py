@@ -1,13 +1,18 @@
-"""Command-line driver of the PyTorch/CUDA port: train / eval / generate,
-the port of `tapnet_tpu/cli.py` with its tasks, flags and JSON outputs.
+"""Command-line driver of the PyTorch/CUDA port: train / eval / generate /
+bench, the port of `tapnet_tpu/cli.py` with its tasks, flags and JSON
+outputs.
 
     python -m tapnet_torch.cli [--device cuda|cpu] <task> ...
+    torchrun --nproc_per_node=N -m tapnet_torch.cli [--device cpu] \
+        train --mesh ...
 
 `--device` (default `cuda`) takes the place of the JAX CLI's `--platform`:
 every task runs on the card unless `--device cpu` is given, and fails when
 there is no card. `eval --ckpt-dir` reads the port's `.pt` checkpoints and
-the JAX package's `.msgpack` ones. `train --mesh`, `train --tb-dir`,
-`render` and `bench` are not ported yet and raise NotImplementedError.
+the JAX package's `.msgpack` ones. `train --mesh` trains data-parallel over
+the ranks torchrun starts (NCCL on the card, gloo with `--device cpu`;
+`--batch` is the global batch). `train --tb-dir` and `render` are not
+ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -91,7 +96,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="TensorBoard summaries (not ported: raises)")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--mesh", action="store_true",
-                   help="data parallelism (not ported: raises)")
+                   help="data parallelism over the torch.distributed ranks "
+                        "(torchrun), the batch sharded over them")
     p.add_argument("--mixed-p2d", type=float, default=0.0,
                    help="P(instance is flat/2D) for mixed 2D/3D batches "
                         "(driver config 5; 3D envs only)")
@@ -134,8 +140,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True)
     p.add_argument("--sequence", action="store_true")
 
-    p = sub.add_parser("bench", help="env-steps/s benchmark (not ported: "
-                       "raises)")
+    p = sub.add_parser("bench", help="env-steps/s of the heuristic rollout "
+                       "(benchmarks.measure_env_steps_per_s)")
     add_config_flags(p)
     p.add_argument("--batch", type=int, default=4096)
     p.add_argument("--iters", type=int, default=10)
@@ -143,10 +149,8 @@ def _parser() -> argparse.ArgumentParser:
 
 
 NOT_PORTED = {
-    "mesh": "train --mesh (data parallelism, parallel/)",
     "tb_dir": "train --tb-dir (TensorBoard summaries)",
     "render": "render (utils/viz.py)",
-    "bench": "bench (benchmarks.py)",
 }
 
 
@@ -157,19 +161,33 @@ def _not_ported(what: str):
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.task in ("render", "bench"):
+    if args.task == "render":
         _not_ported(args.task)
-    if args.task == "train" and args.mesh:
-        _not_ported("mesh")
     if args.task == "train" and args.tb_dir:
         _not_ported("tb_dir")
 
+    if args.task == "train" and args.mesh:
+        # first: on the card joining the group selects cuda:LOCAL_RANK,
+        # the card that "cuda" then names
+        from tapnet_torch.parallel import initialize_distributed
+        initialize_distributed(
+            backend="nccl" if args.device == "cuda" else "gloo")
     from tapnet_torch.train.reinforce import resolve_device
     device = resolve_device(args.device)
     cfg = build_config(args)
 
+    if args.task == "bench":
+        from tapnet_torch.benchmarks import measure_env_steps_per_s
+        sps = measure_env_steps_per_s(cfg, args.batch, args.iters,
+                                      device=device)
+        print(json.dumps({"env_steps_per_s": round(sps, 1),
+                          "batch": args.batch}))
+        return 0
+
     if args.task == "train":
         from tapnet_torch.train.trainer import TrainLoopConfig, train
+        from tapnet_torch.parallel import data_mesh
+        mesh = data_mesh(device) if args.mesh else None
         loop = TrainLoopConfig(
             epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
             batch=args.batch, valid_batch=args.valid_batch,
@@ -178,7 +196,13 @@ def main(argv=None) -> int:
             mixed_p2d=args.mixed_p2d, steps_per_call=args.steps_per_call,
             trace_dir=args.trace_dir, deterministic=args.deterministic,
             nan_checks=args.nan_checks)
-        train(cfg, loop, resume=not args.no_resume, device=device)
+        try:
+            train(cfg, loop, resume=not args.no_resume, device=device,
+                  mesh=mesh)
+        finally:
+            if mesh is not None:
+                import torch.distributed as dist
+                dist.destroy_process_group()
         return 0
 
     if args.task == "eval":

@@ -30,22 +30,9 @@ import sys
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-
-def _device_us(evt) -> float:
-    """Device time of a kernel row (0 for host-side operator rows and for
-    user-annotated ranges such as Optimizer.step, whose device time is
-    their kernels', counted under the kernels' names)."""
-    if (evt.device_type != DeviceType.CUDA
-            or getattr(evt, "is_user_annotation", False)):
-        return 0.0
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
+from tapnet_torch.utils.profiling import kernel_rows
 
 
 def profile_calls(label, run, calls):
@@ -64,8 +51,8 @@ def profile_calls(label, run, calls):
         for _ in range(calls):
             run()
         torch.cuda.synchronize()
-    rows = [(e.key, _device_us(e) / 1e3 / calls, e.count // calls)
-            for e in prof.key_averages() if _device_us(e) > 0]
+    rows = [(name, ms / calls, n // calls)
+            for name, ms, n in kernel_rows(prof)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     return {"run": label, "wall_ms": wall_ms, "device_busy_ms": busy,

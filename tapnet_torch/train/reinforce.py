@@ -25,6 +25,14 @@ so a key samples the same instances and trajectories on both sides.
 calls at k = 1 and returns the last step's metrics, as the JAX package's
 `lax.scan` of steps does. On the CPU that is k eager steps; on the card one
 step captured as a CUDA graph (`GraphedSteps`) and replayed k times.
+
+With a `mesh` (`parallel.mesh.DataMesh`) the step computes the same
+function of the global batch as without: the keys follow the global
+schedule and each rank samples and rolls out only its rows of it; after
+`backward()` one all-reduce of the flat gradient buffer, divided by the
+world size (the single gradient psum XLA inserts in the JAX package), then
+the same clip and Adam on every rank, so the ranks' parameters stay
+bit-identical; one more all-reduce makes the metrics global means.
 """
 
 from __future__ import annotations
@@ -37,8 +45,7 @@ import torch
 from tapnet_torch import random as R
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
-from tapnet_torch.env.sampler import (check_mixed, sample_batch,
-                                      sample_batch_mixed)
+from tapnet_torch.env.sampler import check_mixed, mix_flat, sample_instance
 from tapnet_torch.models.features import build_tokens
 from tapnet_torch.models.tapnet import (TAPNetActor, TAPNetCritic,
                                         init_critic, init_params)
@@ -175,11 +182,17 @@ def init_train_state(seed: int, cfg: TAPConfig, hidden: int = 128,
 
 
 def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; "cuda" names the current card
+    ("cuda:0"), as the tensors made on it report their device. Raises
+    where there is no card."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the train path runs on cuda by default and no "
-                           "CUDA device is available; pass device='cpu' for "
-                           "the reference path")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("the train path runs on cuda by default and "
+                               "no CUDA device is available; pass "
+                               "device='cpu' for the reference path")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -213,8 +226,10 @@ class GraphedSteps:
     key and copies of the last step's metrics. A call with any other state
     (a deep copy, other modules or another optimizer) captures anew for
     it, after `warm_up`: one eager step on a side stream, on a copy of the
-    state, so kernels are built and libraries initialised outside the
-    capture. A capture that fails raises; nothing runs eagerly instead."""
+    state, so kernels are built and libraries initialised (a mesh's NCCL
+    communicator too) outside the capture. A capture that fails raises;
+    nothing runs eagerly instead. It captures in "thread_local" mode, so
+    that a mesh's NCCL watchdog thread may query its events meanwhile."""
 
     def __init__(self, body, k: int, device: torch.device):
         self.body, self.k, self.device = body, k, device
@@ -250,7 +265,7 @@ class GraphedSteps:
                 p.grad = torch.zeros_like(p)
         key = ts.key.clone()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             new_key, metrics = self.body(ts, key)
             key.copy_(new_key)
         self.graph, self._key, self._metrics = graph, key, metrics
@@ -268,6 +283,35 @@ class GraphedSteps:
         return ts, {k: v.clone() for k, v in self._metrics.items()}
 
 
+def step_batch(key: torch.Tensor, batch: int, cfg: TAPConfig,
+               mixed_p2d: float = 0.0, mesh=None, instances: Instance = None):
+    """The key schedule of one step: `key, k_inst, k_act = split(key, 3)`;
+    the instances of `split(k_inst, batch)` (mixed 2D/3D with `mixed_p2d` >
+    0) unless `instances` (a global batch) is given; the action keys
+    `split(k_act, B)`. With a mesh, this rank's rows of both. Returns
+    (next key, instances, action keys)."""
+    ks = R.split(key, 3)
+    new_key, k_inst, k_act = ks[0], ks[1], ks[2]
+    if instances is None:
+        keys = R.split(k_inst, batch)
+        if mesh is not None:
+            keys = keys[mesh.rows(batch)]
+        instances = sample_instance(
+            keys, cfg, mix_flat(keys, mixed_p2d) if mixed_p2d > 0 else None)
+        B = batch
+    else:
+        B = instances.dims.shape[0]
+        if mesh is not None:
+            instances = instances.index(mesh.rows(B))
+    act_keys = R.split(k_act, B)
+    if mesh is not None:
+        act_keys = act_keys[mesh.rows(B)]
+    return new_key, instances, act_keys
+
+
+_MEAN_METRICS = ("loss_actor", "loss_critic", "reward", "C", "P", "S")
+
+
 def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
                     lr: float = 5e-4, clip: float = 2.0,
                     temperature: float = 1.0, critic_weight: float = 1.0,
@@ -281,11 +325,12 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
     clip). `steps_per_call` > 1: that many steps per call (on the card as
     replays of a CUDA graph), the last one's metrics. `mixed_p2d` > 0:
     each sampled instance is flat (2D) with that probability
-    (`sample_batch_mixed`, 3D configs only). Runs on `cuda` unless
+    (`sample_batch_mixed`, 3D configs only). `mesh`: a
+    `parallel.mesh.DataMesh`; the step runs on its device, sharded over
+    its ranks (`batch`, and a given dataset batch, are global and a
+    multiple of the world size; the state is replicated, e.g. by
+    `parallel.distributed.broadcast_from_main`). Runs on `cuda` unless
     `device="cpu"`."""
-    if mesh is not None:
-        raise NotImplementedError("data parallelism (parallel/) is not "
-                                  "ported yet (ROADMAP.md, port Queue 1)")
     if mixed_p2d > 0:
         check_mixed(cfg)
     if compute_dtype not in (None, torch.float32, "float32"):
@@ -296,18 +341,16 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
     if from_dataset and steps_per_call != 1:
         raise ValueError("steps_per_call > 1 needs on-device sampling "
                          "(from_dataset=False)")
+    if mesh is not None:
+        mesh.rows(batch)   # a ValueError unless the world size divides it
+        device = mesh.device
     device = resolve_device(device)
 
     def body(ts: TrainState, key: torch.Tensor, instances: Instance = None):
         """One step from `key`: updates the parameters and the Adam state
         in place; returns the next key and the metrics."""
-        ks = R.split(key, 3)
-        new_key, k_inst, k_act = ks[0], ks[1], ks[2]
-        if instances is None and mixed_p2d > 0:
-            instances = sample_batch_mixed(k_inst, batch, cfg, mixed_p2d)
-        elif instances is None:
-            instances = sample_batch(k_inst, batch, cfg)
-        act_keys = R.split(k_act, instances.dims.shape[0])
+        new_key, instances, act_keys = step_batch(key, batch, cfg, mixed_p2d,
+                                                  mesh, instances)
         params = ts.parameters()
         for p in params:
             if p.grad is None:
@@ -316,6 +359,8 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
         actor_loss, critic_loss, Rw, terms = _batch_losses(
             ts.actor, ts.critic, instances, act_keys, cfg, temperature)
         (actor_loss + critic_weight * critic_loss).backward()
+        if mesh is not None:
+            mesh.all_reduce_mean_([p.grad for p in params])
         gnorm = clip_by_global_norm_([p.grad for p in params], clip)
         for g in ts.opt.param_groups:
             g["lr"] = lr
@@ -323,7 +368,7 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
 
         vol, denom_c, denom_p, s_num, s_den = terms
         f = lambda n, d: (n.float() / d.clamp(min=1).float()).mean()
-        return new_key, {
+        metrics = {
             "loss_actor": actor_loss.detach(),
             "loss_critic": critic_loss.detach(),
             "reward": Rw.mean(),
@@ -332,6 +377,11 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
             "S": f(s_num, s_den),
             "grad_norm": gnorm,
         }
+        if mesh is not None:
+            # the rank means become global means; grad_norm is already one
+            # value on every rank
+            mesh.all_reduce_mean_([metrics[k] for k in _MEAN_METRICS])
+        return new_key, metrics
 
     def check(ts: TrainState):
         if ts.key.device != device:

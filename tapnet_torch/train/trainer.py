@@ -11,10 +11,16 @@ trainer's for the same settings. `trace_dir` traces 3 calls of epoch 0
 (`utils.profiling.trace`), `nan_checks` checks the state and metrics
 between calls (`utils.debug`). Every field of the JAX package's
 TrainLoopConfig is kept; `tb_dir` is not ported and raises.
+
+With a `mesh` (`parallel.mesh.DataMesh`) every rank runs the same sequence
+of sharded steps; rank 0 owns every filesystem side effect (checkpoints,
+the JSONL metrics, the trace) and the held-out evaluation, and a restore is
+read on rank 0 and broadcast (`parallel.distributed.broadcast_from_main`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Optional
@@ -26,6 +32,7 @@ from tapnet_torch.config import TAPConfig
 from tapnet_torch.env import core as E
 from tapnet_torch.env.sampler import sample_batch, sample_batch_mixed
 from tapnet_torch.ops.env import fused_rollout_batch
+from tapnet_torch.parallel.distributed import broadcast_from_main
 from tapnet_torch.train import checkpoints as ckpt
 from tapnet_torch.train import rollout as RO
 from tapnet_torch.train.metrics import MetricsLogger
@@ -146,28 +153,35 @@ def _finite_targets(ts: TrainState, metrics=None) -> dict:
 
 
 def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
-          device="cuda") -> TrainState:
+          device="cuda", mesh=None) -> TrainState:
     """Train for loop.epochs x loop.steps_per_epoch steps (continuing from
     the newest checkpoint in loop.ckpt_dir when `resume`, the port's `.pt`
     or the JAX package's `.msgpack`); returns the final TrainState. Runs on
-    `cuda` unless `device="cpu"`."""
+    `cuda` unless `device="cpu"`; with a `mesh`, on its device, sharded over
+    its ranks (`loop.batch` is the global batch)."""
     check = assert_finite if loop.nan_checks else None
-    logger = MetricsLogger(loop.metrics_path, tb_dir=loop.tb_dir)
+    is_main = mesh is None or mesh.rank == 0
+    logger = MetricsLogger(loop.metrics_path if is_main else None,
+                           echo=is_main, tb_dir=loop.tb_dir)
     try:
+        if mesh is not None:
+            device = mesh.device
         ts = init_train_state(loop.seed, cfg, loop.hidden, loop.lr, device)
         dev = ts.key.device
         if resume and loop.ckpt_dir:
-            path = ckpt.latest_checkpoint(loop.ckpt_dir)
+            path = ckpt.latest_checkpoint(loop.ckpt_dir) if is_main else None
             if path:
                 ts = ckpt.restore_checkpoint(path, ts)
                 logger.log(ts.step, {}, event="resumed", ckpt=path)
+            if mesh is not None:
+                ts = broadcast_from_main(ts, mesh.group)
         if check:
             check(_finite_targets(ts), "before the first step")
         spc = max(1, loop.steps_per_call)
         step = make_train_step(cfg, loop.batch, loop.hidden, loop.lr,
                                loop.clip, loop.temperature,
-                               mixed_p2d=loop.mixed_p2d, steps_per_call=spc,
-                               device=dev)
+                               mesh=mesh, mixed_p2d=loop.mixed_p2d,
+                               steps_per_call=spc, device=dev)
 
         def train_step(ts):
             ts, metrics = step(ts)
@@ -179,8 +193,8 @@ def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
             assert_deterministic(step, ts)
             logger.log(ts.step, {}, event="deterministic-check-passed")
         total = loop.epochs * loop.steps_per_epoch
-        # the step runs on one device: there is no mesh in the port yet
-        sps = StepsPerSecond(loop.batch * cfg.num_blocks, n_devices=1)
+        sps = StepsPerSecond(loop.batch * cfg.num_blocks,
+                             n_devices=1 if mesh is None else mesh.world_size)
         traced = False
         while ts.step < total:
             epoch = ts.step // loop.steps_per_epoch
@@ -189,8 +203,10 @@ def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
             _sync(dev)
             if loop.trace_dir and not traced:
                 # a trace of 3 steady-state calls, as the JAX trainer takes
+                # (every rank runs them; rank 0 writes the trace)
                 traced = True
-                with trace(loop.trace_dir):
+                with (trace(loop.trace_dir) if is_main
+                      else contextlib.nullcontext()):
                     for _ in range(min(3, max(n_steps - 1, 1))):
                         with annotate("train_step"):
                             ts, metrics = train_step(ts)
@@ -204,10 +220,12 @@ def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
             _sync(dev)
             sps.update(calls * spc)
             rates = sps.metrics()  # the timed calls, before evaluation
-            with annotate("evaluate"):
-                valid = evaluate(ts.actor, cfg, loop, device=dev)
+            valid = {}
+            if is_main:   # rank 0 alone evaluates its own copy: no collective
+                with annotate("evaluate"):
+                    valid = evaluate(ts.actor, cfg, loop, device=dev)
             logger.log(ts.step, metrics, epoch=epoch, **rates, **valid)
-            if loop.ckpt_dir:
+            if loop.ckpt_dir and is_main:
                 ckpt.save_checkpoint(loop.ckpt_dir, ts)
     finally:
         logger.close()

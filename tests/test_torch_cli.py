@@ -14,9 +14,10 @@ same arguments.
   the JAX CLI's values (within 1e-6);
 - `generate`: the same file and sidecar;
 - `--nan-checks` on a state with a NaN parameter raises FloatingPointError
-  naming it; `--mesh`, `--tb-dir`, `render` and `bench` raise
-  NotImplementedError naming ROADMAP.md; without `--device cpu` and
-  without a card a task fails.
+  naming it; `--tb-dir` and `render` raise NotImplementedError naming
+  ROADMAP.md, while `train --mesh` (a gloo world of one in this process)
+  and `bench` (one JSON line), which raised until they were ported, run;
+  without `--device cpu` and without a card a task fails.
 """
 
 import glob
@@ -130,13 +131,18 @@ def test_nan_checks_name_the_parameter(tmp_path):
                   *SMALL, "--ckpt-dir", str(tmp_path), "--nan-checks"])
 
 
-@pytest.mark.parametrize("args", [
-    ["train", "--config", "2d-basic", "--mesh"],
-    ["train", "--config", "2d-basic", "--tb-dir", "tb"],
-    ["render", "--config", "2d-basic", "--out", "x.png", "--sequence"],
-    ["bench", "--config", "2d-basic", "--batch", "64"]],
+@pytest.mark.parametrize("args,ported", [
+    (["train", "--config", "2d-basic", "--mesh", *SMALL], True),
+    (["train", "--config", "2d-basic", "--tb-dir", "tb"], False),
+    (["render", "--config", "2d-basic", "--out", "x.png", "--sequence"],
+     False),
+    (["bench", "--config", "2d-basic", "--batch", "64"], True)],
     ids=["mesh", "tb-dir", "render", "bench"])
-def test_unported_tasks_raise(args):
+def test_unported_tasks_raise(args, ported, capsys):
+    if ported:   # ported since: they run and print their JSON lines
+        assert cli.main(["--device", "cpu", *args]) == 0
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", *args])
 

@@ -27,6 +27,9 @@ import tapnet_torch.kernel_times
 import tapnet_torch.cli
 import tapnet_torch.utils.data, tapnet_torch.utils.debug
 import tapnet_torch.utils.msgpack, tapnet_torch.utils.profiling
+import tapnet_torch.benchmarks, tapnet_torch.oracle, tapnet_torch.native
+import tapnet_torch.parallel, tapnet_torch.parallel.scaling
+import tapnet_torch.utils.trace_events
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "tapnet_tpu", "msgpack"))

@@ -320,11 +320,29 @@ def test_train_writes_metrics_and_checkpoints(tmp_path):
     _equal_states(ts, ts2)
 
 
+def test_resolve_device_names_the_card(monkeypatch):
+    """"cuda" resolves to the current card's index, the device the state's
+    tensors report, so a step made with the default device accepts the
+    default state (the two once compared "cuda" with "cuda:0")."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert TR.resolve_device("cuda") == torch.device("cuda", 0)
+    assert TR.resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert TR.resolve_device("cpu") == torch.device("cpu")
+
+
 def test_unported_options_raise():
+    from tapnet_torch.parallel.mesh import DataMesh
+
     cfg = T.CONFIGS[NAME]
-    for kw in ({"mesh": object()}, {"compute_dtype": torch.bfloat16}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.make_train_step(cfg, batch=8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.make_train_step(cfg, batch=8, device="cpu",
+                          compute_dtype=torch.bfloat16)
+    # a mesh is ported (tests/test_torch_parallel.py); its world size must
+    # divide the batch
+    with pytest.raises(ValueError, match="multiple"):
+        T.make_train_step(cfg, batch=7, device="cpu",
+                          mesh=DataMesh(None, 2, 0, torch.device("cpu")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.train(cfg, T.TrainLoopConfig(tb_dir="x"), device="cpu")
 
