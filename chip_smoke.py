@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from `tapnet_torch/csrc/` (one nvcc per
 source, all started at once), then runs, and fails on the first fault:
 
-1. device: the card's name and power limit (nvidia-smi); TF32 off;
+1. device: the card's name and power limit (nvidia-smi); TF32 off, and
+   bf16 products reduced in f32 (no reduced-precision reduction);
 2. select_step (K1) vs its plain version: greedy rollouts of 2d-basic at
    batch 4096 and 2d-rot, 3d-basic, multi-container at batch 512 (plus
    2d-basic at a ragged batch of 100 and a capped lb-hard 2D config), every
@@ -167,9 +168,38 @@ source, all started at once), then runs, and fails on the first fault:
    steps_per_call=4 (the gradient and metrics all-reduces captured in the
    graph), with the wall ms per step of both; where two cards are visible,
    two NCCL ranks against one process within the tier-2 tolerances (one
-   card: logged, no scaling number).
+   card: logged, no scaling number);
+24. the bf16 compute dtype (`make_train_step(compute_dtype=bfloat16)`, the
+   JAX train step's accelerator dtype): K2's bf16 instantiation (both
+   modes) against its plain bf16 version in lockstep sampled rollouts
+   (2d-basic at 4096, 2d-rolling at 512 and 4096, multi-container at
+   512): logits within 1e-2 + 2^-7 |logit|, flags and mask equal, actions
+   agreeing on > 0.99 of the (instance, step) pairs and, where they agree,
+   the state rows equal and logp within the logit tolerance; K5f, K5b,
+   K5f-steps and K5b-steps in bf16 against their plain bf16 versions on
+   the card's own bf16 records (2d-basic at 4096, multi-container at 512,
+   2d-rolling at 4096): values within 1e-2 relative, also against the
+   rollout's own logp, every gradient within BF16_GRAD_TOL of the plain
+   result's max magnitude, two backward launches bit-identical; the bf16
+   train step at
+   2d-basic, hidden 128, batch 4096: 5 steps with K2 10, K5b 1, K3 1 and no
+   K5f a step, finite metrics, a bit-identical repeat, a step at batch 256
+   against the CPU bf16 path (scripts/tpu_parity.py's gate: actions agree on
+   > 0.9, mean rewards within 0.02; reward, C, P, S within 0.02, loss_critic
+   within 10%), steps_per_call=8 as a graph bit-equal to 8 eager bf16 steps
+   (phase 21's checks), 3 bf16 steps of 2d-rolling (K2 50, K5b-steps 1, K3
+   1 a step); times: K2's main-path mode (2d-basic and 2d-rolling) and
+   K5f/K5b, K5f-steps/K5b-steps per launch in bf16 and f32 on the same
+   inputs in turns, their plain bf16
+   versions and bf16 bounds (bytes at each operand's width; the products at
+   the dense bf16 tensor-core peak, the rest at the f32 rate), and the f32
+   and bf16 train steps at 2d-basic k = 8 and 2d-rolling k = 4 (host clock
+   and `utils.profiling.device_time_ms`, in turns). `chip_smoke.phase_24(
+   dev)` runs it alone after `ops._build.build_all()`.
 
-It prints the kernel table as one JSON line, then the nvidia-smi line, then
+It prints the kernel table as one JSON line (each entry with its "dtype";
+the bf16 instantiations as entries of their own), then the nvidia-smi line,
+then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -192,6 +222,7 @@ REPS = 25
 TOL = 1e-5            # logits / logp, kernel vs plain (accumulation order)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 F32_OPS_S = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
+BF16_TC_OPS_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # int32 adds, compares and max: the data sheet's f32 rate counts 2 operations
 # per FMA on 128 lanes per SM; integer instructions run on 64 lanes per SM
 # and count 1 each (132 SMs x 64 lanes x 1.98 GHz)
@@ -262,8 +293,9 @@ def check_select_step(cfg, B, actor, dev, keep=None, p2d=0.0):
     return kept
 
 
-def actor_operands(actor, inst, cfg, keys):
-    """Per-rollout operands of actor_select_step (as the rollout builds)."""
+def actor_operands(actor, inst, cfg, keys, dtype=torch.float32):
+    """Per-rollout operands of actor_select_step (as the rollout builds),
+    the float ones in the compute dtype `dtype`."""
     from tapnet_torch.models.features import static_tokens
     from tapnet_torch.models.tapnet import embed_static_T
     from tapnet_torch.ops import actor_step as AS
@@ -273,15 +305,15 @@ def actor_operands(actor, inst, cfg, keys):
     T = cfg.num_blocks * cfg.num_rot
     static = static_tokens(inst, cfg)
     static_t4 = static.permute(2, 1, 0).reshape(4, T * B)
-    se_htb = embed_static_T(actor, static_t4).reshape(-1, T, B)
+    se_htb = embed_static_T(actor, static_t4, dtype).reshape(-1, T, B)
     upm, rotm = AS.precedence_bitmasks(inst, cfg)
     g_all = RO._gumbel_all(keys, cfg).transpose(1, 2).contiguous()
     o = dict(se=se_htb.permute(2, 1, 0).contiguous(),
-                ctx=se_htb.mean(1).contiguous(),
-                statp=static_t4.reshape(4, T, B).contiguous(),
-                statm=static.mean(1).T.contiguous(), upm=upm, rotm=rotm,
-                fits=AS.fits_planes(inst, cfg),
-                params=AS.head_operands(actor, cfg), g_all=g_all)
+             ctx=se_htb.mean(1).contiguous(),
+             statp=static_t4.to(dtype).reshape(4, T, B).contiguous(),
+             statm=static.to(dtype).mean(1).T.contiguous(), upm=upm,
+             rotm=rotm, fits=AS.fits_planes(inst, cfg),
+             params=AS.head_operands(actor, cfg, dtype), g_all=g_all)
     o["params_t"] = AS.transposed(o["params"])
     return o
 
@@ -503,17 +535,34 @@ def log_select_times(tag, name, B, k):
         f"{k['bound']:.5f} ms (bytes)")
 
 
-def actor_ops_count(cfg, B, h, tokens=None):
-    """f32 operations of one actor_select_step on B instances: 2 per
-    multiply-add of every matrix-vector product, plus tanh, the +v and the
-    score adds of the attention (4 per (token, container, unit)).
-    `tokens`: the (instance, token) columns to count for the token work
-    instead of B * T (the live columns of the main path's mode)."""
+def actor_ops_split(cfg, B, h, tokens=None):
+    """(products, elementwise): the operations of one actor_select_step on
+    B instances, 2 per multiply-add of every matrix-vector product, and the
+    tanh, the +v and the score adds of the attention (4 per (token,
+    container, unit)). `tokens`: the (instance, token) columns to count for
+    the token work instead of B * T (the live columns of the main path's
+    mode)."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD, T = cfg.target_width * cfg.target_depth, N * R
     tokens = B * T if tokens is None else tokens
     enc = C * (h * (WD + 2) + h * h + h * (3 * h + 8))
-    return 2 * B * enc + tokens * (2 * (32 * 8 + 32 * h) + C * h * 4)
+    return (2 * B * enc + tokens * 2 * (32 * 8 + 32 * h),
+            tokens * C * h * 4)
+
+
+def actor_ops_count(cfg, B, h, tokens=None):
+    """f32 operations of one actor_select_step (`actor_ops_split`)."""
+    return sum(actor_ops_split(cfg, B, h, tokens))
+
+
+def ops_ms(split, dtype):
+    """The least time of (products, elementwise) operations on the card:
+    in float32 all at F32_OPS_S; in bfloat16 the products at the dense
+    bf16 tensor-core peak (BF16_TC_OPS_S) and the rest at F32_OPS_S."""
+    gemm, elem = split
+    if dtype == torch.bfloat16:
+        return 1e3 * (gemm / BF16_TC_OPS_S + elem / F32_OPS_S)
+    return 1e3 * (gemm + elem) / F32_OPS_S
 
 
 def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
@@ -539,21 +588,24 @@ def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
     acting = int((out[3] >= 0).sum())
     valid = int((out[5] == 1).sum())
     se, g = ops[12], ops[11]
+    dt = se.dtype
     rest = nbytes([x for i, x in enumerate(ops[:16]) if i not in (11, 12)])
     outs = nbytes([x for x in out if x is not None])
-    live_b = rest + nbytes(ops[16]) + cols * h * 4 + valid * 4 + outs
+    live_b = (rest + nbytes(ops[16]) + cols * h * se.element_size()
+              + valid * 4 + outs)
     all_b = nbytes(ops[:16]) + nbytes(ops[16]) + nbytes(out_full)
-    live_o = actor_ops_count(cfg, acting, h, cols)
-    all_o = actor_ops_count(cfg, B, h)
-    bound = max(1e3 * live_b / HBM_BYTES_S, 1e3 * live_o / F32_OPS_S)
+    live_s = actor_ops_split(cfg, acting, h, cols)
+    live_o = sum(live_s)
+    all_s = actor_ops_split(cfg, B, h)
+    live_ops_ms = ops_ms(live_s, dt)
+    bound = max(1e3 * live_b / HBM_BYTES_S, live_ops_ms)
     return {"ms": ms, "full_ms": full, "plain_ms": plain, "cols": cols,
             "acting": acting, "pairs": B * cfg.num_blocks * cfg.num_rot,
             "bytes": live_b, "ops": live_o, "bound": bound,
-            "bound_by": ("operations" if live_o / F32_OPS_S
-                         >= live_b / HBM_BYTES_S else "bytes"),
-            "all_bound": max(1e3 * all_b / HBM_BYTES_S,
-                             1e3 * all_o / F32_OPS_S),
-            "all_ops": all_o, "se_bytes": nbytes([se]), "g_bytes":
+            "bound_by": ("operations" if live_ops_ms
+                         >= 1e3 * live_b / HBM_BYTES_S else "bytes"),
+            "all_bound": max(1e3 * all_b / HBM_BYTES_S, ops_ms(all_s, dt)),
+            "all_ops": sum(all_s), "se_bytes": nbytes([se]), "g_bytes":
             nbytes([g])}
 
 
@@ -596,20 +648,29 @@ def check_reward(cfg, B, actor, dev, p2d=0.0):
 GRAD_TOL = 5e-5       # K5b vs plain, of the plain result's max magnitude
 
 
-def replay_operands(actor, cfg, B, dev, seed, temperature, p2d=0.0):
+def replay_operands(actor, cfg, B, dev, seed, temperature, p2d=0.0,
+                    dtype=torch.float32, also=None):
     """Replay operands in `replay_logp_fwd` order from a sampled rollout on
-    the card at `temperature`, and the rollout's own logp [B]."""
+    the card at `temperature` in the compute dtype `dtype`, and the
+    rollout's own logp [B]. `also`: another dtype whose operands of the
+    same record are returned third."""
     from tapnet_torch import random as R
     from tapnet_torch.train import rollout as RO
 
     inst = _instances(cfg, B, dev, seed, p2d)
+
+    def ops_in(dt):
+        (flags, hms, masks, acts, statp, statm), se, ctx, params = \
+            RO.replay_operands(actor, inst, rec, cfg, grad=False, dtype=dt)
+        return (flags, hms, masks, acts, se, ctx, statp, statm, params)
+
     with torch.no_grad():
         _, rec, lp0 = RO.rollout_batch_record(
             actor, inst, R.split(R.key(seed + 1, dev), B), cfg,
-            temperature=temperature)
-        (flags, hms, masks, acts, statp, statm), se, ctx, params = \
-            RO.replay_operands(actor, inst, rec, cfg, grad=False)
-    return (flags, hms, masks, acts, se, ctx, statp, statm, params), lp0
+            temperature=temperature, dtype=dtype)
+        if also is not None:
+            return ops_in(dtype), lp0, ops_in(also)
+        return ops_in(dtype), lp0
 
 
 def replay_fns(ops, cfg, temperature, steps):
@@ -702,7 +763,7 @@ def check_steps_against_monolithic(ops, dlp, cfg):
     return d.max().item(), worst
 
 
-def replay_ops_count(cfg, B, h, bwd, pairs=None, tokens=None):
+def replay_ops_split(cfg, B, h, bwd, pairs=None, tokens=None):
     """f32 operations of the replay over B instances and N steps: per
     (instance, step) pair the encoder and the query, per token the dyn MLP
     and the attention (4 per (container, unit)), 2 per multiply-add; the
@@ -711,20 +772,27 @@ def replay_ops_count(cfg, B, h, bwd, pairs=None, tokens=None):
     unit). `pairs`: the (instance, step) pairs to count instead of all
     B * N (a step without an action adds nothing); `tokens`: the
     (instance, step, token) triples to count for the token work instead of
-    pairs * T (a token the mask rules out adds exact zeros)."""
+    pairs * T (a token the mask rules out adds exact zeros). Returns
+    (products, elementwise)."""
     N, R_, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD, T = cfg.target_width * cfg.target_depth, N * R_
     FQ = 3 * h + 8
     pairs = B * N if pairs is None else pairs
     tokens = pairs * T if tokens is None else tokens
     enc = C * (h * (WD + 2) + h * h + h * FQ)
-    fwd = pairs * 2 * enc + tokens * (2 * (32 * 8 + 32 * h) + C * h * 4)
+    gemm = pairs * 2 * enc + tokens * 2 * (32 * 8 + 32 * h)
+    elem = tokens * C * h * 4
     if not bwd:
-        return fwd
+        return gemm, elem
     enc_grad = C * (h * FQ + h * h + h * (WD + 2)) + C * (h * 3 * h + h * h)
     tok_grad = (h * 32 + 32 * 8) + 32 * h
-    return (fwd + pairs * 2 * enc_grad
-            + tokens * (2 * tok_grad + C * h * 6))
+    return (gemm + pairs * 2 * enc_grad + tokens * 2 * tok_grad,
+            elem + tokens * C * h * 6)
+
+
+def replay_ops_count(cfg, B, h, bwd, pairs=None, tokens=None):
+    """f32 operations of the replay (`replay_ops_split`)."""
+    return sum(replay_ops_split(cfg, B, h, bwd, pairs, tokens))
 
 
 def live_counts(cfg, masks, acts):
@@ -760,7 +828,7 @@ def train_counters():
 
 
 def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN,
-                    hidden=HIDDEN, p2d=0.0):
+                    hidden=HIDDEN, p2d=0.0, compute_dtype=None):
     """init_train_state + `n_steps` steps of make_train_step(batch) on the
     card with the launch counts of every step held to `per_step` (default:
     the monolithic-replay route, actor_select_step N, replay_logp_bwd 1,
@@ -770,7 +838,7 @@ def train_main_path(cfg, dev, per_step=None, n_steps=5, batch=B_MAIN,
 
     ts = init_train_state(SEED, cfg, hidden=hidden, device=dev)
     step = make_train_step(cfg, batch=batch, hidden=hidden, mixed_p2d=p2d,
-                           device=dev)
+                           compute_dtype=compute_dtype, device=dev)
     counters = train_counters()
     for f in counters.values():
         f.launches = 0
@@ -1496,7 +1564,7 @@ def time_fused_reward(hm, plc, dims, cfg):
 # phase 21: steps_per_call as a CUDA graph over the train step
 
 def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
-                      p2d=0.0):
+                      p2d=0.0, compute_dtype=None, tag="phase 21"):
     """make_train_step(steps_per_call=k) on the card: the launches counted
     by its eager warm-up step (on a copy of the state) and by the capture
     of one step, each `per_step`; none counted by a call (k replays); one
@@ -1511,9 +1579,11 @@ def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
 
     ts0 = init_train_state(SEED, cfg, hidden=hidden, device=dev)
     single = make_train_step(cfg, batch=batch, hidden=hidden,
-                             mixed_p2d=p2d, device=dev)
+                             mixed_p2d=p2d, compute_dtype=compute_dtype,
+                             device=dev)
     multi = make_train_step(cfg, batch=batch, hidden=hidden, mixed_p2d=p2d,
-                            steps_per_call=k, device=dev)
+                            steps_per_call=k, compute_dtype=compute_dtype,
+                            device=dev)
     a = copy.deepcopy(ts0)
     for _ in range(k):
         a, m_a = single(a)
@@ -1552,13 +1622,13 @@ def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
     dev_ms = time_gpu(lambda: multi(b), reps=3, warm=1,
                       sleep_cycles=20_000_000) / k
     counted = {n: v for n, v in got.items() if v}
-    log(f"phase 21 {name} batch {batch} hidden {hidden}, steps_per_call "
+    log(f"{tag} {name} batch {batch} hidden {hidden}, steps_per_call "
         f"{k}: one step captured and replayed k times; the capture counts "
         f"{counted} (1 x the per-step launches; the eager warm-up the "
         f"same), a call counts none; one call == "
         f"{k} single steps bit for bit (params, Adam state, key, metrics); "
         f"deterministic")
-    log(f"phase 21 {name}: wall ms/step {rows[f'k={k}'][0]:.3f} at k={k} "
+    log(f"{tag} {name}: wall ms/step {rows[f'k={k}'][0]:.3f} at k={k} "
         f"(idle share {rows[f'k={k}'][1]:.3f}, busy ms/step "
         f"{rows[f'k={k}'][2]:.3f}; device ms/step by events {dev_ms:.3f}) "
         f"vs {rows['k=1'][0]:.3f} at k=1 (idle {rows['k=1'][1]:.3f}, busy "
@@ -2232,6 +2302,392 @@ def phase_23(dev):
 
 
 
+# ------------------------------------------------------------------ #
+# phase 24: the bf16 compute dtype on the card
+
+BF16 = torch.bfloat16
+# bf16 logits / logp, kernel vs plain: 1e-2 absolute (SPEC.md §12) plus one
+# bf16 ulp of the value (the scores are rounded to bf16 before they become
+# float32 logits; an accumulation order that moves a sum across a rounding
+# boundary moves it by one ulp, which is 2^-7 of |m| at most for a score of
+# magnitude m: 2^-7 |m| at the bottom of a binade, 2^-8 |m| at its top)
+BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -7
+BF16_AGREE = 0.99      # K2 bf16 vs plain: action agreement per config
+BF16_VALUE_TOL = 1e-2  # K5f bf16 vs plain (and the rollout's logp), relative
+# K5b bf16 vs plain, of the plain result's max magnitude: ~4x the largest
+# reading of the first run (1.27e-3 at 2d-basic, batch 4096; PERF.md §6),
+# as GRAD_TOL is to the f32 readings
+BF16_GRAD_TOL = 5e-3
+PARITY_AGREE, PARITY_REWARD = 0.9, 0.02  # scripts/tpu_parity.py's bf16 gate
+
+
+def _bf16_close(what, got, want):
+    d = (got - want).abs()
+    if not bool((d <= BF16_ATOL + BF16_RTOL * want.abs()).all()):
+        raise AssertionError(f"{what}: max err {d.max().item()}")
+    return d.max().item() if d.numel() else 0.0
+
+
+def check_actor_step_bf16(cfg, B, actor, dev, keep=False):
+    """Sampled lockstep rollout in bf16: at every step both modes of K2's
+    bf16 instantiation and the full plain bf16 version on the same inputs.
+    Logits within BF16_ATOL + BF16_RTOL |logit|; flags and mask equal; the
+    actions of the main path's mode agree with the plain version's on more
+    than BF16_AGREE of the (instance, step) pairs, and where they agree the
+    new state rows are equal and logp is within the logit tolerance. The
+    rollout advances on the main-path mode's outputs. Returns (the middle
+    step's bf16 and float32 operands when `keep`, max logit/logp err, the
+    agreement)."""
+    from tapnet_torch import random as R
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.train import rollout as RO
+
+    N = cfg.num_blocks
+    inst = _instances(cfg, B, dev, SEED + 2)
+    keys = R.split(R.key(SEED + 3, dev), B)
+    kept, err, agree, pairs = None, 0.0, 0, 0
+    names = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+    with torch.no_grad():
+        o = actor_operands(actor, inst, cfg, keys, BF16)
+        (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
+        prev = torch.full((1, B), -1, dtype=torch.int32, device=dev)
+        for t in range(N):
+            tf = torch.full((1, 1), t, dtype=torch.float32, device=dev) / N
+            ops = (tf, packed, hm, plc, prev, dw, dd, dh, o["upm"],
+                   o["rotm"], o["fits"], o["g_all"][t], o["se"], o["ctx"],
+                   o["statp"], o["statm"], o["params"])
+            if keep and t == N // 2:
+                f = actor_operands(actor, inst, cfg, keys)
+                kept = (ops, ops[:12] + (f["se"], f["ctx"], f["statp"],
+                                         f["statm"], f["params"]))
+            want = AS.actor_select_step_ref(*ops, cfg)
+            for logits in (True, False):
+                got = AS.actor_select_step(*ops, cfg, logits=logits,
+                                           params_t=o["params_t"])
+                what = f"actor_select_step bf16 (logits={logits})"
+                same = got[3] == want[3]
+                for name, g, w in zip(names, got, want):
+                    if name == "logits":
+                        if not logits:
+                            if g is not None:
+                                raise AssertionError(
+                                    f"{what} returned logits")
+                            continue
+                        err = max(err, _bf16_close(
+                            f"{what} logits step {t}", g, w))
+                    elif name == "logp":
+                        err = max(err, _bf16_close(
+                            f"{what} logp step {t}", g[same], w[same]))
+                    elif name in ("flags", "mask"):
+                        _equal(f"{what} {name} step {t}", g, w)
+                    else:
+                        _equal(f"{what} {name} step {t}", g[..., same],
+                               w[..., same])
+            acting = want[3] >= 0
+            agree += int((same & acting).sum())
+            pairs += int(acting.sum())
+            packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
+    rate = agree / max(pairs, 1)
+    if not rate > BF16_AGREE:
+        raise AssertionError(f"actor_select_step bf16 {cfg} B={B}: action "
+                             f"agreement {rate} <= {BF16_AGREE}")
+    return kept, err, rate
+
+
+def check_replay_bf16(cfg, B, actor, dev, steps, repeat=False):
+    """K5f and K5b (`steps`: their step-grid schedule) in bf16 against
+    their plain bf16 versions on a bf16 rollout record of the card: values
+    within BF16_VALUE_TOL relative (+1e-3), and K5f against the rollout's
+    own logp (the train step's primal, from K2 bf16) as closely; every
+    gradient within BF16_GRAD_TOL of the plain result's max magnitude; with
+    `repeat`, two backward launches bit-identical. Returns (bf16 operands,
+    float32 operands of the same record, dlp, fwd err, (bwd scaled err, bwd
+    abs err), err against the rollout's logp)."""
+    ops, lp0, ops32 = replay_operands(actor, cfg, B, dev, SEED + 10, 1.0,
+                                      dtype=BF16, also=torch.float32)
+    fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, 1.0, steps)
+    what = "replay_logp_fwd_steps bf16" if steps else "replay_logp_fwd bf16"
+    dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+    with torch.no_grad():
+        got, want = fwd(), fwd_ref()
+        errs = []
+        for label, ref in (("plain", want), ("the rollout's logp", lp0)):
+            d = (got - ref).abs()
+            if not bool((d <= BF16_VALUE_TOL * ref.abs() + 1e-3).all()):
+                raise AssertionError(f"{what} vs {label}: max err "
+                                     f"{d.max().item()}")
+            errs.append(d.max().item())
+        g1, gr = bwd(dlp), bwd_ref(dlp)
+        b_err = b_abs = 0.0
+        for name, a, w in zip(GRAD_NAMES, _flat_grads(g1), _flat_grads(gr)):
+            e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
+            if not e <= BF16_GRAD_TOL:
+                raise AssertionError(f"{what} backward {name}: scaled err "
+                                     f"{e}")
+            b_err = max(b_err, e)
+            b_abs = max(b_abs, (a - w).abs().max().item())
+        if repeat:
+            for name, a, b in zip(GRAD_NAMES, _flat_grads(g1),
+                                  _flat_grads(bwd(dlp))):
+                _equal(f"{what} backward repeat {name}", a, b)
+    return ops, ops32, dlp, errs[0], (b_err, b_abs), errs[1]
+
+
+def check_train_bf16_against_cpu(cfg, ts, dev, B=256):
+    """One bf16 step at batch B from one state on the card (K2, K5b) and on
+    the CPU (the general route: the flax head): the instances equal; the
+    rollouts pass scripts/tpu_parity.py's bf16 gate (actions agree on more
+    than PARITY_AGREE of the record, the mean rewards within
+    PARITY_REWARD); then the whole step on both: reward, C, P and S within
+    PARITY_REWARD, loss_critic within 10% relative, every metric finite.
+    Returns (agreement, reward diff, metric diffs)."""
+    import copy
+
+    from tapnet_torch import make_train_step
+    from tapnet_torch import random as R
+    from tapnet_torch.env import core as E
+    from tapnet_torch.env.sampler import sample_batch
+    from tapnet_torch.train import reinforce as TR
+    from tapnet_torch.train import rollout as RO
+
+    gpu = copy.deepcopy(ts)
+    cpu = TR.train_state(copy.deepcopy(ts.actor).cpu(),
+                         copy.deepcopy(ts.critic).cpu(), ts.key.cpu())
+    side = {}
+    with torch.no_grad():
+        for name, st in (("card", gpu), ("cpu", cpu)):
+            ks = R.split(st.key, 3)
+            inst = sample_batch(ks[1], B, cfg)
+            states, rec, _ = RO.rollout_batch_record(
+                st.actor, inst, R.split(ks[2], B), cfg, dtype=BF16)
+            side[name] = (inst, rec.action, E.reward(states, inst, cfg))
+    for a, b in zip(side["card"][0], side["cpu"][0]):
+        _equal("bf16 train instances card vs CPU", a.cpu(), b)
+    agree = (side["card"][1].cpu() == side["cpu"][1]).float().mean().item()
+    drew = abs(side["card"][2].mean().item() - side["cpu"][2].mean().item())
+    if not (agree > PARITY_AGREE and drew < PARITY_REWARD):
+        raise AssertionError(f"bf16 rollouts card vs CPU: agreement {agree}, "
+                             f"mean reward diff {drew}")
+    h = ts.actor.hidden
+    _, m_g = make_train_step(cfg, batch=B, hidden=h, compute_dtype=BF16,
+                             device=dev)(gpu)
+    _, m_c = make_train_step(cfg, batch=B, hidden=h, compute_dtype=BF16,
+                             device="cpu")(cpu)
+    diffs = {k: abs(float(m_g[k]) - float(m_c[k])) for k in m_g}
+    if not all(np.isfinite(float(v)) for m in (m_g, m_c) for v in m.values()):
+        raise AssertionError(f"bf16 step metrics {m_g} / {m_c}")
+    for k in ("reward", "C", "P", "S"):
+        if not diffs[k] < PARITY_REWARD:
+            raise AssertionError(f"bf16 step card vs CPU: {k} differs by "
+                                 f"{diffs[k]}")
+    if not diffs["loss_critic"] <= 0.1 * abs(float(m_c["loss_critic"])):
+        raise AssertionError(f"bf16 step card vs CPU: loss_critic "
+                             f"{float(m_g['loss_critic'])} vs "
+                             f"{float(m_c['loss_critic'])}")
+    return agree, drew, diffs
+
+
+def time_actor_dtypes(kept, cfg):
+    """K2's main-path mode on one step's operands in float32 and bf16, in
+    turns (f32, bf16, bf16, f32; CUDA events), and the bf16 instantiation's
+    full `time_actor_step` record (plain version, bound)."""
+    from tapnet_torch.ops import actor_step as AS
+
+    ops_b, ops_f = kept
+    run = {}
+    for tag, ops in (("bf16", ops_b), ("f32", ops_f)):
+        pt = AS.transposed(ops[16])
+        run[tag] = (lambda ops=ops, pt=pt: AS.actor_select_step(
+            *ops, cfg, logits=False, params_t=pt))
+    turns = [time_gpu(run[t]) for t in ("f32", "bf16", "bf16", "f32")]
+    k = time_actor_step(ops_b, cfg, HIDDEN, plain_reps=5,
+                        plain_sleep=200_000_000)
+    k.update(f32_turns=(turns[0], turns[3]), bf16_turns=(turns[1], turns[2]))
+    return k
+
+
+def time_replay_dtypes(ops, ops32, dlp, cfg, steps):
+    """K5f and K5b (`steps`: their step-grid schedule) on one record's bf16
+    and float32 operands in turns (f32, bf16, bf16, f32; CUDA events), their
+    plain bf16 versions, and the bf16 bounds: the bytes at each operand's
+    width (the prev rows too on the step grid), the products at the bf16
+    tensor-core peak, the rest at the f32 rate, over the live columns.
+    Returns {"fwd": {...}, "bwd": {...}}."""
+    fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, 1.0, steps)
+    fwd32, _, bwd32, _ = replay_fns(ops32, cfg, 1.0, steps)
+    reps = 10 if steps else REPS
+    B = dlp.shape[0]
+    pairs, triples = live_counts(cfg, ops[2], ops[3])
+    moved = (nbytes(ops[:8]) + nbytes(ops[8])
+             + (nbytes([ops[3]]) if steps else 0))
+    d_se, d_ctx, d_par = bwd(dlp)
+    out_b = nbytes([dlp, d_se, d_ctx]) + nbytes(d_par)
+    del d_se, d_ctx, d_par
+    res = {}
+    for label, kern, kern32, ref, extra, bwd_ in (
+            ("fwd", fwd, fwd32, fwd_ref, 4 * B, False),
+            ("bwd", lambda: bwd(dlp), lambda: bwd32(dlp),
+             lambda: bwd_ref(dlp), out_b, True)):
+        turns = [time_gpu(f, reps=reps)
+                 for f in (kern32, kern, kern, kern32)]
+        plain = time_gpu(ref, reps=2 if steps else 5,
+                         sleep_cycles=400_000_000, warm=1)
+        split = replay_ops_split(cfg, B, HIDDEN, bwd_, pairs, triples)
+        t_ops = ops_ms(split, BF16)
+        b = moved + extra
+        res[label] = {
+            "ms": statistics.median(turns[1:3]),
+            "f32_ms": statistics.median((turns[0], turns[3])),
+            "turns": turns, "plain_ms": plain, "bytes": b,
+            "products": split[0], "elementwise": split[1],
+            "bound": max(1e3 * b / HBM_BYTES_S, t_ops),
+            "bound_by": ("operations" if t_ops >= 1e3 * b / HBM_BYTES_S
+                         else "bytes")}
+    return res
+
+
+def time_train_dtypes(cfg, dev, k, batch=B_MAIN):
+    """The train step at steps_per_call k in float32 and bf16 from one
+    seeded state each, in turns (f32, bf16, bf16, f32): the host clock's
+    ms/step (median of 3 calls) and utils.profiling.device_time_ms's device
+    ms/step (2 profiled calls)."""
+    from tapnet_torch import init_train_state, make_train_step
+    from tapnet_torch.utils.profiling import device_time_ms
+
+    runs = {}
+    for tag, dt in (("f32", None), ("bf16", BF16)):
+        ts = init_train_state(SEED, cfg, hidden=HIDDEN, device=dev)
+        step = make_train_step(cfg, batch=batch, hidden=HIDDEN,
+                               steps_per_call=k, compute_dtype=dt,
+                               device=dev)
+        runs[tag] = (lambda step=step, ts=ts: step(ts))
+    out = {"f32": [], "bf16": []}
+    for tag in ("f32", "bf16", "bf16", "f32"):
+        host = time_host(runs[tag], reps=3) / k
+        out[tag].append((host, device_time_ms(runs[tag], iters=2) / k))
+    return out
+
+
+def phase_24(dev):
+    """Phase 24 (module docstring): the bf16 compute dtype on the card.
+    Returns the kernels-line entries of the bf16 instantiations."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.train.trainer import assert_deterministic
+
+    t0 = time.perf_counter()
+    stamp = lambda: f"phase 24 [{time.perf_counter() - t0:.0f} s]"
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg, rcfg = CONFIGS["2d-basic"], CONFIGS["2d-rolling"]
+    mcfg = CONFIGS["multi-container"]
+    actors = {n: init_params(SEED, CONFIGS[n], HIDDEN, dev)
+              for n in ("2d-basic", "2d-rolling", "multi-container")}
+    # 1. K2 bf16 (both modes) against its plain bf16 version, lockstep
+    k2_err, kept = 0.0, {}
+    for name, B in (("2d-basic", B_MAIN), ("2d-rolling", 512),
+                    ("2d-rolling", B_MAIN), ("multi-container", 512)):
+        k, err, rate = check_actor_step_bf16(
+            CONFIGS[name], B, actors[name], dev, keep=B == B_MAIN)
+        if k is not None:
+            kept[name] = k
+        k2_err = max(k2_err, err)
+        log(f"{stamp()} actor_select_step bf16 == plain bf16: {name} B={B}, "
+            f"max logit/logp err {err:.3e}, action agreement {rate:.6f}")
+    # 2. K5 bf16 against its plain bf16 versions on the card's bf16 records
+    k5 = {}
+    for name, B, steps in (("2d-basic", B_MAIN, False),
+                           ("multi-container", 512, False),
+                           ("2d-rolling", B_MAIN, True)):
+        main_shape = B == B_MAIN
+        ops, ops32, dlp, fe, (be, ba), e0 = check_replay_bf16(
+            CONFIGS[name], B, actors[name], dev, steps, repeat=main_shape)
+        key = "steps" if steps else "mono"
+        prev = k5.get(key, {"fwd_err": 0.0, "bwd_err": 0.0, "bwd_abs": 0.0})
+        k5[key] = {"fwd_err": max(prev["fwd_err"], fe),
+                   "bwd_err": max(prev["bwd_err"], be),
+                   "bwd_abs": max(prev["bwd_abs"], ba),
+                   **({"ops": (ops, ops32, dlp)} if main_shape
+                      else {"ops": prev.get("ops")})}
+        log(f"{stamp()} replay bf16 == plain bf16 ({key}): {name} B={B}: fwd "
+            f"max err {fe:.3e}, bwd max scaled err {be:.3e} (abs {ba:.3e}); "
+            f"fwd vs the rollout's logp {e0:.3e}"
+            + ("; two bwd launches bit-identical" if main_shape else ""))
+    torch.cuda.synchronize()
+    # 3. the bf16 train step at full width
+    per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
+                "heightmap_reductions": 1}
+    train_l, ts, step = train_main_path(cfg, dev, n_steps=5,
+                                        compute_dtype=BF16)
+    log(f"{stamp()} bf16 train path launches (5 steps): {train_l}")
+    assert_deterministic(step, ts)
+    log(f"{stamp()} one bf16 train step run twice from a copy of one state: "
+        "params, optimizer state, key and metrics bit-identical")
+    agree, drew, diffs = check_train_bf16_against_cpu(cfg, ts, dev)
+    log(f"{stamp()} bf16 train step B=256 card vs CPU: action agreement "
+        f"{agree:.4f}, mean reward diff {drew:.4f}; |metric diff| {diffs}")
+    rows = check_graph_steps("2d-basic bf16", cfg, dev, per_step, 8, B_MAIN,
+                             compute_dtype=BF16, tag="phase 24")
+    roll_step = {"actor_select_step": rcfg.num_blocks,
+                 "replay_logp_bwd_steps": 1, "heightmap_reductions": 1}
+    roll_l, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=3,
+                                   compute_dtype=BF16)
+    log(f"{stamp()} bf16 rolling train path launches (3 steps): {roll_l}")
+    # 4. times
+    for name, c in (("2d-rolling", rcfg), ("2d-basic", cfg)):
+        k2 = time_actor_dtypes(kept[name], c)
+        log_actor_times("phase 24 bf16", c, k2)
+        log(f"{stamp()} actor_select_step "
+            f"main-path mode {name} B={B_MAIN} in turns: f32 "
+            f"{k2['f32_turns']}, bf16 {k2['bf16_turns']} ms/launch; the "
+            f"bf16 bound counts the products at {BF16_TC_OPS_S:.3g} op/s "
+            f"(H100 SXM dense bf16 tensor cores, data sheet), the rest at "
+            f"{F32_OPS_S:.3g}")
+    kb = {}
+    for key, c in (("mono", cfg), ("steps", rcfg)):
+        ops, ops32, dlp = k5[key]["ops"]
+        kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps")
+        for d in ("fwd", "bwd"):
+            r = kb[key][d]
+            log(f"{stamp()} replay_logp_{d}"
+                f"{'_steps' if key == 'steps' else ''} "
+                f"{'2d-rolling' if key == 'steps' else '2d-basic'} "
+                f"B={B_MAIN}: bf16 {r['ms']:.4f} ms/call, f32 "
+                f"{r['f32_ms']:.4f} (turns f32, bf16, bf16, f32: "
+                f"{r['turns']}), plain bf16 {r['plain_ms']:.3f}; "
+                f"{r['bytes']} B, {r['products']} product and "
+                f"{r['elementwise']} elementwise ops over the live columns, "
+                f"bound {r['bound']:.4f} ms ({r['bound_by']})")
+    for name, c, k in (("2d-basic", cfg, 8), ("2d-rolling", rcfg, 4)):
+        t = time_train_dtypes(c, dev, k)
+        log(f"{stamp()} train step {name} B={B_MAIN} steps_per_call {k}, "
+            f"(host ms/step, device ms/step) in turns f32, bf16, bf16, f32: "
+            f"f32 {t['f32']}, bf16 {t['bf16']}")
+    log(f"{stamp()} done in {time.perf_counter() - t0:.1f} s")
+    def entry(name, src, replaces, launches, err, r):
+        return {"name": name, "route": "cuda",
+                "source": f"tapnet_torch/csrc/{src}",
+                "replaces": f"tapnet_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "dtype": "bfloat16"}
+
+    kernels = [entry("actor_select_step", "actor_step.cu",
+                     "pallas_actor_step.py:316",
+                     train_l["actor_select_step"]
+                     + roll_l["actor_select_step"], k2_err, k2)]
+    for key, suffix in (("mono", ""), ("steps", "_steps")):
+        lines = {"mono": ("562", "610"), "steps": ("582", "635")}[key]
+        for d, line in zip(("fwd", "bwd"), lines):
+            name = f"replay_logp_{d}{suffix}"
+            kernels.append(entry(
+                name, "replay.cu", f"pallas_replay.py:{line}",
+                train_l[name] + roll_l[name],
+                k5[key]["fwd_err" if d == "fwd" else "bwd_abs"],
+                kb[key][d]))
+    return kernels, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2252,6 +2708,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1 device: {kind} | {smi} | torch {torch.__version__} "
@@ -2656,6 +3113,9 @@ def main() -> int:
     # ---- phase 23: the benchmark entry point and the world-1 data mesh
     bench, mesh_l = phase_23(dev)
 
+    # ---- phase 24: the bf16 compute dtype on the card
+    bf16_kernels, _ = phase_24(dev)
+
     kernels = [
         {"name": "select_step", "route": "cuda",
          "source": "tapnet_torch/csrc/policy_step.cu",
@@ -2734,6 +3194,9 @@ def main() -> int:
          "max_abs_err": k5bs_err, "ms": k5bs_ms, "plain_ms": k5bs_plain,
          "bound_ms": k5bs_bound, "bound_by": k5bs_by, "library_ms": None},
     ]
+    for k in kernels:
+        k["dtype"] = "float32"
+    kernels += bf16_kernels
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s"
         " (build included)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -508,6 +508,7 @@ def main(argv=None) -> int:
                      f"{sorted(all_named)}")
     dev = _device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = CONFIGS["2d-basic"]
     baseline = measure_oracle_steps_per_s(cfg)
     native_1t = measure_native_steps_per_s(cfg, n_threads=1)

@@ -85,8 +85,22 @@
 //   The wrapper refuses a plan above the 227 KB a block may hold; h must
 //   be a multiple of 32, at most 128.
 //
+// Compute dtype (the JAX kernel's static `dtype`): the element type E of
+// the float operands, float or __nv_bfloat16 (v, the gumbel, t/N, the
+// logits and log pi are float in both). The bfloat16 instantiations read
+// bfloat16 from device memory (half the bytes of se, the static features
+// and the weights), convert on load and compute in f32 as the float ones
+// do, rounding to bfloat16 (to nearest even, `rnd`) exactly where the JAX
+// kernel casts to its compute dtype: the count summary and t/N, the
+// normalised heightmap and its mean, each Dense product before and after
+// its bias, dyn, se + dyn, + q, tanh and each score. Shared memory holds
+// those rounded values as float, so both instantiations share the plan and
+// every helper; in float every `rnd` is the identity and the code is the
+// float kernel's.
+//
 // The device code of phases 1-2 follows replay.cu's forward (K5f) and is a
 // copy, not a shared header: K5 stays bit-identical to itself.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -109,11 +123,35 @@ constexpr int TOKW = 4;         // 32-bit words of token bits: T <= 128
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
+
+// a read-only load as float
+template <class E>
+__device__ __forceinline__ float ldg(const E* p) {
+  return f32(__ldg(p));
+}
+
+// x rounded to E and back: the JAX kernel's cast to its compute dtype
+template <class E>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (std::is_same_v<E, float>) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+template <class E>
 struct HeadW {
-  const float *w8t, *b8, *wpt, *w1t, *b1, *w2t, *b2, *et, *wqt, *bq, *v;
-  const float *w1T, *w2T, *wqT;  // W1, W2, Wq transposed: [in][h]
+  const E *w8t, *b8, *wpt, *w1t, *b1, *w2t, *b2, *et, *wqt, *bq;
+  const float* v;
+  const E *w1T, *w2T, *wqT;  // W1, W2, Wq transposed: [in][h]
 };
 
+template <class E>
 struct ActorIO {
   const float* tf;     // [1]
   const int* prev;     // [B]
@@ -121,10 +159,10 @@ struct ActorIO {
   const int* rotm;     // [L*N, B]
   const int* fits;     // [R*N, B]
   const float* g;      // [A, B] gumbel (zeros = greedy)
-  const float* se;     // [B, T, h] static keys, one row per column
-  const float* ctx;    // [h, B] mean static key
-  const float* statp;  // [4, T, B] static token features
-  const float* statm;  // [4, B] their mean over tokens
+  const E* se;         // [B, T, h] static keys, one row per column
+  const E* ctx;        // [h, B] mean static key
+  const E* statp;      // [4, T, B] static token features
+  const E* statm;      // [4, B] their mean over tokens
   int* flags_o;        // [N, B]
   int* mask_o;         // [A, B]
   float* logits_o;     // [A, B] (LOGITS only)
@@ -173,27 +211,44 @@ __host__ __device__ inline int n_ints(int N, int R) {
   return 12 * TB + TOKW * TB + TB + 1 + 1 + TB * N * R;
 }
 
+// The 16 bytes v as float at dst (4 floats, or 8 bfloat16 converted).
+template <class E>
+__device__ __forceinline__ void put16(float* dst, const uint4& v) {
+  if constexpr (std::is_same_v<E, float>) {
+    *reinterpret_cast<float4*>(dst) = reinterpret_cast<const float4&>(v);
+  } else {
+    const bf16* p = reinterpret_cast<const bf16*>(&v);
+    float4 a, b;
+    a.x = f32(p[0]); a.y = f32(p[1]); a.z = f32(p[2]); a.w = f32(p[3]);
+    b.x = f32(p[4]); b.y = f32(p[5]); b.z = f32(p[6]); b.w = f32(p[7]);
+    reinterpret_cast<float4*>(dst)[0] = a;
+    reinterpret_cast<float4*>(dst)[1] = b;
+  }
+}
+
 // out[j] = sum_k W[j, k] x[k][lane] for every row j < h (a warp owns the
 // h/16 rows wy*h/16 ..), W given transposed, WT [cols][h]: slices of KS of
-// its rows are copied to shared memory S as they lie (float4, the next
-// slice's loads in flight while this one is multiplied) and read as
-// float4 (h = 64, 128) or float2 broadcasts, so one load of x feeds h/16
-// multiply-adds. emit(j, acc) stores row j. The caller follows with a
-// barrier before S or the outputs are reused.
-template <class Emit>
-__device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
+// its rows are copied to shared memory S as they lie (16-byte loads, as
+// float, the next slice's loads in flight while this one is multiplied)
+// and read as float4 (h = 64, 128) or float2 broadcasts, so one load of x
+// feeds h/16 multiply-adds. emit(j, acc) stores row j. The caller follows
+// with a barrier before S or the outputs are reused.
+template <class E, class Emit>
+__device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
                          const float* x, float* S, int lane, int wy, int tid,
                          Emit emit) {
+  constexpr int PV = 16 / sizeof(E);         // elements per 16 bytes
+  constexpr int NV = KS * 128 / PV / NT;     // a slice of KS * 128 at most
   const int RW = h / NWARP;  // 2 (h = 32) .. 8 (h = 128)
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const float4* src = reinterpret_cast<const float4*>(WT);
-  float4 v[KS * 128 / 4 / NT];  // a slice of at most KS * 128 floats
+  const uint4* src = reinterpret_cast<const uint4*>(WT);
+  uint4 v[NV];
   auto load = [&](int k0) {
-    const int n4 = min(KS, cols - k0) * h / 4;
+    const int nv = min(KS, cols - k0) * h / PV;
 #pragma unroll
-    for (int u = 0; u < KS * 128 / 4 / NT; ++u) {
+    for (int u = 0; u < NV; ++u) {
       const int e = tid + u * NT;
-      if (e < n4) v[u] = __ldg(src + (size_t)k0 * h / 4 + e);
+      if (e < nv) v[u] = __ldg(src + (size_t)k0 * h / PV + e);
     }
   };
   load(0);
@@ -201,9 +256,9 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
     const int nk = min(KS, cols - k0);
     __syncthreads();  // S is free
 #pragma unroll
-    for (int u = 0; u < KS * 128 / 4 / NT; ++u) {
+    for (int u = 0; u < NV; ++u) {
       const int e = tid + u * NT;
-      if (e < nk * h / 4) reinterpret_cast<float4*>(S)[e] = v[u];
+      if (e < nk * h / PV) put16<E>(S + e * PV, v[u]);
     }
     __syncthreads();
     if (k0 + KS < cols) load(k0 + KS);
@@ -284,10 +339,11 @@ __device__ __forceinline__ Word column(const int* m, int i, int N, int lane) {
 
 using tapnet::PlacePart;
 
-template <bool MCS, bool WIDE, bool LOGITS>
+template <bool MCS, bool WIDE, bool LOGITS, class E>
 __global__ void __launch_bounds__(NT, 1)
-actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
-                  int B, int h, float inv_s, float temperature, int window) {
+actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
+                  HeadW<E> hw, int B, int h, float inv_s, float temperature,
+                  int window) {
   using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
   extern __shared__ __align__(16) float smem[];
   const int N = c.N, R = c.R, C = c.C, WD = c.W * c.D;
@@ -343,22 +399,22 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
     }, [&](int j, int v) { pkS[j * TB + lane] = v; });
     const int idx = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
     tapnet::rows8<NWARP>(2 * h, wy, [&](int j) {
-      return j < h ? ai.ctx[(size_t)j * B + bb]
-                   : __ldg(hw.et + (size_t)(j - h) * (A + 1) + idx);
+      return j < h ? f32(ai.ctx[(size_t)j * B + bb])
+                   : ldg(hw.et + (size_t)(j - h) * (A + 1) + idx);
     }, [&](int j, float v) { qin[(h + j) * LD + lane] = v; });
     {
       float v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {  // Wp^T: 32 h <= 8 NT elements
         const int e = tid + u * NT, k = e / h, j = e - k * h;
-        v[u] = e < 32 * h ? __ldg(hw.wpt + j * 32 + k) : 0.f;
+        v[u] = e < 32 * h ? ldg(hw.wpt + j * 32 + k) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u)
         if (tid + u * NT < 32 * h) Ws[tid + u * NT] = v[u];
     }
-    if (tid < 256) W8s[tid] = __ldg(hw.w8t + tid);
-    if (tid < 32) b8s[tid] = __ldg(hw.b8 + tid);
+    if (tid < 256) W8s[tid] = ldg(hw.w8t + tid);
+    if (tid < 32) b8s[tid] = ldg(hw.b8 + tid);
     if (tid < h) vs[tid] = __ldg(hw.v + tid);
     if (wy == 0)
       for (int k = 1; k < 6; ++k) wb[k * TB + lane] = 0;
@@ -421,12 +477,12 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
       const float far = (float)popw(arm);
       const float acc_mean = R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
       float* ds = qin + 3 * h * LD;
-      ds[0 * LD + lane] = fpk / (float)N;
-      ds[1 * LD + lane] = acc_mean;
-      ds[2 * LD + lane] = (float)popw(wnm) / (float)N;
-      ds[3 * LD + lane] = tf;
+      ds[0 * LD + lane] = rnd<E>(fpk / (float)N);
+      ds[1 * LD + lane] = rnd<E>(acc_mean);
+      ds[2 * LD + lane] = rnd<E>((float)popw(wnm) / (float)N);
+      ds[3 * LD + lane] = rnd<E>(tf);
       for (int k = 0; k < 4; ++k)
-        ds[(4 + k) * LD + lane] = ai.statm[(size_t)k * B + bb];
+        ds[(4 + k) * LD + lane] = f32(ai.statm[(size_t)k * B + bb]);
       int x = n;  // inclusive scan over the lanes
       for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(FULL, x, o);
@@ -467,7 +523,8 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
     // ---- phase 1: heightmap encoder and query, per container
     for (int cc = 0; cc < C; ++cc) {
       for (int k = wy; k < WD; k += NWARP)
-        feats[k * LD + lane] = (float)io.hm[(cc * WD + k) * B + bb] * inv_s;
+        feats[k * LD + lane] =
+            rnd<E>((float)io.hm[(cc * WD + k) * B + bb] * inv_s);
       __syncthreads();
       if (wy == 0) {
         float mx = feats[lane], sm = 0.f;
@@ -476,21 +533,22 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
           sm += feats[k * LD + lane];
         }
         feats[WD * LD + lane] = mx;
-        feats[(WD + 1) * LD + lane] = sm / (float)WD;
+        feats[(WD + 1) * LD + lane] = rnd<E>(sm / (float)WD);
       }
       __syncthreads();
       mv_tiled(hw.w1T, h, WD + 2, feats, stg, lane, wy, tid,
                [&](int j, float acc) {
-        e1[j * LD + lane] = fmaxf(acc + __ldg(hw.b1 + j), 0.f);
+        e1[j * LD + lane] =
+            fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
       });
       __syncthreads();
       mv_tiled(hw.w2T, h, h, e1, stg, lane, wy, tid, [&](int j, float acc) {
-        qin[j * LD + lane] = acc + __ldg(hw.b2 + j);
+        qin[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j));
       });
       __syncthreads();
       float* qc = qs + cc * h * LD;
       mv_tiled(hw.wqT, h, FQ, qin, stg, lane, wy, tid, [&](int j, float acc) {
-        qc[j * LD + lane] = acc + __ldg(hw.bq + j);
+        qc[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
       });
       __syncthreads();
     }
@@ -506,10 +564,10 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
       for (int i = 0; i < CPW; ++i) {
         const int cc = wy * CPW + i;
         const int e = cols[g0 + min(cc, ng - 1)], l = e & 31, t = e >> 5;
-        const float* sep = ai.se + ((size_t)(tile0 + l) * T + t) * h;
+        const E* sep = ai.se + ((size_t)(tile0 + l) * T + t) * h;
 #pragma unroll
         for (int r = 0; r < MAXR; ++r)
-          sev[i][r] = (r < RPL && cc < ng) ? sep[lane + 32 * r] : 0.f;
+          sev[i][r] = (r < RPL && cc < ng) ? f32(sep[lane + 32 * r]) : 0.f;
       }
       // x8 and h1 = relu(W8 x8 + b8) of the group's columns
       if (tid < G) {
@@ -520,9 +578,9 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
           f[0] = (float)((wb[l] >> i) & 1);
           f[1] = (float)((wb[(r == 0 ? 1 : 2) * TB + l] >> i) & 1);
           f[2] = (float)((wb[3 * TB + l] >> i) & 1);
-          f[3] = tf;
+          f[3] = rnd<E>(tf);
           for (int m = 0; m < 4; ++m)
-            f[4 + m] = ai.statp[((size_t)m * T + t) * B + tile0 + l];
+            f[4 + m] = f32(ai.statp[((size_t)m * T + t) * B + tile0 + l]);
         }
         for (int m = 0; m < 8; ++m) x8[m * G + tid] = f[m];
       }
@@ -533,7 +591,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
           float acc = 0.f;
           for (int f = 0; f < 8; ++f)
             acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
-          h1[m * G + c4 + i] = fmaxf(acc + b8s[m], 0.f);
+          h1[m * G + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
         }
       }
       __syncthreads();
@@ -558,6 +616,10 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
           dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
         }
       }
+#pragma unroll
+      for (int i = 0; i < CPW; ++i)
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) dyn[i][r] = rnd<E>(dyn[i][r]);
       // the attention epilogue: a column's score per container, a warp sum
 #pragma unroll
       for (int i = 0; i < CPW; ++i) {
@@ -571,12 +633,13 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO ai, HeadW hw,
           for (int r = 0; r < MAXR; ++r) {
             if (r < RPL) {
               const int j = lane + 32 * r;
-              const float sd = sev[i][r] + dyn[i][r];
-              ps = fmaf(tanhf(sd + qc[j * LD + l]), vs[j], ps);
+              const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
+              const float act = rnd<E>(tanhf(rnd<E>(sd + qc[j * LD + l])));
+              ps = fmaf(act, vs[j], ps);
             }
           }
           ps = warp_sum(ps);
-          if (lane == 0) sc[(t * C + k) * TB + l] = ps;
+          if (lane == 0) sc[(t * C + k) * TB + l] = rnd<E>(ps);
         }
       }
     }
@@ -735,13 +798,49 @@ static size_t smem_bytes(int N, int R, int C, int WD, int h) {
   return 4 * (size_t)(layout(N, R, C, WD, h).floats + n_ints(N, R));
 }
 
-using KernelFn = void (*)(tapnet::EnvCfg, tapnet::StepIO, ActorIO, HeadW,
-                         int, int, float, float, int);
+template <class E>
+using KernelFn = void (*)(tapnet::EnvCfg, tapnet::StepIO, ActorIO<E>,
+                          HeadW<E>, int, int, float, float, int);
 
-template <bool MCS, bool WIDE>
-static KernelFn pick(bool logits) {
-  if (logits) return actor_step_kernel<MCS, WIDE, true>;
-  return actor_step_kernel<MCS, WIDE, false>;
+template <bool MCS, bool WIDE, class E>
+static KernelFn<E> pick(bool logits) {
+  if (logits) return actor_step_kernel<MCS, WIDE, true, E>;
+  return actor_step_kernel<MCS, WIDE, false, E>;
+}
+
+template <class E>
+static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
+                  int window, bool logits, float inv_s, float temperature,
+                  void* stream) {
+  const bool wide = window > 0 || c.N > 31;
+  const tapnet::StepIO io{
+      (const int*)p[0], (const int*)p[1], (const int*)p[2],
+      (const int*)p[3], (const int*)p[4], (const int*)p[5],
+      (int*)p[27],      (int*)p[28],      (int*)p[29],      (int*)p[30]};
+  const ActorIO<E> ai{(const float*)p[6], (const int*)p[7],
+                      (const int*)p[8],   (const int*)p[9],
+                      (const int*)p[10],  (const float*)p[11],
+                      (const E*)p[12],    (const E*)p[13],
+                      (const E*)p[14],    (const E*)p[15],
+                      (int*)p[31],        (int*)p[32],
+                      (float*)p[33],      (float*)p[34]};
+  const HeadW<E> hw{(const E*)p[16], (const E*)p[17], (const E*)p[18],
+                    (const E*)p[19], (const E*)p[20], (const E*)p[21],
+                    (const E*)p[22], (const E*)p[23], (const E*)p[24],
+                    (const E*)p[25], (const float*)p[26], (const E*)p[35],
+                    (const E*)p[36], (const E*)p[37]};
+  const size_t smem = smem_bytes(c.N, c.R, c.C, c.W * c.D, h);
+  const KernelFn<E> kernel = wide ? (c.mcs ? pick<true, true, E>(logits)
+                                           : pick<false, true, E>(logits))
+                                  : (c.mcs ? pick<true, false, E>(logits)
+                                           : pick<false, false, E>(logits));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(TB, NWARP);
+  kernel<<<(B + TB - 1) / TB, block, smem, (cudaStream_t)stream>>>(
+      c, io, ai, hw, B, h, inv_s, temperature, window);
+  return (int)cudaGetLastError();
 }
 
 // ptrs: packed, hm, plc, dims_w, dims_d, dims_h,                       (0-5)
@@ -750,48 +849,25 @@ static KernelFn pick(bool logits) {
 //       packed_o, hm_o, plc_o, act_o, flags_o, mask_o, logits_o, logp_o (27-34)
 //       w1t^T, w2t^T, wqt^T                                            (35-37)
 // ints: B, the EnvCfg fields (select_place.cuh env_cfg), h, window, logits
-// (1: the full mode, logits_o written; 0: live columns, logits_o unused).
-// h: a multiple of 32, at most 128. Launches on `stream`; returns
-// cudaGetLastError() after the launch.
+// (1: the full mode, logits_o written; 0: live columns, logits_o unused),
+// bf16 (1: se, ctx, statp, statm and the weights other than v are
+// bfloat16; 0: float). h: a multiple of 32, at most 128. Launches on
+// `stream`; returns cudaGetLastError() after the launch.
 extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                                         float inv_s, float temperature,
                                         void* stream) {
   const int B = ints[0], h = ints[1 + tapnet::ENV_INTS];
   const int window = ints[2 + tapnet::ENV_INTS];
   const bool logits = ints[3 + tapnet::ENV_INTS] != 0;
+  const bool bf = ints[4 + tapnet::ENV_INTS] != 0;
   const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
   if (c.N > MAX_N || c.C > MAX_C || c.W * c.D > tapnet::MAX_WD ||
       h % 32 != 0 || h <= 0 || h > 32 * MAXR || B <= 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)c.N * c.R * h * B >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const bool wide = window > 0 || c.N > 31;
-  const tapnet::StepIO io{
-      (const int*)p[0], (const int*)p[1], (const int*)p[2],
-      (const int*)p[3], (const int*)p[4], (const int*)p[5],
-      (int*)p[27],      (int*)p[28],      (int*)p[29],      (int*)p[30]};
-  const ActorIO ai{(const float*)p[6],  (const int*)p[7],
-                   (const int*)p[8],    (const int*)p[9],
-                   (const int*)p[10],   (const float*)p[11],
-                   (const float*)p[12], (const float*)p[13],
-                   (const float*)p[14], (const float*)p[15],
-                   (int*)p[31],         (int*)p[32],
-                   (float*)p[33],       (float*)p[34]};
-  const HeadW hw{(const float*)p[16], (const float*)p[17], (const float*)p[18],
-                 (const float*)p[19], (const float*)p[20], (const float*)p[21],
-                 (const float*)p[22], (const float*)p[23], (const float*)p[24],
-                 (const float*)p[25], (const float*)p[26], (const float*)p[35],
-                 (const float*)p[36], (const float*)p[37]};
-  const size_t smem = smem_bytes(c.N, c.R, c.C, c.W * c.D, h);
-  const KernelFn kernel = wide ? (c.mcs ? pick<true, true>(logits)
-                              : pick<false, true>(logits))
-                     : (c.mcs ? pick<true, false>(logits)
-                              : pick<false, false>(logits));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(TB, NWARP);
-  kernel<<<(B + TB - 1) / TB, block, smem, (cudaStream_t)stream>>>(
-      c, io, ai, hw, B, h, inv_s, temperature, window);
-  return (int)cudaGetLastError();
+  return bf ? launch<bf16>(p, c, B, h, window, logits, inv_s, temperature,
+                           stream)
+            : launch<float>(p, c, B, h, window, logits, inv_s, temperature,
+                            stream);
 }

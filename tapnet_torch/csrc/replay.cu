@@ -91,8 +91,20 @@
 // previous action arrives as its own operand `prev` [S, B] (a chunk's first
 // step needs the step before it).
 //
+// Compute dtype (the JAX kernels' `dtype_name`): the element type E of the
+// float operands se, ctx, statp, statm and the weights other than v, float
+// or __nv_bfloat16. The bfloat16 instantiations read bfloat16 from device
+// memory and compute in f32, rounding to bfloat16 (`rnd`) where the JAX
+// `_head_fwd` casts to its compute dtype (as actor_step.cu does); the
+// backward works in f32 from that rounded forward (which it re-runs) and the
+// f32 values of the bfloat16 weights, as `_bwd_step` does, and writes f32
+// gradients (the wrapper casts each to its operand's dtype). Shared memory
+// holds the rounded values as float: both instantiations share the plan
+// and every helper, and in float every `rnd` is the identity.
+//
 // The head's device code is a copy of actor_step.cu's, not a shared header:
 // the layouts differ, and K2's results stay as they were.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -118,21 +130,45 @@ struct Dims {
   int B, N, W, D, R, C, h;
 };
 
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
+
+// a read-only load as float
+template <class E>
+__device__ __forceinline__ float ldg(const E* p) {
+  return f32(__ldg(p));
+}
+
+// x rounded to E and back: the JAX kernels' cast to their compute dtype
+template <class E>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (std::is_same_v<E, float>) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+template <class E>
 struct HeadW {
-  const float *w8t, *b8, *wpt, *w1t, *b1, *w2t, *b2, *et, *wqt, *bq, *v;
-  const float *w1T, *w2T, *wqT;  // W1, W2, Wq transposed: [in][h]
+  const E *w8t, *b8, *wpt, *w1t, *b1, *w2t, *b2, *et, *wqt, *bq;
+  const float* v;
+  const E *w1T, *w2T, *wqT;  // W1, W2, Wq transposed: [in][h]
 };
 
+template <class E>
 struct ReplayIn {
   const int* flags;    // [S, N, B]
   const int* hms;      // [S, C*W*D, B]
   const int* masks;    // [S, A, B]
   const int* acts;     // [S, B]
   const int* prev;     // [S, B], acts shifted by a step (step-grid only)
-  const float* se;     // [B, T, h]
-  const float* ctx;    // [h, B]
-  const float* statp;  // [4, T, B]
-  const float* statm;  // [4, B]
+  const E* se;         // [B, T, h]
+  const E* ctx;        // [h, B]
+  const E* statp;      // [4, T, B]
+  const E* statm;      // [4, B]
   const float* dlp;    // [B] (backward only)
 };
 
@@ -198,23 +234,40 @@ __host__ __device__ inline int n_ints(const Dims& d, bool steps) {
   return (steps ? 8 : 4) * TB + 4 * TB + TB + 1 + 1 + TB * d.N * d.R;
 }
 
+// The 16 bytes v as float at dst (4 floats, or 8 bfloat16 converted).
+template <class E>
+__device__ __forceinline__ void put16(float* dst, const uint4& v) {
+  if constexpr (std::is_same_v<E, float>) {
+    *reinterpret_cast<float4*>(dst) = reinterpret_cast<const float4&>(v);
+  } else {
+    const bf16* p = reinterpret_cast<const bf16*>(&v);
+    float4 a, b;
+    a.x = f32(p[0]); a.y = f32(p[1]); a.z = f32(p[2]); a.w = f32(p[3]);
+    b.x = f32(p[4]); b.y = f32(p[5]); b.z = f32(p[6]); b.w = f32(p[7]);
+    reinterpret_cast<float4*>(dst)[0] = a;
+    reinterpret_cast<float4*>(dst)[1] = b;
+  }
+}
+
 // out[j] = sum_k W[j, k] x[k][lane] for every row j < h (a warp owns the
 // h/16 rows wy*h/16 ..): W given transposed, WT [cols][h]; slices of KS of
-// its rows are staged in shared memory S and read as float2 broadcasts, so
-// one load of x feeds h/16 multiply-adds. emit(j, acc) stores row j. The
-// caller follows with a barrier before S or the outputs are reused.
-template <class Emit>
-__device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
+// its rows are staged in shared memory S as float (16-byte loads) and read
+// as float2 broadcasts, so one load of x feeds h/16 multiply-adds.
+// emit(j, acc) stores row j. The caller follows with a barrier before S or
+// the outputs are reused.
+template <class E, class Emit>
+__device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
                          const float* x, float* S, int lane, int wy, int tid,
                          Emit emit) {
+  constexpr int PV = 16 / sizeof(E);  // elements per 16 bytes
   const int RW = h / NWARP;  // 2 (h = 32) .. 8 (h = 128)
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k0 = 0; k0 < cols; k0 += KS) {
     const int nk = min(KS, cols - k0);
     __syncthreads();  // S is free
-    const float4* src = reinterpret_cast<const float4*>(WT + (size_t)k0 * h);
-    float4* dst = reinterpret_cast<float4*>(S);
-    for (int e = tid; e < nk * h / 4; e += NT) dst[e] = __ldg(src + e);
+    const uint4* src = reinterpret_cast<const uint4*>(WT + (size_t)k0 * h);
+    for (int e = tid; e < nk * h / PV; e += NT)
+      put16<E>(S + e * PV, __ldg(src + e));
     __syncthreads();
     for (int kk = 0; kk < nk; ++kk) {
       const float xv = x[(k0 + kk) * LD + lane];
@@ -238,8 +291,8 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
 // a warp owns cols/16 <= MAXCW of them), W row-major with `ld` columns:
 // slices of JS rows are staged in S (JS * cols floats: the backward's
 // token view holds them), one load of g feeds cols/16 multiply-adds.
-template <int MAXCW, class Emit>
-__device__ void mvt_tiled(const float* __restrict__ Wm, int rows, int cols,
+template <int MAXCW, class E, class Emit>
+__device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
                           int ld, const float* g, float* S, int lane, int wy,
                           int tid, Emit emit) {
   const int CW = cols / NWARP;
@@ -251,7 +304,7 @@ __device__ void mvt_tiled(const float* __restrict__ Wm, int rows, int cols,
     __syncthreads();  // S is free
     for (int e = tid; e < nj * cols; e += NT) {
       const int jj = e / cols, k = e - jj * cols;
-      S[e] = __ldg(Wm + (size_t)(j0 + jj) * ld + k);
+      S[e] = ldg(Wm + (size_t)(j0 + jj) * ld + k);
     }
     __syncthreads();
     for (int jj = 0; jj < nj; ++jj) {
@@ -346,11 +399,11 @@ __device__ __forceinline__ int popw(unsigned long long x) {
 // steps per chunk. Monolithic: one chunk of all S steps. The backward
 // writes d_se into `dse_o` [chunks, B, T, h] (zeroed here) and d_ctx into
 // `dctx_o` (its chunk's [h, B], zeroed here).
-template <bool BWD, bool STEPS>
+template <bool BWD, bool STEPS, class E>
 __global__ void __launch_bounds__(NT)
-replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
-              float inv_temp, float* logp_o, float* dse_o, float* dctx_o,
-              float* part_o, int len) {
+replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
+              float temperature, float inv_temp, float* logp_o, float* dse_o,
+              float* dctx_o, float* part_o, int len) {
   using Word = std::conditional_t<STEPS, unsigned long long, int>;
   extern __shared__ __align__(16) float smem[];
   const int N = d.N, R = d.R, C = d.C, h = d.h, B = d.B;
@@ -406,10 +459,10 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
 
   for (int e = tid; e < 32 * h; e += NT) {
     const int k = e / h, j = e - k * h;
-    Ws[e] = __ldg(w.wpt + j * 32 + k);
+    Ws[e] = ldg(w.wpt + j * 32 + k);
   }
-  for (int e = tid; e < 256; e += NT) W8s[e] = __ldg(w.w8t + e);
-  if (tid < 32) b8s[tid] = __ldg(w.b8 + tid);
+  for (int e = tid; e < 256; e += NT) W8s[e] = ldg(w.w8t + e);
+  if (tid < 32) b8s[tid] = ldg(w.b8 + tid);
   for (int e = tid; e < h; e += NT) vs[e] = __ldg(w.v + e);
   if (BWD) {
     for (int e = tid; e < go.P; e += NT) prow[e] = 0.f;
@@ -436,8 +489,8 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
   auto fill_qin = [&](int k) {
     const int idx = ia[lane];
     for (int j = wy; j < h; j += NWARP) {
-      qin[(h + j) * LD + lane] = in.ctx[(size_t)j * B + bb];
-      qin[(2 * h + j) * LD + lane] = __ldg(w.et + (size_t)j * (A + 1) + idx);
+      qin[(h + j) * LD + lane] = f32(in.ctx[(size_t)j * B + bb]);
+      qin[(2 * h + j) * LD + lane] = ldg(w.et + (size_t)j * (A + 1) + idx);
     }
     if (wy == 0) {
       const float fpk = (float)popw(wb[lane]);
@@ -445,12 +498,13 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
       const float far = (float)popw(wb[2 * TB + lane]);
       const float fwn = (float)popw(wb[3 * TB + lane]);
       float* ds = qin + 3 * h * LD;
-      ds[0 * LD + lane] = fpk / (float)N;
-      ds[1 * LD + lane] = R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
-      ds[2 * LD + lane] = fwn / (float)N;
-      ds[3 * LD + lane] = (float)k / (float)S;
+      ds[0 * LD + lane] = rnd<E>(fpk / (float)N);
+      ds[1 * LD + lane] =
+          rnd<E>(R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N);
+      ds[2 * LD + lane] = rnd<E>(fwn / (float)N);
+      ds[3 * LD + lane] = rnd<E>((float)k / (float)S);
       for (int r = 0; r < 4; ++r)
-        ds[(4 + r) * LD + lane] = in.statm[(size_t)r * B + bb];
+        ds[(4 + r) * LD + lane] = f32(in.statm[(size_t)r * B + bb]);
     }
   };
 
@@ -459,7 +513,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
   auto encode = [&](int k, int c) {
     const int* hk = in.hms + ((size_t)k * C * WD + (size_t)c * WD) * B;
     for (int x = wy; x < WD; x += NWARP)
-      feats[x * LD + lane] = (float)hk[(size_t)x * B + bb] * inv_s;
+      feats[x * LD + lane] = rnd<E>((float)hk[(size_t)x * B + bb] * inv_s);
     __syncthreads();
     if (wy == 0) {
       float mx = feats[lane], sm = 0.f;
@@ -468,16 +522,16 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         sm += feats[x * LD + lane];
       }
       feats[WD * LD + lane] = mx;
-      feats[(WD + 1) * LD + lane] = sm / (float)WD;
+      feats[(WD + 1) * LD + lane] = rnd<E>(sm / (float)WD);
     }
     __syncthreads();
     mv_tiled(w.w1T, h, WD + 2, feats, stg, lane, wy, tid,
              [&](int j, float acc) {
-      e1[j * LD + lane] = fmaxf(acc + __ldg(w.b1 + j), 0.f);
+      e1[j * LD + lane] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
     });
     __syncthreads();
     mv_tiled(w.w2T, h, h, e1, stg, lane, wy, tid, [&](int j, float acc) {
-      qin[j * LD + lane] = acc + __ldg(w.b2 + j);
+      qin[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
     });
     __syncthreads();
   };
@@ -485,7 +539,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
   // q_c = Wq qin + bq into qs; ends in a barrier
   auto query = [&]() {
     mv_tiled(w.wqT, h, FQ, qin, stg, lane, wy, tid, [&](int j, float acc) {
-      qs[j * LD + lane] = acc + __ldg(w.bq + j);
+      qs[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
     });
     __syncthreads();
   };
@@ -500,9 +554,9 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         f[0] = (float)((wb[l] >> i) & 1);
         f[1] = (float)((wb[(r == 0 ? 1 : 2) * TB + l] >> i) & 1);
         f[2] = (float)((wb[3 * TB + l] >> i) & 1);
-        f[3] = (float)k / (float)S;
+        f[3] = rnd<E>((float)k / (float)S);
         for (int m = 0; m < 4; ++m)
-          f[4 + m] = in.statp[((size_t)m * T + t) * B + tile0 + l];
+          f[4 + m] = f32(in.statp[((size_t)m * T + t) * B + tile0 + l]);
       }
       for (int m = 0; m < 8; ++m) x8[m * G + tid] = f[m];
     }
@@ -513,7 +567,7 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         float acc = 0.f;
         for (int f = 0; f < 8; ++f)
           acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
-        h1[m * G + c4 + i] = fmaxf(acc + b8s[m], 0.f);
+        h1[m * G + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
       }
     }
     __syncthreads();
@@ -540,6 +594,10 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
       }
     }
+#pragma unroll
+    for (int i = 0; i < CPW; ++i)
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) dyn[i][r] = rnd<E>(dyn[i][r]);
   };
 
   // se rows of this warp's columns of a group, loaded before the group's
@@ -549,10 +607,10 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
     for (int i = 0; i < CPW; ++i) {
       const int cc = wy * CPW + i;
       const int e = cols[g0 + min(cc, ng - 1)], l = e & 31, t = e >> 5;
-      const float* sep = in.se + ((size_t)(tile0 + l) * T + t) * h;
+      const E* sep = in.se + ((size_t)(tile0 + l) * T + t) * h;
 #pragma unroll
       for (int r = 0; r < MAXR; ++r)
-        sev[i][r] = (r < RPL && cc < ng) ? sep[lane + 32 * r] : 0.f;
+        sev[i][r] = (r < RPL && cc < ng) ? f32(sep[lane + 32 * r]) : 0.f;
     }
   };
 
@@ -575,12 +633,13 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         for (int r = 0; r < MAXR; ++r) {
           if (r < RPL) {
             const int j = lane + 32 * r;
-            const float sd = sev[i][r] + dyn[i][r];
-            ps = fmaf(tanhf(sd + qs[j * LD + l]), vs[j], ps);
+            const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
+            const float act = rnd<E>(tanhf(rnd<E>(sd + qs[j * LD + l])));
+            ps = fmaf(act, vs[j], ps);
           }
         }
         ps = warp_sum(ps);
-        if (lane == 0) sc[(g0 + cc) * C + c] = ps;
+        if (lane == 0) sc[(g0 + cc) * C + c] = rnd<E>(ps);
       }
     }
     __syncthreads();
@@ -613,8 +672,8 @@ replay_kernel(Dims d, ReplayIn in, HeadW w, float inv_s, float temperature,
         for (int r = 0; r < MAXR; ++r) {
           if (r < RPL) {
             const int j = lane + 32 * r;
-            const float sd = sev[i][r] + dyn[i][r];
-            const float act = tanhf(sd + qs[j * LD + l]);
+            const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
+            const float act = rnd<E>(tanhf(rnd<E>(sd + qs[j * LD + l])));
             dvr[r] = fmaf(act, ds, dvr[r]);
             const float dpre = (vs[j] * ds) * (1.f - act * act);
             ddc[j] = dpre;
@@ -910,20 +969,20 @@ static long long smem_bytes(const Dims& d, int bwd, bool steps) {
   return 4ll * (layout(d, bwd != 0).floats + n_ints(d, steps));
 }
 
-template <bool STEPS>
+template <bool STEPS, class E>
 static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                   float inv_s, float temperature, float inv_temp,
                   void* stream) {
-  const ReplayIn in{(const int*)p[0],   (const int*)p[1],
-                    (const int*)p[2],   (const int*)p[3],
-                    (const int*)p[25],  (const float*)p[4],
-                    (const float*)p[5], (const float*)p[6],
-                    (const float*)p[7], (const float*)p[8]};
-  const HeadW w{(const float*)p[9],  (const float*)p[10], (const float*)p[11],
-                (const float*)p[12], (const float*)p[13], (const float*)p[14],
-                (const float*)p[15], (const float*)p[16], (const float*)p[17],
-                (const float*)p[18], (const float*)p[19], (const float*)p[29],
-                (const float*)p[30], (const float*)p[31]};
+  const ReplayIn<E> in{(const int*)p[0],  (const int*)p[1],
+                       (const int*)p[2],  (const int*)p[3],
+                       (const int*)p[25], (const E*)p[4],
+                       (const E*)p[5],    (const E*)p[6],
+                       (const E*)p[7],    (const float*)p[8]};
+  const HeadW<E> w{(const E*)p[9],  (const E*)p[10], (const E*)p[11],
+                   (const E*)p[12], (const E*)p[13], (const E*)p[14],
+                   (const E*)p[15], (const E*)p[16], (const E*)p[17],
+                   (const E*)p[18], (const float*)p[19], (const E*)p[29],
+                   (const E*)p[30], (const E*)p[31]};
   const size_t smem = (size_t)smem_bytes(d, bwd, STEPS);
   const int tiles = (d.B + TB - 1) / TB;
   const int S = d.N;
@@ -935,7 +994,7 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   const int T = d.N * d.R;
   cudaError_t err;
   if (!bwd) {
-    auto kernel = replay_kernel<false, STEPS>;
+    auto kernel = replay_kernel<false, STEPS, E>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -949,7 +1008,7 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                                                     (float*)p[20]);
     return (int)cudaGetLastError();
   }
-  auto kernel = replay_kernel<true, STEPS>;
+  auto kernel = replay_kernel<true, STEPS, E>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -966,9 +1025,9 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                                                 tiles * nc, P, (float*)p[24]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int E = T * d.h;
-  sum_transpose<<<dim3((E + 31) / 32, (d.B + 31) / 32), dim3(32, 8), 0, st>>>(
-      (const float*)p[27], nc, d.B, E, (float*)p[21]);
+  const int rows = T * d.h;
+  sum_transpose<<<dim3((rows + 31) / 32, (d.B + 31) / 32), dim3(32, 8), 0,
+                  st>>>((const float*)p[27], nc, d.B, rows, (float*)p[21]);
   err = cudaGetLastError();
   if (err != cudaSuccess || nc == 1) return (int)err;
   const int n_ctx = d.h * d.B;
@@ -981,7 +1040,9 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,              (9-19)
 //       logp_o, dse_o, dctx_o, part, grads_o, prev, logp_part,       (20-26)
 //       dse_part, dctx_part, w1t^T, w2t^T, wqt^T                     (27-31)
-// ints: B, N, W, D, R, C, h, steps, chunks. Forward (bwd = 0) writes logp_o
+// ints: B, N, W, D, R, C, h, steps, chunks, bf16 (1: se, ctx, statp, statm
+// and the weights other than v are bfloat16; 0: float; the outputs are
+// float either way). Forward (bwd = 0) writes logp_o
 // [B]; backward writes dse_o [T, h, B], dctx_o [h, B], part [rows, P] and
 // grads_o [P], rows = tiles x chunks, through dse_part [chunks, B, T, h].
 // steps = 0: the monolithic schedule (chunks ignored, prev unused); steps =
@@ -993,15 +1054,20 @@ extern "C" int tapnet_replay_logp(int bwd, void* const* p, const int* ints,
                                   float inv_s, float temperature,
                                   float inv_temp, void* stream) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
-  const int steps = ints[7], chunks = ints[8];
+  const int steps = ints[7], chunks = ints[8], bf = ints[9];
   if (d.N > (steps ? MAX_N_STEPS : MAX_N_MONO) || d.C > MAX_C || d.B <= 0 ||
       d.h % 32 != 0 || d.h <= 0 || d.h > 32 * MAXR ||
       (steps && (chunks < 1 || chunks > d.N)))
     return (int)cudaErrorInvalidValue;
   if ((long long)d.N * d.R * d.h * d.B >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  return steps ? launch<true>(bwd, p, d, chunks, inv_s, temperature, inv_temp,
-                              stream)
-               : launch<false>(bwd, p, d, 1, inv_s, temperature, inv_temp,
-                               stream);
+  if (bf)
+    return steps ? launch<true, bf16>(bwd, p, d, chunks, inv_s, temperature,
+                                      inv_temp, stream)
+                 : launch<false, bf16>(bwd, p, d, 1, inv_s, temperature,
+                                       inv_temp, stream);
+  return steps ? launch<true, float>(bwd, p, d, chunks, inv_s, temperature,
+                                     inv_temp, stream)
+               : launch<false, float>(bwd, p, d, 1, inv_s, temperature,
+                                      inv_temp, stream);
 }

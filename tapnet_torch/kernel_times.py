@@ -58,6 +58,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     _build.build_all()
     out = {"tag": args.tag, "device": torch.cuda.get_device_name(0)}

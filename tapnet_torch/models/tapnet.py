@@ -14,6 +14,16 @@ maps a flax actor tree onto this module's `state_dict`):
 
 Module names follow the flax tree (`token_enc.Dense_0`, `hm_enc.Dense_1`,
 ...). `nn.Linear` stores [out, in]; flax kernels are [in, out].
+
+The compute dtype is flax's `dtype` field (`param_dtype` float32): the
+parameters stay float32 and every layer casts them at use, so gradients
+flow back through the cast. Every method takes the dtype as an argument
+(float32 by default), which the rollout and the train step pass. In
+bfloat16 a Dense layer is the product of the cast input and weight,
+accumulated in float32 and rounded once, then the bias added as a second
+bfloat16 op (`_dense`); LayerNorm takes its statistics and its arithmetic
+in float32 and rounds its output (`_LayerNorm`); the logits are float32.
+In float32 every method computes what it computed before it had a dtype.
 """
 
 from __future__ import annotations
@@ -25,20 +35,37 @@ from torch import nn
 
 from tapnet_torch.config import TAPConfig
 
+F32 = torch.float32
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax `nn.Dense(dtype=dtype)` with float32 parameters: in float32 the
+    layer itself; otherwise x and the weight cast to `dtype`, their product
+    (float32 accumulation, one rounding), then the bias added in `dtype`,
+    not fused into the product (flax rounds twice)."""
+    if dtype == F32:
+        return lin(x)
+    y = x.to(dtype) @ lin.weight.to(dtype).T
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
 
 class _LayerNorm(nn.Module):
     """flax.linen.LayerNorm: fast variance E[x^2] - E[x]^2 clipped at 0,
-    eps 1e-6, y = (x - mu) * (rsqrt(var + eps) * scale) + bias."""
+    eps 1e-6, y = (x - mu) * (rsqrt(var + eps) * scale) + bias, the
+    statistics and the arithmetic in float32 (flax `_compute_stats`,
+    `_normalize`), the output cast to `dtype`."""
 
     def __init__(self, n: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(n))
         self.bias = nn.Parameter(torch.zeros(n))
 
-    def forward(self, x):
+    def forward(self, x, dtype=F32):
+        x = x.float()
         mu = x.mean(-1, keepdim=True)
         var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
-        return (x - mu) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+        y = (x - mu) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+        return y.to(dtype)
 
 
 class _TokenEncoder(nn.Module):
@@ -55,13 +82,13 @@ class _TokenEncoder(nn.Module):
             setattr(self, f"Dense_{2 * b + 1}", nn.Linear(hidden, hidden))
             setattr(self, f"Dense_{2 * b + 2}", nn.Linear(hidden, hidden))
 
-    def forward(self, static):
-        x = self.Dense_0(static)
+    def forward(self, static, dtype=F32):
+        x = _dense(self.Dense_0, static, dtype)
         for b in range(self.blocks):
-            y = getattr(self, f"LayerNorm_{b}")(x)
+            y = getattr(self, f"LayerNorm_{b}")(x, dtype)
             inner = getattr(self, f"Dense_{2 * b + 2}")
             outer = getattr(self, f"Dense_{2 * b + 1}")
-            x = x + outer(torch.relu(inner(y)))
+            x = x + _dense(outer, torch.relu(_dense(inner, y, dtype)), dtype)
         return x
 
 
@@ -74,11 +101,12 @@ class _HeightmapEncoder(nn.Module):
         self.Dense_0 = nn.Linear(cells + 2, hidden)
         self.Dense_1 = nn.Linear(hidden, hidden)
 
-    def forward(self, hm_grid):
-        x = hm_grid.flatten(-3)                               # [..., C, W*D]
+    def forward(self, hm_grid, dtype=F32):
+        x = hm_grid.to(dtype).flatten(-3)                     # [..., C, W*D]
         feats = torch.cat([x, x.amax(-1, keepdim=True),
                            x.mean(-1, keepdim=True)], dim=-1)
-        return self.Dense_1(torch.relu(self.Dense_0(feats)))
+        return _dense(self.Dense_1,
+                      torch.relu(_dense(self.Dense_0, feats, dtype)), dtype)
 
 
 class TAPNetActor(nn.Module):
@@ -98,37 +126,44 @@ class TAPNetActor(nn.Module):
         self.query = nn.Linear(3 * hidden + 8, hidden)
         self.v = nn.Parameter(torch.zeros(hidden, 1))
 
-    def embed_static(self, static):
-        """Static attention keys: [B, T, 4] -> [B, T, h]."""
-        return self.key_proj(self.token_enc(static))
+    def embed_static(self, static, dtype=F32):
+        """Static attention keys: [B, T, 4] -> [B, T, h] in the compute
+        dtype `dtype`."""
+        return _dense(self.key_proj, self.token_enc(static, dtype), dtype)
 
-    def head(self, static_emb, dynamic, hm_grid, prev_action):
-        """Pointer logits [B, A] f32 from static keys [B, T, h], merged
-        tokens [B, T, 8], hm_grid [B, C, W, D, 1] and the previous action
-        [B] in [-1, A) (-1 = decode start)."""
+    def head(self, static_emb, dynamic, hm_grid, prev_action, dtype=F32):
+        """Pointer logits [B, A] f32 from static keys [B, T, h] (in the
+        compute dtype), merged tokens [B, T, 8], hm_grid [B, C, W, D, 1] and
+        the previous action [B] in [-1, A) (-1 = decode start)."""
         return self.head_ctx(static_emb, dynamic, hm_grid, prev_action,
-                             static_emb.mean(1), dynamic.mean(1))
+                             static_emb.mean(1), dynamic.to(dtype).mean(1),
+                             dtype)
 
-    def head_ctx(self, static_emb, dynamic, hm_grid, prev_action, ctx, dsum):
+    def head_ctx(self, static_emb, dynamic, hm_grid, prev_action, ctx, dsum,
+                 dtype=F32):
         """`head` with the two full-token summaries passed in (ctx = mean
         static key [B, h], dsum = mean merged token [B, 8]) and the token
         inputs allowed to be a subset of the T tokens: static_emb
         [B, Tk, h] and dynamic [B, Tk, 8] give scores [B, Tk*C] for exactly
         the tokens given, token-major and container-minor. The windowed
         head and the windowed replay of rolling configs score only the
-        window's tokens through it (train/rollout.py)."""
-        dyn = self.dyn_proj(torch.relu(self.dyn_hidden(dynamic)))
-        hm = self.hm_enc(hm_grid)                             # [B, C, h]
+        window's tokens through it (train/rollout.py). In bfloat16 the
+        attention runs in bfloat16 as flax's does, with the scores rounded
+        to bfloat16 before they become float32 logits."""
+        dyn = _dense(self.dyn_proj,
+                     torch.relu(_dense(self.dyn_hidden, dynamic, dtype)),
+                     dtype)
+        hm = self.hm_enc(hm_grid, dtype)                      # [B, C, h]
         idx = (prev_action.long() + 1).clamp(0, self.cfg.num_actions)
-        prev = self.prev_embed.weight[idx]                    # [B, h]
+        prev = self.prev_embed.weight[idx].to(dtype)          # [B, h]
         C = hm.shape[1]
-        qin = torch.cat([hm, ctx[:, None].expand(-1, C, -1),
+        qin = torch.cat([hm, ctx.to(dtype)[:, None].expand(-1, C, -1),
                          prev[:, None].expand(-1, C, -1),
-                         dsum[:, None].expand(-1, C, -1)], dim=-1)
-        q = self.query(qin)                                   # [B, C, h]
+                         dsum.to(dtype)[:, None].expand(-1, C, -1)], dim=-1)
+        q = _dense(self.query, qin, dtype)                    # [B, C, h]
         act = torch.tanh(static_emb[:, :, None, :] + dyn[:, :, None, :]
                          + q[:, None, :, :])                  # [B, Tk, C, h]
-        scores = (act @ self.v)[..., 0]                       # [B, Tk, C]
+        scores = (act @ self.v.to(dtype))[..., 0]             # [B, Tk, C]
         return scores.reshape(scores.shape[0], -1).float()
 
 
@@ -150,39 +185,45 @@ class TAPNetCritic(nn.Module):
         self.Dense_2 = nn.Linear(hidden, hidden)
         self.Dense_3 = nn.Linear(hidden, 1)
 
-    def forward(self, static, dynamic, hm_grid):
-        """V [B] from static [B, T, 4], dynamic [B, T, 4] (not merged) and
-        hm_grid [B, C, W, D, 1]."""
-        tok = torch.relu(self.Dense_0(torch.cat([static, dynamic], -1)))
-        hm = self.hm_enc(hm_grid)                             # [B, C, h]
+    def forward(self, static, dynamic, hm_grid, dtype=F32):
+        """V [B] float32 from static [B, T, 4], dynamic [B, T, 4] (not
+        merged) and hm_grid [B, C, W, D, 1], computed in `dtype`."""
+        tok = torch.relu(_dense(self.Dense_0, torch.cat([static, dynamic], -1),
+                                dtype))
+        hm = self.hm_enc(hm_grid, dtype)                      # [B, C, h]
         z = torch.cat([tok.mean(-2), tok.amax(-2), hm.mean(-2),
                        hm.amax(-2)], -1)
-        z = torch.relu(self.Dense_1(z))
-        z = torch.relu(self.Dense_2(z))
-        return self.Dense_3(z)[..., 0].float()
+        z = torch.relu(_dense(self.Dense_1, z, dtype))
+        z = torch.relu(_dense(self.Dense_2, z, dtype))
+        return _dense(self.Dense_3, z, dtype)[..., 0].float()
 
 
-def embed_static_T(actor: TAPNetActor, static_t: torch.Tensor) -> torch.Tensor:
+def embed_static_T(actor: TAPNetActor, static_t: torch.Tensor,
+                   dtype=F32) -> torch.Tensor:
     """Transposed twin of `embed_static`: [4, M] -> [h, M], every GEMM as
     W @ X with the M columns last, so the actor kernel's [T, h, B] key
     operand is born batch-last (cf. `tapnet_tpu.models.tapnet.embed_static_T`:
-    the same formula, LayerNorm statistics over the feature axis 0)."""
+    the same formula, LayerNorm statistics over the feature axis 0). In
+    bfloat16 it rounds where the JAX twin does, which is not where flax's
+    LayerNorm does: the normalised value is rounded, then scale and bias
+    are two bfloat16 ops, and the variance is not clipped at 0."""
     te = actor.token_enc
 
     def dense(lin, x):
-        return lin.weight @ x + lin.bias[:, None]
+        return lin.weight.to(dtype) @ x + lin.bias.to(dtype)[:, None]
 
-    x = dense(te.Dense_0, static_t)
+    x = dense(te.Dense_0, static_t.to(dtype))
     for b in range(te.blocks):
         ln = getattr(te, f"LayerNorm_{b}")
-        mu = x.mean(0, keepdim=True)
-        var = (x * x).mean(0, keepdim=True) - mu * mu
-        y = (x - mu) * torch.rsqrt(var + 1e-6)
-        y = y * ln.scale[:, None] + ln.bias[:, None]
+        xf = x.float()
+        mu = xf.mean(0, keepdim=True)
+        var = (xf * xf).mean(0, keepdim=True) - mu * mu
+        y = ((xf - mu) * torch.rsqrt(var + 1e-6)).to(dtype)
+        y = y * ln.scale.to(dtype)[:, None] + ln.bias.to(dtype)[:, None]
         y = dense(getattr(te, f"Dense_{2 * b + 1}"),
                   torch.relu(dense(getattr(te, f"Dense_{2 * b + 2}"), y)))
         x = x + y
-    return actor.key_proj.weight @ x
+    return actor.key_proj.weight.to(dtype) @ x
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):

@@ -42,6 +42,17 @@ other config down the step-fused path.
 
 The static keys `se` are [B, T, h]: a column's keys are one contiguous row
 (the JAX kernel's [T, h, B] transposed), built once per rollout.
+
+Compute dtype (the JAX kernel's static `dtype`). The float operands se,
+ctx, statp, statm and the head weights come in one dtype, float32 or
+bfloat16 (`head_operands(actor, cfg, dtype)`; v, the gumbel and t/N stay
+float32), and pick the kernel's instantiation. In bfloat16 every product
+accumulates in float32 and is rounded to bfloat16 exactly where the JAX
+kernel casts to its compute dtype (`rounder`): the count summary, the
+normalised heightmap and its mean, each Dense output before and after its
+bias, dyn, se + dyn, + q, tanh, and each score before it becomes the
+float32 logit; the masking, the softmax, the gumbel argmax and log pi are
+float32.
 """
 
 from __future__ import annotations
@@ -65,6 +76,17 @@ MAX_H = 128  # hidden: a multiple of 32, at most 128
 SMEM_LIMIT = 232448  # bytes of shared memory a block may hold
 TB, LD, G, KS = 32, 33, 64, 64  # csrc/actor_step.cu: tile, stride, group,
 #                                 weight slice
+F32 = torch.float32
+DTYPES = (torch.float32, torch.bfloat16)  # the kernels' instantiations
+
+
+def rounder(dtype):
+    """x -> x rounded to `dtype` (to nearest even) and back to float32: the
+    cast to the compute dtype of the JAX kernels, on float32 values. The
+    identity in float32."""
+    if dtype == F32:
+        return lambda x: x
+    return lambda x: x.to(dtype).float()
 
 
 def _covers_config(cfg: TAPConfig) -> bool:
@@ -73,24 +95,28 @@ def _covers_config(cfg: TAPConfig) -> bool:
             and cfg.target_width * cfg.target_depth <= MAX_WD)
 
 
-def eligible(cfg: TAPConfig, h: int = 128) -> bool:
-    """Configs the kernel covers at hidden width h: unbounded height and
-    bitmask-size precedence (N <= 62), as the JAX kernel (rolling windows
-    are cut inside the kernel); the port's own limits: at most 4
-    containers, W*D <= 256 cells, h a multiple of 32 up to 128 and a block
-    that fits in shared memory (`smem_bytes`)."""
-    return (_covers_config(cfg) and h % 32 == 0 and 0 < h <= MAX_H
-            and smem_bytes(cfg, h) <= SMEM_LIMIT)
+def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
+    """Configs the kernel covers at hidden width h and compute dtype
+    `dtype`: unbounded height and bitmask-size precedence (N <= 62), as the
+    JAX kernel (rolling windows are cut inside the kernel); the port's own
+    limits: float32 or bfloat16, at most 4 containers, W*D <= 256 cells, h
+    a multiple of 32 up to 128 and a block that fits in shared memory
+    (`smem_bytes`)."""
+    return (dtype in DTYPES and _covers_config(cfg) and h % 32 == 0
+            and 0 < h <= MAX_H and smem_bytes(cfg, h) <= SMEM_LIMIT)
 
 
-def _check_cfg(cfg: TAPConfig, h: int = None):
+def _check_cfg(cfg: TAPConfig, h: int = None, dtype=F32):
     """Raise NotImplementedError outside the config rule or, given h, the
     kernel's coverage."""
     if not _covers_config(cfg):
         raise NotImplementedError(
             f"actor_select_step covers unbounded height, N <= {MAX_N}, C <= "
             f"{MAX_C} and W*D <= {MAX_WD}, not {cfg}")
-    if h is not None and not eligible(cfg, h):
+    if dtype not in DTYPES:
+        raise NotImplementedError(
+            f"actor_select_step computes in float32 or bfloat16, not {dtype}")
+    if h is not None and not eligible(cfg, h, dtype):
         raise NotImplementedError(
             f"actor_select_step kernel covers a hidden width that is a "
             f"multiple of 32 up to {MAX_H} with at most {SMEM_LIMIT} B of "
@@ -105,7 +131,10 @@ def _num_limbs(N: int) -> int:
 
 def smem_bytes(cfg: TAPConfig, h: int) -> int:
     """Shared memory of one block, in bytes, as
-    csrc/actor_step.cu::smem_bytes computes it."""
+    csrc/actor_step.cu::smem_bytes computes it. The same for both dtypes:
+    the bfloat16 instantiation reads bfloat16 operands from device memory
+    and holds their values, and its rounded intermediates, as float32 in
+    shared memory."""
     up4 = lambda x: (x + 3) & ~3
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD = cfg.target_width * cfg.target_depth
@@ -120,15 +149,17 @@ def smem_bytes(cfg: TAPConfig, h: int) -> int:
     return 4 * (floats + ints)
 
 
-def head_operands(actor, cfg: TAPConfig, grad: bool = False):
+def head_operands(actor, cfg: TAPConfig, dtype=F32, grad: bool = False):
     """The actor head's weights in the kernel's [out, in] layout (W @ X with
-    the batch as the last axis), f32, contiguous, in the kernel's order:
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v.
+    the batch as the last axis), contiguous, in the kernel's order: w8t,
+    b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v; cast to the compute dtype
+    where the flax Dense would cast them, v kept float32 (the JAX
+    `head_operands`).
 
     Detached for the rollout; with `grad=True` they keep the autograd graph
-    (transposes and column views of the parameters), so the replay's
+    (casts, transposes and column views of the parameters), so the replay's
     gradients reach `actor.dyn_hidden.weight` and the others."""
-    f = lambda t: (t if grad else t.detach()).float().contiguous()
+    f = lambda t, d=dtype: (t if grad else t.detach()).to(d).contiguous()
     col = lambda b: f(b)[:, None].contiguous()
     hm = actor.hm_enc
     return (f(actor.dyn_hidden.weight), col(actor.dyn_hidden.bias),
@@ -137,7 +168,7 @@ def head_operands(actor, cfg: TAPConfig, grad: bool = False):
             f(hm.Dense_1.weight), col(hm.Dense_1.bias),
             f(actor.prev_embed.weight.T),
             f(actor.query.weight), col(actor.query.bias),
-            f(actor.v))
+            f(actor.v, F32))
 
 
 def head_shapes(cfg: TAPConfig, h: int):
@@ -194,7 +225,8 @@ def _head_state(tf, packed, hm, prev, upm, rotm, fits, ctx, statm, params,
     B = packed.shape[1]
     dev = packed.device
     f32 = torch.float32
-    _, _, _, w1t, b1, w2t, b2, et, wqt, bq, _ = params
+    rd = rounder(ctx.dtype)
+    w1t, b1, w2t, b2, et, wqt, bq = (p.float() for p in params[3:10])
 
     # accessibility from the bitmask limbs (env.core._accessibility
     # semantics: blocked[i] = any_j graph[j, i] & unpacked[j])
@@ -231,8 +263,9 @@ def _head_state(tf, packed, hm, prev, upm, rotm, fits, ctx, statm, params,
     ar = accr_i.sum(0, keepdim=True).to(f32)
     wn = win_i.sum(0, keepdim=True).to(f32)
     acc_mean = (a0 + ar) / T if R == 2 else a0 / N
-    tf_row = torch.ones(1, B, dtype=f32, device=dev) * tf.reshape(1, 1)
-    dsum = torch.cat([pk / N, acc_mean, wn / N, tf_row, statm], 0)
+    tf_row = rd(torch.ones(1, B, dtype=f32, device=dev) * tf.reshape(1, 1))
+    dsum = torch.cat([rd(pk / N), rd(acc_mean), rd(wn / N), tf_row,
+                      statm.float()], 0)
 
     # heightmap encoder per container, then the query
     inv_s = torch.full((), 1.0 / _scale(cfg), dtype=f32, device=dev)
@@ -240,17 +273,18 @@ def _head_state(tf, packed, hm, prev, upm, rotm, fits, ctx, statm, params,
     prev_emb = et[:, idx]                                     # [h, B]
     qs = []
     for c in range(C):
-        xc = hm[c * W:(c + 1) * W].reshape(W * D, B).to(f32) * inv_s
+        xc = rd(hm[c * W:(c + 1) * W].reshape(W * D, B).to(f32) * inv_s)
         feats = torch.cat([xc, xc.amax(0, keepdim=True),
-                           xc.sum(0, keepdim=True) / (W * D)], 0)
-        e1 = torch.relu(w1t @ feats + b1)
-        enc = w2t @ e1 + b2
-        qs.append(wqt @ torch.cat([enc, ctx, prev_emb, dsum], 0) + bq)
+                           rd(xc.sum(0, keepdim=True) / (W * D))], 0)
+        e1 = torch.relu(rd(rd(w1t @ feats) + b1))
+        enc = rd(rd(w2t @ e1) + b2)
+        qs.append(rd(rd(wqt @ torch.cat([enc, ctx.float(), prev_emb, dsum],
+                                        0)) + bq))
     return flags.int(), mask, (acc0_i, accr_i, win_i), tf_row, qs
 
 
 def _token_inputs(packed, planes, tf_row, statp, cfg: TAPConfig):
-    """The dyn MLP's input x [8, T, B]; token t = (i, r)."""
+    """The dyn MLP's input x [8, T, B] float32; token t = (i, r)."""
     R, T = cfg.num_rot, cfg.num_blocks * cfg.num_rot
     B = packed.shape[1]
     f32 = torch.float32
@@ -258,6 +292,7 @@ def _token_inputs(packed, planes, tf_row, statp, cfg: TAPConfig):
     pk_t = packed.to(f32).repeat_interleave(R, 0)             # [T, B]
     ac_t = torch.stack([acc0_i, accr_i][:R], 1).reshape(T, B).to(f32)
     wn_t = win_i.to(f32).repeat_interleave(R, 0)
+    statp = statp.float()
     return torch.stack([pk_t, ac_t, wn_t, tf_row.expand(T, B),
                         statp[0], statp[1], statp[2], statp[3]], 0)
 
@@ -283,23 +318,26 @@ def actor_select_step_ref(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
     """Plain version of the full mode. tf f32[1, 1] (t/N), packed i32[N, B],
     hm i32[C*W, D, B], plc i32[N*6, B], prev i32[1, B], dims_* i32[N, B],
     upm/rotm i32[L*N, B] (`precedence_bitmasks`), fits i32[R*N, B], g
-    f32[A, B] (zeros = greedy), se f32[B, T, h], ctx f32[h, B], statp
-    f32[4, T, B], statm f32[4, B], params = head_operands(...).
+    f32[A, B] (zeros = greedy), se [B, T, h], ctx [h, B], statp [4, T, B],
+    statm [4, B] and params = head_operands(...) in the compute dtype
+    (float32 or bfloat16, v float32).
 
     Returns (packed', hm', plc', act i32[B], flags i32[N, B], mask i32[A, B],
     logits f32[A, B], logp f32[B])."""
-    _check_cfg(cfg)
+    _check_cfg(cfg, dtype=se.dtype)
     T, A = cfg.num_blocks * cfg.num_rot, cfg.num_actions
     B = packed.shape[1]
-    w8t, b8, wpt, _, _, _, _, _, _, _, v = params
+    rd = rounder(se.dtype)
+    w8t, b8, wpt = (p.float() for p in params[:3])
+    v = params[10]
     flags, mask, planes, tf_row, qs = _head_state(
         tf, packed, hm, prev, upm, rotm, fits, ctx, statm, params, cfg)
     x_all = _token_inputs(packed, planes, tf_row, statp, cfg)
-    h1 = torch.relu(w8t @ x_all.reshape(8, T * B) + b8)       # [32, T*B]
-    dyn = (wpt @ h1).reshape(-1, T, B).permute(1, 0, 2)       # [T, h, B]
-    sd = se.permute(1, 2, 0) + dyn
-    scores = torch.stack([(torch.tanh(sd + q[None]) * v[None]).sum(1)
-                          for q in qs], 1).reshape(A, B)      # [A, B]
+    h1 = torch.relu(rd(rd(w8t @ x_all.reshape(8, T * B)) + b8))  # [32, T*B]
+    dyn = rd(wpt @ h1).reshape(-1, T, B).permute(1, 0, 2)    # [T, h, B]
+    sd = rd(se.permute(1, 2, 0).float() + dyn)
+    scores = torch.stack([rd((rd(torch.tanh(rd(sd + q[None]))) * v[None])
+                             .sum(1)) for q in qs], 1).reshape(A, B)
     masked = torch.where(mask == 1, scores / temperature, NEG)
     p_n, h_n, l_n, a_n, logp = _select_logp(masked, g, mask, packed, hm, plc,
                                             dims_w, dims_d, dims_h, cfg)
@@ -328,17 +366,19 @@ def actor_select_step_live_ref(tf, packed, hm, plc, prev, dims_w, dims_d,
     columns only (`live_columns`), every other action is masked. Returns
     the full version's outputs with None for the logits: the integer ones
     equal, logp the same sum less exact zeros."""
-    _check_cfg(cfg)
+    _check_cfg(cfg, dtype=se.dtype)
     T, C, A = cfg.num_blocks * cfg.num_rot, cfg.num_containers, cfg.num_actions
     B = packed.shape[1]
-    w8t, b8, wpt, _, _, _, _, _, _, _, v = params
+    rd = rounder(se.dtype)
+    w8t, b8, wpt = (p.float() for p in params[:3])
+    v = params[10]
     flags, mask, planes, tf_row, qs = _head_state(
         tf, packed, hm, prev, upm, rotm, fits, ctx, statm, params, cfg)
     b, t = live_columns(mask, cfg)
     x = _token_inputs(packed, planes, tf_row, statp, cfg)[:, t, b]  # [8, n]
-    h1 = torch.relu(w8t @ x + b8)                             # [32, n]
-    sd = se[b, t].T + wpt @ h1                                # [h, n]
-    scores = torch.stack([(torch.tanh(sd + q[:, b]) * v).sum(0)
+    h1 = torch.relu(rd(rd(w8t @ x) + b8))                     # [32, n]
+    sd = rd(se[b, t].T.float() + rd(wpt @ h1))                # [h, n]
+    scores = torch.stack([rd((rd(torch.tanh(rd(sd + q[:, b]))) * v).sum(0))
                           for q in qs], 1)                    # [n, C]
     masked = torch.full((T, C, B), NEG, dtype=scores.dtype,
                         device=scores.device)
@@ -369,7 +409,8 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
                   cfg.num_containers)
     R, A = cfg.num_rot, cfg.num_actions
     T, B, h = N * R, packed.shape[1], se.shape[2]
-    _check_cfg(cfg, h)
+    cdt = se.dtype
+    _check_cfg(cfg, h, cdt)
     L = _num_limbs(N)
     dev, i32, f32 = packed.device, torch.int32, torch.float32
     shapes = [("tf", tf, (1, 1), f32), ("packed", packed, (N, B), i32),
@@ -378,12 +419,12 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
               ("dims_d", dims_d, (N, B), i32), ("dims_h", dims_h, (N, B), i32),
               ("upm", upm, (L * N, B), i32), ("rotm", rotm, (L * N, B), i32),
               ("fits", fits, (R * N, B), i32), ("g", g, (A, B), f32),
-              ("se", se, (B, T, h), f32), ("ctx", ctx, (h, B), f32),
-              ("statp", statp, (4, T, B), f32), ("statm", statm, (4, B), f32)]
-    shapes += [(f"params[{k}]", p, s, f32)
+              ("se", se, (B, T, h), cdt), ("ctx", ctx, (h, B), cdt),
+              ("statp", statp, (4, T, B), cdt), ("statm", statm, (4, B), cdt)]
+    shapes += [(f"params[{k}]", p, s, f32 if k == 10 else cdt)
                for k, (p, s) in enumerate(zip(params, head_shapes(cfg, h)))]
     WD = W * D
-    shapes += [(f"params_t[{k}]", p, s, f32) for k, (p, s) in enumerate(
+    shapes += [(f"params_t[{k}]", p, s, cdt) for k, (p, s) in enumerate(
         zip(params_t, [(WD + 2, h), (h, h), (3 * h + 8, h)]))]
     for name, t, shape, dt in shapes:
         _check(t, name, shape, dt, dev)
@@ -399,7 +440,8 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
          g, se, ctx, statp, statm) + tuple(params)
         + tuple(none if o is None else o for o in outs) + tuple(params_t))
     ints = _build.int_array([B] + env_ints(cfg)
-                            + [h, cfg.window, int(logits)])
+                            + [h, cfg.window, int(logits),
+                               int(cdt == torch.bfloat16)])
     err = _lib()(ctypes.cast(ptrs, ctypes.c_void_p),
                  ctypes.cast(ints, ctypes.c_void_p),
                  ctypes.c_float(1.0 / _scale(cfg)),
@@ -413,7 +455,8 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
                       logits: bool = True, params_t=None):
     """One fused actor + select decode step; operands and results as in
     `actor_select_step_ref`. `logits=False`: the decode loop's mode, the
-    token work on the live columns only and None in the logits' slot.
+    token work on the live columns only and None in the logits' slot. The
+    dtype of se picks the float32 or the bfloat16 instantiation.
     params_t: `transposed(params)` (made here when not given)."""
     ops = (tf, packed, hm, plc, prev, dims_w, dims_d, dims_h, upm, rotm,
            fits, g, se, ctx, statp, statm, params)

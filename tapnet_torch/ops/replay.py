@@ -32,6 +32,14 @@ gradients of the 11 head weights summed over the batch.
   adds exact zeros. The live replay computes the same value and gradients
   from those columns alone.
 
+Compute dtype (the JAX kernels' `dtype_name`): se, ctx, statp, statm and
+the head weights come in float32 or bfloat16 (v float32) and pick the
+kernels' instantiation. In bfloat16 the forward rounds where
+`actor_step`'s does (`rounder`); the backward works in float32 from that
+rounded forward and the float32 values of the bfloat16 weights, as
+`_bwd_step` does, and its gradients are float32 (`ReplayLogp` casts each
+to its operand's dtype, as the JAX `_bwd_impl` does).
+
 Coverage: every unbounded or capped config with N <= 62, at most 4
 containers and a hidden width that is a multiple of 32 up to 128 whose
 shared-memory plan fits a block (`eligible`). A rolling window enters the
@@ -50,7 +58,8 @@ import torch
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.models.features import _scale
 from tapnet_torch.ops import _build
-from tapnet_torch.ops.actor_step import head_shapes, transposed
+from tapnet_torch.ops.actor_step import (DTYPES, F32, head_shapes, rounder,
+                                         transposed)
 from tapnet_torch.ops.policy_step import _check
 
 NEG = -1e9
@@ -79,7 +88,8 @@ def _steps_grid(cfg: TAPConfig) -> bool:
 def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None) -> int:
     """Shared memory of one block, in bytes, as csrc/replay.cu::smem_bytes
     computes it (`layout` and `n_ints`; `steps`: the schedule, auto by
-    `_steps_grid`)."""
+    `_steps_grid`). The same in both dtypes: the bfloat16 instantiations
+    hold their rounded values as float32 in shared memory."""
     if steps is None:
         steps = _steps_grid(cfg)
     C, T = cfg.num_containers, cfg.num_blocks * cfg.num_rot
@@ -94,17 +104,21 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None) -> int:
     return 4 * (floats + ints)
 
 
-def eligible(cfg: TAPConfig, h: int = 128) -> bool:
-    """Configs the replay kernels cover: N <= 62 (N > 31 and rolling
-    windows on the step-grid schedule), C <= 4, hidden a multiple of 32 up
-    to 128, and a backward block that fits. A finite height cap is covered:
-    the mask is the recorded one."""
-    return (cfg.num_blocks <= MAX_N and cfg.num_containers <= MAX_C
+def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
+    """Configs the replay kernels cover: float32 or bfloat16, N <= 62
+    (N > 31 and rolling windows on the step-grid schedule), C <= 4, hidden
+    a multiple of 32 up to 128, and a backward block that fits. A finite
+    height cap is covered: the mask is the recorded one."""
+    return (dtype in DTYPES and cfg.num_blocks <= MAX_N
+            and cfg.num_containers <= MAX_C
             and h % 32 == 0 and 0 < h <= MAX_H
             and smem_bytes(cfg, h, True) <= SMEM_LIMIT)
 
 
-def _check_cfg(cfg: TAPConfig, h: int, steps: bool):
+def _check_cfg(cfg: TAPConfig, h: int, steps: bool, dtype=F32):
+    if dtype not in DTYPES:
+        raise NotImplementedError(
+            f"replay_logp computes in float32 or bfloat16, not {dtype}")
     if not steps and cfg.num_blocks > 31:
         raise NotImplementedError(
             "replay_logp: the monolithic schedule holds N <= 31; N > 31 "
@@ -147,7 +161,8 @@ def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
     B = flags_k.shape[1]
     dev = flags_k.device
     f32 = torch.float32
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    rd = rounder(ctx.dtype)
+    w1t, b1, w2t, b2, et, wqt, bq = (p.float() for p in params[3:10])
     bits = tuple((flags_k >> i) & 1 for i in range(4))
     packed, acc0, accr, win = bits
     tf = torch.full((), k, dtype=f32, device=dev) / cfg.num_blocks
@@ -157,7 +172,8 @@ def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
     wn = win.sum(0, keepdim=True).to(f32)
     acc_mean = (a0 + ar) / T if R == 2 else a0 / N
     ones = torch.ones(1, B, dtype=f32, device=dev)
-    dsum = torch.cat([pk / N, acc_mean, wn / N, ones * tf, statm], 0)
+    dsum = torch.cat([rd(pk / N), rd(acc_mean), rd(wn / N), rd(ones * tf),
+                      statm.float()], 0)
 
     inv_s = torch.full((), 1.0 / _scale(cfg), dtype=f32, device=dev)
     idx = (prev + 1).clamp(0, A).long()
@@ -165,13 +181,13 @@ def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
     prev_emb = et[:, idx]                                     # [h, B]
     hm_saved, qins, qs = [], [], []
     for c in range(C):
-        xc = hm_k[c * W:(c + 1) * W].reshape(W * D, B).to(f32) * inv_s
+        xc = rd(hm_k[c * W:(c + 1) * W].reshape(W * D, B).to(f32) * inv_s)
         feats = torch.cat([xc, xc.amax(0, keepdim=True),
-                           xc.sum(0, keepdim=True) / (W * D)], 0)
-        e1 = torch.relu(w1t @ feats + b1)
-        enc = w2t @ e1 + b2
-        qin = torch.cat([enc, ctx, prev_emb, dsum], 0)
-        qs.append(wqt @ qin + bq)
+                           rd(xc.sum(0, keepdim=True) / (W * D))], 0)
+        e1 = torch.relu(rd(rd(w1t @ feats) + b1))
+        enc = rd(rd(w2t @ e1) + b2)
+        qin = torch.cat([enc, ctx.float(), prev_emb, dsum], 0)
+        qs.append(rd(rd(wqt @ qin) + bq))
         hm_saved.append((feats, e1))
         qins.append(qin)
     return bits, tf, qs, dict(hm=hm_saved, qins=qins, oh_prev=oh_prev)
@@ -186,20 +202,24 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
     B = flags_k.shape[1]
     dev = flags_k.device
     f32 = torch.float32
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    rd = rounder(se.dtype)
+    w8t, b8, wpt = (p.float() for p in params[:3])
+    v = params[10]
     (packed, acc0, accr, win), tf, qs, saved = _head_queries(
         cfg, k, flags_k, hm_k, prev, ctx, statm, params)
     ones = torch.ones(1, B, dtype=f32, device=dev)
     ac = torch.stack([acc0, accr][:R], 1).reshape(T, B).to(f32)
+    statp = statp.float()
     x = torch.stack([packed.to(f32).repeat_interleave(R, 0), ac,
                      win.to(f32).repeat_interleave(R, 0),
-                     (ones * tf).expand(T, B),
+                     rd(ones * tf).expand(T, B),
                      statp[0], statp[1], statp[2], statp[3]], 0)  # [8, T, B]
-    h1 = torch.relu(w8t @ x.reshape(8, T * B) + b8).reshape(32, T, B)
-    dyn = (wpt @ h1.reshape(32, T * B)).reshape(-1, T, B).permute(1, 0, 2)
-    sd = se + dyn                                             # [T, h, B]
-    act = torch.stack([torch.tanh(sd + q[None]) for q in qs], 1)  # [T,C,h,B]
-    scores = (act * v[None, None]).sum(2).reshape(A, B)
+    h1 = torch.relu(rd(rd(w8t @ x.reshape(8, T * B)) + b8)).reshape(32, T, B)
+    dyn = rd(wpt @ h1.reshape(32, T * B)).reshape(-1, T, B).permute(1, 0, 2)
+    sd = rd(se.float() + dyn)                                 # [T, h, B]
+    act = torch.stack([rd(torch.tanh(rd(sd + q[None]))) for q in qs],
+                      1)                                      # [T,C,h,B]
+    scores = rd((act * v[None, None]).sum(2)).reshape(A, B)
     mask_f = mask_k.to(f32)
     masked = torch.where(mask_k == 1, scores / temperature, NEG)
     saved.update(x=x, h1=h1, act=act)
@@ -273,11 +293,10 @@ def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
     [k0, k1)."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     T, h = N * R, se.shape[1]
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
-    g = [torch.zeros_like(p) for p in params]
+    wpt, v = params[2].float(), params[10]
+    g = _zeros_f32(params)
     (dw8t, db8, dwpt, dw1t, db1, dw2t, db2, det, dwqt, dbq, dv) = g
-    dse = torch.zeros_like(se)
-    dctx = torch.zeros_like(ctx)
+    dse, dctx = _zeros_f32((se, ctx))
     inv_temp = torch.full((), 1.0 / temperature, dtype=torch.float32,
                           device=se.device)
     for k in range(k0, k1):
@@ -302,11 +321,18 @@ def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
     return dse, dctx, tuple(g)
 
 
+def _zeros_f32(ts):
+    """float32 zeros shaped like each tensor of `ts`: the gradients are
+    accumulated in float32 whatever the operands' dtype."""
+    return [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+            for t in ts]
+
+
 def _query_bwd(dqs, sv, params, g, dctx):
     """The query and encoder backward of one step from the query gradients
     dqs [C] of [h, B]: adds the weight gradients into g (the 11 of
     `head_operands`) and d_ctx into dctx [h, B]."""
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    w2t, wqt = params[5].float(), params[8].float()
     (dw8t, db8, dwpt, dw1t, db1, dw2t, db2, det, dwqt, dbq, dv) = g
     h = wqt.shape[0]
     d_prev = torch.zeros_like(dqs[0])
@@ -378,7 +404,9 @@ def _live_step(cfg, k, flags_k, hm_k, mask_k, act_k, prev, se, ctx, statp,
     R, C = cfg.num_rot, cfg.num_containers
     T = cfg.num_blocks * R
     f32 = torch.float32
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
+    rd = rounder(se.dtype)
+    w8t, b8, wpt = (p.float() for p in params[:3])
+    v = params[10]
     inst = (act_k >= 0).nonzero()[:, 0]
     if inst.numel() == 0:
         return None
@@ -389,15 +417,15 @@ def _live_step(cfg, k, flags_k, hm_k, mask_k, act_k, prev, se, ctx, statp,
     col = torch.searchsorted(inst, b)          # the column's instance row
     i, r = t // R, t % R
     n = b.numel()
+    sp = statp[:, t, b].float()                               # [4, n]
     x = torch.stack([packed[i, col].to(f32),
                      torch.where(r == 0, acc0[i, col], accr[i, col]).to(f32),
-                     win[i, col].to(f32), tf.expand(n),
-                     statp[0, t, b], statp[1, t, b], statp[2, t, b],
-                     statp[3, t, b]], 0)                      # [8, n]
-    h1 = torch.relu(w8t @ x + b8)                             # [32, n]
-    sd = se[t, :, b].T + wpt @ h1                             # [h, n]
-    act = torch.stack([torch.tanh(sd + q[:, col]) for q in qs], 0)
-    scores = (act * v[None]).sum(1).T                         # [n, C]
+                     win[i, col].to(f32), rd(tf).expand(n),
+                     sp[0], sp[1], sp[2], sp[3]], 0)          # [8, n]
+    h1 = torch.relu(rd(rd(w8t @ x) + b8))                     # [32, n]
+    sd = rd(se[t, :, b].T.float() + rd(wpt @ h1))             # [h, n]
+    act = torch.stack([rd(torch.tanh(rd(sd + q[:, col]))) for q in qs], 0)
+    scores = rd((act * v[None]).sum(1)).T                     # [n, C]
     mk = mask_k.reshape(T, C, -1)[t, :, b]                    # [n, C]
     masked = torch.where(mk == 1, scores / temperature, NEG)
     a_col = t[:, None] * C + torch.arange(C, device=se.device)[None]
@@ -452,11 +480,10 @@ def replay_logp_bwd_live(dlp, flags, hms, masks, acts, se, ctx, statp, statm,
     live columns, the query gradients are per-instance sums over them, and
     the query and encoder backward runs on the instances that act."""
     T, h = cfg.num_blocks * cfg.num_rot, se.shape[1]
-    w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v = params
-    g = [torch.zeros_like(p) for p in params]
+    wpt, v = params[2].float(), params[10]
+    g = _zeros_f32(params)
     (dw8t, db8, dwpt, dw1t, db1, dw2t, db2, det, dwqt, dbq, dv) = g
-    dse = torch.zeros_like(se)
-    dctx = torch.zeros_like(ctx)
+    dse, dctx = _zeros_f32((se, ctx))
     prev = _prev_rows(acts)
     for k in range(cfg.num_blocks):
         st = _live_step(cfg, k, flags[k], hms[k], masks[k], acts[k], prev[k],
@@ -481,13 +508,13 @@ def replay_logp_bwd_live(dlp, flags, hms, masks, acts, se, ctx, statp, statm,
         dse.permute(0, 2, 1).index_put_((st["t"], st["b"]), d_dyn.T,
                                         accumulate=True)
         ni = st["inst"].numel()
-        dqs = [torch.zeros(h, ni, dtype=se.dtype, device=se.device)
+        dqs = [torch.zeros(h, ni, dtype=dse.dtype, device=se.device)
                .index_add_(1, st["col"], dpre[c]) for c in range(act.shape[0])]
         dwpt += d_dyn @ h1.T
         dh1 = (wpt.T @ d_dyn) * (h1 > 0)
         dw8t += dh1 @ x.T
         db8 += dh1.sum(1, keepdim=True)
-        dctx_i = torch.zeros(h, ni, dtype=se.dtype, device=se.device)
+        dctx_i = torch.zeros(h, ni, dtype=dse.dtype, device=se.device)
         _query_bwd(dqs, st["sv"], params, g, dctx_i)
         dctx[:, st["inst"]] += dctx_i
     return dse, dctx, tuple(g)
@@ -512,29 +539,32 @@ def _check_operands(flags, hms, masks, acts, se, ctx, statp, statm, params,
                   cfg.num_containers)
     A, T, S = cfg.num_actions, N * cfg.num_rot, cfg.num_blocks
     _, h, B = se.shape
-    _check_cfg(cfg, h, steps)
+    cdt = se.dtype
+    _check_cfg(cfg, h, steps, cdt)
     dev, i32, f32 = se.device, torch.int32, torch.float32
     operands = [
         ("flags", flags, (S, N, B), i32), ("hms", hms, (S, C * W, D, B), i32),
         ("masks", masks, (S, A, B), i32), ("acts", acts, (S, B), i32),
-        ("se", se, (T, h, B), f32), ("ctx", ctx, (h, B), f32),
-        ("statp", statp, (4, T, B), f32), ("statm", statm, (4, B), f32)]
+        ("se", se, (T, h, B), cdt), ("ctx", ctx, (h, B), cdt),
+        ("statp", statp, (4, T, B), cdt), ("statm", statm, (4, B), cdt)]
     if steps:
         operands.append(("prev", prev, (S, B), i32))
     for name, t, shape, dt in operands:
         _check(t, name, shape, dt, dev)
     for i, (p, s) in enumerate(zip(params, head_shapes(cfg, h))):
-        _check(p, f"params[{i}]", s, f32, dev)
+        _check(p, f"params[{i}]", s, f32 if i == 10 else cdt, dev)
     return B, h, dev
 
 
-def _launch(bwd, ptrs, cfg, B, h, temperature, dev, chunks=0):
-    """`chunks` = 0: the monolithic schedule; else the step-grid one."""
+def _launch(bwd, ptrs, cfg, B, h, temperature, dev, chunks, dtype):
+    """`chunks` = 0: the monolithic schedule; else the step-grid one.
+    `dtype`: the float operands' (the instantiation)."""
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         arr = _build.ptr_array(ptrs)
-        ints = _ints(cfg, B, h) + [int(chunks > 0), max(chunks, 1)]
+        ints = _ints(cfg, B, h) + [int(chunks > 0), max(chunks, 1),
+                                   int(dtype == torch.bfloat16)]
         err = fn(int(bwd), ctypes.cast(arr, ctypes.c_void_p),
                  ctypes.cast(_build.int_array(ints), ctypes.c_void_p),
                  ctypes.c_float(1.0 / _scale(cfg)),
@@ -562,7 +592,8 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
             + (logp, none, none, none, none,
                none if prev is None else prev, part, none, none)
             + transposed(params))
-    return logp, _launch(False, ptrs, cfg, B, h, temperature, dev, chunks)
+    return logp, _launch(False, ptrs, cfg, B, h, temperature, dev, chunks,
+                         se.dtype)
 
 
 def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
@@ -575,8 +606,8 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
     tiles = (B + TB - 1) // TB
     nc = max(chunks, 1)
     T = se.shape[0]
-    dse = torch.empty_like(se)
-    dctx = torch.empty_like(ctx)
+    dse = torch.empty(se.shape, dtype=f32, device=dev)
+    dctx = torch.empty(ctx.shape, dtype=f32, device=dev)
     part = torch.empty((tiles * nc, P), dtype=f32, device=dev)
     flat = torch.empty(P, dtype=f32, device=dev)
     none = torch.empty(0, device=dev)
@@ -588,7 +619,7 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
             + (none, dse, dctx, part, flat,
                none if prev is None else prev, none, dse_part, dctx_part)
             + transposed(params))
-    err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks)
+    err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks, se.dtype)
     grads, off = [], 0
     for a, b in shapes:
         grads.append(flat[off:off + a * b].view(a, b))
@@ -614,8 +645,8 @@ replay_logp_fwd.launches = 0
 
 def replay_logp_bwd(dlp, flags, hms, masks, acts, se, ctx, statp, statm,
                     params, cfg: TAPConfig, temperature: float = 1.0):
-    """Backward, monolithic schedule (K5b); operands and results as in
-    `replay_logp_bwd_ref`. The weight gradients are summed over instance
+    """Backward, monolithic schedule (K5b); operands and results (float32)
+    as in `replay_logp_bwd_ref`. The weight gradients are summed over instance
     tiles in a fixed order: two launches on the same inputs give
     bit-identical outputs."""
     ops = (flags, hms, masks, acts, se, ctx, statp, statm, params)
@@ -689,7 +720,10 @@ def scratch_bytes(cfg: TAPConfig, B: int, h: int) -> dict:
 class ReplayLogp(torch.autograd.Function):
     """logp [B] = sum_t log pi(a_t | s_t), differentiable in se, ctx and the
     11 head operands; the record is data (gradient None). The schedule
-    follows the config (`_steps_grid`).
+    follows the config (`_steps_grid`), the instantiation the operands'
+    dtype; each gradient is cast to its operand's dtype (in bfloat16 the
+    weights' and se's gradients are rounded to bfloat16, v's stays
+    float32, as the JAX `_bwd_impl` casts them).
 
     apply(cfg, temperature, logp0, flags, hms, masks, acts, statp, statm,
           se, ctx, *params)
@@ -726,5 +760,7 @@ class ReplayLogp(torch.autograd.Function):
             dse, dctx, dparams = replay_logp_bwd(
                 dlp, flags, hms, masks, acts, se, ctx, statp, statm,
                 tuple(params), ctx_.cfg, ctx_.temperature)
+        grads = [g.to(x.dtype) for g, x in zip((dse, dctx, *dparams),
+                                               (se, ctx, *params))]
         return (None, None, None, None, None, None, None, None, None,
-                dse, dctx, *dparams)
+                *grads)

@@ -103,6 +103,7 @@ def main(argv=None) -> int:
     from tapnet_torch.models.tapnet import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda:0")
     cfg = CONFIGS[args.config]
     out = {"device": torch.cuda.get_device_name(0), "config": args.config,

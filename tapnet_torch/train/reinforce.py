@@ -17,6 +17,14 @@ mean((V - R)^2), a global-norm clip without epsilon (as optax's
 5. the critic on the reset state; the losses; clip; Adam (`Adam`: optax's
    arithmetic on flat float32 moments, the same on the CPU and the card).
 
+`compute_dtype=torch.bfloat16` is the JAX package's bf16 step: actor and
+critic compute in bfloat16 (flax `dtype`), the parameters, the gradients,
+Adam's state and the clip stay float32, the logits and the losses are
+float32; on the card the rollout and the replay launch the bfloat16
+instantiations of the actor-step and replay kernels. Every cast of a
+parameter to bfloat16 happens inside the step, so a CUDA graph of it
+reads the weights Adam updated. The default is float32 on both devices.
+
 The key schedule is the JAX package's: `key, k_inst, k_act = split(key, 3)`,
 instances from `split(k_inst, batch)`, action keys `split(k_act, batch)`,
 so a key samples the same instances and trajectories on both sides.
@@ -197,17 +205,18 @@ def resolve_device(device) -> torch.device:
 
 
 def _batch_losses(actor, critic, instances: Instance, keys, cfg: TAPConfig,
-                  temperature: float):
-    """(actor_loss, critic_loss, R [B], reward terms); the record and the
-    rollout's logp carry no gradient."""
+                  temperature: float, dtype=torch.float32):
+    """(actor_loss, critic_loss, R [B], reward terms) with actor and critic
+    in the compute dtype `dtype`; the record and the rollout's logp carry
+    no gradient."""
     states, record, logp0 = rollout_batch_record(
         actor, instances, keys, cfg, greedy=False, temperature=temperature,
-        with_logp=True)
+        with_logp=True, dtype=dtype)
     logp = replay_logp_sum(actor, instances, record, cfg, temperature,
-                           logp0=logp0)
+                           logp0=logp0, dtype=dtype)
     static, dynamic, hm = build_tokens(instances, E.reset(instances, cfg),
                                        cfg)
-    V = critic(static, dynamic, hm)
+    V = critic(static, dynamic, hm, dtype)
     _, _, terms, Rw = fused_reward(states.heightmap, states.placements,
                                    instances.dims, cfg.reward_terms)
     adv = Rw - V.detach()
@@ -311,6 +320,22 @@ def step_batch(key: torch.Tensor, batch: int, cfg: TAPConfig,
 
 _MEAN_METRICS = ("loss_actor", "loss_critic", "reward", "C", "P", "S")
 
+_COMPUTE_DTYPES = {None: torch.float32, torch.float32: torch.float32,
+                   "float32": torch.float32, torch.bfloat16: torch.bfloat16,
+                   "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(compute_dtype) -> torch.dtype:
+    """float32 for None, torch.float32 or "float32"; bfloat16 for
+    torch.bfloat16 or "bfloat16"; any other value raises
+    NotImplementedError."""
+    try:
+        return _COMPUTE_DTYPES[compute_dtype]
+    except (KeyError, TypeError):
+        raise NotImplementedError(
+            f"the port computes in float32 or bfloat16, not {compute_dtype} "
+            "(ROADMAP.md)") from None
+
 
 def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
                     lr: float = 5e-4, clip: float = 2.0,
@@ -329,13 +354,12 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
     `parallel.mesh.DataMesh`; the step runs on its device, sharded over
     its ranks (`batch`, and a given dataset batch, are global and a
     multiple of the world size; the state is replicated, e.g. by
-    `parallel.distributed.broadcast_from_main`). Runs on `cuda` unless
-    `device="cpu"`."""
+    `parallel.distributed.broadcast_from_main`). `compute_dtype`: None or
+    float32 (the default on both devices), or bfloat16 (`compute_dtype_of`).
+    Runs on `cuda` unless `device="cpu"`."""
     if mixed_p2d > 0:
         check_mixed(cfg)
-    if compute_dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError("the port trains in float32 only "
-                                  "(ROADMAP.md, port Queue 1)")
+    dtype = compute_dtype_of(compute_dtype)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call {steps_per_call} < 1")
     if from_dataset and steps_per_call != 1:
@@ -357,7 +381,8 @@ def make_train_step(cfg: TAPConfig, batch: int, hidden: int = 128,
                 p.grad = torch.zeros_like(p)
         torch._foreach_zero_([p.grad for p in params])
         actor_loss, critic_loss, Rw, terms = _batch_losses(
-            ts.actor, ts.critic, instances, act_keys, cfg, temperature)
+            ts.actor, ts.critic, instances, act_keys, cfg, temperature,
+            dtype)
         (actor_loss + critic_weight * critic_loss).backward()
         if mesh is not None:
             mesh.all_reduce_mean_([p.grad for p in params])

@@ -92,21 +92,22 @@ class Routes(NamedTuple):
 
 
 def routes(cfg: TAPConfig, on_card: bool, hidden: int = 128,
-           greedy: bool = False) -> Routes:
-    """The kernels the routers take for `cfg` at hidden width `hidden`: on
-    the card each kernel where its `eligible` covers the config, as the JAX
-    package's routers ask; on the CPU none. Sampled decode takes K2, else
-    K1, else the general loop (greedy decode skips K2); the replay takes K5,
-    else the windowed or the general replay; a heuristic rollout takes K4,
-    else `env.core.rollout_batch`. A pure function of its arguments: the
-    CPU tests rehearse the card's choices with on_card=True."""
-    if on_card and not greedy and AS.eligible(cfg, hidden):
+           greedy: bool = False, dtype=torch.float32) -> Routes:
+    """The kernels the routers take for `cfg` at hidden width `hidden` and
+    compute dtype `dtype`: on the card each kernel where its `eligible`
+    covers the config, as the JAX package's routers ask; on the CPU none.
+    Sampled decode takes K2, else K1, else the general loop (greedy decode
+    skips K2); the replay takes K5, else the windowed or the general
+    replay; a heuristic rollout takes K4, else `env.core.rollout_batch`. A
+    pure function of its arguments: the CPU tests rehearse the card's
+    choices with on_card=True."""
+    if on_card and not greedy and AS.eligible(cfg, hidden, dtype):
         decode = "actor"
     elif on_card and PS.eligible(cfg):
         decode = "step"
     else:
         decode = "general"
-    return Routes(decode, on_card and RP.eligible(cfg, hidden),
+    return Routes(decode, on_card and RP.eligible(cfg, hidden, dtype),
                   on_card and OE.eligible(cfg))
 
 
@@ -115,18 +116,20 @@ def rollout_batch_record(actor: TAPNetActor, instances: Instance,
                          keys: torch.Tensor, cfg: TAPConfig,
                          greedy: bool = False, temperature: float = 1.0,
                          with_logp: bool = True, step_kernel=None,
-                         actor_kernel=None):
-    """Roll a batch; returns (states, RolloutRecord, logp_sum [B])."""
+                         actor_kernel=None, dtype=torch.float32):
+    """Roll a batch; returns (states, RolloutRecord, logp_sum [B]). `dtype`:
+    the compute dtype."""
+    dt = dtype
     r = routes(cfg, instances.dims.is_cuda, actor.hidden,
-               greedy=greedy or actor_kernel is False)
+               greedy=greedy or actor_kernel is False, dtype=dt)
     if actor_kernel or (actor_kernel is None and r.decode == "actor"):
-        return _rollout_record_actorfused(actor, instances, keys, cfg,
-                                          greedy, temperature, with_logp)
-    if step_kernel or (step_kernel is None and r.decode == "step"):
-        return _rollout_record_stepfused(actor, instances, keys, cfg,
-                                         greedy, temperature, with_logp)
-    return _rollout_record_general(actor, instances, keys, cfg, greedy,
-                                   temperature, with_logp)
+        route = _rollout_record_actorfused
+    elif step_kernel or (step_kernel is None and r.decode == "step"):
+        route = _rollout_record_stepfused
+    else:
+        route = _rollout_record_general
+    return route(actor, instances, keys, cfg, greedy, temperature, with_logp,
+                 dt)
 
 
 def _step_mask(flags, state, instances, cfg):
@@ -135,12 +138,13 @@ def _step_mask(flags, state, instances, cfg):
     return E.action_mask(state, instances, cfg)
 
 
-def _head_logits(actor, static, static_emb, flags, heightmap, prev, t, cfg):
+def _head_logits(actor, static, static_emb, flags, heightmap, prev, t, cfg,
+                 dtype=torch.float32):
     """Logits [B, A]; `t` steps taken, an int or an int tensor [B]."""
     t_frac = f32_on(t, flags.device) / cfg.num_blocks
     dynamic = merge_tokens(static, tokens_from_flags(flags, t_frac, cfg))
     return actor.head(static_emb, dynamic, heightmap_grid(heightmap, cfg),
-                      prev)
+                      prev, dtype)
 
 
 def _log_softmax_at(masked, a):
@@ -186,8 +190,10 @@ def _gather_blocks(x_pad: torch.Tensor, bidx: torch.Tensor) -> torch.Tensor:
 
 def _window_dsum(f, win, t_frac, stat_mean, cfg: TAPConfig):
     """The head's mean merged token [..., 8] from integer bit counts of the
-    flag words f [..., N] and the static-feature means stat_mean [..., 4];
-    t_frac broadcasts against f[..., 0]."""
+    flag words f [..., N] and the static-feature means stat_mean [..., 4],
+    in stat_mean's dtype: the counts are float32, cast once (in bfloat16
+    these summaries are not the full head's, whose means are taken over
+    bfloat16 tokens); t_frac broadcasts against f[..., 0]."""
     N, R_ = cfg.num_blocks, cfg.num_rot
     pk = (f & 1).sum(-1).float()
     a0 = ((f >> 1) & 1).sum(-1).float()
@@ -195,20 +201,23 @@ def _window_dsum(f, win, t_frac, stat_mean, cfg: TAPConfig):
     wn = win.sum(-1).float()
     acc_mean = (a0 + ar) / (N * R_) if R_ == 2 else a0 / N
     tf = torch.broadcast_to(f32_on(t_frac, f.device), pk.shape)
-    dyn4 = torch.stack([pk / N, acc_mean, wn / N, tf], -1)
+    dyn4 = torch.stack([pk / N, acc_mean, wn / N, tf], -1).to(stat_mean.dtype)
     return torch.cat([dyn4, torch.broadcast_to(
         stat_mean, dyn4.shape[:-1] + (4,))], -1)
 
 
 def _make_windowed_head(actor, instances, static, static_emb,
-                        cfg: TAPConfig):
+                        cfg: TAPConfig, dtype=torch.float32):
     """Per-step head of a rolling config: gather the <= window observable
     blocks, score their tokens only (`head_ctx`), scatter the scores back
     to the full [B, A] logit vector (0 at the other positions, all of them
     masked). At the window's positions the logits are those of the full
-    head: the gathers copy values, and the two full-token summaries are
-    ctx (per instance) and exact bit counts of the flags. An index gather
-    and a scatter stand where the JAX package contracts one-hots.
+    head in float32: the gathers copy values, and the two full-token
+    summaries are ctx (per instance) and exact bit counts of the flags. In
+    bfloat16 (`dtype`) the count summary is cast once from float32, as the
+    JAX windowed head does, so the logits may differ from the full head's
+    by a rounding. An index gather and a scatter stand where the JAX
+    package contracts one-hots.
 
     Returns fn(flags u8[B, N], heightmap [B, C, W, D], prev [B], t_frac)
     -> logits f32[B, A]."""
@@ -216,6 +225,7 @@ def _make_windowed_head(actor, instances, static, static_emb,
                     cfg.window)
     B, h = static_emb.shape[0], static_emb.shape[-1]
     ctx = static_emb.mean(1)                                  # [B, h]
+    static = static.to(dtype)
     stat_mean = static.mean(1)                                # [B, 4]
     se_pad = _pad_blocks(static_emb.reshape(B, N, R_ * h))
     static_pad = _pad_blocks(static.reshape(B, N, R_ * 4))
@@ -227,11 +237,11 @@ def _make_windowed_head(actor, instances, static, static_emb,
         gf = torch.cat([f, torch.zeros_like(f[:, :1])], 1).gather(1, bidx)
         static_g = _gather_blocks(static_pad, bidx).reshape(B, Kw * R_, 4)
         t_frac = f32_on(t_frac, f.device)
-        merged = torch.cat([tokens_from_flags(gf, t_frac, cfg), static_g],
-                           -1)                                # [B, Kw*R, 8]
+        merged = torch.cat([tokens_from_flags(gf, t_frac, cfg).to(dtype),
+                            static_g], -1)                    # [B, Kw*R, 8]
         dsum = _window_dsum(f, win, t_frac, stat_mean, cfg)   # [B, 8]
         scores = actor.head_ctx(se_g, merged, heightmap_grid(heightmap, cfg),
-                                prev, ctx, dsum)              # [B, Kw*R*C]
+                                prev, ctx, dsum, dtype)       # [B, Kw*R*C]
         full = torch.zeros((B, N + 1, R_ * C), dtype=scores.dtype,
                            device=scores.device)
         full.scatter_(1, bidx[..., None].expand(B, Kw, R_ * C),
@@ -241,26 +251,26 @@ def _make_windowed_head(actor, instances, static, static_emb,
     return win_head
 
 
-def _step_head(actor, instances, static, static_emb, cfg):
+def _step_head(actor, instances, static, static_emb, cfg, dtype):
     """fn(flags, heightmap, prev, t) -> logits [B, A] of one decode step:
     the windowed head on rolling unbounded configs, else the full head."""
     if _use_windowed_head(cfg):
         win_head = _make_windowed_head(actor, instances, static, static_emb,
-                                       cfg)
+                                       cfg, dtype)
         return lambda flags, hm, prev, t: win_head(
             flags, hm, prev, f32_on(t, flags.device) / cfg.num_blocks)
     return lambda flags, hm, prev, t: _head_logits(
-        actor, static, static_emb, flags, hm, prev, t, cfg)
+        actor, static, static_emb, flags, hm, prev, t, cfg, dtype)
 
 
 def _rollout_record_general(actor, instances, keys, cfg, greedy,
-                            temperature, with_logp):
+                            temperature, with_logp, dtype):
     B = instances.dims.shape[0]
     dev = instances.dims.device
     state = E.reset(instances, cfg)
     static = static_tokens(instances, cfg)                   # [B, T, 4]
-    static_emb = actor.embed_static(static)                  # [B, T, h]
-    head = _step_head(actor, instances, static, static_emb, cfg)
+    static_emb = actor.embed_static(static, dtype)           # [B, T, h]
+    head = _step_head(actor, instances, static, static_emb, cfg, dtype)
     g_all = None if greedy else _gumbel_all(keys, cfg)
     prev = torch.full((B,), -1, dtype=torch.int32, device=dev)
     logp_sum = torch.zeros(B, device=dev)
@@ -317,15 +327,15 @@ def _hm_batch_major(hm_bl, cfg):
 
 
 def _rollout_record_stepfused(actor, instances, keys, cfg, greedy,
-                              temperature, with_logp):
+                              temperature, with_logp, dtype):
     """Actor head as PyTorch ops (windowed on rolling configs); one
     `select_step` per decode step places the block on the batch-last env
     state."""
     B = instances.dims.shape[0]
     dev = instances.dims.device
     static = static_tokens(instances, cfg)
-    static_emb = actor.embed_static(static)
-    head = _step_head(actor, instances, static, static_emb, cfg)
+    static_emb = actor.embed_static(static, dtype)
+    head = _step_head(actor, instances, static, static_emb, cfg, dtype)
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = None if greedy else _gumbel_all(keys, cfg)
     prev = torch.full((B,), -1, dtype=torch.int32, device=dev)
@@ -355,26 +365,28 @@ def _rollout_record_stepfused(actor, instances, keys, cfg, greedy,
 
 
 def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
-                               temperature, with_logp):
+                               temperature, with_logp, dtype):
     """One `actor_select_step` per decode step in its live-column mode
     (`logits=False`): flags, mask, the head over the live columns, the
     gumbel argmax, select/place and log pi in one launch. Only the static
     embedding (as the kernel's [B, T, h] rows, built once), the transposed
-    W1, W2, Wq (once) and the gumbel sweep run as PyTorch ops."""
+    W1, W2, Wq (once) and the gumbel sweep run as PyTorch ops. The float
+    operands are in the compute dtype `dtype` (the head's v and the gumbel
+    stay float32), which picks the kernel's instantiation."""
     B = instances.dims.shape[0]
     dev = instances.dims.device
     N, R_, A = cfg.num_blocks, cfg.num_rot, cfg.num_actions
     T = N * R_
     static = static_tokens(instances, cfg)                   # [B, T, 4]
     static_t4 = static.permute(2, 1, 0).reshape(4, T * B)    # [4, T*B]
-    se_htb = embed_static_T(actor, static_t4).reshape(-1, T, B)
+    se_htb = embed_static_T(actor, static_t4, dtype).reshape(-1, T, B)
     se = se_htb.permute(2, 1, 0).contiguous()                # [B, T, h]
     ctx = se_htb.mean(1).contiguous()                        # [h, B]
-    statp = static_t4.reshape(4, T, B).contiguous()
-    statm = static.mean(1).T.contiguous()                    # [4, B]
+    statp = static_t4.to(dtype).reshape(4, T, B).contiguous()
+    statm = static.to(dtype).mean(1).T.contiguous()          # [4, B]
     upm, rotm = AS.precedence_bitmasks(instances, cfg)
     fits = AS.fits_planes(instances, cfg)
-    params = AS.head_operands(actor, cfg)
+    params = AS.head_operands(actor, cfg, dtype)
     params_t = AS.transposed(params)
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = (torch.zeros((N, A, B), device=dev) if greedy
@@ -403,8 +415,10 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
 def replay_logp_sum(actor: TAPNetActor, instances: Instance,
                     record: RolloutRecord, cfg: TAPConfig,
                     temperature: float = 1.0, chunk: int = 0, kernel=None,
-                    logp0=None, windowed=None) -> torch.Tensor:
-    """Differentiable sum_t log pi(a_t | s_t) [B] of the recorded actions.
+                    logp0=None, windowed=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """Differentiable sum_t log pi(a_t | s_t) [B] of the recorded actions,
+    computed in `dtype` (the value is float32).
 
     kernel (auto: on for CUDA tensors where `routes` takes the replay
     kernels, i.e. `ops.replay.eligible(cfg, hidden)`): the replay kernel
@@ -424,12 +438,13 @@ def replay_logp_sum(actor: TAPNetActor, instances: Instance,
     through the recorded flags and the mask); `chunk` > 0 (0 = auto: at
     most ~40960 decode rows live) runs the step axis in chunks recomputed
     in the backward (torch.utils.checkpoint)."""
+    dt = dtype
     if kernel is None:
         kernel = windowed is None and routes(
-            cfg, record.action.is_cuda, actor.hidden).replay
+            cfg, record.action.is_cuda, actor.hidden, dtype=dt).replay
     if kernel:
         return _replay_logp_kernel(actor, instances, record, cfg,
-                                   temperature, logp0)
+                                   temperature, logp0, dt)
     if windowed is None:
         windowed = _use_windowed_head(cfg)
     if windowed:
@@ -438,18 +453,21 @@ def replay_logp_sum(actor: TAPNetActor, instances: Instance,
                              "an unbounded height (it rebuilds the mask from "
                              "the flags)")
         return _replay_logp_windowed(actor, instances, record, cfg,
-                                     temperature, chunk)
+                                     temperature, chunk, dt)
     return _replay_logp_general(actor, instances, record, cfg, temperature,
-                                chunk)
+                                chunk, dt)
 
 
-def replay_operands(actor, instances, record, cfg, grad: bool = True):
+def replay_operands(actor, instances, record, cfg, grad: bool = True,
+                    dtype=torch.float32):
     """The replay kernels' operands, batch-last: (flags, hms, masks, acts,
     statp, statm) from the record and the instances, and se [T, h, B], ctx
-    [h, B] and the head operands from the actor. With `grad` the
-    embed_static_T chain, ctx = mean(se) and the head operands keep the
+    [h, B] and the head operands from the actor, the float ones in the
+    compute dtype `dtype` (v stays float32). With `grad`
+    the embed_static_T chain, ctx = mean(se) and the head operands keep the
     autograd graph, so d_se, d_ctx and the weight gradients flow back into
     the actor's parameters."""
+    dt = dtype
     B = record.action.shape[1]
     N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
                   cfg.num_containers)
@@ -457,7 +475,7 @@ def replay_operands(actor, instances, record, cfg, grad: bool = True):
     static = static_tokens(instances, cfg)                    # [B, T, 4]
     static_t4 = static.permute(2, 1, 0).reshape(4, T * B)
     with torch.set_grad_enabled(grad and torch.is_grad_enabled()):
-        se_htb = embed_static_T(actor, static_t4).reshape(-1, T, B)
+        se_htb = embed_static_T(actor, static_t4, dt).reshape(-1, T, B)
         se = se_htb.permute(1, 0, 2).contiguous()             # [T, h, B]
         ctx = se_htb.mean(1).contiguous()                     # [h, B]
     data = (record.flags.int().transpose(1, 2).contiguous(),  # [S, N, B]
@@ -465,20 +483,23 @@ def replay_operands(actor, instances, record, cfg, grad: bool = True):
                 N, C * W, D, B).int().contiguous(),
             record.mask.transpose(1, 2).int().contiguous(),   # [S, A, B]
             record.action.int().contiguous(),
-            static_t4.reshape(4, T, B).contiguous(),
-            static.mean(1).T.contiguous())
-    return data, se, ctx, AS.head_operands(actor, cfg, grad=grad)
+            static_t4.to(dt).reshape(4, T, B).contiguous(),
+            static.to(dt).mean(1).T.contiguous())
+    return data, se, ctx, AS.head_operands(actor, cfg, dt, grad=grad)
 
 
-def _replay_logp_kernel(actor, instances, record, cfg, temperature, logp0):
-    data, se, ctx, params = replay_operands(actor, instances, record, cfg)
+def _replay_logp_kernel(actor, instances, record, cfg, temperature, logp0,
+                        dtype):
+    data, se, ctx, params = replay_operands(actor, instances, record, cfg,
+                                            dtype=dtype)
     if logp0 is not None:
         logp0 = logp0.detach().float()
     return RP.ReplayLogp.apply(cfg, float(temperature), logp0, *data, se,
                                ctx, *params)
 
 
-def _replay_logp_general(actor, instances, record, cfg, temperature, chunk):
+def _replay_logp_general(actor, instances, record, cfg, temperature, chunk,
+                         dtype):
     N = cfg.num_blocks
     B = record.action.shape[1]
     if chunk <= 0:
@@ -486,7 +507,7 @@ def _replay_logp_general(actor, instances, record, cfg, temperature, chunk):
     while N % chunk:
         chunk -= 1
     static = static_tokens(instances, cfg)                    # [B, T, 4]
-    static_emb = actor.embed_static(static)                   # [B, T, h]
+    static_emb = actor.embed_static(static, dtype)            # [B, T, h]
     ts = torch.arange(N, device=record.action.device)
     prev = torch.cat([torch.full_like(record.action[:1], -1),
                       record.action[:-1]], 0)
@@ -501,7 +522,7 @@ def _replay_logp_general(actor, instances, record, cfg, temperature, chunk):
         hmg = heightmap_grid(hm_c, cfg)                 # [K, B, C, W, D, 1]
         se_kb = se.expand((K,) + se.shape).reshape((K * B,) + se.shape[1:])
         logits = actor.head(se_kb, dynamic.flatten(0, 1), hmg.flatten(0, 1),
-                            prev_c.flatten(0, 1)).reshape(K, B, -1)
+                            prev_c.flatten(0, 1), dtype).reshape(K, B, -1)
         masked = _masked_logits(logits, mask_c, temperature)
         lsm = torch.log_softmax(masked, dim=-1)
         onehot = (act_c.clamp(min=0).long()[..., None]
@@ -523,7 +544,7 @@ def _replay_logp_general(actor, instances, record, cfg, temperature, chunk):
 
 
 def _replay_logp_windowed(actor, instances, record, cfg, temperature,
-                          chunk: int = 0):
+                          chunk: int, dtype):
     """Windowed replay: per decode row, gather the <= window observable
     blocks and compute logits for those tokens only.
 
@@ -546,13 +567,14 @@ def _replay_logp_windowed(actor, instances, record, cfg, temperature,
     dev = record.action.device
     h = actor.hidden
     if chunk <= 0:
-        est = B * N * Kw * R_ * h * 4 * 6
+        est = B * N * Kw * R_ * h * dtype.itemsize * 6
         chunk = N if est <= 8e9 else max(1, min(N, 163840 // max(B, 1)))
     while N % chunk:
         chunk -= 1
 
     static = static_tokens(instances, cfg)                    # [B, T, 4]
-    static_emb = actor.embed_static(static)                   # [B, T, h]
+    static_emb = actor.embed_static(static, dtype)            # [B, T, h]
+    static = static.to(dtype)
     ctx = static_emb.mean(1)                                  # [B, h]
     stat_mean = static.mean(1)                                # [B, 4]
     se_bn = static_emb.reshape(B, N, R_ * h)
@@ -568,7 +590,7 @@ def _replay_logp_windowed(actor, instances, record, cfg, temperature,
     zero = torch.zeros_like(f[..., :1])
     gf = torch.cat([f, zero], -1).gather(-1, bidx)            # [N, B, Kw]
     static_g = _gather_blocks(static_pad, bidx)               # [N,B,Kw,R*4]
-    merged = torch.cat([tokens_from_flags(gf, t_frac, cfg),
+    merged = torch.cat([tokens_from_flags(gf, t_frac, cfg).to(dtype),
                         static_g.reshape(N, B, Kw * R_, 4)], -1)
     accr_g = ((gf >> 2) & 1).bool()
     per_rot = []
@@ -597,7 +619,7 @@ def _replay_logp_windowed(actor, instances, record, cfg, temperature,
         ctx_ns = ctx_c.expand((N,) + ctx_c.shape).reshape(N * Bc, -1)
         scores = actor.head_ctx(se_g, merged_c.flatten(0, 1), hmg,
                                 prev_c.flatten(0, 1), ctx_ns,
-                                dsum_c.flatten(0, 1)).reshape(N, Bc, -1)
+                                dsum_c.flatten(0, 1), dtype).reshape(N, Bc, -1)
         lsm = torch.log_softmax(_masked_logits(scores, mask_c, temperature),
                                 -1)
         lp = lsm.gather(-1, pos_c[..., None])[..., 0]         # [N, Bc]

@@ -1,0 +1,682 @@
+"""The bf16 compute dtype: tapnet_torch against tapnet_tpu with
+`dtype=jnp.bfloat16` (the JAX train step's accelerator dtype).
+
+Parameters come from the JAX package (flax init_params through
+convert.py), inputs from a numpy seed; the JAX side runs at matmul
+precision "highest". Like is compared with like (SPEC.md §12 tier 2 in
+bf16: logits to about 1e-2, validation distributional):
+
+1. the bf16 actor head, `embed_static`, `embed_static_T`, the windowed
+   head and the critic against flax with `dtype=jnp.bfloat16` (2d-basic,
+   3d-basic, 2d-rolling);
+2. the plain bf16 K2 (both modes) against the Pallas `actor_select_step(
+   dtype=bfloat16, interpret=True)` in lockstep over a whole sampled
+   rollout (2d-basic, 2d-rolling): logits within LOGIT_TOL, integer outputs
+   equal where the actions agree, action agreement > 0.99 at every step;
+3. the plain bf16 K5, monolithic and step-grid, against the Pallas replay
+   kernels in bf16 (`replay_logp_fused`, the function `replay_logp_sum(
+   kernel=True)` calls) on JAX's own bf16 operands (2d-basic, 2d-rolling;
+   interpret mode, once per config in a module fixture; on 2d-basic the JAX
+   side runs its step-grid schedule, the same function: its monolithic
+   kernels stop on this CPU's XLA, which has no bf16 x bf16 -> f32 dot).
+   The value within K5_VALUE_TOL (relative), each of the 13 gradients within
+   K5_GRAD_TOL of its largest magnitude: one bf16 ulp (2^-7 at most) of
+   that magnitude, as both sides cast the gradient to bf16, with a margin.
+   The float32 plain K5 on the same operands must fall outside both;
+4. the general and the windowed bf16 replays against JAX's `kernel=False`
+   replays;
+5. one bf16 train step against JAX `make_train_step(compute_dtype=
+   bfloat16)`'s loss and gradients on JAX's recorded actions (teacher
+   forced), the metrics of a whole step, the tpu_parity.py gate (action
+   agreement > 0.9, mean reward |diff| < 0.02) on free rollouts, and the
+   bf16 step on the six CONFIGS;
+6. the port's general bf16 rollouts against its K2 route on the CPU (the
+   same gate);
+7. `routes` and `eligible` with a dtype.
+
+The two JAX paths are further apart in bf16 than either is from its port
+counterpart (the kernels multiply by v in f32 and take exact count
+summaries; the flax head does neither), so no test holds one JAX path to
+the other's port.
+
+The Pallas kernels run compiled with XLA's `xla_allow_excess_precision`
+off (`_compile_strict`). By default XLA:CPU may fold a round trip through
+bf16 away, such as each score's `.astype(bf16).astype(f32)` in the
+kernels, so the interpret run would skip roundings the kernel source
+writes.
+
+Gradients of the flax path (4 and 5): each leaf's largest difference from
+JAX's, over the leaf's largest magnitude, is at most GRAD_TOL plus JAX's
+own distance from the float32 gradient on the same record (the port's
+float32 path, held to JAX's float32 elsewhere), measured the same way. JAX
+differentiates the bf16 graph with bf16 reductions: on 2d-rolling its
+gradient of dyn_hidden.bias, a sum over ~8,000 token rows, is 40% of the
+leaf's magnitude from the float32 gradient, where the port's (float32
+accumulation, one rounding) is 2.3%.
+
+Each comparison with JAX prints its reading (`pytest -s`).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tapnet_torch as T
+from tapnet_tpu.config import CONFIGS as JCONFIGS
+from tapnet_tpu.config import TAPConfig as JTAPConfig
+from tapnet_tpu.env import core as JE
+from tapnet_tpu.env.sampler import sample_batch as jax_sample_batch
+from tapnet_tpu.models import features as JF
+from tapnet_tpu.models.tapnet import TAPNetActor as JActor
+from tapnet_tpu.models.tapnet import TAPNetCritic as JCritic
+from tapnet_tpu.models.tapnet import embed_static_T as jax_embed_static_T
+from tapnet_tpu.models.tapnet import init_params as jax_init_params
+from tapnet_tpu.ops import pallas_actor_step as JAS
+from tapnet_tpu.ops import pallas_replay as JPR
+from tapnet_tpu.train import reinforce as JR
+from tapnet_tpu.train import rollout as JRO
+from tapnet_torch.config import CONFIGS, TAPConfig
+from tapnet_torch.convert import flax_to_state_dict, params_from_flax
+from tapnet_torch.env import core as E
+from tapnet_torch.models import features as F
+from tapnet_torch.models.tapnet import embed_static_T
+from tapnet_torch.ops import actor_step as AS
+from tapnet_torch.ops import policy_step as PS
+from tapnet_torch.ops import replay as RP
+from tapnet_torch.ops.reward import fused_reward
+from tapnet_torch.train import reinforce as TR
+from tapnet_torch.train import rollout as RO
+from tapnet_torch.types import Instance
+
+BF = torch.bfloat16
+JBF = jnp.bfloat16
+HIDDEN = 32
+LOGIT_TOL = 1e-2    # bf16 logits, absolute (SPEC.md §12)
+EMB_TOL = 3e-2      # bf16 activations, of the tensor's max magnitude
+VALUE_TOL = 1e-2    # replayed logp and losses, relative
+GRAD_TOL = 8e-2     # each gradient leaf, of its max magnitude (module doc)
+K5_VALUE_TOL = 1e-4  # plain K5 vs Pallas K5: the value, relative
+K5_GRAD_TOL = 1e-2   # plain K5 vs Pallas K5: each gradient, of its max
+ROLLING = dict(num_blocks=12, min_blocks=6, container_width=8,
+               container_height=12, target_width=8, window=4, allow_rot=True)
+
+
+def _configs(name):
+    if name == "rolling-small":
+        return TAPConfig(**ROLLING), JTAPConfig(**ROLLING)
+    return CONFIGS[name], JCONFIGS[name]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _f32(x):
+    """A JAX or torch bf16 array as a float32 numpy array (exact)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+def _scaled_close(got, want, tol, what):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape, what
+    scale = float(np.abs(want).max()) + 1e-9
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, f"{what}: scaled err {err}"
+    return err
+
+
+@functools.cache
+def _setup(name, B=16, seed=3):
+    """Weights, instances, a mid-rollout state and a JAX bf16 record."""
+    cfg, jcfg = _configs(name)
+    params = jax.jit(jax_init_params, static_argnums=(1, 2))(
+        jax.random.key(seed), jcfg, HIDDEN)
+    actor, critic = params_from_flax(jax.tree.map(np.asarray, params), cfg,
+                                     HIDDEN)
+    instances = jax.jit(jax_sample_batch, static_argnums=(1, 2))(
+        jax.random.key(seed + 1), B, jcfg)
+    keys = jax.random.split(jax.random.key(seed + 2), B)
+    with jax.default_matmul_precision("highest"):
+        states, record, logp = jax.jit(
+            lambda p, i, k: JRO.rollout_batch_record(
+                p, i, k, jcfg, hidden=HIDDEN, dtype=JBF, step_kernel=False,
+                actor_kernel=False))(params["actor"], instances, keys)
+    inst = Instance(*(_t(x) for x in instances))
+    return dict(cfg=cfg, jcfg=jcfg, params=params, actor=actor,
+                critic=critic, instances=instances, inst=inst, keys=keys,
+                tkeys=_t(jax.random.key_data(keys)).long(), states=states,
+                record=record, logp=logp,
+                rec=RO.RolloutRecord(*(_t(x) for x in record)))
+
+
+def _mid_inputs(s, k=None):
+    """Head inputs at decode step k of the JAX record, both sides."""
+    cfg = s["cfg"]
+    k = cfg.num_blocks // 3 if k is None else k
+    flags, hm = s["rec"].flags[k], s["rec"].heightmap[k]
+    prev = s["rec"].action[k - 1]
+    static = F.static_tokens(s["inst"], cfg)
+    dynamic = F.merge_tokens(static, F.tokens_from_flags(
+        flags, torch.tensor(k / cfg.num_blocks), cfg))
+    return static, dynamic, F.heightmap_grid(hm, cfg), prev
+
+
+# ---- 1. the model in bf16 against flax --------------------------------- #
+
+@pytest.mark.parametrize("name", ["2d-basic", "3d-basic", "2d-rolling"])
+def test_model_matches_flax_bf16(name):
+    s = _setup(name)
+    cfg, jcfg = s["cfg"], s["jcfg"]
+    actor, critic = s["actor"], s["critic"]
+    static, dynamic, hmg, prev = _mid_inputs(s)
+    B, T = static.shape[:2]
+    jactor = JActor(jcfg, HIDDEN, dtype=JBF)
+    ap = s["params"]["actor"]
+    with jax.default_matmul_precision("highest"):
+        emb_j = jax.jit(jax.vmap(lambda x: jactor.apply(
+            ap, x, method=JActor.embed_static)))(static.numpy())
+        logits_j = jax.jit(jax.vmap(lambda se, dy, hg, pa: jactor.apply(
+            ap, se, dy, hg, pa, method=JActor.head)))(
+                emb_j, dynamic.numpy(), hmg.numpy(), prev.numpy())
+        st4 = static.permute(2, 1, 0).reshape(4, -1).numpy()
+        embT_j = jax.jit(lambda p, x: jax_embed_static_T(p, x, JBF))(ap, st4)
+        s0 = jax.vmap(lambda i: JE.reset(i, jcfg))(s["instances"])
+        v_j = jax.jit(jax.vmap(lambda i, st: JCritic(jcfg, HIDDEN, dtype=JBF)
+                               .apply(s["params"]["critic"],
+                                      *JF.build_tokens(i, st, jcfg))))(
+            s["instances"], s0)
+    with torch.no_grad():
+        emb = actor.embed_static(static, BF)
+        assert emb.dtype == BF
+        e_emb = _scaled_close(emb, emb_j, EMB_TOL, "embed_static")
+        # the head on flax's own keys: the head alone
+        logits = actor.head(torch.from_numpy(_f32(emb_j)).to(BF), dynamic,
+                            hmg, prev, BF)
+        assert logits.dtype == torch.float32
+        err = np.abs(logits.numpy() - _f32(logits_j)).max()
+        assert err <= LOGIT_TOL, f"head logits: max err {err}"
+        embT = embed_static_T(actor, static.permute(2, 1, 0).reshape(4, -1),
+                              BF)
+        assert embT.dtype == BF
+        e_embT = _scaled_close(embT, embT_j, EMB_TOL, "embed_static_T")
+        V = critic(*F.build_tokens(s["inst"], E.reset(s["inst"], cfg), cfg),
+                   BF)
+        assert V.dtype == torch.float32
+        np.testing.assert_allclose(V.numpy(), _f32(v_j), atol=LOGIT_TOL,
+                                   err_msg="critic")
+    print(f"\n{name} model: embed_static {e_emb:.2e}, head logits {err:.2e}, "
+          f"embed_static_T {e_embT:.2e}, critic "
+          f"{np.abs(V.numpy() - _f32(v_j)).max():.2e}")
+
+
+def test_windowed_head_matches_jax_bf16():
+    s = _setup("2d-rolling")
+    cfg, jcfg = s["cfg"], s["jcfg"]
+    k = cfg.num_blocks // 3
+    flags, hm = np.asarray(s["record"].flags[k]), np.asarray(
+        s["record"].heightmap[k])
+    prev = np.asarray(s["record"].action[k - 1])
+    t_frac = np.float32(k) / cfg.num_blocks
+    jactor = JActor(jcfg, HIDDEN, dtype=JBF)
+
+    def jax_head(params, instances):
+        static = jax.vmap(lambda i: JF.static_tokens(i, jcfg))(instances)
+        emb = jactor.apply(params, static, method=JActor.embed_static)
+        head = JRO._make_windowed_head(jactor, params, instances, static,
+                                       emb, jcfg, HIDDEN, JBF)
+        return emb, head(flags, hm, prev, t_frac)
+
+    with jax.default_matmul_precision("highest"):
+        emb_j, want = jax.jit(jax_head)(s["params"]["actor"],
+                                        s["instances"])
+    actor, inst = s["actor"], s["inst"]
+    with torch.no_grad():
+        static = F.static_tokens(inst, cfg)
+        emb = torch.from_numpy(_f32(emb_j)).to(BF)   # the head alone
+        head = RO._make_windowed_head(actor, inst, static, emb, cfg, BF)
+        got = head(_t(flags), _t(hm), _t(prev), float(t_frac))
+    err = np.abs(got.numpy() - _f32(want)).max()
+    assert err <= LOGIT_TOL, f"windowed head: max err {err}"
+    print(f"\nwindowed head logits: max err {err:.2e}")
+
+
+# ---- 2. plain bf16 K2 against the Pallas kernel ------------------------ #
+
+def _compile_strict(f, *args):
+    """f compiled for args with `xla_allow_excess_precision` off (module
+    doc): every bf16 rounding the source writes is kept."""
+    return jax.jit(f).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+
+
+def _port(x):
+    """A JAX or numpy operand as a torch tensor in its dtype (bf16 exact)."""
+    if getattr(x, "dtype", None) == JBF:
+        return torch.from_numpy(_f32(x)).to(BF)
+    return torch.from_numpy(np.array(x))
+
+
+def _k2_operands(s):
+    """The first decode step's operands (reset state, prev -1), the float
+    ones from the JAX side in bf16; numpy or JAX, batch-last."""
+    cfg, jcfg, params = s["cfg"], s["jcfg"], s["params"]["actor"]
+    N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
+                  cfg.num_containers)
+    T = N * cfg.num_rot
+    inst = s["inst"]
+    B = inst.dims.shape[0]
+    state = E.reset(inst, cfg)
+    static = F.static_tokens(inst, cfg)
+    st4 = static.permute(2, 1, 0).reshape(4, T * B).numpy()
+    with jax.default_matmul_precision("highest"):
+        se_htb = jax.jit(lambda p, x: jax_embed_static_T(p, x, JBF))(
+            params, st4).reshape(-1, T, B)
+    upm, rotm = AS.precedence_bitmasks(inst, cfg)
+    return [
+        np.zeros((1, 1), np.float32),
+        state.packed.T.int().numpy(),
+        state.heightmap.permute(1, 2, 3, 0).reshape(C * W, D, B).numpy(),
+        state.placements.permute(1, 2, 0).reshape(N * 6, B).numpy(),
+        np.full((1, B), -1, np.int32),
+        inst.dims[:, :, 0].T.numpy(), inst.dims[:, :, 1].T.numpy(),
+        inst.dims[:, :, 2].T.numpy(), upm.numpy(), rotm.numpy(),
+        AS.fits_planes(inst, cfg).numpy(),
+        np.zeros((cfg.num_actions, B), np.float32),
+        jnp.transpose(se_htb, (1, 0, 2)), se_htb.mean(axis=1),
+        jnp.asarray(st4.reshape(4, T, B), JBF),
+        jnp.asarray(static.numpy(), JBF).mean(axis=1).T]
+
+
+@pytest.mark.parametrize("name", ["2d-basic", "2d-rolling"])
+def test_plain_k2_bf16_matches_jax_kernel(name):
+    """A whole sampled rollout in lockstep: every step, from the reset state
+    (prev -1, t = 0) to the last, runs the Pallas kernel and the plain K2
+    (both modes) on the same pre-step state, then both go on from the
+    kernel's next state."""
+    s = _setup(name, B=128)
+    cfg, jcfg = s["cfg"], s["jcfg"]
+    N = cfg.num_blocks
+    ops = _k2_operands(s)
+    jparams = JAS.head_operands(s["params"]["actor"], jcfg, JBF)
+    params = AS.head_operands(s["actor"], cfg, BF)
+    assert [p.dtype for p in params] == [BF] * 10 + [torch.float32]
+    step = lambda o, p: JAS.actor_select_step(
+        *o, p, cfg=jcfg, temperature=0.7, dtype=JBF, interpret=True)
+    with jax.default_matmul_precision("highest"):
+        step = _compile_strict(step, [jnp.asarray(o) for o in ops], jparams)
+    labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+    rng = np.random.default_rng(11)
+    worst, agree = 0.0, []
+    for k in range(N):
+        ops[11] = rng.gumbel(size=ops[11].shape).astype(np.float32)
+        want = step([jnp.asarray(o) for o in ops], jparams)
+        w = {lab: _f32(v) for lab, v in zip(labels, want)}
+        pops = [_port(o) for o in ops]
+        pops[12] = pops[12].permute(2, 0, 1).contiguous()  # se as [B, T, h]
+        full = AS.actor_select_step(*pops, params, cfg, temperature=0.7)
+        live = AS.actor_select_step(*pops, params, cfg, temperature=0.7,
+                                    logits=False)
+        same = full[3].numpy() == w["act"]
+        agree.append(same.mean())
+        err = np.abs(full[6].numpy() - w["logits"]).max()
+        assert err <= LOGIT_TOL, f"step {k} logits: max err {err}"
+        worst = max(worst, float(err))
+        for got in (full, live):
+            g = dict(zip(labels, got))
+            np.testing.assert_array_equal(g["act"], full[3])
+            for lab in ("flags", "mask"):
+                np.testing.assert_array_equal(g[lab].numpy(), w[lab],
+                                              err_msg=f"step {k} {lab}")
+            for lab in ("packed", "hm", "plc"):
+                np.testing.assert_array_equal(
+                    g[lab].numpy()[..., same], w[lab][..., same],
+                    err_msg=f"step {k} {lab}")
+            np.testing.assert_allclose(g["logp"].numpy()[same],
+                                       w["logp"][same], atol=LOGIT_TOL,
+                                       rtol=VALUE_TOL, err_msg=f"step {k}")
+        ops[0] = np.full((1, 1), (k + 1) / N, np.float32)
+        ops[1], ops[2], ops[3] = (np.asarray(want[i]) for i in range(3))
+        ops[4] = np.asarray(want[3])[None]
+    assert min(agree) > 0.99, agree
+    print(f"\n{name} K2 lockstep: {N} steps, logits max err {worst:.3e}, "
+          f"action agreement >= {min(agree):.4f}")
+
+
+# ---- 3. plain bf16 K5 against the Pallas replay kernels ---------------- #
+
+def _port_value_and_grad(actor, inst, rec, cfg, dlp, dtype=BF, **kw):
+    actor.zero_grad(set_to_none=True)
+    lp = RO.replay_logp_sum(actor, inst, rec, cfg, dtype=dtype, **kw)
+    assert lp.dtype == torch.float32
+    (lp * torch.from_numpy(dlp)).sum().backward()
+    return lp.detach(), {n: p.grad.clone() for n, p in
+                         actor.named_parameters()}
+
+
+def _grads_close(want_tree, got, ref):
+    """Every leaf of `got` within GRAD_TOL (scaled) of JAX's bf16 gradient
+    `want_tree`, plus JAX's own scaled distance from `ref`, the float32
+    gradient of the same function (module doc). Returns the largest scaled
+    difference."""
+    want = flax_to_state_dict(jax.tree.map(np.asarray, want_tree))
+    assert set(want) == set(got) == set(ref)
+    worst = 0.0
+    for n, w in want.items():
+        w = w.numpy()
+        scale = float(np.abs(w).max()) + 1e-9
+        own = float(np.abs(w - ref[n].numpy()).max()) / scale
+        worst = max(worst, _scaled_close(got[n], w, GRAD_TOL + own, n))
+    return worst
+
+
+def _jax_replay(s, kernel, dlp):
+    """JAX bf16 replay value [B] and the gradient of sum(dlp * value)."""
+    f = lambda p: JRO.replay_logp_sum(
+        p, s["instances"], s["record"], s["jcfg"], hidden=HIDDEN,
+        dtype=JBF, kernel=kernel, interpret=kernel)
+    with jax.default_matmul_precision("highest"):
+        lp, vjp = jax.jit(lambda p: jax.vjp(f, p))(s["params"]["actor"])
+        grads = vjp(jnp.asarray(dlp))[0]
+    return np.asarray(lp), grads
+
+
+def _jax_k5_operands(s):
+    """The operands JAX's kernel replay hands `replay_logp_fused`
+    (statics, (params, se, ctx), data), taken at the call."""
+    got = {}
+
+    def capture(statics, diff, data):
+        got.update(statics=statics, diff=diff, data=data)
+        return jnp.zeros(data[3].shape[1:], jnp.float32)
+
+    with pytest.MonkeyPatch.context() as mp, \
+            jax.default_matmul_precision("highest"):
+        mp.setattr(JPR, "replay_logp_fused", capture)
+        JRO._replay_logp_kernel(s["params"]["actor"], s["instances"],
+                                s["record"], s["jcfg"], HIDDEN, 1.0, JBF,
+                                interpret=True)
+    return got["statics"], got["diff"], got["data"]
+
+
+@pytest.fixture(scope="module", params=["2d-basic", "2d-rolling"])
+def jax_kernel_replay(request):
+    """The Pallas bf16 replay kernels (interpret mode, compiled strict) run
+    once per config on JAX's own operands: the value [B] and the gradients
+    of sum(dlp * value) in (params, se, ctx); on 2d-basic through the
+    step-grid schedule (module doc)."""
+    s = _setup(request.param, B=128)
+    dlp = jnp.asarray(np.random.default_rng(7).uniform(-1, 1, 128),
+                      jnp.float32)
+    statics, diff, data = _jax_k5_operands(s)
+
+    def value_and_grad(d, g):
+        lp, vjp = jax.vjp(lambda x: JPR.replay_logp_fused(statics, x, data),
+                          d)
+        return lp, vjp(g)[0]
+
+    with pytest.MonkeyPatch.context() as mp, \
+            jax.default_matmul_precision("highest"):
+        mp.setattr(JPR, "_steps_grid", lambda cfg: True)
+        lp, grads = _compile_strict(value_and_grad, diff, dlp)(diff, dlp)
+    return s, np.asarray(dlp), diff, data, lp, grads
+
+
+def _plain_k5(schedule, dtype, dlp, diff, data, cfg):
+    """The port's plain K5 (`schedule` "monolithic" or "steps") on JAX's
+    operands in `dtype`: value [B] and (d_se, d_ctx, 11 head-operand
+    gradients), each cast to its operand's dtype as `ReplayLogp` does."""
+    params, se, ctx = diff
+    flags, hms, masks, acts, prev, statp, statm, _ = (_port(x) for x in data)
+    cast = lambda x: _port(x).to(dtype if x.dtype == JBF else torch.float32)
+    se, ctx, statp, statm = (cast(x) for x in (se, ctx, data[5], data[6]))
+    params = tuple(cast(p) for p in params)
+    dlp = torch.from_numpy(dlp.copy())
+    if schedule == "steps":
+        lp = RP.replay_logp_fwd_steps_ref(flags, hms, masks, acts, prev, se,
+                                          ctx, statp, statm, params, cfg)
+        dse, dctx, dp = RP.replay_logp_bwd_steps_ref(
+            dlp, flags, hms, masks, acts, prev, se, ctx, statp, statm, params,
+            cfg)
+    else:
+        lp = RP.replay_logp_fwd_ref(flags, hms, masks, acts, se, ctx, statp,
+                                    statm, params, cfg)
+        dse, dctx, dp = RP.replay_logp_bwd_ref(
+            dlp, flags, hms, masks, acts, se, ctx, statp, statm, params, cfg)
+    return lp, [g.to(x.dtype) for g, x in zip((dse, dctx, *dp),
+                                              (se, ctx, *params))]
+
+
+def _k5_errors(lp, grads, lp_j, grads_j):
+    """(the value's largest relative difference, each gradient's largest
+    difference over its largest magnitude) against JAX's."""
+    lp_j = np.asarray(lp_j)
+    verr = float(np.abs(lp.numpy() - lp_j).max() / np.abs(lp_j).max())
+    want = [grads_j[1], grads_j[2], *grads_j[0]]
+    gerr = []
+    for g, w in zip(grads, want):
+        w = _f32(w)
+        gerr.append(float(np.abs(_f32(g) - w).max())
+                    / (float(np.abs(w).max()) + 1e-9))
+    return verr, gerr
+
+
+@pytest.mark.parametrize("schedule", ["monolithic", "steps"])
+def test_plain_k5_bf16_matches_jax_kernels(jax_kernel_replay, schedule):
+    """The plain bf16 K5 against the Pallas kernels on the same bf16
+    operands, within K5_VALUE_TOL and K5_GRAD_TOL; the float32 plain K5 on
+    the same operands falls outside both, so the tolerances see the bf16
+    rounding points."""
+    s, dlp, diff, data, lp_j, grads_j = jax_kernel_replay
+    cfg = s["cfg"]
+    assert RP._steps_grid(cfg) == (cfg.window > 0)
+    lp, grads = _plain_k5(schedule, BF, dlp, diff, data, cfg)
+    assert [g.dtype for g in grads] == [BF] * 12 + [torch.float32]
+    verr, gerr = _k5_errors(lp, grads, lp_j, grads_j)
+    assert verr <= K5_VALUE_TOL, f"value: relative err {verr}"
+    assert max(gerr) <= K5_GRAD_TOL, f"gradients: scaled errs {gerr}"
+    verr32, gerr32 = _k5_errors(*_plain_k5(schedule, torch.float32, dlp,
+                                           diff, data, cfg), lp_j, grads_j)
+    assert verr32 > K5_VALUE_TOL and max(gerr32) > K5_GRAD_TOL, \
+        (verr32, gerr32)
+    print(f"\n{cfg.num_blocks}-block K5 {schedule}: bf16 value {verr:.2e} "
+          f"grads {max(gerr):.2e}; float32 value {verr32:.2e} grads "
+          f"{max(gerr32):.2e}")
+
+
+def test_k5_bf16_gradients_take_operand_dtypes():
+    """ReplayLogp hands each operand a gradient in its dtype: bf16 for se,
+    ctx and the ten weights, float32 for v (the JAX `_bwd_impl` casts)."""
+    s = _setup("2d-basic")
+    cfg = s["cfg"]
+    data, se, ctx, params = RO.replay_operands(s["actor"], s["inst"],
+                                               s["rec"], cfg, grad=False,
+                                               dtype=BF)
+    leaves = [x.detach().requires_grad_() for x in (se, ctx, *params)]
+    lp = RP.ReplayLogp.apply(cfg, 1.0, None, *data, *leaves)
+    lp.sum().backward()
+    assert [x.grad.dtype for x in leaves] == [BF] * 12 + [torch.float32]
+    dse, dctx, dpar = RP.replay_logp_bwd_ref(
+        torch.ones(lp.shape), data[0], data[1], data[2], data[3], se, ctx,
+        data[4], data[5], params, cfg)
+    assert dse.dtype == torch.float32
+    np.testing.assert_array_equal(leaves[0].grad.float().numpy(),
+                                  dse.to(BF).float().numpy())
+
+
+# ---- 4. the general and windowed bf16 replays ------------------------- #
+
+@pytest.mark.parametrize("name", ["2d-basic", "2d-rolling"])
+def test_general_replays_match_jax_bf16(name):
+    s = _setup(name)
+    cfg = s["cfg"]
+    B = s["rec"].action.shape[1]
+    dlp = np.random.default_rng(8).uniform(-1, 1, B).astype(np.float32)
+    lp_j, grads_j = _jax_replay(s, False, dlp)
+    lp, got = _port_value_and_grad(s["actor"], s["inst"], s["rec"], cfg,
+                                   dlp, kernel=False)
+    _, ref = _port_value_and_grad(s["actor"], s["inst"], s["rec"], cfg,
+                                  dlp, dtype=torch.float32, kernel=False)
+    np.testing.assert_allclose(lp.numpy(), lp_j, rtol=VALUE_TOL,
+                               atol=VALUE_TOL)
+    worst = _grads_close(grads_j, got, ref)
+    print(f"\n{name} general replay: value "
+          f"{np.abs(lp.numpy() - lp_j).max() / np.abs(lp_j).max():.2e}, "
+          f"grads {worst:.2e}")
+
+
+# ---- 5. the bf16 train step ------------------------------------------- #
+
+def test_train_step_loss_and_gradients_match_jax_bf16():
+    """JAX's bf16 losses and gradients against the port's on JAX's own
+    record (teacher forced): instances, record, final states and rewards
+    from the JAX rollout, the replay, critic and losses on both sides."""
+    s = _setup("2d-basic", B=32)
+    cfg, jcfg = s["cfg"], s["jcfg"]
+
+    def loss(p):
+        a, c, _, _ = JR._batch_losses(p, s["instances"], s["keys"], jcfg,
+                                      HIDDEN, 1.0, False, dtype=JBF,
+                                      step_kernel=False, actor_kernel=False)
+        return a + c, (a, c)
+
+    with jax.default_matmul_precision("highest"):
+        grads, (a_j, c_j) = jax.jit(jax.grad(loss, has_aux=True))(
+            s["params"])
+    inst, rec, st = s["inst"], s["rec"], s["states"]
+    _, _, _, Rw = fused_reward(_t(st.heightmap), _t(st.placements),
+                               inst.dims, cfg.reward_terms)
+    got = {}
+    for dt in (BF, torch.float32):
+        actor, critic = params_from_flax(
+            jax.tree.map(np.asarray, s["params"]), cfg, HIDDEN)
+        logp = RO.replay_logp_sum(actor, inst, rec, cfg, dtype=dt)
+        V = critic(*F.build_tokens(inst, E.reset(inst, cfg), cfg), dt)
+        a = -((Rw - V.detach()) * logp).mean()
+        c = ((V - Rw) ** 2).mean()
+        (a + c).backward()
+        got[dt] = (a.item(), c.item(),
+                   {n: p.grad for n, p in actor.named_parameters()},
+                   {n: p.grad for n, p in critic.named_parameters()})
+    a, c, g_actor, g_critic = got[BF]
+    np.testing.assert_allclose(c, float(c_j), rtol=VALUE_TOL)
+    np.testing.assert_allclose(a, float(a_j), rtol=VALUE_TOL, atol=1e-3)
+    wa = _grads_close(grads["actor"], g_actor, got[torch.float32][2])
+    wc = _grads_close(grads["critic"], g_critic, got[torch.float32][3])
+    print(f"\nteacher-forced step: actor loss {abs(a - float(a_j)):.2e}, "
+          f"critic loss {abs(c / float(c_j) - 1):.2e} (relative), grads "
+          f"actor {wa:.2e} critic {wc:.2e}")
+
+
+def _gate(actions_a, actions_b, reward_a, reward_b):
+    """tpu_parity.py's bf16 gate: action agreement over the record and the
+    mean reward's absolute difference."""
+    agree = float((np.asarray(actions_a) == np.asarray(actions_b)).mean())
+    drew = abs(float(np.mean(reward_a)) - float(np.mean(reward_b)))
+    assert agree > 0.9 and drew < 0.02, (agree, drew)
+    return agree, drew
+
+
+def test_train_step_matches_jax_bf16():
+    """A whole bf16 step from the same state and key: the free rollouts pass
+    the parity gate; the reward terms' means and the losses agree."""
+    cfg, jcfg = CONFIGS["2d-basic"], JCONFIGS["2d-basic"]
+    B = 32
+    jts = jax.jit(JR.init_train_state, static_argnums=(1, 2))(
+        jax.random.key(0), jcfg, HIDDEN)
+    actor, critic = params_from_flax(jax.tree.map(np.asarray, jts.params),
+                                     cfg, HIDDEN)
+    ts = TR.train_state(actor, critic, _t(jax.random.key_data(jts.key)
+                                           ).long())
+    with jax.default_matmul_precision("highest"):
+        _, m_j = JR.make_train_step(jcfg, batch=B, hidden=HIDDEN,
+                                    compute_dtype=JBF)(jts)
+    _, m = T.make_train_step(cfg, batch=B, hidden=HIDDEN, device="cpu",
+                             compute_dtype=BF)(ts)
+    diff = {k: abs(float(m[k]) - float(m_j[k])) for k in ("reward", "C",
+                                                          "P", "S")}
+    for k, d in diff.items():
+        assert d < 0.02, k
+    print(f"\nwhole step: metric diffs {diff}")
+    np.testing.assert_allclose(float(m["loss_critic"]),
+                               float(m_j["loss_critic"]), rtol=0.1)
+    assert np.isfinite(float(m["grad_norm"]))
+
+
+def test_free_rollouts_pass_the_parity_gate():
+    s = _setup("2d-basic", B=128)
+    cfg = s["cfg"]
+    st, rec, _ = RO.rollout_batch_record(s["actor"], s["inst"], s["tkeys"],
+                                         cfg, dtype=BF)
+    R_j = jax.vmap(lambda x, i: JE.reward(x, i, s["jcfg"]))(s["states"],
+                                                           s["instances"])
+    print("\nfree rollouts vs JAX: agreement %.4f, reward diff %.2e" % _gate(
+        rec.action.numpy(), s["record"].action,
+        E.reward(st, s["inst"], cfg).numpy(), np.asarray(R_j)))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_bf16_step_runs_on_every_config(name):
+    cfg = CONFIGS[name]
+    ts = T.init_train_state(0, cfg, hidden=HIDDEN, device="cpu")
+    ts, m = T.make_train_step(cfg, batch=8, hidden=HIDDEN, device="cpu",
+                              compute_dtype="bfloat16")(ts)
+    assert all(np.isfinite(float(v)) for v in m.values()), m
+    assert all(p.dtype == torch.float32 for p in ts.parameters())
+
+
+# ---- 6. general route against the K2 route on the CPU ------------------ #
+
+@pytest.mark.parametrize("name", ["2d-basic", "rolling-small"])
+def test_general_rollouts_match_k2_route_bf16(name):
+    s = _setup(name, B=128)
+    cfg = s["cfg"]
+    with torch.no_grad():
+        st_g, rec_g, _ = RO.rollout_batch_record(
+            s["actor"], s["inst"], s["tkeys"], cfg, dtype=BF)
+        st_k, rec_k, lp_k = RO.rollout_batch_record(
+            s["actor"], s["inst"], s["tkeys"], cfg, dtype=BF,
+            actor_kernel=True)
+        # the K2 route's logp is the replay kernels' value on its record
+        lp_r = RO.replay_logp_sum(s["actor"], s["inst"], rec_k, cfg,
+                                  kernel=True, dtype=BF)
+    _gate(rec_g.action.numpy(), rec_k.action.numpy(),
+          E.reward(st_g, s["inst"], cfg).numpy(),
+          E.reward(st_k, s["inst"], cfg).numpy())
+    np.testing.assert_allclose(lp_r.numpy(), lp_k.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---- 7. routes and eligible with a dtype ------------------------------- #
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_routes_and_eligible_with_a_dtype(name):
+    cfg = CONFIGS[name]
+    for h in (32, 128, 256):
+        for f in (AS.eligible, RP.eligible):
+            assert f(cfg, h, BF) == f(cfg, h, torch.float32) == f(cfg, h)
+            assert not f(cfg, h, torch.float16)
+        r = RO.routes(cfg, True, h, dtype=BF)
+        assert r == RO.routes(cfg, True, h)
+        half = RO.routes(cfg, True, h, dtype=torch.float16)
+        assert half.decode == ("step" if PS.eligible(cfg) else "general")
+        assert not half.replay
+        assert RO.routes(cfg, False, h, dtype=BF) == RO.Routes(
+            "general", False, False)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        AS._check_cfg(CONFIGS["2d-basic"], 32, torch.float16)
+
+
+def test_compute_dtype_values():
+    assert TR.compute_dtype_of(None) == torch.float32
+    assert TR.compute_dtype_of("float32") == torch.float32
+    assert TR.compute_dtype_of(torch.bfloat16) == BF
+    assert TR.compute_dtype_of("bfloat16") == BF
+    for bad in (torch.float16, "float16", jnp.bfloat16):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TR.compute_dtype_of(bad)

@@ -335,9 +335,15 @@ def test_unported_options_raise():
     from tapnet_torch.parallel.mesh import DataMesh
 
     cfg = T.CONFIGS[NAME]
+    # bfloat16 is ported (tests/test_torch_bf16.py): the step runs; any
+    # other compute dtype raises
+    ts = T.init_train_state(0, cfg, hidden=HIDDEN, device="cpu")
+    _, m = T.make_train_step(cfg, batch=8, hidden=HIDDEN, device="cpu",
+                             compute_dtype=torch.bfloat16)(ts)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.make_train_step(cfg, batch=8, device="cpu",
-                          compute_dtype=torch.bfloat16)
+                          compute_dtype=torch.float16)
     # a mesh is ported (tests/test_torch_parallel.py); its world size must
     # divide the batch
     with pytest.raises(ValueError, match="multiple"):
