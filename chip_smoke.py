@@ -195,7 +195,20 @@ source, all started at once), then runs, and fails on the first fault:
    the dense bf16 tensor-core peak, the rest at the f32 rate), and the f32
    and bf16 train steps at 2d-basic k = 8 and 2d-rolling k = 4 (host clock
    and `utils.profiling.device_time_ms`, in turns). `chip_smoke.phase_24(
-   dev)` runs it alone after `ops._build.build_all()`.
+   dev)` runs it alone after `ops._build.build_all()`;
+25. the JAX package's last modules: `env.core.rollout` (one instance) on
+   the card for the six CONFIGS x {first, random}, 3 seeds each,
+   bit-equal to the same call on the CPU and to its `rollout_batch` row;
+   `python -m tapnet_torch.cli render` (2d-rot to a PNG, 3d-basic
+   `--sequence` to a GIF): the files' magic and sizes where matplotlib
+   imports, else the JAX package's ModuleNotFoundError (which case held
+   and the matplotlib / tensorboard versions are logged); `train()` with
+   `tb_dir` (2d-basic, batch 256, 2 x 2 steps): the events file reads back
+   to the JSONL's (tag, step, value) triples; tensor parallelism on a
+   world-1 NCCL group, `data_model_mesh(1, 1)` and `shard_params_tp` on a
+   hidden-128 actor, its forward at batch 4096 bit-equal to the
+   replicated one, the spec tree logged. `chip_smoke.phase_25(dev)` runs
+   it alone after `ops._build.build_all()`.
 
 It prints the kernel table as one JSON line (each entry with its "dtype";
 the bf16 instantiations as entries of their own), then the nvidia-smi line,
@@ -1848,16 +1861,22 @@ def check_mixed_evaluate(cfg, dev, actor):
     return got, {k: float(v) for k, v in out.items()}, ms
 
 
-def _run_cli(args, tmp):
-    """`python -m tapnet_torch.cli ARGS` from the repository root on the
-    card; returns its standard output."""
+def _cli_process(args):
+    """`python -m tapnet_torch.cli ARGS` from the repository root, run to
+    its end: the CompletedProcess, output captured."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
+    return subprocess.run([sys.executable, "-m", "tapnet_torch.cli", *args],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def _run_cli(args, tmp):
+    """`python -m tapnet_torch.cli ARGS` on the card; returns its standard
+    output."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "tapnet_torch.cli", *args],
-                         cwd=root, env=env, capture_output=True, text=True,
-                         timeout=600)
+    res = _cli_process(args)
     if res.returncode != 0:
         raise AssertionError(f"cli {args[0]} exited {res.returncode}:\n"
                              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
@@ -2688,6 +2707,180 @@ def phase_24(dev):
     return kernels, rows
 
 
+def _rollout_parts(state, actions, reward):
+    return {**{f"state {f}": getattr(state, f) for f in state._fields},
+            "actions": actions, "reward": reward}
+
+
+def check_rollouts(dev, seeds=(0, 1, 2)):
+    """`env.core.rollout` on the card for the six CONFIGS x {first,
+    random}, `seeds` each: bit-equal to the same call on the CPU and to the
+    seed's row of `rollout_batch` over all the seeds' instances (actions,
+    state, reward). Returns the number of rollouts checked."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import random as R
+    from tapnet_torch.env import core as E
+    from tapnet_torch.env.sampler import sample_instance
+    from tapnet_torch.types import Instance
+
+    n = 0
+    for name, cfg in CONFIGS.items():
+        keys = torch.stack([R.key(s, dev) for s in seeds])
+        batch = sample_instance(keys, cfg)
+        for policy in ("first", "random"):
+            state, actions, rewards = E.rollout_batch(batch, keys, cfg,
+                                                      policy)
+            for i, seed in enumerate(seeds):
+                inst = Instance(*(x[i] for x in batch))
+                got = _rollout_parts(*E.rollout(inst, keys[i], cfg, policy))
+                cpu = _rollout_parts(*E.rollout(inst.to("cpu"), keys[i].cpu(),
+                                                cfg, policy))
+                row = _rollout_parts(type(state)(*(x[i] for x in state)),
+                                     actions[i], rewards[i])
+                for k, v in got.items():
+                    label = f"rollout {name} {policy} seed {seed} {k}"
+                    _equal(f"{label}: card vs CPU", v.cpu(), cpu[k])
+                    _equal(f"{label}: vs its rollout_batch row", v, row[k])
+                n += 1
+    return n
+
+
+def check_render(tmp):
+    """`python -m tapnet_torch.cli render` on the card: 2d-rot to a PNG and
+    3d-basic with --sequence to a GIF. Where matplotlib imports, the files'
+    magic bytes and sizes (the JAX tests' limits); where it does not, the
+    JAX package's own failure, matplotlib's ModuleNotFoundError. Returns
+    which case held."""
+    import importlib.util
+    import os
+
+    have = importlib.util.find_spec("matplotlib") is not None
+    cases = (("2d-rot", "x.png", [], (b"\x89PNG",), 1000),
+             ("3d-basic", "seq.gif", ["--sequence"], (b"GIF87a", b"GIF89a"),
+              10_000))
+    for name, out, extra, magic, size in cases:
+        path = os.path.join(tmp, out)
+        args = ["render", "--config", name, "--seed", str(SEED), "--out",
+                path, *extra]
+        res = _cli_process(args)
+        if have:
+            rec = _json_lines(res.stdout)
+            if res.returncode != 0 or not rec or rec[-1]["path"] != path:
+                raise AssertionError(f"cli render {name}: rc "
+                                     f"{res.returncode}\n{res.stderr[-3000:]}")
+            with open(path, "rb") as f:
+                head = f.read(8)
+            if (not any(head.startswith(m) for m in magic)
+                    or os.path.getsize(path) <= size):
+                raise AssertionError(f"cli render {name}: {head!r}, "
+                                     f"{os.path.getsize(path)} B")
+        elif (res.returncode == 0 or "ModuleNotFoundError: No module named "
+              "'matplotlib'" not in res.stderr):
+            raise AssertionError(f"cli render {name} without matplotlib: rc "
+                                 f"{res.returncode}\n{res.stderr[-3000:]}")
+    return ("matplotlib imports: a PNG and a GIF of the JAX tests' sizes"
+            if have else "no matplotlib: both renders failed with "
+            "ModuleNotFoundError: No module named 'matplotlib', the JAX "
+            "package's behaviour")
+
+
+def check_tb(cfg, dev, tmp):
+    """train() on the card (batch 256, 2 epochs x 2 steps) with tb_dir and
+    metrics_path: the events file reads back (both CRCs checked) to
+    exactly the (tag, step, value as float32) triples of the JSONL
+    records. Returns the number of scalars."""
+    import glob
+    import os
+
+    from tapnet_torch.train.metrics import read_scalars
+    from tapnet_torch.train.trainer import TrainLoopConfig, train
+
+    loop = TrainLoopConfig(epochs=2, steps_per_epoch=2, batch=256,
+                           valid_batch=256, hidden=HIDDEN, seed=SEED,
+                           metrics_path=os.path.join(tmp, "m.jsonl"),
+                           tb_dir=os.path.join(tmp, "tb"))
+    train(cfg, loop, device=dev)
+    (path,) = glob.glob(os.path.join(tmp, "tb", "events.out.tfevents.*"))
+    want = []
+    for rec in _json_lines(open(loop.metrics_path).read()):
+        want += [(k, rec["step"], float(np.float32(v)))
+                 for k, v in rec.items()
+                 if k != "step" and isinstance(v, (int, float))]
+    got = read_scalars(path)
+    if not want or got != want:
+        raise AssertionError(f"events file {got[:6]} != JSONL {want[:6]}")
+    return len(got)
+
+
+def check_tp(cfg, dev, B=B_MAIN):
+    """A world-1 NCCL group: `data_model_mesh(1, 1)`, `shard_params_tp` on
+    a hidden-128 actor, its forward on B reset states bit-equal to the
+    replicated actor's. Returns the spec tree."""
+    import copy
+
+    import torch.distributed as dist
+
+    from tapnet_torch.env import core as E
+    from tapnet_torch.models.features import build_tokens
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.parallel import (data_model_mesh, shard_params_tp,
+                                       tp_sharding_tree)
+
+    mesh = data_model_mesh(1, 1, device=dev)
+    if dev.type == "cuda" and ("nccl" not in str(dist.get_backend())
+                               or mesh.device_type != "cuda"):
+        raise AssertionError(f"data_model_mesh(1, 1): {mesh}, "
+                             f"{dist.get_backend()}")
+    actor = init_params(SEED, cfg, HIDDEN, dev)
+    inst = _instances(cfg, B, dev, SEED + 25)
+    tokens = build_tokens(inst, E.reset(inst, cfg), cfg)
+    tree = tp_sharding_tree(actor, mesh)
+    with torch.no_grad():
+        want = actor(*tokens)
+        tp = shard_params_tp(copy.deepcopy(actor), mesh)
+        got = tp(*tokens)
+    if type(got) is not torch.Tensor:
+        raise AssertionError(f"TP forward returned {type(got)}")
+    _equal(f"TP forward 1 x 1 vs replicated, B={B}", got, want)
+    dist.destroy_process_group()
+    return {k: [str(p) for p in v] for k, v in tree.items()}
+
+
+def phase_25(dev):
+    """Phase 25 (module docstring): the JAX package's last modules on the
+    card."""
+    import importlib.metadata
+
+    from tapnet_torch import CONFIGS
+
+    t0 = time.perf_counter()
+    versions = {}
+    for pkg in ("matplotlib", "tensorboard"):
+        try:
+            versions[pkg] = importlib.metadata.version(pkg)
+        except importlib.metadata.PackageNotFoundError:
+            versions[pkg] = "absent"
+    log(f"phase 25 packages: {versions}")
+    n = check_rollouts(dev)
+    log(f"phase 25 rollout: {n} rollouts (six CONFIGS x first/random x 3 "
+        f"seeds) on the card == on the CPU == their rollout_batch rows, bit "
+        f"for bit (actions, state, reward) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 25 cli render: {check_render(tmp)} "
+            f"[{time.perf_counter() - t0:.1f} s]")
+    with tempfile.TemporaryDirectory() as tmp:
+        n = check_tb(CONFIGS["2d-basic"], dev, tmp)
+    log(f"phase 25 train(tb_dir) 2d-basic batch 256, 2 epochs x 2 steps: "
+        f"the events file reads back to the JSONL's {n} (tag, step, value) "
+        f"triples [{time.perf_counter() - t0:.1f} s]")
+    tree = check_tp(CONFIGS["2d-basic"], dev)
+    log(f"phase 25 TP: world-1 NCCL data_model_mesh(1, 1), hidden {HIDDEN}, "
+        f"B={B_MAIN}: the sharded forward == the replicated one, bit for "
+        f"bit; spec tree {json.dumps(tree)}")
+    log(f"phase 25 done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3115,6 +3308,9 @@ def main() -> int:
 
     # ---- phase 24: the bf16 compute dtype on the card
     bf16_kernels, _ = phase_24(dev)
+
+    # ---- phase 25: rollout, render, TensorBoard scalars, TP
+    phase_25(dev)
 
     kernels = [
         {"name": "select_step", "route": "cuda",

@@ -16,9 +16,10 @@ first.
 
 The functions run on `cuda` unless the caller passes `device="cpu"`. On
 the card each row also carries the JAX rows' device anchor from
-`utils.profiling.device_time_ms` (device-busy ms per call: the sum of the
-profiled calls' kernel times; the profiler stretches kernels, so where the
-device is saturated the anchor can read ~1-2% above the unprofiled wall
+`utils.profiling.device_time_ms` (device-busy ms per call: a profiled
+call's summed kernel times; the median of as many readings as timed
+windows, taken after them; the profiler stretches kernels, so where the
+device is saturated the anchor can read ~1% above the unprofiled wall
 time); on the CPU there is none. The
 JAX functions' flag that asks for the anchor is called `device` there and
 `anchor` here, since `device` is where the port runs. Where the JAX
@@ -60,13 +61,15 @@ def _device(device) -> torch.device:
     return resolve_device(device)
 
 
-def _anchor(fn, dev: torch.device, per: int = 1, iters: int = 3):
-    """On the card the device-busy ms per unit of fn's calls, `per` units
-    a call (a profiler failure raises); None on the CPU."""
+def _anchor(fn, dev: torch.device, per: int = 1):
+    """On the card a reader of the device-busy ms per unit of a call of
+    fn, `per` units a call (`utils.profiling.device_time_ms` of one call,
+    no warm-up: it follows the timed windows; a profiler failure raises),
+    for `_timed_windows`; None on the CPU."""
     if dev.type != "cuda":
         return None
     from tapnet_torch.utils.profiling import device_time_ms
-    return device_time_ms(fn, iters=iters, warmup=1) / per
+    return lambda: device_time_ms(fn, iters=1, warmup=0) / per
 
 
 def _first_leaf(out):
@@ -168,11 +171,12 @@ def measure_pack_stats(cfg: TAPConfig, batch: int = 4096, hidden: int = 128,
         return plan.rewards          # numpy: already on the host
 
     run_iter(0)
-    vals = _timed_windows(run_iter, iters, runs, batch * cfg.num_blocks)
+    vals, anchor = _timed_windows(run_iter, iters, runs,
+                                  batch * cfg.num_blocks,
+                                  _anchor(lambda: run_iter(0), dev))
     out = _stats(vals, batch, iters)
     out["policy"] = policy
     out["plans_per_s"] = round(out["value"] / cfg.num_blocks, 1)
-    anchor = _anchor(lambda: run_iter(0), dev)
     if anchor:
         out["device_ms_per_batch"] = round(anchor, 3)
         out["device_env_steps_per_s"] = round(
@@ -193,13 +197,20 @@ def measure_native_thread_scaling(cfg: TAPConfig, n_instances: int = 4096,
     return out
 
 
-def _timed_windows(run_iter, iters: int, runs: int, steps_per_iter: float):
-    """run_iter(i) launches one iteration; returns env-steps/s per window.
+def _timed_windows(run_iter, iters: int, runs: int, steps_per_iter: float,
+                   anchor=None):
+    """run_iter(i) launches one iteration; returns (env-steps/s per window,
+    the device anchor or None).
 
     A window ends with `torch.cuda.synchronize()` and a host read of one
     leaf of the last result (`_finish`): the JAX package found windows that
     ended before the work had (a train-step window 5x above its device
-    bound) until it read bytes back; a read cannot return early."""
+    bound) until it read bytes back; a read cannot return early. With an
+    `anchor` reader (`_anchor`, on the card), `runs` profiled readings
+    follow the windows and the anchor is their median, which no one
+    profiler session can swing (one can misread: PERF.md §6). The
+    readings come after the last window, so no profiler session runs
+    between the timed windows."""
     vals = []
     for r in range(runs):
         t0 = time.perf_counter()
@@ -208,7 +219,9 @@ def _timed_windows(run_iter, iters: int, runs: int, steps_per_iter: float):
             out = run_iter(r * iters + i)
         _finish(out)
         vals.append(steps_per_iter * iters / (time.perf_counter() - t0))
-    return vals
+    if anchor is None:
+        return vals, None
+    return vals, statistics.median([anchor() for _ in range(runs)])
 
 
 def _train_run(cfg, batch, hidden, iters, runs, steps_per_call=8,
@@ -233,11 +246,11 @@ def _train_run(cfg, batch, hidden, iters, runs, steps_per_call=8,
         box[0], m = step(box[0])
         return m
 
-    vals = _timed_windows(run_iter, iters, runs,
-                          batch * cfg.num_blocks * steps_per_call)
-    if not anchor:
-        return vals
-    return vals, _anchor(lambda: run_iter(0), dev, steps_per_call)
+    vals, device_ms = _timed_windows(
+        run_iter, iters, runs, batch * cfg.num_blocks * steps_per_call,
+        _anchor(lambda: run_iter(0), dev, steps_per_call) if anchor
+        else None)
+    return (vals, device_ms) if anchor else vals
 
 
 def measure_train_steps_per_s(cfg: TAPConfig, batch: int = 4096,
@@ -347,12 +360,11 @@ def _env_run(cfg, batch, iters, runs, fused, group=None, anchor=False,
     _finish(call(key_groups[0]))   # capture on the card, kernels built
 
     steps_per_rollout = int(instances.n_total.sum())
-    vals = _timed_windows(lambda i: call(key_groups[i]), n_calls, runs,
-                          steps_per_rollout * group)
-    if not anchor:
-        return vals
-    return (vals, _anchor(lambda: call(key_groups[0]), dev, group),
-            steps_per_rollout)
+    vals, device_ms = _timed_windows(
+        lambda i: call(key_groups[i]), n_calls, runs,
+        steps_per_rollout * group,
+        _anchor(lambda: call(key_groups[0]), dev, group) if anchor else None)
+    return (vals, device_ms, steps_per_rollout) if anchor else vals
 
 
 def measure_env_steps_per_s(cfg: TAPConfig, batch: int, iters: int = 10,
@@ -412,9 +424,11 @@ def measure_policy_rollout_stats(cfg: TAPConfig, batch: int = 4096,
     n_calls = max(1, iters // group)
     key_groups = _key_groups(n_calls * runs, group, batch, dev)
     _finish(call(key_groups[0]))
-    out = _stats(_timed_windows(lambda i: call(key_groups[i]), n_calls, runs,
-                                batch * cfg.num_blocks * group), batch, iters)
-    anchor = _anchor(lambda: call(key_groups[0]), dev, group)
+    vals, anchor = _timed_windows(lambda i: call(key_groups[i]), n_calls,
+                                  runs, batch * cfg.num_blocks * group,
+                                  _anchor(lambda: call(key_groups[0]), dev,
+                                          group))
+    out = _stats(vals, batch, iters)
     if anchor:
         out["device_ms_per_rollout"] = round(anchor, 3)
         out["device_env_steps_per_s"] = round(

@@ -1,6 +1,6 @@
 """Command-line driver of the PyTorch/CUDA port: train / eval / generate /
-bench, the port of `tapnet_tpu/cli.py` with its tasks, flags and JSON
-outputs.
+render / bench, the port of `tapnet_tpu/cli.py` with its tasks, flags and
+JSON outputs.
 
     python -m tapnet_torch.cli [--device cuda|cpu] <task> ...
     torchrun --nproc_per_node=N -m tapnet_torch.cli [--device cpu] \
@@ -11,8 +11,10 @@ every task runs on the card unless `--device cpu` is given, and fails when
 there is no card. `eval --ckpt-dir` reads the port's `.pt` checkpoints and
 the JAX package's `.msgpack` ones. `train --mesh` trains data-parallel over
 the ranks torchrun starts (NCCL on the card, gloo with `--device cpu`;
-`--batch` is the global batch). `train --tb-dir` and `render` are not
-ported yet and raise NotImplementedError.
+`--batch` is the global batch); `train --tb-dir` writes TensorBoard
+scalars (rank 0). `render` rolls one sampled instance with the `random`
+heuristic on the device and draws it with matplotlib on the host (PNG, or
+with `--sequence` one panel per placement, or a GIF for a `.gif` path).
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--metrics", default=None, help="metrics JSONL path")
     p.add_argument("--tb-dir", default=None, dest="tb_dir",
-                   help="TensorBoard summaries (not ported: raises)")
+                   help="also write TensorBoard scalar summaries here")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--mesh", action="store_true",
                    help="data parallelism over the torch.distributed ranks "
@@ -133,8 +135,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", required=True)
 
-    p = sub.add_parser("render", help="render a heuristic rollout (not "
-                       "ported: raises)")
+    p = sub.add_parser("render", help="render a random-policy rollout "
+                       "(PNG; --sequence: per-step panels, or a GIF for a "
+                       ".gif path)")
     add_config_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", required=True)
@@ -148,24 +151,8 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-NOT_PORTED = {
-    "tb_dir": "train --tb-dir (TensorBoard summaries)",
-    "render": "render (utils/viz.py)",
-}
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{NOT_PORTED[what]} is not ported yet "
-                              "(ROADMAP.md, port Queue 1)")
-
-
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.task == "render":
-        _not_ported(args.task)
-    if args.task == "train" and args.tb_dir:
-        _not_ported("tb_dir")
-
     if args.task == "train" and args.mesh:
         # first: on the card joining the group selects cuda:LOCAL_RANK,
         # the card that "cuda" then names
@@ -194,8 +181,8 @@ def main(argv=None) -> int:
             hidden=args.hidden, lr=args.lr, seed=args.seed,
             ckpt_dir=args.ckpt_dir, metrics_path=args.metrics,
             mixed_p2d=args.mixed_p2d, steps_per_call=args.steps_per_call,
-            trace_dir=args.trace_dir, deterministic=args.deterministic,
-            nan_checks=args.nan_checks)
+            trace_dir=args.trace_dir, tb_dir=args.tb_dir,
+            deterministic=args.deterministic, nan_checks=args.nan_checks)
         try:
             train(cfg, loop, resume=not args.no_resume, device=device,
                   mesh=mesh)
@@ -222,6 +209,26 @@ def main(argv=None) -> int:
                        device=device)
         print(json.dumps({"ckpt": path, "step": int(ts.step),
                           **{k: float(v) for k, v in out.items()}}))
+        return 0
+
+    if args.task == "render":
+        from tapnet_torch import random as R
+        from tapnet_torch.env import core as E
+        from tapnet_torch.env.sampler import sample_instance
+        from tapnet_torch.types import Instance
+        from tapnet_torch.utils.viz import (render, render_animation,
+                                            render_sequence)
+        key = R.key(args.seed, device)
+        inst = Instance(*(x[0] for x in sample_instance(key[None], cfg)))
+        state, actions, reward = E.rollout(inst, key, cfg, policy="random")
+        if args.sequence and args.out.endswith(".gif"):
+            out = render_animation(inst, actions, cfg, args.out)
+        elif args.sequence:
+            out = render_sequence(inst, actions, cfg, args.out)
+        else:
+            out = render(inst, state, cfg, args.out,
+                         title=f"reward={float(reward):.3f}")
+        print(json.dumps({"path": out, "reward": float(reward)}))
         return 0
 
     from tapnet_torch.utils.data import generate_dataset

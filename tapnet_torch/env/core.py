@@ -6,7 +6,8 @@ in place of `vmap`): Instance / EnvState fields are [B, ...] tensors, the
 integer env math is the same, and `step` is bit-equal to the JAX env for
 both placement rules: `lb` (lowest key) and `mcs` (the candidate with the
 highest exact score fraction). `select_action` / `rollout_batch` are the
-fixed heuristic policies (first-fit, uniform random) over N steps.
+fixed heuristic policies (first-fit, uniform random) over N steps;
+`rollout` rolls one instance (a batch of one).
 """
 
 from __future__ import annotations
@@ -415,3 +416,16 @@ def rollout_batch(instances: Instance, keys: torch.Tensor, cfg: TAPConfig,
     state, actions = rollout_bits(instances,
                                   policy_bits(keys, cfg, policy), cfg)
     return state, actions, reward(state, instances, cfg)
+
+
+def rollout(instance: Instance, key: torch.Tensor, cfg: TAPConfig,
+            policy: str = "first"):
+    """Roll one instance to termination with a fixed policy, the JAX
+    package's `rollout`: `instance` holds one instance (fields without the
+    batch axis), `key` its key [2]. It is `rollout_batch` on a batch of
+    one, squeezed, so its draws are `bits(fold_in(key, t))` as in JAX and
+    an empty mask records -1. Returns (final EnvState, actions int32[N],
+    reward float32 []) on the device of the inputs."""
+    state, actions, rewards = rollout_batch(
+        Instance(*(x[None] for x in instance)), key[None], cfg, policy)
+    return EnvState(*(x[0] for x in state)), actions[0], rewards[0]

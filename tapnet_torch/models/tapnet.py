@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from tapnet_torch.config import TAPConfig
+from tapnet_torch.models.features import merge_tokens
 
 F32 = torch.float32
 
@@ -47,6 +48,13 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
         return lin(x)
     y = x.to(dtype) @ lin.weight.to(dtype).T
     return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def _full(p: torch.Tensor) -> torch.Tensor:
+    """A parameter as a whole tensor: a DTensor (a tensor-parallel shard,
+    `parallel/tp.py`) gathered, any other tensor as it is."""
+    full = getattr(p, "full_tensor", None)
+    return p if full is None else full()
 
 
 class _LayerNorm(nn.Module):
@@ -64,7 +72,8 @@ class _LayerNorm(nn.Module):
         x = x.float()
         mu = x.mean(-1, keepdim=True)
         var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
-        y = (x - mu) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+        y = (x - mu) * (torch.rsqrt(var + 1e-6) * self.scale) + _full(
+            self.bias)
         return y.to(dtype)
 
 
@@ -125,6 +134,19 @@ class TAPNetActor(nn.Module):
         self.prev_embed = nn.Embedding(cfg.num_actions + 1, hidden)
         self.query = nn.Linear(3 * hidden + 8, hidden)
         self.v = nn.Parameter(torch.zeros(hidden, 1))
+
+    def forward(self, static, dynamic, hm_grid, prev_action=None,
+                dtype=F32):
+        """Pointer logits [B, A] f32 from the raw tokens, flax's
+        `TAPNetActor.__call__`: static [B, T, 4], dynamic [B, T, 4] (the
+        static dims appended here), hm_grid [B, C, W, D, 1], prev_action
+        [B] (None: the decode start, -1)."""
+        if prev_action is None:
+            prev_action = torch.full(static.shape[:1], -1, dtype=torch.int32,
+                                     device=static.device)
+        return self.head(self.embed_static(static, dtype),
+                         merge_tokens(static, dynamic), hm_grid, prev_action,
+                         dtype)
 
     def embed_static(self, static, dtype=F32):
         """Static attention keys: [B, T, 4] -> [B, T, h] in the compute

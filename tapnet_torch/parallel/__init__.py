@@ -4,8 +4,9 @@
 Env batches are sharded over a data axis of ranks, one process per device,
 feeding a sharded learner: each rank samples and rolls out its rows of the
 global batch, and one all-reduce of the flat gradient buffer a step keeps
-the ranks' parameters identical (`train/reinforce.py`). Tensor parallelism
-(`tapnet_tpu/parallel/tp.py`) is not ported yet.
+the ranks' parameters identical (`train/reinforce.py`). `tp.py` is the
+tensor-parallel rule over a ("data", "model") device mesh, expressible and
+checked; DP stays the performance path.
 """
 
 from tapnet_torch.parallel.mesh import (DataMesh, cpu_mesh,  # noqa: F401
@@ -13,3 +14,5 @@ from tapnet_torch.parallel.mesh import (DataMesh, cpu_mesh,  # noqa: F401
                                         shard_leading_axis)
 from tapnet_torch.parallel.distributed import (  # noqa: F401
     broadcast_from_main, initialize_distributed)
+from tapnet_torch.parallel.tp import (data_model_mesh,  # noqa: F401
+                                      shard_params_tp, tp_sharding_tree)

@@ -9,13 +9,15 @@ as the JAX trainer does: one call that is not timed, then (n - 1) // k timed
 calls, so step numbers, metrics lines and checkpoint names are the JAX
 trainer's for the same settings. `trace_dir` traces 3 calls of epoch 0
 (`utils.profiling.trace`), `nan_checks` checks the state and metrics
-between calls (`utils.debug`). Every field of the JAX package's
-TrainLoopConfig is kept; `tb_dir` is not ported and raises.
+between calls (`utils.debug`), `tb_dir` writes TensorBoard scalars beside
+the JSONL (`train.metrics`). Every field of the JAX package's
+TrainLoopConfig is kept.
 
 With a `mesh` (`parallel.mesh.DataMesh`) every rank runs the same sequence
 of sharded steps; rank 0 owns every filesystem side effect (checkpoints,
-the JSONL metrics, the trace) and the held-out evaluation, and a restore is
-read on rank 0 and broadcast (`parallel.distributed.broadcast_from_main`).
+the JSONL metrics, the TensorBoard scalars, the trace) and the held-out
+evaluation, and a restore is read on rank 0 and broadcast
+(`parallel.distributed.broadcast_from_main`).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ class TrainLoopConfig:
     trace_dir: Optional[str] = None   # profiler trace of 3 calls of epoch 0
     mixed_p2d: float = 0.0            # P(instance is flat/2D); 3D envs only
     steps_per_call: int = 1           # steps per call (a CUDA graph)
-    tb_dir: Optional[str] = None      # not ported: raises
+    tb_dir: Optional[str] = None      # TensorBoard scalars (rank 0)
     deterministic: bool = False       # assert bit-identical repeat of a step
     nan_checks: bool = False          # finite checks between calls
     eval_best_of: int = 1             # >1: also best-of-K sampled decode
@@ -162,7 +164,8 @@ def train(cfg: TAPConfig, loop: TrainLoopConfig, resume: bool = True,
     check = assert_finite if loop.nan_checks else None
     is_main = mesh is None or mesh.rank == 0
     logger = MetricsLogger(loop.metrics_path if is_main else None,
-                           echo=is_main, tb_dir=loop.tb_dir)
+                           echo=is_main,
+                           tb_dir=loop.tb_dir if is_main else None)
     try:
         if mesh is not None:
             device = mesh.device

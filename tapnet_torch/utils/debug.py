@@ -1,5 +1,7 @@
 """Debug modes, the port of `tapnet_tpu/utils/debug.py`: finite checks for
-`train(nan_checks=True)` / `cli train --nan-checks`.
+`train(nan_checks=True)` / `cli train --nan-checks`, and a determinism
+assert (`assert_deterministic`: run a computation twice, require
+bit-identical results).
 
 The JAX package's `nan_checks()` turns on jax debug-nans, which checks
 every primitive's output inside the compiled step. The port's step runs
@@ -15,8 +17,9 @@ named after the call that made it, not at the operation that made it.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Mapping, Sequence, Union
+from typing import Callable, Iterator, Mapping, Sequence, Union
 
+import numpy as np
 import torch
 
 Tensors = Union[Mapping[str, torch.Tensor], Sequence[torch.Tensor]]
@@ -45,3 +48,35 @@ def nan_checks() -> Iterator:
     global (see the module docstring). The trainer calls `assert_finite`
     itself."""
     yield assert_finite
+
+
+def _leaves(tree) -> list:
+    """The leaves of nested tuples, NamedTuples, lists and dicts (dicts in
+    key order, None skipped), tensors on the host."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    if tree is None:
+        return []
+    return [tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree]
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def assert_deterministic(fn: Callable, *args, runs: int = 2) -> None:
+    """Run fn(*args) `runs` times; every leaf of the results must be
+    bit-identical to the first run's (the `--deterministic` check of the
+    JAX package's `utils.debug`, with its AssertionError text). The
+    trainer's check of a train step from copies of one state is
+    `train.trainer.assert_deterministic`."""
+    ref = _leaves(fn(*args))
+    for i in range(2, runs + 1):
+        for a, b in zip(ref, _leaves(fn(*args))):
+            if not _same(a, b):
+                raise AssertionError(
+                    f"non-deterministic result: run 1 vs run {i} differ")

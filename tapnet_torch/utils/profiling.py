@@ -67,9 +67,12 @@ def device_time_ms(fn, iters: int = 5, warmup: int = 2) -> Optional[float]:
     anchor: `warmup` calls, then `iters` calls under torch.profiler ending
     in a synchronize; the sum of their device rows' times (`kernel_rows`;
     one stream, so they do not overlap) over `iters`. It excludes host
-    dispatch, as the JAX package's does. None where there is no CUDA
-    device; on the card a profile that shows no device time raises
-    RuntimeError (a device anchor never vanishes quietly)."""
+    dispatch, as the JAX package's does. One profiler session can misread
+    (every kernel long or short by the same factor, or records dropped:
+    PERF.md §6), so a caller that holds the reading to a limit takes
+    the median of several (`benchmarks._timed_windows`). None where there
+    is no CUDA device; on the card a profile that shows no device time
+    raises RuntimeError (a device anchor never vanishes quietly)."""
     if not torch.cuda.is_available():
         return None
     for _ in range(warmup):

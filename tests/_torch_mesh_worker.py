@@ -1,16 +1,20 @@
-"""Rank functions of tests/test_torch_parallel.py, run by
-`tapnet_torch.parallel.scaling.run_ranks` in spawned processes (a spawned
-rank imports this module by name, so it imports torch and the port only).
-Each returns CPU tensors and numbers."""
+"""Rank functions of tests/test_torch_parallel.py and test_torch_tp.py,
+run by `tapnet_torch.parallel.scaling.run_ranks` in spawned processes (a
+spawned rank imports this module by name, so it imports torch and the port
+only). Each returns CPU tensors, numbers and strings."""
 
+import copy
 import os
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from tapnet_torch.config import CONFIGS
+from tapnet_torch.config import CONFIGS, TAPConfig
+from tapnet_torch.models.tapnet import TAPNetActor
 from tapnet_torch.ops.reward import fused_reward
 from tapnet_torch.parallel.distributed import broadcast_from_main
 from tapnet_torch.parallel.mesh import replicate
+from tapnet_torch.parallel.tp import data_model_mesh, shard_params_tp
 from tapnet_torch.train import checkpoints as ckpt
 from tapnet_torch.train.reinforce import (init_train_state, make_train_step,
                                           step_batch)
@@ -78,3 +82,30 @@ def trainer_run(mesh, workdir: str, epochs: int):
     ts = train(CONFIGS["2d-basic"], loop, resume=True, mesh=mesh)
     return {"step": ts.step, "state": state_tensors(ts),
             "ckpt": ckpt.latest_checkpoint(loop.ckpt_dir)}
+
+
+def tp_forward(mesh, cfg_kwargs, hidden, state_dict, tokens, shapes):
+    """For each (n_data, n_model) of `shapes`: the actor's logits on
+    `tokens` replicated and TP-sharded over a data_model_mesh of that shape,
+    and the placements of its sharded parameters; then the errors that a
+    mesh larger or smaller than the group raises."""
+    actor = TAPNetActor(TAPConfig(**cfg_kwargs), hidden)
+    actor.load_state_dict(state_dict)
+    out = {}
+    with torch.no_grad():
+        ref = actor(*tokens)
+        for n_data, n_model in shapes:
+            dm = data_model_mesh(n_data, n_model, device="cpu")
+            tp = shard_params_tp(copy.deepcopy(actor), dm)
+            placements = {
+                name: str(p.placements) for name, p in tp.named_parameters()
+                if isinstance(p, DTensor)}
+            out[n_data, n_model] = (tp(*tokens), placements,
+                                    list(dm.get_coordinate()))
+    errors = []
+    for n_data, n_model in ((mesh.world_size, 2), (1, 1)):
+        try:
+            data_model_mesh(n_data, n_model, device="cpu")
+        except (RuntimeError, ValueError) as e:
+            errors.append(f"{type(e).__name__}: {e}")
+    return ref, out, errors

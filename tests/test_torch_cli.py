@@ -14,10 +14,11 @@ same arguments.
   the JAX CLI's values (within 1e-6);
 - `generate`: the same file and sidecar;
 - `--nan-checks` on a state with a NaN parameter raises FloatingPointError
-  naming it; `--tb-dir` and `render` raise NotImplementedError naming
-  ROADMAP.md, while `train --mesh` (a gloo world of one in this process)
-  and `bench` (one JSON line), which raised until they were ported, run;
-  without `--device cpu` and without a card a task fails.
+  naming it; `train --mesh` (a gloo world of one in this process), `bench`
+  (one JSON line), `train --tb-dir` (its events file reads back to the
+  metrics file's values) and `render --sequence` (a PNG), which raised
+  until they were ported, run; without `--device cpu` and without a card
+  a task fails.
 """
 
 import glob
@@ -131,20 +132,31 @@ def test_nan_checks_name_the_parameter(tmp_path):
                   *SMALL, "--ckpt-dir", str(tmp_path), "--nan-checks"])
 
 
-@pytest.mark.parametrize("args,ported", [
-    (["train", "--config", "2d-basic", "--mesh", *SMALL], True),
-    (["train", "--config", "2d-basic", "--tb-dir", "tb"], False),
-    (["render", "--config", "2d-basic", "--out", "x.png", "--sequence"],
-     False),
-    (["bench", "--config", "2d-basic", "--batch", "64"], True)],
+@pytest.mark.parametrize("args", [
+    ["train", "--config", "2d-basic", "--mesh", *SMALL],
+    ["train", "--config", "2d-basic", *SMALL, "--tb-dir", "{tmp}/tb",
+     "--metrics", "{tmp}/m.jsonl"],
+    ["render", "--config", "2d-basic", "--out", "{tmp}/x.png", "--sequence"],
+    ["bench", "--config", "2d-basic", "--batch", "64"]],
     ids=["mesh", "tb-dir", "render", "bench"])
-def test_unported_tasks_raise(args, ported, capsys):
-    if ported:   # ported since: they run and print their JSON lines
-        assert cli.main(["--device", "cpu", *args]) == 0
-        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--device", "cpu", *args])
+def test_formerly_unported_tasks_run(args, tmp_path, capsys):
+    """Each raised NotImplementedError until it was ported; now each runs
+    and prints its JSON lines, and writes its file."""
+    from tapnet_torch.train.metrics import read_scalars
+    args = [a.format(tmp=tmp_path) for a in args]
+    assert cli.main(["--device", "cpu", *args]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    if "--tb-dir" in args:
+        recs = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+        want = [(k, r["step"], float(np.float32(v))) for r in recs
+                for k, v in r.items()
+                if k != "step" and isinstance(v, (int, float))]
+        (events,) = glob.glob(str(tmp_path / "tb" / "events.out.tfevents.*"))
+        assert want and read_scalars(events) == want
+    if args[0] == "render":
+        assert set(out) == {"path", "reward"} and 0 < out["reward"] <= 3
+        with open(out["path"], "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
 
 
 def test_the_card_is_the_default(tmp_path):

@@ -1,7 +1,9 @@
 """tapnet_torch stands alone: importing it pulls in no JAX, no flax, no
 optax, nothing of tapnet_tpu and not the `msgpack` package (the port reads
-the JAX package's msgpack checkpoints with its own decoder). Checked in a
-fresh interpreter, since this test process has JAX loaded already
+the JAX package's msgpack checkpoints with its own decoder), and neither
+matplotlib (imported inside the render functions only) nor tensorflow or
+tensorboard (the events file is written by hand). Checked in a fresh
+interpreter, since this test process has JAX loaded already
 (tests/conftest.py)."""
 
 import os
@@ -30,9 +32,12 @@ import tapnet_torch.utils.msgpack, tapnet_torch.utils.profiling
 import tapnet_torch.benchmarks, tapnet_torch.oracle, tapnet_torch.native
 import tapnet_torch.parallel, tapnet_torch.parallel.scaling
 import tapnet_torch.utils.trace_events
+import tapnet_torch.utils.viz, tapnet_torch.parallel.tp
+import tapnet_torch.train.metrics, tapnet_torch.profile_anchor
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "tapnet_tpu", "msgpack"))
+                                    "tapnet_tpu", "msgpack", "matplotlib",
+                                    "tensorflow", "tensorboard"))
 print("BAD", bad)
 """
 

@@ -331,8 +331,9 @@ def test_resolve_device_names_the_card(monkeypatch):
     assert TR.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     from tapnet_torch.parallel.mesh import DataMesh
+    from tapnet_torch.train.metrics import read_scalars
 
     cfg = T.CONFIGS[NAME]
     # bfloat16 is ported (tests/test_torch_bf16.py): the step runs; any
@@ -349,8 +350,15 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="multiple"):
         T.make_train_step(cfg, batch=7, device="cpu",
                           mesh=DataMesh(None, 2, 0, torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.train(cfg, T.TrainLoopConfig(tb_dir="x"), device="cpu")
+    # tb_dir is ported (tests/test_torch_tb.py): train() writes the events
+    # file beside the metrics
+    tb = tmp_path / "tb"
+    T.train(cfg, T.TrainLoopConfig(epochs=1, steps_per_epoch=1, batch=8,
+                                   valid_batch=8, hidden=HIDDEN,
+                                   tb_dir=str(tb)), device="cpu")
+    (events,) = tb.glob("events.out.tfevents.*")
+    assert {tag for tag, _, _ in read_scalars(str(events))} >= {
+        "loss_actor", "valid_reward", "wall"}
 
 
 # ---- steps_per_call: k steps per call (on the card a CUDA graph; here k
