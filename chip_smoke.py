@@ -180,7 +180,16 @@ source, all started at once), then runs, and fails on the first fault:
    the card's own bf16 records (2d-basic at 4096, multi-container at 512,
    2d-rolling at 4096): values within 1e-2 relative, also against the
    rollout's own logp, every gradient within BF16_GRAD_TOL of the plain
-   result's max magnitude, two backward launches bit-identical; the bf16
+   result's max magnitude, two backward launches bit-identical; the same
+   checks of both schedules (the step grid forced onto monolithic configs)
+   where the tensor-core tiling of the bf16 body can break
+   (`replay_bf16_shapes`: hidden 32, 64, 96 at 2d-basic, batch 256; a
+   ragged batch of 100; multi-container at temperature 0.7 and a mixed
+   p2d 0.5 batch of 512; multi-container-capped at 256 on its own K1
+   record), with the largest scaled gradient error over all of them, and
+   `ops.replay.smem_bytes` against the kernel's own plan
+   (`tapnet_replay_smem_bytes`) for the six CONFIGS, hidden 32-128, both
+   kernels, schedules and dtypes; the bf16
    train step at
    2d-basic, hidden 128, batch 4096: 5 steps with K2 10, K5b 1, K3 1 and no
    K5f a step, finite metrics, a bit-identical repeat, a step at batch 256
@@ -2413,18 +2422,22 @@ def check_actor_step_bf16(cfg, B, actor, dev, keep=False):
     return kept, err, rate
 
 
-def check_replay_bf16(cfg, B, actor, dev, steps, repeat=False):
+def check_replay_bf16(cfg, B, actor, dev, steps, repeat=False,
+                      temperature=1.0, p2d=0.0, record=None):
     """K5f and K5b (`steps`: their step-grid schedule) in bf16 against
-    their plain bf16 versions on a bf16 rollout record of the card: values
-    within BF16_VALUE_TOL relative (+1e-3), and K5f against the rollout's
-    own logp (the train step's primal, from K2 bf16) as closely; every
-    gradient within BF16_GRAD_TOL of the plain result's max magnitude; with
-    `repeat`, two backward launches bit-identical. Returns (bf16 operands,
-    float32 operands of the same record, dlp, fwd err, (bwd scaled err, bwd
-    abs err), err against the rollout's logp)."""
-    ops, lp0, ops32 = replay_operands(actor, cfg, B, dev, SEED + 10, 1.0,
-                                      dtype=BF16, also=torch.float32)
-    fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, 1.0, steps)
+    their plain bf16 versions on a bf16 rollout record of the card at
+    `temperature` (`p2d`: a mixed batch; `record`: the (bf16 operands,
+    logp, float32 operands) of `replay_operands` to reuse): values within
+    BF16_VALUE_TOL relative (+1e-3), and K5f against the rollout's own logp
+    (the train step's primal, from K2 bf16 or the route the config takes)
+    as closely; every gradient within BF16_GRAD_TOL of the plain result's
+    max magnitude; with `repeat`, two backward launches bit-identical.
+    Returns (bf16 operands, float32 operands of the same record, dlp, fwd
+    err, (bwd scaled err, bwd abs err), err against the rollout's logp)."""
+    ops, lp0, ops32 = record or replay_operands(
+        actor, cfg, B, dev, SEED + 10, temperature, p2d, dtype=BF16,
+        also=torch.float32)
+    fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, temperature, steps)
     what = "replay_logp_fwd_steps bf16" if steps else "replay_logp_fwd bf16"
     dlp = torch.linspace(-1.0, 1.0, B, device=dev)
     with torch.no_grad():
@@ -2450,6 +2463,94 @@ def check_replay_bf16(cfg, B, actor, dev, steps, repeat=False):
                                   _flat_grads(bwd(dlp))):
                 _equal(f"{what} backward repeat {name}", a, b)
     return ops, ops32, dlp, errs[0], (b_err, b_abs), errs[1]
+
+
+def replay_bf16_shapes():
+    """(config, batch, hidden, temperature, p2d) where a tensor-core tiling
+    of the bf16 replay can break: hidden widths below 128 (fewer row tiles
+    than warps), a ragged batch, a tempered and a mixed multi-container
+    record (C = 2, 3D heightmaps, W*D + 2 = 66), and a capped record from
+    its own route (K1)."""
+    return ([("2d-basic", 256, h, 1.0, 0.0) for h in (32, 64, 96)]
+            + [("2d-basic", 100, HIDDEN, 1.0, 0.0),
+               ("multi-container", 256, HIDDEN, 0.7, 0.0),
+               ("multi-container", 512, HIDDEN, 1.0, 0.5),
+               ("multi-container-capped", 256, HIDDEN, 1.0, 0.0)])
+
+
+def check_replay_bf16_shapes(dev, log_fn):
+    """K5f / K5b bf16 and their step-grid schedule (forced onto these
+    monolithic configs) against their plain bf16 versions on each case of
+    `replay_bf16_shapes`, one record each, with a bit-identical backward
+    repeat. Returns the largest scaled gradient error."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+
+    worst = 0.0
+    for name, B, h, temp, p2d in replay_bf16_shapes():
+        cfg = CONFIGS[name]
+        actor = init_params(SEED, cfg, h, dev)
+        rec = replay_operands(actor, cfg, B, dev, SEED + 10, temp, p2d,
+                              dtype=BF16, also=torch.float32)
+        for steps in (False, True):
+            _, _, _, fe, (be, ba), e0 = check_replay_bf16(
+                cfg, B, actor, dev, steps, repeat=True, temperature=temp,
+                record=rec)
+            worst = max(worst, be)
+            key = "steps" if steps else "mono"
+            log_fn(f"replay bf16 == plain bf16 ({key}): {name} B={B} "
+                   f"hidden {h} temperature {temp}"
+                   f"{f' p2d {p2d}' if p2d else ''}: fwd max err {fe:.3e}, "
+                   f"bwd max scaled err {be:.3e} (abs {ba:.3e}); fwd vs the "
+                   f"rollout's logp {e0:.3e}; two bwd launches "
+                   "bit-identical")
+    return worst
+
+
+def check_replay_smem_mirror():
+    """ops.replay.smem_bytes against the kernel's own plan
+    (`tapnet_replay_smem_bytes`) for the six CONFIGS, hidden 32-128, both
+    schedules, forward and backward, both dtypes; and
+    ops.replay.record_floats against `tapnet_replay_record_floats` (the
+    bf16 backward's deferred weight-gradient records). Returns the
+    cases."""
+    import ctypes
+
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import replay as RP
+
+    lib = _build.load("replay")
+    fn = lib.tapnet_replay_smem_bytes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    rec = lib.tapnet_replay_record_floats
+    rec.argtypes = [ctypes.c_void_p]
+    rec.restype = ctypes.c_int
+    n = 0
+    for cfg in CONFIGS.values():
+        for h in (32, 64, 96, 128):
+            ints = _build.int_array(RP._ints(cfg, 1, h))
+            want = rec(ctypes.cast(ints, ctypes.c_void_p))
+            if RP.record_floats(cfg, h) != want:
+                raise AssertionError(
+                    f"replay record_floats {cfg} h={h}: mirror "
+                    f"{RP.record_floats(cfg, h)}, kernel {want}")
+            n += 1
+            for bwd in (False, True):
+                for steps in (False, True):
+                    for dt in (torch.float32, BF16):
+                        want = fn(ctypes.cast(ints, ctypes.c_void_p),
+                                  int(bwd), int(steps), int(dt == BF16))
+                        got = RP.smem_bytes(cfg, h, bwd, steps, dt)
+                        if got != want:
+                            raise AssertionError(
+                                f"replay smem_bytes {cfg} h={h} bwd={bwd} "
+                                f"steps={steps} {dt}: mirror {got}, kernel "
+                                f"{want}")
+                        n += 1
+    return n
 
 
 def check_train_bf16_against_cpu(cfg, ts, dev, B=256):
@@ -2631,6 +2732,15 @@ def phase_24(dev):
             f"max err {fe:.3e}, bwd max scaled err {be:.3e} (abs {ba:.3e}); "
             f"fwd vs the rollout's logp {e0:.3e}"
             + ("; two bwd launches bit-identical" if main_shape else ""))
+    # 2b. the tensor-core body at the shapes a tiling can break, and the
+    # shared-memory plan's mirror
+    worst = check_replay_bf16_shapes(dev, lambda m: log(f"{stamp()} {m}"))
+    worst = max([worst] + [k5[key]["bwd_err"] for key in k5])
+    log(f"{stamp()} replay bf16 backward: largest scaled gradient error "
+        f"{worst:.3e} over every case above (the bound BF16_GRAD_TOL "
+        f"{BF16_GRAD_TOL})")
+    log(f"{stamp()} replay smem_bytes and record_floats mirrors == the "
+        f"kernel's on {check_replay_smem_mirror()} cases")
     torch.cuda.synchronize()
     # 3. the bf16 train step at full width
     per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,

@@ -34,8 +34,9 @@
 // in (instance, token) order; the softmax walks each instance's columns in
 // action order, so its sums are the full version's less exact zeros.
 //
-// Design (SIMT, f32 fused multiply-adds throughout; no TF32, no approximate
-// intrinsics):
+// Design, float32 (SIMT, f32 fused multiply-adds throughout; no TF32, no
+// approximate intrinsics); the bfloat16 instantiations share it but for
+// the products (below):
 // - one block per tile of TB = 32 instances (lane = instance in the
 //   encoder/query phases), NWARP = 16 warps; a loop over the block's steps
 //   takes the place of the TPU's sequential step axis.
@@ -79,6 +80,55 @@
 //   Configs above the 227 KB a block may hold are refused by the wrapper;
 //   h must be a multiple of 32, at most 128.
 //
+// Design, bfloat16 (TC = the E = __nv_bfloat16 instantiations): every
+// product of the head runs on the tensor cores, mma.sync.m16n8k16 bf16 x
+// bf16 -> f32 (the JAX kernel's `preferred_element_type=f32` dots), with
+// fragments built from shared memory (float values packed to bfloat16 pairs
+// on load) or from global memory. W8 x8 (K = 8) and the softmax, tanh and
+// bias work stay SIMT, as above.
+// - operands: a forward product multiplies two bfloat16 values (the
+//   weights; feats, e1, qin and h1, rounded by `rnd` where JAX casts): one
+//   pass is exact products summed in f32. A backward product multiplies an
+//   f32 gradient (d_dyn, dh1, dq, d_hm, de1) by a bfloat16 value, as
+//   `_bwd_step` does in f32: the gradient is split, x = hi + lo with hi =
+//   bf16(x) and lo = bf16(x - hi), and both passes go into one f32
+//   accumulator (x to a relative 2^-16; never one bfloat16 rounding).
+// - tiles: the encoder/query forward (W1, W2, Wq: [h][K] . [K][32 lanes])
+//   gives a warp one 16-row tile and 16 lanes, its A fragments read from
+//   global memory (L2), 4 k-steps of them in flight before their products;
+//   the transposed ones (Wq^T dq, W2^T d_hm: from the [in][h] copies) a
+//   warp 16 lanes and up to 3 row tiles, the split B fragments shared by
+//   them. The encoder/query weight gradients (gWq, gW2, gW1 += grad .
+//   x^T) are not contracted per step: K = 32 lanes a step made each step
+//   read and write the block's whole partial row (gWq alone is 50K floats
+//   at h = 128), 40% of the kernel at 2d-basic. Each (step, container)
+//   writes its operands once to a record (rec_off: dq, d_hm, de1 f32; qin,
+//   e1, feats bfloat16) and `grad_outer`, a second launch, contracts each
+//   partial row over all its steps (K = 32 x steps) with the accumulators
+//   in registers, storing each element once. Token groups: dyn = Wp
+//   h1 into a [G][h+4] array (a warp: one column tile, up to 4 row tiles),
+//   read back per column by the SIMT score code; gWp^T += h1 d_dyn (K =
+//   the group's columns; accumulators in registers for the whole block,
+//   2 tiles a warp), dh1 = Wp^T d_dyn (K = h, one tile a warp), gW8 += dh1
+//   x8^T and gb8 += dh1 . 1 (warps 0-1), and dq += d_dyn^T M with M the
+//   0/1 membership of the group's columns in the tile's instances (the
+//   per-instance sums; K = the columns). Wp is staged once as bfloat16 rows of
+//   WPS = 40 (the A operand of dyn, and of dh1 by pairs of rows); h1 rows
+//   are padded to G + 4. K is padded to 16 with zeros (WD + 2, 3h + 8),
+//   the ragged batch edge masked as above.
+// - order: every accumulator has one owner and one order of k-steps (hi
+//   before lo); no float atomics, `reduce_tiles` and `sum_transpose` as
+//   above: two launches are bit-identical. The tensor core adds in its own
+//   order, so a forward value can land one bfloat16 ulp from the plain
+//   version's.
+// - shared memory: the float plan above less the float Wp^T (16 KB at h =
+//   128) plus Wp as bfloat16 (10 KB) and the h1 padding: 213.6 KB at
+//   2d-rolling, h = 128 (219.3 KB in f32); one block per SM either way.
+// - what runs on the tensor cores (`python -m tapnet_torch.ops._build
+//   --sass replay`, the sm_90a build): 138 HMMA in each bfloat16 backward
+//   instantiation, 30 in each bfloat16 forward, 32 in grad_outer, none in
+//   the float32 ones.
+//
 // Step-grid schedule (STEPS instantiations; rolling windows, N <= 62). The
 // TPU ran a grid (batch tiles, S) in order and carried logp, d_se and d_ctx
 // across the step axis and the weight gradients across the whole grid. CUDA
@@ -94,13 +144,13 @@
 // Compute dtype (the JAX kernels' `dtype_name`): the element type E of the
 // float operands se, ctx, statp, statm and the weights other than v, float
 // or __nv_bfloat16. The bfloat16 instantiations read bfloat16 from device
-// memory and compute in f32, rounding to bfloat16 (`rnd`) where the JAX
+// memory and accumulate in f32, rounding to bfloat16 (`rnd`) where the JAX
 // `_head_fwd` casts to its compute dtype (as actor_step.cu does); the
 // backward works in f32 from that rounded forward (which it re-runs) and the
 // f32 values of the bfloat16 weights, as `_bwd_step` does, and writes f32
 // gradients (the wrapper casts each to its operand's dtype). Shared memory
-// holds the rounded values as float: both instantiations share the plan
-// and every helper, and in float every `rnd` is the identity.
+// holds the rounded values as float in both (the bfloat16 plan differs only
+// as said above), and in float every `rnd` is the identity.
 //
 // The head's device code is a copy of actor_step.cu's, not a shared header:
 // the layouts differ, and K2's results stay as they were.
@@ -120,6 +170,7 @@ constexpr int G = CPW * NWARP;    // columns per token group
 constexpr int MAXR = 4;           // rows per lane: h <= 32 * MAXR
 constexpr int KS = 64;     // k rows of a transposed weight slice (mv_tiled)
 constexpr int JS = 32;     // j rows of a weight slice (mvt_tiled)
+constexpr int WPS = 40;    // tc: bf16 row stride of Wp [h][32] staged
 constexpr int MAX_C = 4;
 constexpr int MAX_N_MONO = 31;   // monolithic: one 32-bit word per block set
 constexpr int MAX_N_STEPS = 62;  // step-grid: 64-bit words
@@ -198,16 +249,22 @@ __host__ __device__ inline GOff goff(const Dims& d) {
 __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 
 // Shared-memory plan, in floats from the base (every region 16-byte
-// aligned); the ints follow the floats.
+// aligned); the ints follow the floats. `tc`: the tensor-core plan of the
+// bfloat16 instantiations (Wp itself as bfloat16 [h][WPS] in place of the
+// float Wp^T [32][h]; h1 rows padded to GS = G + 4 floats so that a B
+// fragment's column reads hit 32 banks; a [G][h+4] dyn array in the
+// forward too; no staged weight slices).
 struct Lay {
   int ws, w8, b8, v, q, dq, sc, enc, tok, floats;
 };
 
-__host__ __device__ inline Lay layout(const Dims& d, bool bwd) {
+__host__ __device__ inline int h1_stride(bool tc) { return tc ? G + 4 : G; }
+
+__host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   const int h = d.h, T = d.N * d.R, WD = d.W * d.D, FQ = 3 * h + 8;
   Lay L;
   int o = 0;
-  L.ws = o;  o += up4(32 * h);        // Wp^T [32][h]
+  L.ws = o;  o += tc ? up4(h * WPS / 2) : up4(32 * h);  // Wp^T / Wp
   L.w8 = o;  o += 32 * 8;             // W8 [32][8]
   L.b8 = o;  o += 32;
   L.v = o;   o += up4(h);
@@ -216,11 +273,14 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd) {
   L.sc = o;  o += up4(TB * T * d.C);  // scores, then g, [column][C]
   // encoder view: feats [WD+2][LD], e1 [h][LD], qin [3h+8][LD], d_prev
   L.enc = o; o += up4((WD + 2 + h + FQ + (bwd ? h : 0)) * LD);
-  // token view: x8 [8][G], h1 [32][G]; backward d_dyn [G][h+4], dh1 [32][G]
-  // (and the staged weight slices of the encoder/query products)
-  const int tok = 8 * G + 32 * G + (bwd ? G * (h + 4) + 32 * G : 0);
+  // token view: x8 [8][G], h1 [32][GS]; d_dyn (tc: dyn first) [G][h+4];
+  // backward dh1 [32][G] (and the staged weight slices of the f32
+  // encoder/query products)
+  const int tok = 8 * G + 32 * h1_stride(tc) + (bwd || tc ? G * (h + 4) : 0)
+                  + (bwd ? 32 * G : 0);
   // (and phase 0's flag rows and live bits)
-  const int stage = KS * h > (d.N + T) * TB ? KS * h : (d.N + T) * TB;
+  const int flg = (d.N + T) * TB;
+  const int stage = !tc && KS * h > flg ? KS * h : flg;
   L.tok = o; o += tok > stage ? tok : stage;
   L.floats = o;
   return L;
@@ -253,8 +313,8 @@ __device__ __forceinline__ void put16(float* dst, const uint4& v) {
 // h/16 rows wy*h/16 ..): W given transposed, WT [cols][h]; slices of KS of
 // its rows are staged in shared memory S as float (16-byte loads) and read
 // as float2 broadcasts, so one load of x feeds h/16 multiply-adds.
-// emit(j, acc) stores row j. The caller follows with a barrier before S or
-// the outputs are reused.
+// emit(j, lane, acc) stores row j. The caller follows with a barrier
+// before S or the outputs are reused.
 template <class E, class Emit>
 __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
                          const float* x, float* S, int lane, int wy, int tid,
@@ -284,7 +344,7 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
   }
 #pragma unroll
   for (int r = 0; r < 8; ++r)
-    if (r < RW) emit(wy * RW + r, acc[r]);
+    if (r < RW) emit(wy * RW + r, lane, acc[r]);
 }
 
 // out[k] = sum_j W[j, k] g[j][lane] for every k < cols (a multiple of 32;
@@ -322,7 +382,7 @@ __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
   }
 #pragma unroll
   for (int c = 0; c < MAXCW; ++c)
-    if (c < CW) emit(wy * CW + c, acc[c]);
+    if (c < CW) emit(wy * CW + c, lane, acc[c]);
 }
 
 // dst[j*cols + m] += sum_l A[j][l] Bm[m][l] over the block's lanes, for
@@ -395,6 +455,277 @@ __device__ __forceinline__ int popw(unsigned long long x) {
   return __popcll(x);
 }
 
+// ---- tensor-core products (the bfloat16 instantiations) ----
+// mma.sync m16n8k16 row.col, bf16 x bf16 + f32 -> f32. With lane = 4 g + t
+// a warp's fragments hold (PTX ISA): A [16][16] rows g, g + 8 and columns
+// 2t, 2t+1, 2t+8, 2t+9 (registers {(g, 2t..), (g+8, 2t..), (g, 2t+8..),
+// (g+8, 2t+8..)}); B [16][8] rows 2t, 2t+1, 2t+8, 2t+9 of column g; C
+// [16][8] rows g, g + 8 and columns 2t, 2t+1 (c0 c1 on row g, c2 c3 on
+// row g + 8). A pair of bfloat16 holds the lower index in its low half.
+
+__device__ __forceinline__ unsigned pack(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// an f32 pair as hi = bf16(x) and lo = bf16(x - hi): hi + lo is x to a
+// relative 2^-16, and both are exact bfloat16 operands
+__device__ __forceinline__ void split(float2 x, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x.x, x.y);
+  const float2 f = __bfloat1622float2(v);
+  hi = *reinterpret_cast<const unsigned*>(&v);
+  lo = pack(x.x - f.x, x.y - f.y);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment from f(r, k) = {A[r][k], A[r][k+1]} (k even); the values are
+// exact in bfloat16
+template <class F>
+__device__ __forceinline__ void frag_a(unsigned (&a)[4], int g, int t, F f) {
+  float2 v = f(g, 2 * t);
+  a[0] = pack(v.x, v.y);
+  v = f(g + 8, 2 * t);
+  a[1] = pack(v.x, v.y);
+  v = f(g, 2 * t + 8);
+  a[2] = pack(v.x, v.y);
+  v = f(g + 8, 2 * t + 8);
+  a[3] = pack(v.x, v.y);
+}
+
+// A fragment from f(r, k) = the bfloat16 pair {A[r][k], A[r][k+1]}
+template <class F>
+__device__ __forceinline__ void frag_au(unsigned (&a)[4], int g, int t, F f) {
+  a[0] = f(g, 2 * t);
+  a[1] = f(g + 8, 2 * t);
+  a[2] = f(g, 2 * t + 8);
+  a[3] = f(g + 8, 2 * t + 8);
+}
+
+// the same for f32 values: the hi and lo fragments of the split
+template <class F>
+__device__ __forceinline__ void frag_a2(unsigned (&hi)[4], unsigned (&lo)[4],
+                                        int g, int t, F f) {
+  split(f(g, 2 * t), hi[0], lo[0]);
+  split(f(g + 8, 2 * t), hi[1], lo[1]);
+  split(f(g, 2 * t + 8), hi[2], lo[2]);
+  split(f(g + 8, 2 * t + 8), hi[3], lo[3]);
+}
+
+// B fragment from f(k, n) = {B[k][n], B[k+1][n]} (k even), exact values
+template <class F>
+__device__ __forceinline__ void frag_b(unsigned (&b)[2], int g, int t, F f) {
+  float2 v = f(2 * t, g);
+  b[0] = pack(v.x, v.y);
+  v = f(2 * t + 8, g);
+  b[1] = pack(v.x, v.y);
+}
+
+template <class F>
+__device__ __forceinline__ void frag_b2(unsigned (&hi)[2], unsigned (&lo)[2],
+                                        int g, int t, F f) {
+  split(f(2 * t, g), hi[0], lo[0]);
+  split(f(2 * t + 8, g), hi[1], lo[1]);
+}
+
+// {W[r][k], W[r][k+1]} of a row-major bfloat16 matrix with `ld` columns,
+// columns >= K read as 0; one 32-bit load where the pair is aligned
+__device__ __forceinline__ unsigned ldg_pair(const bf16* W, int ld, int K,
+                                             int r, int k) {
+  const unsigned short* p =
+      reinterpret_cast<const unsigned short*>(W) + (size_t)r * ld + k;
+  if (k + 1 < K && (reinterpret_cast<size_t>(p) & 3) == 0)
+    return __ldg(reinterpret_cast<const unsigned*>(p));
+  const unsigned a = k < K ? __ldg(p) : 0u;
+  const unsigned b = k + 1 < K ? __ldg(p + 1) : 0u;
+  return a | b << 16;
+}
+
+// A fragment of rows r0.. and columns k0.. of W (as ldg_pair), read from
+// global memory (L2) without staging; `fast`: the 16 columns lie below K
+// and every pair is 4-byte aligned (one 32-bit load each, no tests)
+__device__ __forceinline__ void frag_ag(unsigned (&a)[4], const bf16* W,
+                                        int ld, int K, int r0, int k0, int g,
+                                        int t, bool fast) {
+  if (fast) {
+    const unsigned* p = reinterpret_cast<const unsigned*>(
+        W + (size_t)(r0 + g) * ld + k0 + 2 * t);
+    const int row8 = 4 * ld;  // 8 rows, in 32-bit words
+    a[0] = __ldg(p);
+    a[1] = __ldg(p + row8);
+    a[2] = __ldg(p + 4);
+    a[3] = __ldg(p + row8 + 4);
+    return;
+  }
+  a[0] = ldg_pair(W, ld, K, r0 + g, k0 + 2 * t);
+  a[1] = ldg_pair(W, ld, K, r0 + g + 8, k0 + 2 * t);
+  a[2] = ldg_pair(W, ld, K, r0 + g, k0 + 2 * t + 8);
+  a[3] = ldg_pair(W, ld, K, r0 + g + 8, k0 + 2 * t + 8);
+}
+
+// whether W's pairs are 4-byte aligned: ld even and the base aligned
+__device__ __forceinline__ bool pairs_aligned(const bf16* W, int ld) {
+  return (ld & 1) == 0 && (reinterpret_cast<size_t>(W) & 3) == 0;
+}
+
+// out[j][n] = sum_k W[j, k] x[k][n] for j < h, n < TB: W row-major [h][K]
+// bfloat16, x [K][LD] (bfloat16 values held as float), K padded to a
+// multiple of 16 with zeros. Warp wy owns rows 16 (wy / 2) .. + 15 and the
+// lanes 16 (wy % 2) .. + 15 (two column tiles sharing each A fragment);
+// h = 32..96 leave warps 2h/16.. idle. The A fragments come straight from
+// global memory (L2), KC = 4 k-steps of them issued before their products,
+// so that one round trip serves 4 k-steps. emit(j, n, acc) stores an output.
+template <class Emit>
+__device__ void mv_mma(const bf16* __restrict__ W, int h, int K,
+                       const float* x, int lane, int wy, Emit emit) {
+  constexpr int KC = 4;
+  if (wy >= h / 8) return;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (wy >> 1) * 16, n0 = (wy & 1) * 16;
+  const bool al = pairs_aligned(W, K);
+  float acc[2][4] = {};
+  for (int kb = 0; kb < K; kb += 16 * KC) {
+    unsigned a[KC][4];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int k0 = kb + 16 * c;
+      frag_ag(a[c], W, K, K, m0, k0, g, t, al && k0 + 16 <= K);
+    }
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int k0 = kb + 16 * c;
+      if (k0 < K) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          unsigned b[2];
+          frag_b(b, g, t, [&](int k, int n) {
+            const int kk = k0 + k;
+            const float* p = x + kk * LD + n0 + 8 * s + n;
+            return make_float2(kk < K ? p[0] : 0.f,
+                               kk + 1 < K ? p[LD] : 0.f);
+          });
+          mma(acc[s], a[c], b);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int n = n0 + 8 * s + 2 * t;
+    emit(m0 + g, n, acc[s][0]);
+    emit(m0 + g, n + 1, acc[s][1]);
+    emit(m0 + g + 8, n, acc[s][2]);
+    emit(m0 + g + 8, n + 1, acc[s][3]);
+  }
+}
+
+// out[m][n] = sum_j W[j, m] g[j][n] for m < M (a multiple of 16), n < TB,
+// j < h (a multiple of 32): WT = W transposed, row-major [>= M][h]
+// bfloat16; g [h][LD] f32 in shared memory, split into hi and lo passes.
+// Warp wy owns the lanes 16 (wy % 2) .. + 15 and the row tiles wy / 2 + 8 i
+// (i < MAXU), so its B fragments serve all of them; the A fragments of KC
+// k-steps are issued before their products (KC x MAXU <= 4 in flight).
+template <int MAXU, class Emit>
+__device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
+                        const float* gs, int lane, int wy, Emit emit) {
+  constexpr int KC = MAXU == 1 ? 4 : 1;
+  const int g = lane >> 2, t = lane & 3, n0 = (wy & 1) * 16, MT = M / 16;
+  const bool al = pairs_aligned(WT, h);
+  float acc[MAXU][2][4] = {};
+  for (int kb = 0; kb < h; kb += 16 * KC) {
+    unsigned a[KC][MAXU][4];
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+#pragma unroll
+      for (int i = 0; i < MAXU; ++i) {
+        const int mt = (wy >> 1) + 8 * i, k0 = kb + 16 * c;
+        if (mt < MT && k0 < h)
+          frag_ag(a[c][i], WT, h, h, mt * 16, k0, g, t, al);
+      }
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int k0 = kb + 16 * c;
+      if (k0 < h) {
+        unsigned bh[2][2], bl[2][2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+          frag_b2(bh[s], bl[s], g, t, [&](int k, int n) {
+            const float* p = gs + (k0 + k) * LD + n0 + 8 * s + n;
+            return make_float2(p[0], p[LD]);
+          });
+#pragma unroll
+        for (int i = 0; i < MAXU; ++i) {
+          if ((wy >> 1) + 8 * i < MT) {
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              mma(acc[i][s], a[c][i], bh[s]);
+              mma(acc[i][s], a[c][i], bl[s]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MAXU; ++i) {
+    const int m = ((wy >> 1) + 8 * i) * 16 + g;
+    if (m < M) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int n = n0 + 8 * s + 2 * t;
+        emit(m, n, acc[i][s][0]);
+        emit(m, n + 1, acc[i][s][1]);
+        emit(m + 8, n, acc[i][s][2]);
+        emit(m + 8, n + 1, acc[i][s][3]);
+      }
+    }
+  }
+}
+
+// The bfloat16 backward defers the encoder/query weight-gradient
+// contractions (gWq += dq qin^T, gW2 += d_hm e1^T, gW1 += de1 feats^T,
+// K = 32 lanes a step) to `grad_outer`: each (step, container) of a block
+// writes one record of their operands, in floats from its start: dq, d_hm,
+// de1 [h][TB] f32; qin [3h+8][TB], e1 [h][TB], feats [WD+2][TB] bfloat16.
+struct RecOff {
+  int dq, dhm, de1, qin, e1, feats, size;
+};
+
+__host__ __device__ inline RecOff rec_off(const Dims& d) {
+  const int h = d.h, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
+  RecOff r;
+  int o = 0;
+  r.dq = o;    o += h * TB;
+  r.dhm = o;   o += h * TB;
+  r.de1 = o;   o += h * TB;
+  r.qin = o;   o += FQ * TB / 2;
+  r.e1 = o;    o += h * TB / 2;
+  r.feats = o; o += WD2 * TB / 2;
+  r.size = o;
+  return r;
+}
+
+// a [rows][LD] float array as [rows][TB] f32 at dst (coalesced stores)
+__device__ void put_f32(float* dst, const float* a, int rows, int tid) {
+  for (int e = tid; e < rows * TB; e += NT)
+    dst[e] = a[(e >> 5) * LD + (e & 31)];
+}
+
+// the same as [rows][TB] bfloat16 (its values are bfloat16: exact)
+__device__ void put_bf16(float* dst, const float* a, int rows, int tid) {
+  unsigned* d = reinterpret_cast<unsigned*>(dst);
+  for (int e = tid; e < rows * TB / 2; e += NT) {
+    const float* p = a + (e >> 4) * LD + 2 * (e & 15);
+    d[e] = pack(p[0], p[1]);
+  }
+}
+
 // STEPS: the step-grid schedule; blockIdx.y is the step chunk and `len` the
 // steps per chunk. Monolithic: one chunk of all S steps. The backward
 // writes d_se into `dse_o` [chunks, B, T, h] (zeroed here) and d_ctx into
@@ -403,19 +734,23 @@ template <bool BWD, bool STEPS, class E>
 __global__ void __launch_bounds__(NT)
 replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
               float temperature, float inv_temp, float* logp_o, float* dse_o,
-              float* dctx_o, float* part_o, int len) {
+              float* dctx_o, float* part_o, int len, float* rec_o,
+              int* sflag_o) {
   using Word = std::conditional_t<STEPS, unsigned long long, int>;
+  // bfloat16: the products on the tensor cores (the design note)
+  constexpr bool TC = std::is_same_v<E, bf16>;
   extern __shared__ __align__(16) float smem[];
   const int N = d.N, R = d.R, C = d.C, h = d.h, B = d.B;
   const int WD = d.W * d.D, T = N * R, A = T * C, FQ = 3 * h + 8, S = N;
-  const int HP = h + 4, RPL = h / 32;
+  const int HP = h + 4, RPL = h / 32, GS = h1_stride(TC);
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
+  const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
   const int tile0 = blockIdx.x * TB;
   const int b = tile0 + lane;
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
   const GOff go = goff(d);
-  const Lay L = layout(d, BWD);
+  const Lay L = layout(d, BWD, TC);
   const int chunk = STEPS ? blockIdx.y : 0;
   const int k0 = STEPS ? chunk * len : 0;
   const int k1 = STEPS ? min(k0 + len, S) : S;
@@ -442,8 +777,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   float* d_hm = qin;                  // enc rows, after the Wq product
   float* stg = smem + L.tok;          // staged weight slices
   float* x8 = smem + L.tok;           // [8][G]
-  float* h1 = x8 + 8 * G;             // [32][G]
-  float* DD = h1 + 32 * G;            // [G][HP] d_dyn (bwd)
+  float* h1 = x8 + 8 * G;             // [32][GS]
+  float* DD = h1 + 32 * GS;           // [G][HP] d_dyn (bwd); tc: dyn first
   float* DH1 = DD + G * HP;           // [32][G] (bwd)
   int* ib = (int*)(smem + L.floats);
   Word* wb = reinterpret_cast<Word*>(ib);  // [4][TB] words
@@ -453,13 +788,24 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   int* off = ia + 4 * TB;                  // [TB+1] column offsets
   int* flag = off + TB + 1;                // the tile has an action
   int* cols = flag + 1;                    // [TB*T]: t << 5 | lane
-  float* prow = BWD ? part_o + ((size_t)blockIdx.x * (STEPS ? gridDim.y : 1)
-                                + chunk) * go.P
-                    : nullptr;
+  // the block's partial row: its tile and step chunk
+  const size_t prow_i = (size_t)blockIdx.x * (STEPS ? gridDim.y : 1) + chunk;
+  float* prow = BWD ? part_o + prow_i * go.P : nullptr;
+  const RecOff ro = rec_off(d);
 
-  for (int e = tid; e < 32 * h; e += NT) {
-    const int k = e / h, j = e - k * h;
-    Ws[e] = ldg(w.wpt + j * 32 + k);
+  // tc: Wp [h][32] as bfloat16 rows of WPS (the A operand of dyn, and of
+  // dh1 as its transpose)
+  unsigned short* wps = reinterpret_cast<unsigned short*>(Ws);
+  if constexpr (TC) {
+    const unsigned short* src =
+        reinterpret_cast<const unsigned short*>(w.wpt);
+    for (int e = tid; e < 32 * h; e += NT)
+      wps[(e >> 5) * WPS + (e & 31)] = __ldg(src + e);
+  } else {
+    for (int e = tid; e < 32 * h; e += NT) {
+      const int k = e / h, j = e - k * h;
+      Ws[e] = ldg(w.wpt + j * 32 + k);
+    }
   }
   for (int e = tid; e < 256; e += NT) W8s[e] = ldg(w.w8t + e);
   if (tid < 32) b8s[tid] = ldg(w.b8 + tid);
@@ -483,6 +829,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) gwp[r][0] = gwp[r][1] = dvr[r] = 0.f;
   float gw8 = 0.f;
+  // tc: gWp^T [32][h] as mma tiles (row tile wy % 2, column tiles wy / 2
+  // and wy / 2 + 8), gW8 [32][8] and gb8 (column 0 of g8b) on warps 0 and
+  // 1 (row tile wy)
+  float gwa[2][4] = {}, g8a[4] = {}, g8b[4] = {};
   __syncthreads();
 
   // shared rows of qin: ctx, the previous action's embedding, dsum
@@ -525,22 +875,33 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       feats[(WD + 1) * LD + lane] = rnd<E>(sm / (float)WD);
     }
     __syncthreads();
-    mv_tiled(w.w1T, h, WD + 2, feats, stg, lane, wy, tid,
-             [&](int j, float acc) {
-      e1[j * LD + lane] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
-    });
+    auto e1_out = [&](int j, int n, float acc) {
+      e1[j * LD + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
+    };
+    if constexpr (TC)
+      mv_mma(w.w1t, h, WD + 2, feats, lane, wy, e1_out);
+    else
+      mv_tiled(w.w1T, h, WD + 2, feats, stg, lane, wy, tid, e1_out);
     __syncthreads();
-    mv_tiled(w.w2T, h, h, e1, stg, lane, wy, tid, [&](int j, float acc) {
-      qin[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
-    });
+    auto enc_out = [&](int j, int n, float acc) {
+      qin[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
+    };
+    if constexpr (TC)
+      mv_mma(w.w2t, h, h, e1, lane, wy, enc_out);
+    else
+      mv_tiled(w.w2T, h, h, e1, stg, lane, wy, tid, enc_out);
     __syncthreads();
   };
 
   // q_c = Wq qin + bq into qs; ends in a barrier
   auto query = [&]() {
-    mv_tiled(w.wqT, h, FQ, qin, stg, lane, wy, tid, [&](int j, float acc) {
-      qs[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
-    });
+    auto q_out = [&](int j, int n, float acc) {
+      qs[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
+    };
+    if constexpr (TC)
+      mv_mma(w.wqt, h, FQ, qin, lane, wy, q_out);
+    else
+      mv_tiled(w.wqT, h, FQ, qin, stg, lane, wy, tid, q_out);
     __syncthreads();
   };
 
@@ -567,21 +928,65 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         float acc = 0.f;
         for (int f = 0; f < 8; ++f)
           acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
-        h1[m * G + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
+        h1[m * GS + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
       }
     }
     __syncthreads();
   };
 
-  // dyn = Wp h1 for this warp's CPW columns, rows lane + 32 r
-  auto group_dyn = [&](float (&dyn)[CPW][MAXR]) {
+  // dyn = Wp h1 for this warp's CPW columns, rows lane + 32 r. tc: the
+  // group's dyn [G][HP] into DD on the tensor cores (A = Wp staged, B = h1;
+  // warp wy owns the column tile wy % 8 and the row tiles wy / 8 + 2 i of
+  // the column tiles that hold a column), a barrier, then this warp's
+  // columns read back from DD.
+  auto group_dyn = [&](float (&dyn)[CPW][MAXR], int ng) {
+    if constexpr (TC) {
+      const int nt = wy & 7;
+      if (8 * nt < ng) {
+        const int col = 8 * nt + g8;
+        unsigned bf[2][2];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+          frag_b(bf[ks], g8, t4, [&](int k, int) {
+            const float* p = h1 + (16 * ks + k) * GS + col;
+            return make_float2(p[0], p[GS]);
+          });
+        for (int mt = wy >> 3; mt < h / 16; mt += 2) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            unsigned a[4];
+            frag_au(a, g8, t4, [&](int r, int k) {
+              return *reinterpret_cast<const unsigned*>(
+                  wps + (16 * mt + r) * WPS + 16 * ks + k);
+            });
+            mma(acc, a, bf[ks]);
+          }
+          const int j = 16 * mt + g8, c = 8 * nt + 2 * t4;
+          DD[c * HP + j] = acc[0];
+          DD[(c + 1) * HP + j] = acc[1];
+          DD[c * HP + j + 8] = acc[2];
+          DD[(c + 1) * HP + j + 8] = acc[3];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < CPW; ++i) {
+        const int cc = wy * CPW + i;
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r)
+          dyn[i][r] = (r < RPL && cc < ng)
+                          ? rnd<E>(DD[cc * HP + lane + 32 * r]) : 0.f;
+      }
+      return;
+    }
 #pragma unroll
     for (int i = 0; i < CPW; ++i)
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) dyn[i][r] = 0.f;
     for (int k = 0; k < 32; ++k) {
       const float4 hv =
-          *reinterpret_cast<const float4*>(h1 + k * G + wy * CPW);
+          *reinterpret_cast<const float4*>(h1 + k * GS + wy * CPW);
       float wv[MAXR];
 #pragma unroll
       for (int r = 0; r < MAXR; ++r)
@@ -622,7 +1027,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       group_se(g0, ng, sev);
       group_h1(k, g0, ng);
       float dyn[CPW][MAXR];
-      group_dyn(dyn);
+      group_dyn(dyn, ng);
 #pragma unroll
       for (int i = 0; i < CPW; ++i) {
         const int cc = wy * CPW + i;
@@ -654,7 +1059,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       group_se(g0, ng, sev);
       group_h1(k, g0, ng);
       float dyn[CPW][MAXR];
-      group_dyn(dyn);
+      group_dyn(dyn, ng);
 #pragma unroll
       for (int i = 0; i < CPW; ++i) {
         const int cc = wy * CPW + i;
@@ -682,8 +1087,49 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         }
       }
       __syncthreads();
+      if constexpr (TC) {
+        // dq[j][l] += sum over the group's columns cc of d_dyn[cc][j] where
+        // cc is instance l's: M = h, N = 32 lanes, K = the columns, B the
+        // 0/1 membership, d_dyn split; warp wy owns the lane tile wy % 4
+        // and the row tiles wy / 4 + 4 u
+        const int nt = wy & 3;
+        float dacc[2][4] = {};
+        for (int c0 = 0; c0 < ng; c0 += 16) {
+          unsigned bo[2];
+          frag_b(bo, g8, t4, [&](int k, int n) {
+            const int l = 8 * nt + n, ca = c0 + k;
+            const bool a0 = ca < ng && (cols[g0 + ca] & 31) == l;
+            const bool a1 = ca + 1 < ng && (cols[g0 + ca + 1] & 31) == l;
+            return make_float2(a0 ? 1.f : 0.f, a1 ? 1.f : 0.f);
+          });
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int mt = (wy >> 2) + 4 * u;
+            if (mt < h / 16) {
+              unsigned ah[4], al[4];
+              frag_a2(ah, al, g8, t4, [&](int r, int k) {
+                const float* p = DD + (c0 + k) * HP + 16 * mt + r;
+                return make_float2(p[0], p[HP]);
+              });
+              mma(dacc[u], ah, bo);
+              mma(dacc[u], al, bo);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int mt = (wy >> 2) + 4 * u;
+          if (mt < h / 16) {
+            float* dq0 = dqs + (16 * mt + g8) * LD + 8 * nt + 2 * t4;
+            dq0[0] += dacc[u][0];
+            dq0[1] += dacc[u][1];
+            dq0[8 * LD] += dacc[u][2];
+            dq0[8 * LD + 1] += dacc[u][3];
+          }
+        }
+      }
       // dq: per instance, its columns of this group in order
-      for (int e = tid; e < h * TB; e += NT) {
+      for (int e = tid; e < (TC ? 0 : h * TB); e += NT) {
         const int j = e / TB, l = e - j * TB;
         const int lo = max(off[l], g0) - g0;
         const int hi = min(off[l + 1], g0 + ng) - g0;
@@ -693,10 +1139,81 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           dqs[j * LD + l] += s;
         }
       }
+      if constexpr (TC) {
+        // gWp^T += h1 d_dyn over the group's columns (K), d_dyn split:
+        // row tile wy % 2 of h1, column tiles wy / 2 + 8 u of d_dyn^T
+        const int mt = wy & 1;
+        for (int c0 = 0; c0 < ng; c0 += 16) {
+          unsigned a[4];
+          frag_a(a, g8, t4, [&](int r, int k) {
+            return *reinterpret_cast<const float2*>(
+                h1 + (16 * mt + r) * GS + c0 + k);
+          });
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int nt = (wy >> 1) + 8 * u;
+            if (nt * 8 < h) {
+              unsigned bh[2], bl[2];
+              frag_b2(bh, bl, g8, t4, [&](int k, int n) {
+                const float* p = DD + (c0 + k) * HP + nt * 8 + n;
+                return make_float2(p[0], p[HP]);
+              });
+              mma(gwa[u], a, bh);
+              mma(gwa[u], a, bl);
+            }
+          }
+        }
+        // dh1 = (Wp^T d_dyn) * (h1 > 0), K = h, d_dyn split: row tile
+        // wy % 2, column tile wy / 2; A = Wp^T from the staged Wp
+        const int nt = wy >> 1;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j0 = 0; j0 < h; j0 += 16) {
+          unsigned a[4], bh[2], bl[2];
+          frag_au(a, g8, t4, [&](int r, int k) {
+            const int m = 16 * mt + r, j = j0 + k;
+            return (unsigned)wps[j * WPS + m]
+                   | (unsigned)wps[(j + 1) * WPS + m] << 16;
+          });
+          frag_b2(bh, bl, g8, t4, [&](int k, int n) {
+            return *reinterpret_cast<const float2*>(
+                DD + (8 * nt + n) * HP + j0 + k);
+          });
+          mma(acc, a, bh);
+          mma(acc, a, bl);
+        }
+        const int m = 16 * mt + g8, cc = 8 * nt + 2 * t4;
+        DH1[m * G + cc] = h1[m * GS + cc] > 0.f ? acc[0] : 0.f;
+        DH1[m * G + cc + 1] = h1[m * GS + cc + 1] > 0.f ? acc[1] : 0.f;
+        DH1[(m + 8) * G + cc] = h1[(m + 8) * GS + cc] > 0.f ? acc[2] : 0.f;
+        DH1[(m + 8) * G + cc + 1] =
+            h1[(m + 8) * GS + cc + 1] > 0.f ? acc[3] : 0.f;
+        __syncthreads();
+        if (wy < 2) {  // gW8 += dh1 x8^T, dh1 split: row tile wy
+          for (int c0 = 0; c0 < ng; c0 += 16) {
+            unsigned ah[4], al[4], bx[2];
+            frag_a2(ah, al, g8, t4, [&](int r, int k) {
+              return *reinterpret_cast<const float2*>(
+                  DH1 + (16 * wy + r) * G + c0 + k);
+            });
+            frag_b(bx, g8, t4, [&](int k, int n) {
+              return *reinterpret_cast<const float2*>(x8 + n * G + c0 + k);
+            });
+            mma(g8a, ah, bx);
+            mma(g8a, al, bx);
+            // gb8 += rowsum dh1: B = a column of ones (column 0 of a tile)
+            const unsigned one = g8 == 0 ? 0x3F803F80u : 0u;  // bf16 1, 1
+            const unsigned bo[2] = {one, one};
+            mma(g8b, ah, bo);
+            mma(g8b, al, bo);
+          }
+        }
+        __syncthreads();
+        continue;
+      }
       {  // gWp += d_dyn h1^T
         const int m0 = 2 * wy;
         for (int cc = 0; cc < ng; ++cc) {
-          const float ha = h1[m0 * G + cc], hb = h1[(m0 + 1) * G + cc];
+          const float ha = h1[m0 * GS + cc], hb = h1[(m0 + 1) * GS + cc];
 #pragma unroll
           for (int r = 0; r < MAXR; ++r) {
             if (r < RPL) {
@@ -726,7 +1243,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi) {
           const int m = m0 + mi;
-          DH1[m * G + cc] = h1[m * G + cc] > 0.f ? acc[mi] : 0.f;
+          DH1[m * G + cc] = h1[m * GS + cc] > 0.f ? acc[mi] : 0.f;
         }
       }
       __syncthreads();
@@ -804,6 +1321,9 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       }
     }
     __syncthreads();
+    if constexpr (TC && BWD) {  // grad_outer's record of the step
+      if (tid == 0) sflag_o[prow_i * len + (k - k0)] = *flag;
+    }
     if (!*flag) continue;  // no action in the tile: adds nothing
     const int n = off[TB];
 
@@ -864,28 +1384,54 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       for (int j = wy; j < h; j += NWARP) dqs[j * LD + lane] = 0.f;
       __syncthreads();
       token_bwd(k, c, n);
-      outer_tiled(prow + go.wqt, dqs, qin, h, FQ, lane, wy, tid);
-      rowsum_acc(prow + go.bq, dqs, LD, h, tid);
-      mvt_tiled<24>(w.wqt, h, 3 * h, FQ, dqs, stg, lane, wy, tid,
-                [&](int m, float acc) {
+      // tc: the transposed products on the tensor cores (mvt_mma), the
+      // weight-gradient operands to grad_outer's record, with the barrier
+      // that mvt_tiled's staging gave (qin's enc rows are read before
+      // dqin overwrites them)
+      auto dqin_out = [&](int m, int l, float acc) {
         if (m < h) {
-          d_hm[m * LD + lane] = acc;  // qin's enc rows: read above, done
+          d_hm[m * LD + l] = acc;  // qin's enc rows: read above, done
         } else if (m < 2 * h) {
-          if (active) dctx_o[(size_t)(m - h) * B + b] += acc;
+          if (tile0 + l < B) dctx_o[(size_t)(m - h) * B + tile0 + l] += acc;
         } else {
-          d_prev[(m - 2 * h) * LD + lane] += acc;
+          d_prev[(m - 2 * h) * LD + l] += acc;
         }
-      });
-      __syncthreads();
-      outer_tiled(prow + go.w2t, d_hm, e1, h, h, lane, wy, tid);
-      rowsum_acc(prow + go.b2, d_hm, LD, h, tid);
-      __syncthreads();
-      mvt_tiled<8>(w.w2t, h, h, h, d_hm, stg, lane, wy, tid,
-                [&](int m, float acc) {
-        e1[m * LD + lane] = e1[m * LD + lane] > 0.f ? acc : 0.f;  // de1
-      });
-      __syncthreads();
-      outer_tiled(prow + go.w1t, e1, feats, h, WD + 2, lane, wy, tid);
+      };
+      auto de1_out = [&](int m, int l, float acc) {
+        e1[m * LD + l] = e1[m * LD + l] > 0.f ? acc : 0.f;  // de1
+      };
+      if constexpr (TC) {
+        // the weight-gradient contractions go to grad_outer: this (step,
+        // container)'s operands to its record
+        float* rc =
+            rec_o + ((prow_i * len + (k - k0)) * C + c) * (size_t)ro.size;
+        put_f32(rc + ro.dq, dqs, h, tid);
+        put_bf16(rc + ro.qin, qin, FQ, tid);
+        rowsum_acc(prow + go.bq, dqs, LD, h, tid);
+        __syncthreads();
+        mvt_mma<3>(w.wqT, 3 * h, h, dqs, lane, wy, dqin_out);
+        __syncthreads();
+        put_f32(rc + ro.dhm, d_hm, h, tid);
+        put_bf16(rc + ro.e1, e1, h, tid);
+        rowsum_acc(prow + go.b2, d_hm, LD, h, tid);
+        __syncthreads();
+        mvt_mma<1>(w.w2T, h, h, d_hm, lane, wy, de1_out);
+        __syncthreads();
+        put_f32(rc + ro.de1, e1, h, tid);
+        put_bf16(rc + ro.feats, feats, WD + 2, tid);
+      } else {
+        outer_tiled(prow + go.wqt, dqs, qin, h, FQ, lane, wy, tid);
+        rowsum_acc(prow + go.bq, dqs, LD, h, tid);
+        mvt_tiled<24>(w.wqt, h, 3 * h, FQ, dqs, stg, lane, wy, tid,
+                      dqin_out);
+        __syncthreads();
+        outer_tiled(prow + go.w2t, d_hm, e1, h, h, lane, wy, tid);
+        rowsum_acc(prow + go.b2, d_hm, LD, h, tid);
+        __syncthreads();
+        mvt_tiled<8>(w.w2t, h, h, h, d_hm, stg, lane, wy, tid, de1_out);
+        __syncthreads();
+        outer_tiled(prow + go.w1t, e1, feats, h, WD + 2, lane, wy, tid);
+      }
       rowsum_acc(prow + go.b1, e1, LD, h, tid);
       __syncthreads();
     }
@@ -908,16 +1454,42 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     return;
   }
   // the token-loop weight gradients: each element owned by one thread
+  if constexpr (TC) {
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    if (r < RPL) {
-      float* dst = prow + go.wpt + (lane + 32 * r) * 32 + 2 * wy;
-      dst[0] = gwp[r][0];
-      dst[1] = gwp[r][1];
+    for (int u = 0; u < 2; ++u) {
+      const int nt = (wy >> 1) + 8 * u;
+      if (nt * 8 < h) {  // gWp^T tile: rows m, columns j
+        const int m = 16 * (wy & 1) + g8, j = nt * 8 + 2 * t4;
+        float* dst = prow + go.wpt;
+        dst[j * 32 + m] = gwa[u][0];
+        dst[(j + 1) * 32 + m] = gwa[u][1];
+        dst[j * 32 + m + 8] = gwa[u][2];
+        dst[(j + 1) * 32 + m + 8] = gwa[u][3];
+      }
     }
+    if (wy < 2) {
+      float* dst = prow + go.w8t + (16 * wy + g8) * 8 + 2 * t4;
+      dst[0] = g8a[0];
+      dst[1] = g8a[1];
+      dst[64] = g8a[2];
+      dst[65] = g8a[3];
+      if (t4 == 0) {
+        prow[go.b8 + 16 * wy + g8] = g8b[0];
+        prow[go.b8 + 16 * wy + g8 + 8] = g8b[2];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+      if (r < RPL) {
+        float* dst = prow + go.wpt + (lane + 32 * r) * 32 + 2 * wy;
+        dst[0] = gwp[r][0];
+        dst[1] = gwp[r][1];
+      }
+    }
+    if (tid < 256) prow[go.w8t + tid] = gw8;
+    else if (tid < 288) prow[go.b8 + tid - 256] = gw8;
   }
-  if (tid < 256) prow[go.w8t + tid] = gw8;
-  else if (tid < 288) prow[go.b8 + tid - 256] = gw8;
   float* red = feats;  // [NWARP][h]: gv partials per warp, summed in order
 #pragma unroll
   for (int r = 0; r < MAXR; ++r)
@@ -927,6 +1499,105 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     float s = 0.f;
     for (int v = 0; v < NWARP; ++v) s += red[v * h + j];
     prow[go.v + j] = s;
+  }
+}
+
+// The deferred weight-gradient contractions of the bfloat16 backward
+// (rec_off): for partial row `row` (a tile and step chunk) and a 64-column
+// slice of gWq, gW2 or gW1 (blockIdx.y: Wq's slices, then W2's, then W1's),
+// part[row][off + j*cols + n] = the sum over the row's steps with an action
+// (sflag), their containers and the 32 lanes of G[j][l] X[n][l] (G = dq,
+// d_hm, de1, split into hi and lo passes; X = qin, e1, feats), two k-steps
+// a record, the records of two steps loaded before their products (per
+// pair of steps: each container, then each step). Warp wy owns the row
+// tile wy % (h/16) and
+// the column tiles wy / (h/16) + (16 / (h/16)) u of the slice; the
+// accumulators stay in registers until one store, so each element has one
+// owner and one order.
+__global__ void __launch_bounds__(NT)
+grad_outer(Dims d, const float* __restrict__ rec,
+           const int* __restrict__ sflag, int len, float* __restrict__ part) {
+  const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
+  const GOff go = goff(d);
+  const RecOff ro = rec_off(d);
+  const size_t row = blockIdx.x;
+  const int sq = (FQ + 63) / 64, s2 = (h + 63) / 64;
+  int sl = blockIdx.y, cols, off, gof, xof;
+  if (sl < sq) {
+    cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
+  } else if (sl < sq + s2) {
+    sl -= sq;
+    cols = h; off = go.w2t; gof = ro.dhm; xof = ro.e1;
+  } else {
+    sl -= sq + s2;
+    cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
+  }
+  const int lane = threadIdx.x, wy = threadIdx.y, g = lane >> 2, t = lane & 3;
+  const int MT = h / 16, WPM = NWARP / MT, NU = 8 / WPM;
+  if (wy >= MT * WPM) return;
+  const int m0 = (wy % MT) * 16, slot = wy / MT, n0 = 64 * sl;
+  float acc[4][4] = {};
+  for (int st = 0; st < len; st += 2) {
+    for (int c = 0; c < C; ++c) {
+      // two steps' operands loaded before their products (zeros for a
+      // step without an action, or past the chunk: they add exact zeros)
+      float2 ga[2][2][4];
+      unsigned gb[2][2][4][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool on = st + q < len && sflag[row * len + st + q];
+        const float* r =
+            rec + ((row * len + st + q) * C + c) * (size_t)ro.size;
+        const float* G = r + gof;
+        const unsigned* X = reinterpret_cast<const unsigned*>(r + xof);
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ga[q][ks][i] = on ? __ldg(reinterpret_cast<const float2*>(
+                                    G + (m0 + g + 8 * (i & 1)) * TB + 16 * ks
+                                    + 2 * t + 8 * (i >> 1)))
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int n = n0 + 8 * (slot + WPM * u) + g;
+            const bool in = on && u < NU && n < cols;
+            gb[q][ks][u][0] = in ? __ldg(X + n * 16 + 8 * ks + t) : 0u;
+            gb[q][ks][u][1] = in ? __ldg(X + n * 16 + 8 * ks + 4 + t) : 0u;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          unsigned ah[4], al[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split(ga[q][ks][i], ah[i], al[i]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (u < NU) {
+              mma(acc[u], ah, gb[q][ks][u]);
+              mma(acc[u], al, gb[q][ks][u]);
+            }
+          }
+        }
+    }
+  }
+  float* dst = part + row * go.P + off;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int c = n0 + 8 * (slot + WPM * u) + 2 * t, j = m0 + g;
+    if (u < NU) {
+      if (c < cols) {
+        dst[j * cols + c] = acc[u][0];
+        dst[(j + 8) * cols + c] = acc[u][2];
+      }
+      if (c + 1 < cols) {
+        dst[j * cols + c + 1] = acc[u][1];
+        dst[(j + 8) * cols + c + 1] = acc[u][3];
+      }
+    }
   }
 }
 
@@ -964,9 +1635,10 @@ __global__ void sum_transpose(const float* __restrict__ part, int nc, int B,
 }  // namespace
 
 // Dynamic shared memory of one block of the forward (bwd = 0) or backward
-// (bwd = 1) kernel, in bytes; the wrapper refuses configs above the limit.
-static long long smem_bytes(const Dims& d, int bwd, bool steps) {
-  return 4ll * (layout(d, bwd != 0).floats + n_ints(d, steps));
+// (bwd = 1) kernel, in bytes (tc: the bfloat16 instantiations' plan); the
+// wrapper refuses configs above the limit.
+static long long smem_bytes(const Dims& d, int bwd, bool steps, bool tc) {
+  return 4ll * (layout(d, bwd != 0, tc).floats + n_ints(d, steps));
 }
 
 template <bool STEPS, class E>
@@ -983,7 +1655,8 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                    (const E*)p[15], (const E*)p[16], (const E*)p[17],
                    (const E*)p[18], (const float*)p[19], (const E*)p[29],
                    (const E*)p[30], (const E*)p[31]};
-  const size_t smem = (size_t)smem_bytes(d, bwd, STEPS);
+  const size_t smem =
+      (size_t)smem_bytes(d, bwd, STEPS, std::is_same_v<E, bf16>);
   const int tiles = (d.B + TB - 1) / TB;
   const int S = d.N;
   const int len = (S + chunks - 1) / chunks;  // steps per chunk
@@ -1001,7 +1674,8 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
     // one chunk writes logp itself; more write partials [nc, B] to p[26]
     float* lp = nc > 1 ? (float*)p[26] : (float*)p[20];
     kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
-                                      lp, nullptr, nullptr, nullptr, len);
+                                      lp, nullptr, nullptr, nullptr, len,
+                                      nullptr, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess || nc == 1) return (int)err;
     reduce_tiles<<<(d.B + 255) / 256, 256, 0, st>>>(lp, nc, d.B,
@@ -1015,11 +1689,22 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   // d_se partials [nc, B, T, h] in p[27]; one chunk writes d_ctx itself,
   // more write partials [nc, h, B] to p[28]
   float* dctx = nc > 1 ? (float*)p[28] : (float*)p[22];
+  constexpr bool tc = std::is_same_v<E, bf16>;
   kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
                                     nullptr, (float*)p[27], dctx,
-                                    (float*)p[23], len);
+                                    (float*)p[23], len,
+                                    tc ? (float*)p[32] : nullptr,
+                                    tc ? (int*)p[33] : nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (tc) {  // the deferred weight-gradient contractions
+    const int slices = (3 * d.h + 8 + 63) / 64 + (d.h + 63) / 64
+                       + (d.W * d.D + 2 + 63) / 64;
+    grad_outer<<<dim3(tiles * nc, slices), block, 0, st>>>(
+        d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const int P = goff(d).P;
   reduce_tiles<<<(P + 255) / 256, 256, 0, st>>>((const float*)p[23],
                                                 tiles * nc, P, (float*)p[24]);
@@ -1036,10 +1721,27 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of one block in bytes for ints = B, N, W, D, R, C, h (as
+// tapnet_replay_logp takes them), the kernel (bwd), the schedule (steps)
+// and the instantiation (bf16): what ops/replay.py::smem_bytes mirrors.
+extern "C" long long tapnet_replay_smem_bytes(const int* ints, int bwd,
+                                              int steps, int bf16) {
+  const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
+  return smem_bytes(d, bwd, steps != 0, bf16 != 0);
+}
+
+// Floats of one grad_outer record (rec_off) at ints = B, N, W, D, R, C, h.
+extern "C" int tapnet_replay_record_floats(const int* ints) {
+  const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
+  return rec_off(d).size;
+}
+
 // ptrs: flags, hms, masks, acts, se [B, T, h], ctx, statp, statm, dlp (0-8)
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,              (9-19)
 //       logp_o, dse_o, dctx_o, part, grads_o, prev, logp_part,       (20-26)
 //       dse_part, dctx_part, w1t^T, w2t^T, wqt^T                     (27-31)
+//       bfloat16 backward: rec [rows, len, C, rec_off(d).size] f32,
+//       sflag [rows, len] i32 zeroed (grad_outer's records)            (32-33)
 // ints: B, N, W, D, R, C, h, steps, chunks, bf16 (1: se, ctx, statp, statm
 // and the weights other than v are bfloat16; 0: float; the outputs are
 // float either way). Forward (bwd = 0) writes logp_o

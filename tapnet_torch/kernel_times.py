@@ -1,14 +1,23 @@
-"""Device times of K1, K2 and K4 at the main paths' shapes, as one JSON line.
+"""Device times of K1, K2, K4 and K5 at the main paths' shapes, as one JSON
+line.
 
-    python -m tapnet_torch.kernel_times [--tag NAME]
+    python -m tapnet_torch.kernel_times [--tag NAME] [--out FILE]
+        [--expect FILE]
 
 select_step (K1) on the middle step of a greedy rollout of 2d-basic and
 2d-rolling at batch 4096 and of multi-container-capped at batch 256 (the
 capped train step's shape); actor_select_step (K2) in both modes on the
 middle decode step of a sampled rollout of 2d-basic and 2d-rolling at
 batch 4096; fused_rollout_batch (K4) on `random` draws of the six CONFIGS
-at batch 4096. Each time is the median of 50 launches (CUDA events after
-a spin kernel, `chip_smoke.time_gpu`).
+at batch 4096; the replay (K5) forward and backward, monolithic on
+2d-basic and step-grid on 2d-rolling, at batch 4096 in float32 and
+bfloat16 on one sampled record (`chip_smoke.replay_operands`, dlp a ramp).
+Each time is the median of 50 launches (10 for the step-grid backward;
+CUDA events after a spin kernel, `chip_smoke.time_gpu`). The line also
+holds, per K5 kernel and dtype, the SHA-256 of its operands' and its
+outputs' bytes: `--expect FILE` (the line another run wrote with `--out`)
+checks that the float32 K5 kernels gave bit-identical outputs on
+bit-identical operands there and here, and exits 1 if they did not.
 
 To compare two checkouts on one card in one call,
 
@@ -16,12 +25,19 @@ To compare two checkouts on one card in one call,
 
 runs this file in a child process from the root of the other checkout, so
 that it times that checkout's `tapnet_torch` with its `chip_smoke.py`
-(which needs only `time_gpu`, `check_select_step`, `actor_operands` and
-`_instances` there). Run from the repository root; needs a CUDA device and
-nvcc.
+(which needs only `time_gpu`, `check_select_step`, `actor_operands`,
+`_instances`, `replay_operands` and `replay_fns` there). Run from the
+repository root; needs a CUDA device and nvcc. The K5 comparison of a
+change with its parent in one call, in turns:
+
+    python -m tapnet_torch.kernel_times --tree _verify/parent --tag parent \
+        --out _verify/kt_parent.json
+    python -m tapnet_torch.kernel_times --tag change \
+        --expect _verify/kt_parent.json
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -29,15 +45,81 @@ import sys
 import time
 
 
+def _sha(tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def replay_times(CS, dev) -> dict:
+    """K5f, K5b (2d-basic) and K5f-steps, K5b-steps (2d-rolling) at batch
+    4096 in float32 and bfloat16: ms per call and the hashes of operands
+    and outputs."""
+    import torch
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+
+    out = {}
+    for name, steps in (("2d-basic", False), ("2d-rolling", True)):
+        cfg, B = CONFIGS[name], 4096
+        actor = init_params(0, cfg, 128, dev)
+        ops_b, _, ops_f = CS.replay_operands(
+            actor, cfg, B, dev, 10, 1.0, dtype=torch.bfloat16,
+            also=torch.float32)
+        dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+        suffix = "-steps" if steps else ""
+        for dt, ops in (("f32", ops_f), ("bf16", ops_b)):
+            fwd, _, bwd, _ = CS.replay_fns(ops, cfg, 1.0, steps)
+            flat = [*ops[:8], *ops[8]]
+            with torch.no_grad():
+                got_f, got_b = fwd(), bwd(dlp)
+                for k, fn, got, reps in (
+                        (f"K5f{suffix} {dt} {name}", fwd, [got_f], 50),
+                        (f"K5b{suffix} {dt} {name}", lambda: bwd(dlp),
+                         [got_b[0], got_b[1], *got_b[2]],
+                         10 if steps else 50)):
+                    out[k] = CS.time_gpu(fn, reps=reps)
+                    out[f"{k} sha"] = {"operands": _sha(flat + [dlp]),
+                                       "outputs": _sha(got)}
+    return out
+
+
+def check_expected(out: dict, path: str) -> bool:
+    """Whether every float32 K5 kernel of `out` saw the operands and gave
+    the outputs that the run recorded in `path` did, bit for bit."""
+    with open(path) as f:
+        ref = json.loads(f.read().strip().splitlines()[-1])
+    ok = True
+    for k, v in out.items():
+        if k.startswith("K5") and " f32 " in k and k.endswith(" sha"):
+            same = ref.get(k) == v
+            ok &= same
+            print(f"{k[:-4]}: operands and outputs bit-identical to "
+                  f"{ref.get('tag')!r}: {same}", flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="")
     ap.add_argument("--tree", default="",
                     help="time the kernels of the checkout at this path")
+    ap.add_argument("--out", default="", help="also write the line here")
+    ap.add_argument("--expect", default="",
+                    help="a line written by --out: hold the float32 K5 "
+                         "outputs to it bit for bit")
     args = ap.parse_args(argv)
     if args.tree:
-        code = ("import runpy, sys; sys.argv = ['kernel_times', '--tag', "
-                f"{args.tag!r}]; runpy.run_path({os.path.abspath(__file__)!r}"
+        fwd = ["--tag", args.tag]
+        for flag, path in (("--out", args.out), ("--expect", args.expect)):
+            if path:
+                fwd += [flag, os.path.abspath(path)]
+        code = (f"import runpy, sys; sys.argv = ['kernel_times', *{fwd!r}]; "
+                f"runpy.run_path({os.path.abspath(__file__)!r}"
                 ", run_name='__main__')")
         return subprocess.run([sys.executable, "-c", code],
                               cwd=args.tree).returncode
@@ -98,8 +180,15 @@ def main(argv=None) -> int:
         kops = OE.rollout_operands(inst, rbits, cfg)
         out[f"K4 {name}"] = CS.time_gpu(lambda: OE.rollout_kernel(kops, cfg),
                                         reps=50)
+    out.update(replay_times(CS, dev))
     out["seconds"] = time.perf_counter() - t0
-    print(json.dumps(out), flush=True)
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    if args.expect and not check_expected(out, args.expect):
+        return 1
     return 0
 
 

@@ -16,6 +16,12 @@ first call, and `build_all()` starts one nvcc per source at once.
 
 prints what ptxas reports for every kernel of every source in DIR (default:
 the package's `csrc/`): registers, spills, stack and shared memory.
+
+    python -m tapnet_torch.ops._build --sass replay [--opcode HMMA]
+
+counts each kernel's SASS instructions of one opcode in the built library
+(`cuobjdump -sass`): the tensor-core products (HMMA) of replay.cu's
+bfloat16 instantiations.
 """
 
 from __future__ import annotations
@@ -137,8 +143,43 @@ def ptxas_report(csrc: Path = CSRC) -> str:
     return "\n".join(lines)
 
 
+def sass_counts(name: str, opcode: str = "HMMA") -> dict:
+    """{kernel: count} of the SASS instructions named `opcode` in each
+    kernel of the built library of csrc/<name>.cu (`cuobjdump -sass`;
+    kernel names demangled by `cu++filt` where the toolkit has it)."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(_target(name))], check=True,
+                         capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if os.path.exists(filt) and counts:
+        names = subprocess.run([filt], input="\n".join(counts), check=True,
+                               capture_output=True, text=True).stdout.split(
+                                   "\n")
+        counts = dict(zip(names, counts.values()))
+    return counts
+
+
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser(description="ptxas report of the kernels")
     ap.add_argument("--csrc", default=str(CSRC))
-    print(ptxas_report(Path(ap.parse_args().csrc)))
+    ap.add_argument("--sass", default="",
+                    help="instead: build the package's csrc/<NAME>.cu and "
+                         "count each kernel's SASS instructions of --opcode")
+    ap.add_argument("--opcode", default="HMMA")
+    args = ap.parse_args()
+    if args.sass:
+        load(args.sass)
+        for k, v in sass_counts(args.sass, args.opcode).items():
+            print(f"{args.sass} {k}: {v} {args.opcode}")
+    else:
+        print(ptxas_report(Path(args.csrc)))

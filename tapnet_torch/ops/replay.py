@@ -85,21 +85,26 @@ def _steps_grid(cfg: TAPConfig) -> bool:
     return cfg.window > 0 or cfg.num_blocks > 31
 
 
-def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None) -> int:
+def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
+               dtype=F32) -> int:
     """Shared memory of one block, in bytes, as csrc/replay.cu::smem_bytes
     computes it (`layout` and `n_ints`; `steps`: the schedule, auto by
-    `_steps_grid`). The same in both dtypes: the bfloat16 instantiations
-    hold their rounded values as float32 in shared memory."""
+    `_steps_grid`). Both dtypes hold their values as float32 in shared
+    memory; the bfloat16 instantiations (`dtype`) take the tensor-core plan:
+    Wp as bfloat16 rows of 40 in place of the float Wp^T, h1 rows padded to
+    G + 4, a dyn array in the forward too and no staged weight slices."""
     if steps is None:
         steps = _steps_grid(cfg)
+    tc = dtype == torch.bfloat16
     C, T = cfg.num_containers, cfg.num_blocks * cfg.num_rot
     WD = cfg.target_width * cfg.target_depth
     up4 = lambda x: (x + 3) & ~3
-    floats = (up4(32 * h) + 256 + 32 + up4(h) + up4(h * LD) * (2 if bwd else 1)
-              + up4(TB * T * C)
+    tok = (8 * G + 32 * (G + 4 if tc else G)
+           + (G * (h + 4) if bwd or tc else 0) + (32 * G if bwd else 0))
+    floats = (up4(20 * h if tc else 32 * h) + 256 + 32 + up4(h)
+              + up4(h * LD) * (2 if bwd else 1) + up4(TB * T * C)
               + up4((WD + 2 + h + 3 * h + 8 + (h if bwd else 0)) * LD)
-              + max(40 * G + ((G * (h + 4) + 32 * G) if bwd else 0), 64 * h,
-                    (cfg.num_blocks + T) * TB))
+              + max(tok, 0 if tc else 64 * h, (cfg.num_blocks + T) * TB))
     ints = (8 if steps else 4) * TB + 5 * TB + 2 + TB * T
     return 4 * (floats + ints)
 
@@ -107,12 +112,13 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None) -> int:
 def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     """Configs the replay kernels cover: float32 or bfloat16, N <= 62
     (N > 31 and rolling windows on the step-grid schedule), C <= 4, hidden
-    a multiple of 32 up to 128, and a backward block that fits. A finite
-    height cap is covered: the mask is the recorded one."""
+    a multiple of 32 up to 128, and a backward block of the dtype's plan
+    that fits. A finite height cap is covered: the mask is the recorded
+    one."""
     return (dtype in DTYPES and cfg.num_blocks <= MAX_N
             and cfg.num_containers <= MAX_C
             and h % 32 == 0 and 0 < h <= MAX_H
-            and smem_bytes(cfg, h, True) <= SMEM_LIMIT)
+            and smem_bytes(cfg, h, True, dtype=dtype) <= SMEM_LIMIT)
 
 
 def _check_cfg(cfg: TAPConfig, h: int, steps: bool, dtype=F32):
@@ -123,13 +129,29 @@ def _check_cfg(cfg: TAPConfig, h: int, steps: bool, dtype=F32):
         raise NotImplementedError(
             "replay_logp: the monolithic schedule holds N <= 31; N > 31 "
             "runs the step-grid schedule (replay_logp_fwd_steps)")
-    smem = smem_bytes(cfg, h, True, steps)
-    if not eligible(cfg, h):
+    smem = smem_bytes(cfg, h, True, steps, dtype)
+    if not eligible(cfg, h, dtype):
         raise NotImplementedError(
             f"replay_logp kernels cover N <= {MAX_N} and C <= {MAX_C} at a "
             f"hidden width that is a multiple of 32 up to {MAX_H}, with at "
             f"most {SMEM_LIMIT} B of shared memory per block, not {cfg} at "
             f"hidden {h} ({smem} B); pass kernel=False")
+
+
+def record_floats(cfg: TAPConfig, h: int) -> int:
+    """Floats of one record of the bfloat16 backward's deferred weight
+    gradients (csrc/replay.cu `rec_off`): dq, d_hm, de1 [h, 32] float32 and
+    qin [3h+8, 32], e1 [h, 32], feats [W*D+2, 32] bfloat16, per (partial
+    row, step, container)."""
+    WD2 = cfg.target_width * cfg.target_depth + 2
+    return 3 * h * TB + (3 * h + 8 + h + WD2) * TB // 2
+
+
+def _steps_per_row(cfg: TAPConfig, chunks: int) -> int:
+    """Steps of one partial row: all N (monolithic, chunks = 0) or the
+    kernel's steps per chunk."""
+    S = cfg.num_blocks
+    return S if chunks == 0 else -(-S // chunks)
 
 
 def step_chunks(cfg: TAPConfig, B: int) -> int:
@@ -614,11 +636,17 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
     dse_part = torch.empty((nc, B, T, h), dtype=f32, device=dev)
     dctx_part = (torch.empty((nc,) + ctx.shape, dtype=f32, device=dev)
                  if nc > 1 else none)
+    rec = sflag = none
+    if se.dtype == torch.bfloat16:  # the deferred weight-gradient records
+        rows, length = tiles * nc, _steps_per_row(cfg, chunks)
+        rec = torch.empty(rows * length * cfg.num_containers
+                          * record_floats(cfg, h), dtype=f32, device=dev)
+        sflag = torch.zeros(rows * length, dtype=torch.int32, device=dev)
     ptrs = ((flags, hms, masks, acts, _se_rows(se), ctx, statp, statm, dlp)
             + tuple(params)
             + (none, dse, dctx, part, flat,
                none if prev is None else prev, none, dse_part, dctx_part)
-            + transposed(params))
+            + transposed(params) + (rec, sflag))
     err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks, se.dtype)
     grads, off = [], 0
     for a, b in shapes:
@@ -702,19 +730,26 @@ def replay_logp_bwd_steps(dlp, flags, hms, masks, acts, prev, se, ctx, statp,
 replay_logp_bwd_steps.launches = 0
 
 
-def scratch_bytes(cfg: TAPConfig, B: int, h: int) -> dict:
+def scratch_bytes(cfg: TAPConfig, B: int, h: int, dtype=F32) -> dict:
     """Device scratch of one step-grid backward call, in bytes: the [B, T,
-    h] copy of se, the d_se partials (one per chunk), the d_ctx partials
-    (none for one chunk) and the weight-gradient partial rows."""
+    h] copy of se (float32: the bfloat16 one is half), the d_se partials
+    (one per chunk), the d_ctx partials (none for one chunk), the
+    weight-gradient partial rows and, in bfloat16, the deferred
+    weight-gradient records with their step flags."""
     chunks = step_chunks(cfg, B)
     tiles = (B + TB - 1) // TB
     T = cfg.num_blocks * cfg.num_rot
     P = sum(a * b for a, b in head_shapes(cfg, h))
+    rows = tiles * chunks * _steps_per_row(cfg, chunks)
+    bf16 = dtype == torch.bfloat16
     return {"chunks": chunks,
-            "se_rows": 4 * B * T * h,
+            "se_rows": (2 if bf16 else 4) * B * T * h,
             "d_se_partials": 4 * chunks * T * h * B,
             "d_ctx_partials": 4 * chunks * h * B * (chunks > 1),
-            "weight_partials": 4 * tiles * chunks * P}
+            "weight_partials": 4 * tiles * chunks * P,
+            "grad_records": (4 * rows * (cfg.num_containers
+                                         * record_floats(cfg, h) + 1)
+                             if bf16 else 0)}
 
 
 class ReplayLogp(torch.autograd.Function):

@@ -1,10 +1,14 @@
-"""Where one actor_select_step or fused_rollout_batch launch spends its
-cycles, phase by phase.
+"""Where one actor_select_step, fused_rollout_batch or replay backward
+launch spends its cycles, phase by phase.
 
     python -m tapnet_torch.profile_phases [--config 2d-rolling]
         [--batch 4096] [--hidden 128] [--out phases.json]
     python -m tapnet_torch.profile_phases --kernel fused_rollout_batch
         [--config 2d-basic,2d-rolling] [--batch 4096]
+    python -m tapnet_torch.profile_phases --kernel replay_logp_bwd
+        [--config 2d-basic] [--dtype bfloat16|float32] [--csrc DIR]
+    python -m tapnet_torch.profile_phases --kernel replay_logp_bwd_steps
+        [--config 2d-rolling] [--dtype bfloat16|float32] [--csrc DIR]
 
 actor_select_step (K2): builds a copy of `csrc/actor_step.cu` in which
 thread 0 of every block reads `clock64()` at the phase boundaries (each
@@ -20,6 +24,17 @@ ended, over all N steps (the phases repeat every step; inside warp 0's
 selection too), launched on `random` draws of each named config; it
 prints the mean cycles per phase over the blocks, their share, and the
 copy's time per launch (CUDA events, median of 15).
+
+replay_logp_bwd / replay_logp_bwd_steps (K5b, K5b-steps): a copy of
+`csrc/replay.cu` (or of DIR/replay.cu: `--csrc _verify/parent/tapnet_torch/
+csrc` profiles a parent checkout's body on this tree's operands; the C
+interface is the same) in which thread 0 of every block adds the cycles
+since its last read to the phase it just ended (`REPLAY_PHASES`: 0, the
+encoder and query, the scores, C, the token backward, the query and encoder
+backward, F), summed over the block's steps; launched through the wrapper
+on a sampled record of each named config in the given compute dtype. It
+prints the mean cycles per phase over the blocks, their share, and the
+time per launch (CUDA events, median of 10).
 
 The reads add a few cycles per phase. Needs a CUDA device and nvcc; the
 copies are built into `tapnet_torch/_build/phases/`.
@@ -156,6 +171,141 @@ extern "C" int tapnet_prof_read(long long* out, int n) {
 ''' % RSLOTS
 
 
+# replay_logp (K5): (text in csrc/replay.cu, the slot it ends, whether the
+# read goes after the text); texts that the float32 and bfloat16 bodies and
+# earlier versions of the file share, so another checkout's source
+# (--csrc) takes the same marks
+REPLAY_MARKS = [
+    ("  for (int k = k0; k < k1; ++k) {\n", 7, False),
+    ("  for (int k = k0; k < k1; ++k) {\n", 6, True),
+    ("    if (!*flag) continue;", 0, False),
+    ("      scores(k, c, n);\n", 1, False),
+    ("      scores(k, c, n);\n", 2, True),
+    ("    if (!BWD) continue;\n", 3, False),
+    ("      token_bwd(k, c, n);\n", 1, False),
+    ("      token_bwd(k, c, n);\n", 4, True),
+    ("      rowsum_acc(prow + go.b1, e1, LD, h, tid);\n      __syncthreads();"
+     "\n", 5, True),
+    ("  if (!BWD) {\n    if (wy == 0 && active) logp_o[b] = lp_sum;", 6,
+     False),
+]
+REPLAY_PHASES = [
+    "0: flags, bit words, live columns", "A, B: encoder and query (C > 1: "
+    "their re-run in D too)", "B: scores (token forward)",
+    "C: log pi and g (warp 0)", "D: token backward",
+    "E: query and encoder backward", "F: embedding gradient, step end",
+    "set-up: staging, zeroing the partials", "epilogue: gradient stores"]
+KSLOTS = 9
+
+
+def replay_source(src: str) -> str:
+    """`src` (csrc/replay.cu) with thread 0's cycle accumulators per phase
+    (`REPLAY_PHASES`, summed over the block's steps), stored to
+    prof_ts[block * KSLOTS + k] at each exit of the kernel."""
+    mark = ("if (threadIdx.x == 0 && threadIdx.y == 0) {{ long long nw = "
+            "clock64(); prof_acc[{}] += nw - prof_last; prof_last = nw; }}\n")
+    for text, k, after in REPLAY_MARKS:
+        if src.count(text) != 1:
+            raise RuntimeError(f"phase mark not found once: {text!r}")
+        src = src.replace(text, text + mark.format(k) if after
+                          else mark.format(k) + text)
+    start = "  const Lay L = layout(d, BWD"
+    if src.count(start) != 1:
+        raise RuntimeError("the kernel's start not found")
+    src = src.replace(start, f"  long long prof_acc[{KSLOTS}] = {{0}}; "
+                      "long long prof_last = clock64();\n" + start)
+    store = ("  __syncthreads();\n  " + mark.format(8)
+             + "  if (threadIdx.x == 0 && threadIdx.y == 0) for (int k = 0; "
+             f"k < {KSLOTS}; ++k) prof_ts[(blockIdx.y * gridDim.x + "
+             f"blockIdx.x) * {KSLOTS} + k] = prof_acc[k];\n")
+    for end in ("    if (wy == 0 && active) logp_o[b] = lp_sum;\n",
+                "    prow[go.v + j] = s;\n  }\n"):
+        if src.count(end) != 1:
+            raise RuntimeError(f"kernel exit not found once: {end!r}")
+        src = src.replace(end, end + store)
+    src = src.replace("namespace {\n", "__device__ long long prof_ts[8192 * "
+                      f"{KSLOTS}];\nnamespace {{\n", 1)
+    return src + '''
+extern "C" int tapnet_prof_read(long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, prof_ts,
+                                   sizeof(long long) * %d * n);
+}
+''' % KSLOTS
+
+
+def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
+                  csrc=None) -> dict:
+    """K5b's (`kernel` replay_logp_bwd) or K5b-steps' cycles per phase on a
+    sampled record of each config in `names` in the compute dtype `dtype`
+    (`chip_smoke.replay_operands`, temperature 1, dlp a ramp): the
+    instrumented copy of `csrc`/replay.cu (default the package's) launched
+    through ops.replay's wrapper. Mean cycles per phase over the blocks,
+    their share, and the copy's time per launch (CUDA events, median of
+    10)."""
+    from pathlib import Path
+
+    import chip_smoke as CS
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import replay as RP
+
+    src = Path(csrc or _build.CSRC) / "replay.cu"
+    tag = "_tree" if csrc else ""
+    lib = _build_copy("replay" + tag, replay_source(src.read_text()))
+    fn = lib.tapnet_replay_logp
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    steps = kernel == "replay_logp_bwd_steps"
+    res = {"device": torch.cuda.get_device_name(0), "kernel": kernel,
+           "source": str(src), "batch": batch, "hidden": hidden,
+           "dtype": str(dtype).replace("torch.", ""), "configs": []}
+    lib_of = RP._lib
+    RP._lib = lambda: fn
+    try:
+        for name in names:
+            cfg = CONFIGS[name]
+            actor = init_params(0, cfg, hidden, dev)
+            ops, _ = CS.replay_operands(actor, cfg, batch, dev, 10, 1.0,
+                                        dtype=dtype)
+            _, _, bwd, _ = CS.replay_fns(ops, cfg, 1.0, steps)
+            dlp = torch.linspace(-1.0, 1.0, batch, device=dev)
+            times = []
+            with torch.no_grad():
+                for _ in range(13):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda._sleep(2_000_000)  # queued behind it
+                    start.record()
+                    bwd(dlp)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times.append(start.elapsed_time(end))
+            nb = -(-batch // 32) * (RP.step_chunks(cfg, batch) if steps
+                                    else 1)
+            buf = (ctypes.c_longlong * (KSLOTS * nb))()
+            if lib.tapnet_prof_read(buf, nb):
+                raise RuntimeError("reading the clocks failed")
+            per = [statistics.mean(buf[b * KSLOTS + k] for b in range(nb))
+                   for k in range(KSLOTS)]
+            total = sum(per)
+            entry = {"config": name, "ms": statistics.median(times[3:]),
+                     "blocks": nb, "block_cycles": total,
+                     "phases": dict(zip(REPLAY_PHASES, per))}
+            res["configs"].append(entry)
+            print(f"{kernel} {res['dtype']} {name} B={batch} hidden "
+                  f"{hidden} ({src}): {entry['ms']:.4f} ms/launch (the "
+                  f"wrapper's launches, the copy's body), {total:.0f} "
+                  f"cycles per block (mean of {nb})", flush=True)
+            for p, c in entry["phases"].items():
+                print(f"    {c:11.0f} cycles  {c / total:6.3f}  {p}")
+    finally:
+        RP._lib = lib_of
+    return res
+
+
 def _build_copy(name: str, source: str):
     from tapnet_torch.ops import _build
     out = _build.BUILD / "phases"
@@ -256,12 +406,20 @@ def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="actor_select_step",
-                    choices=("actor_select_step", "fused_rollout_batch"))
-    ap.add_argument("--config", default="2d-rolling",
-                    help="a config name (fused_rollout_batch: a comma "
-                         "list)")
+                    choices=("actor_select_step", "fused_rollout_batch",
+                             "replay_logp_bwd", "replay_logp_bwd_steps"))
+    ap.add_argument("--config", default="",
+                    help="a config name (fused_rollout_batch and the "
+                         "replay: a comma list); default 2d-rolling, "
+                         "2d-basic for replay_logp_bwd")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--hidden", type=int, default=128)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the replay's compute dtype")
+    ap.add_argument("--csrc", default="",
+                    help="the replay: instrument DIR/replay.cu (another "
+                         "checkout's) instead of the package's")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -271,6 +429,16 @@ def main(argv=None) -> int:
     from tapnet_torch.ops import actor_step as AS
 
     dev = torch.device("cuda:0")
+    args.config = args.config or ("2d-basic" if args.kernel
+                                  == "replay_logp_bwd" else "2d-rolling")
+    if args.kernel.startswith("replay"):
+        res = replay_phases(args.kernel, args.config.split(","), args.batch,
+                            args.hidden, getattr(torch, args.dtype), dev,
+                            args.csrc or None)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
+        return 0
     if args.kernel == "fused_rollout_batch":
         res = rollout_phases(args.config.split(","), args.batch, dev)
         if args.out:

@@ -223,30 +223,53 @@ def test_general_replay_matches_plain_kernels(chunk):
                                    err_msg=n)
 
 
-def test_kernel_coverage():
-    """Every shipped config is covered at hidden 128, rolling and N > 31 by
-    the step-grid schedule; N = 63 and the monolithic schedule at N > 31
-    are refused."""
+def _smem_before(cfg, h, steps):
+    """The backward block's shared memory before the tensor-core plan: both
+    dtypes took the float32 plan, which is unchanged."""
+    return RP.smem_bytes(cfg, h, True, steps, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [32, 64, 96, 128])
+def test_kernel_coverage(h, dtype):
+    """Every shipped config is covered at every hidden width and in both
+    dtypes, rolling and N > 31 by the step-grid schedule; every case covered
+    before the tensor-core plan stays covered (the bfloat16 plan is no larger
+    than the float32 one), and `eligible` agrees with the plan's mirror; N =
+    63 and the monolithic schedule at N > 31 are refused."""
     for name, cfg in CONFIGS.items():
-        assert RP.eligible(cfg, 128), name
-        assert RP._steps_grid(cfg) == (name == "2d-rolling")
-        assert RP.smem_bytes(cfg, 128, True) <= RP.SMEM_LIMIT
-        RP._check_cfg(cfg, 128, RP._steps_grid(cfg))
+        steps = RP._steps_grid(cfg)
+        assert steps == (name == "2d-rolling")
+        smem = RP.smem_bytes(cfg, h, True, dtype=dtype)
+        assert smem <= _smem_before(cfg, h, steps), name
+        if _smem_before(cfg, h, steps) <= RP.SMEM_LIMIT:
+            assert RP.eligible(cfg, h, dtype), name
+        assert RP.eligible(cfg, h, dtype) == (smem <= RP.SMEM_LIMIT), name
+        assert RP.smem_bytes(cfg, h, False, dtype=dtype) <= smem, name
+        RP._check_cfg(cfg, h, steps, dtype)
     two_limb = TAPConfig(**CUSTOM["two-limb"])
-    assert RP.eligible(two_limb, 32) and RP._steps_grid(two_limb)
+    assert RP.eligible(two_limb, h, dtype) and RP._steps_grid(two_limb)
     with pytest.raises(NotImplementedError, match="monolithic"):
-        RP._check_cfg(two_limb, 32, False)
+        RP._check_cfg(two_limb, h, False, dtype)
     too_many = TAPConfig(num_blocks=63, min_blocks=20, container_width=8,
                          container_height=40, target_width=8)
-    assert not RP.eligible(too_many, 32)
+    assert not RP.eligible(too_many, h, dtype)
     with pytest.raises(NotImplementedError, match="N <= 62"):
-        RP._check_cfg(too_many, 32, True)
+        RP._check_cfg(too_many, h, True, dtype)
     # the step chunks fill the card and never outnumber the steps
     rolling = CONFIGS["2d-rolling"]
     assert RP.step_chunks(rolling, 4096) == 2
     assert RP.step_chunks(rolling, 32) == 50
-    assert RP.scratch_bytes(rolling, 4096, 128)["d_se_partials"] == \
-        2 * 100 * 128 * 4096 * 4
+    assert RP.scratch_bytes(rolling, 4096, h)["d_se_partials"] == \
+        2 * 100 * h * 4096 * 4
+    # the bf16 backward's deferred weight-gradient records: one per
+    # (partial row, step of its chunk, container), with a step flag each
+    records = RP.scratch_bytes(rolling, 4096, h, dtype)["grad_records"]
+    rows = 128 * 2 * 25
+    assert records == (4 * rows * (RP.record_floats(rolling, h) + 1)
+                       if dtype == torch.bfloat16 else 0)
+    assert RP.record_floats(rolling, h) == (3 * h * 32
+                                            + (4 * h + 8 + 18) * 16)
 
 
 # ------------------------------------------------------------------ #
