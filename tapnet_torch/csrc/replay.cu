@@ -83,9 +83,10 @@
 // Design, bfloat16 (TC = the E = __nv_bfloat16 instantiations): every
 // product of the head runs on the tensor cores, mma.sync.m16n8k16 bf16 x
 // bf16 -> f32 (the JAX kernel's `preferred_element_type=f32` dots), with
-// fragments built from shared memory (float values packed to bfloat16 pairs
-// on load) or from global memory. W8 x8 (K = 8) and the softmax, tanh and
-// bias work stay SIMT, as above.
+// every fragment built from shared memory: the weights' A fragments by
+// ldmatrix from bfloat16 copies, the activations' and gradients' from
+// float arrays (packed, or split, to bfloat16 pairs on load). W8 x8 (K =
+// 8) and the softmax, tanh and bias work stay SIMT, as above.
 // - operands: a forward product multiplies two bfloat16 values (the
 //   weights; feats, e1, qin and h1, rounded by `rnd` where JAX casts): one
 //   pass is exact products summed in f32. A backward product multiplies an
@@ -94,11 +95,17 @@
 //   bf16(x) and lo = bf16(x - hi), and both passes go into one f32
 //   accumulator (x to a relative 2^-16; never one bfloat16 rounding).
 // - tiles: the encoder/query forward (W1, W2, Wq: [h][K] . [K][32 lanes])
-//   gives a warp one 16-row tile and 16 lanes, its A fragments read from
-//   global memory (L2), 4 k-steps of them in flight before their products;
-//   the transposed ones (Wq^T dq, W2^T d_hm: from the [in][h] copies) a
-//   warp 16 lanes and up to 3 row tiles, the split B fragments shared by
-//   them. The encoder/query weight gradients (gWq, gW2, gW1 += grad .
+//   gives a warp one 16-row tile and 16 lanes; the transposed ones (Wq^T
+//   dq, W2^T d_hm: from the [in][h] copies) a warp 16 lanes and up to 3
+//   row tiles, the split B fragments shared by them. Their weights stream
+//   through the token view in slabs of 64 columns (16 for the 3h rows of
+//   Wq^T), bfloat16 rows padded by 8 so that ldmatrix meets no bank
+//   conflict, copied with 16-byte cp.async (element loads where the rows
+//   are not 16-byte aligned: W1 unless W*D + 2 is a multiple of 8),
+//   double-buffered: one barrier a slab, the next slab's copy under this
+//   slab's products (`stream_a`). Reading the A fragments from L2
+//   instead, each warp waiting on its own round trips, made the backward
+//   1.12x (2d-basic) and 1.06x (2d-rolling) slower (PERF.md §6). The encoder/query weight gradients (gWq, gW2, gW1 += grad .
 //   x^T) are not contracted per step: K = 32 lanes a step made each step
 //   read and write the block's whole partial row (gWq alone is 50K floats
 //   at h = 128), 40% of the kernel at 2d-basic. Each (step, container)
@@ -122,8 +129,12 @@
 //   order, so a forward value can land one bfloat16 ulp from the plain
 //   version's.
 // - shared memory: the float plan above less the float Wp^T (16 KB at h =
-//   128) plus Wp as bfloat16 (10 KB) and the h1 padding: 213.6 KB at
-//   2d-rolling, h = 128 (219.3 KB in f32); one block per SM either way.
+//   128) plus Wp as bfloat16 (10 KB) and the h1 padding; the two weight
+//   slabs (72 h floats) fit in the token view: 213.6 KB at 2d-rolling, h
+//   = 128 (219.3 KB in f32); one block per SM either way. The activations
+//   (feats, e1, qin, h1) stay float: the SIMT epilogues read them, and E
+//   writes f32 gradients over them in place (d_hm over qin's enc rows,
+//   de1 over e1).
 // - what runs on the tensor cores (`python -m tapnet_torch.ops._build
 //   --sass replay`, the sm_90a build): 138 HMMA in each bfloat16 backward
 //   instantiation, 30 in each bfloat16 forward, 32 in grad_outer, none in
@@ -253,7 +264,7 @@ __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 // bfloat16 instantiations (Wp itself as bfloat16 [h][WPS] in place of the
 // float Wp^T [32][h]; h1 rows padded to GS = G + 4 floats so that a B
 // fragment's column reads hit 32 banks; a [G][h+4] dyn array in the
-// forward too; no staged weight slices).
+// forward too; the staged weight slices as bfloat16, two slabs of 72 h).
 struct Lay {
   int ws, w8, b8, v, q, dq, sc, enc, tok, floats;
 };
@@ -274,13 +285,14 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   // encoder view: feats [WD+2][LD], e1 [h][LD], qin [3h+8][LD], d_prev
   L.enc = o; o += up4((WD + 2 + h + FQ + (bwd ? h : 0)) * LD);
   // token view: x8 [8][G], h1 [32][GS]; d_dyn (tc: dyn first) [G][h+4];
-  // backward dh1 [32][G] (and the staged weight slices of the f32
-  // encoder/query products)
+  // backward dh1 [32][G] (and the staged weight slices of the
+  // encoder/query products: float, or tc bfloat16 slabs)
   const int tok = 8 * G + 32 * h1_stride(tc) + (bwd || tc ? G * (h + 4) : 0)
                   + (bwd ? 32 * G : 0);
   // (and phase 0's flag rows and live bits)
   const int flg = (d.N + T) * TB;
-  const int stage = !tc && KS * h > flg ? KS * h : flg;
+  const int slabs = tc ? 72 * h : KS * h;  // stream_a / mv_tiled
+  const int stage = slabs > flg ? slabs : flg;
   L.tok = o; o += tok > stage ? tok : stage;
   L.floats = o;
   return L;
@@ -534,73 +546,116 @@ __device__ __forceinline__ void frag_b2(unsigned (&hi)[2], unsigned (&lo)[2],
   split(f(2 * t + 8, g), hi[1], lo[1]);
 }
 
-// {W[r][k], W[r][k+1]} of a row-major bfloat16 matrix with `ld` columns,
-// columns >= K read as 0; one 32-bit load where the pair is aligned
-__device__ __forceinline__ unsigned ldg_pair(const bf16* W, int ld, int K,
-                                             int r, int k) {
-  const unsigned short* p =
-      reinterpret_cast<const unsigned short*>(W) + (size_t)r * ld + k;
-  if (k + 1 < K && (reinterpret_cast<size_t>(p) & 3) == 0)
-    return __ldg(reinterpret_cast<const unsigned*>(p));
-  const unsigned a = k < K ? __ldg(p) : 0u;
-  const unsigned b = k + 1 < K ? __ldg(p + 1) : 0u;
-  return a | b << 16;
+// 16 bytes from global memory to shared memory without a register
+// (cp.async, bypassing L1), as zeros where `bytes` is 0
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
 }
 
-// A fragment of rows r0.. and columns k0.. of W (as ldg_pair), read from
-// global memory (L2) without staging; `fast`: the 16 columns lie below K
-// and every pair is 4-byte aligned (one 32-bit load each, no tests)
-__device__ __forceinline__ void frag_ag(unsigned (&a)[4], const bf16* W,
-                                        int ld, int K, int r0, int k0, int g,
-                                        int t, bool fast) {
-  if (fast) {
-    const unsigned* p = reinterpret_cast<const unsigned*>(
-        W + (size_t)(r0 + g) * ld + k0 + 2 * t);
-    const int row8 = 4 * ld;  // 8 rows, in 32-bit words
-    a[0] = __ldg(p);
-    a[1] = __ldg(p + row8);
-    a[2] = __ldg(p + 4);
-    a[3] = __ldg(p + row8 + 4);
-    return;
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until this thread's cp.async groups have landed
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the A fragment of a [16][16] tile of a row-major bfloat16 array in shared
+// memory with row stride sp: lane l gives the address of row l % 16,
+// column 8 (l / 16), so ldmatrix's four matrices are frag_a's a[0] .. a[3]
+__device__ __forceinline__ void ldsm_a(unsigned (&a)[4],
+                                       const unsigned short* tile, int sp,
+                                       int lane) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(
+      tile + (lane & 15) * sp + (lane >> 4) * 8);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(s));
+}
+
+// Rows [0, M) and columns [k0, k0 + KSL) of the row-major [M][K] bfloat16
+// matrix W into S ([M][KSL + 8]: the 8 rows of an ldmatrix matrix fall in
+// 8 different 16-byte bank groups), columns >= K as zeros: 16-byte
+// cp.async where W's rows are 16-byte aligned (`al`), else element loads
+// stored as 16 bytes.
+template <int KSL>
+__device__ void stage_a(unsigned short* S, const bf16* W, int M, int K,
+                        int k0, int tid, bool al) {
+  constexpr int CH = KSL / 8, SP = KSL + 8;
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(W);
+  for (int e = tid; e < M * CH; e += NT) {
+    const int r = e / CH, c = e - r * CH, k = k0 + 8 * c;
+    unsigned short* dst = S + r * SP + 8 * c;
+    if (al) {
+      cp16(dst, k < K ? w + (size_t)r * K + k : w, k < K ? 16 : 0);
+    } else {
+      unsigned v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = k + 2 * i;
+        const unsigned lo = kk < K ? __ldg(w + (size_t)r * K + kk) : 0u;
+        const unsigned hi =
+            kk + 1 < K ? __ldg(w + (size_t)r * K + kk + 1) : 0u;
+        v[i] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
   }
-  a[0] = ldg_pair(W, ld, K, r0 + g, k0 + 2 * t);
-  a[1] = ldg_pair(W, ld, K, r0 + g + 8, k0 + 2 * t);
-  a[2] = ldg_pair(W, ld, K, r0 + g, k0 + 2 * t + 8);
-  a[3] = ldg_pair(W, ld, K, r0 + g + 8, k0 + 2 * t + 8);
 }
 
-// whether W's pairs are 4-byte aligned: ld even and the base aligned
-__device__ __forceinline__ bool pairs_aligned(const bf16* W, int ld) {
-  return (ld & 1) == 0 && (reinterpret_cast<size_t>(W) & 3) == 0;
+// The A operand W [M][K] (row-major bfloat16, K padded with zeros) streamed
+// through shared memory S in slabs of KSL columns, double-buffered: one
+// barrier a slab, the copy of slab s + 1 (cp.async) running under the
+// products of slab s. body(slab, kb) runs every warp's products of the
+// columns kb .. kb + KSL, its A fragments read from `slab` (row stride
+// KSL + 8) with ldsm_a. S holds 2 M (KSL + 8) bfloat16 and is free at
+// entry; the caller follows with a barrier before S is reused.
+template <int KSL, class Body>
+__device__ void stream_a(unsigned short* S, const bf16* W, int M, int K,
+                         int tid, Body body) {
+  const int SZ = M * (KSL + 8), ns = (K + KSL - 1) / KSL;
+  const bool al = (K & 7) == 0 && (reinterpret_cast<size_t>(W) & 15) == 0;
+  stage_a<KSL>(S, W, M, K, 0, tid, al);
+  cp_commit();
+  for (int s = 0; s < ns; ++s) {
+    cp_wait_all();    // this thread's copies of slab s have landed
+    __syncthreads();  // everyone's; and slab s - 1 is consumed
+    if (s + 1 < ns) {
+      stage_a<KSL>(S + ((s + 1) & 1) * SZ, W, M, K, (s + 1) * KSL, tid, al);
+      cp_commit();
+    }
+    body(S + (s & 1) * SZ, s * KSL);
+  }
 }
 
 // out[j][n] = sum_k W[j, k] x[k][n] for j < h, n < TB: W row-major [h][K]
 // bfloat16, x [K][LD] (bfloat16 values held as float), K padded to a
-// multiple of 16 with zeros. Warp wy owns rows 16 (wy / 2) .. + 15 and the
-// lanes 16 (wy % 2) .. + 15 (two column tiles sharing each A fragment);
-// h = 32..96 leave warps 2h/16.. idle. The A fragments come straight from
-// global memory (L2), KC = 4 k-steps of them issued before their products,
-// so that one round trip serves 4 k-steps. emit(j, n, acc) stores an output.
+// multiple of 16 with zeros. W streams through S in slabs of 64 columns
+// (stream_a: 72 h floats of S). Warp wy owns rows 16 (wy / 2) .. + 15 and
+// the lanes 16 (wy % 2) .. + 15 (two column tiles sharing each A
+// fragment); h = 32..96 leave warps 2h/16.. without products. emit(j, n,
+// acc) stores an output. The caller follows with a barrier.
 template <class Emit>
 __device__ void mv_mma(const bf16* __restrict__ W, int h, int K,
-                       const float* x, int lane, int wy, Emit emit) {
-  constexpr int KC = 4;
-  if (wy >= h / 8) return;
+                       const float* x, unsigned short* S, int lane, int wy,
+                       int tid, Emit emit) {
+  constexpr int KSL = 64;
+  const bool on = wy < h / 8;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (wy >> 1) * 16, n0 = (wy & 1) * 16;
-  const bool al = pairs_aligned(W, K);
   float acc[2][4] = {};
-  for (int kb = 0; kb < K; kb += 16 * KC) {
-    unsigned a[KC][4];
+  stream_a<KSL>(S, W, h, K, tid, [&](const unsigned short* slab, int kb) {
+    if (!on) return;
 #pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const int k0 = kb + 16 * c;
-      frag_ag(a[c], W, K, K, m0, k0, g, t, al && k0 + 16 <= K);
-    }
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
+    for (int c = 0; c < KSL / 16; ++c) {
       const int k0 = kb + 16 * c;
       if (k0 < K) {
+        unsigned a[4];
+        ldsm_a(a, slab + m0 * (KSL + 8) + 16 * c, KSL + 8, lane);
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
           unsigned b[2];
@@ -610,11 +665,12 @@ __device__ void mv_mma(const bf16* __restrict__ W, int h, int K,
             return make_float2(kk < K ? p[0] : 0.f,
                                kk + 1 < K ? p[LD] : 0.f);
           });
-          mma(acc[s], a[c], b);
+          mma(acc[s], a, b);
         }
       }
     }
-  }
+  });
+  if (!on) return;
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int n = n0 + 8 * s + 2 * t;
@@ -626,30 +682,22 @@ __device__ void mv_mma(const bf16* __restrict__ W, int h, int K,
 }
 
 // out[m][n] = sum_j W[j, m] g[j][n] for m < M (a multiple of 16), n < TB,
-// j < h (a multiple of 32): WT = W transposed, row-major [>= M][h]
-// bfloat16; g [h][LD] f32 in shared memory, split into hi and lo passes.
-// Warp wy owns the lanes 16 (wy % 2) .. + 15 and the row tiles wy / 2 + 8 i
-// (i < MAXU), so its B fragments serve all of them; the A fragments of KC
-// k-steps are issued before their products (KC x MAXU <= 4 in flight).
+// j < h (a multiple of 32): WT = W transposed, row-major [M][h] bfloat16,
+// streamed through S in slabs of KSL columns (stream_a; 16 for the 3h rows
+// of Wq^T, 64 for the h of W2^T: 72 h floats of S either way); g [h][LD]
+// f32 in shared memory, split into hi and lo passes. Warp wy owns the
+// lanes 16 (wy % 2) .. + 15 and the row tiles wy / 2 + 8 i (i < MAXU), so
+// its B fragments serve all of them. The caller follows with a barrier.
 template <int MAXU, class Emit>
 __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
-                        const float* gs, int lane, int wy, Emit emit) {
-  constexpr int KC = MAXU == 1 ? 4 : 1;
+                        const float* gs, unsigned short* S, int lane, int wy,
+                        int tid, Emit emit) {
+  constexpr int KSL = MAXU == 1 ? 64 : 16;
   const int g = lane >> 2, t = lane & 3, n0 = (wy & 1) * 16, MT = M / 16;
-  const bool al = pairs_aligned(WT, h);
   float acc[MAXU][2][4] = {};
-  for (int kb = 0; kb < h; kb += 16 * KC) {
-    unsigned a[KC][MAXU][4];
+  stream_a<KSL>(S, WT, M, h, tid, [&](const unsigned short* slab, int kb) {
 #pragma unroll
-    for (int c = 0; c < KC; ++c)
-#pragma unroll
-      for (int i = 0; i < MAXU; ++i) {
-        const int mt = (wy >> 1) + 8 * i, k0 = kb + 16 * c;
-        if (mt < MT && k0 < h)
-          frag_ag(a[c][i], WT, h, h, mt * 16, k0, g, t, al);
-      }
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
+    for (int c = 0; c < KSL / 16; ++c) {
       const int k0 = kb + 16 * c;
       if (k0 < h) {
         unsigned bh[2][2], bl[2][2];
@@ -661,17 +709,20 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
           });
 #pragma unroll
         for (int i = 0; i < MAXU; ++i) {
-          if ((wy >> 1) + 8 * i < MT) {
+          const int mt = (wy >> 1) + 8 * i;
+          if (mt < MT) {
+            unsigned a[4];
+            ldsm_a(a, slab + mt * 16 * (KSL + 8) + 16 * c, KSL + 8, lane);
 #pragma unroll
             for (int s = 0; s < 2; ++s) {
-              mma(acc[i][s], a[c][i], bh[s]);
-              mma(acc[i][s], a[c][i], bl[s]);
+              mma(acc[i][s], a, bh[s]);
+              mma(acc[i][s], a, bl[s]);
             }
           }
         }
       }
     }
-  }
+  });
 #pragma unroll
   for (int i = 0; i < MAXU; ++i) {
     const int m = ((wy >> 1) + 8 * i) * 16 + g;
@@ -776,6 +827,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   float* d_prev = qin + FQ * LD;      // [h][LD] (bwd)
   float* d_hm = qin;                  // enc rows, after the Wq product
   float* stg = smem + L.tok;          // staged weight slices
+  // tc: the same as bfloat16 (stream_a's double-buffered slabs)
+  unsigned short* stgb = reinterpret_cast<unsigned short*>(stg);
   float* x8 = smem + L.tok;           // [8][G]
   float* h1 = x8 + 8 * G;             // [32][GS]
   float* DD = h1 + 32 * GS;           // [G][HP] d_dyn (bwd); tc: dyn first
@@ -879,7 +932,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       e1[j * LD + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
     };
     if constexpr (TC)
-      mv_mma(w.w1t, h, WD + 2, feats, lane, wy, e1_out);
+      mv_mma(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid, e1_out);
     else
       mv_tiled(w.w1T, h, WD + 2, feats, stg, lane, wy, tid, e1_out);
     __syncthreads();
@@ -887,7 +940,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       qin[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
     };
     if constexpr (TC)
-      mv_mma(w.w2t, h, h, e1, lane, wy, enc_out);
+      mv_mma(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
     else
       mv_tiled(w.w2T, h, h, e1, stg, lane, wy, tid, enc_out);
     __syncthreads();
@@ -899,7 +952,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       qs[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
     };
     if constexpr (TC)
-      mv_mma(w.wqt, h, FQ, qin, lane, wy, q_out);
+      mv_mma(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
     else
       mv_tiled(w.wqT, h, FQ, qin, stg, lane, wy, tid, q_out);
     __syncthreads();
@@ -1409,13 +1462,13 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         put_bf16(rc + ro.qin, qin, FQ, tid);
         rowsum_acc(prow + go.bq, dqs, LD, h, tid);
         __syncthreads();
-        mvt_mma<3>(w.wqT, 3 * h, h, dqs, lane, wy, dqin_out);
+        mvt_mma<3>(w.wqT, 3 * h, h, dqs, stgb, lane, wy, tid, dqin_out);
         __syncthreads();
         put_f32(rc + ro.dhm, d_hm, h, tid);
         put_bf16(rc + ro.e1, e1, h, tid);
         rowsum_acc(prow + go.b2, d_hm, LD, h, tid);
         __syncthreads();
-        mvt_mma<1>(w.w2T, h, h, d_hm, lane, wy, de1_out);
+        mvt_mma<1>(w.w2T, h, h, d_hm, stgb, lane, wy, tid, de1_out);
         __syncthreads();
         put_f32(rc + ro.de1, e1, h, tid);
         put_bf16(rc + ro.feats, feats, WD + 2, tid);

@@ -17,11 +17,10 @@ first call, and `build_all()` starts one nvcc per source at once.
 prints what ptxas reports for every kernel of every source in DIR (default:
 the package's `csrc/`): registers, spills, stack and shared memory.
 
-    python -m tapnet_torch.ops._build --sass replay [--opcode HMMA]
+    python -m tapnet_torch.ops._build --sass replay
 
-counts each kernel's SASS instructions of one opcode in the built library
-(`cuobjdump -sass`): the tensor-core products (HMMA) of replay.cu's
-bfloat16 instantiations.
+counts each kernel's HMMA instructions in the built library (`cuobjdump
+-sass`): the tensor-core products of replay.cu's bfloat16 instantiations.
 """
 
 from __future__ import annotations
@@ -143,8 +142,8 @@ def ptxas_report(csrc: Path = CSRC) -> str:
     return "\n".join(lines)
 
 
-def sass_counts(name: str, opcode: str = "HMMA") -> dict:
-    """{kernel: count} of the SASS instructions named `opcode` in each
+def hmma_counts(name: str) -> dict:
+    """{kernel: count} of the tensor-core (HMMA) SASS instructions in each
     kernel of the built library of csrc/<name>.cu (`cuobjdump -sass`;
     kernel names demangled by `cu++filt` where the toolkit has it)."""
     import re
@@ -157,7 +156,7 @@ def sass_counts(name: str, opcode: str = "HMMA") -> dict:
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+        elif fn is not None and re.search(r"\bHMMA\b", line):
             counts[fn] += 1
     filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
     if os.path.exists(filt) and counts:
@@ -174,12 +173,11 @@ if __name__ == "__main__":
     ap.add_argument("--csrc", default=str(CSRC))
     ap.add_argument("--sass", default="",
                     help="instead: build the package's csrc/<NAME>.cu and "
-                         "count each kernel's SASS instructions of --opcode")
-    ap.add_argument("--opcode", default="HMMA")
+                         "count each kernel's HMMA instructions")
     args = ap.parse_args()
     if args.sass:
         load(args.sass)
-        for k, v in sass_counts(args.sass, args.opcode).items():
-            print(f"{args.sass} {k}: {v} {args.opcode}")
+        for k, v in hmma_counts(args.sass).items():
+            print(f"{args.sass} {k}: {v} HMMA")
     else:
         print(ptxas_report(Path(args.csrc)))

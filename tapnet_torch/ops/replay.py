@@ -90,9 +90,11 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
     """Shared memory of one block, in bytes, as csrc/replay.cu::smem_bytes
     computes it (`layout` and `n_ints`; `steps`: the schedule, auto by
     `_steps_grid`). Both dtypes hold their values as float32 in shared
-    memory; the bfloat16 instantiations (`dtype`) take the tensor-core plan:
-    Wp as bfloat16 rows of 40 in place of the float Wp^T, h1 rows padded to
-    G + 4, a dyn array in the forward too and no staged weight slices."""
+    memory but for the bfloat16 instantiations' (`dtype`) weights: their
+    tensor-core plan holds Wp as bfloat16 rows of 40 in place of the float
+    Wp^T, h1 rows padded to G + 4, a dyn array in the forward too, and the
+    encoder/query weight slices as two bfloat16 slabs of 72 h floats in
+    the token view (which the token arrays already exceed)."""
     if steps is None:
         steps = _steps_grid(cfg)
     tc = dtype == torch.bfloat16
@@ -104,7 +106,7 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
     floats = (up4(20 * h if tc else 32 * h) + 256 + 32 + up4(h)
               + up4(h * LD) * (2 if bwd else 1) + up4(TB * T * C)
               + up4((WD + 2 + h + 3 * h + 8 + (h if bwd else 0)) * LD)
-              + max(tok, 0 if tc else 64 * h, (cfg.num_blocks + T) * TB))
+              + max(tok, 72 * h if tc else 64 * h, (cfg.num_blocks + T) * TB))
     ints = (8 if steps else 4) * TB + 5 * TB + 2 + TB * T
     return 4 * (floats + ints)
 
@@ -136,15 +138,6 @@ def _check_cfg(cfg: TAPConfig, h: int, steps: bool, dtype=F32):
             f"hidden width that is a multiple of 32 up to {MAX_H}, with at "
             f"most {SMEM_LIMIT} B of shared memory per block, not {cfg} at "
             f"hidden {h} ({smem} B); pass kernel=False")
-
-
-def record_floats(cfg: TAPConfig, h: int) -> int:
-    """Floats of one record of the bfloat16 backward's deferred weight
-    gradients (csrc/replay.cu `rec_off`): dq, d_hm, de1 [h, 32] float32 and
-    qin [3h+8, 32], e1 [h, 32], feats [W*D+2, 32] bfloat16, per (partial
-    row, step, container)."""
-    WD2 = cfg.target_width * cfg.target_depth + 2
-    return 3 * h * TB + (3 * h + 8 + h + WD2) * TB // 2
 
 
 def _steps_per_row(cfg: TAPConfig, chunks: int) -> int:
@@ -555,6 +548,16 @@ def _lib():
     return fn
 
 
+def _record_floats(cfg: TAPConfig, h: int) -> int:
+    """Floats of one record of the bfloat16 backward's deferred weight
+    gradients, as the kernel lays it out (csrc/replay.cu `rec_off`)."""
+    fn = _build.load("replay").tapnet_replay_record_floats
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(ctypes.cast(_build.int_array(_ints(cfg, 1, h)),
+                          ctypes.c_void_p))
+
+
 def _check_operands(flags, hms, masks, acts, se, ctx, statp, statm, params,
                     cfg, steps=False, prev=None):
     N, W, D, C = (cfg.num_blocks, cfg.target_width, cfg.target_depth,
@@ -640,7 +643,7 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
     if se.dtype == torch.bfloat16:  # the deferred weight-gradient records
         rows, length = tiles * nc, _steps_per_row(cfg, chunks)
         rec = torch.empty(rows * length * cfg.num_containers
-                          * record_floats(cfg, h), dtype=f32, device=dev)
+                          * _record_floats(cfg, h), dtype=f32, device=dev)
         sflag = torch.zeros(rows * length, dtype=torch.int32, device=dev)
     ptrs = ((flags, hms, masks, acts, _se_rows(se), ctx, statp, statm, dlp)
             + tuple(params)
@@ -733,23 +736,18 @@ replay_logp_bwd_steps.launches = 0
 def scratch_bytes(cfg: TAPConfig, B: int, h: int, dtype=F32) -> dict:
     """Device scratch of one step-grid backward call, in bytes: the [B, T,
     h] copy of se (float32: the bfloat16 one is half), the d_se partials
-    (one per chunk), the d_ctx partials (none for one chunk), the
-    weight-gradient partial rows and, in bfloat16, the deferred
-    weight-gradient records with their step flags."""
+    (one per chunk), the d_ctx partials (none for one chunk) and the
+    weight-gradient partial rows (the bfloat16 backward adds the records
+    of its deferred weight gradients, sized by the kernel)."""
     chunks = step_chunks(cfg, B)
     tiles = (B + TB - 1) // TB
     T = cfg.num_blocks * cfg.num_rot
     P = sum(a * b for a, b in head_shapes(cfg, h))
-    rows = tiles * chunks * _steps_per_row(cfg, chunks)
-    bf16 = dtype == torch.bfloat16
     return {"chunks": chunks,
-            "se_rows": (2 if bf16 else 4) * B * T * h,
+            "se_rows": (2 if dtype == torch.bfloat16 else 4) * B * T * h,
             "d_se_partials": 4 * chunks * T * h * B,
             "d_ctx_partials": 4 * chunks * h * B * (chunks > 1),
-            "weight_partials": 4 * tiles * chunks * P,
-            "grad_records": (4 * rows * (cfg.num_containers
-                                         * record_floats(cfg, h) + 1)
-                             if bf16 else 0)}
+            "weight_partials": 4 * tiles * chunks * P}
 
 
 class ReplayLogp(torch.autograd.Function):

@@ -33,8 +33,11 @@ since its last read to the phase it just ended (`REPLAY_PHASES`: 0, the
 encoder and query, the scores, C, the token backward, the query and encoder
 backward, F), summed over the block's steps; launched through the wrapper
 on a sampled record of each named config in the given compute dtype. It
-prints the mean cycles per phase over the blocks, their share, and the
-time per launch (CUDA events, median of 10).
+prints the mean cycles per phase over the blocks, their share, the time
+per launch (CUDA events, median of 10) and each kernel of the launch's
+device time (torch.profiler): the clocks time `replay_kernel` only, and
+the bfloat16 backward's encoder/query weight-gradient contractions run in
+the second kernel, `grad_outer`.
 
 The reads add a few cycles per phase. Needs a CUDA device and nvcc; the
 copies are built into `tapnet_torch/_build/phases/`.
@@ -283,6 +286,7 @@ def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
                     end.record()
                     torch.cuda.synchronize()
                     times.append(start.elapsed_time(end))
+            kernels = launch_kernels(lambda: bwd(dlp))
             nb = -(-batch // 32) * (RP.step_chunks(cfg, batch) if steps
                                     else 1)
             buf = (ctypes.c_longlong * (KSLOTS * nb))()
@@ -293,7 +297,8 @@ def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
             total = sum(per)
             entry = {"config": name, "ms": statistics.median(times[3:]),
                      "blocks": nb, "block_cycles": total,
-                     "phases": dict(zip(REPLAY_PHASES, per))}
+                     "phases": dict(zip(REPLAY_PHASES, per)),
+                     "kernels_ms": kernels}
             res["configs"].append(entry)
             print(f"{kernel} {res['dtype']} {name} B={batch} hidden "
                   f"{hidden} ({src}): {entry['ms']:.4f} ms/launch (the "
@@ -301,9 +306,39 @@ def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
                   f"cycles per block (mean of {nb})", flush=True)
             for p, c in entry["phases"].items():
                 print(f"    {c:11.0f} cycles  {c / total:6.3f}  {p}")
+            for k, ms in kernels.items():
+                print(f"    {ms:11.4f} ms      {k} (device, a launch)")
     finally:
         RP._lib = lib_of
     return res
+
+
+def launch_kernels(fn, calls: int = 3) -> dict:
+    """Device ms per call of each kernel that `fn()` launches, by its
+    name's leading word (`replay_kernel`, whose phases the clocks split;
+    `grad_outer`, the bfloat16 backward's deferred weight-gradient
+    contractions; `reduce_tiles`, `sum_transpose`; the rest as "other"):
+    `calls` calls under torch.profiler (`utils.profiling.kernel_rows`)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tapnet_torch.utils.profiling import kernel_rows
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name, ms, _ in kernel_rows(prof):
+        m = re.search(r"(replay_kernel|grad_outer|reduce_tiles|"
+                      r"sum_transpose)", name)
+        key = m.group(1) if m else "other"
+        out[key] = out.get(key, 0.0) + ms / calls
+    return out
 
 
 def _build_copy(name: str, source: str):

@@ -262,14 +262,8 @@ def test_kernel_coverage(h, dtype):
     assert RP.step_chunks(rolling, 32) == 50
     assert RP.scratch_bytes(rolling, 4096, h)["d_se_partials"] == \
         2 * 100 * h * 4096 * 4
-    # the bf16 backward's deferred weight-gradient records: one per
-    # (partial row, step of its chunk, container), with a step flag each
-    records = RP.scratch_bytes(rolling, 4096, h, dtype)["grad_records"]
-    rows = 128 * 2 * 25
-    assert records == (4 * rows * (RP.record_floats(rolling, h) + 1)
-                       if dtype == torch.bfloat16 else 0)
-    assert RP.record_floats(rolling, h) == (3 * h * 32
-                                            + (4 * h + 8 + 18) * 16)
+    assert RP.scratch_bytes(rolling, 4096, h, dtype)["se_rows"] == \
+        (2 if dtype == torch.bfloat16 else 4) * 4096 * 100 * h
 
 
 # ------------------------------------------------------------------ #
