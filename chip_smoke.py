@@ -171,11 +171,18 @@ source, all started at once), then runs, and fails on the first fault:
    card: logged, no scaling number);
 24. the bf16 compute dtype (`make_train_step(compute_dtype=bfloat16)`, the
    JAX train step's accelerator dtype): K2's bf16 instantiation (both
-   modes) against its plain bf16 version in lockstep sampled rollouts
-   (2d-basic at 4096, 2d-rolling at 512 and 4096, multi-container at
-   512): logits within 1e-2 + 2^-7 |logit|, flags and mask equal, actions
-   agreeing on > 0.99 of the (instance, step) pairs and, where they agree,
-   the state rows equal and logp within the logit tolerance; K5f, K5b,
+   modes; its products on the tensor cores) against its plain bf16 version
+   in lockstep sampled rollouts (2d-basic at 4096, 2d-rolling at 512 and
+   4096, multi-container at 512): logits within 1e-2 + 2^-7 |logit|, flags
+   and mask equal, actions agreeing on > 0.99 of the (instance, step)
+   pairs and, where they agree, the state rows equal and logp within the
+   logit tolerance, every output but the logits alike in the two modes,
+   two launches of each mode bit-identical; the same checks where the
+   tiling can break (`actor_bf16_shapes`: hidden 32, 64, 96 at 2d-basic,
+   batch 256; a ragged batch of 100; multi-container at temperature 0.7,
+   batch 256) and `ops.actor_step.smem_bytes` against the kernel's own
+   plan (`tapnet_actor_smem_bytes`) for the six CONFIGS, hidden 32-128,
+   both dtypes; K5f, K5b,
    K5f-steps and K5b-steps in bf16 against their plain bf16 versions on
    the card's own bf16 records (2d-basic at 4096, multi-container at 512,
    2d-rolling at 4096): values within 1e-2 relative, also against the
@@ -2356,15 +2363,18 @@ def _bf16_close(what, got, want):
     return d.max().item() if d.numel() else 0.0
 
 
-def check_actor_step_bf16(cfg, B, actor, dev, keep=False):
-    """Sampled lockstep rollout in bf16: at every step both modes of K2's
-    bf16 instantiation and the full plain bf16 version on the same inputs.
-    Logits within BF16_ATOL + BF16_RTOL |logit|; flags and mask equal; the
-    actions of the main path's mode agree with the plain version's on more
-    than BF16_AGREE of the (instance, step) pairs, and where they agree the
-    new state rows are equal and logp is within the logit tolerance. The
-    rollout advances on the main-path mode's outputs. Returns (the middle
-    step's bf16 and float32 operands when `keep`, max logit/logp err, the
+def check_actor_step_bf16(cfg, B, actor, dev, keep=False, temperature=1.0):
+    """Sampled lockstep rollout in bf16 at `temperature`: at every step
+    both modes of K2's bf16 instantiation and the full plain bf16 version
+    on the same inputs. Logits within BF16_ATOL + BF16_RTOL |logit|; flags
+    and mask equal; the actions of the main path's mode agree with the
+    plain version's on more than BF16_AGREE of the (instance, step) pairs,
+    and where they agree the new state rows are equal and logp is within
+    the logit tolerance. The two modes give every output but the logits
+    bit for bit alike (the same products for every live column), and a
+    second launch of each mode repeats its outputs bit for bit. The rollout
+    advances on the main-path mode's outputs. Returns (the middle step's
+    bf16 and float32 operands when `keep`, max logit/logp err, the
     agreement)."""
     from tapnet_torch import random as R
     from tapnet_torch.ops import actor_step as AS
@@ -2388,11 +2398,18 @@ def check_actor_step_bf16(cfg, B, actor, dev, keep=False):
                 f = actor_operands(actor, inst, cfg, keys)
                 kept = (ops, ops[:12] + (f["se"], f["ctx"], f["statp"],
                                          f["statm"], f["params"]))
-            want = AS.actor_select_step_ref(*ops, cfg)
+            want = AS.actor_select_step_ref(*ops, cfg, temperature)
+            outs = {}
             for logits in (True, False):
-                got = AS.actor_select_step(*ops, cfg, logits=logits,
-                                           params_t=o["params_t"])
+                got = AS.actor_select_step(*ops, cfg, temperature,
+                                           logits=logits)
+                again = AS.actor_select_step(*ops, cfg, temperature,
+                                             logits=logits)
                 what = f"actor_select_step bf16 (logits={logits})"
+                for name, g, a in zip(names, got, again):
+                    if g is not None:
+                        _equal(f"{what} repeat {name} step {t}", g, a)
+                outs[logits] = got
                 same = got[3] == want[3]
                 for name, g, w in zip(names, got, want):
                     if name == "logits":
@@ -2411,6 +2428,10 @@ def check_actor_step_bf16(cfg, B, actor, dev, keep=False):
                     else:
                         _equal(f"{what} {name} step {t}", g[..., same],
                                w[..., same])
+            for name, f, m in zip(names, outs[True], outs[False]):
+                if name != "logits":
+                    _equal(f"actor_select_step bf16 modes {name} step {t}",
+                           f, m)
             acting = want[3] >= 0
             agree += int((same & acting).sum())
             pairs += int(acting.sum())
@@ -2420,6 +2441,68 @@ def check_actor_step_bf16(cfg, B, actor, dev, keep=False):
         raise AssertionError(f"actor_select_step bf16 {cfg} B={B}: action "
                              f"agreement {rate} <= {BF16_AGREE}")
     return kept, err, rate
+
+
+def actor_bf16_shapes():
+    """(config, batch, hidden, temperature) where the tensor-core tiling of
+    K2's bf16 body can break: hidden widths below 128 (fewer row tiles
+    than warps), a ragged batch, and a tempered multi-container rollout
+    (C = 2, W*D + 2 = 66: W1 staged by element loads)."""
+    return ([("2d-basic", 256, h, 1.0) for h in (32, 64, 96)]
+            + [("2d-basic", 100, HIDDEN, 1.0),
+               ("multi-container", 256, HIDDEN, 0.7)])
+
+
+def check_actor_bf16_shapes(dev, log_fn):
+    """`check_actor_step_bf16` (both modes against the plain bf16 version,
+    the modes alike, launches repeated bit for bit) on each case of
+    `actor_bf16_shapes`. Returns the largest logit/logp error."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+
+    worst = 0.0
+    for name, B, h, temp in actor_bf16_shapes():
+        cfg = CONFIGS[name]
+        actor = init_params(SEED, cfg, h, dev)
+        _, err, rate = check_actor_step_bf16(cfg, B, actor, dev,
+                                             temperature=temp)
+        worst = max(worst, err)
+        log_fn(f"actor_select_step bf16 == plain bf16: {name} B={B} hidden "
+               f"{h} temperature {temp}: max logit/logp err {err:.3e}, "
+               f"action agreement {rate:.6f}; the two modes alike and two "
+               "launches of each bit-identical")
+    return worst
+
+
+def check_actor_smem_mirror():
+    """ops.actor_step.smem_bytes against the kernel's own plan
+    (`tapnet_actor_smem_bytes`) for the six CONFIGS, hidden 32-128, both
+    dtypes. Returns the cases."""
+    import ctypes
+
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops.policy_step import env_ints
+
+    fn = _build.load("actor_step").tapnet_actor_smem_bytes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    n = 0
+    for cfg in CONFIGS.values():
+        for h in (32, 64, 96, 128):
+            for dt in (torch.float32, BF16):
+                bf = int(dt == BF16)
+                ints = _build.int_array([1] + env_ints(cfg)
+                                        + [h, cfg.window, 0, bf])
+                want = fn(ctypes.cast(ints, ctypes.c_void_p), bf)
+                got = AS.smem_bytes(cfg, h, dt)
+                if got != want:
+                    raise AssertionError(
+                        f"actor_step smem_bytes {cfg} h={h} {dt}: mirror "
+                        f"{got}, kernel {want}")
+                n += 1
+    return n
 
 
 def check_replay_bf16(cfg, B, actor, dev, steps, repeat=False,
@@ -2700,7 +2783,14 @@ def phase_24(dev):
             kept[name] = k
         k2_err = max(k2_err, err)
         log(f"{stamp()} actor_select_step bf16 == plain bf16: {name} B={B}, "
-            f"max logit/logp err {err:.3e}, action agreement {rate:.6f}")
+            f"max logit/logp err {err:.3e}, action agreement {rate:.6f}; "
+            "the two modes alike and two launches of each bit-identical")
+    # 1b. the tensor-core body at the shapes a tiling can break, and the
+    # shared-memory plan's mirror
+    k2_err = max(k2_err, check_actor_bf16_shapes(
+        dev, lambda m: log(f"{stamp()} {m}")))
+    log(f"{stamp()} actor_step smem_bytes mirror == the kernel's on "
+        f"{check_actor_smem_mirror()} cases")
     # 2. K5 bf16 against its plain bf16 versions on the card's bf16 records
     k5 = {}
     for name, B, steps in (("2d-basic", B_MAIN, False),

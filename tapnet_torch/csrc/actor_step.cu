@@ -38,8 +38,9 @@
 // gumbel of the valid actions) are 41 MB there (12 us at 3.35 TB/s) and
 // 12 MB at 2d-basic, where the operations bound it (10 us).
 //
-// Design (SIMT, f32 fused multiply-adds throughout; no TF32, no
-// approximate intrinsics):
+// Design, float32 (SIMT, f32 fused multiply-adds throughout; no TF32, no
+// approximate intrinsics); the bfloat16 instantiations share it but for
+// the products (below):
 // - one block per tile of TB = 32 instances (lane = instance in the
 //   encoder and query), NWARP = 16 warps.
 // - phase 0: every warp loads a share of the packed rows, the precedence
@@ -79,9 +80,10 @@
 //   (packed, heightmap, placements), as K1 and K4 do. `python -m
 //   tapnet_torch.profile_phases` gives every phase's share of a launch.
 // - 128 registers, no spills (ptxas); shared memory 142,680 B at 2d-basic
-//   and 178,552 B at 2d-rolling (h = 128): one block of 16 warps per SM,
-//   which the launch bound tells ptxas (without it, ptxas may trade
-//   registers for a second block that can never be resident, and spill).
+//   and 178,552 B at 2d-rolling (h = 128; bfloat16: 172,632 B and
+//   196,472 B): one block of 16 warps per SM, which the launch bound
+//   tells ptxas (without it, ptxas may trade registers for a second block
+//   that can never be resident, and spill).
 //   The wrapper refuses a plan above the 227 KB a block may hold; h must
 //   be a multiple of 32, at most 128.
 //
@@ -89,22 +91,56 @@
 // the float operands, float or __nv_bfloat16 (v, the gumbel, t/N, the
 // logits and log pi are float in both). The bfloat16 instantiations read
 // bfloat16 from device memory (half the bytes of se, the static features
-// and the weights), convert on load and compute in f32 as the float ones
-// do, rounding to bfloat16 (to nearest even, `rnd`) exactly where the JAX
-// kernel casts to its compute dtype: the count summary and t/N, the
-// normalised heightmap and its mean, each Dense product before and after
-// its bias, dyn, se + dyn, + q, tanh and each score. Shared memory holds
-// those rounded values as float, so both instantiations share the plan and
-// every helper; in float every `rnd` is the identity and the code is the
-// float kernel's.
+// and the weights) and round to bfloat16 (to nearest even, `rnd`) exactly
+// where the JAX kernel casts to its compute dtype: the count summary and
+// t/N, the normalised heightmap and its mean, each Dense product before
+// and after its bias, dyn, se + dyn, + q, tanh and each score. Shared
+// memory holds the activations as float (the SIMT epilogues read them);
+// in float every `rnd` is the identity and the code is the float kernel's.
 //
-// The device code of phases 1-2 follows replay.cu's forward (K5f) and is a
-// copy, not a shared header: K5 stays bit-identical to itself.
+// Design, bfloat16 (TC = the E = __nv_bfloat16 instantiations): every
+// product of the head runs on the tensor cores, mma.sync.m16n8k16 bf16 x
+// bf16 -> f32 (the JAX kernel's `preferred_element_type=f32` dots), one
+// pass each: both factors are exact bfloat16 values (the weights; feats,
+// e1, qin and h1, rounded by `rnd` where JAX casts), so each product is
+// exact and the sums are f32.
+// - encoder and query (W1 feats, W2 e1, Wq qin: [h][K] . [K][32 lanes]):
+//   mv_mma (mma_bf16.cuh, shared with the replay) streams the row-major
+//   weights (the [h][K] operands themselves; the transposed copies are
+//   not read) through the token view in slabs of 64 columns, bfloat16 rows
+//   padded by 8 so that ldmatrix meets no bank conflict, copied with
+//   16-byte cp.async (element loads where the rows are not 16-byte
+//   aligned: W1 unless W*D + 2 is a multiple of 8), double-buffered; K is
+//   padded to 16 with zeros. A warp owns one 16-row tile and 16 lanes.
+//   The B operand (feats, e1, qin) is first copied as bfloat16 pairs into
+//   rows of 40 words, so that a fragment is two 32-bit loads on 32 banks:
+//   read from the [k][33] floats themselves (four loads, lanes up to four
+//   ways in one bank, by the eight warps of a column half alike) the
+//   fragments' shared-memory traffic held the products back (PERF.md §6);
+//   a ring of three slabs in flight in place of two changed nothing.
+// - the token groups: dyn = Wp h1 (K = 32) with Wp staged once per block
+//   as bfloat16 rows of WPS = 40 and h1 rows padded to G + 4; the group's
+//   dyn goes through a [G][h+4] float array, read back per column by the
+//   SIMT epilogue, so the tanh / v sums keep the float32 order (a lane the
+//   rows lane + 32 r, then the warp sum). W8 x8 (K = 8) stays SIMT.
+// - order: every accumulator has one owner and one order of k-steps, and a
+//   column's or a lane's products do not depend on which other columns
+//   share its tile: two launches are bit-identical, and both modes give
+//   an acting instance the same scores. The tensor core adds in its own
+//   order, so a score can land one bfloat16 ulp from the plain version's.
+// - shared memory: the float plan less the float Wp^T plus Wp as bfloat16,
+//   the h1 padding and the dyn array in the token view, which also holds
+//   the two weight slabs (72 h floats) and the B pairs (`xb_words`).
+//
+// The SIMT device code of phases 1-2 follows replay.cu's forward (K5f) and
+// is a copy, not a shared header: K5 stays bit-identical to itself. The
+// tensor-core pieces are mma_bf16.cuh's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "mma_bf16.cuh"
 #include "select_place.cuh"
 
 namespace {
@@ -117,6 +153,7 @@ constexpr int CPW = 4;          // columns per warp in a token group
 constexpr int G = CPW * NWARP;  // columns per token group
 constexpr int MAXR = 4;         // rows per lane: h <= 32 * MAXR
 constexpr int KS = 64;          // weight columns per staged slice
+constexpr int WPS = 40;         // tc: bfloat16 row stride of Wp [h][32]
 constexpr int MAX_C = 4;        // containers
 constexpr int MAX_N = 62;       // blocks: two 31-bit precedence limbs
 constexpr int TOKW = 4;         // 32-bit words of token bits: T <= 128
@@ -124,6 +161,12 @@ constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
+using tapnet::frag_au;
+using tapnet::frag_b;
+using tapnet::mma;
+using tapnet::mv_mma;
+static_assert(NT == tapnet::MMA_NT && LD == tapnet::MMA_LD,
+              "mma_bf16.cuh's block geometry");
 
 __device__ __forceinline__ float f32(float x) { return x; }
 __device__ __forceinline__ float f32(bf16 x) { return __bfloat162float(x); }
@@ -171,17 +214,32 @@ struct ActorIO {
 
 __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 
+// 32-bit words of the tensor-core plan's B operand as bfloat16 pairs: the
+// longest k of the encoder/query products (W*D + 2, 3h + 8) padded to 16
+__host__ __device__ inline int xb_words(int WD, int h) {
+  const int k = WD + 2 > 3 * h + 8 ? WD + 2 : 3 * h + 8;
+  return (k + 15) / 16 * 8 * tapnet::MMA_XS;
+}
+
 // Shared-memory plan, in floats from the base (every region 16-byte
-// aligned); the ints follow the floats.
+// aligned); the ints follow the floats. `tc`: the tensor-core plan of the
+// bfloat16 instantiations (Wp itself as bfloat16 [h][WPS] in place of the
+// float Wp^T [32][h]; h1 rows padded to G + 4 floats so that a B
+// fragment's column reads hit 32 banks; the group's dyn [G][h+4]; the
+// encoder/query weights as two bfloat16 slabs of 72 h floats, and the
+// product's B operand as bfloat16 pairs, `xb_words`).
 struct Lay {
   int ws, w8, b8, v, q, sc, enc, tok, floats;
 };
 
-__host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h) {
+__host__ __device__ inline int h1_stride(bool tc) { return tc ? G + 4 : G; }
+
+__host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
+                                      bool tc) {
   const int T = N * R, A = T * C, FQ = 3 * h + 8, L = (N + 30) / 31;
   Lay y;
   int o = 0;
-  y.ws = o;  o += up4(32 * h);         // Wp^T [32][h]
+  y.ws = o;  o += tc ? up4(h * WPS / 2) : up4(32 * h);  // Wp^T / Wp
   y.w8 = o;  o += 32 * 8;              // W8 [32][8]
   y.b8 = o;  o += 32;
   y.v = o;   o += up4(h);
@@ -189,11 +247,13 @@ __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h) {
   y.sc = o;  o += A * TB;              // scores, then masked [A][TB]
   // encoder view: feats [WD+2][LD], e1 [h][LD], qin [3h+8][LD]
   y.enc = o; o += up4((WD + 2 + h + FQ) * LD);
-  // token view: x8 [8][G], h1 [32][G]; or a staged weight slice
-  // [KS][h]; or phase 0's rows (packed, limbs, fits) as ints; or phase
-  // 3's decisions [13][TB], the warps' partial results [8][NWARP][TB] and
-  // rows (heightmaps [C*W*D], dims [3N]) as ints
-  const int tok = 40 * G, stage = KS * h;
+  // token view: x8 [8][G], h1 [32][GS] (tc: and dyn [G][h+4]); or the
+  // staged weight slices (float [KS][h], tc: bfloat16 slabs); or phase 0's
+  // rows (packed, limbs, fits) as ints; or phase 3's decisions [13][TB],
+  // the warps' partial results [8][NWARP][TB] and rows (heightmaps
+  // [C*W*D], dims [3N]) as ints
+  const int tok = 8 * G + 32 * h1_stride(tc) + (tc ? G * (h + 4) : 0);
+  const int stage = tc ? 72 * h + xb_words(WD, h) : KS * h;  // mv_mma / tiled
   const int rows0 = (N + 2 * L * N + R * N) * TB;
   const int rows3 = (13 + 8 * NWARP + C * WD + 3 * N) * TB;
   const int big = tok > stage ? tok : stage;
@@ -211,33 +271,19 @@ __host__ __device__ inline int n_ints(int N, int R) {
   return 12 * TB + TOKW * TB + TB + 1 + 1 + TB * N * R;
 }
 
-// The 16 bytes v as float at dst (4 floats, or 8 bfloat16 converted).
-template <class E>
-__device__ __forceinline__ void put16(float* dst, const uint4& v) {
-  if constexpr (std::is_same_v<E, float>) {
-    *reinterpret_cast<float4*>(dst) = reinterpret_cast<const float4&>(v);
-  } else {
-    const bf16* p = reinterpret_cast<const bf16*>(&v);
-    float4 a, b;
-    a.x = f32(p[0]); a.y = f32(p[1]); a.z = f32(p[2]); a.w = f32(p[3]);
-    b.x = f32(p[4]); b.y = f32(p[5]); b.z = f32(p[6]); b.w = f32(p[7]);
-    reinterpret_cast<float4*>(dst)[0] = a;
-    reinterpret_cast<float4*>(dst)[1] = b;
-  }
-}
-
+// The float32 products (the bfloat16 instantiations run mv_mma).
 // out[j] = sum_k W[j, k] x[k][lane] for every row j < h (a warp owns the
 // h/16 rows wy*h/16 ..), W given transposed, WT [cols][h]: slices of KS of
-// its rows are copied to shared memory S as they lie (16-byte loads, as
-// float, the next slice's loads in flight while this one is multiplied)
-// and read as float4 (h = 64, 128) or float2 broadcasts, so one load of x
-// feeds h/16 multiply-adds. emit(j, acc) stores row j. The caller follows
-// with a barrier before S or the outputs are reused.
-template <class E, class Emit>
-__device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
+// its rows are copied to shared memory S as they lie (16-byte loads, the
+// next slice's loads in flight while this one is multiplied) and read as
+// float4 (h = 64, 128) or float2 broadcasts, so one load of x feeds h/16
+// multiply-adds. emit(j, lane, acc) stores row j. The caller follows with a
+// barrier before S or the outputs are reused.
+template <class Emit>
+__device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
                          const float* x, float* S, int lane, int wy, int tid,
                          Emit emit) {
-  constexpr int PV = 16 / sizeof(E);         // elements per 16 bytes
+  constexpr int PV = 4;                      // floats per 16 bytes
   constexpr int NV = KS * 128 / PV / NT;     // a slice of KS * 128 at most
   const int RW = h / NWARP;  // 2 (h = 32) .. 8 (h = 128)
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -258,7 +304,8 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
       const int e = tid + u * NT;
-      if (e < nk * h / PV) put16<E>(S + e * PV, v[u]);
+      if (e < nk * h / PV)
+        *reinterpret_cast<uint4*>(S + e * PV) = v[u];
     }
     __syncthreads();
     if (k0 + KS < cols) load(k0 + KS);
@@ -296,7 +343,7 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
   }
 #pragma unroll
   for (int r = 0; r < 8; ++r)
-    if (r < RW) emit(wy * RW + r, acc[r]);
+    if (r < RW) emit(wy * RW + r, lane, acc[r]);
 }
 
 __device__ inline float warp_sum(float x) {
@@ -345,18 +392,23 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                   HeadW<E> hw, int B, int h, float inv_s, float temperature,
                   int window) {
   using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
+  // bfloat16: the products on the tensor cores (the design note)
+  constexpr bool TC = std::is_same_v<E, bf16>;
   extern __shared__ __align__(16) float smem[];
   const int N = c.N, R = c.R, C = c.C, WD = c.W * c.D;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, NL = (N + 30) / 31;
-  const int RPL = h / 32;
+  const int RPL = h / 32, GS = h1_stride(TC), HP = h + 4;
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
+  const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
   const int tile0 = blockIdx.x * TB;
   const int b = tile0 + lane;
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
-  const Lay L = layout(N, R, C, WD, h);
+  const Lay L = layout(N, R, C, WD, h, TC);
 
   float* Ws = smem + L.ws;  // Ws[k*h + j] = Wp[j, k]
+  // tc: Wp [h][32] as bfloat16 rows of WPS (the A operand of dyn)
+  unsigned short* wps = reinterpret_cast<unsigned short*>(Ws);
   float* W8s = smem + L.w8;
   float* b8s = smem + L.b8;
   float* vs = smem + L.v;
@@ -366,8 +418,13 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   float* e1 = feats + (WD + 2) * LD;  // [h][LD]
   float* qin = e1 + h * LD;           // [3h+8][LD]: enc, ctx, prev, dsum
   float* stg = smem + L.tok;          // staged weight slices
+  // tc: the same as bfloat16 (mv_mma's double-buffered slabs), then the
+  // product's B operand as bfloat16 pairs
+  unsigned short* stgb = reinterpret_cast<unsigned short*>(stg);
+  unsigned* xbp = reinterpret_cast<unsigned*>(stg + 72 * h);
   float* x8 = smem + L.tok;           // [8][G]
-  float* h1 = x8 + 8 * G;             // [32][G]
+  float* h1 = x8 + 8 * G;             // [32][GS]
+  float* DD = h1 + 32 * GS;           // tc: the group's dyn [G][HP]
   int* ib = (int*)(smem + L.floats);
   // [6][TB] words: packed, acc0, accr, win, fits of rotation 0 and 1
   Word* wb = reinterpret_cast<Word*>(ib);
@@ -402,7 +459,21 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       return j < h ? f32(ai.ctx[(size_t)j * B + bb])
                    : ldg(hw.et + (size_t)(j - h) * (A + 1) + idx);
     }, [&](int j, float v) { qin[(h + j) * LD + lane] = v; });
-    {
+    if constexpr (TC) {
+      const unsigned short* src =
+          reinterpret_cast<const unsigned short*>(hw.wpt);
+      unsigned short v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {  // Wp as it lies: 32 h <= 8 NT elements
+        const int e = tid + u * NT;
+        v[u] = e < 32 * h ? __ldg(src + e) : (unsigned short)0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = tid + u * NT;
+        if (e < 32 * h) wps[(e >> 5) * WPS + (e & 31)] = v[u];
+      }
+    } else {
       float v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {  // Wp^T: 32 h <= 8 NT elements
@@ -536,20 +607,30 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
         feats[(WD + 1) * LD + lane] = rnd<E>(sm / (float)WD);
       }
       __syncthreads();
-      mv_tiled(hw.w1T, h, WD + 2, feats, stg, lane, wy, tid,
-               [&](int j, float acc) {
-        e1[j * LD + lane] =
-            fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
-      });
+      auto e1_out = [&](int j, int n, float acc) {
+        e1[j * LD + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
+      };
+      if constexpr (TC)
+        mv_mma(hw.w1t, h, WD + 2, feats, stgb, lane, wy, tid, e1_out, xbp);
+      else
+        mv_tiled(hw.w1T, h, WD + 2, feats, stg, lane, wy, tid, e1_out);
       __syncthreads();
-      mv_tiled(hw.w2T, h, h, e1, stg, lane, wy, tid, [&](int j, float acc) {
-        qin[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j));
-      });
+      auto enc_out = [&](int j, int n, float acc) {
+        qin[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j));
+      };
+      if constexpr (TC)
+        mv_mma(hw.w2t, h, h, e1, stgb, lane, wy, tid, enc_out, xbp);
+      else
+        mv_tiled(hw.w2T, h, h, e1, stg, lane, wy, tid, enc_out);
       __syncthreads();
       float* qc = qs + cc * h * LD;
-      mv_tiled(hw.wqT, h, FQ, qin, stg, lane, wy, tid, [&](int j, float acc) {
-        qc[j * LD + lane] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
-      });
+      auto q_out = [&](int j, int n, float acc) {
+        qc[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
+      };
+      if constexpr (TC)
+        mv_mma(hw.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out, xbp);
+      else
+        mv_tiled(hw.wqT, h, FQ, qin, stg, lane, wy, tid, q_out);
       __syncthreads();
     }
 
@@ -591,35 +672,79 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
           float acc = 0.f;
           for (int f = 0; f < 8; ++f)
             acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
-          h1[m * G + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
+          h1[m * GS + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
         }
       }
       __syncthreads();
       // dyn = Wp h1 for this warp's CPW columns, rows lane + 32 r
       float dyn[CPW][MAXR];
+      if constexpr (TC) {
+        // the group's dyn [G][HP] into DD on the tensor cores (A = Wp
+        // staged, B = h1; warp wy owns the column tile wy % 8 and the row
+        // tiles wy / 8 + 2 i of the column tiles that hold a column), a
+        // barrier, then this warp's columns read back from DD
+        const int nt = wy & 7;
+        if (8 * nt < ng) {
+          const int col = 8 * nt + g8;
+          unsigned bf[2][2];
 #pragma unroll
-      for (int i = 0; i < CPW; ++i)
+          for (int ks = 0; ks < 2; ++ks)
+            frag_b(bf[ks], g8, t4, [&](int k, int) {
+              const float* p = h1 + (16 * ks + k) * GS + col;
+              return make_float2(p[0], p[GS]);
+            });
+          for (int mt = wy >> 3; mt < h / 16; mt += 2) {
+            float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int r = 0; r < MAXR; ++r) dyn[i][r] = 0.f;
-      for (int k = 0; k < 32; ++k) {
-        const float4 hv =
-            *reinterpret_cast<const float4*>(h1 + k * G + wy * CPW);
-        float wv[MAXR];
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r)
-          wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r) {
-          dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
-          dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
-          dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
-          dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
+            for (int ks = 0; ks < 2; ++ks) {
+              unsigned a[4];
+              frag_au(a, g8, t4, [&](int r, int k) {
+                return *reinterpret_cast<const unsigned*>(
+                    wps + (16 * mt + r) * WPS + 16 * ks + k);
+              });
+              mma(acc, a, bf[ks]);
+            }
+            const int j = 16 * mt + g8, cl = 8 * nt + 2 * t4;
+            DD[cl * HP + j] = acc[0];
+            DD[(cl + 1) * HP + j] = acc[1];
+            DD[cl * HP + j + 8] = acc[2];
+            DD[(cl + 1) * HP + j + 8] = acc[3];
+          }
         }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < CPW; ++i) {
+          const int cc = wy * CPW + i;
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r)
+            dyn[i][r] = (r < RPL && cc < ng)
+                            ? rnd<E>(DD[cc * HP + lane + 32 * r]) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < CPW; ++i)
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r) dyn[i][r] = 0.f;
+        for (int k = 0; k < 32; ++k) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(h1 + k * G + wy * CPW);
+          float wv[MAXR];
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r)
+            wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r) {
+            dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
+            dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
+            dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
+            dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < CPW; ++i)
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r) dyn[i][r] = rnd<E>(dyn[i][r]);
       }
-#pragma unroll
-      for (int i = 0; i < CPW; ++i)
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r) dyn[i][r] = rnd<E>(dyn[i][r]);
       // the attention epilogue: a column's score per container, a warp sum
 #pragma unroll
       for (int i = 0; i < CPW; ++i) {
@@ -793,9 +918,9 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes (ops/actor_step.py
-// smem_bytes mirrors it).
-static size_t smem_bytes(int N, int R, int C, int WD, int h) {
-  return 4 * (size_t)(layout(N, R, C, WD, h).floats + n_ints(N, R));
+// smem_bytes mirrors it); tc: the bfloat16 instantiations.
+static size_t smem_bytes(int N, int R, int C, int WD, int h, bool tc) {
+  return 4 * (size_t)(layout(N, R, C, WD, h, tc).floats + n_ints(N, R));
 }
 
 template <class E>
@@ -829,7 +954,8 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
                     (const E*)p[22], (const E*)p[23], (const E*)p[24],
                     (const E*)p[25], (const float*)p[26], (const E*)p[35],
                     (const E*)p[36], (const E*)p[37]};
-  const size_t smem = smem_bytes(c.N, c.R, c.C, c.W * c.D, h);
+  const size_t smem =
+      smem_bytes(c.N, c.R, c.C, c.W * c.D, h, std::is_same_v<E, bf16>);
   const KernelFn<E> kernel = wide ? (c.mcs ? pick<true, true, E>(logits)
                                            : pick<false, true, E>(logits))
                                   : (c.mcs ? pick<true, false, E>(logits)
@@ -853,6 +979,14 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
 // bf16 (1: se, ctx, statp, statm and the weights other than v are
 // bfloat16; 0: float). h: a multiple of 32, at most 128. Launches on
 // `stream`; returns cudaGetLastError() after the launch.
+// The dynamic shared memory of one block for the ints of a launch (below)
+// and the instantiation (bf16): what ops/actor_step.py::smem_bytes mirrors.
+extern "C" long long tapnet_actor_smem_bytes(const int* ints, int bf16) {
+  const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
+  return (long long)smem_bytes(c.N, c.R, c.C, c.W * c.D,
+                               ints[1 + tapnet::ENV_INTS], bf16 != 0);
+}
+
 extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                                         float inv_s, float temperature,
                                         void* stream) {

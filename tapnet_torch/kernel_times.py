@@ -6,18 +6,22 @@ line.
 
 select_step (K1) on the middle step of a greedy rollout of 2d-basic and
 2d-rolling at batch 4096 and of multi-container-capped at batch 256 (the
-capped train step's shape); actor_select_step (K2) in both modes on the
-middle decode step of a sampled rollout of 2d-basic and 2d-rolling at
-batch 4096; fused_rollout_batch (K4) on `random` draws of the six CONFIGS
-at batch 4096; the replay (K5) forward and backward, monolithic on
+capped train step's shape); actor_select_step (K2) in both modes and both
+dtypes on the middle decode step of a sampled rollout of 2d-basic and
+2d-rolling at batch 4096 (the state from the float32 kernel, the float
+operands in each dtype; f32, bf16, bf16, f32 in turns, each key the mean
+of its two turns); fused_rollout_batch (K4) on `random` draws of the six
+CONFIGS at batch 4096; the replay (K5) forward and backward, monolithic on
 2d-basic and step-grid on 2d-rolling, at batch 4096 in float32 and
-bfloat16 on one sampled record (`chip_smoke.replay_operands`, dlp a ramp).
-Each time is the median of 50 launches (10 for the step-grid backward;
-CUDA events after a spin kernel, `chip_smoke.time_gpu`). The line also
-holds, per float32 K5 kernel, the SHA-256 of its operands' and its
-outputs' bytes: `--expect FILE` (the line another run wrote with `--out`)
-checks that the float32 K5 kernels gave bit-identical outputs on
-bit-identical operands there and here, and exits 1 if they did not.
+bfloat16 on one record of a sampled float32 rollout
+(`chip_smoke.replay_operands`, dlp a ramp). Each time is the median of 50
+launches (10 for the step-grid backward; CUDA events after a spin kernel,
+`chip_smoke.time_gpu`). The line also holds the SHA-256 of the operands'
+and the outputs' bytes of K2 in float32 (both modes) and of every K5
+kernel in both dtypes: `--expect FILE` (the line another run wrote with
+`--out`) checks that those kernels gave bit-identical outputs on
+bit-identical operands there and here, and exits 1 if they did not. (K2's
+bfloat16 outputs are not held: its body may change the sums' order.)
 
 To compare two checkouts on one card in one call,
 
@@ -57,8 +61,8 @@ def _sha(tensors) -> str:
 
 def replay_times(CS, dev) -> dict:
     """K5f, K5b (2d-basic) and K5f-steps, K5b-steps (2d-rolling) at batch
-    4096 in float32 and bfloat16: ms per call and, for float32, the
-    hashes of operands and outputs."""
+    4096 in float32 and bfloat16 on one float32 rollout's record: ms per
+    call and the hashes of operands and outputs."""
     import torch
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
@@ -67,9 +71,9 @@ def replay_times(CS, dev) -> dict:
     for name, steps in (("2d-basic", False), ("2d-rolling", True)):
         cfg, B = CONFIGS[name], 4096
         actor = init_params(0, cfg, 128, dev)
-        ops_b, _, ops_f = CS.replay_operands(
-            actor, cfg, B, dev, 10, 1.0, dtype=torch.bfloat16,
-            also=torch.float32)
+        ops_f, _, ops_b = CS.replay_operands(
+            actor, cfg, B, dev, 10, 1.0, dtype=torch.float32,
+            also=torch.bfloat16)
         dlp = torch.linspace(-1.0, 1.0, B, device=dev)
         suffix = "-steps" if steps else ""
         for dt, ops in (("f32", ops_f), ("bf16", ops_b)):
@@ -83,20 +87,20 @@ def replay_times(CS, dev) -> dict:
                          [got_b[0], got_b[1], *got_b[2]],
                          10 if steps else 50)):
                     out[k] = CS.time_gpu(fn, reps=reps)
-                    if dt == "f32":  # the kernels --expect holds
-                        out[f"{k} sha"] = {"operands": _sha(flat + [dlp]),
-                                           "outputs": _sha(got)}
+                    out[f"{k} sha"] = {"operands": _sha(flat + [dlp]),
+                                       "outputs": _sha(got)}
     return out
 
 
 def check_expected(out: dict, path: str) -> bool:
-    """Whether every float32 K5 kernel of `out` saw the operands and gave
-    the outputs that the run recorded in `path` did, bit for bit."""
+    """Whether every kernel of `out` with hashes (K2 float32, K5) saw the
+    operands and gave the outputs that the run recorded in `path` did, bit
+    for bit."""
     with open(path) as f:
         ref = json.loads(f.read().strip().splitlines()[-1])
     ok = True
     for k, v in out.items():
-        if k.startswith("K5") and " f32 " in k and k.endswith(" sha"):
+        if k.endswith(" sha"):
             same = ref.get(k) == v
             ok &= same
             print(f"{k[:-4]}: operands and outputs bit-identical to "
@@ -111,8 +115,8 @@ def main(argv=None) -> int:
                     help="time the kernels of the checkout at this path")
     ap.add_argument("--out", default="", help="also write the line here")
     ap.add_argument("--expect", default="",
-                    help="a line written by --out: hold the float32 K5 "
-                         "outputs to it bit for bit")
+                    help="a line written by --out: hold the K2 float32 "
+                         "and K5 outputs to it bit for bit")
     args = ap.parse_args(argv)
     if args.tree:
         fwd = ["--tag", args.tag]
@@ -156,8 +160,9 @@ def main(argv=None) -> int:
         cfg, B, N = CONFIGS[name], 4096, CONFIGS[name].num_blocks
         actor = init_params(0, cfg, 128, dev)
         inst = CS._instances(cfg, B, dev, 9)
+        keys = R.split(R.key(3, dev), B)
         with torch.no_grad():  # to the middle step on the kernel's outputs
-            o = CS.actor_operands(actor, inst, cfg, R.split(R.key(3, dev), B))
+            o = CS.actor_operands(actor, inst, cfg, keys)
             (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
             prev = torch.full((1, B), -1, dtype=torch.int32, device=dev)
             for t in range(N // 2 + 1):
@@ -170,11 +175,25 @@ def main(argv=None) -> int:
                 got = AS.actor_select_step(*ops, cfg, logits=False,
                                            params_t=o["params_t"])
                 packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
+            ob = CS.actor_operands(actor, inst, cfg, keys, torch.bfloat16)
+        ops_b = ops[:12] + (ob["se"], ob["ctx"], ob["statp"], ob["statm"],
+                            ob["params"])
         pt = o["params_t"]
-        out[f"K2 main {name}"] = CS.time_gpu(lambda: AS.actor_select_step(
-            *ops, cfg, logits=False, params_t=pt), reps=50)
-        out[f"K2 full {name}"] = CS.time_gpu(lambda: AS.actor_select_step(
-            *ops, cfg, params_t=pt), reps=50)
+        for mode, lg in (("main", False), ("full", True)):
+            run = {"f32": lambda: AS.actor_select_step(
+                       *ops, cfg, logits=lg, params_t=pt),
+                   "bf16": lambda: AS.actor_select_step(*ops_b, cfg,
+                                                        logits=lg)}
+            turns = {"f32": [], "bf16": []}
+            for dt in ("f32", "bf16", "bf16", "f32"):
+                turns[dt].append(CS.time_gpu(run[dt], reps=50))
+            for dt, ts in turns.items():
+                out[f"K2 {mode} {dt} {name}"] = sum(ts) / 2
+            with torch.no_grad():  # the kernel --expect holds
+                got = run["f32"]()
+            out[f"K2 {mode} f32 {name} sha"] = {
+                "operands": _sha([*ops[:16], *ops[16], *pt]),
+                "outputs": _sha([g for g in got if g is not None])}
     for name, cfg in CONFIGS.items():
         inst = CS._instances(cfg, 4096, dev, 25)
         rbits = E.policy_bits(R.split(R.key(26, dev), 4096), cfg, "random")

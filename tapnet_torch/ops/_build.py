@@ -20,7 +20,8 @@ the package's `csrc/`): registers, spills, stack and shared memory.
     python -m tapnet_torch.ops._build --sass replay
 
 counts each kernel's HMMA instructions in the built library (`cuobjdump
--sass`): the tensor-core products of replay.cu's bfloat16 instantiations.
+-sass`): the tensor-core products of the bfloat16 instantiations of
+replay.cu (and, `--sass actor_step`, of actor_step.cu).
 """
 
 from __future__ import annotations

@@ -52,7 +52,10 @@ kernel casts to its compute dtype (`rounder`): the count summary, the
 normalised heightmap and its mean, each Dense output before and after its
 bias, dyn, se + dyn, + q, tanh, and each score before it becomes the
 float32 logit; the masking, the softmax, the gumbel argmax and log pi are
-float32.
+float32. The bfloat16 instantiation runs every product of the head on the
+tensor cores (exact bf16 products summed in float32, in the tensor core's
+order: a score can land one bf16 ulp from the plain version's) and reads
+the weights in their [out, in] layout: it does not read `params_t`.
 """
 
 from __future__ import annotations
@@ -76,6 +79,8 @@ MAX_H = 128  # hidden: a multiple of 32, at most 128
 SMEM_LIMIT = 232448  # bytes of shared memory a block may hold
 TB, LD, G, KS = 32, 33, 64, 64  # csrc/actor_step.cu: tile, stride, group,
 #                                 weight slice
+WPS = 40  # csrc/actor_step.cu: bfloat16 row stride of the staged Wp
+XS = 40   # csrc/mma_bf16.cuh MMA_XS: row stride (words) of B as bf16 pairs
 F32 = torch.float32
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' instantiations
 
@@ -103,7 +108,7 @@ def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     a multiple of 32 up to 128 and a block that fits in shared memory
     (`smem_bytes`)."""
     return (dtype in DTYPES and _covers_config(cfg) and h % 32 == 0
-            and 0 < h <= MAX_H and smem_bytes(cfg, h) <= SMEM_LIMIT)
+            and 0 < h <= MAX_H and smem_bytes(cfg, h, dtype) <= SMEM_LIMIT)
 
 
 def _check_cfg(cfg: TAPConfig, h: int = None, dtype=F32):
@@ -121,7 +126,7 @@ def _check_cfg(cfg: TAPConfig, h: int = None, dtype=F32):
             f"actor_select_step kernel covers a hidden width that is a "
             f"multiple of 32 up to {MAX_H} with at most {SMEM_LIMIT} B of "
             f"shared memory per block, not hidden {h} "
-            f"({smem_bytes(cfg, h)} B) on {cfg}")
+            f"({smem_bytes(cfg, h, dtype)} B in {dtype}) on {cfg}")
 
 
 def _num_limbs(N: int) -> int:
@@ -129,20 +134,33 @@ def _num_limbs(N: int) -> int:
     return (N + 30) // 31
 
 
-def smem_bytes(cfg: TAPConfig, h: int) -> int:
+def xb_words(WD: int, h: int) -> int:
+    """32-bit words of the bfloat16 instantiation's packed B operand: the
+    longest of the encoder/query products' k (W*D + 2 or 3h + 8), padded
+    to 16, as pairs in rows of XS words."""
+    k = max(WD + 2, 3 * h + 8)
+    return (k + 15) // 16 * 8 * XS
+
+
+def smem_bytes(cfg: TAPConfig, h: int, dtype=F32) -> int:
     """Shared memory of one block, in bytes, as
-    csrc/actor_step.cu::smem_bytes computes it. The same for both dtypes:
-    the bfloat16 instantiation reads bfloat16 operands from device memory
-    and holds their values, and its rounded intermediates, as float32 in
-    shared memory."""
+    csrc/actor_step.cu::smem_bytes computes it for the instantiation of
+    `dtype`. Both hold their activations as float32; the bfloat16 one's
+    tensor-core plan holds Wp as bfloat16 rows of WPS in place of the
+    float Wp^T, h1 rows padded to G + 4, the token group's dyn [G][h+4],
+    and in the token view the encoder/query weight slices as two bfloat16
+    slabs of 72 h floats beside the product's B operand as bfloat16 pairs
+    (`xb_words`)."""
     up4 = lambda x: (x + 3) & ~3
+    tc = dtype == torch.bfloat16
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD = cfg.target_width * cfg.target_depth
     T = N * R
     A = T * C
-    floats = (up4(32 * h) + 256 + 32 + up4(h) + up4(C * h * LD)
-              + A * TB + up4((WD + 2 + h + 3 * h + 8) * LD)
-              + max(40 * G, KS * h,
+    tok = 8 * G + 32 * (G + 4) + G * (h + 4) if tc else 40 * G
+    floats = (up4(h * WPS // 2 if tc else 32 * h) + 256 + 32 + up4(h)
+              + up4(C * h * LD) + A * TB + up4((WD + 2 + h + 3 * h + 8) * LD)
+              + max(tok, 72 * h + xb_words(WD, h) if tc else KS * h,
                     (N + 2 * _num_limbs(N) * N + R * N) * TB,
                     (13 + 8 * 16 + C * WD + 3 * N) * TB))
     ints = 12 * TB + 4 * TB + TB + 2 + TB * T
@@ -180,8 +198,9 @@ def head_shapes(cfg: TAPConfig, h: int):
 
 
 def transposed(params):
-    """W1, W2 and Wq of `head_operands` as [in, h]: the K2 and K5 kernels
-    stream their rows. The decode loop makes them once per rollout."""
+    """W1, W2 and Wq of `head_operands` as [in, h]: K2's float32
+    instantiation and the K5 kernels stream their rows. The decode loop
+    makes them once per float32 rollout."""
     return tuple(params[i].T.contiguous() for i in (3, 5, 8))
 
 
@@ -424,8 +443,11 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
     shapes += [(f"params[{k}]", p, s, f32 if k == 10 else cdt)
                for k, (p, s) in enumerate(zip(params, head_shapes(cfg, h)))]
     WD = W * D
-    shapes += [(f"params_t[{k}]", p, s, cdt) for k, (p, s) in enumerate(
-        zip(params_t, [(WD + 2, h), (h, h), (3 * h + 8, h)]))]
+    if params_t is None and cdt == F32:
+        raise ValueError("the float32 instantiation reads params_t")
+    if params_t is not None:  # optional in bfloat16, which does not read it
+        shapes += [(f"params_t[{k}]", p, s, cdt) for k, (p, s) in enumerate(
+            zip(params_t, [(WD + 2, h), (h, h), (3 * h + 8, h)]))]
     for name, t, shape, dt in shapes:
         _check(t, name, shape, dt, dev)
     outs = (torch.empty_like(packed), torch.empty_like(hm),
@@ -438,7 +460,8 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
     ptrs = _build.ptr_array(
         (packed, hm, plc, dims_w, dims_d, dims_h, tf, prev, upm, rotm, fits,
          g, se, ctx, statp, statm) + tuple(params)
-        + tuple(none if o is None else o for o in outs) + tuple(params_t))
+        + tuple(none if o is None else o for o in outs)
+        + (tuple(params_t) if params_t is not None else (none,) * 3))
     ints = _build.int_array([B] + env_ints(cfg)
                             + [h, cfg.window, int(logits),
                                int(cdt == torch.bfloat16)])
@@ -457,7 +480,8 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
     `actor_select_step_ref`. `logits=False`: the decode loop's mode, the
     token work on the live columns only and None in the logits' slot. The
     dtype of se picks the float32 or the bfloat16 instantiation.
-    params_t: `transposed(params)` (made here when not given)."""
+    params_t: `transposed(params)`, which only the float32 instantiation
+    reads (made here when not given)."""
     ops = (tf, packed, hm, plc, prev, dims_w, dims_d, dims_h, upm, rotm,
            fits, g, se, ctx, statp, statm, params)
     if not packed.is_cuda:
@@ -465,8 +489,9 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
         return ref(*ops, cfg, temperature)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        outs, err = _launch(ops, cfg, temperature, logits,
-                            params_t or transposed(params), stream)
+        if se.dtype == F32 and params_t is None:
+            params_t = transposed(params)
+        outs, err = _launch(ops, cfg, temperature, logits, params_t, stream)
     actor_select_step.launches += 1
     _build.check(err, "actor_select_step")
     return outs

@@ -2,7 +2,8 @@
 launch spends its cycles, phase by phase.
 
     python -m tapnet_torch.profile_phases [--config 2d-rolling]
-        [--batch 4096] [--hidden 128] [--out phases.json]
+        [--batch 4096] [--hidden 128] [--dtype bfloat16|float32]
+        [--csrc DIR] [--out phases.json]
     python -m tapnet_torch.profile_phases --kernel fused_rollout_batch
         [--config 2d-basic,2d-rolling] [--batch 4096]
     python -m tapnet_torch.profile_phases --kernel replay_logp_bwd
@@ -10,13 +11,16 @@ launch spends its cycles, phase by phase.
     python -m tapnet_torch.profile_phases --kernel replay_logp_bwd_steps
         [--config 2d-rolling] [--dtype bfloat16|float32] [--csrc DIR]
 
-actor_select_step (K2): builds a copy of `csrc/actor_step.cu` in which
-thread 0 of every block reads `clock64()` at the phase boundaries (each
-right after the barrier that ends a phase), rolls a sampled batch out to
-its middle decode step with the real kernel, then launches the copy on
-that step's operands in both modes and prints, per phase, the mean cycles
-over the blocks and the share of a block's total, with the launch's time
-(CUDA events, median of 10).
+actor_select_step (K2): builds a copy of `csrc/actor_step.cu` (or of
+DIR/actor_step.cu: `--csrc _verify/parent/tapnet_torch/csrc` profiles a
+parent checkout's body on this tree's operands; the C interface is the
+same) in which thread 0 of every block reads `clock64()` at the phase
+boundaries (each right after the barrier that ends a phase), rolls a
+sampled batch out to its middle decode step with the real kernel in the
+compute dtype `--dtype`, then launches the copy on that step's operands in
+both modes and prints, per phase, the mean cycles over the blocks and the
+share of a block's total, with the launch's time (CUDA events, median of
+10).
 
 fused_rollout_batch (K4): a copy of `csrc/env.cu` in which thread 0 of
 every block adds the cycles since its last read to the phase it just
@@ -105,12 +109,16 @@ extern "C" int tapnet_prof_read(long long* out, int n) {
 ''' % SLOTS
 
 
-def build():
-    """The instrumented K2 library (ctypes), built with the kernels'
-    flags."""
+def build(csrc=None):
+    """The instrumented K2 library (ctypes) of `csrc`/actor_step.cu
+    (default the package's), built with the kernels' flags."""
+    from pathlib import Path
+
     from tapnet_torch.ops import _build
-    return _build_copy("actor_step", instrumented_source(
-        (_build.CSRC / "actor_step.cu").read_text()))
+    src = Path(csrc or _build.CSRC)
+    return _build_copy("actor_step" + ("_tree" if csrc else ""),
+                       instrumented_source((src / "actor_step.cu")
+                                           .read_text()), src)
 
 
 # fused_rollout_batch: (text in csrc/env.cu before which thread 0 adds the
@@ -255,7 +263,8 @@ def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
 
     src = Path(csrc or _build.CSRC) / "replay.cu"
     tag = "_tree" if csrc else ""
-    lib = _build_copy("replay" + tag, replay_source(src.read_text()))
+    lib = _build_copy("replay" + tag, replay_source(src.read_text()),
+                      src.parent)
     fn = lib.tapnet_replay_logp
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -341,11 +350,16 @@ def launch_kernels(fn, calls: int = 3) -> dict:
     return out
 
 
-def _build_copy(name: str, source: str):
+def _build_copy(name: str, source: str, csrc=None):
+    """Build `source` with the headers of `csrc` (default the package's
+    csrc/) into _build/phases/<name>_phases.so and load it."""
+    from pathlib import Path
+
     from tapnet_torch.ops import _build
-    out = _build.BUILD / "phases"
+    out = _build.BUILD / "phases" / name
     out.mkdir(parents=True, exist_ok=True)
-    shutil.copy(_build.CSRC / "select_place.cuh", out)
+    for hdr in Path(csrc or _build.CSRC).glob("*.cuh"):
+        shutil.copy(hdr, out)
     (out / f"{name}.cu").write_text(source)
     lib = out / f"{name}_phases.so"
     subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(lib),
@@ -411,10 +425,11 @@ def rollout_phases(names, batch: int, dev) -> dict:
     return res
 
 
-def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0):
+def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0,
+                      dtype=torch.float32):
     """The operands of the middle decode step of a sampled rollout on the
-    card (`rollout_batch_record`'s actor-fused path) and its transposed
-    weights."""
+    card (`rollout_batch_record`'s actor-fused path in the compute dtype
+    `dtype`) and its transposed weights (None in bfloat16)."""
     from tapnet_torch import random as R
     from tapnet_torch.env.sampler import sample_batch
     from tapnet_torch.models.tapnet import init_params
@@ -432,7 +447,8 @@ def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0):
 
     AS._launch = spy
     try:
-        RO.rollout_batch_record(actor, inst, keys, cfg, actor_kernel=True)
+        RO.rollout_batch_record(actor, inst, keys, cfg, actor_kernel=True,
+                                dtype=dtype)
     finally:
         AS._launch = launch
     return calls[mid]
@@ -451,10 +467,10 @@ def main(argv=None) -> int:
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"),
-                    help="the replay's compute dtype")
+                    help="the compute dtype (K2 and the replay)")
     ap.add_argument("--csrc", default="",
-                    help="the replay: instrument DIR/replay.cu (another "
-                         "checkout's) instead of the package's")
+                    help="K2 and the replay: instrument DIR's source "
+                         "(another checkout's) instead of the package's")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -481,15 +497,19 @@ def main(argv=None) -> int:
                 json.dump(res, f, indent=1)
         return 0
     cfg = CONFIGS[args.config]
-    ops, params_t = mid_step_operands(cfg, args.batch, args.hidden, dev)
-    lib = build()
+    ops, params_t = mid_step_operands(cfg, args.batch, args.hidden, dev,
+                                      dtype=getattr(torch, args.dtype))
+    # another checkout's bfloat16 body may read the transposed weights
+    params_t = params_t or AS.transposed(ops[16])
+    lib = build(args.csrc or None)
     fn = lib.tapnet_actor_select_step
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     nb = (args.batch + 31) // 32
     res = {"device": torch.cuda.get_device_name(0), "config": args.config,
-           "batch": args.batch, "hidden": args.hidden, "modes": []}
+           "batch": args.batch, "hidden": args.hidden, "dtype": args.dtype,
+           "source": args.csrc or "csrc", "modes": []}
     lib_of = AS._lib
     AS._lib = lambda: fn
     try:
@@ -522,6 +542,7 @@ def main(argv=None) -> int:
                     "phases": dict(zip(PHASES, phases))}
             res["modes"].append(mode)
             print(f"{args.config} B={args.batch} hidden {args.hidden} "
+                  f"{args.dtype} ({res['source']}) "
                   f"logits={logits}: {mode['ms']:.4f} ms/launch, "
                   f"{total:.0f} cycles per block (mean)")
             for name, c in mode["phases"].items():

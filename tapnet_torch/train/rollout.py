@@ -369,10 +369,10 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     """One `actor_select_step` per decode step in its live-column mode
     (`logits=False`): flags, mask, the head over the live columns, the
     gumbel argmax, select/place and log pi in one launch. Only the static
-    embedding (as the kernel's [B, T, h] rows, built once), the transposed
-    W1, W2, Wq (once) and the gumbel sweep run as PyTorch ops. The float
-    operands are in the compute dtype `dtype` (the head's v and the gumbel
-    stay float32), which picks the kernel's instantiation."""
+    embedding (as the kernel's [B, T, h] rows, built once), in float32 the
+    transposed W1, W2, Wq (once) and the gumbel sweep run as PyTorch ops.
+    The float operands are in the compute dtype `dtype` (the head's v and
+    the gumbel stay float32), which picks the kernel's instantiation."""
     B = instances.dims.shape[0]
     dev = instances.dims.device
     N, R_, A = cfg.num_blocks, cfg.num_rot, cfg.num_actions
@@ -387,7 +387,7 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     upm, rotm = AS.precedence_bitmasks(instances, cfg)
     fits = AS.fits_planes(instances, cfg)
     params = AS.head_operands(actor, cfg, dtype)
-    params_t = AS.transposed(params)
+    params_t = AS.transposed(params) if dtype == torch.float32 else None
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = (torch.zeros((N, A, B), device=dev) if greedy
              else _gumbel_all(keys, cfg).transpose(1, 2).contiguous())

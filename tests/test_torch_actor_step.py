@@ -273,3 +273,54 @@ def test_window_and_two_limbs_raise():
         with pytest.raises(NotImplementedError):
             AS._check_cfg(cfg)
     assert AS.smem_bytes(CONFIGS["2d-rolling"], 128) <= AS.SMEM_LIMIT
+
+
+def _smem_rule(cfg, h, dtype):
+    """csrc/actor_step.cu's shared-memory plan written out, in bytes: the
+    float regions (Wp, W8, b8, v, the C queries, the scores, the encoder's
+    [feature][33] arrays, the token view) and the ints behind them. The
+    bfloat16 instantiation holds Wp as bfloat16 rows of 40 (20 h floats),
+    and its token view holds x8 [8][64], h1 [32][68] and dyn [64][h+4], or
+    two weight slabs of h x 72 bfloat16 beside the B operand as
+    bfloat16 pairs (k of W*D + 2 or 3h + 8 padded to 16, rows of 40
+    words)."""
+    N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
+    WD = cfg.target_width * cfg.target_depth
+    T, L = N * R, (N + 30) // 31
+    up4 = lambda x: (x + 3) // 4 * 4
+    bf = dtype == torch.bfloat16
+    rows = max((N + 2 * L * N + R * N) * 32,             # phase 0's rows
+               (13 + 8 * 16 + C * WD + 3 * N) * 32)      # phase 3's
+    if bf:
+        k = max(WD + 2, 3 * h + 8)
+        view = max(8 * 64 + 32 * 68 + 64 * (h + 4),
+                   72 * h + (k + 15) // 16 * 8 * 40, rows)
+    else:
+        view = max(40 * 64, 64 * h, rows)
+    floats = (up4(20 * h if bf else 32 * h) + 256 + 32 + up4(h)
+              + up4(C * h * 33) + T * C * 32 + up4((WD + 4 * h + 10) * 33)
+              + view)
+    ints = 17 * 32 + 2 + 32 * T
+    return 4 * (floats + ints)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [32, 64, 96, 128])
+def test_smem_plan_and_eligible(h, dtype):
+    """`smem_bytes(cfg, h, dtype)` is the plan written out above on the six
+    CONFIGS, and `eligible(cfg, h, dtype)` is the config rule (unbounded
+    height, N <= 62, C <= 4, W*D <= 256) with a block within 227 KB: every
+    config but the capped one at every width in both dtypes. The float32
+    plan is unchanged (142,680 B at 2d-basic, 178,552 B at 2d-rolling)."""
+    for name, cfg in CONFIGS.items():
+        smem = AS.smem_bytes(cfg, h, dtype)
+        assert smem == _smem_rule(cfg, h, dtype), name
+        fits = smem <= 232448
+        assert AS.eligible(cfg, h, dtype) == (
+            cfg.target_height == 0 and cfg.num_blocks <= 62
+            and cfg.num_containers <= 4
+            and cfg.target_width * cfg.target_depth <= 256 and fits), name
+        assert AS.eligible(cfg, h, dtype) == (name != "multi-container-capped")
+    if h == 128 and dtype == torch.float32:
+        assert AS.smem_bytes(CONFIGS["2d-basic"], h) == 142680
+        assert AS.smem_bytes(CONFIGS["2d-rolling"], h) == 178552

@@ -13,6 +13,8 @@ bf16: logits to about 1e-2, validation distributional):
    dtype=bfloat16, interpret=True)` in lockstep over a whole sampled
    rollout (2d-basic, 2d-rolling): logits within LOGIT_TOL, integer outputs
    equal where the actions agree, action agreement > 0.99 at every step;
+   and with its products summed as the card's tensor cores sum them
+   (chunks of 16 along k), within `chip_smoke.py` phase 24's gate;
 3. the plain bf16 K5, monolithic and step-grid, against the Pallas replay
    kernels in bf16 (`replay_logp_fused`, the function `replay_logp_sum(
    kernel=True)` calls) on JAX's own bf16 operands (2d-basic, 2d-rolling;
@@ -293,32 +295,53 @@ def _k2_operands(s):
         jnp.asarray(static.numpy(), JBF).mean(axis=1).T]
 
 
-@pytest.mark.parametrize("name", ["2d-basic", "2d-rolling"])
-def test_plain_k2_bf16_matches_jax_kernel(name):
-    """A whole sampled rollout in lockstep: every step, from the reset state
-    (prev -1, t = 0) to the last, runs the Pallas kernel and the plain K2
-    (both modes) on the same pre-step state, then both go on from the
-    kernel's next state."""
+K2_LABELS = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+
+
+@functools.cache
+def _k2_trajectory(name):
+    """The Pallas bf16 K2 over a whole sampled rollout at temperature 0.7,
+    from the reset state (prev -1, t = 0) to the last step: per step the
+    operands as the port takes them (se as [B, T, h]) and the kernel's
+    outputs as float32 numpy. Each step starts from the kernel's previous
+    outputs, so the trajectory is the JAX side's alone."""
     s = _setup(name, B=128)
     cfg, jcfg = s["cfg"], s["jcfg"]
     N = cfg.num_blocks
     ops = _k2_operands(s)
     jparams = JAS.head_operands(s["params"]["actor"], jcfg, JBF)
-    params = AS.head_operands(s["actor"], cfg, BF)
-    assert [p.dtype for p in params] == [BF] * 10 + [torch.float32]
     step = lambda o, p: JAS.actor_select_step(
         *o, p, cfg=jcfg, temperature=0.7, dtype=JBF, interpret=True)
     with jax.default_matmul_precision("highest"):
         step = _compile_strict(step, [jnp.asarray(o) for o in ops], jparams)
-    labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
     rng = np.random.default_rng(11)
-    worst, agree = 0.0, []
+    steps = []
     for k in range(N):
         ops[11] = rng.gumbel(size=ops[11].shape).astype(np.float32)
         want = step([jnp.asarray(o) for o in ops], jparams)
-        w = {lab: _f32(v) for lab, v in zip(labels, want)}
         pops = [_port(o) for o in ops]
         pops[12] = pops[12].permute(2, 0, 1).contiguous()  # se as [B, T, h]
+        steps.append((pops, {lab: _f32(v) for lab, v in zip(K2_LABELS,
+                                                            want)}))
+        ops[0] = np.full((1, 1), (k + 1) / N, np.float32)
+        ops[1], ops[2], ops[3] = (np.asarray(want[i]) for i in range(3))
+        ops[4] = np.asarray(want[3])[None]
+    return steps
+
+
+@pytest.mark.parametrize("name", ["2d-basic", "2d-rolling"])
+def test_plain_k2_bf16_matches_jax_kernel(name):
+    """A whole sampled rollout in lockstep: every step, from the reset state
+    (prev -1, t = 0) to the last, runs the Pallas kernel and the plain K2
+    (both modes) on the same pre-step state, then both go on from the
+    kernel's next state (`_k2_trajectory`)."""
+    s = _setup(name, B=128)
+    cfg = s["cfg"]
+    N = cfg.num_blocks
+    params = AS.head_operands(s["actor"], cfg, BF)
+    assert [p.dtype for p in params] == [BF] * 10 + [torch.float32]
+    worst, agree = 0.0, []
+    for k, (pops, w) in enumerate(_k2_trajectory(name)):
         full = AS.actor_select_step(*pops, params, cfg, temperature=0.7)
         live = AS.actor_select_step(*pops, params, cfg, temperature=0.7,
                                     logits=False)
@@ -328,7 +351,7 @@ def test_plain_k2_bf16_matches_jax_kernel(name):
         assert err <= LOGIT_TOL, f"step {k} logits: max err {err}"
         worst = max(worst, float(err))
         for got in (full, live):
-            g = dict(zip(labels, got))
+            g = dict(zip(K2_LABELS, got))
             np.testing.assert_array_equal(g["act"], full[3])
             for lab in ("flags", "mask"):
                 np.testing.assert_array_equal(g[lab].numpy(), w[lab],
@@ -340,12 +363,107 @@ def test_plain_k2_bf16_matches_jax_kernel(name):
             np.testing.assert_allclose(g["logp"].numpy()[same],
                                        w["logp"][same], atol=LOGIT_TOL,
                                        rtol=VALUE_TOL, err_msg=f"step {k}")
-        ops[0] = np.full((1, 1), (k + 1) / N, np.float32)
-        ops[1], ops[2], ops[3] = (np.asarray(want[i]) for i in range(3))
-        ops[4] = np.asarray(want[3])[None]
-    assert min(agree) > 0.99, agree
+    assert len(agree) == N and min(agree) > 0.99, agree
     print(f"\n{name} K2 lockstep: {N} steps, logits max err {worst:.3e}, "
           f"action agreement >= {min(agree):.4f}")
+
+
+# chip_smoke.py phase 24's gate for K2 bf16 against its plain version:
+# BF16_ATOL + BF16_RTOL |x| for logits and logp, BF16_AGREE for the actions
+CARD_ATOL, CARD_RTOL, CARD_AGREE = 1e-2, 2.0 ** -7, 0.99
+
+
+def _tc_matmul(a, b):
+    """a @ b (float32 operands holding bfloat16 values) summed as
+    mma.sync.m16n8k16 bf16 x bf16 + f32 does: the exact products of each
+    chunk of 16 along k summed (in float64) and rounded to float32, the
+    chunks added into a float32 accumulator in k order."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 16):
+        acc = acc + (a[:, k0:k0 + 16].double()
+                     @ b[k0:k0 + 16].double()).float()
+    return acc
+
+
+class _TensorCoreSums(torch.overrides.TorchFunctionMode):
+    """Inside it, every matrix product with k > 8 is `_tc_matmul`: the
+    products K2 bf16 runs on the tensor cores (W1, W2, Wq, Wp); W8 x8 (k
+    = 8) stays a float32 product, as the kernel keeps it SIMT. Counts the
+    products it took and those whose sums came out other than float32's."""
+
+    def __init__(self):
+        super().__init__()
+        self.products = self.moved = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in (torch.Tensor.__matmul__, torch.Tensor.matmul,
+                     torch.matmul)
+                and args[0].dim() == 2 and args[0].shape[1] > 8):
+            out = _tc_matmul(*args)
+            self.products += 1
+            self.moved += not torch.equal(out, func(*args))
+            return out
+        return func(*args, **(kwargs or {}))
+
+
+def _card_close(what, got, want):
+    d = np.abs(got - want)
+    assert (d <= CARD_ATOL + CARD_RTOL * np.abs(want)).all(), \
+        f"{what}: max err {d.max()}"
+    return float(d.max()) if d.size else 0.0
+
+
+@pytest.mark.parametrize("name", ["2d-basic", "2d-rolling"])
+def test_tensor_core_sums_meet_the_card_gate(name):
+    """K2 bf16 on the card sums its products on the tensor cores, in their
+    own order. The plain bf16 K2 (both modes) with every product so
+    grouped (`_TensorCoreSums`) against the Pallas kernel in lockstep (the
+    trajectory of the test above) meets phase 24's gate unchanged: logits,
+    and logp where the actions agree, within CARD_ATOL + CARD_RTOL |x|;
+    flags and mask equal; the state rows equal where the actions agree;
+    the actions agreeing on more than CARD_AGREE of the acting (instance,
+    step) pairs."""
+    s = _setup(name, B=128)
+    cfg = s["cfg"]
+    params = AS.head_operands(s["actor"], cfg, BF)
+    worst = moved = 0.0
+    agree = pairs = 0
+    mode = _TensorCoreSums()
+    for k, (pops, w) in enumerate(_k2_trajectory(name)):
+        with mode:
+            full = AS.actor_select_step(*pops, params, cfg, temperature=0.7)
+            live = AS.actor_select_step(*pops, params, cfg, temperature=0.7,
+                                        logits=False)
+        plain = AS.actor_select_step(*pops, params, cfg, temperature=0.7)
+        moved = max(moved, float((full[6] - plain[6]).abs().max()))
+        worst = max(worst, _card_close(f"step {k} logits", full[6].numpy(),
+                                       w["logits"]))
+        same = full[3].numpy() == w["act"]
+        acting = w["act"] >= 0
+        agree += int((same & acting).sum())
+        pairs += int(acting.sum())
+        for got in (full, live):
+            g = dict(zip(K2_LABELS, got))
+            np.testing.assert_array_equal(g["act"], full[3])
+            for lab in ("flags", "mask"):
+                np.testing.assert_array_equal(g[lab].numpy(), w[lab],
+                                              err_msg=f"step {k} {lab}")
+            for lab in ("packed", "hm", "plc"):
+                np.testing.assert_array_equal(
+                    g[lab].numpy()[..., same], w[lab][..., same],
+                    err_msg=f"step {k} {lab}")
+            worst = max(worst, _card_close(f"step {k} logp",
+                                           g["logp"].numpy()[same],
+                                           w["logp"][same]))
+    assert agree / max(pairs, 1) > CARD_AGREE, (agree, pairs)
+    # every step's W1, W2, Wq and Wp products in both modes, and most sums
+    # reordered
+    assert mode.products == 2 * 4 * len(_k2_trajectory(name))
+    assert mode.moved > mode.products // 2, (mode.moved, mode.products)
+    print(f"\n{name} K2 with tensor-core sums vs the Pallas kernel: max "
+          f"logit/logp err {worst:.3e}; {mode.moved} of {mode.products} "
+          f"products summed to other float32 values, the scores moved by "
+          f"up to {moved:.3e}; action agreement {agree / pairs:.4f}")
 
 
 # ---- 3. plain bf16 K5 against the Pallas replay kernels ---------------- #

@@ -46,14 +46,16 @@ def test_sha_covers_bytes_and_dtypes():
 
 
 def test_check_expected(tmp_path):
-    """Only the float32 K5 hashes decide; a differing one fails."""
+    """Every recorded hash decides (K2 float32, K5 in both dtypes); a
+    differing one fails, in either dtype."""
     line = {"tag": "parent", "K5b f32 2d-basic": 2.5,
             "K5b f32 2d-basic sha": {"operands": "a", "outputs": "b"},
-            "K5b bf16 2d-basic sha": {"operands": "c", "outputs": "d"}}
+            "K5b bf16 2d-basic sha": {"operands": "c", "outputs": "d"},
+            "K2 main f32 2d-basic sha": {"operands": "e", "outputs": "f"}}
     path = tmp_path / "kt.json"
     path.write_text("noise\n" + json.dumps(line) + "\n")
-    same = {"K5b f32 2d-basic sha": {"operands": "a", "outputs": "b"},
-            "K5b bf16 2d-basic sha": {"operands": "c", "outputs": "e"}}
+    same = {k: dict(v) for k, v in line.items() if k.endswith(" sha")}
     assert KT.check_expected(same, str(path))
-    moved = {"K5b f32 2d-basic sha": {"operands": "a", "outputs": "x"}}
-    assert not KT.check_expected(moved, str(path))
+    for k in same:
+        moved = {**same, k: {**same[k], "outputs": "x"}}
+        assert not KT.check_expected(moved, str(path)), k
