@@ -100,10 +100,11 @@ source, all started at once), then runs, and fails on the first fault:
    train step (host clock);
 18. past a kernel's coverage, the fallbacks the routers pick
    (`train.rollout.routes`) on the card: 2 train steps of 2d-basic at
-   hidden 256, batch 256 (K1 x10 and K3 x1 per step, no K2, no K5: the
-   general replay) and a step against the CPU path; sampled pack() at
-   hidden 256 (K1 x10) against the CPU path; pack(first/random) on a
-   17 x 16 3D target (no K4) equal to the CPU path; and K2, K5b, K1 and K4
+   hidden 48 (not a multiple of 32), batch 256 (K1 x10 and K3 x1 per step,
+   no K2, no K5: the general replay) and a step against the CPU path;
+   sampled pack() at hidden 48 (K1 x10) against the CPU path;
+   pack(first/random) on a 17 x 16 3D target (no K4) equal to the CPU
+   path; and K2, K5b, K1 and K4
    called directly outside their coverage raise NotImplementedError;
 19. K1 and K4 where a split-and-join placement can go wrong (the configs
    of tests/test_torch_place_edges.py: duplicate score rows and equal
@@ -121,7 +122,7 @@ source, all started at once), then runs, and fails on the first fault:
    replaced (the reductions, then the composition as PyTorch ops);
 21. `make_train_step(steps_per_call=k)` as a CUDA graph: 2d-basic at batch
    4096 (k = 8), 2d-rolling at 4096 (k = 4), multi-container-capped at 256
-   (k = 4, the K1 route) and 2d-basic at hidden 256, batch 256 (k = 2, the
+   (k = 4, the K1 route) and 2d-basic at hidden 48, batch 256 (k = 2, the
    fallback route): one step captured and replayed k times, the launches
    counted by the capture (1 x the per-step counts; the eager warm-up step
    on a copy the same), none counted by a call of k replays, one call
@@ -181,8 +182,8 @@ source, all started at once), then runs, and fails on the first fault:
    tiling can break (`actor_bf16_shapes`: hidden 32, 64, 96 at 2d-basic,
    batch 256; a ragged batch of 100; multi-container at temperature 0.7,
    batch 256) and `ops.actor_step.smem_bytes` against the kernel's own
-   plan (`tapnet_actor_smem_bytes`) for the six CONFIGS, hidden 32-128,
-   both dtypes; K5f, K5b,
+   plan (`tapnet_actor_smem_bytes`) for the six CONFIGS, every hidden
+   width 32-256, both dtypes; K5f, K5b,
    K5f-steps and K5b-steps in bf16 against their plain bf16 versions on
    the card's own bf16 records (2d-basic at 4096, multi-container at 512,
    2d-rolling at 4096): values within 1e-2 relative, also against the
@@ -195,8 +196,8 @@ source, all started at once), then runs, and fails on the first fault:
    p2d 0.5 batch of 512; multi-container-capped at 256 on its own K1
    record), with the largest scaled gradient error over all of them, and
    `ops.replay.smem_bytes` against the kernel's own plan
-   (`tapnet_replay_smem_bytes`) for the six CONFIGS, hidden 32-128, both
-   kernels, schedules and dtypes; the bf16
+   (`tapnet_replay_smem_bytes`) for the six CONFIGS, every hidden width
+   32-256, both kernels, schedules and dtypes; the bf16
    train step at
    2d-basic, hidden 128, batch 4096: 5 steps with K2 10, K5b 1, K3 1 and no
    K5f a step, finite metrics, a bit-identical repeat, a step at batch 256
@@ -224,10 +225,33 @@ source, all started at once), then runs, and fails on the first fault:
    world-1 NCCL group, `data_model_mesh(1, 1)` and `shard_params_tp` on a
    hidden-128 actor, its forward at batch 4096 bit-equal to the
    replicated one, the spec tree logged. `chip_smoke.phase_25(dev)` runs
-   it alone after `ops._build.build_all()`.
+   it alone after `ops._build.build_all()`;
+26. K2 and K5 at hidden widths above 128, where their head runs in two
+   passes of 16 instances: the routers take them at hidden 256 on
+   2d-basic and 2d-rolling; at hidden 160, 192, 224 and 256 K2 (both
+   modes, both dtypes) and K5 (K5f/K5b where the config is monolithic,
+   K5f-steps/K5b-steps always, both dtypes) against their plain versions
+   on `wide_shapes` (2d-basic at 512, a ragged 100, multi-container at
+   temperature 0.7; 2d-rolling at 512 at hidden 160 and 256) at the
+   tolerances of phases 3, 7, 15 and 24, backward repeats bit-identical;
+   at hidden 256: pack() on
+   2d-basic at 4096 (greedy K1 x10, sample and best-of-16 K2 x10, no
+   select_step) and against the CPU path; 3 f32 and 3 bf16 train steps at
+   batch 4096 (K2 10, K5b 1, K3 1 a step), each repeated bit for bit, a
+   step at batch 256 against the CPU path (the bf16 one under
+   scripts/tpu_parity.py's gate); steps_per_call graphs (2d-basic k = 8 in
+   both dtypes, 2d-rolling k = 4: phase 21's checks); a 2d-rolling train
+   step in each dtype (K2 50, K5b-steps 1, K3 1); the train step at
+   4096 against the fallback that served hidden 256 before (K1 + the
+   general replay), in turns; K2 f32 launched twice bit-identical; times
+   at 4096 of K2's main-path mode (2d-basic,
+   2d-rolling) and of K5f/K5b, K5f-steps/K5b-steps in both dtypes, in
+   turns, with their plain versions and bounds. `chip_smoke.phase_26(dev)`
+   runs it alone after `ops._build.build_all()`.
 
 It prints the kernel table as one JSON line (each entry with its "dtype";
-the bf16 instantiations as entries of their own), then the nvidia-smi line,
+the bf16 instantiations as entries of their own, and the hidden-256
+instantiations too, with a "hidden" key), then the nvidia-smi line,
 then
 `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
@@ -347,10 +371,12 @@ def actor_operands(actor, inst, cfg, keys, dtype=torch.float32):
     return o
 
 
-def check_actor_step(cfg, B, actor, dev, keep=None, p2d=0.0):
-    """Sampled rollout; at every step both modes of actor_select_step and
-    the full plain version get the same inputs. The full mode: integer
-    outputs equal, logits and logp within TOL; the main path's mode
+def check_actor_step(cfg, B, actor, dev, keep=None, p2d=0.0,
+                     temperature=1.0):
+    """Sampled rollout at `temperature`; at every step both modes of
+    actor_select_step and the full plain version get the same inputs. The
+    full mode: integer outputs equal, logits and logp within TOL; the
+    main path's mode
     (logits=False, live columns): integer outputs equal to the full plain
     version's, logp within TOL. The rollout advances on the main-path
     mode's outputs. Returns the middle step's operands when `keep` is set
@@ -374,9 +400,10 @@ def check_actor_step(cfg, B, actor, dev, keep=None, p2d=0.0):
                    o["statp"], o["statm"], o["params"])
             if keep and t == N // 2:
                 kept = ops
-            want = AS.actor_select_step_ref(*ops, cfg)
+            want = AS.actor_select_step_ref(*ops, cfg, temperature)
             for logits in (True, False):
-                got = AS.actor_select_step(*ops, cfg, logits=logits,
+                got = AS.actor_select_step(*ops, cfg, temperature,
+                                           logits=logits,
                                            params_t=o["params_t"])
                 what = f"actor_select_step(logits={logits})"
                 for name, g, w in zip(names, got, want):
@@ -1249,11 +1276,11 @@ def rolling_cases():
 def check_fallback_routes(dev):
     """On the card, configs a kernel does not cover run through the path
     `routes` picks instead, with the CPU path's results: a train step and
-    sampled pack() at hidden 256 (past K2 and the replay kernels: K1 and
-    the general replay), pack(first/random) on a 17 x 16 target (past K4,
-    K1 and K2: the env's own rollout). The wrappers called directly
-    outside their coverage still raise. Returns the launch counts of the
-    run."""
+    sampled pack() at hidden 48 (not a multiple of 32: past K2 and the
+    replay kernels, so K1 and the general replay), pack(first/random) on
+    a 17 x 16 target (past K4, K1 and K2: the env's own rollout). The
+    wrappers called directly outside their coverage still raise. Returns
+    the launch counts of the run."""
     from tapnet_torch import CONFIGS, TAPConfig, pack
     from tapnet_torch import random as R
     from tapnet_torch.models.tapnet import init_params
@@ -1263,7 +1290,7 @@ def check_fallback_routes(dev):
     from tapnet_torch.ops import replay as RP
     from tapnet_torch.train import rollout as RO
 
-    cfg, h = CONFIGS["2d-basic"], 256
+    cfg, h = CONFIGS["2d-basic"], 48
     want = RO.Routes("step", False, True)
     if RO.routes(cfg, True, h) != want:
         raise AssertionError(f"routes at hidden {h}: "
@@ -2476,8 +2503,8 @@ def check_actor_bf16_shapes(dev, log_fn):
 
 def check_actor_smem_mirror():
     """ops.actor_step.smem_bytes against the kernel's own plan
-    (`tapnet_actor_smem_bytes`) for the six CONFIGS, hidden 32-128, both
-    dtypes. Returns the cases."""
+    (`tapnet_actor_smem_bytes`) for the six CONFIGS, every hidden width
+    the kernel covers (32-256), both dtypes. Returns the cases."""
     import ctypes
 
     from tapnet_torch import CONFIGS
@@ -2490,7 +2517,7 @@ def check_actor_smem_mirror():
     fn.restype = ctypes.c_longlong
     n = 0
     for cfg in CONFIGS.values():
-        for h in (32, 64, 96, 128):
+        for h in range(32, AS.MAX_H + 1, 32):
             for dt in (torch.float32, BF16):
                 bf = int(dt == BF16)
                 ints = _build.int_array([1] + env_ints(cfg)
@@ -2592,8 +2619,9 @@ def check_replay_bf16_shapes(dev, log_fn):
 
 def check_replay_smem_mirror():
     """ops.replay.smem_bytes against the kernel's own plan
-    (`tapnet_replay_smem_bytes`) for the six CONFIGS, hidden 32-128, both
-    schedules, forward and backward, both dtypes. Returns the cases."""
+    (`tapnet_replay_smem_bytes`) for the six CONFIGS, every hidden width
+    the kernels cover (32-256), both schedules, forward and backward, both
+    dtypes. Returns the cases."""
     import ctypes
 
     from tapnet_torch import CONFIGS
@@ -2607,7 +2635,7 @@ def check_replay_smem_mirror():
     fn.restype = ctypes.c_longlong
     n = 0
     for cfg in CONFIGS.values():
-        for h in (32, 64, 96, 128):
+        for h in range(32, RP.MAX_H + 1, 32):
             ints = _build.int_array(RP._ints(cfg, 1, h))
             for bwd in (False, True):
                 for steps in (False, True):
@@ -2678,7 +2706,7 @@ def check_train_bf16_against_cpu(cfg, ts, dev, B=256):
     return agree, drew, diffs
 
 
-def time_actor_dtypes(kept, cfg):
+def time_actor_dtypes(kept, cfg, hidden=HIDDEN):
     """K2's main-path mode on one step's operands in float32 and bf16, in
     turns (f32, bf16, bf16, f32; CUDA events), and the bf16 instantiation's
     full `time_actor_step` record (plain version, bound)."""
@@ -2691,21 +2719,24 @@ def time_actor_dtypes(kept, cfg):
         run[tag] = (lambda ops=ops, pt=pt: AS.actor_select_step(
             *ops, cfg, logits=False, params_t=pt))
     turns = [time_gpu(run[t]) for t in ("f32", "bf16", "bf16", "f32")]
-    k = time_actor_step(ops_b, cfg, HIDDEN, plain_reps=5,
+    k = time_actor_step(ops_b, cfg, hidden, plain_reps=5,
                         plain_sleep=200_000_000)
     k.update(f32_turns=(turns[0], turns[3]), bf16_turns=(turns[1], turns[2]))
     return k
 
 
-def time_replay_dtypes(ops, ops32, dlp, cfg, steps):
+def time_replay_dtypes(ops, ops32, dlp, cfg, steps, hidden=HIDDEN,
+                       f32=False):
     """K5f and K5b (`steps`: their step-grid schedule) on one record's bf16
     and float32 operands in turns (f32, bf16, bf16, f32; CUDA events), their
     plain bf16 versions, and the bf16 bounds: the bytes at each operand's
     width (the prev rows too on the step grid), the products at the bf16
     tensor-core peak, the rest at the f32 rate, over the live columns.
-    Returns {"fwd": {...}, "bwd": {...}}."""
+    With `f32`, also the plain float32 versions' times and the float32
+    bounds (every operation at the f32 rate). Returns {"fwd": {...}, "bwd":
+    {...}}."""
     fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, 1.0, steps)
-    fwd32, _, bwd32, _ = replay_fns(ops32, cfg, 1.0, steps)
+    fwd32, fwd32_ref, bwd32, bwd32_ref = replay_fns(ops32, cfg, 1.0, steps)
     reps = 10 if steps else REPS
     B = dlp.shape[0]
     pairs, triples = live_counts(cfg, ops[2], ops[3])
@@ -2714,16 +2745,18 @@ def time_replay_dtypes(ops, ops32, dlp, cfg, steps):
     d_se, d_ctx, d_par = bwd(dlp)
     out_b = nbytes([dlp, d_se, d_ctx]) + nbytes(d_par)
     del d_se, d_ctx, d_par
+    moved32 = (nbytes(ops32[:8]) + nbytes(ops32[8])
+               + (nbytes([ops32[3]]) if steps else 0))
     res = {}
-    for label, kern, kern32, ref, extra, bwd_ in (
-            ("fwd", fwd, fwd32, fwd_ref, 4 * B, False),
+    for label, kern, kern32, ref, ref32, extra, bwd_ in (
+            ("fwd", fwd, fwd32, fwd_ref, fwd32_ref, 4 * B, False),
             ("bwd", lambda: bwd(dlp), lambda: bwd32(dlp),
-             lambda: bwd_ref(dlp), out_b, True)):
+             lambda: bwd_ref(dlp), lambda: bwd32_ref(dlp), out_b, True)):
         turns = [time_gpu(f, reps=reps)
                  for f in (kern32, kern, kern, kern32)]
         plain = time_gpu(ref, reps=2 if steps else 5,
                          sleep_cycles=400_000_000, warm=1)
-        split = replay_ops_split(cfg, B, HIDDEN, bwd_, pairs, triples)
+        split = replay_ops_split(cfg, B, hidden, bwd_, pairs, triples)
         t_ops = ops_ms(split, BF16)
         b = moved + extra
         res[label] = {
@@ -2734,6 +2767,16 @@ def time_replay_dtypes(ops, ops32, dlp, cfg, steps):
             "bound": max(1e3 * b / HBM_BYTES_S, t_ops),
             "bound_by": ("operations" if t_ops >= 1e3 * b / HBM_BYTES_S
                          else "bytes")}
+        if f32:
+            b32 = moved32 + extra
+            o32 = ops_ms(split, torch.float32)
+            res[label].update(
+                f32_plain_ms=time_gpu(ref32, reps=2 if steps else 5,
+                                      sleep_cycles=400_000_000, warm=1),
+                f32_bytes=b32,
+                f32_bound=max(1e3 * b32 / HBM_BYTES_S, o32),
+                f32_bound_by=("operations" if o32 >= 1e3 * b32 / HBM_BYTES_S
+                              else "bytes"))
     return res
 
 
@@ -3067,6 +3110,261 @@ def phase_25(dev):
         f"B={B_MAIN}: the sharded forward == the replicated one, bit for "
         f"bit; spec tree {json.dumps(tree)}")
     log(f"phase 25 done in {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------------------------ #
+# phase 26: K2 and K5 at hidden widths above 128 (two head passes)
+
+WIDE = (160, 192, 224, 256)  # the hidden widths of the two-pass head
+WIDE_H = 256                 # the widest, at full batch
+
+
+def wide_shapes(h):
+    """(config, batch, temperature) where the two head passes of 16
+    instances can break at hidden h: 2d-basic at 512, a ragged batch of 100
+    (the last tile's second pass empty), multi-container at temperature 0.7
+    (C = 2, W*D + 2 = 66) and, at 160 (5 rows a thread: the odd-row
+    products) and 256, 2d-rolling (window 10, 50 blocks: K2's 64-bit
+    words, K5's step grid)."""
+    return ([("2d-basic", 512, 1.0), ("2d-basic", 100, 1.0),
+             ("multi-container", 512, 0.7)]
+            + ([("2d-rolling", 512, 1.0)] if h in (160, WIDE_H) else []))
+
+
+def check_wide_kernels(dev, log_fn):
+    """K2 (both modes, both dtypes) and K5 (K5f/K5b monolithic where the
+    config allows it, K5f-steps/K5b-steps always, both dtypes) against
+    their plain versions at every width of WIDE on each case of
+    `wide_shapes`, at the tolerances of phases 3, 7, 15 and 24, with two
+    backward launches (and two K2 bf16 launches) bit-identical. Returns the
+    largest errors per kernel and dtype."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import replay as RP
+
+    errs = {}
+    bump = lambda k, v: errs.__setitem__(k, max(errs.get(k, 0.0), v))
+    for h in WIDE:
+        for name, B, temp in wide_shapes(h):
+            cfg = CONFIGS[name]
+            actor = init_params(SEED, cfg, h, dev)
+            _, e2 = check_actor_step(cfg, B, actor, dev, temperature=temp)
+            _, e2b, rate = check_actor_step_bf16(cfg, B, actor, dev,
+                                                 temperature=temp)
+            bump("K2 f32", e2)
+            bump("K2 bf16", e2b)
+            rec = replay_operands(actor, cfg, B, dev, SEED + 10, temp,
+                                  dtype=BF16, also=torch.float32)
+            parts = []
+            for steps in sorted({RP._steps_grid(cfg), True}):
+                key = "steps" if steps else "mono"
+                _, _, fe, (be, ba), _ = check_replay(
+                    cfg, B, actor, dev, temp, repeat=True, steps=steps)
+                _, _, _, fb, (bb, bba), _ = check_replay_bf16(
+                    cfg, B, actor, dev, steps, repeat=True,
+                    temperature=temp, record=rec)
+                bump(f"K5f {key} f32", fe)
+                bump(f"K5b {key} f32", ba)
+                bump(f"K5f {key} bf16", fb)
+                bump(f"K5b {key} bf16", bba)
+                parts.append(f"K5 {key}: fwd err {fe:.2e} / bf16 {fb:.2e}, "
+                             f"bwd scaled err {be:.2e} / bf16 {bb:.2e}")
+            log_fn(f"hidden {h} {name} B={B} temperature {temp}: K2 f32 "
+                   f"max logit/logp err {e2:.2e}, bf16 {e2b:.2e} (action "
+                   f"agreement {rate:.6f}); " + "; ".join(parts)
+                   + "; bwd and K2 bf16 repeats bit-identical")
+    return errs
+
+
+def check_k2_repeat(kept, cfg):
+    """Two launches of K2 in float32, each mode, on one step's operands:
+    every output bit-identical."""
+    from tapnet_torch.ops import actor_step as AS
+
+    ops = kept[1]
+    pt = AS.transposed(ops[16])
+    for logits in (True, False):
+        a = AS.actor_select_step(*ops, cfg, logits=logits, params_t=pt)
+        b = AS.actor_select_step(*ops, cfg, logits=logits, params_t=pt)
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x is not None:
+                _equal(f"actor_select_step f32 repeat (logits={logits}) "
+                       f"output {i}", x, y)
+
+
+def time_wide_vs_fallback(cfg, dev, h):
+    """The train step at hidden h, batch 4096, k = 1, through K2 and K5
+    (the routes at h) and through the fallback the routes gave before K2
+    and K5 covered h (K1 and the general replay, `routes` patched), in
+    turns (kernels, fallback, fallback, kernels) from one seeded state
+    each: (host ms/step, device ms/step by `device_time_ms`) per turn."""
+    from tapnet_torch import init_train_state, make_train_step
+    from tapnet_torch.train import rollout as RO
+    from tapnet_torch.utils.profiling import device_time_ms
+
+    real = RO.routes
+    fallback = (lambda c, on_card, *a, **k: real(c, on_card, *a, **k)
+                ._replace(decode="step", replay=False))
+    runs = {}
+    for tag in ("kernels", "fallback"):
+        ts = init_train_state(SEED, cfg, hidden=h, device=dev)
+        step = make_train_step(cfg, batch=B_MAIN, hidden=h, device=dev)
+        runs[tag] = (lambda step=step, ts=ts: step(ts))
+    out = {"kernels": [], "fallback": []}
+    try:
+        for tag in ("kernels", "fallback", "fallback", "kernels"):
+            RO.routes = fallback if tag == "fallback" else real
+            out[tag].append((time_host(runs[tag], reps=3),
+                             device_time_ms(runs[tag], iters=2)))
+    finally:
+        RO.routes = real
+    return out
+
+
+def phase_26(dev):
+    """Phase 26 (module docstring): K2 and K5 at hidden widths above 128.
+    Returns the kernels-line entries of the hidden-256 instantiations."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import replay as RP
+    from tapnet_torch.train import rollout as RO
+    from tapnet_torch.train.trainer import assert_deterministic
+
+    t0 = time.perf_counter()
+    stamp = lambda: f"phase 26 [{time.perf_counter() - t0:.0f} s]"
+    h = WIDE_H
+    cfg, rcfg = CONFIGS["2d-basic"], CONFIGS["2d-rolling"]
+    for c in (cfg, rcfg):
+        if RO.routes(c, True, h) != RO.Routes("actor", True, True):
+            raise AssertionError(f"routes {c} hidden {h}: "
+                                 f"{RO.routes(c, True, h)}")
+    # 1. every wide width against the plain versions
+    errs = check_wide_kernels(dev, lambda m: log(f"{stamp()} {m}"))
+    # 2. the main path at hidden 256: pack() (K2 for sample and best), the
+    # train steps in both dtypes with their launches
+    actor = init_params(SEED, cfg, h, dev)
+    launches, inst = main_path(cfg, actor, dev)
+    log(f"{stamp()} pack() 2d-basic hidden {h}: launches {launches} (greedy "
+        "K1 x10; sample and best-of-16 K2 x10 each, no select_step)")
+    check_against_cpu(cfg, actor, inst, dev)
+    per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
+                "heightmap_reductions": 1}
+    train_f, ts, step = train_main_path(cfg, dev, per_step, n_steps=3,
+                                        hidden=h)
+    log(f"{stamp()} train path 2d-basic hidden {h} batch {B_MAIN} "
+        f"launches (3 steps): {train_f}")
+    assert_deterministic(step, ts)
+    check_train_against_cpu(cfg, ts, dev, B=256, hidden=h)
+    log(f"{stamp()} f32 train step hidden {h}: a repeat bit-identical, a "
+        "step at batch 256 against the CPU path")
+    train_b, ts_b, step_b = train_main_path(cfg, dev, per_step, n_steps=3,
+                                            hidden=h, compute_dtype=BF16)
+    log(f"{stamp()} bf16 train path 2d-basic hidden {h} batch {B_MAIN} "
+        f"launches (3 steps): {train_b}")
+    assert_deterministic(step_b, ts_b)
+    agree, drew, diffs = check_train_bf16_against_cpu(cfg, ts_b, dev)
+    log(f"{stamp()} bf16 train step hidden {h} B=256 card vs CPU: action "
+        f"agreement {agree:.4f}, mean reward diff {drew:.4f}; |metric "
+        f"diff| {diffs}")
+    rows = {}
+    for name, c, ps, k, dt in (
+            ("2d-basic", cfg, per_step, 8, None),
+            ("2d-basic bf16", cfg, per_step, 8, BF16),
+            ("2d-rolling", rcfg, {"actor_select_step": rcfg.num_blocks,
+                                  "replay_logp_bwd_steps": 1,
+                                  "heightmap_reductions": 1}, 4, None)):
+        rows[name] = check_graph_steps(f"{name} hidden {h}", c, dev, ps, k,
+                                       B_MAIN, hidden=h, compute_dtype=dt,
+                                       tag="phase 26")
+    roll_step = {"actor_select_step": rcfg.num_blocks,
+                 "replay_logp_bwd_steps": 1, "heightmap_reductions": 1}
+    roll_f, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=1,
+                                   hidden=h)
+    roll_b, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=1,
+                                   hidden=h, compute_dtype=BF16)
+    log(f"{stamp()} rolling train step hidden {h} batch {B_MAIN} launches: "
+        f"f32 {roll_f}, bf16 {roll_b}")
+    fb = time_wide_vs_fallback(cfg, dev, h)
+    log(f"{stamp()} train step 2d-basic hidden {h} batch {B_MAIN} k = 1, "
+        f"(host ms/step, device ms/step) in turns: K2 + K5b {fb['kernels']},"
+        f" the fallback (K1 + the general replay) {fb['fallback']}")
+    # 3. times at hidden 256, batch 4096, on the main paths' shapes
+    k2 = {}
+    for name, c in (("2d-basic", cfg), ("2d-rolling", rcfg)):
+        a = actor if c is cfg else init_params(SEED, c, h, dev)
+        kept, err, rate = check_actor_step_bf16(c, B_MAIN, a, dev, keep=True)
+        errs["K2 bf16"] = max(errs["K2 bf16"], err)
+        if c is cfg:
+            check_k2_repeat(kept, c)
+        k2[name] = {"bf16": time_actor_dtypes(kept, c, h),
+                    "f32": time_actor_step(kept[1], c, h, plain_reps=5,
+                                           plain_sleep=200_000_000)}
+        for dt in ("f32", "bf16"):
+            log_actor_times(f"{stamp()} hidden {h} {dt}", c, k2[name][dt])
+        log(f"{stamp()} actor_select_step hidden {h} main-path mode {name} "
+            f"B={B_MAIN} in turns: f32 {k2[name]['bf16']['f32_turns']}, "
+            f"bf16 {k2[name]['bf16']['bf16_turns']} ms/launch")
+    kb = {}
+    for key, c in (("mono", cfg), ("steps", rcfg)):
+        a = actor if c is cfg else init_params(SEED, c, h, dev)
+        ops, _, ops32 = replay_operands(a, c, B_MAIN, dev, SEED + 10, 1.0,
+                                        dtype=BF16, also=torch.float32)
+        dlp = torch.linspace(-1.0, 1.0, B_MAIN, device=dev)
+        kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps",
+                                     hidden=h, f32=True)
+        for d in ("fwd", "bwd"):
+            r = kb[key][d]
+            log(f"{stamp()} replay_logp_{d}"
+                f"{'_steps' if key == 'steps' else ''} hidden {h} "
+                f"{'2d-rolling' if key == 'steps' else '2d-basic'} "
+                f"B={B_MAIN}: f32 {r['f32_ms']:.4f} ms/call (plain "
+                f"{r['f32_plain_ms']:.3f}, bound {r['f32_bound']:.4f} ms, "
+                f"{r['f32_bound_by']}), bf16 {r['ms']:.4f} (plain "
+                f"{r['plain_ms']:.3f}, bound {r['bound']:.4f} ms, "
+                f"{r['bound_by']}); turns f32, bf16, bf16, f32: "
+                f"{r['turns']}")
+    log(f"{stamp()} done in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, replaces, dt, launches, err, ms, plain, bound, by):
+        src = "actor_step.cu" if name == "actor_select_step" else "replay.cu"
+        return {"name": name, "route": "cuda",
+                "source": f"tapnet_torch/csrc/{src}",
+                "replaces": f"tapnet_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                "library_ms": None, "dtype": dt, "hidden": h}
+
+    kernels = []
+    k2f, k2b = k2["2d-basic"]["f32"], k2["2d-basic"]["bf16"]
+    kernels.append(entry(
+        "actor_select_step", "pallas_actor_step.py:316", "float32",
+        launches["actor_select_step"] + train_f["actor_select_step"]
+        + roll_f["actor_select_step"], errs["K2 f32"], k2f["ms"],
+        k2f["plain_ms"], k2f["bound"], k2f["bound_by"]))
+    kernels.append(entry(
+        "actor_select_step", "pallas_actor_step.py:316", "bfloat16",
+        train_b["actor_select_step"] + roll_b["actor_select_step"],
+        errs["K2 bf16"], k2b["ms"], k2b["plain_ms"], k2b["bound"],
+        k2b["bound_by"]))
+    for key, suffix in (("mono", ""), ("steps", "_steps")):
+        lines = {"mono": ("596", "652"), "steps": ("582", "635")}[key]
+        for d, line in zip(("fwd", "bwd"), lines):
+            name = f"replay_logp_{d}{suffix}"
+            r = kb[key][d]
+            err_key = f"K5{'f' if d == 'fwd' else 'b'} {key}"
+            for dt, tr in (("float32", (train_f, roll_f)),
+                           ("bfloat16", (train_b, roll_b))):
+                f32 = dt == "float32"
+                kernels.append(entry(
+                    name, f"pallas_replay.py:{line}", dt,
+                    tr[0][name] + tr[1][name],
+                    errs[f"{err_key} {'f32' if f32 else 'bf16'}"],
+                    r["f32_ms"] if f32 else r["ms"],
+                    r["f32_plain_ms"] if f32 else r["plain_ms"],
+                    r["f32_bound"] if f32 else r["bound"],
+                    r["f32_bound_by"] if f32 else r["bound_by"]))
+    return kernels, rows
 
 
 def main() -> int:
@@ -3472,9 +3770,9 @@ def main() -> int:
                                "heightmap_reductions": 1}, 8, B_MAIN, HIDDEN),
             ("2d-rolling", rcfg, roll_step, 4, B_MAIN, HIDDEN),
             ("multi-container-capped", ccfg, capped_step, 4, 256, HIDDEN),
-            ("2d-basic hidden 256", cfg, {"select_step": cfg.num_blocks,
-                                          "heightmap_reductions": 1},
-             2, 256, 256)):
+            ("2d-basic hidden 48", cfg, {"select_step": cfg.num_blocks,
+                                         "heightmap_reductions": 1},
+             2, 256, 48)):
         check_graph_steps(name, c, dev, per_step, k, Bg, h)
     with tempfile.TemporaryDirectory() as tmp:
         check_trainer(cfg, dev, tmp, spe=3, spc=2, batch=256)
@@ -3499,6 +3797,9 @@ def main() -> int:
 
     # ---- phase 25: rollout, render, TensorBoard scalars, TP
     phase_25(dev)
+
+    # ---- phase 26: K2 and K5 at hidden widths above 128
+    wide_kernels, _ = phase_26(dev)
 
     kernels = [
         {"name": "select_step", "route": "cuda",
@@ -3580,7 +3881,7 @@ def main() -> int:
     ]
     for k in kernels:
         k["dtype"] = "float32"
-    kernels += bf16_kernels
+    kernels += bf16_kernels + wide_kernels
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s"
         " (build included)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -85,7 +85,24 @@
 //   tells ptxas (without it, ptxas may trade registers for a second block
 //   that can never be resident, and spill).
 //   The wrapper refuses a plan above the 227 KB a block may hold; h must
-//   be a multiple of 32, at most 128.
+//   be a multiple of 32, at most 256.
+//
+// Hidden widths above 128 (WH, h = 160..256). The tile stays 32
+// instances, so phases 0 and 3, the column list and the placement are the
+// ones above; the head (phases 1-2) runs in two passes of TP = 16
+// instances each (Geo): the encoder view, q and the token view hold one
+// pass, which halves the [feature][instance] arrays that grow with h (at
+// h = 256 and the stride of 33 they alone would fill the block). A pass
+// loads its own rows of qin (ctx, the previous action's embedding, the
+// count summary, which phase 0 writes when one pass covers the tile), and
+// its columns are cols[off[p0] .. off[p0 + 16]), the list being in
+// (instance, token) order. In the products a virtual warp of 16 lanes owns
+// h/32 <= 8 rows of one instance (the register tile of h = 128); the token
+// groups are 32 columns of 2 a warp with 8 rows a lane; the float32 weight
+// slices are 32 rows and the bfloat16 slabs 32 columns (mv_mma with 16
+// lanes: one row tile a warp, both column tiles; its B pairs in rows of 24
+// words). Every sum keeps one owner and one order, so two launches are
+// bit-identical. At h <= 128 the instantiations are the ones above.
 //
 // Compute dtype (the JAX kernel's static `dtype`): the element type E of
 // the float operands, float or __nv_bfloat16 (v, the gumbel, t/N, the
@@ -149,16 +166,32 @@ constexpr int TB = 32;      // instances per block
 constexpr int LD = TB + 1;  // padded row stride of [feature][lane] arrays
 constexpr int NWARP = 16;   // warps per block
 constexpr int NT = TB * NWARP;
-constexpr int CPW = 4;          // columns per warp in a token group
-constexpr int G = CPW * NWARP;  // columns per token group
-constexpr int MAXR = 4;         // rows per lane: h <= 32 * MAXR
-constexpr int KS = 64;          // weight columns per staged slice
-constexpr int WPS = 40;         // tc: bfloat16 row stride of Wp [h][32]
+constexpr int MAX_H = 256;  // hidden: a multiple of 32, at most 256
+constexpr int WPS = 40;     // tc: bfloat16 row stride of Wp [h][32]
 constexpr int MAX_C = 4;        // containers
 constexpr int MAX_N = 62;       // blocks: two 31-bit precedence limbs
 constexpr int TOKW = 4;         // 32-bit words of token bits: T <= 128
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The head's geometry (phases 1-2). At h <= 128 one pass over the tile's
+// 32 instances; above (WH, h = 160..256) two passes of TP = 16 instances
+// each, so that the [feature][instance] arrays, q and the token view fit a
+// block's shared memory with a thread's register tile as at h = 128: a
+// thread of the encoder and query owns h / NVW <= 8 rows of one instance
+// (NVW virtual warps of TP lanes), a lane of the token work MAXR = 8 rows of
+// CPW = 2 columns.
+template <bool WH>
+struct Geo {
+  static constexpr int TP = WH ? 16 : TB;   // instances of a head pass
+  static constexpr int LP = TP + 1;         // their arrays' row stride
+  static constexpr int NVW = NT / TP;       // virtual warps of TP lanes
+  static constexpr int CPW = WH ? 2 : 4;    // columns per warp in a group
+  static constexpr int G = CPW * NWARP;     // columns per token group
+  static constexpr int MAXR = WH ? 8 : 4;   // rows per lane: h <= 32 MAXR
+  static constexpr int KS = WH ? 32 : 64;   // f32: rows of a staged slice
+  static constexpr int KSL = WH ? 32 : 64;  // tc: columns of a weight slab
+};
 
 using bf16 = __nv_bfloat16;
 using tapnet::frag_au;
@@ -216,9 +249,10 @@ __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 
 // 32-bit words of the tensor-core plan's B operand as bfloat16 pairs: the
 // longest k of the encoder/query products (W*D + 2, 3h + 8) padded to 16
+template <bool WH>
 __host__ __device__ inline int xb_words(int WD, int h) {
   const int k = WD + 2 > 3 * h + 8 ? WD + 2 : 3 * h + 8;
-  return (k + 15) / 16 * 8 * tapnet::MMA_XS;
+  return (k + 15) / 16 * 8 * tapnet::mv_mma_xs<Geo<WH>::TP>();
 }
 
 // Shared-memory plan, in floats from the base (every region 16-byte
@@ -226,16 +260,24 @@ __host__ __device__ inline int xb_words(int WD, int h) {
 // bfloat16 instantiations (Wp itself as bfloat16 [h][WPS] in place of the
 // float Wp^T [32][h]; h1 rows padded to G + 4 floats so that a B
 // fragment's column reads hit 32 banks; the group's dyn [G][h+4]; the
-// encoder/query weights as two bfloat16 slabs of 72 h floats, and the
-// product's B operand as bfloat16 pairs, `xb_words`).
+// encoder/query weights as two bfloat16 slabs of h (KSL + 8) / 2 floats
+// each, and the product's B operand as bfloat16 pairs, `xb_words`). WH:
+// the head's arrays (q, the encoder view, the token view) hold a pass of
+// TP = 16 instances (Geo).
 struct Lay {
   int ws, w8, b8, v, q, sc, enc, tok, floats;
 };
 
-__host__ __device__ inline int h1_stride(bool tc) { return tc ? G + 4 : G; }
+template <bool WH>
+__host__ __device__ inline int h1_stride(bool tc) {
+  return tc ? Geo<WH>::G + 4 : Geo<WH>::G;
+}
 
+template <bool WH>
 __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
                                       bool tc) {
+  using Q = Geo<WH>;
+  constexpr int LP = Q::LP, G = Q::G;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, L = (N + 30) / 31;
   Lay y;
   int o = 0;
@@ -243,17 +285,18 @@ __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
   y.w8 = o;  o += 32 * 8;              // W8 [32][8]
   y.b8 = o;  o += 32;
   y.v = o;   o += up4(h);
-  y.q = o;   o += up4(C * h * LD);     // q [C][h][LD]
+  y.q = o;   o += up4(C * h * LP);     // q [C][h][LP]
   y.sc = o;  o += A * TB;              // scores, then masked [A][TB]
-  // encoder view: feats [WD+2][LD], e1 [h][LD], qin [3h+8][LD]
-  y.enc = o; o += up4((WD + 2 + h + FQ) * LD);
+  // encoder view: feats [WD+2][LP], e1 [h][LP], qin [3h+8][LP]
+  y.enc = o; o += up4((WD + 2 + h + FQ) * LP);
   // token view: x8 [8][G], h1 [32][GS] (tc: and dyn [G][h+4]); or the
   // staged weight slices (float [KS][h], tc: bfloat16 slabs); or phase 0's
   // rows (packed, limbs, fits) as ints; or phase 3's decisions [13][TB],
   // the warps' partial results [8][NWARP][TB] and rows (heightmaps
   // [C*W*D], dims [3N]) as ints
-  const int tok = 8 * G + 32 * h1_stride(tc) + (tc ? G * (h + 4) : 0);
-  const int stage = tc ? 72 * h + xb_words(WD, h) : KS * h;  // mv_mma / tiled
+  const int tok = 8 * G + 32 * h1_stride<WH>(tc) + (tc ? G * (h + 4) : 0);
+  const int stage = tc ? h * (Q::KSL + 8) + xb_words<WH>(WD, h)  // mv_mma
+                       : Q::KS * h;                                // mv_tiled
   const int rows0 = (N + 2 * L * N + R * N) * TB;
   const int rows3 = (13 + 8 * NWARP + C * WD + 3 * N) * TB;
   const int big = tok > stage ? tok : stage;
@@ -272,20 +315,23 @@ __host__ __device__ inline int n_ints(int N, int R) {
 }
 
 // The float32 products (the bfloat16 instantiations run mv_mma).
-// out[j] = sum_k W[j, k] x[k][lane] for every row j < h (a warp owns the
-// h/16 rows wy*h/16 ..), W given transposed, WT [cols][h]: slices of KS of
-// its rows are copied to shared memory S as they lie (16-byte loads, the
-// next slice's loads in flight while this one is multiplied) and read as
-// float4 (h = 64, 128) or float2 broadcasts, so one load of x feeds h/16
-// multiply-adds. emit(j, lane, acc) stores row j. The caller follows with a
-// barrier before S or the outputs are reused.
-template <class Emit>
+// out[j] = sum_k W[j, k] x[k][n] for every row j < h and instance n of the
+// pass (a virtual warp vw of TP lanes owns the RW = h/NVW rows vw*RW ..),
+// W given transposed, WT [cols][h]: slices of KS of its rows are copied to
+// shared memory S as they lie (16-byte loads, the next slice's loads in
+// flight while this one is multiplied) and read as float4 (h = 64, 128,
+// 256), float2 or (RW odd: h = 160, 224) float broadcasts, so one load of
+// x feeds RW multiply-adds. emit(j, n, acc) stores row j. The caller
+// follows with a barrier before S or the outputs are reused.
+template <bool WH, class Emit>
 __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
-                         const float* x, float* S, int lane, int wy, int tid,
+                         const float* x, float* S, int n, int vw, int tid,
                          Emit emit) {
+  using Q = Geo<WH>;
   constexpr int PV = 4;                      // floats per 16 bytes
-  constexpr int NV = KS * 128 / PV / NT;     // a slice of KS * 128 at most
-  const int RW = h / NWARP;  // 2 (h = 32) .. 8 (h = 128)
+  constexpr int KS = Q::KS, LP = Q::LP;
+  constexpr int NV = KS * 32 * Q::MAXR / PV / NT;  // a slice of KS * h
+  const int RW = h / Q::NVW;  // 2 (h = 32) .. 8 (h = 128); 5 .. 8 (WH)
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const uint4* src = reinterpret_cast<const uint4*>(WT);
   uint4 v[NV];
@@ -312,8 +358,8 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
     if (RW % 4 == 0) {
 #pragma unroll 4
       for (int kk = 0; kk < nk; ++kk) {
-        const float xv = x[(k0 + kk) * LD + lane];
-        const float* sw = S + kk * h + wy * RW;
+        const float xv = x[(k0 + kk) * LP + n];
+        const float* sw = S + kk * h + vw * RW;
 #pragma unroll
         for (int r = 0; r < 8; r += 4) {
           if (r < RW) {
@@ -325,11 +371,11 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
           }
         }
       }
-    } else {
+    } else if (!WH || RW % 2 == 0) {
 #pragma unroll 4
       for (int kk = 0; kk < nk; ++kk) {
-        const float xv = x[(k0 + kk) * LD + lane];
-        const float* sw = S + kk * h + wy * RW;
+        const float xv = x[(k0 + kk) * LP + n];
+        const float* sw = S + kk * h + vw * RW;
 #pragma unroll
         for (int r = 0; r < 8; r += 2) {
           if (r < RW) {
@@ -339,11 +385,20 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
           }
         }
       }
+    } else {
+#pragma unroll 4
+      for (int kk = 0; kk < nk; ++kk) {
+        const float xv = x[(k0 + kk) * LP + n];
+        const float* sw = S + kk * h + vw * RW;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (r < RW) acc[r] = fmaf(sw[r], xv, acc[r]);
+      }
     }
   }
 #pragma unroll
   for (int r = 0; r < 8; ++r)
-    if (r < RW) emit(wy * RW + r, lane, acc[r]);
+    if (r < RW) emit(vw * RW + r, n, acc[r]);
 }
 
 __device__ inline float warp_sum(float x) {
@@ -386,7 +441,7 @@ __device__ __forceinline__ Word column(const int* m, int i, int N, int lane) {
 
 using tapnet::PlacePart;
 
-template <bool MCS, bool WIDE, bool LOGITS, class E>
+template <bool MCS, bool WIDE, bool LOGITS, bool WH, class E>
 __global__ void __launch_bounds__(NT, 1)
 actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                   HeadW<E> hw, int B, int h, float inv_s, float temperature,
@@ -394,17 +449,24 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
   // bfloat16: the products on the tensor cores (the design note)
   constexpr bool TC = std::is_same_v<E, bf16>;
+  // the head's passes (Geo): TP instances each, LP their arrays' stride
+  using Q = Geo<WH>;
+  constexpr int TP = Q::TP, LP = Q::LP, NVW = Q::NVW, CPW = Q::CPW;
+  constexpr int G = Q::G, MAXR = Q::MAXR;
   extern __shared__ __align__(16) float smem[];
   const int N = c.N, R = c.R, C = c.C, WD = c.W * c.D;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, NL = (N + 30) / 31;
-  const int RPL = h / 32, GS = h1_stride(TC), HP = h + 4;
+  const int RPL = h / 32, GS = h1_stride<WH>(TC), HP = h + 4;
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
   const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
+  // a pass's instance and virtual warp (lane and warp when TP = TB)
+  const int vl = TP == TB ? lane : lane % TP;
+  const int vw = TP == TB ? wy : wy * (TB / TP) + lane / TP;
   const int tile0 = blockIdx.x * TB;
   const int b = tile0 + lane;
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
-  const Lay L = layout(N, R, C, WD, h, TC);
+  const Lay L = layout<WH>(N, R, C, WD, h, TC);
 
   float* Ws = smem + L.ws;  // Ws[k*h + j] = Wp[j, k]
   // tc: Wp [h][32] as bfloat16 rows of WPS (the A operand of dyn)
@@ -412,16 +474,18 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   float* W8s = smem + L.w8;
   float* b8s = smem + L.b8;
   float* vs = smem + L.v;
-  float* qs = smem + L.q;     // [C][h][LD]
+  float* qs = smem + L.q;     // [C][h][LP]
   float* sc = smem + L.sc;    // [A][TB]
-  float* feats = smem + L.enc;        // [WD+2][LD]
-  float* e1 = feats + (WD + 2) * LD;  // [h][LD]
-  float* qin = e1 + h * LD;           // [3h+8][LD]: enc, ctx, prev, dsum
+  // the pass's instances: feats [WD+2][LP], e1 [h][LP], qin [3h+8][LP]:
+  // enc, ctx, prev, dsum
+  float* feats = smem + L.enc;
+  float* e1 = feats + (WD + 2) * LP;
+  float* qin = e1 + h * LP;
   float* stg = smem + L.tok;          // staged weight slices
   // tc: the same as bfloat16 (mv_mma's double-buffered slabs), then the
   // product's B operand as bfloat16 pairs
   unsigned short* stgb = reinterpret_cast<unsigned short*>(stg);
-  unsigned* xbp = reinterpret_cast<unsigned*>(stg + 72 * h);
+  unsigned* xbp = reinterpret_cast<unsigned*>(stg + h * (Q::KSL + 8));
   float* x8 = smem + L.tok;           // [8][G]
   float* h1 = x8 + 8 * G;             // [32][GS]
   float* DD = h1 + 32 * GS;           // tc: the group's dyn [G][HP]
@@ -454,34 +518,37 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       if (j < NL * N) return ai.rotm[(size_t)j * B + bb];
       return ai.fits[(size_t)(j - NL * N) * B + bb];
     }, [&](int j, int v) { pkS[j * TB + lane] = v; });
-    const int idx = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
-    tapnet::rows8<NWARP>(2 * h, wy, [&](int j) {
-      return j < h ? f32(ai.ctx[(size_t)j * B + bb])
-                   : ldg(hw.et + (size_t)(j - h) * (A + 1) + idx);
-    }, [&](int j, float v) { qin[(h + j) * LD + lane] = v; });
+    if constexpr (!WH) {  // WH: per pass (phase 1)
+      const int idx = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
+      tapnet::rows8<NWARP>(2 * h, wy, [&](int j) {
+        return j < h ? f32(ai.ctx[(size_t)j * B + bb])
+                     : ldg(hw.et + (size_t)(j - h) * (A + 1) + idx);
+      }, [&](int j, float v) { qin[(h + j) * LD + lane] = v; });
+    }
+    constexpr int UW = 32 * 32 * MAXR / NT;  // Wp: 32 h <= UW NT elements
     if constexpr (TC) {
       const unsigned short* src =
           reinterpret_cast<const unsigned short*>(hw.wpt);
-      unsigned short v[8];
+      unsigned short v[UW];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {  // Wp as it lies: 32 h <= 8 NT elements
+      for (int u = 0; u < UW; ++u) {  // Wp as it lies
         const int e = tid + u * NT;
         v[u] = e < 32 * h ? __ldg(src + e) : (unsigned short)0;
       }
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
+      for (int u = 0; u < UW; ++u) {
         const int e = tid + u * NT;
         if (e < 32 * h) wps[(e >> 5) * WPS + (e & 31)] = v[u];
       }
     } else {
-      float v[8];
+      float v[UW];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {  // Wp^T: 32 h <= 8 NT elements
+      for (int u = 0; u < UW; ++u) {  // Wp^T
         const int e = tid + u * NT, k = e / h, j = e - k * h;
         v[u] = e < 32 * h ? ldg(hw.wpt + j * 32 + k) : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int u = 0; u < UW; ++u)
         if (tid + u * NT < 32 * h) Ws[tid + u * NT] = v[u];
     }
     if (tid < 256) W8s[tid] = ldg(hw.w8t + tid);
@@ -544,16 +611,19 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
         n += __popc(u);
       }
       if (LOGITS) n = active ? T : 0;
-      const float fpk = (float)popw(pk), fa0 = (float)popw(a0m);
-      const float far = (float)popw(arm);
-      const float acc_mean = R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
-      float* ds = qin + 3 * h * LD;
-      ds[0 * LD + lane] = rnd<E>(fpk / (float)N);
-      ds[1 * LD + lane] = rnd<E>(acc_mean);
-      ds[2 * LD + lane] = rnd<E>((float)popw(wnm) / (float)N);
-      ds[3 * LD + lane] = rnd<E>(tf);
-      for (int k = 0; k < 4; ++k)
-        ds[(4 + k) * LD + lane] = f32(ai.statm[(size_t)k * B + bb]);
+      if constexpr (!WH) {  // WH: per pass (phase 1)
+        const float fpk = (float)popw(pk), fa0 = (float)popw(a0m);
+        const float far = (float)popw(arm);
+        const float acc_mean =
+            R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
+        float* ds = qin + 3 * h * LD;
+        ds[0 * LD + lane] = rnd<E>(fpk / (float)N);
+        ds[1 * LD + lane] = rnd<E>(acc_mean);
+        ds[2 * LD + lane] = rnd<E>((float)popw(wnm) / (float)N);
+        ds[3 * LD + lane] = rnd<E>(tf);
+        for (int k = 0; k < 4; ++k)
+          ds[(4 + k) * LD + lane] = f32(ai.statm[(size_t)k * B + bb]);
+      }
       int x = n;  // inclusive scan over the lanes
       for (int o = 1; o < 32; o <<= 1) {
         const int y = __shfl_up_sync(FULL, x, o);
@@ -591,180 +661,233 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   }
 
   if (*flag) {
-    // ---- phase 1: heightmap encoder and query, per container
-    for (int cc = 0; cc < C; ++cc) {
-      for (int k = wy; k < WD; k += NWARP)
-        feats[k * LD + lane] =
-            rnd<E>((float)io.hm[(cc * WD + k) * B + bb] * inv_s);
-      __syncthreads();
-      if (wy == 0) {
-        float mx = feats[lane], sm = 0.f;
-        for (int k = 0; k < WD; ++k) {
-          mx = fmaxf(mx, feats[k * LD + lane]);
-          sm += feats[k * LD + lane];
+    // the head over passes of TP instances (one pass when TP = TB): their
+    // columns are cols[off[p0] .. off[p0 + TP]), the list being in
+    // (instance, token) order
+    for (int p0 = 0; p0 < TB; p0 += TP) {
+      const int bq = TP == TB ? bb  // clamped
+                              : tile0 + p0 + vl < B ? tile0 + p0 + vl : 0;
+      if constexpr (WH) {
+        // qin's shared rows of the pass: ctx, the previous action's
+        // embedding and the count summary (phase 0's, as TP = TB has them)
+        const int l = p0 + vl;
+        const int pv = tile0 + l < B ? ai.prev[bq] : -1;
+        const int idx = min(max(pv + 1, 0), A);
+        for (int j = vw; j < h; j += NVW) {
+          qin[(h + j) * LP + vl] = f32(ai.ctx[(size_t)j * B + bq]);
+          qin[(2 * h + j) * LP + vl] =
+              ldg(hw.et + (size_t)j * (A + 1) + idx);
         }
-        feats[WD * LD + lane] = mx;
-        feats[(WD + 1) * LD + lane] = rnd<E>(sm / (float)WD);
-      }
-      __syncthreads();
-      auto e1_out = [&](int j, int n, float acc) {
-        e1[j * LD + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
-      };
-      if constexpr (TC)
-        mv_mma(hw.w1t, h, WD + 2, feats, stgb, lane, wy, tid, e1_out, xbp);
-      else
-        mv_tiled(hw.w1T, h, WD + 2, feats, stg, lane, wy, tid, e1_out);
-      __syncthreads();
-      auto enc_out = [&](int j, int n, float acc) {
-        qin[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j));
-      };
-      if constexpr (TC)
-        mv_mma(hw.w2t, h, h, e1, stgb, lane, wy, tid, enc_out, xbp);
-      else
-        mv_tiled(hw.w2T, h, h, e1, stg, lane, wy, tid, enc_out);
-      __syncthreads();
-      float* qc = qs + cc * h * LD;
-      auto q_out = [&](int j, int n, float acc) {
-        qc[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
-      };
-      if constexpr (TC)
-        mv_mma(hw.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out, xbp);
-      else
-        mv_tiled(hw.wqT, h, FQ, qin, stg, lane, wy, tid, q_out);
-      __syncthreads();
-    }
-
-    // ---- phase 2: the token work over the tile's columns, groups of G
-    const int n = off[TB];
-    for (int g0 = 0; g0 < n; g0 += G) {
-      const int ng = min(G, n - g0);
-      // the keys of this warp's columns, loaded before the group's
-      // barriers so that their latency overlaps them
-      float sev[CPW][MAXR];
-#pragma unroll
-      for (int i = 0; i < CPW; ++i) {
-        const int cc = wy * CPW + i;
-        const int e = cols[g0 + min(cc, ng - 1)], l = e & 31, t = e >> 5;
-        const E* sep = ai.se + ((size_t)(tile0 + l) * T + t) * h;
-#pragma unroll
-        for (int r = 0; r < MAXR; ++r)
-          sev[i][r] = (r < RPL && cc < ng) ? f32(sep[lane + 32 * r]) : 0.f;
-      }
-      // x8 and h1 = relu(W8 x8 + b8) of the group's columns
-      if (tid < G) {
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (tid < ng) {
-          const int e = cols[g0 + tid], l = e & 31, t = e >> 5;
-          const int i = t / R, r = t - i * R;
-          f[0] = (float)((wb[l] >> i) & 1);
-          f[1] = (float)((wb[(r == 0 ? 1 : 2) * TB + l] >> i) & 1);
-          f[2] = (float)((wb[3 * TB + l] >> i) & 1);
-          f[3] = rnd<E>(tf);
-          for (int m = 0; m < 4; ++m)
-            f[4 + m] = f32(ai.statp[((size_t)m * T + t) * B + tile0 + l]);
-        }
-        for (int m = 0; m < 8; ++m) x8[m * G + tid] = f[m];
-      }
-      __syncthreads();
-      {
-        const int m = tid >> 4, c4 = (tid & 15) * 4;  // 32 rows x 16 quads
-        for (int i = 0; i < 4; ++i) {
-          float acc = 0.f;
-          for (int f = 0; f < 8; ++f)
-            acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
-          h1[m * GS + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
+        if (vw == 0) {
+          const float fpk = (float)popw(wb[l]), fa0 = (float)popw(wb[TB + l]);
+          const float far = (float)popw(wb[2 * TB + l]);
+          const float acc_mean =
+              R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
+          float* ds = qin + 3 * h * LP;
+          ds[0 * LP + vl] = rnd<E>(fpk / (float)N);
+          ds[1 * LP + vl] = rnd<E>(acc_mean);
+          ds[2 * LP + vl] = rnd<E>((float)popw(wb[3 * TB + l]) / (float)N);
+          ds[3 * LP + vl] = rnd<E>(tf);
+          for (int k = 0; k < 4; ++k)
+            ds[(4 + k) * LP + vl] = f32(ai.statm[(size_t)k * B + bq]);
         }
       }
-      __syncthreads();
-      // dyn = Wp h1 for this warp's CPW columns, rows lane + 32 r
-      float dyn[CPW][MAXR];
-      if constexpr (TC) {
-        // the group's dyn [G][HP] into DD on the tensor cores (A = Wp
-        // staged, B = h1; warp wy owns the column tile wy % 8 and the row
-        // tiles wy / 8 + 2 i of the column tiles that hold a column), a
-        // barrier, then this warp's columns read back from DD
-        const int nt = wy & 7;
-        if (8 * nt < ng) {
-          const int col = 8 * nt + g8;
-          unsigned bf[2][2];
-#pragma unroll
-          for (int ks = 0; ks < 2; ++ks)
-            frag_b(bf[ks], g8, t4, [&](int k, int) {
-              const float* p = h1 + (16 * ks + k) * GS + col;
-              return make_float2(p[0], p[GS]);
-            });
-          for (int mt = wy >> 3; mt < h / 16; mt += 2) {
-            float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-            for (int ks = 0; ks < 2; ++ks) {
-              unsigned a[4];
-              frag_au(a, g8, t4, [&](int r, int k) {
-                return *reinterpret_cast<const unsigned*>(
-                    wps + (16 * mt + r) * WPS + 16 * ks + k);
-              });
-              mma(acc, a, bf[ks]);
-            }
-            const int j = 16 * mt + g8, cl = 8 * nt + 2 * t4;
-            DD[cl * HP + j] = acc[0];
-            DD[(cl + 1) * HP + j] = acc[1];
-            DD[cl * HP + j + 8] = acc[2];
-            DD[(cl + 1) * HP + j + 8] = acc[3];
+      // ---- phase 1: heightmap encoder and query, per container
+      for (int cc = 0; cc < C; ++cc) {
+        for (int k = vw; k < WD; k += NVW)
+          feats[k * LP + vl] =
+              rnd<E>((float)io.hm[(cc * WD + k) * B + bq] * inv_s);
+        __syncthreads();
+        if (vw == 0) {
+          float mx = feats[vl], sm = 0.f;
+          for (int k = 0; k < WD; ++k) {
+            mx = fmaxf(mx, feats[k * LP + vl]);
+            sm += feats[k * LP + vl];
           }
+          feats[WD * LP + vl] = mx;
+          feats[(WD + 1) * LP + vl] = rnd<E>(sm / (float)WD);
         }
         __syncthreads();
+        auto e1_out = [&](int j, int n, float acc) {
+          e1[j * LP + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
+        };
+        if constexpr (TC)
+          mv_mma<TP, Q::KSL>(hw.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
+                             e1_out, xbp);
+        else
+          mv_tiled<WH>(hw.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
+        __syncthreads();
+        auto enc_out = [&](int j, int n, float acc) {
+          qin[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j));
+        };
+        if constexpr (TC)
+          mv_mma<TP, Q::KSL>(hw.w2t, h, h, e1, stgb, lane, wy, tid, enc_out,
+                             xbp);
+        else
+          mv_tiled<WH>(hw.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
+        __syncthreads();
+        float* qc = qs + cc * h * LP;
+        auto q_out = [&](int j, int n, float acc) {
+          qc[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
+        };
+        if constexpr (TC)
+          mv_mma<TP, Q::KSL>(hw.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out,
+                             xbp);
+        else
+          mv_tiled<WH>(hw.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
+        __syncthreads();
+      }
+
+      // ---- phase 2: the token work over the pass's columns, groups of G
+      const int n = off[p0 + TP];
+      for (int g0 = TP == TB ? 0 : off[p0]; g0 < n; g0 += G) {
+        const int ng = min(G, n - g0);
+        // the keys of this warp's columns, loaded before the group's
+        // barriers so that their latency overlaps them
+        float sev[CPW][MAXR];
 #pragma unroll
         for (int i = 0; i < CPW; ++i) {
           const int cc = wy * CPW + i;
+          const int e = cols[g0 + min(cc, ng - 1)], l = e & 31, t = e >> 5;
+          const E* sep = ai.se + ((size_t)(tile0 + l) * T + t) * h;
 #pragma unroll
           for (int r = 0; r < MAXR; ++r)
-            dyn[i][r] = (r < RPL && cc < ng)
-                            ? rnd<E>(DD[cc * HP + lane + 32 * r]) : 0.f;
+            sev[i][r] = (r < RPL && cc < ng) ? f32(sep[lane + 32 * r]) : 0.f;
         }
-      } else {
-#pragma unroll
-        for (int i = 0; i < CPW; ++i)
-#pragma unroll
-          for (int r = 0; r < MAXR; ++r) dyn[i][r] = 0.f;
-        for (int k = 0; k < 32; ++k) {
-          const float4 hv =
-              *reinterpret_cast<const float4*>(h1 + k * G + wy * CPW);
-          float wv[MAXR];
-#pragma unroll
-          for (int r = 0; r < MAXR; ++r)
-            wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
-#pragma unroll
-          for (int r = 0; r < MAXR; ++r) {
-            dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
-            dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
-            dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
-            dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
+        // x8 and h1 = relu(W8 x8 + b8) of the group's columns
+        if (tid < G) {
+          float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          if (tid < ng) {
+            const int e = cols[g0 + tid], l = e & 31, t = e >> 5;
+            const int i = t / R, r = t - i * R;
+            f[0] = (float)((wb[l] >> i) & 1);
+            f[1] = (float)((wb[(r == 0 ? 1 : 2) * TB + l] >> i) & 1);
+            f[2] = (float)((wb[3 * TB + l] >> i) & 1);
+            f[3] = rnd<E>(tf);
+            for (int m = 0; m < 4; ++m)
+              f[4 + m] = f32(ai.statp[((size_t)m * T + t) * B + tile0 + l]);
+          }
+          for (int m = 0; m < 8; ++m) x8[m * G + tid] = f[m];
+        }
+        __syncthreads();
+        {
+          // 32 rows x 16 runs of G/16 columns
+          const int m = tid >> 4, c4 = (tid & 15) * (G / 16);
+          for (int i = 0; i < G / 16; ++i) {
+            float acc = 0.f;
+            for (int f = 0; f < 8; ++f)
+              acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
+            h1[m * GS + c4 + i] = fmaxf(rnd<E>(rnd<E>(acc) + b8s[m]), 0.f);
           }
         }
+        __syncthreads();
+        // dyn = Wp h1 for this warp's CPW columns, rows lane + 32 r
+        float dyn[CPW][MAXR];
+        if constexpr (TC) {
+          // the group's dyn [G][HP] into DD on the tensor cores (A = Wp
+          // staged, B = h1; warp wy owns the column tile wy % NCT and the
+          // row tiles wy / NCT + (NWARP / NCT) i of the column tiles that
+          // hold a column), a barrier, then this warp's columns read back
+          // from DD
+          constexpr int NCT = G / 8, LN = NCT == 8 ? 3 : 2;  // LN: log2 NCT
+          const int nt = wy & (NCT - 1);
+          if (8 * nt < ng) {
+            const int col = 8 * nt + g8;
+            unsigned bf[2][2];
 #pragma unroll
-        for (int i = 0; i < CPW; ++i)
+            for (int ks = 0; ks < 2; ++ks)
+              frag_b(bf[ks], g8, t4, [&](int k, int) {
+                const float* p = h1 + (16 * ks + k) * GS + col;
+                return make_float2(p[0], p[GS]);
+              });
+            for (int mt = wy >> LN; mt < h / 16; mt += NWARP / NCT) {
+              float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int r = 0; r < MAXR; ++r) dyn[i][r] = rnd<E>(dyn[i][r]);
-      }
-      // the attention epilogue: a column's score per container, a warp sum
-#pragma unroll
-      for (int i = 0; i < CPW; ++i) {
-        const int cc = wy * CPW + i;
-        if (cc >= ng) break;  // warp-uniform
-        const int e = cols[g0 + cc], l = e & 31, t = e >> 5;
-        for (int k = 0; k < C; ++k) {
-          const float* qc = qs + k * h * LD;
-          float ps = 0.f;
-#pragma unroll
-          for (int r = 0; r < MAXR; ++r) {
-            if (r < RPL) {
-              const int j = lane + 32 * r;
-              const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
-              const float act = rnd<E>(tanhf(rnd<E>(sd + qc[j * LD + l])));
-              ps = fmaf(act, vs[j], ps);
+              for (int ks = 0; ks < 2; ++ks) {
+                unsigned a[4];
+                frag_au(a, g8, t4, [&](int r, int k) {
+                  return *reinterpret_cast<const unsigned*>(
+                      wps + (16 * mt + r) * WPS + 16 * ks + k);
+                });
+                mma(acc, a, bf[ks]);
+              }
+              const int j = 16 * mt + g8, cl = 8 * nt + 2 * t4;
+              DD[cl * HP + j] = acc[0];
+              DD[(cl + 1) * HP + j] = acc[1];
+              DD[cl * HP + j + 8] = acc[2];
+              DD[(cl + 1) * HP + j + 8] = acc[3];
             }
           }
-          ps = warp_sum(ps);
-          if (lane == 0) sc[(t * C + k) * TB + l] = rnd<E>(ps);
+          __syncthreads();
+#pragma unroll
+          for (int i = 0; i < CPW; ++i) {
+            const int cc = wy * CPW + i;
+#pragma unroll
+            for (int r = 0; r < MAXR; ++r)
+              dyn[i][r] = (r < RPL && cc < ng)
+                              ? rnd<E>(DD[cc * HP + lane + 32 * r]) : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < CPW; ++i)
+#pragma unroll
+            for (int r = 0; r < MAXR; ++r) dyn[i][r] = 0.f;
+          for (int k = 0; k < 32; ++k) {
+            if constexpr (CPW == 4) {
+              const float4 hv =
+                  *reinterpret_cast<const float4*>(h1 + k * G + wy * CPW);
+              float wv[MAXR];
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r)
+                wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r) {
+                dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
+                dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
+                dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
+                dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
+              }
+            } else {  // two columns a warp (WH)
+              const float2 hv =
+                  *reinterpret_cast<const float2*>(h1 + k * G + wy * CPW);
+              float wv[MAXR];
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r)
+                wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r) {
+                dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
+                dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < CPW; ++i)
+#pragma unroll
+            for (int r = 0; r < MAXR; ++r) dyn[i][r] = rnd<E>(dyn[i][r]);
+        }
+        // the attention epilogue: a column's score per container, a warp sum
+#pragma unroll
+        for (int i = 0; i < CPW; ++i) {
+          const int cc = wy * CPW + i;
+          if (cc >= ng) break;  // warp-uniform
+          const int e = cols[g0 + cc], l = e & 31, t = e >> 5;
+          for (int k = 0; k < C; ++k) {
+            const float* qc = qs + k * h * LP;
+            float ps = 0.f;
+#pragma unroll
+            for (int r = 0; r < MAXR; ++r) {
+              if (r < RPL) {
+                const int j = lane + 32 * r;
+                const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
+                const float act =
+                    rnd<E>(tanhf(rnd<E>(sd + qc[j * LP + l - p0])));
+                ps = fmaf(act, vs[j], ps);
+              }
+            }
+            ps = warp_sum(ps);
+            if (lane == 0) sc[(t * C + k) * TB + l] = rnd<E>(ps);
+          }
         }
       }
     }
@@ -918,19 +1041,30 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes (ops/actor_step.py
-// smem_bytes mirrors it); tc: the bfloat16 instantiations.
+// smem_bytes mirrors it); tc: the bfloat16 instantiations; h > 128: the
+// plan of two head passes (Geo).
 static size_t smem_bytes(int N, int R, int C, int WD, int h, bool tc) {
-  return 4 * (size_t)(layout(N, R, C, WD, h, tc).floats + n_ints(N, R));
+  const int floats = h > 128 ? layout<true>(N, R, C, WD, h, tc).floats
+                             : layout<false>(N, R, C, WD, h, tc).floats;
+  return 4 * (size_t)(floats + n_ints(N, R));
 }
 
 template <class E>
 using KernelFn = void (*)(tapnet::EnvCfg, tapnet::StepIO, ActorIO<E>,
                           HeadW<E>, int, int, float, float, int);
 
-template <bool MCS, bool WIDE, class E>
+template <bool MCS, bool WIDE, bool WH, class E>
 static KernelFn<E> pick(bool logits) {
-  if (logits) return actor_step_kernel<MCS, WIDE, true, E>;
-  return actor_step_kernel<MCS, WIDE, false, E>;
+  if (logits) return actor_step_kernel<MCS, WIDE, true, WH, E>;
+  return actor_step_kernel<MCS, WIDE, false, WH, E>;
+}
+
+template <bool WH, class E>
+static KernelFn<E> pick(bool mcs, bool wide, bool logits) {
+  return wide ? (mcs ? pick<true, true, WH, E>(logits)
+                     : pick<false, true, WH, E>(logits))
+              : (mcs ? pick<true, false, WH, E>(logits)
+                     : pick<false, false, WH, E>(logits));
 }
 
 template <class E>
@@ -956,10 +1090,8 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
                     (const E*)p[36], (const E*)p[37]};
   const size_t smem =
       smem_bytes(c.N, c.R, c.C, c.W * c.D, h, std::is_same_v<E, bf16>);
-  const KernelFn<E> kernel = wide ? (c.mcs ? pick<true, true, E>(logits)
-                                           : pick<false, true, E>(logits))
-                                  : (c.mcs ? pick<true, false, E>(logits)
-                                           : pick<false, false, E>(logits));
+  const KernelFn<E> kernel = h > 128 ? pick<true, E>(c.mcs, wide, logits)
+                                     : pick<false, E>(c.mcs, wide, logits);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -977,7 +1109,7 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
 // ints: B, the EnvCfg fields (select_place.cuh env_cfg), h, window, logits
 // (1: the full mode, logits_o written; 0: live columns, logits_o unused),
 // bf16 (1: se, ctx, statp, statm and the weights other than v are
-// bfloat16; 0: float). h: a multiple of 32, at most 128. Launches on
+// bfloat16; 0: float). h: a multiple of 32, at most 256. Launches on
 // `stream`; returns cudaGetLastError() after the launch.
 // The dynamic shared memory of one block for the ints of a launch (below)
 // and the instantiation (bf16): what ops/actor_step.py::smem_bytes mirrors.
@@ -996,7 +1128,7 @@ extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
   const bool bf = ints[4 + tapnet::ENV_INTS] != 0;
   const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
   if (c.N > MAX_N || c.C > MAX_C || c.W * c.D > tapnet::MAX_WD ||
-      h % 32 != 0 || h <= 0 || h > 32 * MAXR || B <= 0)
+      h % 32 != 0 || h <= 0 || h > MAX_H || B <= 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)c.N * c.R * h * B >= (1ll << 31))
     return (int)cudaErrorInvalidValue;

@@ -78,7 +78,23 @@
 //   the kernel is bound by instruction issue and barrier waits, ~14x its
 //   operations bound counted over live columns (PERF.md §6).
 //   Configs above the 227 KB a block may hold are refused by the wrapper;
-//   h must be a multiple of 32, at most 128.
+//   h must be a multiple of 32, at most 256.
+// - hidden widths above 128 (WH, h = 160..256): the tile stays 32
+//   instances (phase 0, the column list, the softmax, the partial rows,
+//   the chunks and the records' count are the ones above), and the head
+//   runs per step in two passes of TP = 16 instances each (Geo): q, dq,
+//   the encoder view and the token view hold one pass, which halves the
+//   [feature][instance] arrays that grow with h. A pass fills its own
+//   rows of qin, scores its columns cols[off[p0] .. off[p0 + 16]), and in
+//   the backward re-runs its encoder and query, then its token backward,
+//   its query and encoder backward and its share of phase F (the lanes
+//   that share an embedding row are chained within the pass). A virtual
+//   warp of 16 lanes owns h/32 <= 8 rows of one instance in the encoder and
+//   query products; token groups are 32 columns of 2 a warp, 8 rows a lane;
+//   the float32 slices are 32 rows (mv_tiled) and 8 (mvt_tiled); the
+//   bfloat16 slabs 32 columns (mv_mma) and 16 (mvt_mma, Wq^T a third of
+//   its rows at a time); a grad_outer record holds one part per pass and
+//   grad_outer slices 32 columns. Each sum keeps one owner and one order.
 //
 // Design, bfloat16 (TC = the E = __nv_bfloat16 instantiations): every
 // product of the head runs on the tensor cores, mma.sync.m16n8k16 bf16 x
@@ -180,11 +196,7 @@ constexpr int TB = 32;      // instances per block
 constexpr int LD = TB + 1;  // padded row stride of [feature][lane] arrays
 constexpr int NWARP = 16;   // warps per block
 constexpr int NT = TB * NWARP;
-constexpr int CPW = 4;            // columns per warp in a token group
-constexpr int G = CPW * NWARP;    // columns per token group
-constexpr int MAXR = 4;           // rows per lane: h <= 32 * MAXR
-constexpr int KS = 64;     // k rows of a transposed weight slice (mv_tiled)
-constexpr int JS = 32;     // j rows of a weight slice (mvt_tiled)
+constexpr int MAX_H = 256;  // hidden: a multiple of 32, at most 256
 constexpr int WPS = 40;    // tc: bf16 row stride of Wp [h][32] staged
 constexpr int MAX_C = 4;
 constexpr int MAX_N_MONO = 31;   // monolithic: one 32-bit word per block set
@@ -194,6 +206,27 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Dims {
   int B, N, W, D, R, C, h;
+};
+
+// The head's geometry. At h <= 128 one pass over the tile's 32 instances;
+// above (WH, h = 160..256) two passes of TP = 16 instances each, so that
+// the [feature][instance] arrays, q, dq and the token view fit a block's
+// shared memory with a thread's register tile as at h = 128: a thread of
+// the encoder/query products owns h / NVW <= 8 rows of one instance (NVW
+// virtual warps of TP lanes), a lane of the token work MAXR = 8 rows of
+// CPW = 2 columns.
+template <bool WH>
+struct Geo {
+  static constexpr int TP = WH ? 16 : TB;   // instances of a head pass
+  static constexpr int LP = TP + 1;         // their arrays' row stride
+  static constexpr int NP = TB / TP;        // passes
+  static constexpr int NVW = NT / TP;       // virtual warps of TP lanes
+  static constexpr int CPW = WH ? 2 : 4;    // columns per warp in a group
+  static constexpr int G = CPW * NWARP;     // columns per token group
+  static constexpr int MAXR = WH ? 8 : 4;   // rows per lane: h <= 32 MAXR
+  static constexpr int KS = WH ? 32 : 64;   // k rows of a slice (mv_tiled)
+  static constexpr int JS = WH ? 8 : 32;    // j rows of a slice (mvt_tiled)
+  static constexpr int KSL = WH ? 32 : 64;  // tc: columns of a mv_mma slab
 };
 
 using bf16 = __nv_bfloat16;
@@ -277,14 +310,22 @@ __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 // bfloat16 instantiations (Wp itself as bfloat16 [h][WPS] in place of the
 // float Wp^T [32][h]; h1 rows padded to GS = G + 4 floats so that a B
 // fragment's column reads hit 32 banks; a [G][h+4] dyn array in the
-// forward too; the staged weight slices as bfloat16, two slabs of 72 h).
+// forward too; the staged weight slices as bfloat16, two slabs of 72 h at
+// h <= 128). WH: the head's arrays (q, dq, the encoder view, the token
+// view) hold a pass of TP = 16 instances (Geo), the slabs are narrower.
 struct Lay {
   int ws, w8, b8, v, q, dq, sc, enc, tok, floats;
 };
 
-__host__ __device__ inline int h1_stride(bool tc) { return tc ? G + 4 : G; }
+template <bool WH>
+__host__ __device__ inline int h1_stride(bool tc) {
+  return tc ? Geo<WH>::G + 4 : Geo<WH>::G;
+}
 
+template <bool WH>
 __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
+  using Q = Geo<WH>;
+  constexpr int LD = Q::LP, G = Q::G;
   const int h = d.h, T = d.N * d.R, WD = d.W * d.D, FQ = 3 * h + 8;
   Lay L;
   int o = 0;
@@ -300,11 +341,15 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   // token view: x8 [8][G], h1 [32][GS]; d_dyn (tc: dyn first) [G][h+4];
   // backward dh1 [32][G] (and the staged weight slices of the
   // encoder/query products: float, or tc bfloat16 slabs)
-  const int tok = 8 * G + 32 * h1_stride(tc) + (bwd || tc ? G * (h + 4) : 0)
-                  + (bwd ? 32 * G : 0);
+  const int tok = 8 * G + 32 * h1_stride<WH>(tc)
+                  + (bwd || tc ? G * (h + 4) : 0) + (bwd ? 32 * G : 0);
   // (and phase 0's flag rows and live bits)
   const int flg = (d.N + T) * TB;
-  const int slabs = tc ? 72 * h : KS * h;  // stream_a / mv_tiled
+  // stream_a: mv_mma's two slabs of h (KSL + 8) bfloat16 and mvt_mma's
+  // of 3h (WH: h) x 24 or h x 72 (WH: 24); mv_tiled: KS h floats (the
+  // backward's mvt_tiled stages JS 3h: within tok at h <= 128, within KS h
+  // above)
+  const int slabs = tc ? (WH ? h * (Q::KSL + 8) : 72 * h) : Q::KS * h;
   const int stage = slabs > flg ? slabs : flg;
   L.tok = o; o += tok > stage ? tok : stage;
   L.floats = o;
@@ -334,18 +379,21 @@ __device__ __forceinline__ void put16(float* dst, const uint4& v) {
   }
 }
 
-// out[j] = sum_k W[j, k] x[k][lane] for every row j < h (a warp owns the
-// h/16 rows wy*h/16 ..): W given transposed, WT [cols][h]; slices of KS of
-// its rows are staged in shared memory S as float (16-byte loads) and read
-// as float2 broadcasts, so one load of x feeds h/16 multiply-adds.
-// emit(j, lane, acc) stores row j. The caller follows with a barrier
-// before S or the outputs are reused.
-template <class E, class Emit>
+// out[j] = sum_k W[j, k] x[k][n] for every row j < h and instance n of
+// the pass (a virtual warp vw of TP lanes owns the RW = h/NVW rows vw*RW
+// ..): W given transposed, WT [cols][h]; slices of KS of its rows are
+// staged in shared memory S as float (16-byte loads) and read as float2
+// (RW odd, h = 160 or 224: float) broadcasts, so one load of x feeds RW
+// multiply-adds. emit(j, n, acc) stores row j. The caller follows with a
+// barrier before S or the outputs are reused.
+template <bool WH, class E, class Emit>
 __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
-                         const float* x, float* S, int lane, int wy, int tid,
+                         const float* x, float* S, int n, int vw, int tid,
                          Emit emit) {
+  using Q = Geo<WH>;
   constexpr int PV = 16 / sizeof(E);  // elements per 16 bytes
-  const int RW = h / NWARP;  // 2 (h = 32) .. 8 (h = 128)
+  constexpr int KS = Q::KS, LP = Q::LP;
+  const int RW = h / Q::NVW;  // 2 (h = 32) .. 8 (h = 128); 5 .. 8 (WH)
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k0 = 0; k0 < cols; k0 += KS) {
     const int nk = min(KS, cols - k0);
@@ -355,32 +403,42 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
       put16<E>(S + e * PV, __ldg(src + e));
     __syncthreads();
     for (int kk = 0; kk < nk; ++kk) {
-      const float xv = x[(k0 + kk) * LD + lane];
-      const float* sw = S + kk * h + wy * RW;
+      const float xv = x[(k0 + kk) * LP + n];
+      const float* sw = S + kk * h + vw * RW;
+      if (!WH || RW % 2 == 0) {
 #pragma unroll
-      for (int r = 0; r < 8; r += 2) {
-        if (r < RW) {
-          const float2 w2 = *reinterpret_cast<const float2*>(sw + r);
-          acc[r] = fmaf(w2.x, xv, acc[r]);
-          acc[r + 1] = fmaf(w2.y, xv, acc[r + 1]);
+        for (int r = 0; r < 8; r += 2) {
+          if (r < RW) {
+            const float2 w2 = *reinterpret_cast<const float2*>(sw + r);
+            acc[r] = fmaf(w2.x, xv, acc[r]);
+            acc[r + 1] = fmaf(w2.y, xv, acc[r + 1]);
+          }
         }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (r < RW) acc[r] = fmaf(sw[r], xv, acc[r]);
       }
     }
   }
 #pragma unroll
   for (int r = 0; r < 8; ++r)
-    if (r < RW) emit(wy * RW + r, lane, acc[r]);
+    if (r < RW) emit(vw * RW + r, n, acc[r]);
 }
 
-// out[k] = sum_j W[j, k] g[j][lane] for every k < cols (a multiple of 32;
-// a warp owns cols/16 <= MAXCW of them), W row-major with `ld` columns:
-// slices of JS rows are staged in S (JS * cols floats: the backward's
-// token view holds them), one load of g feeds cols/16 multiply-adds.
-template <int MAXCW, class E, class Emit>
+// out[k] = sum_j W[j, k] g[j][n] for every k < cols (a multiple of 32)
+// and instance n of the pass (a virtual warp vw owns cols/NVW <= MAXCW of
+// them), W row-major with `ld` columns: slices of JS rows are staged in S
+// (JS * cols floats: the backward's token view holds them), one load of g
+// feeds cols/NVW multiply-adds (float2 reads of W; float where that count
+// is odd, h = 160 or 224).
+template <bool WH, int MAXCW, class E, class Emit>
 __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
-                          int ld, const float* g, float* S, int lane, int wy,
+                          int ld, const float* g, float* S, int n, int vw,
                           int tid, Emit emit) {
-  const int CW = cols / NWARP;
+  using Q = Geo<WH>;
+  constexpr int JS = Q::JS, LP = Q::LP;
+  const int CW = cols / Q::NVW;
   float acc[MAXCW];
 #pragma unroll
   for (int c = 0; c < MAXCW; ++c) acc[c] = 0.f;
@@ -393,79 +451,91 @@ __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
     }
     __syncthreads();
     for (int jj = 0; jj < nj; ++jj) {
-      const float gv = g[(j0 + jj) * LD + lane];
-      const float* sw = S + jj * cols + wy * CW;
+      const float gv = g[(j0 + jj) * LP + n];
+      const float* sw = S + jj * cols + vw * CW;
+      if (!WH || CW % 2 == 0) {
 #pragma unroll
-      for (int c = 0; c < MAXCW; c += 2) {
-        if (c < CW) {
-          const float2 w2 = *reinterpret_cast<const float2*>(sw + c);
-          acc[c] = fmaf(w2.x, gv, acc[c]);
-          acc[c + 1] = fmaf(w2.y, gv, acc[c + 1]);
+        for (int c = 0; c < MAXCW; c += 2) {
+          if (c < CW) {
+            const float2 w2 = *reinterpret_cast<const float2*>(sw + c);
+            acc[c] = fmaf(w2.x, gv, acc[c]);
+            acc[c + 1] = fmaf(w2.y, gv, acc[c + 1]);
+          }
         }
+      } else {
+#pragma unroll
+        for (int c = 0; c < MAXCW; ++c)
+          if (c < CW) acc[c] = fmaf(sw[c], gv, acc[c]);
       }
     }
   }
 #pragma unroll
   for (int c = 0; c < MAXCW; ++c)
-    if (c < CW) emit(wy * CW + c, lane, acc[c]);
+    if (c < CW) emit(vw * CW + c, n, acc[c]);
 }
 
-// dst[j*cols + m] += sum_l A[j][l] Bm[m][l] over the block's lanes, for
+// dst[j*cols + m] += sum_l A[j][l] Bm[m][l] over the pass's TP lanes, for
 // j < h and m < cols. Whole passes of 128 columns: a thread owns rows
-// wy*h/16 .. and the columns m0 + lane + 32 i (i < 4), so one load of Bm
-// feeds h/16 multiply-adds and one of A (a broadcast) four; the last
-// cols % 128 columns: one element per thread at a time. Every element has
-// the same owner at every call, and each sum runs over l in order.
+// wy*h/16 .. (in runs of 8: two at h > 128) and the columns m0 + lane +
+// 32 i (i < 4), so one load of Bm feeds up to 8 multiply-adds and one of A
+// (a broadcast) four; the last cols % 128 columns: one element per thread
+// at a time. Every element has the same owner at every call, and each sum
+// runs over l in order.
+template <int TP>
 __device__ void outer_tiled(float* dst, const float* A, const float* Bm,
                             int h, int cols, int lane, int wy, int tid) {
+  constexpr int LP = TP + 1;
   const int RW = h / NWARP;
   const int full = cols & ~127;
   for (int m0 = 0; m0 < full; m0 += 128) {
-    float acc[8][4];
+    for (int r0 = 0; r0 < RW; r0 += 8) {
+      float acc[8][4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
-    for (int l = 0; l < TB; ++l) {
-      float bv[4];
+        for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+      for (int l = 0; l < TP; ++l) {
+        float bv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) bv[i] = Bm[(m0 + lane + 32 * i) * LD + l];
+        for (int i = 0; i < 4; ++i) bv[i] = Bm[(m0 + lane + 32 * i) * LP + l];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (r < RW) {
-          const float a = A[(wy * RW + r) * LD + l];
+        for (int r = 0; r < 8; ++r) {
+          if (r0 + r < RW) {
+            const float a = A[(wy * RW + r0 + r) * LP + l];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(a, bv[i], acc[r][i]);
+            for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(a, bv[i], acc[r][i]);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      if (r < RW) {
+      for (int r = 0; r < 8; ++r) {
+        if (r0 + r < RW) {
+          float* dr = dst + (size_t)(wy * RW + r0 + r) * cols + m0 + lane;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dst[(size_t)(wy * RW + r) * cols + m0 + lane + 32 * i] += acc[r][i];
+          for (int i = 0; i < 4; ++i) dr[32 * i] += acc[r][i];
+        }
       }
     }
   }
   const int rem = cols - full;
   for (int e = tid; e < h * rem; e += NT) {
     const int j = e / rem, m = full + e - j * rem;
-    const float* a = A + j * LD;
-    const float* bm = Bm + m * LD;
+    const float* a = A + j * LP;
+    const float* bm = Bm + m * LP;
     float acc = 0.f;
 #pragma unroll 8
-    for (int l = 0; l < TB; ++l) acc = fmaf(a[l], bm[l], acc);
+    for (int l = 0; l < TP; ++l) acc = fmaf(a[l], bm[l], acc);
     dst[(size_t)j * cols + m] += acc;
   }
 }
 
-// dst[j] += sum_l A[j*lda + l]
+// dst[j] += sum_l A[j*lda + l] over the pass's TP lanes
+template <int TP>
 __device__ void rowsum_acc(float* dst, const float* A, int lda, int rows,
                            int tid) {
   for (int j = tid; j < rows; j += NT) {
     float acc = 0.f;
-    for (int l = 0; l < TB; ++l) acc += A[(size_t)j * lda + l];
+    for (int l = 0; l < TP; ++l) acc += A[(size_t)j * lda + l];
     dst[j] += acc;
   }
 }
@@ -523,19 +593,22 @@ __device__ __forceinline__ void frag_b2(unsigned (&hi)[2], unsigned (&lo)[2],
   split(f(2 * t + 8, g), hi[1], lo[1]);
 }
 
-// out[m][n] = sum_j W[j, m] g[j][n] for m < M (a multiple of 16), n < TB,
+// out[m][n] = sum_j W[j, m] g[j][n] for m < M (a multiple of 16), n < TP,
 // j < h (a multiple of 32): WT = W transposed, row-major [M][h] bfloat16,
-// streamed through S in slabs of KSL columns (stream_a; 16 for the 3h rows
-// of Wq^T, 64 for the h of W2^T: 72 h floats of S either way); g [h][LD]
-// f32 in shared memory, split into hi and lo passes. Warp wy owns the
-// lanes 16 (wy % 2) .. + 15 and the row tiles wy / 2 + 8 i (i < MAXU), so
-// its B fragments serve all of them. The caller follows with a barrier.
-template <int MAXU, class Emit>
+// streamed through S in slabs of KSL columns (stream_a; at h <= 128 16 for
+// the 3h rows of Wq^T, 64 for the h of W2^T: 72 h floats of S either way;
+// above, 16 for h rows at a time: 24 h); g [h][TP + 1] f32 in shared
+// memory, split into hi and lo passes. With TP = 32 warp wy owns the lanes
+// 16 (wy % 2) .. + 15 and the row tiles wy / 2 + 8 i (i < MAXU); with
+// TP = 16 all 16 lanes and the row tiles wy + 16 i; so its B fragments
+// serve all of them. The caller follows with a barrier.
+template <int TP, int MAXU, int KSL, class Emit>
 __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
                         const float* gs, unsigned short* S, int lane, int wy,
                         int tid, Emit emit) {
-  constexpr int KSL = MAXU == 1 ? 64 : 16;
-  const int g = lane >> 2, t = lane & 3, n0 = (wy & 1) * 16, MT = M / 16;
+  constexpr int LP = TP + 1, NH = TP / 16, WR = NWARP / NH;
+  const int g = lane >> 2, t = lane & 3, n0 = (wy & (NH - 1)) * 16;
+  const int MT = M / 16;
   float acc[MAXU][2][4] = {};
   stream_a<KSL>(S, WT, M, h, tid, [&](const unsigned short* slab, int kb) {
 #pragma unroll
@@ -546,12 +619,12 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
 #pragma unroll
         for (int s = 0; s < 2; ++s)
           frag_b2(bh[s], bl[s], g, t, [&](int k, int n) {
-            const float* p = gs + (k0 + k) * LD + n0 + 8 * s + n;
-            return make_float2(p[0], p[LD]);
+            const float* p = gs + (k0 + k) * LP + n0 + 8 * s + n;
+            return make_float2(p[0], p[LP]);
           });
 #pragma unroll
         for (int i = 0; i < MAXU; ++i) {
-          const int mt = (wy >> 1) + 8 * i;
+          const int mt = (wy >> (NH - 1)) + WR * i;
           if (mt < MT) {
             unsigned a[4];
             ldsm_a(a, slab + mt * 16 * (KSL + 8) + 16 * c, KSL + 8, lane);
@@ -567,7 +640,7 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
   });
 #pragma unroll
   for (int i = 0; i < MAXU; ++i) {
-    const int m = ((wy >> 1) + 8 * i) * 16 + g;
+    const int m = ((wy >> (NH - 1)) + WR * i) * 16 + g;
     if (m < M) {
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
@@ -584,37 +657,45 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
 // The bfloat16 backward defers the encoder/query weight-gradient
 // contractions (gWq += dq qin^T, gW2 += d_hm e1^T, gW1 += de1 feats^T,
 // K = 32 lanes a step) to `grad_outer`: each (step, container) of a block
-// writes one record of their operands, in floats from its start: dq, d_hm,
-// de1 [h][TB] f32; qin [3h+8][TB], e1 [h][TB], feats [WD+2][TB] bfloat16.
+// writes one record of their operands, one part per head pass of TP
+// instances, in floats from the part's start: dq, d_hm, de1 [h][TP] f32;
+// qin [3h+8][TP], e1 [h][TP], feats [WD+2][TP] bfloat16. `pass` is a
+// part's floats, `size` the record's (Geo<WH>::NP parts).
 struct RecOff {
-  int dq, dhm, de1, qin, e1, feats, size;
+  int dq, dhm, de1, qin, e1, feats, pass, size;
 };
 
+template <bool WH>
 __host__ __device__ inline RecOff rec_off(const Dims& d) {
+  constexpr int TP = Geo<WH>::TP;
   const int h = d.h, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
   RecOff r;
   int o = 0;
-  r.dq = o;    o += h * TB;
-  r.dhm = o;   o += h * TB;
-  r.de1 = o;   o += h * TB;
-  r.qin = o;   o += FQ * TB / 2;
-  r.e1 = o;    o += h * TB / 2;
-  r.feats = o; o += WD2 * TB / 2;
-  r.size = o;
+  r.dq = o;    o += h * TP;
+  r.dhm = o;   o += h * TP;
+  r.de1 = o;   o += h * TP;
+  r.qin = o;   o += FQ * TP / 2;
+  r.e1 = o;    o += h * TP / 2;
+  r.feats = o; o += WD2 * TP / 2;
+  r.pass = o;
+  r.size = o * Geo<WH>::NP;
   return r;
 }
 
-// a [rows][LD] float array as [rows][TB] f32 at dst (coalesced stores)
+// a [rows][TP + 1] float array as [rows][TP] f32 at dst (coalesced stores)
+template <int TP>
 __device__ void put_f32(float* dst, const float* a, int rows, int tid) {
-  for (int e = tid; e < rows * TB; e += NT)
-    dst[e] = a[(e >> 5) * LD + (e & 31)];
+  for (int e = tid; e < rows * TP; e += NT)
+    dst[e] = a[((unsigned)e / TP) * (TP + 1) + (unsigned)e % TP];
 }
 
-// the same as [rows][TB] bfloat16 (its values are bfloat16: exact)
+// the same as [rows][TP] bfloat16 (its values are bfloat16: exact)
+template <int TP>
 __device__ void put_bf16(float* dst, const float* a, int rows, int tid) {
   unsigned* d = reinterpret_cast<unsigned*>(dst);
-  for (int e = tid; e < rows * TB / 2; e += NT) {
-    const float* p = a + (e >> 4) * LD + 2 * (e & 15);
+  for (int e = tid; e < rows * TP / 2; e += NT) {
+    const float* p =
+        a + ((unsigned)e / (TP / 2)) * (TP + 1) + 2 * ((unsigned)e % (TP / 2));
     d[e] = pack(p[0], p[1]);
   }
 }
@@ -623,7 +704,7 @@ __device__ void put_bf16(float* dst, const float* a, int rows, int tid) {
 // steps per chunk. Monolithic: one chunk of all S steps. The backward
 // writes d_se into `dse_o` [chunks, B, T, h] (zeroed here) and d_ctx into
 // `dctx_o` (its chunk's [h, B], zeroed here).
-template <bool BWD, bool STEPS, class E>
+template <bool BWD, bool STEPS, bool WH, class E>
 __global__ void __launch_bounds__(NT)
 replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
               float temperature, float inv_temp, float* logp_o, float* dse_o,
@@ -632,18 +713,25 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   using Word = std::conditional_t<STEPS, unsigned long long, int>;
   // bfloat16: the products on the tensor cores (the design note)
   constexpr bool TC = std::is_same_v<E, bf16>;
+  // the head's passes (Geo): TP instances each, LP their arrays' stride
+  using Q = Geo<WH>;
+  constexpr int TP = Q::TP, LP = Q::LP, NVW = Q::NVW, CPW = Q::CPW;
+  constexpr int G = Q::G, MAXR = Q::MAXR;
   extern __shared__ __align__(16) float smem[];
   const int N = d.N, R = d.R, C = d.C, h = d.h, B = d.B;
   const int WD = d.W * d.D, T = N * R, A = T * C, FQ = 3 * h + 8, S = N;
-  const int HP = h + 4, RPL = h / 32, GS = h1_stride(TC);
+  const int HP = h + 4, RPL = h / 32, GS = h1_stride<WH>(TC);
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
   const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
+  // a pass's instance and virtual warp (lane and warp when TP = TB)
+  const int vl = TP == TB ? lane : lane % TP;
+  const int vw = TP == TB ? wy : wy * (TB / TP) + lane / TP;
   const int tile0 = blockIdx.x * TB;
   const int b = tile0 + lane;
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
   const GOff go = goff(d);
-  const Lay L = layout(d, BWD, TC);
+  const Lay L = layout<WH>(d, BWD, TC);
   const int chunk = STEPS ? blockIdx.y : 0;
   const int k0 = STEPS ? chunk * len : 0;
   const int k1 = STEPS ? min(k0 + len, S) : S;
@@ -660,13 +748,16 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   float* W8s = smem + L.w8;
   float* b8s = smem + L.b8;
   float* vs = smem + L.v;
-  float* qs = smem + L.q;    // [h][LD]
-  float* dqs = smem + L.dq;  // [h][LD] (bwd)
+  // the pass's instances: q_c [h][LP], dq [h][LP] (bwd), feats [WD+2][LP],
+  // e1 [h][LP] (de1 in place, bwd), qin [3h+8][LP]: enc, ctx, prev, dsum;
+  // d_prev [h][LP] (bwd)
+  float* qs = smem + L.q;
+  float* dqs = smem + L.dq;
   float* sc = smem + L.sc;   // [column][C]
-  float* feats = smem + L.enc;        // [WD+2][LD]
-  float* e1 = feats + (WD + 2) * LD;  // [h][LD]; de1 in place (bwd)
-  float* qin = e1 + h * LD;           // [3h+8][LD]: enc, ctx, prev, dsum
-  float* d_prev = qin + FQ * LD;      // [h][LD] (bwd)
+  float* feats = smem + L.enc;
+  float* e1 = feats + (WD + 2) * LP;
+  float* qin = e1 + h * LP;
+  float* d_prev = qin + FQ * LP;
   float* d_hm = qin;                  // enc rows, after the Wq product
   float* stg = smem + L.tok;          // staged weight slices
   // tc: the same as bfloat16 (stream_a's double-buffered slabs)
@@ -686,7 +777,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // the block's partial row: its tile and step chunk
   const size_t prow_i = (size_t)blockIdx.x * (STEPS ? gridDim.y : 1) + chunk;
   float* prow = BWD ? part_o + prow_i * go.P : nullptr;
-  const RecOff ro = rec_off(d);
+  const RecOff ro = rec_off<WH>(d);
 
   // tc: Wp [h][32] as bfloat16 rows of WPS (the A operand of dyn, and of
   // dh1 as its transpose)
@@ -725,78 +816,85 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   for (int r = 0; r < MAXR; ++r) gwp[r][0] = gwp[r][1] = dvr[r] = 0.f;
   float gw8 = 0.f;
   // tc: gWp^T [32][h] as mma tiles (row tile wy % 2, column tiles wy / 2
-  // and wy / 2 + 8), gW8 [32][8] and gb8 (column 0 of g8b) on warps 0 and
+  // + 8 u, u < NUW), gW8 [32][8] and gb8 (column 0 of g8b) on warps 0 and
   // 1 (row tile wy)
-  float gwa[2][4] = {}, g8a[4] = {}, g8b[4] = {};
+  constexpr int NUW = MAXR / 2;
+  float gwa[NUW][4] = {}, g8a[4] = {}, g8b[4] = {};
   __syncthreads();
 
-  // shared rows of qin: ctx, the previous action's embedding, dsum
-  auto fill_qin = [&](int k) {
-    const int idx = ia[lane];
-    for (int j = wy; j < h; j += NWARP) {
-      qin[(h + j) * LD + lane] = f32(in.ctx[(size_t)j * B + bb]);
-      qin[(2 * h + j) * LD + lane] = ldg(w.et + (size_t)j * (A + 1) + idx);
+  // shared rows of qin for the pass of instances p0 ..: ctx, the previous
+  // action's embedding, dsum
+  auto fill_qin = [&](int k, int p0) {
+    const int l = p0 + vl;
+    const int bq = TP == TB ? bb : tile0 + l < B ? tile0 + l : 0;  // clamped
+    const int idx = ia[l];
+    for (int j = vw; j < h; j += NVW) {
+      qin[(h + j) * LP + vl] = f32(in.ctx[(size_t)j * B + bq]);
+      qin[(2 * h + j) * LP + vl] = ldg(w.et + (size_t)j * (A + 1) + idx);
     }
-    if (wy == 0) {
-      const float fpk = (float)popw(wb[lane]);
-      const float fa0 = (float)popw(wb[TB + lane]);
-      const float far = (float)popw(wb[2 * TB + lane]);
-      const float fwn = (float)popw(wb[3 * TB + lane]);
-      float* ds = qin + 3 * h * LD;
-      ds[0 * LD + lane] = rnd<E>(fpk / (float)N);
-      ds[1 * LD + lane] =
+    if (vw == 0) {
+      const float fpk = (float)popw(wb[l]);
+      const float fa0 = (float)popw(wb[TB + l]);
+      const float far = (float)popw(wb[2 * TB + l]);
+      const float fwn = (float)popw(wb[3 * TB + l]);
+      float* ds = qin + 3 * h * LP;
+      ds[0 * LP + vl] = rnd<E>(fpk / (float)N);
+      ds[1 * LP + vl] =
           rnd<E>(R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N);
-      ds[2 * LD + lane] = rnd<E>(fwn / (float)N);
-      ds[3 * LD + lane] = rnd<E>((float)k / (float)S);
+      ds[2 * LP + vl] = rnd<E>(fwn / (float)N);
+      ds[3 * LP + vl] = rnd<E>((float)k / (float)S);
       for (int r = 0; r < 4; ++r)
-        ds[(4 + r) * LD + lane] = f32(in.statm[(size_t)r * B + bb]);
+        ds[(4 + r) * LP + vl] = f32(in.statm[(size_t)r * B + bq]);
     }
   };
 
-  // feats -> e1 -> enc (qin rows 0..h) of container c at step k; ends in a
-  // barrier
-  auto encode = [&](int k, int c) {
+  // feats -> e1 -> enc (qin rows 0..h) of container c at step k for the
+  // pass of instances p0 ..; ends in a barrier
+  auto encode = [&](int k, int c, int p0) {
+    const int bq = TP == TB ? bb  // clamped
+                            : tile0 + p0 + vl < B ? tile0 + p0 + vl : 0;
     const int* hk = in.hms + ((size_t)k * C * WD + (size_t)c * WD) * B;
-    for (int x = wy; x < WD; x += NWARP)
-      feats[x * LD + lane] = rnd<E>((float)hk[(size_t)x * B + bb] * inv_s);
+    for (int x = vw; x < WD; x += NVW)
+      feats[x * LP + vl] = rnd<E>((float)hk[(size_t)x * B + bq] * inv_s);
     __syncthreads();
-    if (wy == 0) {
-      float mx = feats[lane], sm = 0.f;
+    if (vw == 0) {
+      float mx = feats[vl], sm = 0.f;
       for (int x = 0; x < WD; ++x) {
-        mx = fmaxf(mx, feats[x * LD + lane]);
-        sm += feats[x * LD + lane];
+        mx = fmaxf(mx, feats[x * LP + vl]);
+        sm += feats[x * LP + vl];
       }
-      feats[WD * LD + lane] = mx;
-      feats[(WD + 1) * LD + lane] = rnd<E>(sm / (float)WD);
+      feats[WD * LP + vl] = mx;
+      feats[(WD + 1) * LP + vl] = rnd<E>(sm / (float)WD);
     }
     __syncthreads();
     auto e1_out = [&](int j, int n, float acc) {
-      e1[j * LD + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
+      e1[j * LP + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
     };
     if constexpr (TC)
-      mv_mma(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid, e1_out);
+      mv_mma<TP, Q::KSL>(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
+                         e1_out);
     else
-      mv_tiled(w.w1T, h, WD + 2, feats, stg, lane, wy, tid, e1_out);
+      mv_tiled<WH>(w.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
     __syncthreads();
     auto enc_out = [&](int j, int n, float acc) {
-      qin[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
+      qin[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
     };
     if constexpr (TC)
-      mv_mma(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
+      mv_mma<TP, Q::KSL>(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
     else
-      mv_tiled(w.w2T, h, h, e1, stg, lane, wy, tid, enc_out);
+      mv_tiled<WH>(w.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
     __syncthreads();
   };
 
   // q_c = Wq qin + bq into qs; ends in a barrier
   auto query = [&]() {
     auto q_out = [&](int j, int n, float acc) {
-      qs[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
+      qs[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
     };
     if constexpr (TC)
-      mv_mma(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
+      mv_mma<TP, Q::KSL>(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
     else
-      mv_tiled(w.wqT, h, FQ, qin, stg, lane, wy, tid, q_out);
+      mv_tiled<WH>(w.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
     __syncthreads();
   };
 
@@ -818,8 +916,9 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     }
     __syncthreads();
     {
-      const int m = tid >> 4, c4 = (tid & 15) * 4;  // 32 rows x 16 quads
-      for (int i = 0; i < 4; ++i) {
+      // 32 rows x 16 runs of G/16 columns
+      const int m = tid >> 4, c4 = (tid & 15) * (G / 16);
+      for (int i = 0; i < G / 16; ++i) {
         float acc = 0.f;
         for (int f = 0; f < 8; ++f)
           acc = fmaf(W8s[m * 8 + f], x8[f * G + c4 + i], acc);
@@ -831,12 +930,13 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
 
   // dyn = Wp h1 for this warp's CPW columns, rows lane + 32 r. tc: the
   // group's dyn [G][HP] into DD on the tensor cores (A = Wp staged, B = h1;
-  // warp wy owns the column tile wy % 8 and the row tiles wy / 8 + 2 i of
-  // the column tiles that hold a column), a barrier, then this warp's
-  // columns read back from DD.
+  // warp wy owns the column tile wy % NCT and the row tiles wy / NCT +
+  // (NWARP / NCT) i of the column tiles that hold a column), a barrier,
+  // then this warp's columns read back from DD.
   auto group_dyn = [&](float (&dyn)[CPW][MAXR], int ng) {
     if constexpr (TC) {
-      const int nt = wy & 7;
+      constexpr int NCT = G / 8, LN = NCT == 8 ? 3 : 2;  // LN: log2 NCT
+      const int nt = wy & (NCT - 1);
       if (8 * nt < ng) {
         const int col = 8 * nt + g8;
         unsigned bf[2][2];
@@ -846,7 +946,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
             const float* p = h1 + (16 * ks + k) * GS + col;
             return make_float2(p[0], p[GS]);
           });
-        for (int mt = wy >> 3; mt < h / 16; mt += 2) {
+        for (int mt = wy >> LN; mt < h / 16; mt += NWARP / NCT) {
           float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int ks = 0; ks < 2; ++ks) {
@@ -880,18 +980,32 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) dyn[i][r] = 0.f;
     for (int k = 0; k < 32; ++k) {
-      const float4 hv =
-          *reinterpret_cast<const float4*>(h1 + k * GS + wy * CPW);
-      float wv[MAXR];
+      if constexpr (CPW == 4) {
+        const float4 hv =
+            *reinterpret_cast<const float4*>(h1 + k * GS + wy * CPW);
+        float wv[MAXR];
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r)
-        wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
+        for (int r = 0; r < MAXR; ++r)
+          wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
 #pragma unroll
-      for (int r = 0; r < MAXR; ++r) {
-        dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
-        dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
-        dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
-        dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
+        for (int r = 0; r < MAXR; ++r) {
+          dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
+          dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
+          dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
+          dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
+        }
+      } else {  // two columns a warp (WH)
+        const float2 hv =
+            *reinterpret_cast<const float2*>(h1 + k * GS + wy * CPW);
+        float wv[MAXR];
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r)
+          wv[r] = r < RPL ? Ws[k * h + lane + 32 * r] : 0.f;
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r) {
+          dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
+          dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
+        }
       }
     }
 #pragma unroll
@@ -914,9 +1028,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     }
   };
 
-  // forward over the step's columns for container c: sc[col*C + c]
-  auto scores = [&](int k, int c, int n) {
-    for (int g0 = 0; g0 < n; g0 += G) {
+  // forward over the columns [c0, n) of a pass of instances p0 .. for
+  // container c: sc[col*C + c]
+  auto scores = [&](int k, int c, int p0, int c0, int n) {
+    for (int g0 = c0; g0 < n; g0 += G) {
       const int ng = min(G, n - g0);
       float sev[CPW][MAXR];
       group_se(g0, ng, sev);
@@ -927,14 +1042,14 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       for (int i = 0; i < CPW; ++i) {
         const int cc = wy * CPW + i;
         if (cc >= ng) break;  // warp-uniform
-        const int l = cols[g0 + cc] & 31;
+        const int l = (cols[g0 + cc] & 31) - p0;
         float ps = 0.f;
 #pragma unroll
         for (int r = 0; r < MAXR; ++r) {
           if (r < RPL) {
             const int j = lane + 32 * r;
             const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
-            const float act = rnd<E>(tanhf(rnd<E>(sd + qs[j * LD + l])));
+            const float act = rnd<E>(tanhf(rnd<E>(sd + qs[j * LP + l])));
             ps = fmaf(act, vs[j], ps);
           }
         }
@@ -945,10 +1060,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     __syncthreads();
   };
 
-  // backward over the step's columns for container c, from g in sc:
-  // d_se, dq (into dqs), gWp, gW8, gb8, gv
-  auto token_bwd = [&](int k, int c, int n) {
-    for (int g0 = 0; g0 < n; g0 += G) {
+  // backward over the columns [c0, n) of a pass of instances p0 .. for
+  // container c, from g in sc: d_se, dq (into dqs), gWp, gW8, gb8, gv
+  auto token_bwd = [&](int k, int c, int p0, int c0, int n) {
+    for (int g0 = c0; g0 < n; g0 += G) {
       const int ng = min(G, n - g0);
       float sev[CPW][MAXR];
       group_se(g0, ng, sev);
@@ -973,7 +1088,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           if (r < RPL) {
             const int j = lane + 32 * r;
             const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
-            const float act = rnd<E>(tanhf(rnd<E>(sd + qs[j * LD + l])));
+            const float act =
+                rnd<E>(tanhf(rnd<E>(sd + qs[j * LP + l - p0])));
             dvr[r] = fmaf(act, ds, dvr[r]);
             const float dpre = (vs[j] * ds) * (1.f - act * act);
             ddc[j] = dpre;
@@ -984,22 +1100,23 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       __syncthreads();
       if constexpr (TC) {
         // dq[j][l] += sum over the group's columns cc of d_dyn[cc][j] where
-        // cc is instance l's: M = h, N = 32 lanes, K = the columns, B the
-        // 0/1 membership, d_dyn split; warp wy owns the lane tile wy % 4
-        // and the row tiles wy / 4 + 4 u
-        const int nt = wy & 3;
+        // cc is instance l's: M = h, N = the pass's TP lanes, K = the
+        // columns, B the 0/1 membership, d_dyn split; warp wy owns the
+        // lane tile wy % NLT and the row tiles wy / NLT + (NWARP / NLT) u
+        constexpr int NLT = TP / 8, LL = NLT == 4 ? 2 : 1;  // LL: log2 NLT
+        const int nt = wy & (NLT - 1);
         float dacc[2][4] = {};
         for (int c0 = 0; c0 < ng; c0 += 16) {
           unsigned bo[2];
           frag_b(bo, g8, t4, [&](int k, int n) {
-            const int l = 8 * nt + n, ca = c0 + k;
+            const int l = p0 + 8 * nt + n, ca = c0 + k;
             const bool a0 = ca < ng && (cols[g0 + ca] & 31) == l;
             const bool a1 = ca + 1 < ng && (cols[g0 + ca + 1] & 31) == l;
             return make_float2(a0 ? 1.f : 0.f, a1 ? 1.f : 0.f);
           });
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
-            const int mt = (wy >> 2) + 4 * u;
+            const int mt = (wy >> LL) + (NWARP / NLT) * u;
             if (mt < h / 16) {
               unsigned ah[4], al[4];
               frag_a2(ah, al, g8, t4, [&](int r, int k) {
@@ -1013,25 +1130,25 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          const int mt = (wy >> 2) + 4 * u;
+          const int mt = (wy >> LL) + (NWARP / NLT) * u;
           if (mt < h / 16) {
-            float* dq0 = dqs + (16 * mt + g8) * LD + 8 * nt + 2 * t4;
+            float* dq0 = dqs + (16 * mt + g8) * LP + 8 * nt + 2 * t4;
             dq0[0] += dacc[u][0];
             dq0[1] += dacc[u][1];
-            dq0[8 * LD] += dacc[u][2];
-            dq0[8 * LD + 1] += dacc[u][3];
+            dq0[8 * LP] += dacc[u][2];
+            dq0[8 * LP + 1] += dacc[u][3];
           }
         }
       }
-      // dq: per instance, its columns of this group in order
-      for (int e = tid; e < (TC ? 0 : h * TB); e += NT) {
-        const int j = e / TB, l = e - j * TB;
+      // dq: per instance of the pass, its columns of this group in order
+      for (int e = tid; e < (TC ? 0 : h * TP); e += NT) {
+        const int j = e / TP, v = e - j * TP, l = p0 + v;
         const int lo = max(off[l], g0) - g0;
         const int hi = min(off[l + 1], g0 + ng) - g0;
         if (hi > lo) {
           float s = 0.f;
           for (int cc = lo; cc < hi; ++cc) s += DD[cc * HP + j];
-          dqs[j * LD + l] += s;
+          dqs[j * LP + v] += s;
         }
       }
       if constexpr (TC) {
@@ -1045,7 +1162,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
                 h1 + (16 * mt + r) * GS + c0 + k);
           });
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
+          for (int u = 0; u < NUW; ++u) {
             const int nt = (wy >> 1) + 8 * u;
             if (nt * 8 < h) {
               unsigned bh[2], bl[2];
@@ -1059,29 +1176,33 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           }
         }
         // dh1 = (Wp^T d_dyn) * (h1 > 0), K = h, d_dyn split: row tile
-        // wy % 2, column tile wy / 2; A = Wp^T from the staged Wp
+        // wy % 2, column tile wy / 2 (G = 32: warps 8.. idle); A = Wp^T
+        // from the staged Wp
         const int nt = wy >> 1;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int j0 = 0; j0 < h; j0 += 16) {
-          unsigned a[4], bh[2], bl[2];
-          frag_au(a, g8, t4, [&](int r, int k) {
-            const int m = 16 * mt + r, j = j0 + k;
-            return (unsigned)wps[j * WPS + m]
-                   | (unsigned)wps[(j + 1) * WPS + m] << 16;
-          });
-          frag_b2(bh, bl, g8, t4, [&](int k, int n) {
-            return *reinterpret_cast<const float2*>(
-                DD + (8 * nt + n) * HP + j0 + k);
-          });
-          mma(acc, a, bh);
-          mma(acc, a, bl);
+        if (G == 64 || nt < G / 8) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int j0 = 0; j0 < h; j0 += 16) {
+            unsigned a[4], bh[2], bl[2];
+            frag_au(a, g8, t4, [&](int r, int k) {
+              const int m = 16 * mt + r, j = j0 + k;
+              return (unsigned)wps[j * WPS + m]
+                     | (unsigned)wps[(j + 1) * WPS + m] << 16;
+            });
+            frag_b2(bh, bl, g8, t4, [&](int k, int n) {
+              return *reinterpret_cast<const float2*>(
+                  DD + (8 * nt + n) * HP + j0 + k);
+            });
+            mma(acc, a, bh);
+            mma(acc, a, bl);
+          }
+          const int m = 16 * mt + g8, cc = 8 * nt + 2 * t4;
+          DH1[m * G + cc] = h1[m * GS + cc] > 0.f ? acc[0] : 0.f;
+          DH1[m * G + cc + 1] = h1[m * GS + cc + 1] > 0.f ? acc[1] : 0.f;
+          DH1[(m + 8) * G + cc] =
+              h1[(m + 8) * GS + cc] > 0.f ? acc[2] : 0.f;
+          DH1[(m + 8) * G + cc + 1] =
+              h1[(m + 8) * GS + cc + 1] > 0.f ? acc[3] : 0.f;
         }
-        const int m = 16 * mt + g8, cc = 8 * nt + 2 * t4;
-        DH1[m * G + cc] = h1[m * GS + cc] > 0.f ? acc[0] : 0.f;
-        DH1[m * G + cc + 1] = h1[m * GS + cc + 1] > 0.f ? acc[1] : 0.f;
-        DH1[(m + 8) * G + cc] = h1[(m + 8) * GS + cc] > 0.f ? acc[2] : 0.f;
-        DH1[(m + 8) * G + cc + 1] =
-            h1[(m + 8) * GS + cc + 1] > 0.f ? acc[3] : 0.f;
         __syncthreads();
         if (wy < 2) {  // gW8 += dh1 x8^T, dh1 split: row tile wy
           for (int c0 = 0; c0 < ng; c0 += 16) {
@@ -1119,14 +1240,18 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           }
         }
       }
-      {  // dh1 = (Wp^T d_dyn) * (h1 > 0): column lane + 32 (wy & 1), rows
-         // 4 (wy >> 1) .. + 3
-        const int cc = lane + 32 * (wy & 1), m0 = 4 * (wy >> 1);
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      {  // dh1 = (Wp^T d_dyn) * (h1 > 0): column lane + 32 (wy % CH),
+         // rows RT (wy / CH) .. + RT - 1 (G = 64: CH = 2, RT = 4; G = 32:
+         // CH = 1, RT = 2)
+        constexpr int CH = G / 32, RT = 32 * G / NT;
+        const int cc = lane + 32 * (wy % CH), m0 = RT * (wy / CH);
+        float acc[RT];
+#pragma unroll
+        for (int mi = 0; mi < RT; ++mi) acc[mi] = 0.f;
         for (int j = 0; j < h; j += 4) {
           const float4 dv = *reinterpret_cast<const float4*>(DD + cc * HP + j);
 #pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
+          for (int mi = 0; mi < RT; ++mi) {
             const float4 wv =
                 *reinterpret_cast<const float4*>(Ws + (m0 + mi) * h + j);
             acc[mi] = fmaf(wv.x, dv.x, acc[mi]);
@@ -1136,7 +1261,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           }
         }
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
+        for (int mi = 0; mi < RT; ++mi) {
           const int m = m0 + mi;
           DH1[m * G + cc] = h1[m * GS + cc] > 0.f ? acc[mi] : 0.f;
         }
@@ -1190,10 +1315,12 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         const int idx = min(max(prev + 1, 0), A);
         ia[lane] = idx;
         ia[TB + lane] = actw;
-        // lanes that share an embedding row: the next one, and the first
+        // lanes of this lane's pass that share an embedding row: the next
+        // one, and the first
         int nxt = -1, head = 1;
         for (int m = 0; m < TB; ++m) {
           const int other = __shfl_sync(FULL, idx, m);
+          if (TP < TB && m / TP != lane / TP) continue;
           if (other == idx && m < lane) head = 0;
           if (other == idx && m > lane && nxt < 0) nxt = m;
         }
@@ -1222,12 +1349,14 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     if (!*flag) continue;  // no action in the tile: adds nothing
     const int n = off[TB];
 
-    // ---- phases A, B: per container its query, then its scores
-    fill_qin(k);
-    for (int c = 0; c < C; ++c) {
-      encode(k, c);
-      query();
-      scores(k, c, n);
+    // ---- phases A, B: per pass and container its query, then its scores
+    for (int p0 = 0; p0 < TB; p0 += TP) {
+      fill_qin(k, p0);
+      for (int c = 0; c < C; ++c) {
+        encode(k, c, p0);
+        query();
+        scores(k, c, p0, TP == TB ? 0 : off[p0], TP == TB ? n : off[p0 + TP]);
+      }
     }
 
     // ---- phase C: log pi at the recorded action; the backward's g
@@ -1268,80 +1397,102 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     __syncthreads();
     if (!BWD) continue;
 
-    // ---- phases D, E: per container the token backward, then the query
-    // and encoder backward (qin's shared rows are still in place)
-    for (int j = wy; j < h; j += NWARP) d_prev[j * LD + lane] = 0.f;
-    for (int c = 0; c < C; ++c) {
-      if (C > 1) {  // C == 1: feats, e1, enc and q_0 are still in place
-        encode(k, c);
-        query();
-      }
-      for (int j = wy; j < h; j += NWARP) dqs[j * LD + lane] = 0.f;
-      __syncthreads();
-      token_bwd(k, c, n);
-      // tc: the transposed products on the tensor cores (mvt_mma), the
-      // weight-gradient operands to grad_outer's record, with the barrier
-      // that mvt_tiled's staging gave (qin's enc rows are read before
-      // dqin overwrites them)
-      auto dqin_out = [&](int m, int l, float acc) {
-        if (m < h) {
-          d_hm[m * LD + l] = acc;  // qin's enc rows: read above, done
-        } else if (m < 2 * h) {
-          if (tile0 + l < B) dctx_o[(size_t)(m - h) * B + tile0 + l] += acc;
-        } else {
-          d_prev[(m - 2 * h) * LD + l] += acc;
+    // ---- phases D, E, F per pass: per container the token backward, then
+    // the query and encoder backward (one pass: qin's shared rows are still
+    // in place)
+    for (int p0 = 0; p0 < TB; p0 += TP) {
+      if (WH) fill_qin(k, p0);
+      for (int j = vw; j < h; j += NVW) d_prev[j * LP + vl] = 0.f;
+      for (int c = 0; c < C; ++c) {
+        // C == 1 in one pass: feats, e1, enc and q_0 are still in place
+        if (C > 1 || WH) {
+          encode(k, c, p0);
+          query();
         }
-      };
-      auto de1_out = [&](int m, int l, float acc) {
-        e1[m * LD + l] = e1[m * LD + l] > 0.f ? acc : 0.f;  // de1
-      };
-      if constexpr (TC) {
-        // the weight-gradient contractions go to grad_outer: this (step,
-        // container)'s operands to its record
-        float* rc =
-            rec_o + ((prow_i * len + (k - k0)) * C + c) * (size_t)ro.size;
-        put_f32(rc + ro.dq, dqs, h, tid);
-        put_bf16(rc + ro.qin, qin, FQ, tid);
-        rowsum_acc(prow + go.bq, dqs, LD, h, tid);
+        for (int j = vw; j < h; j += NVW) dqs[j * LP + vl] = 0.f;
         __syncthreads();
-        mvt_mma<3>(w.wqT, 3 * h, h, dqs, stgb, lane, wy, tid, dqin_out);
+        token_bwd(k, c, p0, TP == TB ? 0 : off[p0],
+                  TP == TB ? n : off[p0 + TP]);
+        // tc: the transposed products on the tensor cores (mvt_mma), the
+        // weight-gradient operands to grad_outer's record, with the barrier
+        // that mvt_tiled's staging gave (qin's enc rows are read before
+        // dqin overwrites them)
+        auto dqin_out = [&](int m, int l, float acc) {
+          if (m < h) {
+            d_hm[m * LP + l] = acc;  // qin's enc rows: read above, done
+          } else if (m < 2 * h) {
+            const int bl = tile0 + p0 + l;
+            if (bl < B) dctx_o[(size_t)(m - h) * B + bl] += acc;
+          } else {
+            d_prev[(m - 2 * h) * LP + l] += acc;
+          }
+        };
+        auto de1_out = [&](int m, int l, float acc) {
+          e1[m * LP + l] = e1[m * LP + l] > 0.f ? acc : 0.f;  // de1
+        };
+        if constexpr (TC) {
+          // the weight-gradient contractions go to grad_outer: this (step,
+          // container, pass)'s operands to its record
+          float* rc = rec_o
+                      + ((prow_i * len + (k - k0)) * C + c) * (size_t)ro.size
+                      + (p0 / TP) * ro.pass;
+          put_f32<TP>(rc + ro.dq, dqs, h, tid);
+          put_bf16<TP>(rc + ro.qin, qin, FQ, tid);
+          rowsum_acc<TP>(prow + go.bq, dqs, LP, h, tid);
+          __syncthreads();
+          if constexpr (WH) {  // Wq^T a third of its rows at a time
+            for (int u = 0; u < 3; ++u) {
+              mvt_mma<TP, 1, 16>(w.wqT + (size_t)u * h * h, h, h, dqs, stgb,
+                                 lane, wy, tid, [&](int m, int l, float acc) {
+                                   dqin_out(u * h + m, l, acc);
+                                 });
+              __syncthreads();
+            }
+          } else {
+            mvt_mma<TP, 3, 16>(w.wqT, 3 * h, h, dqs, stgb, lane, wy, tid,
+                               dqin_out);
+            __syncthreads();
+          }
+          put_f32<TP>(rc + ro.dhm, d_hm, h, tid);
+          put_bf16<TP>(rc + ro.e1, e1, h, tid);
+          rowsum_acc<TP>(prow + go.b2, d_hm, LP, h, tid);
+          __syncthreads();
+          mvt_mma<TP, 1, WH ? 16 : 64>(w.w2T, h, h, d_hm, stgb, lane, wy, tid,
+                                       de1_out);
+          __syncthreads();
+          put_f32<TP>(rc + ro.de1, e1, h, tid);
+          put_bf16<TP>(rc + ro.feats, feats, WD + 2, tid);
+        } else {
+          outer_tiled<TP>(prow + go.wqt, dqs, qin, h, FQ, lane, wy, tid);
+          rowsum_acc<TP>(prow + go.bq, dqs, LP, h, tid);
+          mvt_tiled<WH, 24>(w.wqt, h, 3 * h, FQ, dqs, stg, vl, vw, tid,
+                            dqin_out);
+          __syncthreads();
+          outer_tiled<TP>(prow + go.w2t, d_hm, e1, h, h, lane, wy, tid);
+          rowsum_acc<TP>(prow + go.b2, d_hm, LP, h, tid);
+          __syncthreads();
+          mvt_tiled<WH, 8>(w.w2t, h, h, h, d_hm, stg, vl, vw, tid, de1_out);
+          __syncthreads();
+          outer_tiled<TP>(prow + go.w1t, e1, feats, h, WD + 2, lane, wy, tid);
+        }
+        rowsum_acc<TP>(prow + go.b1, e1, LP, h, tid);
         __syncthreads();
-        put_f32(rc + ro.dhm, d_hm, h, tid);
-        put_bf16(rc + ro.e1, e1, h, tid);
-        rowsum_acc(prow + go.b2, d_hm, LD, h, tid);
-        __syncthreads();
-        mvt_mma<1>(w.w2T, h, h, d_hm, stgb, lane, wy, tid, de1_out);
-        __syncthreads();
-        put_f32(rc + ro.de1, e1, h, tid);
-        put_bf16(rc + ro.feats, feats, WD + 2, tid);
-      } else {
-        outer_tiled(prow + go.wqt, dqs, qin, h, FQ, lane, wy, tid);
-        rowsum_acc(prow + go.bq, dqs, LD, h, tid);
-        mvt_tiled<24>(w.wqt, h, 3 * h, FQ, dqs, stg, lane, wy, tid,
-                      dqin_out);
-        __syncthreads();
-        outer_tiled(prow + go.w2t, d_hm, e1, h, h, lane, wy, tid);
-        rowsum_acc(prow + go.b2, d_hm, LD, h, tid);
-        __syncthreads();
-        mvt_tiled<8>(w.w2t, h, h, h, d_hm, stg, lane, wy, tid, de1_out);
-        __syncthreads();
-        outer_tiled(prow + go.w1t, e1, feats, h, WD + 2, lane, wy, tid);
       }
-      rowsum_acc(prow + go.b1, e1, LD, h, tid);
+
+      // ---- phase F: the previous-action embedding's gradient (one-hot): per
+      // row j and embedding row a, the pass's lanes with that row in lane
+      // order
+      for (int e = tid; e < h * TP; e += NT) {
+        const int j = e / TP, l = p0 + e - j * TP;
+        if (ia[3 * TB + l]) {
+          float acc = 0.f;
+          for (int m = l; m >= 0; m = ia[2 * TB + m])
+            acc += d_prev[j * LP + m - p0];
+          prow[go.et + (size_t)j * (A + 1) + ia[l]] += acc;
+        }
+      }
       __syncthreads();
     }
-
-    // ---- phase F: the previous-action embedding's gradient (one-hot): per
-    // row j and embedding row a, the lanes with that row in lane order
-    for (int e = tid; e < h * TB; e += NT) {
-      const int j = e / TB, l = e - j * TB;
-      if (ia[3 * TB + l]) {
-        float acc = 0.f;
-        for (int m = l; m >= 0; m = ia[2 * TB + m]) acc += d_prev[j * LD + m];
-        prow[go.et + (size_t)j * (A + 1) + ia[l]] += acc;
-      }
-    }
-    __syncthreads();
   }
 
   if (!BWD) {
@@ -1351,7 +1502,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // the token-loop weight gradients: each element owned by one thread
   if constexpr (TC) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < NUW; ++u) {
       const int nt = (wy >> 1) + 8 * u;
       if (nt * 8 < h) {  // gWp^T tile: rows m, columns j
         const int m = 16 * (wy & 1) + g8, j = nt * 8 + 2 * t4;
@@ -1398,25 +1549,31 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
 }
 
 // The deferred weight-gradient contractions of the bfloat16 backward
-// (rec_off): for partial row `row` (a tile and step chunk) and a 64-column
-// slice of gWq, gW2 or gW1 (blockIdx.y: Wq's slices, then W2's, then W1's),
-// part[row][off + j*cols + n] = the sum over the row's steps with an action
-// (sflag), their containers and the 32 lanes of G[j][l] X[n][l] (G = dq,
-// d_hm, de1, split into hi and lo passes; X = qin, e1, feats), two k-steps
-// a record, the records of two steps loaded before their products (per
-// pair of steps: each container, then each step). Warp wy owns the row
-// tile wy % (h/16) and
-// the column tiles wy / (h/16) + (16 / (h/16)) u of the slice; the
-// accumulators stay in registers until one store, so each element has one
-// owner and one order.
+// (rec_off): for partial row `row` (a tile and step chunk) and a slice of
+// SW = 64 (WH: 32) columns of gWq, gW2 or gW1 (blockIdx.y: Wq's slices,
+// then W2's, then W1's), part[row][off + j*cols + n] = the sum over the
+// row's steps with an action (sflag), their containers, the record's
+// passes and their TP lanes of G[j][l] X[n][l] (G = dq, d_hm, de1, split
+// into hi and lo passes; X = qin, e1, feats), TP / 16 k-steps a record
+// part, the parts of two steps loaded before their products (per pair of
+// steps: each container, each pass, then each step). Warp wy owns the row
+// tile wy % (h/16) and the column tiles wy / (h/16) + (16 / (h/16)) u of
+// the slice; the accumulators stay in registers until one store, so each
+// element has one owner and one order.
+template <bool WH>
+__host__ __device__ constexpr int go_slice() { return WH ? 32 : 64; }
+
+template <bool WH>
 __global__ void __launch_bounds__(NT)
 grad_outer(Dims d, const float* __restrict__ rec,
            const int* __restrict__ sflag, int len, float* __restrict__ part) {
+  constexpr int TP = Geo<WH>::TP, NP = Geo<WH>::NP, KST = TP / 16;
+  constexpr int SW = go_slice<WH>();
   const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
   const GOff go = goff(d);
-  const RecOff ro = rec_off(d);
+  const RecOff ro = rec_off<WH>(d);
   const size_t row = blockIdx.x;
-  const int sq = (FQ + 63) / 64, s2 = (h + 63) / 64;
+  const int sq = (FQ + SW - 1) / SW, s2 = (h + SW - 1) / SW;
   int sl = blockIdx.y, cols, off, gof, xof;
   if (sl < sq) {
     cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
@@ -1428,55 +1585,59 @@ grad_outer(Dims d, const float* __restrict__ rec,
     cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
   }
   const int lane = threadIdx.x, wy = threadIdx.y, g = lane >> 2, t = lane & 3;
-  const int MT = h / 16, WPM = NWARP / MT, NU = 8 / WPM;
+  const int MT = h / 16, WPM = NWARP / MT, NU = SW / 8 / WPM;
   if (wy >= MT * WPM) return;
-  const int m0 = (wy % MT) * 16, slot = wy / MT, n0 = 64 * sl;
+  const int m0 = (wy % MT) * 16, slot = wy / MT, n0 = SW * sl;
   float acc[4][4] = {};
   for (int st = 0; st < len; st += 2) {
     for (int c = 0; c < C; ++c) {
-      // two steps' operands loaded before their products (zeros for a
-      // step without an action, or past the chunk: they add exact zeros)
-      float2 ga[2][2][4];
-      unsigned gb[2][2][4][2];
+      for (int pp = 0; pp < NP; ++pp) {
+        // two steps' operands loaded before their products (zeros for a
+        // step without an action, or past the chunk: they add exact zeros)
+        float2 ga[2][KST][4];
+        unsigned gb[2][KST][4][2];
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const bool on = st + q < len && sflag[row * len + st + q];
-        const float* r =
-            rec + ((row * len + st + q) * C + c) * (size_t)ro.size;
-        const float* G = r + gof;
-        const unsigned* X = reinterpret_cast<const unsigned*>(r + xof);
+        for (int q = 0; q < 2; ++q) {
+          const bool on = st + q < len && sflag[row * len + st + q];
+          const float* r = rec
+                           + ((row * len + st + q) * C + c) * (size_t)ro.size
+                           + pp * ro.pass;
+          const float* G = r + gof;
+          const unsigned* X = reinterpret_cast<const unsigned*>(r + xof);
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+          for (int ks = 0; ks < KST; ++ks) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            ga[q][ks][i] = on ? __ldg(reinterpret_cast<const float2*>(
-                                    G + (m0 + g + 8 * (i & 1)) * TB + 16 * ks
-                                    + 2 * t + 8 * (i >> 1)))
-                              : make_float2(0.f, 0.f);
+            for (int i = 0; i < 4; ++i)
+              ga[q][ks][i] = on ? __ldg(reinterpret_cast<const float2*>(
+                                      G + (m0 + g + 8 * (i & 1)) * TP
+                                      + 16 * ks + 2 * t + 8 * (i >> 1)))
+                                : make_float2(0.f, 0.f);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int n = n0 + 8 * (slot + WPM * u) + g;
-            const bool in = on && u < NU && n < cols;
-            gb[q][ks][u][0] = in ? __ldg(X + n * 16 + 8 * ks + t) : 0u;
-            gb[q][ks][u][1] = in ? __ldg(X + n * 16 + 8 * ks + 4 + t) : 0u;
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          unsigned ah[4], al[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) split(ga[q][ks][i], ah[i], al[i]);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (u < NU) {
-              mma(acc[u], ah, gb[q][ks][u]);
-              mma(acc[u], al, gb[q][ks][u]);
+            for (int u = 0; u < 4; ++u) {
+              const int n = n0 + 8 * (slot + WPM * u) + g;
+              const bool in = on && u < NU && n < cols;
+              const unsigned* xn = X + n * (TP / 2) + 8 * ks;
+              gb[q][ks][u][0] = in ? __ldg(xn + t) : 0u;
+              gb[q][ks][u][1] = in ? __ldg(xn + 4 + t) : 0u;
             }
           }
         }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int ks = 0; ks < KST; ++ks) {
+            unsigned ah[4], al[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split(ga[q][ks][i], ah[i], al[i]);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              if (u < NU) {
+                mma(acc[u], ah, gb[q][ks][u]);
+                mma(acc[u], al, gb[q][ks][u]);
+              }
+            }
+          }
+      }
     }
   }
   float* dst = part + row * go.P + off;
@@ -1530,13 +1691,20 @@ __global__ void sum_transpose(const float* __restrict__ part, int nc, int B,
 }  // namespace
 
 // Dynamic shared memory of one block of the forward (bwd = 0) or backward
-// (bwd = 1) kernel, in bytes (tc: the bfloat16 instantiations' plan); the
-// wrapper refuses configs above the limit.
+// (bwd = 1) kernel, in bytes (tc: the bfloat16 instantiations' plan; h >
+// 128: the plan of two head passes, Geo); the wrapper refuses configs above
+// the limit.
 static long long smem_bytes(const Dims& d, int bwd, bool steps, bool tc) {
-  return 4ll * (layout(d, bwd != 0, tc).floats + n_ints(d, steps));
+  const int floats = d.h > 128 ? layout<true>(d, bwd != 0, tc).floats
+                               : layout<false>(d, bwd != 0, tc).floats;
+  return 4ll * (floats + n_ints(d, steps));
 }
 
-template <bool STEPS, class E>
+static int record_floats(const Dims& d) {
+  return d.h > 128 ? rec_off<true>(d).size : rec_off<false>(d).size;
+}
+
+template <bool STEPS, bool WH, class E>
 static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                   float inv_s, float temperature, float inv_temp,
                   void* stream) {
@@ -1562,7 +1730,7 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   const int T = d.N * d.R;
   cudaError_t err;
   if (!bwd) {
-    auto kernel = replay_kernel<false, STEPS, E>;
+    auto kernel = replay_kernel<false, STEPS, WH, E>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -1577,7 +1745,7 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                                                     (float*)p[20]);
     return (int)cudaGetLastError();
   }
-  auto kernel = replay_kernel<true, STEPS, E>;
+  auto kernel = replay_kernel<true, STEPS, WH, E>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1593,9 +1761,10 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (tc) {  // the deferred weight-gradient contractions
-    const int slices = (3 * d.h + 8 + 63) / 64 + (d.h + 63) / 64
-                       + (d.W * d.D + 2 + 63) / 64;
-    grad_outer<<<dim3(tiles * nc, slices), block, 0, st>>>(
+    constexpr int SW = go_slice<WH>();
+    const int slices = (3 * d.h + 8 + SW - 1) / SW + (d.h + SW - 1) / SW
+                       + (d.W * d.D + 2 + SW - 1) / SW;
+    grad_outer<WH><<<dim3(tiles * nc, slices), block, 0, st>>>(
         d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1616,6 +1785,23 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   return (int)cudaGetLastError();
 }
 
+// the instantiation of the schedule (steps), the dtype (bf) and the head's
+// passes (WH)
+template <bool WH>
+static int pick(int steps, int bf, int bwd, void* const* p, const Dims& d,
+                int chunks, float inv_s, float temperature, float inv_temp,
+                void* stream) {
+  if (bf)
+    return steps ? launch<true, WH, bf16>(bwd, p, d, chunks, inv_s,
+                                          temperature, inv_temp, stream)
+                 : launch<false, WH, bf16>(bwd, p, d, 1, inv_s, temperature,
+                                           inv_temp, stream);
+  return steps ? launch<true, WH, float>(bwd, p, d, chunks, inv_s,
+                                         temperature, inv_temp, stream)
+               : launch<false, WH, float>(bwd, p, d, 1, inv_s, temperature,
+                                          inv_temp, stream);
+}
+
 // Shared memory of one block in bytes for ints = B, N, W, D, R, C, h (as
 // tapnet_replay_logp takes them), the kernel (bwd), the schedule (steps)
 // and the instantiation (bf16): what ops/replay.py::smem_bytes mirrors.
@@ -1628,7 +1814,7 @@ extern "C" long long tapnet_replay_smem_bytes(const int* ints, int bwd,
 // Floats of one grad_outer record (rec_off) at ints = B, N, W, D, R, C, h.
 extern "C" int tapnet_replay_record_floats(const int* ints) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
-  return rec_off(d).size;
+  return record_floats(d);
 }
 
 // ptrs: flags, hms, masks, acts, se [B, T, h], ctx, statp, statm, dlp (0-8)
@@ -1645,7 +1831,7 @@ extern "C" int tapnet_replay_record_floats(const int* ints) {
 // steps = 0: the monolithic schedule (chunks ignored, prev unused); steps =
 // 1: the step-grid schedule over `chunks` step chunks with prev [S, B] and,
 // for more than one chunk, the partials logp_part [chunks, B] (forward) and
-// dctx_part [chunks, h, B] (backward). h: a multiple of 32, at most 128.
+// dctx_part [chunks, h, B] (backward). h: a multiple of 32, at most 256.
 // Launches on `stream`; returns the first CUDA error of the launches.
 extern "C" int tapnet_replay_logp(int bwd, void* const* p, const int* ints,
                                   float inv_s, float temperature,
@@ -1653,18 +1839,13 @@ extern "C" int tapnet_replay_logp(int bwd, void* const* p, const int* ints,
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
   const int steps = ints[7], chunks = ints[8], bf = ints[9];
   if (d.N > (steps ? MAX_N_STEPS : MAX_N_MONO) || d.C > MAX_C || d.B <= 0 ||
-      d.h % 32 != 0 || d.h <= 0 || d.h > 32 * MAXR ||
+      d.h % 32 != 0 || d.h <= 0 || d.h > MAX_H ||
       (steps && (chunks < 1 || chunks > d.N)))
     return (int)cudaErrorInvalidValue;
   if ((long long)d.N * d.R * d.h * d.B >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  if (bf)
-    return steps ? launch<true, bf16>(bwd, p, d, chunks, inv_s, temperature,
-                                      inv_temp, stream)
-                 : launch<false, bf16>(bwd, p, d, 1, inv_s, temperature,
-                                       inv_temp, stream);
-  return steps ? launch<true, float>(bwd, p, d, chunks, inv_s, temperature,
-                                     inv_temp, stream)
-               : launch<false, float>(bwd, p, d, 1, inv_s, temperature,
-                                      inv_temp, stream);
+  if (d.h > 128) return pick<true>(steps, bf, bwd, p, d, chunks, inv_s,
+                                   temperature, inv_temp, stream);
+  return pick<false>(steps, bf, bwd, p, d, chunks, inv_s, temperature,
+                     inv_temp, stream);
 }

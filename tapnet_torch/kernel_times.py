@@ -2,7 +2,7 @@
 line.
 
     python -m tapnet_torch.kernel_times [--tag NAME] [--out FILE]
-        [--expect FILE]
+        [--expect FILE] [--hidden 128]
 
 select_step (K1) on the middle step of a greedy rollout of 2d-basic and
 2d-rolling at batch 4096 and of multi-container-capped at batch 256 (the
@@ -16,12 +16,15 @@ CONFIGS at batch 4096; the replay (K5) forward and backward, monolithic on
 bfloat16 on one record of a sampled float32 rollout
 (`chip_smoke.replay_operands`, dlp a ramp). Each time is the median of 50
 launches (10 for the step-grid backward; CUDA events after a spin kernel,
-`chip_smoke.time_gpu`). The line also holds the SHA-256 of the operands'
-and the outputs' bytes of K2 in float32 (both modes) and of every K5
-kernel in both dtypes: `--expect FILE` (the line another run wrote with
-`--out`) checks that those kernels gave bit-identical outputs on
-bit-identical operands there and here, and exits 1 if they did not. (K2's
-bfloat16 outputs are not held: its body may change the sums' order.)
+`chip_smoke.time_gpu`). K2 and K5 run at hidden width `--hidden` (128 by
+default; above 128 their head runs in two passes of 16 instances), K1 and
+K4 do not depend on it. The line also holds the hidden width and the
+SHA-256 of the operands' and the outputs' bytes of K2 in float32 (both
+modes) and of every K5 kernel in both dtypes: `--expect FILE` (the line
+another run wrote with `--out`) checks that those kernels gave
+bit-identical outputs on bit-identical operands there and here, and exits
+1 if they did not. (K2's bfloat16 outputs are not held: its body may
+change the sums' order.)
 
 To compare two checkouts on one card in one call,
 
@@ -59,10 +62,11 @@ def _sha(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def replay_times(CS, dev) -> dict:
+def replay_times(CS, dev, hidden=128) -> dict:
     """K5f, K5b (2d-basic) and K5f-steps, K5b-steps (2d-rolling) at batch
-    4096 in float32 and bfloat16 on one float32 rollout's record: ms per
-    call and the hashes of operands and outputs."""
+    4096 and hidden width `hidden` in float32 and bfloat16 on one float32
+    rollout's record: ms per call and the hashes of operands and
+    outputs."""
     import torch
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
@@ -70,7 +74,7 @@ def replay_times(CS, dev) -> dict:
     out = {}
     for name, steps in (("2d-basic", False), ("2d-rolling", True)):
         cfg, B = CONFIGS[name], 4096
-        actor = init_params(0, cfg, 128, dev)
+        actor = init_params(0, cfg, hidden, dev)
         ops_f, _, ops_b = CS.replay_operands(
             actor, cfg, B, dev, 10, 1.0, dtype=torch.float32,
             also=torch.bfloat16)
@@ -117,9 +121,13 @@ def main(argv=None) -> int:
     ap.add_argument("--expect", default="",
                     help="a line written by --out: hold the K2 float32 "
                          "and K5 outputs to it bit for bit")
+    ap.add_argument("--hidden", type=int, default=128,
+                    help="the hidden width of K2 and K5")
     args = ap.parse_args(argv)
     if args.tree:
         fwd = ["--tag", args.tag]
+        if args.hidden != 128:
+            fwd += ["--hidden", str(args.hidden)]
         for flag, path in (("--out", args.out), ("--expect", args.expect)):
             if path:
                 fwd += [flag, os.path.abspath(path)]
@@ -148,7 +156,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     _build.build_all()
-    out = {"tag": args.tag, "device": torch.cuda.get_device_name(0)}
+    out = {"tag": args.tag, "device": torch.cuda.get_device_name(0),
+           "hidden": args.hidden}
     for name, B in (("2d-basic", 4096), ("2d-rolling", 4096),
                     ("multi-container-capped", 256)):
         cfg = CONFIGS[name]
@@ -158,7 +167,7 @@ def main(argv=None) -> int:
             lambda: PS.select_step(*ops, cfg=cfg), reps=50)
     for name in ("2d-basic", "2d-rolling"):
         cfg, B, N = CONFIGS[name], 4096, CONFIGS[name].num_blocks
-        actor = init_params(0, cfg, 128, dev)
+        actor = init_params(0, cfg, args.hidden, dev)
         inst = CS._instances(cfg, B, dev, 9)
         keys = R.split(R.key(3, dev), B)
         with torch.no_grad():  # to the middle step on the kernel's outputs
@@ -200,7 +209,7 @@ def main(argv=None) -> int:
         kops = OE.rollout_operands(inst, rbits, cfg)
         out[f"K4 {name}"] = CS.time_gpu(lambda: OE.rollout_kernel(kops, cfg),
                                         reps=50)
-    out.update(replay_times(CS, dev))
+    out.update(replay_times(CS, dev, args.hidden))
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line, flush=True)

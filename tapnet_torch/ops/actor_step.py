@@ -36,9 +36,10 @@ input; the tokens outside the window are masked, which gives the windowed
 head's softmax exactly. A finite height cap is not covered, here as there:
 its mask needs a candidate scan per action, and such configs decode through
 `select_step`. The kernel's own limits (`eligible`): C <= 4, W*D <= 256, a
-hidden width that is a multiple of 32 up to 128, and a block's shared
-memory within 227 KB; the routers (`train/rollout.py` `routes`) send any
-other config down the step-fused path.
+hidden width that is a multiple of 32 up to 256 (above 128 the head runs in
+two passes of 16 instances, `geometry`), and a block's shared memory within
+227 KB; the routers (`train/rollout.py` `routes`) send any other config
+down the step-fused path.
 
 The static keys `se` are [B, T, h]: a column's keys are one contiguous row
 (the JAX kernel's [T, h, B] transposed), built once per rollout.
@@ -75,12 +76,10 @@ from tapnet_torch.ops.policy_step import (MAX_WD, _check, env_ints,
 NEG = -1e9
 MAX_C = 4  # csrc/actor_step.cu
 MAX_N = 62  # two 31-bit precedence limbs
-MAX_H = 128  # hidden: a multiple of 32, at most 128
+MAX_H = 256  # hidden: a multiple of 32, at most 256
 SMEM_LIMIT = 232448  # bytes of shared memory a block may hold
-TB, LD, G, KS = 32, 33, 64, 64  # csrc/actor_step.cu: tile, stride, group,
-#                                 weight slice
+TB = 32   # csrc/actor_step.cu: instances per block
 WPS = 40  # csrc/actor_step.cu: bfloat16 row stride of the staged Wp
-XS = 40   # csrc/mma_bf16.cuh MMA_XS: row stride (words) of B as bf16 pairs
 F32 = torch.float32
 DTYPES = (torch.float32, torch.bfloat16)  # the kernels' instantiations
 
@@ -94,6 +93,21 @@ def rounder(dtype):
     return lambda x: x.to(dtype).float()
 
 
+def geometry(h: int) -> dict:
+    """The head's geometry at hidden width h (csrc/actor_step.cu `Geo`,
+    shared by csrc/replay.cu): up to 128 one pass over the tile's 32
+    instances, above two passes of 16 (`tp`), with the row stride of their
+    [feature][instance] arrays (`lp`), the token group (`g` columns), the
+    float32 weight slice (`ks` rows), the bfloat16 weight slab (`ksl`
+    columns) and the row stride in words of the bfloat16 B operand pairs
+    (`xs`, csrc/mma_bf16.cuh `mv_mma_xs`)."""
+    wide = h > 128
+    tp = 16 if wide else TB
+    return {"tp": tp, "lp": tp + 1, "g": 32 if wide else 64,
+            "ks": 32 if wide else 64, "ksl": 32 if wide else 64,
+            "xs": 24 if wide else 40}
+
+
 def _covers_config(cfg: TAPConfig) -> bool:
     return (cfg.target_height == 0 and cfg.num_blocks <= MAX_N
             and cfg.num_containers <= MAX_C
@@ -105,7 +119,7 @@ def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     `dtype`: unbounded height and bitmask-size precedence (N <= 62), as the
     JAX kernel (rolling windows are cut inside the kernel); the port's own
     limits: float32 or bfloat16, at most 4 containers, W*D <= 256 cells, h
-    a multiple of 32 up to 128 and a block that fits in shared memory
+    a multiple of 32 up to 256 and a block that fits in shared memory
     (`smem_bytes`)."""
     return (dtype in DTYPES and _covers_config(cfg) and h % 32 == 0
             and 0 < h <= MAX_H and smem_bytes(cfg, h, dtype) <= SMEM_LIMIT)
@@ -137,30 +151,36 @@ def _num_limbs(N: int) -> int:
 def xb_words(WD: int, h: int) -> int:
     """32-bit words of the bfloat16 instantiation's packed B operand: the
     longest of the encoder/query products' k (W*D + 2 or 3h + 8), padded
-    to 16, as pairs in rows of XS words."""
+    to 16, as pairs in rows of `geometry(h)["xs"]` words."""
     k = max(WD + 2, 3 * h + 8)
-    return (k + 15) // 16 * 8 * XS
+    return (k + 15) // 16 * 8 * geometry(h)["xs"]
 
 
 def smem_bytes(cfg: TAPConfig, h: int, dtype=F32) -> int:
     """Shared memory of one block, in bytes, as
     csrc/actor_step.cu::smem_bytes computes it for the instantiation of
-    `dtype`. Both hold their activations as float32; the bfloat16 one's
-    tensor-core plan holds Wp as bfloat16 rows of WPS in place of the
-    float Wp^T, h1 rows padded to G + 4, the token group's dyn [G][h+4],
-    and in the token view the encoder/query weight slices as two bfloat16
-    slabs of 72 h floats beside the product's B operand as bfloat16 pairs
+    `dtype`. Both hold their activations as float32, the head's arrays (the
+    C queries, the encoder view, the token view) for one pass of
+    `geometry(h)["tp"]` instances; the bfloat16 one's tensor-core plan
+    holds Wp as bfloat16 rows of WPS in place of the float Wp^T, h1 rows
+    padded to G + 4, the token group's dyn [G][h+4], and in the token view
+    the encoder/query weight slices as two bfloat16 slabs of h (KSL + 8) / 2
+    floats each beside the product's B operand as bfloat16 pairs
     (`xb_words`)."""
     up4 = lambda x: (x + 3) & ~3
     tc = dtype == torch.bfloat16
+    geo = geometry(h)
+    G, LP = geo["g"], geo["lp"]
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD = cfg.target_width * cfg.target_depth
     T = N * R
     A = T * C
     tok = 8 * G + 32 * (G + 4) + G * (h + 4) if tc else 40 * G
+    stage = (h * (geo["ksl"] + 8) + xb_words(WD, h) if tc
+             else geo["ks"] * h)
     floats = (up4(h * WPS // 2 if tc else 32 * h) + 256 + 32 + up4(h)
-              + up4(C * h * LD) + A * TB + up4((WD + 2 + h + 3 * h + 8) * LD)
-              + max(tok, 72 * h + xb_words(WD, h) if tc else KS * h,
+              + up4(C * h * LP) + A * TB + up4((WD + 2 + h + 3 * h + 8) * LP)
+              + max(tok, stage,
                     (N + 2 * _num_limbs(N) * N + R * N) * TB,
                     (13 + 8 * 16 + C * WD + 3 * N) * TB))
     ints = 12 * TB + 4 * TB + TB + 2 + TB * T

@@ -41,7 +41,7 @@ rounded forward and the float32 values of the bfloat16 weights, as
 to its operand's dtype, as the JAX `_bwd_impl` does).
 
 Coverage: every unbounded or capped config with N <= 62, at most 4
-containers and a hidden width that is a multiple of 32 up to 128 whose
+containers and a hidden width that is a multiple of 32 up to 256 whose
 shared-memory plan fits a block (`eligible`). A rolling window enters the
 replay only through the recorded flag bit 3 and the recorded mask: a token
 outside the window is masked to -1e9, which is the windowed softmax
@@ -58,15 +58,14 @@ import torch
 from tapnet_torch.config import TAPConfig
 from tapnet_torch.models.features import _scale
 from tapnet_torch.ops import _build
-from tapnet_torch.ops.actor_step import (DTYPES, F32, head_shapes, rounder,
-                                         transposed)
+from tapnet_torch.ops.actor_step import (DTYPES, F32, geometry, head_shapes,
+                                         rounder, transposed)
 from tapnet_torch.ops.policy_step import _check
 
 NEG = -1e9
 MAX_C = 4
-TB, LD, NWARP = 32, 33, 16         # csrc/replay.cu
-G = 4 * NWARP                      # columns per token group
-MAX_H = 128                        # hidden: a multiple of 32, at most 128
+TB = 32                            # csrc/replay.cu: instances per block
+MAX_H = 256                        # hidden: a multiple of 32, at most 256
 SMEM_LIMIT = 232448                # bytes of shared memory a block may hold
 
 
@@ -90,23 +89,31 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
     """Shared memory of one block, in bytes, as csrc/replay.cu::smem_bytes
     computes it (`layout` and `n_ints`; `steps`: the schedule, auto by
     `_steps_grid`). Both dtypes hold their values as float32 in shared
-    memory but for the bfloat16 instantiations' (`dtype`) weights: their
-    tensor-core plan holds Wp as bfloat16 rows of 40 in place of the float
-    Wp^T, h1 rows padded to G + 4, a dyn array in the forward too, and the
-    encoder/query weight slices as two bfloat16 slabs of 72 h floats in
-    the token view (which the token arrays already exceed)."""
+    memory, the head's arrays (q, dq, the encoder view, the token view) for
+    one pass of `geometry(h)["tp"]` instances, but for the bfloat16
+    instantiations' (`dtype`) weights: their tensor-core plan holds Wp as
+    bfloat16 rows of 40 in place of the float Wp^T, h1 rows padded to G +
+    4, a dyn array in the forward too, and the encoder/query weight slices
+    as two bfloat16 slabs of 72 h floats (above 128: h (KSL + 8) / 2 each)
+    in the token view."""
     if steps is None:
         steps = _steps_grid(cfg)
     tc = dtype == torch.bfloat16
+    geo = geometry(h)
+    G, LP = geo["g"], geo["lp"]
     C, T = cfg.num_containers, cfg.num_blocks * cfg.num_rot
     WD = cfg.target_width * cfg.target_depth
     up4 = lambda x: (x + 3) & ~3
     tok = (8 * G + 32 * (G + 4 if tc else G)
            + (G * (h + 4) if bwd or tc else 0) + (32 * G if bwd else 0))
+    if tc:
+        slabs = h * (geo["ksl"] + 8) if h > 128 else 72 * h
+    else:
+        slabs = geo["ks"] * h
     floats = (up4(20 * h if tc else 32 * h) + 256 + 32 + up4(h)
-              + up4(h * LD) * (2 if bwd else 1) + up4(TB * T * C)
-              + up4((WD + 2 + h + 3 * h + 8 + (h if bwd else 0)) * LD)
-              + max(tok, 72 * h if tc else 64 * h, (cfg.num_blocks + T) * TB))
+              + up4(h * LP) * (2 if bwd else 1) + up4(TB * T * C)
+              + up4((WD + 2 + h + 3 * h + 8 + (h if bwd else 0)) * LP)
+              + max(tok, slabs, (cfg.num_blocks + T) * TB))
     ints = (8 if steps else 4) * TB + 5 * TB + 2 + TB * T
     return 4 * (floats + ints)
 
@@ -114,9 +121,10 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
 def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     """Configs the replay kernels cover: float32 or bfloat16, N <= 62
     (N > 31 and rolling windows on the step-grid schedule), C <= 4, hidden
-    a multiple of 32 up to 128, and a backward block of the dtype's plan
-    that fits. A finite height cap is covered: the mask is the recorded
-    one."""
+    a multiple of 32 up to 256 (above 128 the head runs in two passes of 16
+    instances, `actor_step.geometry`), and a backward block of the dtype's
+    plan that fits. A finite height cap is covered: the mask is the
+    recorded one."""
     return (dtype in DTYPES and cfg.num_blocks <= MAX_N
             and cfg.num_containers <= MAX_C
             and h % 32 == 0 and 0 < h <= MAX_H

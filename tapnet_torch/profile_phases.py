@@ -14,13 +14,15 @@ launch spends its cycles, phase by phase.
 actor_select_step (K2): builds a copy of `csrc/actor_step.cu` (or of
 DIR/actor_step.cu: `--csrc _verify/parent/tapnet_torch/csrc` profiles a
 parent checkout's body on this tree's operands; the C interface is the
-same) in which thread 0 of every block reads `clock64()` at the phase
-boundaries (each right after the barrier that ends a phase), rolls a
-sampled batch out to its middle decode step with the real kernel in the
-compute dtype `--dtype`, then launches the copy on that step's operands in
-both modes and prints, per phase, the mean cycles over the blocks and the
-share of a block's total, with the launch's time (CUDA events, median of
-10).
+same) in which thread 0 of every block adds the cycles since its last
+read to the phase it just ended, at the phase boundaries (each right
+after the barrier that ends a phase; above hidden 128 also at the top of
+each of the head's two passes, so both passes' encoder, query and token
+groups are summed), rolls a sampled batch out to its middle decode step
+with the real kernel in the compute dtype `--dtype` and hidden width
+`--hidden`, then launches the copy on that step's operands in both modes
+and prints, per phase, the mean cycles over the blocks and the share of a
+block's total, with the launch's time (CUDA events, median of 10).
 
 fused_rollout_batch (K4): a copy of `csrc/env.cu` in which thread 0 of
 every block adds the cycles since its last read to the phase it just
@@ -81,23 +83,41 @@ PHASES = ["0: staging", "0: bit words (all warps)",
           "3: argmax, log pi (warp 0)", "3: placement (all warps)",
           "3: placement join (warp 0)", "3: state writes"]
 SLOTS = 16
+# At hidden widths above 128 the head (phases 1-2) runs in two passes of 16
+# instances: a read at the top of each pass charges the cycles since the
+# last read to phase 1 (the first pass: the flags and mask before it) or to
+# the token groups (the second pass: the first pass's groups). Sources
+# without the passes (older checkouts) lack the text and the read.
+PASS_MARK = "      const int bq = TP == TB ? bb  // clamped\n"
 
 
 def instrumented_source(src: str) -> str:
-    """`src` with a clock64() read of thread 0 at each mark and at the end
-    of the kernel, stored to prof_ts[block * SLOTS + k]."""
-    read = ("if (threadIdx.x == 0 && threadIdx.y == 0) "
-            "prof_ts[blockIdx.x * {} + {}] = clock64();\n")
+    """`src` with thread 0's cycle accumulators per phase: at each mark
+    (and `PASS_MARK`) the cycles since its last read go to the phase that
+    just ended (`PHASES`), the last phase's at the end of the kernel,
+    where they are stored to prof_ts[block * SLOTS + k]."""
+    acc = ("if (threadIdx.x == 0 && threadIdx.y == 0) {{ long long nw = "
+           "clock64(); {} += nw - prof_last; prof_last = nw; }}\n")
     for k, (text, after) in enumerate(MARKS):
         if src.count(text) != 1:
             raise RuntimeError(f"phase mark not found once: {text!r}")
-        r = read.format(SLOTS, k)
+        r = (f"long long prof_acc[{SLOTS}] = {{0}}; "
+             "long long prof_last = clock64();\n" if k == 0
+             else acc.format(f"prof_acc[{k - 1}]"))
         src = src.replace(text, text + r if after else r + text)
+    if src.count(PASS_MARK) == 1:
+        src = src.replace(PASS_MARK, acc.format(
+            f"prof_acc[p0 ? {PHASES.index('2: token groups')} : "
+            f"{PHASES.index('flags, mask, 1: encoder and query')}]")
+            + PASS_MARK)
     end = "\n}\n\n}  // namespace"
     if src.count(end) != 1:
         raise RuntimeError("the kernel's end not found")
     src = src.replace(end, "\n  __syncthreads();\n  "
-                      + read.format(SLOTS, len(MARKS))
+                      + acc.format(f"prof_acc[{len(MARKS) - 1}]")
+                      + "  if (threadIdx.x == 0 && threadIdx.y == 0) for "
+                      f"(int k = 0; k < {SLOTS}; ++k) prof_ts[blockIdx.x * "
+                      f"{SLOTS} + k] = prof_acc[k];\n"
                       + "}\n\n}  // namespace")
     src = src.replace("namespace {\n", "__device__ long long prof_ts[8192 * "
                       f"{SLOTS}];\nnamespace {{\n", 1)
@@ -183,23 +203,44 @@ extern "C" int tapnet_prof_read(long long* out, int n) {
 
 
 # replay_logp (K5): (text in csrc/replay.cu, the slot it ends, whether the
-# read goes after the text); texts that the float32 and bfloat16 bodies and
-# earlier versions of the file share, so another checkout's source
-# (--csrc) takes the same marks
+# read goes after the text); texts that the float32 and bfloat16 bodies
+# share, each with the form of earlier versions of the file as an
+# alternative, so another checkout's source (--csrc) takes the same marks.
+# At hidden widths above 128 the head runs in two passes of 16 instances:
+# the accumulators sum both.
+_SCORES = (
+    "        scores(k, c, p0, TP == TB ? 0 : off[p0], "
+    "TP == TB ? n : off[p0 + TP]);\n",
+    "      scores(k, c, n);\n")
+_TOKEN_BWD = (
+    "        token_bwd(k, c, p0, TP == TB ? 0 : off[p0],\n"
+    "                  TP == TB ? n : off[p0 + TP]);\n",
+    "      token_bwd(k, c, n);\n")
 REPLAY_MARKS = [
     ("  for (int k = k0; k < k1; ++k) {\n", 7, False),
     ("  for (int k = k0; k < k1; ++k) {\n", 6, True),
     ("    if (!*flag) continue;", 0, False),
-    ("      scores(k, c, n);\n", 1, False),
-    ("      scores(k, c, n);\n", 2, True),
+    (_SCORES, 1, False),
+    (_SCORES, 2, True),
     ("    if (!BWD) continue;\n", 3, False),
-    ("      token_bwd(k, c, n);\n", 1, False),
-    ("      token_bwd(k, c, n);\n", 4, True),
-    ("      rowsum_acc(prow + go.b1, e1, LD, h, tid);\n      __syncthreads();"
-     "\n", 5, True),
+    (_TOKEN_BWD, 1, False),
+    (_TOKEN_BWD, 4, True),
+    (("        rowsum_acc<TP>(prow + go.b1, e1, LP, h, tid);\n"
+      "        __syncthreads();\n",
+      "      rowsum_acc(prow + go.b1, e1, LD, h, tid);\n      __syncthreads();"
+      "\n"), 5, True),
     ("  if (!BWD) {\n    if (wy == 0 && active) logp_o[b] = lp_sum;", 6,
      False),
 ]
+
+
+def _once(src: str, texts) -> str:
+    """The first of `texts` (one text or a tuple of alternatives) that
+    `src` holds exactly once."""
+    for text in (texts,) if isinstance(texts, str) else texts:
+        if src.count(text) == 1:
+            return text
+    raise RuntimeError(f"phase mark not found once: {texts!r}")
 REPLAY_PHASES = [
     "0: flags, bit words, live columns", "A, B: encoder and query (C > 1: "
     "their re-run in D too)", "B: scores (token forward)",
@@ -215,14 +256,12 @@ def replay_source(src: str) -> str:
     prof_ts[block * KSLOTS + k] at each exit of the kernel."""
     mark = ("if (threadIdx.x == 0 && threadIdx.y == 0) {{ long long nw = "
             "clock64(); prof_acc[{}] += nw - prof_last; prof_last = nw; }}\n")
-    for text, k, after in REPLAY_MARKS:
-        if src.count(text) != 1:
-            raise RuntimeError(f"phase mark not found once: {text!r}")
+    for texts, k, after in REPLAY_MARKS:
+        text = _once(src, texts)
         src = src.replace(text, text + mark.format(k) if after
                           else mark.format(k) + text)
-    start = "  const Lay L = layout(d, BWD"
-    if src.count(start) != 1:
-        raise RuntimeError("the kernel's start not found")
+    start = _once(src, ("  const Lay L = layout<WH>(d, BWD",
+                        "  const Lay L = layout(d, BWD"))
     src = src.replace(start, f"  long long prof_acc[{KSLOTS}] = {{0}}; "
                       "long long prof_last = clock64();\n" + start)
     store = ("  __syncthreads();\n  " + mark.format(8)
@@ -532,11 +571,11 @@ def main(argv=None) -> int:
             buf = (ctypes.c_longlong * (SLOTS * nb))()
             if lib.tapnet_prof_read(buf, nb):
                 raise RuntimeError("reading the clocks failed")
-            ts = [buf[b * SLOTS:b * SLOTS + len(MARKS) + 1]
-                  for b in range(nb)]
-            total = statistics.mean(t[-1] - t[0] for t in ts)
-            phases = [statistics.mean(t[k + 1] - t[k] for t in ts)
-                      for k in range(len(MARKS))]
+            accs = [buf[b * SLOTS:b * SLOTS + len(PHASES)]
+                    for b in range(nb)]
+            total = statistics.mean(sum(a) for a in accs)
+            phases = [statistics.mean(a[k] for a in accs)
+                      for k in range(len(PHASES))]
             mode = {"logits": logits, "ms": statistics.median(times[3:]),
                     "block_cycles": total,
                     "phases": dict(zip(PHASES, phases))}

@@ -8,7 +8,7 @@ config at the actor's hidden width:
 
 - sampled decode on a CUDA device where the actor kernel covers the config
   (unbounded height, N <= 62, rolling windows included, C <= 4, hidden a
-  multiple of 32 up to 128): `_rollout_record_actorfused`, one
+  multiple of 32 up to 256): `_rollout_record_actorfused`, one
   `actor_select_step` launch per step in its live-column mode;
 - otherwise on a CUDA device where `select_step` covers it (W*D <= 256):
   `_rollout_record_stepfused`, the actor head as PyTorch ops and one

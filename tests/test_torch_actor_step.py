@@ -252,6 +252,44 @@ def test_rolling_rollout_matches_jax_kernel_rollout(monkeypatch):
     assert len(live_steps) == cfg.num_blocks
 
 
+@pytest.mark.parametrize("live", [False, True])
+def test_hidden_256_matches_jax_kernel(live):
+    """Hidden 256, the widest the CUDA kernel covers (its head runs in two
+    passes of 16 instances there): the plain full mode (logits and logp
+    within 1e-5) and the plain live mode (logp within 1e-5 relative, no
+    logits) against the Pallas kernel in interpret mode on one sampled
+    2d-basic step at batch 128; integer outputs bit-equal."""
+    cfg, jcfg = _configs("2d-basic")
+    hidden = 256
+    assert AS.eligible(cfg, hidden) and AS.eligible(cfg, hidden,
+                                                    torch.bfloat16)
+    flax_params = jax_init_params(jax.random.key(3), jcfg, hidden)["actor"]
+    actor = actor_from_flax(jax.tree.map(np.asarray, flax_params), cfg,
+                            hidden)
+    ops = _operands(cfg, actor, seed=7)
+    temperature = 1.0 if live else 0.7
+    with jax.default_matmul_precision("highest"):
+        want = JAS.actor_select_step(
+            *(jnp.asarray(o) for o in ops),
+            JAS.head_operands(flax_params, jcfg, jnp.float32),
+            cfg=jcfg, temperature=temperature, interpret=True)
+    ref = AS.actor_select_step_live_ref if live else AS.actor_select_step_ref
+    got = ref(*_port_ops(ops), AS.head_operands(actor, cfg), cfg,
+              temperature=temperature)
+    labels = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+    for label, w, g in zip(labels, want, got):
+        if label == "logits" and live:
+            assert g is None
+        elif label in ("logits", "logp"):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-6 if live else 1e-5,
+                                       err_msg=label)
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=label)
+    assert (got[3].numpy() >= 0).all()
+
+
 def test_window_and_two_limbs_raise():
     """Coverage of the actor kernel: rolling windows and two limbs are in
     (they no longer raise), a finite cap and N > 62 are out, as in the JAX
@@ -278,40 +316,47 @@ def test_window_and_two_limbs_raise():
 def _smem_rule(cfg, h, dtype):
     """csrc/actor_step.cu's shared-memory plan written out, in bytes: the
     float regions (Wp, W8, b8, v, the C queries, the scores, the encoder's
-    [feature][33] arrays, the token view) and the ints behind them. The
-    bfloat16 instantiation holds Wp as bfloat16 rows of 40 (20 h floats),
-    and its token view holds x8 [8][64], h1 [32][68] and dyn [64][h+4], or
-    two weight slabs of h x 72 bfloat16 beside the B operand as
-    bfloat16 pairs (k of W*D + 2 or 3h + 8 padded to 16, rows of 40
-    words)."""
+    [feature][instance] arrays, the token view) and the ints behind them.
+    Up to hidden 128 the head's arrays hold the tile's 32 instances (row
+    stride 33) and a token group is 64 columns; above, one pass of 16
+    (stride 17) and 32 columns. The float32 token view also holds a weight
+    slice of 64 (above 128: 32) rows of h. The bfloat16 instantiation holds
+    Wp as bfloat16 rows of 40 (20 h floats), and its token view holds x8
+    [8][G], h1 [32][G+4] and dyn [G][h+4], or two weight slabs of h x 72
+    (above 128: h x 40) bfloat16 beside the B operand as bfloat16 pairs (k
+    of W*D + 2 or 3h + 8 padded to 16, rows of 40 words; above 128: 24)."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD = cfg.target_width * cfg.target_depth
     T, L = N * R, (N + 30) // 31
     up4 = lambda x: (x + 3) // 4 * 4
     bf = dtype == torch.bfloat16
+    wide = h > 128
+    lp, g = (17, 32) if wide else (33, 64)
     rows = max((N + 2 * L * N + R * N) * 32,             # phase 0's rows
                (13 + 8 * 16 + C * WD + 3 * N) * 32)      # phase 3's
     if bf:
         k = max(WD + 2, 3 * h + 8)
-        view = max(8 * 64 + 32 * 68 + 64 * (h + 4),
-                   72 * h + (k + 15) // 16 * 8 * 40, rows)
+        view = max(8 * g + 32 * (g + 4) + g * (h + 4),
+                   (40 if wide else 72) * h
+                   + (k + 15) // 16 * 8 * (24 if wide else 40), rows)
     else:
-        view = max(40 * 64, 64 * h, rows)
+        view = max(40 * g, (32 if wide else 64) * h, rows)
     floats = (up4(20 * h if bf else 32 * h) + 256 + 32 + up4(h)
-              + up4(C * h * 33) + T * C * 32 + up4((WD + 4 * h + 10) * 33)
+              + up4(C * h * lp) + T * C * 32 + up4((WD + 4 * h + 10) * lp)
               + view)
     ints = 17 * 32 + 2 + 32 * T
     return 4 * (floats + ints)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [32, 64, 96, 128])
+@pytest.mark.parametrize("h", [32, 64, 96, 128, 160, 192, 224, 256])
 def test_smem_plan_and_eligible(h, dtype):
     """`smem_bytes(cfg, h, dtype)` is the plan written out above on the six
     CONFIGS, and `eligible(cfg, h, dtype)` is the config rule (unbounded
     height, N <= 62, C <= 4, W*D <= 256) with a block within 227 KB: every
-    config but the capped one at every width in both dtypes. The float32
-    plan is unchanged (142,680 B at 2d-basic, 178,552 B at 2d-rolling)."""
+    config but the capped one at every width up to 256 in both dtypes. The
+    float32 plan at 128 is unchanged (142,680 B at 2d-basic, 178,552 B at
+    2d-rolling); at 256 the widest block is K2 bf16 on multi-container."""
     for name, cfg in CONFIGS.items():
         smem = AS.smem_bytes(cfg, h, dtype)
         assert smem == _smem_rule(cfg, h, dtype), name
@@ -324,3 +369,6 @@ def test_smem_plan_and_eligible(h, dtype):
     if h == 128 and dtype == torch.float32:
         assert AS.smem_bytes(CONFIGS["2d-basic"], h) == 142680
         assert AS.smem_bytes(CONFIGS["2d-rolling"], h) == 178552
+    if h == 256 and dtype == torch.bfloat16:
+        assert max(AS.smem_bytes(c, h, dtype) for c in CONFIGS.values()) \
+            == AS.smem_bytes(CONFIGS["multi-container"], h, dtype)

@@ -25,6 +25,17 @@ def test_phase_marks_found_once(source, instrument):
     assert out.count("clock64()") > src.count("clock64()")
 
 
+def test_k2_pass_mark_found_once():
+    """Above hidden 128 K2's head runs in two passes: the package's source
+    holds the pass mark once, and the copy charges each pass's start to
+    phase 1 (the first) or to the token groups (the second)."""
+    src = (_build.CSRC / "actor_step.cu").read_text()
+    assert src.count(PP.PASS_MARK) == 1
+    out = PP.instrumented_source(src)
+    assert out.count("prof_acc[p0 ? ") == 1
+    assert out.count(f"prof_acc[{len(PP.MARKS) - 1}] +=") == 1
+
+
 def test_replay_marks_cover_every_phase():
     """Every slot of REPLAY_PHASES but the epilogue's is ended by a mark,
     and the replay copy stores the slots at both exits of the kernel."""

@@ -143,6 +143,30 @@ def test_plain_step_grid_matches_jax_step_grid_interpret():
     _assert_grads_close(grads, got)
 
 
+@pytest.mark.parametrize("name", ["2d-basic", "rolling-small"])
+def test_plain_kernels_match_jax_kernels_interpret_hidden_256(name):
+    """Hidden 256, the widest the CUDA kernels cover (their head runs in
+    two passes of 16 instances there): against the Pallas kernels in
+    interpret mode, per instance, batch 128: the monolithic schedule on
+    2d-basic, the step-grid one on the 12-block rolling config."""
+    hidden = 256
+    jcfg, cfg, params, instances, record, actor, inst, rec = _setup(
+        name, B=128, hidden=hidden)
+    assert RP.eligible(cfg, hidden) and RP.eligible(cfg, hidden,
+                                                    torch.bfloat16)
+    assert RP._steps_grid(cfg) == (name == "rolling-small")
+    with jax.default_matmul_precision("highest"):
+        f = lambda p: JRO.replay_logp_sum(p, instances, record, jcfg,
+                                          hidden=hidden, kernel=True,
+                                          interpret=True)
+        lp_j, vjp = jax.jit(lambda p: jax.vjp(f, p))(params)
+        grads = vjp(jnp.ones_like(lp_j))[0]
+    lp, got = _port_value_and_grad(actor, inst, rec, cfg, kernel=True)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lp_j), rtol=1e-5,
+                               atol=1e-5)
+    _assert_grads_close(grads, got)
+
+
 def _operands(name, B=64):
     _, cfg, _, _, _, actor, inst, rec = _setup(name, B=B)
     with torch.no_grad():
@@ -230,7 +254,7 @@ def _smem_before(cfg, h, steps):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [32, 64, 96, 128])
+@pytest.mark.parametrize("h", [32, 64, 96, 128, 160, 192, 224, 256])
 def test_kernel_coverage(h, dtype):
     """Every shipped config is covered at every hidden width and in both
     dtypes, rolling and N > 31 by the step-grid schedule; every case covered
@@ -342,11 +366,11 @@ def test_live_replay_matches_jax_replay(name, temperature, monkeypatch):
 
 def test_kernel_hidden_widths():
     """The kernels tile hidden rows by 32 lanes: widths that are multiples
-    of 32 up to 128 are covered, others are refused (raise, no fallback)."""
+    of 32 up to 256 are covered, others are refused (raise, no fallback)."""
     cfg = CONFIGS["2d-basic"]
-    for h in (32, 64, 96, 128):
+    for h in (32, 64, 96, 128, 160, 192, 224, 256):
         assert RP.eligible(cfg, h), h
-    for h in (16, 48, 160, 256):
+    for h in (16, 48, 288):
         assert not RP.eligible(cfg, h), h
         with pytest.raises(NotImplementedError, match="multiple of 32"):
             RP._check_cfg(cfg, h, False)

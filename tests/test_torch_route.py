@@ -72,8 +72,8 @@ def test_routes_follow_eligible(name, hidden):
         assert RO.routes(cfg, False, hidden, greedy) == RO.Routes(
             "general", False, False)
     # the six configs: K1 and K4 cover all; K2 all but the capped one at
-    # hidden widths that are multiples of 32 up to 128, K5 all at those
-    tiled = hidden in (32, 128)
+    # hidden widths that are multiples of 32 up to 256, K5 all at those
+    tiled = hidden in (32, 128, 256)
     assert PS.eligible(cfg) and OE.eligible(cfg)
     assert AS.eligible(cfg, hidden) == (tiled and cfg.target_height == 0)
     assert RP.eligible(cfg, hidden) == tiled
@@ -113,22 +113,35 @@ def test_train_step_past_the_kernels_falls_back(card_rules):
                                    err_msg=k)
 
 
+def _takes_the_kernels(card_rules, hidden):
+    cfg = CONFIGS["2d-basic"]
+    got = _metrics(cfg, hidden)
+    assert card_rules.count("actor_select_step_live_ref") == cfg.num_blocks
+    assert "_rollout_record_actorfused" in card_rules
+    assert "_replay_logp_kernel" in card_rules
+    assert "_rollout_record_stepfused" not in card_rules
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(RO, "routes", lambda cfg, on_card, *a, **k: RO.Routes(
+            "general", False, False))
+        want = _metrics(cfg, hidden)
+    for k in ("loss_actor", "loss_critic", "reward", "C", "P", "S"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+
+
 def test_train_step_inside_the_kernels_takes_them(card_rules):
     """Hidden 32 on 2d-basic: the actor-fused rollout in its live-column
     mode (K2's plain live version) and the replay kernel path, with the
     reference path's losses."""
-    cfg = CONFIGS["2d-basic"]
-    got = _metrics(cfg, 32)
-    assert card_rules.count("actor_select_step_live_ref") == cfg.num_blocks
-    assert "_rollout_record_actorfused" in card_rules
-    assert "_replay_logp_kernel" in card_rules
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(RO, "routes", lambda cfg, on_card, *a, **k: RO.Routes(
-            "general", False, False))
-        want = _metrics(cfg, 32)
-    for k in ("loss_actor", "loss_critic", "reward", "C", "P", "S"):
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
-                                   err_msg=k)
+    _takes_the_kernels(card_rules, 32)
+
+
+def test_train_step_inside_the_kernels_takes_them_at_hidden_256(card_rules):
+    """Hidden 256, the widest the kernels cover (two head passes of 16
+    instances on the card): the same routes as at hidden 32, K2 once a
+    decode step and the replay kernel path, with the reference path's
+    losses."""
+    _takes_the_kernels(card_rules, 256)
 
 
 def _plans_equal(a, b):
