@@ -241,13 +241,18 @@ source, all started at once), then runs, and fails on the first fault:
    step at batch 256 against the CPU path (the bf16 one under
    scripts/tpu_parity.py's gate); steps_per_call graphs (2d-basic k = 8 in
    both dtypes, 2d-rolling k = 4: phase 21's checks); a 2d-rolling train
-   step in each dtype (K2 50, K5b-steps 1, K3 1); the train step at
-   4096 against the fallback that served hidden 256 before (K1 + the
-   general replay), in turns; K2 f32 launched twice bit-identical; times
-   at 4096 of K2's main-path mode (2d-basic,
-   2d-rolling) and of K5f/K5b, K5f-steps/K5b-steps in both dtypes, in
-   turns, with their plain versions and bounds. `chip_smoke.phase_26(dev)`
-   runs it alone after `ops._build.build_all()`.
+   step in each dtype (K2 50, K5b-steps 1, K3 1); at the main paths'
+   shapes (batch 4096: 2d-basic, and 2d-rolling's step grid) K2 in bf16
+   over a whole rollout and in f32, both modes, at its middle step, and
+   K5f/K5b (2d-basic) and K5f-steps/K5b-steps (2d-rolling) in both dtypes
+   on one record, each against its plain version at the same tolerances,
+   on the operands they are then timed on; K2 f32 launched twice
+   bit-identical; times at 4096 of K2's main-path mode and of the four
+   replay kernels in both dtypes, in turns, with their plain versions and
+   bounds. `chip_smoke.phase_26(dev)` runs it alone after
+   `ops._build.build_all()`. (The train step against the fallback it
+   replaced: `python -m tapnet_torch.profile_pack --train --hidden 256
+   --routes kernels,fallback`.)
 
 It prints the kernel table as one JSON line (each entry with its "dtype";
 the bf16 instantiations as entries of their own, and the hidden-256
@@ -371,24 +376,51 @@ def actor_operands(actor, inst, cfg, keys, dtype=torch.float32):
     return o
 
 
+def hold_k2(ops, cfg, temperature, params_t, at):
+    """Both modes of K2 in float32 on one step's operands against the full
+    plain version: the full mode's integer outputs equal, logits and logp
+    within TOL; the main path's mode (logits=False, live columns): integer
+    outputs equal to the full plain version's, logp within TOL. `at` names
+    the step in a failure. Returns (the main-path mode's outputs, the max
+    logit/logp error)."""
+    from tapnet_torch.ops import actor_step as AS
+
+    names = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
+    want = AS.actor_select_step_ref(*ops, cfg, temperature)
+    err = 0.0
+    for logits in (True, False):
+        got = AS.actor_select_step(*ops, cfg, temperature, logits=logits,
+                                   params_t=params_t)
+        what = f"actor_select_step(logits={logits})"
+        for name, g, w in zip(names, got, want):
+            if name == "logits" and not logits:
+                if g is not None:
+                    raise AssertionError(f"{what} returned logits")
+            elif name in ("logits", "logp"):
+                d = (g - w).abs()
+                lim = TOL + TOL * w.abs()
+                if not bool((d <= lim).all()):
+                    raise AssertionError(
+                        f"{what} {name} {at}: max err {d.max().item()}")
+                err = max(err, d.max().item())
+            else:
+                _equal(f"{what} {name} {at}", g, w)
+    return got, err
+
+
 def check_actor_step(cfg, B, actor, dev, keep=None, p2d=0.0,
                      temperature=1.0):
     """Sampled rollout at `temperature`; at every step both modes of
-    actor_select_step and the full plain version get the same inputs. The
-    full mode: integer outputs equal, logits and logp within TOL; the
-    main path's mode
-    (logits=False, live columns): integer outputs equal to the full plain
-    version's, logp within TOL. The rollout advances on the main-path
-    mode's outputs. Returns the middle step's operands when `keep` is set
-    and the max logit/logp error."""
+    actor_select_step and the full plain version get the same inputs
+    (`hold_k2`). The rollout advances on the main-path mode's outputs.
+    Returns the middle step's operands when `keep` is set and the max
+    logit/logp error."""
     from tapnet_torch import random as R
-    from tapnet_torch.ops import actor_step as AS
     from tapnet_torch.train import rollout as RO
 
     N = cfg.num_blocks
     inst = _instances(cfg, B, dev, SEED + 2, p2d)
     kept, err = None, 0.0
-    names = ("packed", "hm", "plc", "act", "flags", "mask", "logits", "logp")
     with torch.no_grad():
         o = actor_operands(actor, inst, cfg, R.split(R.key(SEED + 3, dev), B))
         (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
@@ -400,26 +432,9 @@ def check_actor_step(cfg, B, actor, dev, keep=None, p2d=0.0,
                    o["statp"], o["statm"], o["params"])
             if keep and t == N // 2:
                 kept = ops
-            want = AS.actor_select_step_ref(*ops, cfg, temperature)
-            for logits in (True, False):
-                got = AS.actor_select_step(*ops, cfg, temperature,
-                                           logits=logits,
-                                           params_t=o["params_t"])
-                what = f"actor_select_step(logits={logits})"
-                for name, g, w in zip(names, got, want):
-                    if name == "logits" and not logits:
-                        if g is not None:
-                            raise AssertionError(f"{what} returned logits")
-                    elif name in ("logits", "logp"):
-                        d = (g - w).abs()
-                        lim = TOL + TOL * w.abs()
-                        if not bool((d <= lim).all()):
-                            raise AssertionError(
-                                f"{what} {name} step {t}: max err "
-                                f"{d.max().item()}")
-                        err = max(err, d.max().item())
-                    else:
-                        _equal(f"{what} {name} step {t}", g, w)
+            got, e = hold_k2(ops, cfg, temperature, o["params_t"],
+                             f"step {t}")
+            err = max(err, e)
             packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
     return kept, err
 
@@ -768,33 +783,58 @@ def check_replay(cfg, B, actor, dev, temperature=1.0, repeat=False,
     dlp = torch.linspace(-1.0, 1.0, B, device=dev)
     with torch.no_grad():
         got = fwd()
-        want = fwd_ref()
-        d = (got - want).abs()
-        if not bool((d <= TOL * want.abs() + 1e-6).all()):
-            raise AssertionError(f"{what}: max err {d.max().item()}")
-        f_err = d.max().item()
+        f_err = _hold_values(what, got, fwd_ref(), TOL, 1e-6)
         # the train step's value is the rollout's logp (the primal): the
         # rollout head and the replay head must agree on it
-        d0 = (got - lp0).abs()
-        if not bool((d0 <= TOL * lp0.abs() + 1e-5).all()):
-            raise AssertionError(f"{what} vs the rollout's logp: max err "
-                                 f"{d0.max().item()}")
+        e0 = _hold_values(f"{what} vs the rollout's logp", got, lp0, TOL,
+                          1e-5)
         g1 = bwd(dlp)
-        gr = bwd_ref(dlp)
-        b_err = b_abs = 0.0
-        for name, a, w in zip(GRAD_NAMES, _flat_grads(g1), _flat_grads(gr)):
-            e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
-            if not e <= GRAD_TOL:
-                raise AssertionError(f"{what} backward {name}: scaled err "
-                                     f"{e}")
-            b_err = max(b_err, e)
-            b_abs = max(b_abs, (a - w).abs().max().item())
+        b_errs = _hold_grads(what, g1, bwd_ref(dlp), GRAD_TOL)
         if repeat:
             g2 = bwd(dlp)
             for name, a, b in zip(GRAD_NAMES, _flat_grads(g1),
                                   _flat_grads(g2)):
                 _equal(f"{what} backward repeat {name}", a, b)
-    return ops, dlp, f_err, (b_err, b_abs), d0.max().item()
+    return ops, dlp, f_err, b_errs, e0
+
+
+def _hold_values(what, got, want, rel, atol):
+    """|got - want| <= rel |want| + atol everywhere; the max abs error."""
+    d = (got - want).abs()
+    if not bool((d <= rel * want.abs() + atol).all()):
+        raise AssertionError(f"{what}: max err {d.max().item()}")
+    return d.max().item()
+
+
+def _hold_grads(what, got, want, tol):
+    """Every gradient of `got` within `tol` of the plain result `want`'s
+    max magnitude: (max scaled err, max abs err)."""
+    b_err = b_abs = 0.0
+    for name, a, w in zip(GRAD_NAMES, _flat_grads(got), _flat_grads(want)):
+        e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
+        if not e <= tol:
+            raise AssertionError(f"{what} backward {name}: scaled err {e}")
+        b_err = max(b_err, e)
+        b_abs = max(b_abs, (a - w).abs().max().item())
+    return b_err, b_abs
+
+
+def hold_replay(ops, dlp, cfg, steps, dtype):
+    """K5f and K5b (`steps`: their step-grid schedule) on one record's
+    operands in `dtype` against their plain versions, at `check_replay`'s
+    tolerances in float32 and `check_replay_bf16`'s in bfloat16. Returns
+    (fwd max abs err, bwd max abs err)."""
+    fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, 1.0, steps)
+    f32 = dtype == torch.float32
+    what = (("replay_logp_fwd_steps" if steps else "replay_logp_fwd")
+            + ("" if f32 else " bf16"))
+    with torch.no_grad():
+        fe = _hold_values(what, fwd(), fwd_ref(),
+                          TOL if f32 else BF16_VALUE_TOL,
+                          1e-6 if f32 else 1e-3)
+        _, ba = _hold_grads(what, bwd(dlp), bwd_ref(dlp),
+                            GRAD_TOL if f32 else BF16_GRAD_TOL)
+    return fe, ba
 
 
 def check_steps_against_monolithic(ops, dlp, cfg):
@@ -2551,28 +2591,18 @@ def check_replay_bf16(cfg, B, actor, dev, steps, repeat=False,
     what = "replay_logp_fwd_steps bf16" if steps else "replay_logp_fwd bf16"
     dlp = torch.linspace(-1.0, 1.0, B, device=dev)
     with torch.no_grad():
-        got, want = fwd(), fwd_ref()
-        errs = []
-        for label, ref in (("plain", want), ("the rollout's logp", lp0)):
-            d = (got - ref).abs()
-            if not bool((d <= BF16_VALUE_TOL * ref.abs() + 1e-3).all()):
-                raise AssertionError(f"{what} vs {label}: max err "
-                                     f"{d.max().item()}")
-            errs.append(d.max().item())
-        g1, gr = bwd(dlp), bwd_ref(dlp)
-        b_err = b_abs = 0.0
-        for name, a, w in zip(GRAD_NAMES, _flat_grads(g1), _flat_grads(gr)):
-            e = ((a - w).abs().max() / (w.abs().max() + 1e-12)).item()
-            if not e <= BF16_GRAD_TOL:
-                raise AssertionError(f"{what} backward {name}: scaled err "
-                                     f"{e}")
-            b_err = max(b_err, e)
-            b_abs = max(b_abs, (a - w).abs().max().item())
+        got = fwd()
+        errs = [_hold_values(f"{what} vs {label}", got, ref, BF16_VALUE_TOL,
+                             1e-3)
+                for label, ref in (("plain", fwd_ref()),
+                                   ("the rollout's logp", lp0))]
+        g1 = bwd(dlp)
+        b_errs = _hold_grads(what, g1, bwd_ref(dlp), BF16_GRAD_TOL)
         if repeat:
             for name, a, b in zip(GRAD_NAMES, _flat_grads(g1),
                                   _flat_grads(bwd(dlp))):
                 _equal(f"{what} backward repeat {name}", a, b)
-    return ops, ops32, dlp, errs[0], (b_err, b_abs), errs[1]
+    return ops, ops32, dlp, errs[0], b_errs, errs[1]
 
 
 def replay_bf16_shapes():
@@ -3192,42 +3222,12 @@ def check_k2_repeat(kept, cfg):
                        f"output {i}", x, y)
 
 
-def time_wide_vs_fallback(cfg, dev, h):
-    """The train step at hidden h, batch 4096, k = 1, through K2 and K5
-    (the routes at h) and through the fallback the routes gave before K2
-    and K5 covered h (K1 and the general replay, `routes` patched), in
-    turns (kernels, fallback, fallback, kernels) from one seeded state
-    each: (host ms/step, device ms/step by `device_time_ms`) per turn."""
-    from tapnet_torch import init_train_state, make_train_step
-    from tapnet_torch.train import rollout as RO
-    from tapnet_torch.utils.profiling import device_time_ms
-
-    real = RO.routes
-    fallback = (lambda c, on_card, *a, **k: real(c, on_card, *a, **k)
-                ._replace(decode="step", replay=False))
-    runs = {}
-    for tag in ("kernels", "fallback"):
-        ts = init_train_state(SEED, cfg, hidden=h, device=dev)
-        step = make_train_step(cfg, batch=B_MAIN, hidden=h, device=dev)
-        runs[tag] = (lambda step=step, ts=ts: step(ts))
-    out = {"kernels": [], "fallback": []}
-    try:
-        for tag in ("kernels", "fallback", "fallback", "kernels"):
-            RO.routes = fallback if tag == "fallback" else real
-            out[tag].append((time_host(runs[tag], reps=3),
-                             device_time_ms(runs[tag], iters=2)))
-    finally:
-        RO.routes = real
-    return out
-
-
 def phase_26(dev):
     """Phase 26 (module docstring): K2 and K5 at hidden widths above 128.
     Returns the kernels-line entries of the hidden-256 instantiations."""
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
     from tapnet_torch.ops import actor_step as AS
-    from tapnet_torch.ops import replay as RP
     from tapnet_torch.train import rollout as RO
     from tapnet_torch.train.trainer import assert_deterministic
 
@@ -3285,16 +3285,22 @@ def phase_26(dev):
                                    hidden=h, compute_dtype=BF16)
     log(f"{stamp()} rolling train step hidden {h} batch {B_MAIN} launches: "
         f"f32 {roll_f}, bf16 {roll_b}")
-    fb = time_wide_vs_fallback(cfg, dev, h)
-    log(f"{stamp()} train step 2d-basic hidden {h} batch {B_MAIN} k = 1, "
-        f"(host ms/step, device ms/step) in turns: K2 + K5b {fb['kernels']},"
-        f" the fallback (K1 + the general replay) {fb['fallback']}")
-    # 3. times at hidden 256, batch 4096, on the main paths' shapes
+    # 3. the main paths' shapes at hidden 256, batch 4096: every kernel
+    # against its plain version on the operands it is timed on, then times
+    bump = lambda k, v: errs.__setitem__(k, max(errs[k], v))
     k2 = {}
     for name, c in (("2d-basic", cfg), ("2d-rolling", rcfg)):
         a = actor if c is cfg else init_params(SEED, c, h, dev)
         kept, err, rate = check_actor_step_bf16(c, B_MAIN, a, dev, keep=True)
-        errs["K2 bf16"] = max(errs["K2 bf16"], err)
+        bump("K2 bf16", err)
+        with torch.no_grad():
+            _, err32 = hold_k2(kept[1], c, 1.0, AS.transposed(kept[1][16]),
+                               f"hidden {h} {name} B={B_MAIN}")
+        bump("K2 f32", err32)
+        log(f"{stamp()} actor_select_step hidden {h} {name} B={B_MAIN}: bf16 "
+            f"rollout against the plain bf16 version, max logit/logp err "
+            f"{err:.2e} (action agreement {rate:.6f}); f32 both modes at its "
+            f"middle step against the plain version, max err {err32:.2e}")
         if c is cfg:
             check_k2_repeat(kept, c)
         k2[name] = {"bf16": time_actor_dtypes(kept, c, h),
@@ -3311,6 +3317,17 @@ def phase_26(dev):
         ops, _, ops32 = replay_operands(a, c, B_MAIN, dev, SEED + 10, 1.0,
                                         dtype=BF16, also=torch.float32)
         dlp = torch.linspace(-1.0, 1.0, B_MAIN, device=dev)
+        held = {}
+        for dt, o in (("f32", ops32), ("bf16", ops)):
+            held[dt] = hold_replay(o, dlp, c, key == "steps",
+                                   torch.float32 if dt == "f32" else BF16)
+            bump(f"K5f {key} {dt}", held[dt][0])
+            bump(f"K5b {key} {dt}", held[dt][1])
+        log(f"{stamp()} K5 {key} hidden {h} "
+            f"{'2d-rolling' if key == 'steps' else '2d-basic'} B={B_MAIN} "
+            f"against the plain versions, max abs err (fwd, bwd): f32 "
+            f"{held['f32'][0]:.2e}, {held['f32'][1]:.2e}; bf16 "
+            f"{held['bf16'][0]:.2e}, {held['bf16'][1]:.2e}")
         kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps",
                                      hidden=h, f32=True)
         for d in ("fwd", "bwd"):

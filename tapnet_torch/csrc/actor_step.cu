@@ -157,6 +157,7 @@
 
 #include <type_traits>
 
+#include "geo.cuh"
 #include "mma_bf16.cuh"
 #include "select_place.cuh"
 
@@ -174,24 +175,9 @@ constexpr int TOKW = 4;         // 32-bit words of token bits: T <= 128
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The head's geometry (phases 1-2). At h <= 128 one pass over the tile's
-// 32 instances; above (WH, h = 160..256) two passes of TP = 16 instances
-// each, so that the [feature][instance] arrays, q and the token view fit a
-// block's shared memory with a thread's register tile as at h = 128: a
-// thread of the encoder and query owns h / NVW <= 8 rows of one instance
-// (NVW virtual warps of TP lanes), a lane of the token work MAXR = 8 rows of
-// CPW = 2 columns.
-template <bool WH>
-struct Geo {
-  static constexpr int TP = WH ? 16 : TB;   // instances of a head pass
-  static constexpr int LP = TP + 1;         // their arrays' row stride
-  static constexpr int NVW = NT / TP;       // virtual warps of TP lanes
-  static constexpr int CPW = WH ? 2 : 4;    // columns per warp in a group
-  static constexpr int G = CPW * NWARP;     // columns per token group
-  static constexpr int MAXR = WH ? 8 : 4;   // rows per lane: h <= 32 MAXR
-  static constexpr int KS = WH ? 32 : 64;   // f32: rows of a staged slice
-  static constexpr int KSL = WH ? 32 : 64;  // tc: columns of a weight slab
-};
+using tapnet::Geo;  // the head's passes (geo.cuh)
+static_assert(TB == tapnet::GEO_TB && NWARP == tapnet::GEO_NWARP,
+              "geo.cuh's block geometry");
 
 using bf16 = __nv_bfloat16;
 using tapnet::frag_au;
@@ -518,7 +504,14 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       if (j < NL * N) return ai.rotm[(size_t)j * B + bb];
       return ai.fits[(size_t)(j - NL * N) * B + bb];
     }, [&](int j, int v) { pkS[j * TB + lane] = v; });
-    if constexpr (!WH) {  // WH: per pass (phase 1)
+    // qin's rows of ctx, the previous action's embedding and (below) the
+    // count summary: at h <= 128 qin holds the whole tile, so they are
+    // filled here once, their loads in flight beside the rows above and
+    // behind phase 0's barriers; above, qin holds one pass's instances
+    // and each pass fills its own (phase 1). Filling them per pass at
+    // h <= 128 too would give the same values one pass later, a chain of
+    // loads of its own before phase 1's first barrier.
+    if constexpr (!WH) {
       const int idx = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
       tapnet::rows8<NWARP>(2 * h, wy, [&](int j) {
         return j < h ? f32(ai.ctx[(size_t)j * B + bb])
@@ -611,7 +604,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
         n += __popc(u);
       }
       if (LOGITS) n = active ? T : 0;
-      if constexpr (!WH) {  // WH: per pass (phase 1)
+      if constexpr (!WH) {  // WH: per pass (phase 1; see above)
         const float fpk = (float)popw(pk), fa0 = (float)popw(a0m);
         const float far = (float)popw(arm);
         const float acc_mean =

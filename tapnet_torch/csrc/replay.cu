@@ -188,6 +188,7 @@
 
 #include <type_traits>
 
+#include "geo.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -208,26 +209,9 @@ struct Dims {
   int B, N, W, D, R, C, h;
 };
 
-// The head's geometry. At h <= 128 one pass over the tile's 32 instances;
-// above (WH, h = 160..256) two passes of TP = 16 instances each, so that
-// the [feature][instance] arrays, q, dq and the token view fit a block's
-// shared memory with a thread's register tile as at h = 128: a thread of
-// the encoder/query products owns h / NVW <= 8 rows of one instance (NVW
-// virtual warps of TP lanes), a lane of the token work MAXR = 8 rows of
-// CPW = 2 columns.
-template <bool WH>
-struct Geo {
-  static constexpr int TP = WH ? 16 : TB;   // instances of a head pass
-  static constexpr int LP = TP + 1;         // their arrays' row stride
-  static constexpr int NP = TB / TP;        // passes
-  static constexpr int NVW = NT / TP;       // virtual warps of TP lanes
-  static constexpr int CPW = WH ? 2 : 4;    // columns per warp in a group
-  static constexpr int G = CPW * NWARP;     // columns per token group
-  static constexpr int MAXR = WH ? 8 : 4;   // rows per lane: h <= 32 MAXR
-  static constexpr int KS = WH ? 32 : 64;   // k rows of a slice (mv_tiled)
-  static constexpr int JS = WH ? 8 : 32;    // j rows of a slice (mvt_tiled)
-  static constexpr int KSL = WH ? 32 : 64;  // tc: columns of a mv_mma slab
-};
+using tapnet::Geo;  // the head's passes (geo.cuh)
+static_assert(TB == tapnet::GEO_TB && NWARP == tapnet::GEO_NWARP,
+              "geo.cuh's block geometry");
 
 using bf16 = __nv_bfloat16;
 using tapnet::frag_au;

@@ -94,8 +94,8 @@ def rounder(dtype):
 
 
 def geometry(h: int) -> dict:
-    """The head's geometry at hidden width h (csrc/actor_step.cu `Geo`,
-    shared by csrc/replay.cu): up to 128 one pass over the tile's 32
+    """The head's geometry at hidden width h (csrc/geo.cuh `Geo`, shared
+    by csrc/actor_step.cu and csrc/replay.cu): up to 128 one pass over the tile's 32
     instances, above two passes of 16 (`tp`), with the row stride of their
     [feature][instance] arrays (`lp`), the token group (`g` columns), the
     float32 weight slice (`ks` rows), the bfloat16 weight slab (`ksl`

@@ -3,14 +3,18 @@ torch.profiler breakdown.
 
     python -m tapnet_torch.profile_pack [--config 2d-basic] [--batch 4096]
         [--hidden 128] [--calls 5] [--policies greedy,sample,best]
-        [--train] [--steps-per-call 1] [--mixed-p2d P] [--tree DIR]
-        [--out profile_pack.json]
+        [--train] [--steps-per-call 1] [--mixed-p2d P] [--dtype bfloat16]
+        [--routes kernels,fallback] [--tree DIR] [--out profile_pack.json]
 
 For each policy (greedy, sample, best-of-16 on batch/16 instances; `first`
 and `random`, the heuristic rollouts, when named in `--policies`), or with
 `--train` for one call of the REINFORCE train step (`make_train_step`,
 batch `--batch`, `--steps-per-call` steps a call, on mixed 2D/3D batches
-with `--mixed-p2d` > 0), it warms up, times
+with `--mixed-p2d` > 0, in the compute dtype `--dtype`; `--routes`: the
+routers' own choice, `kernels`, and `fallback`, the route a config past
+K2's and K5's coverage takes: K1 decode and the general autograd replay;
+two routes run in turns a, b, b, a, each from its own seeded state), it
+warms up, times
 `--calls` calls on the host clock, then profiles as many more and prints
 the device time and launches of every kernel name per call, the kernel
 launches per call, the wall time per call (unprofiled), the device busy
@@ -62,6 +66,32 @@ def profile_calls(label, run, calls):
                         for k, ms, n in rows[:25]]}
 
 
+def routed(step, ts, route):
+    """A call of `step(ts)` with the routers answering as `route` says:
+    `kernels` as they do, `fallback` as for a config past K2's and K5's
+    coverage (K1 decode and the general autograd replay; a graphed step is
+    captured on its first call, so under the route it is called with)."""
+    from tapnet_torch.train import rollout as RO
+
+    real = RO.routes
+    if route == "kernels":
+        return lambda: step(ts)
+    if route != "fallback":
+        raise ValueError(f"unknown route {route!r}: kernels or fallback")
+
+    def fallback(cfg, on_card, *a, **k):
+        return real(cfg, on_card, *a, **k)._replace(decode="step",
+                                                    replay=False)
+
+    def run():
+        RO.routes = fallback
+        try:
+            return step(ts)
+        finally:
+            RO.routes = real
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="2d-basic")
@@ -78,6 +108,12 @@ def main(argv=None) -> int:
     ap.add_argument("--mixed-p2d", type=float, default=0.0,
                     help="share of flat instances in the train step's "
                     "batches (--train; 3D configs)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the train step's compute dtype (--train)")
+    ap.add_argument("--routes", default="kernels",
+                    help="--train: comma list of kernels (the routers' "
+                    "choice) and fallback (K1 decode, the general replay)")
     ap.add_argument("--tree", default="",
                     help="profile the checkout at this path")
     ap.add_argument("--out", default="")
@@ -109,11 +145,18 @@ def main(argv=None) -> int:
     out = {"device": torch.cuda.get_device_name(0), "config": args.config,
            "batch": args.batch, "hidden": args.hidden, "runs": []}
     if args.train:
-        ts = init_train_state(0, cfg, args.hidden, device=dev)
-        step = make_train_step(cfg, args.batch, args.hidden, device=dev,
-                               steps_per_call=args.steps_per_call,
-                               mixed_p2d=args.mixed_p2d)
-        runs = [(f"train_step x{args.steps_per_call}", lambda: step(ts))]
+        out.update(dtype=args.dtype, routes=args.routes)
+        runs = []
+        for route in args.routes.split(","):
+            ts = init_train_state(0, cfg, args.hidden, device=dev)
+            step = make_train_step(cfg, args.batch, args.hidden, device=dev,
+                                   steps_per_call=args.steps_per_call,
+                                   mixed_p2d=args.mixed_p2d,
+                                   compute_dtype=getattr(torch, args.dtype))
+            runs.append((f"train_step x{args.steps_per_call} {route}",
+                         routed(step, ts, route)))
+        if len(runs) == 2:
+            runs = [runs[0], runs[1], runs[1], runs[0]]
     else:
         actor = init_params(0, cfg, args.hidden, dev)
         inst = sample_batch(R.key(4, dev), args.batch, cfg)

@@ -25,7 +25,7 @@ import tapnet_torch.ops.env
 import tapnet_torch.train.reinforce, tapnet_torch.train.metrics
 import tapnet_torch.train.checkpoints, tapnet_torch.train.trainer
 import tapnet_torch.profile_pack, tapnet_torch.profile_phases
-import tapnet_torch.kernel_times
+import tapnet_torch.kernel_times, tapnet_torch.grad_witness
 import tapnet_torch.cli
 import tapnet_torch.utils.data, tapnet_torch.utils.debug
 import tapnet_torch.utils.msgpack, tapnet_torch.utils.profiling

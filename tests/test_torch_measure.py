@@ -70,3 +70,68 @@ def test_check_expected(tmp_path):
     for k in same:
         moved = {**same, k: {**same[k], "outputs": "x"}}
         assert not KT.check_expected(moved, str(path)), k
+
+
+def test_grad_witness_plain_against_plain():
+    """On CPU tensors both sides of `grad_witness` are the plain step-grid
+    replay: every scaled error 0 and no gate to look at."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import grad_witness as GW
+
+    res = GW.witness(CONFIGS["2d-rolling"], 32, 4, 10, torch.device("cpu"))
+    assert res["schedule"] == "steps" and res["gates"] == []
+    assert len(res["scaled_errors"]) == 13
+    assert max(res["scaled_errors"].values()) == 0.0
+
+
+def test_nearest_gate_finds_a_pre_activation_at_zero():
+    """W1's row j set so that one acting pair's pre-activation is 0 up to
+    rounding (b1 stays 0, so the empty heightmaps of step 0 give exact
+    zeros too): for a W1 difference equal to minus that pair's feats,
+    `nearest_gate` names a pair with those feats, cosine -1, its float64
+    value within the rounding bound."""
+    import chip_smoke as CS
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import grad_witness as GW
+    from tapnet_torch.models.tapnet import init_params
+
+    cfg, dev, j = CONFIGS["2d-basic"], torch.device("cpu"), 5
+    actor = init_params(0, cfg, 32, dev)
+    ops, _ = CS.replay_operands(actor, cfg, 8, dev, 10, 1.0)
+    acts = ops[3]
+    k, b = 3, int(torch.nonzero(acts[3] >= 0)[0])
+    feats = [f for kk, _, f, *_ in GW.pre_activations(ops, cfg)
+             if kk == k][0][:, b]
+    params = list(ops[8])
+    assert not bool(params[4].any())
+    w1 = params[3].clone()
+    m = int(feats.abs().argmax())
+    rest = w1[j].double() @ feats.double() - w1[j, m].double() * feats[m]
+    w1[j, m] = float(-rest / feats[m])
+    params[3] = w1
+    pres = GW.pre_activations(ops[:8] + (tuple(params),), cfg)
+    got = GW.nearest_gate(-feats, j, acts, pres)
+    found = [f for kk, cc, f, *_ in pres
+             if (kk, cc) == (got["step"], got["container"])][0]
+    assert torch.equal(found[:, got["instance"]], feats)
+    assert 0 < abs(got["pre_f64"]) <= got["rounding_bound"]
+    assert got["cosine"] == pytest.approx(-1.0, abs=1e-12)
+
+
+def test_profile_pack_fallback_route():
+    """`profile_pack.routed`: under `fallback` a call sees the routers
+    answer K1 decode and no replay kernel where they would take K2 and K5
+    (hidden 256 on the card), and the routers are restored after it."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import profile_pack as PK
+    from tapnet_torch.train import rollout as RO
+
+    cfg, seen = CONFIGS["2d-basic"], []
+    step = lambda ts: seen.append(RO.routes(cfg, True, 256))
+    PK.routed(step, None, "kernels")()
+    PK.routed(step, None, "fallback")()
+    assert seen[0] == RO.Routes("actor", True, True)
+    assert (seen[1].decode, seen[1].replay) == ("step", False)
+    assert RO.routes(cfg, True, 256) == seen[0]
+    with pytest.raises(ValueError):
+        PK.routed(step, None, "general")
