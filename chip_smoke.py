@@ -233,8 +233,14 @@ source, all started at once), then runs, and fails on the first fault:
    K5f-steps/K5b-steps always, both dtypes) against their plain versions
    on `wide_shapes` (2d-basic at 512, a ragged 100, multi-container at
    temperature 0.7; 2d-rolling at 512 at hidden 160 and 256) at the
-   tolerances of phases 3, 7, 15 and 24, backward repeats bit-identical;
-   at hidden 256: pack() on
+   tolerances of phases 3, 7, 15 and 24, backward repeats bit-identical
+   (the float32 replay above 128: 3xTF32 products and `grad_outer_tf32`);
+   `ops.replay.smem_bytes` and `record_floats` against the kernel's
+   exports; the witness record of a rounding-decided ReLU gate
+   (2d-rolling, hidden 160, batch 256, seed 10: `grad_witness`), K5b-steps
+   f32 against its plain version with the gates within their rounding
+   bound of 0 counted and, with the rows they feed left out, within
+   GRAD_TOL; at hidden 256: pack() on
    2d-basic at 4096 (greedy K1 x10, sample and best-of-16 K2 x10, no
    select_step) and against the CPU path; 3 f32 and 3 bf16 train steps at
    batch 4096 (K2 10, K5b 1, K3 1 a step), each repeated bit for bit, a
@@ -249,16 +255,20 @@ source, all started at once), then runs, and fails on the first fault:
    on the operands they are then timed on; K2 f32 launched twice
    bit-identical; times at 4096 of K2's main-path mode and of the four
    replay kernels in both dtypes, in turns, with their plain versions and
-   bounds. `chip_smoke.phase_26(dev)` runs it alone after
+   bounds (the float32 ones also with the products at the 3xTF32 rate)
+   and, beside K5b and K5b-steps, the fallback replay (`replay_logp_sum(
+   kernel=False)`, forward and backward) on the same record.
+   `chip_smoke.phase_26(dev)` runs it alone after
    `ops._build.build_all()`. (The train step against the fallback it
    replaced: `python -m tapnet_torch.profile_pack --train --hidden 256
    --routes kernels,fallback`.)
 
 It prints the kernel table as one JSON line (each entry with its "dtype";
 the bf16 instantiations as entries of their own, and the hidden-256
-instantiations too, with a "hidden" key), then the nvidia-smi line,
-then
-`{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
+instantiations too, with a "hidden" key; the float32 hidden-256 replay
+entries add "bound_3xtf32_ms", the backward ones "fallback_ms", and
+K5b-steps' the witness record's "witness"), then the nvidia-smi line,
+then `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
 """
 
@@ -270,6 +280,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -281,6 +292,7 @@ TOL = 1e-5            # logits / logp, kernel vs plain (accumulation order)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 F32_OPS_S = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
 BF16_TC_OPS_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+TF32X3_OPS_S = 495e12 / 3  # 3xTF32: three dense TF32 passes a product
 # int32 adds, compares and max: the data sheet's f32 rate counts 2 operations
 # per FMA on 128 lanes per SM; integer instructions run on 64 lanes per SM
 # and count 1 each (132 SMs x 64 lanes x 1.98 GHz)
@@ -291,8 +303,13 @@ B_MAIN = 4096          # the main paths' batch
 ANCHOR_OVER_WALL = 1.03
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the run, stamped with the seconds since the script's
+    start (where a later change must cut the run's time)."""
+    print(f"[{time.perf_counter() - _T0:6.0f} s] {msg}", flush=True)
 
 
 # ------------------------------------------------------------------ #
@@ -884,6 +901,17 @@ def replay_ops_split(cfg, B, h, bwd, pairs=None, tokens=None):
     tok_grad = (h * 32 + 32 * 8) + 32 * h
     return (gemm + pairs * 2 * enc_grad + tokens * 2 * tok_grad,
             elem + tokens * C * h * 6)
+
+
+def tf32x3_ops_ms(cfg, B, h, bwd, pairs=None, tokens=None):
+    """The least time of the float32 replay's operations above hidden 128
+    (`replay_ops_split`), where its encoder/query products, their
+    backward and the weight-gradient contractions (the terms counted per
+    pair) run as 3xTF32 at TF32X3_OPS_S and the token work and the
+    elementwise at F32_OPS_S."""
+    gemm, elem = replay_ops_split(cfg, B, h, bwd, pairs, tokens)
+    enc, _ = replay_ops_split(cfg, B, h, bwd, pairs, 0)
+    return 1e3 * (enc / TF32X3_OPS_S + (gemm - enc + elem) / F32_OPS_S)
 
 
 def replay_ops_count(cfg, B, h, bwd, pairs=None, tokens=None):
@@ -2682,6 +2710,28 @@ def check_replay_smem_mirror():
     return n
 
 
+def check_replay_record_mirror():
+    """ops.replay.record_floats against the kernel's own record layout
+    (`tapnet_replay_record_floats`) for the six CONFIGS, every hidden width
+    the kernels cover and both dtypes (0 for float32 at h <= 128, which
+    keeps no records). Returns the cases."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.ops import replay as RP
+
+    n = 0
+    for cfg in CONFIGS.values():
+        for h in range(32, RP.MAX_H + 1, 32):
+            for dt in (torch.float32, BF16):
+                got = RP.record_floats(cfg, h, dt)
+                want = RP._record_floats(cfg, h, dt)
+                if got != want:
+                    raise AssertionError(
+                        f"replay record_floats {cfg} h={h} {dt}: mirror "
+                        f"{got}, kernel {want}")
+                n += 1
+    return n
+
+
 def check_train_bf16_against_cpu(cfg, ts, dev, B=256):
     """One bf16 step at batch B from one state on the card (K2, K5b) and on
     the CPU (the general route: the flax head): the instances equal; the
@@ -2763,8 +2813,9 @@ def time_replay_dtypes(ops, ops32, dlp, cfg, steps, hidden=HIDDEN,
     width (the prev rows too on the step grid), the products at the bf16
     tensor-core peak, the rest at the f32 rate, over the live columns.
     With `f32`, also the plain float32 versions' times and the float32
-    bounds (every operation at the f32 rate). Returns {"fwd": {...}, "bwd":
-    {...}}."""
+    bounds (every operation at the f32 rate; above hidden 128 also with the
+    products that run as 3xTF32 at that rate, `tf32x3_ops_ms`). Returns
+    {"fwd": {...}, "bwd": {...}}."""
     fwd, fwd_ref, bwd, bwd_ref = replay_fns(ops, cfg, 1.0, steps)
     fwd32, fwd32_ref, bwd32, bwd32_ref = replay_fns(ops32, cfg, 1.0, steps)
     reps = 10 if steps else REPS
@@ -2807,6 +2858,10 @@ def time_replay_dtypes(ops, ops32, dlp, cfg, steps, hidden=HIDDEN,
                 f32_bound=max(1e3 * b32 / HBM_BYTES_S, o32),
                 f32_bound_by=("operations" if o32 >= 1e3 * b32 / HBM_BYTES_S
                               else "bytes"))
+            if hidden > 128:
+                res[label]["f32_bound_3xtf32"] = max(
+                    1e3 * b32 / HBM_BYTES_S,
+                    tf32x3_ops_ms(cfg, B, hidden, bwd_, pairs, triples))
     return res
 
 
@@ -3019,11 +3074,13 @@ def check_render(tmp):
     cases = (("2d-rot", "x.png", [], (b"\x89PNG",), 1000),
              ("3d-basic", "seq.gif", ["--sequence"], (b"GIF87a", b"GIF89a"),
               10_000))
-    for name, out, extra, magic, size in cases:
+    runs = [["render", "--config", name, "--seed", str(SEED), "--out",
+             os.path.join(tmp, out), *extra]
+            for name, out, extra, _, _ in cases]
+    with ThreadPoolExecutor(len(runs)) as ex:  # the two processes at once
+        done = list(ex.map(_cli_process, runs))
+    for (name, out, extra, magic, size), res in zip(cases, done):
         path = os.path.join(tmp, out)
-        args = ["render", "--config", name, "--seed", str(SEED), "--out",
-                path, *extra]
-        res = _cli_process(args)
         if have:
             rec = _json_lines(res.stdout)
             if res.returncode != 0 or not rec or rec[-1]["path"] != path:
@@ -3206,6 +3263,54 @@ def check_wide_kernels(dev, log_fn):
     return errs
 
 
+def time_fallback_replay(actor, cfg, B, dev, seed):
+    """The replay that the routers fall back on, `replay_logp_sum(kernel=
+    False)` (the general autograd replay; the windowed one on a rolling
+    config), on the record that `replay_operands(actor, cfg, B, dev, seed,
+    1.0)` replays: its value and every actor parameter's gradient under a
+    ramp dlp, forward and backward as the fallback train step runs them.
+    ms per call (CUDA events, median of 3): the comparator of K5b, which
+    the kernel route runs alone (its value is the rollout's logp)."""
+    from tapnet_torch import random as R
+    from tapnet_torch.train import rollout as RO
+
+    inst = _instances(cfg, B, dev, seed)
+    with torch.no_grad():
+        _, rec, _ = RO.rollout_batch_record(
+            actor, inst, R.split(R.key(seed + 1, dev), B), cfg,
+            temperature=1.0)
+    dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+
+    def run():
+        actor.zero_grad(set_to_none=True)
+        lp = RO.replay_logp_sum(actor, inst, rec, cfg, 1.0, kernel=False)
+        (lp * dlp).sum().backward()
+
+    ms = time_gpu(run, reps=3, sleep_cycles=100_000_000, warm=1)
+    actor.zero_grad(set_to_none=True)
+    return ms
+
+
+def check_witness(dev):
+    """The record on which a ReLU gate that rounding decides was found
+    (2d-rolling, hidden 160, batch 256, seed 10; `grad_witness`): K5b-steps
+    f32 against its plain version, the gates within their rounding bound
+    of 0 counted, and every gradient's scaled error with the rows those
+    gates feed left out within GRAD_TOL. Returns `grad_witness.witness`'s
+    record."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import grad_witness as GW
+
+    res = GW.witness(CONFIGS["2d-rolling"], 160, 256, 10, dev)
+    without = max(res["scaled_errors_without_them"].values())
+    if not without <= GRAD_TOL:
+        raise AssertionError(
+            "replay_logp_bwd_steps f32 on the witness record: scaled err "
+            f"{without} with the {res['near_zero_pairs']} gates within "
+            f"their rounding bound ({res['near_zero_rows']}) left out")
+    return res
+
+
 def check_k2_repeat(kept, cfg):
     """Two launches of K2 in float32, each mode, on one step's operands:
     every output bit-identical."""
@@ -3239,8 +3344,20 @@ def phase_26(dev):
         if RO.routes(c, True, h) != RO.Routes("actor", True, True):
             raise AssertionError(f"routes {c} hidden {h}: "
                                  f"{RO.routes(c, True, h)}")
-    # 1. every wide width against the plain versions
+    # 1. every wide width against the plain versions; the plan and record
+    # mirrors; the witness record
     errs = check_wide_kernels(dev, lambda m: log(f"{stamp()} {m}"))
+    log(f"{stamp()} replay plan and record mirrors equal to the kernel's "
+        f"on {check_replay_smem_mirror()} and {check_replay_record_mirror()} "
+        "cases")
+    wit = check_witness(dev)
+    full = max(wit["scaled_errors"].values())
+    log(f"{stamp()} witness record (2d-rolling hidden 160 B=256 seed 10): "
+        f"K5b-steps f32 max scaled err {full:.3e} over every pair; "
+        f"{wit['near_zero_pairs']} gates within their "
+        f"rounding bound of 0 (rows {wit['near_zero_rows']}); without their "
+        f"rows {max(wit['scaled_errors_without_them'].values()):.3e} "
+        f"(GRAD_TOL {GRAD_TOL}); gates past GRAD_TOL: {wit['gates']}")
     # 2. the main path at hidden 256: pack() (K2 for sample and best), the
     # train steps in both dtypes with their launches
     actor = init_params(SEED, cfg, h, dev)
@@ -3330,6 +3447,8 @@ def phase_26(dev):
             f"{held['bf16'][0]:.2e}, {held['bf16'][1]:.2e}")
         kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps",
                                      hidden=h, f32=True)
+        kb[key]["bwd"]["fallback_ms"] = time_fallback_replay(
+            a, c, B_MAIN, dev, SEED + 10)
         for d in ("fwd", "bwd"):
             r = kb[key][d]
             log(f"{stamp()} replay_logp_{d}"
@@ -3340,7 +3459,11 @@ def phase_26(dev):
                 f"{r['f32_bound_by']}), bf16 {r['ms']:.4f} (plain "
                 f"{r['plain_ms']:.3f}, bound {r['bound']:.4f} ms, "
                 f"{r['bound_by']}); turns f32, bf16, bf16, f32: "
-                f"{r['turns']}")
+                f"{r['turns']}"
+                + (f"; f32 bound with 3xTF32 products "
+                   f"{r['f32_bound_3xtf32']:.4f} ms" if d == "bwd" else "")
+                + (f"; the fallback replay (forward and backward) "
+                   f"{r['fallback_ms']:.3f} ms" if d == "bwd" else ""))
     log(f"{stamp()} done in {time.perf_counter() - t0:.1f} s")
 
     def entry(name, replaces, dt, launches, err, ms, plain, bound, by):
@@ -3381,6 +3504,17 @@ def phase_26(dev):
                     r["f32_plain_ms"] if f32 else r["plain_ms"],
                     r["f32_bound"] if f32 else r["bound"],
                     r["f32_bound_by"] if f32 else r["bound_by"]))
+                if f32:  # 3xTF32 products; the fallback's replay
+                    kernels[-1]["bound_3xtf32_ms"] = r["f32_bound_3xtf32"]
+                    if d == "bwd":
+                        kernels[-1]["fallback_ms"] = r["fallback_ms"]
+                if f32 and name == "replay_logp_bwd_steps":
+                    kernels[-1]["witness"] = {
+                        "config": "2d-rolling", "hidden": 160, "batch": 256,
+                        "seed": 10, "near_zero_pairs": wit["near_zero_pairs"],
+                        "max_scaled_err": max(wit["scaled_errors"].values()),
+                        "max_scaled_err_without_them": max(
+                            wit["scaled_errors_without_them"].values())}
     return kernels, rows
 
 
@@ -3396,6 +3530,11 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
+    # phase 5's ptxas report of K1, K2 and K4 compiles beside the build
+    pool = ThreadPoolExecutor(1)
+    ptxas = pool.submit(_build.ptxas_report,
+                        names=("actor_step", "policy_step", "env"))
+    pool.shutdown(wait=False)
     libs = _build.build_all()
     log(f"phase 0 build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
@@ -3448,9 +3587,8 @@ def main() -> int:
     log_select_times("phase 5", "2d-basic", B_MAIN, k1)
     k2 = time_actor_step(kept_k2, cfg, HIDDEN)
     log_actor_times("phase 5", cfg, k2)
-    for line in _build.ptxas_report().splitlines():
-        if line.split()[0] in ("actor_step.cu", "policy_step.cu", "env.cu"):
-            log(f"phase 5 ptxas {line}")
+    for line in ptxas.result().splitlines():
+        log(f"phase 5 ptxas {line}")
 
     from tapnet_torch import pack
     best_inst = inst.index(slice(0, 256))

@@ -34,9 +34,9 @@
 // in (instance, token) order; the softmax walks each instance's columns in
 // action order, so its sums are the full version's less exact zeros.
 //
-// Design, float32 (SIMT, f32 fused multiply-adds throughout; no TF32, no
-// approximate intrinsics); the bfloat16 instantiations share it but for
-// the products (below):
+// Design, float32 (SIMT, f32 fused multiply-adds throughout at h <= 128;
+// no approximate intrinsics); the bfloat16 instantiations, and the float32
+// ones above hidden 128, share it but for the products (below):
 // - one block per tile of TB = 32 instances (lane = instance in the
 //   encoder/query phases), NWARP = 16 warps; a loop over the block's steps
 //   takes the place of the TPU's sequential step axis.
@@ -89,13 +89,49 @@
 //   the backward re-runs its encoder and query, then its token backward,
 //   its query and encoder backward and its share of phase F (the lanes
 //   that share an embedding row are chained within the pass). A virtual
-//   warp of 16 lanes owns h/32 <= 8 rows of one instance in the encoder and
-//   query products; token groups are 32 columns of 2 a warp, 8 rows a lane;
-//   the float32 slices are 32 rows (mv_tiled) and 8 (mvt_tiled); the
-//   bfloat16 slabs 32 columns (mv_mma) and 16 (mvt_mma, Wq^T a third of
-//   its rows at a time); a grad_outer record holds one part per pass and
-//   grad_outer slices 32 columns. Each sum keeps one owner and one order.
+//   warp of 16 lanes (vw, vl) fills and clears a pass's [feature][instance]
+//   rows and owns h/32 <= 8 rows of one instance in W1 feats (mv_tiled);
+//   token groups are 32 columns of 2 a warp, 8 rows a lane; the other
+//   float32 products read their weights from L2 (mm_tf32, below), the
+//   bfloat16 slabs are 32 columns (mv_mma) and 16 (mvt_mma); Wq^T runs a
+//   third of its rows at a time; a grad_outer record holds one part per
+//   pass and grad_outer slices 32 columns (grad_outer_tf32: 64). Each sum
+//   keeps one owner and one order.
 //
+// Design, float32 above hidden 128 (TF: WH and E = float). At h = 256 the
+// SIMT body spent 0.89 of a block in the encoder/query products (A/B 0.31)
+// and their backward (E 0.57: each (step, container, pass) added the
+// weight-gradient contractions into the block's partial row in device
+// memory, gWq alone 794 KB read and written), a barrier per weight slice
+// copied through registers (PERF.md §6, PR 15). So:
+// - the contractions are deferred, as the bfloat16 ones: each (step,
+//   container, pass) writes dq, d_hm, de1 and qin, e1, feats as f32 to a
+//   record (rec_off), and `grad_outer_tf32`, a second launch, contracts
+//   each partial row over all its steps with the accumulators in
+//   registers (one owner, one order, no atomics). The bias row sums stay.
+// - W2 e1, Wq qin, Wq^T dq (a third of its rows at a time) and W2^T d_hm
+//   run on the tensor cores as 3xTF32 (mma_tf32.cuh: mma.sync m16n8k8,
+//   each f32 operand split in registers into tf32 hi + lo, three passes
+//   summed in f32). Each warp reads its 16 rows of the f32 weight straight
+//   from L2 (16-byte loads, the next 16-column chunk in flight), with no
+//   barrier. The weights, not the tensor cores, bound these products: a
+//   pass streams ~1 MB of them per product set, and every design moved
+//   them at ~5-8 B a cycle an SM (SIMT slices, cp.async slabs through the
+//   token view with a barrier each, direct loads; PERF.md §6, PR 16).
+// - so the backward does not re-run the encoder and query in D (the
+//   weights a second time): A/B writes q, qin, e1 and feats of each
+//   (step, container, pass) to its record, and D reads q and e1 back.
+// - W1 feats (K = W*D + 2: ~1% of the products) stays the SIMT mv_tiled:
+//   e1 = relu(W1 feats + b1) keeps its bits, and with them its ReLU
+//   gates. Under 3xTF32 one gate whose pre-activation lay within rounding
+//   of 0 shut where the plain version's opened on a multi-container record
+//   (W1's gradient 3.9e-3 of its max from the plain one; PERF.md §6).
+// - the token work (D), the softmax (C), phase F and the order of every
+//   sum there stay the SIMT f32 code above (gv's sum cancels: an
+//   instance's g sums to 0).
+// - a product is f32's to a few units of its last place (mma_tf32.cuh):
+//   q, enc and the gradients can differ from the SIMT body's in their
+//   last bits.
 // Design, bfloat16 (TC = the E = __nv_bfloat16 instantiations): every
 // product of the head runs on the tensor cores, mma.sync.m16n8k16 bf16 x
 // bf16 -> f32 (the JAX kernel's `preferred_element_type=f32` dots), with
@@ -153,8 +189,8 @@
 //   de1 over e1).
 // - what runs on the tensor cores (`python -m tapnet_torch.ops._build
 //   --sass replay`, the sm_90a build): 138 HMMA in each bfloat16 backward
-//   instantiation, 30 in each bfloat16 forward, 32 in grad_outer, none in
-//   the float32 ones.
+//   instantiation, 30 in each bfloat16 forward, 32 in grad_outer; none in
+//   the float32 ones at h <= 128 (above: the 3xTF32 design).
 //
 // Step-grid schedule (STEPS instantiations; rolling windows, N <= 62). The
 // TPU ran a grid (batch tiles, S) in order and carried logp, d_se and d_ctx
@@ -182,7 +218,8 @@
 // The head's SIMT device code is a copy of actor_step.cu's, not a shared
 // header: the layouts differ, and K2's results stay as they were. The
 // tensor-core pieces (mma_bf16.cuh: mma, the fragments, stream_a, mv_mma)
-// are shared with K2's bfloat16 instantiations.
+// are shared with K2's bfloat16 instantiations; the 3xTF32 ones
+// (mma_tf32.cuh) are the replay's own.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -190,6 +227,7 @@
 
 #include "geo.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -221,6 +259,7 @@ using tapnet::mma;
 using tapnet::mv_mma;
 using tapnet::pack;
 using tapnet::stream_a;
+using tapnet::mm_tf32;
 static_assert(NT == tapnet::MMA_NT && LD == tapnet::MMA_LD,
               "mma_bf16.cuh's block geometry");
 
@@ -331,8 +370,8 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   const int flg = (d.N + T) * TB;
   // stream_a: mv_mma's two slabs of h (KSL + 8) bfloat16 and mvt_mma's
   // of 3h (WH: h) x 24 or h x 72 (WH: 24); mv_tiled: KS h floats (the
-  // backward's mvt_tiled stages JS 3h: within tok at h <= 128, within KS h
-  // above)
+  // backward's mvt_tiled stages JS 3h: within tok at h <= 128; above, the
+  // float32 products but W1's read their weights from L2: mm_tf32)
   const int slabs = tc ? (WH ? h * (Q::KSL + 8) : 72 * h) : Q::KS * h;
   const int stage = slabs > flg ? slabs : flg;
   L.tok = o; o += tok > stage ? tok : stage;
@@ -411,16 +450,15 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
 }
 
 // out[k] = sum_j W[j, k] g[j][n] for every k < cols (a multiple of 32)
-// and instance n of the pass (a virtual warp vw owns cols/NVW <= MAXCW of
-// them), W row-major with `ld` columns: slices of JS rows are staged in S
-// (JS * cols floats: the backward's token view holds them), one load of g
-// feeds cols/NVW multiply-adds (float2 reads of W; float where that count
-// is odd, h = 160 or 224).
-template <bool WH, int MAXCW, class E, class Emit>
+// and instance n of the tile (warp vw owns cols/NWARP <= MAXCW of them;
+// float32 at h <= 128), W row-major with `ld` columns: slices of JS rows
+// are staged in S (JS * cols floats: the backward's token view holds
+// them), one load of g feeds cols/NWARP multiply-adds (float2 reads of W).
+template <int MAXCW, class E, class Emit>
 __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
                           int ld, const float* g, float* S, int n, int vw,
                           int tid, Emit emit) {
-  using Q = Geo<WH>;
+  using Q = Geo<false>;
   constexpr int JS = Q::JS, LP = Q::LP;
   const int CW = cols / Q::NVW;
   float acc[MAXCW];
@@ -437,19 +475,13 @@ __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
     for (int jj = 0; jj < nj; ++jj) {
       const float gv = g[(j0 + jj) * LP + n];
       const float* sw = S + jj * cols + vw * CW;
-      if (!WH || CW % 2 == 0) {
 #pragma unroll
-        for (int c = 0; c < MAXCW; c += 2) {
-          if (c < CW) {
-            const float2 w2 = *reinterpret_cast<const float2*>(sw + c);
-            acc[c] = fmaf(w2.x, gv, acc[c]);
-            acc[c + 1] = fmaf(w2.y, gv, acc[c + 1]);
-          }
+      for (int c = 0; c < MAXCW; c += 2) {
+        if (c < CW) {
+          const float2 w2 = *reinterpret_cast<const float2*>(sw + c);
+          acc[c] = fmaf(w2.x, gv, acc[c]);
+          acc[c + 1] = fmaf(w2.y, gv, acc[c + 1]);
         }
-      } else {
-#pragma unroll
-        for (int c = 0; c < MAXCW; ++c)
-          if (c < CW) acc[c] = fmaf(sw[c], gv, acc[c]);
       }
     }
   }
@@ -459,8 +491,8 @@ __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
 }
 
 // dst[j*cols + m] += sum_l A[j][l] Bm[m][l] over the pass's TP lanes, for
-// j < h and m < cols. Whole passes of 128 columns: a thread owns rows
-// wy*h/16 .. (in runs of 8: two at h > 128) and the columns m0 + lane +
+// j < h and m < cols (float32 at h <= 128). Whole passes of 128 columns:
+// a thread owns rows wy*h/16 .. (in runs of 8) and the columns m0 + lane +
 // 32 i (i < 4), so one load of Bm feeds up to 8 multiply-adds and one of A
 // (a broadcast) four; the last cols % 128 columns: one element per thread
 // at a time. Every element has the same owner at every call, and each sum
@@ -638,29 +670,34 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
   }
 }
 
-// The bfloat16 backward defers the encoder/query weight-gradient
-// contractions (gWq += dq qin^T, gW2 += d_hm e1^T, gW1 += de1 feats^T,
-// K = 32 lanes a step) to `grad_outer`: each (step, container) of a block
-// writes one record of their operands, one part per head pass of TP
-// instances, in floats from the part's start: dq, d_hm, de1 [h][TP] f32;
-// qin [3h+8][TP], e1 [h][TP], feats [WD+2][TP] bfloat16. `pass` is a
-// part's floats, `size` the record's (Geo<WH>::NP parts).
+// The bfloat16 backward, and the float32 one above hidden 128, defer the
+// encoder/query weight-gradient contractions (gWq += dq qin^T, gW2 += d_hm
+// e1^T, gW1 += de1 feats^T, K = TP lanes a pass) to `grad_outer` (float32:
+// `grad_outer_tf32`): each (step, container) of a block writes one record
+// of their operands, one part per head pass of TP instances, in floats
+// from the part's start: dq, d_hm, de1 [h][TP] f32; qin [3h+8][TP], e1
+// [h][TP], feats [WD+2][TP] bfloat16 (`half`), else f32 and followed by q
+// [h][TP] (the float32 backward writes them in A/B and reads q and e1 back
+// in D). `pass` is a part's floats, `size` the record's (Geo<WH>::NP
+// parts).
 struct RecOff {
-  int dq, dhm, de1, qin, e1, feats, pass, size;
+  int dq, dhm, de1, qin, e1, feats, q, pass, size;
 };
 
 template <bool WH>
-__host__ __device__ inline RecOff rec_off(const Dims& d) {
+__host__ __device__ inline RecOff rec_off(const Dims& d, bool half) {
   constexpr int TP = Geo<WH>::TP;
   const int h = d.h, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
+  const int XP = half ? TP / 2 : TP;  // floats of an activation row
   RecOff r;
   int o = 0;
   r.dq = o;    o += h * TP;
   r.dhm = o;   o += h * TP;
   r.de1 = o;   o += h * TP;
-  r.qin = o;   o += FQ * TP / 2;
-  r.e1 = o;    o += h * TP / 2;
-  r.feats = o; o += WD2 * TP / 2;
+  r.qin = o;   o += FQ * XP;
+  r.e1 = o;    o += h * XP;
+  r.feats = o; o += WD2 * XP;
+  r.q = o;     o += half ? 0 : h * TP;  // f32: q, for the backward's D
   r.pass = o;
   r.size = o * Geo<WH>::NP;
   return r;
@@ -684,6 +721,14 @@ __device__ void put_bf16(float* dst, const float* a, int rows, int tid) {
   }
 }
 
+// put_f32's rows back into a [rows][TP + 1] float array (plain loads: the
+// block wrote them in this launch)
+template <int TP>
+__device__ void get_f32(float* a, const float* src, int rows, int tid) {
+  for (int e = tid; e < rows * TP; e += NT)
+    a[((unsigned)e / TP) * (TP + 1) + (unsigned)e % TP] = src[e];
+}
+
 // STEPS: the step-grid schedule; blockIdx.y is the step chunk and `len` the
 // steps per chunk. Monolithic: one chunk of all S steps. The backward
 // writes d_se into `dse_o` [chunks, B, T, h] (zeroed here) and d_ctx into
@@ -697,6 +742,14 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   using Word = std::conditional_t<STEPS, unsigned long long, int>;
   // bfloat16: the products on the tensor cores (the design note)
   constexpr bool TC = std::is_same_v<E, bf16>;
+  // float32 above hidden 128: the encoder/query products as 3xTF32 on the
+  // tensor cores (mm_tf32); with TC, the weight-gradient contractions
+  // deferred to a second launch through records (rec_off)
+  constexpr bool TF = WH && !TC;
+  constexpr bool DEFER = TC || TF;
+  // mm_tf32: weight chunks in flight ahead of the one in use, a warp (2
+  // and 4 hold more registers, spill more and ran 1.06-1.15x slower)
+  constexpr int PF = 1;
   // the head's passes (Geo): TP instances each, LP their arrays' stride
   using Q = Geo<WH>;
   constexpr int TP = Q::TP, LP = Q::LP, NVW = Q::NVW, CPW = Q::CPW;
@@ -761,7 +814,12 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // the block's partial row: its tile and step chunk
   const size_t prow_i = (size_t)blockIdx.x * (STEPS ? gridDim.y : 1) + chunk;
   float* prow = BWD ? part_o + prow_i * go.P : nullptr;
-  const RecOff ro = rec_off<WH>(d);
+  const RecOff ro = rec_off<WH>(d, TC);
+  // the record of step k, container c and the pass of instances p0 ..
+  auto rec_at = [&](int k, int c, int p0) {
+    return rec_o + ((prow_i * len + (k - k0)) * C + c) * (size_t)ro.size
+           + (p0 / TP) * ro.pass;
+  };
 
   // tc: Wp [h][32] as bfloat16 rows of WPS (the A operand of dyn, and of
   // dh1 as its transpose)
@@ -857,7 +915,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     if constexpr (TC)
       mv_mma<TP, Q::KSL>(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
                          e1_out);
-    else
+    else  // float32: SIMT (TF too, so that e1's ReLU gates stay as they were)
       mv_tiled<WH>(w.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
     __syncthreads();
     auto enc_out = [&](int j, int n, float acc) {
@@ -865,6 +923,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     };
     if constexpr (TC)
       mv_mma<TP, Q::KSL>(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
+    else if constexpr (TF)
+      mm_tf32<PF>(w.w2t, h, h, e1, lane, wy, enc_out);
     else
       mv_tiled<WH>(w.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
     __syncthreads();
@@ -877,6 +937,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     };
     if constexpr (TC)
       mv_mma<TP, Q::KSL>(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
+    else if constexpr (TF)
+      mm_tf32<PF>(w.wqt, h, FQ, qin, lane, wy, q_out);
     else
       mv_tiled<WH>(w.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
     __syncthreads();
@@ -1327,7 +1389,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       }
     }
     __syncthreads();
-    if constexpr (TC && BWD) {  // grad_outer's record of the step
+    if constexpr (DEFER && BWD) {  // grad_outer's record of the step
       if (tid == 0) sflag_o[prow_i * len + (k - k0)] = *flag;
     }
     if (!*flag) continue;  // no action in the tile: adds nothing
@@ -1339,6 +1401,13 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       for (int c = 0; c < C; ++c) {
         encode(k, c, p0);
         query();
+        if constexpr (TF && BWD) {  // for D and E: q, e1, and the record
+          float* rc = rec_at(k, c, p0);
+          put_f32<TP>(rc + ro.q, qs, h, tid);
+          put_f32<TP>(rc + ro.qin, qin, FQ, tid);
+          put_f32<TP>(rc + ro.e1, e1, h, tid);
+          put_f32<TP>(rc + ro.feats, feats, WD + 2, tid);
+        }
         scores(k, c, p0, TP == TB ? 0 : off[p0], TP == TB ? n : off[p0 + TP]);
       }
     }
@@ -1385,11 +1454,17 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     // the query and encoder backward (one pass: qin's shared rows are still
     // in place)
     for (int p0 = 0; p0 < TB; p0 += TP) {
-      if (WH) fill_qin(k, p0);
+      if (WH && !TF) fill_qin(k, p0);
       for (int j = vw; j < h; j += NVW) d_prev[j * LP + vl] = 0.f;
       for (int c = 0; c < C; ++c) {
-        // C == 1 in one pass: feats, e1, enc and q_0 are still in place
-        if (C > 1 || WH) {
+        // C == 1 in one pass: feats, e1, enc and q_0 are still in place;
+        // tf: q and e1 back from the record that A/B wrote (the weights
+        // streamed again for their re-run cost more than the reads)
+        if constexpr (TF) {
+          const float* rc = rec_at(k, c, p0);
+          get_f32<TP>(qs, rc + ro.q, h, tid);
+          get_f32<TP>(e1, rc + ro.e1, h, tid);
+        } else if (C > 1 || WH) {
           encode(k, c, p0);
           query();
         }
@@ -1397,10 +1472,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         __syncthreads();
         token_bwd(k, c, p0, TP == TB ? 0 : off[p0],
                   TP == TB ? n : off[p0 + TP]);
-        // tc: the transposed products on the tensor cores (mvt_mma), the
-        // weight-gradient operands to grad_outer's record, with the barrier
-        // that mvt_tiled's staging gave (qin's enc rows are read before
-        // dqin overwrites them)
+        // tc, tf: the transposed products on the tensor cores (mvt_mma,
+        // mm_tf32), the weight-gradient operands to grad_outer's record,
+        // with the barrier that mvt_tiled's staging gave (qin's enc rows are
+        // read before dqin overwrites them)
         auto dqin_out = [&](int m, int l, float acc) {
           if (m < h) {
             d_hm[m * LP + l] = acc;  // qin's enc rows: read above, done
@@ -1414,22 +1489,26 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         auto de1_out = [&](int m, int l, float acc) {
           e1[m * LP + l] = e1[m * LP + l] > 0.f ? acc : 0.f;  // de1
         };
-        if constexpr (TC) {
+        if constexpr (DEFER) {
           // the weight-gradient contractions go to grad_outer: this (step,
-          // container, pass)'s operands to its record
-          float* rc = rec_o
-                      + ((prow_i * len + (k - k0)) * C + c) * (size_t)ro.size
-                      + (p0 / TP) * ro.pass;
+          // container, pass)'s operands to its record (tf: the activations
+          // are there since A/B)
+          float* rc = rec_at(k, c, p0);
           put_f32<TP>(rc + ro.dq, dqs, h, tid);
-          put_bf16<TP>(rc + ro.qin, qin, FQ, tid);
+          if constexpr (TC) put_bf16<TP>(rc + ro.qin, qin, FQ, tid);
           rowsum_acc<TP>(prow + go.bq, dqs, LP, h, tid);
           __syncthreads();
           if constexpr (WH) {  // Wq^T a third of its rows at a time
             for (int u = 0; u < 3; ++u) {
-              mvt_mma<TP, 1, 16>(w.wqT + (size_t)u * h * h, h, h, dqs, stgb,
-                                 lane, wy, tid, [&](int m, int l, float acc) {
-                                   dqin_out(u * h + m, l, acc);
-                                 });
+              auto out = [&](int m, int l, float acc) {
+                dqin_out(u * h + m, l, acc);
+              };
+              if constexpr (TC)
+                mvt_mma<TP, 1, 16>(w.wqT + (size_t)u * h * h, h, h, dqs,
+                                   stgb, lane, wy, tid, out);
+              else
+                mm_tf32<PF>(w.wqT + (size_t)u * h * h, h, h, dqs, lane, wy,
+                            out);
               __syncthreads();
             }
           } else {
@@ -1438,24 +1517,27 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
             __syncthreads();
           }
           put_f32<TP>(rc + ro.dhm, d_hm, h, tid);
-          put_bf16<TP>(rc + ro.e1, e1, h, tid);
+          if constexpr (TC) put_bf16<TP>(rc + ro.e1, e1, h, tid);
           rowsum_acc<TP>(prow + go.b2, d_hm, LP, h, tid);
           __syncthreads();
-          mvt_mma<TP, 1, WH ? 16 : 64>(w.w2T, h, h, d_hm, stgb, lane, wy, tid,
-                                       de1_out);
+          if constexpr (TC)
+            mvt_mma<TP, 1, WH ? 16 : 64>(w.w2T, h, h, d_hm, stgb, lane, wy,
+                                         tid, de1_out);
+          else
+            mm_tf32<PF>(w.w2T, h, h, d_hm, lane, wy, de1_out);
           __syncthreads();
           put_f32<TP>(rc + ro.de1, e1, h, tid);
-          put_bf16<TP>(rc + ro.feats, feats, WD + 2, tid);
+          if constexpr (TC) put_bf16<TP>(rc + ro.feats, feats, WD + 2, tid);
         } else {
           outer_tiled<TP>(prow + go.wqt, dqs, qin, h, FQ, lane, wy, tid);
           rowsum_acc<TP>(prow + go.bq, dqs, LP, h, tid);
-          mvt_tiled<WH, 24>(w.wqt, h, 3 * h, FQ, dqs, stg, vl, vw, tid,
-                            dqin_out);
+          mvt_tiled<24>(w.wqt, h, 3 * h, FQ, dqs, stg, vl, vw, tid,
+                        dqin_out);
           __syncthreads();
           outer_tiled<TP>(prow + go.w2t, d_hm, e1, h, h, lane, wy, tid);
           rowsum_acc<TP>(prow + go.b2, d_hm, LP, h, tid);
           __syncthreads();
-          mvt_tiled<WH, 8>(w.w2t, h, h, h, d_hm, stg, vl, vw, tid, de1_out);
+          mvt_tiled<8>(w.w2t, h, h, h, d_hm, stg, vl, vw, tid, de1_out);
           __syncthreads();
           outer_tiled<TP>(prow + go.w1t, e1, feats, h, WD + 2, lane, wy, tid);
         }
@@ -1555,7 +1637,7 @@ grad_outer(Dims d, const float* __restrict__ rec,
   constexpr int SW = go_slice<WH>();
   const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
   const GOff go = goff(d);
-  const RecOff ro = rec_off<WH>(d);
+  const RecOff ro = rec_off<WH>(d, true);
   const size_t row = blockIdx.x;
   const int sq = (FQ + SW - 1) / SW, s2 = (h + SW - 1) / SW;
   int sl = blockIdx.y, cols, off, gof, xof;
@@ -1641,6 +1723,103 @@ grad_outer(Dims d, const float* __restrict__ rec,
   }
 }
 
+// The deferred weight-gradient contractions of the float32 backward above
+// hidden 128 (rec_off, f32 records): grad_outer's sums as 3xTF32
+// (mma_tf32.cuh), each record part two k-steps of 8 lanes, both operands
+// split on load. Block (slice, row), slices of GO_TF32_SW = 64 columns:
+// blockIdx.x walks the slices of one partial row first, so the blocks
+// that share the row's gradient operands run together and read them from
+// L2; each slice re-reads the row's gradient parts, so a wide slice
+// halves that traffic against grad_outer's 32. Warp wy owns the row tile
+// wy (h/16 of them; warps h/16.. idle) and the slice's 8 column tiles; a
+// (step, container, part)'s operands are loaded before its products. The
+// accumulators stay in registers until one store: one owner and one order
+// per element (steps, containers, parts, k-steps), no atomics.
+constexpr int GO_TF32_SW = 64;
+
+__global__ void __launch_bounds__(NT)
+grad_outer_tf32(Dims d, const float* __restrict__ rec,
+                const int* __restrict__ sflag, int len,
+                float* __restrict__ part) {
+  using tapnet::mma3;
+  using tapnet::split_tf32;
+  constexpr int TP = Geo<true>::TP, NP = Geo<true>::NP, KST = TP / 8;
+  constexpr int SW = GO_TF32_SW, NU = SW / 8;
+  const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
+  const GOff go = goff(d);
+  const RecOff ro = rec_off<true>(d, false);
+  const size_t row = blockIdx.y;
+  const int sq = (FQ + SW - 1) / SW, s2 = (h + SW - 1) / SW;
+  int sl = blockIdx.x, cols, off, gof, xof;
+  if (sl < sq) {
+    cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
+  } else if (sl < sq + s2) {
+    sl -= sq;
+    cols = h; off = go.w2t; gof = ro.dhm; xof = ro.e1;
+  } else {
+    sl -= sq + s2;
+    cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
+  }
+  const int lane = threadIdx.x, wy = threadIdx.y, g = lane >> 2, t = lane & 3;
+  if (wy >= h / 16) return;
+  const int m0 = wy * 16, n0 = SW * sl;
+  float acc[NU][4] = {};
+  for (int st = 0; st < len; ++st) {
+    if (!sflag[row * len + st]) continue;  // a step without an action
+    for (int c = 0; c < C; ++c) {
+      for (int pp = 0; pp < NP; ++pp) {
+        const float* r = rec + ((row * len + st) * C + c) * (size_t)ro.size
+                         + pp * ro.pass;
+        const float* G = r + gof;
+        const float* X = r + xof;
+        // ga in A fragment order: (g, t), (g + 8, t), (g, t + 4), (g + 8,
+        // t + 4); gb in B's: rows t, t + 4 of column g
+        float ga[KST][4], gb[KST][NU][2];
+#pragma unroll
+        for (int ks = 0; ks < KST; ++ks) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ga[ks][i] = __ldg(G + (m0 + g + 8 * (i & 1)) * TP + 8 * ks + t
+                              + 4 * (i >> 1));
+#pragma unroll
+          for (int u = 0; u < NU; ++u) {
+            const int n = n0 + 8 * u + g;
+            const float* xn = X + n * TP + 8 * ks + t;
+            gb[ks][u][0] = n < cols ? __ldg(xn) : 0.f;
+            gb[ks][u][1] = n < cols ? __ldg(xn + 4) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int ks = 0; ks < KST; ++ks) {
+          unsigned ah[4], al[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(ga[ks][i], ah[i], al[i]);
+#pragma unroll
+          for (int u = 0; u < NU; ++u) {
+            unsigned bh[2], bl[2];
+            split_tf32(gb[ks][u][0], bh[0], bl[0]);
+            split_tf32(gb[ks][u][1], bh[1], bl[1]);
+            mma3(acc[u], ah, al, bh, bl);
+          }
+        }
+      }
+    }
+  }
+  float* dst = part + row * go.P + off;
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int c = n0 + 8 * u + 2 * t, j = m0 + g;
+    if (c < cols) {
+      dst[j * cols + c] = acc[u][0];
+      dst[(j + 8) * cols + c] = acc[u][2];
+    }
+    if (c + 1 < cols) {
+      dst[j * cols + c + 1] = acc[u][1];
+      dst[(j + 8) * cols + c + 1] = acc[u][3];
+    }
+  }
+}
+
 // out[e] = sum over tiles, in tile order, of part[tile, e].
 __global__ void reduce_tiles(const float* __restrict__ part, int tiles, int P,
                              float* __restrict__ out) {
@@ -1684,8 +1863,10 @@ static long long smem_bytes(const Dims& d, int bwd, bool steps, bool tc) {
   return 4ll * (floats + n_ints(d, steps));
 }
 
-static int record_floats(const Dims& d) {
-  return d.h > 128 ? rec_off<true>(d).size : rec_off<false>(d).size;
+// 0 where the instantiation keeps no records (float32 at h <= 128)
+static int record_floats(const Dims& d, bool bf) {
+  if (d.h > 128) return rec_off<true>(d, bf).size;
+  return bf ? rec_off<false>(d, true).size : 0;
 }
 
 template <bool STEPS, bool WH, class E>
@@ -1737,19 +1918,24 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   // more write partials [nc, h, B] to p[28]
   float* dctx = nc > 1 ? (float*)p[28] : (float*)p[22];
   constexpr bool tc = std::is_same_v<E, bf16>;
+  constexpr bool defer = tc || WH;  // the records (rec_off)
   kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
                                     nullptr, (float*)p[27], dctx,
                                     (float*)p[23], len,
-                                    tc ? (float*)p[32] : nullptr,
-                                    tc ? (int*)p[33] : nullptr);
+                                    defer ? (float*)p[32] : nullptr,
+                                    defer ? (int*)p[33] : nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (tc) {  // the deferred weight-gradient contractions
-    constexpr int SW = go_slice<WH>();
+  if (defer) {  // the deferred weight-gradient contractions
+    constexpr int SW = tc ? go_slice<WH>() : GO_TF32_SW;
     const int slices = (3 * d.h + 8 + SW - 1) / SW + (d.h + SW - 1) / SW
                        + (d.W * d.D + 2 + SW - 1) / SW;
-    grad_outer<WH><<<dim3(tiles * nc, slices), block, 0, st>>>(
-        d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
+    if (tc)
+      grad_outer<WH><<<dim3(tiles * nc, slices), block, 0, st>>>(
+          d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
+    else
+      grad_outer_tf32<<<dim3(slices, tiles * nc), block, 0, st>>>(
+          d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -1795,18 +1981,20 @@ extern "C" long long tapnet_replay_smem_bytes(const int* ints, int bwd,
   return smem_bytes(d, bwd, steps != 0, bf16 != 0);
 }
 
-// Floats of one grad_outer record (rec_off) at ints = B, N, W, D, R, C, h.
-extern "C" int tapnet_replay_record_floats(const int* ints) {
+// Floats of one grad_outer record (rec_off) at ints = B, N, W, D, R, C, h
+// of the instantiation (bf16); 0 for float32 at h <= 128, which keeps none.
+extern "C" int tapnet_replay_record_floats(const int* ints, int bf16) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
-  return record_floats(d);
+  return record_floats(d, bf16 != 0);
 }
 
 // ptrs: flags, hms, masks, acts, se [B, T, h], ctx, statp, statm, dlp (0-8)
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,              (9-19)
 //       logp_o, dse_o, dctx_o, part, grads_o, prev, logp_part,       (20-26)
 //       dse_part, dctx_part, w1t^T, w2t^T, wqt^T                     (27-31)
-//       bfloat16 backward: rec [rows, len, C, rec_off(d).size] f32,
-//       sflag [rows, len] i32 zeroed (grad_outer's records)            (32-33)
+//       bfloat16 backward, and float32 at h > 128: rec [rows, len, C,
+//       rec_off(d).size] f32, sflag [rows, len] i32 zeroed (grad_outer's
+//       records)                                                    (32-33)
 // ints: B, N, W, D, R, C, h, steps, chunks, bf16 (1: se, ctx, statp, statm
 // and the weights other than v are bfloat16; 0: float; the outputs are
 // float either way). Forward (bwd = 0) writes logp_o

@@ -26,6 +26,13 @@ bit-identical outputs on bit-identical operands there and here, and exits
 1 if they did not. (K2's bfloat16 outputs are not held: its body may
 change the sums' order.)
 
+    python -m tapnet_torch.kernel_times --csrc DIR[,DIR...] [--hidden 256]
+
+times only the float32 replay (K5b, K5f, K5b-steps, K5f-steps at batch
+4096), built from this package's replay.cu and from each DIR/replay.cu
+(another checkout's csrc/, or an edited copy with the same C interface),
+in turns: the builds in order, then in reverse (`replay_builds`).
+
 To compare two checkouts on one card in one call,
 
     python -m tapnet_torch.kernel_times --tree ../parent --tag parent
@@ -96,6 +103,61 @@ def replay_times(CS, dev, hidden=128) -> dict:
     return out
 
 
+def replay_builds(CS, dev, hidden, dirs) -> dict:
+    """The float32 replay at batch 4096 and hidden width `hidden` (K5b and
+    K5f on 2d-basic, K5b-steps and K5f-steps on 2d-rolling, one float32
+    rollout's record each) built from this package's csrc/replay.cu
+    ("csrc") and from each DIR/replay.cu of `dirs` with DIR's headers
+    (another checkout's csrc/, or an edited copy: the same C interface),
+    timed in turns: the builds in order, then in reverse. ms per launch,
+    one reading a turn."""
+    import ctypes
+
+    import torch
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import replay as RP
+
+    procs = []
+    for i, d in enumerate(dirs):
+        so = _build.BUILD / f"replay_turns_{i}.so"
+        _build.BUILD.mkdir(parents=True, exist_ok=True)
+        procs.append((so, subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-o", str(so),
+             os.path.join(d, "replay.cu")])))
+    fns = {"csrc": RP._lib()}
+    for d, (so, proc) in zip(dirs, procs):
+        if proc.wait():
+            raise RuntimeError(f"nvcc failed on {d}/replay.cu")
+        fn = ctypes.CDLL(str(so)).tapnet_replay_logp
+        fn.argtypes, fn.restype = RP._lib().argtypes, ctypes.c_int
+        fns[d] = fn
+    order = list(fns) + list(fns)[::-1]
+    lib_of, out = RP._lib, {"builds": list(fns)}
+    try:
+        for name, steps in (("2d-basic", False), ("2d-rolling", True)):
+            cfg, B = CONFIGS[name], 4096
+            actor = init_params(0, cfg, hidden, dev)
+            ops, _ = CS.replay_operands(actor, cfg, B, dev, 10, 1.0)
+            dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+            fwd, _, bwd, _ = CS.replay_fns(ops, cfg, 1.0, steps)
+            suffix = "-steps" if steps else ""
+            with torch.no_grad():
+                for tag in order:
+                    RP._lib = lambda fn=fns[tag]: fn
+                    for k, fn, reps in (
+                            (f"K5b{suffix} f32 {name}", lambda: bwd(dlp),
+                             5 if steps else 20),
+                            (f"K5f{suffix} f32 {name}", fwd, 10 if steps
+                             else 20)):
+                        out.setdefault(f"{k} {tag}", []).append(
+                            CS.time_gpu(fn, reps=reps))
+    finally:
+        RP._lib = lib_of
+    return out
+
+
 def check_expected(out: dict, path: str) -> bool:
     """Whether every kernel of `out` with hashes (K2 float32, K5) saw the
     operands and gave the outputs that the run recorded in `path` did, bit
@@ -123,6 +185,10 @@ def main(argv=None) -> int:
                          "and K5 outputs to it bit for bit")
     ap.add_argument("--hidden", type=int, default=128,
                     help="the hidden width of K2 and K5")
+    ap.add_argument("--csrc", default="",
+                    help="instead: the float32 replay of this package's "
+                         "replay.cu and of each DIR/replay.cu of this comma "
+                         "list, in turns (replay_builds)")
     args = ap.parse_args(argv)
     if args.tree:
         fwd = ["--tag", args.tag]
@@ -158,6 +224,14 @@ def main(argv=None) -> int:
     _build.build_all()
     out = {"tag": args.tag, "device": torch.cuda.get_device_name(0),
            "hidden": args.hidden}
+    if args.csrc:
+        out.update(replay_builds(CS, dev, args.hidden,
+                                 args.csrc.split(",")))
+        print(json.dumps(out), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(json.dumps(out) + "\n")
+        return 0
     for name, B in (("2d-basic", 4096), ("2d-rolling", 4096),
                     ("multi-container-capped", 256)):
         cfg = CONFIGS[name]

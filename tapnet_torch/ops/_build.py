@@ -121,15 +121,17 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def ptxas_report(csrc: Path = CSRC) -> str:
-    """`nvcc -Xptxas -v` for every csrc/*.cu (compiled to nowhere): one line
-    per kernel with its registers, stack frame, spills and shared memory."""
+def ptxas_report(csrc: Path = CSRC, names=None) -> str:
+    """`nvcc -Xptxas -v` for every csrc/*.cu (compiled to nowhere; `names`:
+    only those sources): one line per kernel with its registers, stack
+    frame, spills and shared memory."""
     import re
     flags = [f for f in FLAGS if f != "-shared"]
     procs = [(p.name, subprocess.Popen(
         [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull, str(p)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for p in sorted(Path(csrc).glob("*.cu"))]
+        for p in sorted(Path(csrc).glob("*.cu"))
+        if names is None or p.stem in names]
     lines = []
     for name, proc in procs:
         log, _ = proc.communicate()

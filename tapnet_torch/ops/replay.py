@@ -202,18 +202,21 @@ def _head_queries(cfg, k, flags_k, hm_k, prev, ctx, statm, params):
     idx = (prev + 1).clamp(0, A).long()
     oh_prev = (torch.arange(A + 1, device=dev)[:, None] == idx[None]).to(f32)
     prev_emb = et[:, idx]                                     # [h, B]
-    hm_saved, qins, qs = [], [], []
+    hm_saved, qins, qs, pres = [], [], [], []
     for c in range(C):
         xc = rd(hm_k[c * W:(c + 1) * W].reshape(W * D, B).to(f32) * inv_s)
         feats = torch.cat([xc, xc.amax(0, keepdim=True),
                            rd(xc.sum(0, keepdim=True) / (W * D))], 0)
-        e1 = torch.relu(rd(rd(w1t @ feats) + b1))
+        pre1 = rd(rd(w1t @ feats) + b1)
+        e1 = torch.relu(pre1)
         enc = rd(rd(w2t @ e1) + b2)
         qin = torch.cat([enc, ctx.float(), prev_emb, dsum], 0)
         qs.append(rd(rd(wqt @ qin) + bq))
         hm_saved.append((feats, e1))
         qins.append(qin)
-    return bits, tf, qs, dict(hm=hm_saved, qins=qins, oh_prev=oh_prev)
+        pres.append(pre1)
+    return bits, tf, qs, dict(hm=hm_saved, qins=qins, oh_prev=oh_prev,
+                              pre1=pres)
 
 
 def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
@@ -237,7 +240,8 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
                      win.to(f32).repeat_interleave(R, 0),
                      rd(ones * tf).expand(T, B),
                      statp[0], statp[1], statp[2], statp[3]], 0)  # [8, T, B]
-    h1 = torch.relu(rd(rd(w8t @ x.reshape(8, T * B)) + b8)).reshape(32, T, B)
+    pre8 = rd(rd(w8t @ x.reshape(8, T * B)) + b8).reshape(32, T, B)
+    h1 = torch.relu(pre8)
     dyn = rd(wpt @ h1.reshape(32, T * B)).reshape(-1, T, B).permute(1, 0, 2)
     sd = rd(se.float() + dyn)                                 # [T, h, B]
     act = torch.stack([rd(torch.tanh(rd(sd + q[None]))) for q in qs],
@@ -245,7 +249,7 @@ def _head_fwd(cfg, k, flags_k, hm_k, mask_k, prev, se, ctx, statp, statm,
     scores = rd((act * v[None, None]).sum(2)).reshape(A, B)
     mask_f = mask_k.to(f32)
     masked = torch.where(mask_k == 1, scores / temperature, NEG)
-    saved.update(x=x, h1=h1, act=act)
+    saved.update(x=x, h1=h1, act=act, pre8=pre8)
     return masked, mask_f, saved
 
 
@@ -311,9 +315,10 @@ def replay_logp_fwd_steps_ref(flags, hms, masks, acts, prev, se, ctx, statp,
 
 
 def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
-               statm, params, cfg, temperature):
+               statm, params, cfg, temperature, pres=None):
     """(d_se, d_ctx, the 11 head-operand gradients) of decode steps
-    [k0, k1)."""
+    [k0, k1); each step's ReLU pre-activations appended to the list
+    `pres` if one is given (`_pre_record`)."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     T, h = N * R, se.shape[1]
     wpt, v = params[2].float(), params[10]
@@ -326,6 +331,8 @@ def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
         masked, mask_f, sv = _head_fwd(cfg, k, flags[k], hms[k], masks[k],
                                        prev[k], se, ctx, statp, statm,
                                        params, temperature)
+        if pres is not None:
+            pres.append(_pre_record(k, sv))
         _, p, onehot, valid = _logp_row(masked, acts[k])
         gsc = (dlp * valid * (onehot - p) * mask_f) * inv_temp   # [A, B]
         gsc = gsc.reshape(T, C, 1, -1)
@@ -342,6 +349,15 @@ def _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev, se, ctx, statp,
         db8 += dh1.sum((1, 2))[:, None]
         _query_bwd(dqs, sv, params, g, dctx)
     return dse, dctx, tuple(g)
+
+
+def _pre_record(k, sv):
+    """Step k's ReLU gates as the plain version computes them: per
+    container the encoder's input feats [W*D+2, B] and pre-activation W1
+    feats + b1 [h, B] (`e1`), and the token MLP's input x [8, T, B] and
+    pre-activation W8 x + b8 [32, T, B] (`h1`)."""
+    return dict(k=k, feats=[f for f, _ in sv["hm"]], e1=sv["pre1"],
+                x=sv["x"], h1=sv["pre8"])
 
 
 def _zeros_f32(ts):
@@ -377,31 +393,38 @@ def _query_bwd(dqs, sv, params, g, dctx):
 
 
 def replay_logp_bwd_ref(dlp, flags, hms, masks, acts, se, ctx, statp, statm,
-                        params, cfg: TAPConfig, temperature: float = 1.0):
+                        params, cfg: TAPConfig, temperature: float = 1.0,
+                        pre: bool = False):
     """Plain backward given dlp f32[B]. Returns (d_se f32[T, h, B],
-    d_ctx f32[h, B], the 11 head-operand gradients)."""
-    return _bwd_chunk(0, cfg.num_blocks, dlp, flags, hms, masks, acts,
-                      _prev_rows(acts), se, ctx, statp, statm, params, cfg,
-                      temperature)
+    d_ctx f32[h, B], the 11 head-operand gradients); with `pre`, also the
+    list of every step's ReLU pre-activations and their inputs
+    (`_pre_record`)."""
+    pres = [] if pre else None
+    out = _bwd_chunk(0, cfg.num_blocks, dlp, flags, hms, masks, acts,
+                     _prev_rows(acts), se, ctx, statp, statm, params, cfg,
+                     temperature, pres)
+    return (*out, pres) if pre else out
 
 
 def replay_logp_bwd_steps_ref(dlp, flags, hms, masks, acts, prev, se, ctx,
                               statp, statm, params, cfg: TAPConfig,
-                              temperature: float = 1.0):
+                              temperature: float = 1.0, pre: bool = False):
     """Plain step-grid backward: operands as `replay_logp_bwd_ref` plus
     prev i32[S, B]; per-chunk partials of every output, summed in chunk
-    order."""
+    order (`pre`: as in `replay_logp_bwd_ref`)."""
     total = None
+    pres = [] if pre else None
     for k0, k1 in _chunk_bounds(cfg, acts.shape[1]):
         dse, dctx, g = _bwd_chunk(k0, k1, dlp, flags, hms, masks, acts, prev,
                                   se, ctx, statp, statm, params, cfg,
-                                  temperature)
+                                  temperature, pres)
         if total is None:
             total = [dse, dctx, *g]
         else:
             for acc, x in zip(total, (dse, dctx, *g)):
                 acc += x
-    return total[0], total[1], tuple(total[2:])
+    out = total[0], total[1], tuple(total[2:])
+    return (*out, pres) if pre else out
 
 
 def live_columns(mask_k, act_k, cfg: TAPConfig):
@@ -556,14 +579,14 @@ def _lib():
     return fn
 
 
-def _record_floats(cfg: TAPConfig, h: int) -> int:
-    """Floats of one record of the bfloat16 backward's deferred weight
-    gradients, as the kernel lays it out (csrc/replay.cu `rec_off`)."""
+def _record_floats(cfg: TAPConfig, h: int, dtype=F32) -> int:
+    """Floats of one record of the deferred weight gradients, as the kernel
+    lays it out (csrc/replay.cu `rec_off`; `record_floats` mirrors it)."""
     fn = _build.load("replay").tapnet_replay_record_floats
-    fn.argtypes = [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(ctypes.cast(_build.int_array(_ints(cfg, 1, h)),
-                          ctypes.c_void_p))
+                          ctypes.c_void_p), int(dtype == torch.bfloat16))
 
 
 def _check_operands(flags, hms, masks, acts, se, ctx, statp, statm, params,
@@ -648,10 +671,11 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
     dctx_part = (torch.empty((nc,) + ctx.shape, dtype=f32, device=dev)
                  if nc > 1 else none)
     rec = sflag = none
-    if se.dtype == torch.bfloat16:  # the deferred weight-gradient records
+    if record_floats(cfg, h, se.dtype):  # the deferred weight gradients
         rows, length = tiles * nc, _steps_per_row(cfg, chunks)
         rec = torch.empty(rows * length * cfg.num_containers
-                          * _record_floats(cfg, h), dtype=f32, device=dev)
+                          * _record_floats(cfg, h, se.dtype), dtype=f32,
+                          device=dev)
         sflag = torch.zeros(rows * length, dtype=torch.int32, device=dev)
     ptrs = ((flags, hms, masks, acts, _se_rows(se), ctx, statp, statm, dlp)
             + tuple(params)
@@ -741,21 +765,43 @@ def replay_logp_bwd_steps(dlp, flags, hms, masks, acts, prev, se, ctx, statp,
 replay_logp_bwd_steps.launches = 0
 
 
+def record_floats(cfg: TAPConfig, h: int, dtype=F32) -> int:
+    """Floats of one record of the deferred weight gradients (per step
+    and container of a partial row), as csrc/replay.cu `rec_off` lays it
+    out: per head pass of `geometry(h)["tp"]` instances dq, d_hm and de1
+    [h][tp] f32, then qin [3h+8][tp], e1 [h][tp] and feats [W*D+2][tp],
+    bfloat16 pairs in the bfloat16 backward, f32 and followed by q [h][tp]
+    in the float32 one above hidden 128. 0 for float32 at h <= 128, which
+    keeps no records."""
+    bf = dtype == torch.bfloat16
+    if not bf and h <= 128:
+        return 0
+    tp = geometry(h)["tp"]
+    xp = tp // 2 if bf else tp
+    WD2 = cfg.target_width * cfg.target_depth + 2
+    return ((3 * h * tp + (3 * h + 8 + h + WD2) * xp + (0 if bf else h * tp))
+            * (TB // tp))
+
+
 def scratch_bytes(cfg: TAPConfig, B: int, h: int, dtype=F32) -> dict:
     """Device scratch of one step-grid backward call, in bytes: the [B, T,
     h] copy of se (float32: the bfloat16 one is half), the d_se partials
-    (one per chunk), the d_ctx partials (none for one chunk) and the
-    weight-gradient partial rows (the bfloat16 backward adds the records
-    of its deferred weight gradients, sized by the kernel)."""
+    (one per chunk), the d_ctx partials (none for one chunk), the
+    weight-gradient partial rows and the records of the deferred weight
+    gradients (the bfloat16 backward, and the float32 one above hidden
+    128: `record_floats`)."""
     chunks = step_chunks(cfg, B)
     tiles = (B + TB - 1) // TB
     T = cfg.num_blocks * cfg.num_rot
     P = sum(a * b for a, b in head_shapes(cfg, h))
+    rows, length = tiles * chunks, _steps_per_row(cfg, chunks)
     return {"chunks": chunks,
             "se_rows": (2 if dtype == torch.bfloat16 else 4) * B * T * h,
             "d_se_partials": 4 * chunks * T * h * B,
             "d_ctx_partials": 4 * chunks * h * B * (chunks > 1),
-            "weight_partials": 4 * tiles * chunks * P}
+            "weight_partials": 4 * tiles * chunks * P,
+            "records": 4 * rows * length * cfg.num_containers
+            * record_floats(cfg, h, dtype)}
 
 
 class ReplayLogp(torch.autograd.Function):

@@ -42,8 +42,9 @@ on a sampled record of each named config in the given compute dtype. It
 prints the mean cycles per phase over the blocks, their share, the time
 per launch (CUDA events, median of 10) and each kernel of the launch's
 device time (torch.profiler): the clocks time `replay_kernel` only, and
-the bfloat16 backward's encoder/query weight-gradient contractions run in
-the second kernel, `grad_outer`.
+the encoder/query weight-gradient contractions of the bfloat16 backward,
+and of the float32 one above hidden 128, run in a second kernel,
+`grad_outer` (`grad_outer_tf32`, counted under `grad_outer`).
 
 The reads add a few cycles per phase. Needs a CUDA device and nvcc; the
 copies are built into `tapnet_torch/_build/phases/`.
@@ -54,6 +55,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -242,8 +244,9 @@ def _once(src: str, texts) -> str:
             return text
     raise RuntimeError(f"phase mark not found once: {texts!r}")
 REPLAY_PHASES = [
-    "0: flags, bit words, live columns", "A, B: encoder and query (C > 1: "
-    "their re-run in D too)", "B: scores (token forward)",
+    "0: flags, bit words, live columns", "A, B: encoder and query (their "
+    "re-run in D too where C > 1 or h > 128; float32 above 128: D reads q "
+    "and e1 back instead)", "B: scores (token forward)",
     "C: log pi and g (warp 0)", "D: token backward",
     "E: query and encoder backward", "F: embedding gradient, step end",
     "set-up: staging, zeroing the partials", "epilogue: gradient stores"]
@@ -301,7 +304,7 @@ def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
     from tapnet_torch.ops import replay as RP
 
     src = Path(csrc or _build.CSRC) / "replay.cu"
-    tag = "_tree" if csrc else ""
+    tag = "_" + re.sub(r"\W", "_", str(csrc)) if csrc else ""
     lib = _build_copy("replay" + tag, replay_source(src.read_text()),
                       src.parent)
     fn = lib.tapnet_replay_logp
@@ -364,7 +367,7 @@ def replay_phases(kernel: str, names, batch: int, hidden: int, dtype, dev,
 def launch_kernels(fn, calls: int = 3) -> dict:
     """Device ms per call of each kernel that `fn()` launches, by its
     name's leading word (`replay_kernel`, whose phases the clocks split;
-    `grad_outer`, the bfloat16 backward's deferred weight-gradient
+    `grad_outer` and `grad_outer_tf32`, the deferred weight-gradient
     contractions; `reduce_tiles`, `sum_transpose`; the rest as "other"):
     `calls` calls under torch.profiler (`utils.profiling.kernel_rows`)."""
     import re
@@ -391,18 +394,24 @@ def launch_kernels(fn, calls: int = 3) -> dict:
 
 def _build_copy(name: str, source: str, csrc=None):
     """Build `source` with the headers of `csrc` (default the package's
-    csrc/) into _build/phases/<name>_phases.so and load it."""
+    csrc/) into _build/phases/<name>_phases.so and load it; a library
+    built from the same source and headers is loaded as it is."""
     from pathlib import Path
 
     from tapnet_torch.ops import _build
     out = _build.BUILD / "phases" / name
     out.mkdir(parents=True, exist_ok=True)
+    same = True
     for hdr in Path(csrc or _build.CSRC).glob("*.cuh"):
+        old = out / hdr.name
+        same &= old.exists() and old.read_bytes() == hdr.read_bytes()
         shutil.copy(hdr, out)
-    (out / f"{name}.cu").write_text(source)
-    lib = out / f"{name}_phases.so"
-    subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(lib),
-                    str(out / f"{name}.cu")], check=True)
+    cu, lib = out / f"{name}.cu", out / f"{name}_phases.so"
+    same &= cu.exists() and cu.read_text() == source and lib.exists()
+    if not same:
+        cu.write_text(source)
+        subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(lib),
+                        str(cu)], check=True)
     return ctypes.CDLL(str(lib))
 
 
