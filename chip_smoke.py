@@ -234,7 +234,8 @@ source, all started at once), then runs, and fails on the first fault:
    on `wide_shapes` (2d-basic at 512, a ragged 100, multi-container at
    temperature 0.7; 2d-rolling at 512 at hidden 160 and 256) at the
    tolerances of phases 3, 7, 15 and 24, backward repeats bit-identical
-   (the float32 replay above 128: 3xTF32 products and `grad_outer_tf32`);
+   (the float32 replay above 128: 3xTF32 products and `grad_outer_tf32`;
+   the bfloat16 one: the weight ring, `csrc/ring_bf16.cuh`);
    `ops.replay.smem_bytes` and `record_floats` against the kernel's
    exports; the witness record of a rounding-decided ReLU gate
    (2d-rolling, hidden 160, batch 256, seed 10: `grad_witness`), K5b-steps
@@ -252,8 +253,9 @@ source, all started at once), then runs, and fails on the first fault:
    over a whole rollout and in f32, both modes, at its middle step, and
    K5f/K5b (2d-basic) and K5f-steps/K5b-steps (2d-rolling) in both dtypes
    on one record, each against its plain version at the same tolerances,
-   on the operands they are then timed on; K2 f32 launched twice
-   bit-identical; times at 4096 of K2's main-path mode and of the four
+   on the operands they are then timed on; K2 f32, K5b bf16 and K5b-steps
+   bf16 launched twice bit-identical; times at 4096 of K2's main-path
+   mode and of the four
    replay kernels in both dtypes, in turns, with their plain versions and
    bounds (the float32 ones also with the products at the 3xTF32 rate)
    and, beside K5b and K5b-steps, the fallback replay (`replay_logp_sum(
@@ -3440,11 +3442,18 @@ def phase_26(dev):
                                    torch.float32 if dt == "f32" else BF16)
             bump(f"K5f {key} {dt}", held[dt][0])
             bump(f"K5b {key} {dt}", held[dt][1])
+        bwd_b = replay_fns(ops, c, 1.0, key == "steps")[2]
+        with torch.no_grad():  # the bf16 backward on the ring, twice
+            for gn, x, y in zip(GRAD_NAMES, _flat_grads(bwd_b(dlp)),
+                                _flat_grads(bwd_b(dlp))):
+                _equal(f"K5b {key} bf16 hidden {h} B={B_MAIN} repeat {gn}",
+                       x, y)
         log(f"{stamp()} K5 {key} hidden {h} "
             f"{'2d-rolling' if key == 'steps' else '2d-basic'} B={B_MAIN} "
             f"against the plain versions, max abs err (fwd, bwd): f32 "
             f"{held['f32'][0]:.2e}, {held['f32'][1]:.2e}; bf16 "
-            f"{held['bf16'][0]:.2e}, {held['bf16'][1]:.2e}")
+            f"{held['bf16'][0]:.2e}, {held['bf16'][1]:.2e}; two bf16 "
+            "backward launches bit-identical")
         kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps",
                                      hidden=h, f32=True)
         kb[key]["bwd"]["fallback_ms"] = time_fallback_replay(

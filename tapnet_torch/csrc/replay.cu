@@ -85,18 +85,19 @@
 //   runs per step in two passes of TP = 16 instances each (Geo): q, dq,
 //   the encoder view and the token view hold one pass, which halves the
 //   [feature][instance] arrays that grow with h. A pass fills its own
-//   rows of qin, scores its columns cols[off[p0] .. off[p0 + 16]), and in
-//   the backward re-runs its encoder and query, then its token backward,
-//   its query and encoder backward and its share of phase F (the lanes
-//   that share an embedding row are chained within the pass). A virtual
-//   warp of 16 lanes (vw, vl) fills and clears a pass's [feature][instance]
-//   rows and owns h/32 <= 8 rows of one instance in W1 feats (mv_tiled);
-//   token groups are 32 columns of 2 a warp, 8 rows a lane; the other
-//   float32 products read their weights from L2 (mm_tf32, below), the
-//   bfloat16 slabs are 32 columns (mv_mma) and 16 (mvt_mma); Wq^T runs a
-//   third of its rows at a time; a grad_outer record holds one part per
-//   pass and grad_outer slices 32 columns (grad_outer_tf32: 64). Each sum
-//   keeps one owner and one order.
+//   rows of qin, scores its columns cols[off[p0] .. off[p0 + 16]), writes
+//   q, qin, e1 and feats to its record, and in the backward reads q and
+//   e1 back (no re-run of the encoder and query), then runs its token
+//   backward, its query and encoder backward and its share of phase F
+//   (the lanes that share an embedding row are chained within the pass).
+//   A virtual warp of 16 lanes (vw, vl) fills and clears a pass's
+//   [feature][instance] rows and owns h/32 <= 8 rows of one instance in
+//   W1 feats (mv_tiled); token groups are 32 columns of 2 a warp, 8 rows
+//   a lane; the other float32 products read their weights from L2
+//   (mm_tf32, below), the bfloat16 ones stream them through the weight
+//   ring (below); Wq^T runs a third of its rows at a time; a grad_outer
+//   record holds one part per pass and grad_outer slices 64 columns. Each
+//   sum keeps one owner and one order.
 //
 // Design, float32 above hidden 128 (TF: WH and E = float). At h = 256 the
 // SIMT body spent 0.89 of a block in the encoder/query products (A/B 0.31)
@@ -192,6 +193,38 @@
 //   instantiation, 30 in each bfloat16 forward, 32 in grad_outer; none in
 //   the float32 ones at h <= 128 (above: the 3xTF32 design).
 //
+// Design, bfloat16 above hidden 128 (RG = TC && WH). Two passes of 16
+// instances halve the MMA work behind each weight byte, and at h = 256
+// the design above moved the weights at ~3 B a cycle an SM: one block
+// barrier per 16- or 32-column slab, the backward re-running the encoder
+// and query in D (a third of its weight traffic). So:
+// - no re-run: A/B writes q (a half-width part of the record, rec_off),
+//   qin, e1 and feats to the record; D reads q and e1 back (plain loads:
+//   this launch wrote them). All are bfloat16 values, so exact.
+// - the weight ring (ring_bf16.cuh): W1, W2, Wq (A/B) and Wq^T's thirds,
+//   W2^T (E) stream as two chains of slabs of 32 columns and all h rows
+//   (16 KB at h = 256), laid out by the wrapper (ops/replay.py
+//   `ring_operands`: one contiguous run a slab, 16-byte chunks swizzled
+//   instead of padded), one cp.async.bulk a slab into RING_S = 3 stages
+//   in the token view, each completing on its own mbarrier; the last warp
+//   to release a stage starts the copy of the slab 3 further on, so a
+//   chain holds one block barrier, not one per slab.
+// - the B operands by ldmatrix .trans from bfloat16 copies [K][16]
+//   (ring_bf16.cuh `xs_at`) that the operands' writers keep beside the
+//   float arrays (A/B: in d_prev and dq, free until D; E: the gradients
+//   split into hi and lo once, in qin's rows past h): from the float
+//   arrays the fragments' loads met up to 4 ways on a bank in all 16
+//   warps and bound the products.
+// - the products keep mv_mma's and mvt_mma's k-steps, their order and
+//   their operand values, so every output is the same, bit for bit, as
+//   the slab design's (kernel_times --expect; PERF.md §6).
+// - bound: the copies alone stream ~17 B a cycle an SM (every SM reading
+//   the same weights from L2; PERF.md §6), and both passes stream them;
+//   the token backward (D) and the scores are the SIMT code above.
+// - shared memory: the ring's stages (48 KB at h = 256) in the token view
+//   in place of the two padded slabs, its mbarriers and counts behind it;
+//   d_prev and dq in the forward too: 222.8 KB at 2d-rolling, h = 256.
+//
 // Step-grid schedule (STEPS instantiations; rolling windows, N <= 62). The
 // TPU ran a grid (batch tiles, S) in order and carried logp, d_se and d_ctx
 // across the step axis and the weight gradients across the whole grid. CUDA
@@ -228,6 +261,7 @@
 #include "geo.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "ring_bf16.cuh"
 
 namespace {
 
@@ -260,6 +294,10 @@ using tapnet::mv_mma;
 using tapnet::pack;
 using tapnet::stream_a;
 using tapnet::mm_tf32;
+using tapnet::Chain;
+using tapnet::Ring;
+using tapnet::RING_K;
+using tapnet::RING_S;
 static_assert(NT == tapnet::MMA_NT && LD == tapnet::MMA_LD,
               "mma_bf16.cuh's block geometry");
 
@@ -287,6 +325,9 @@ struct HeadW {
   const E *w8t, *b8, *wpt, *w1t, *b1, *w2t, *b2, *et, *wqt, *bq;
   const float* v;
   const E *w1T, *w2T, *wqT;  // W1, W2, Wq transposed: [in][h]
+  // bfloat16 above hidden 128: W1, W2, Wq, Wq^T's first 3h rows (three
+  // [h][h] blocks) and W2^T as ring slabs (ring_bf16.cuh)
+  const bf16 *w1r, *w2r, *wqr, *wqTr, *w2Tr;
 };
 
 template <class E>
@@ -335,9 +376,11 @@ __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 // fragment's column reads hit 32 banks; a [G][h+4] dyn array in the
 // forward too; the staged weight slices as bfloat16, two slabs of 72 h at
 // h <= 128). WH: the head's arrays (q, dq, the encoder view, the token
-// view) hold a pass of TP = 16 instances (Geo), the slabs are narrower.
+// view) hold a pass of TP = 16 instances (Geo); tc: the weight ring's
+// RING_S stages of h RING_K bfloat16 in the token view and its mbarriers
+// and counts (`bar`, ring_bf16.cuh).
 struct Lay {
-  int ws, w8, b8, v, q, dq, sc, enc, tok, floats;
+  int ws, w8, b8, v, q, dq, sc, enc, tok, bar, floats;
 };
 
 template <bool WH>
@@ -356,11 +399,17 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   L.w8 = o;  o += 32 * 8;             // W8 [32][8]
   L.b8 = o;  o += 32;
   L.v = o;   o += up4(h);
+  // tc above 128: dq behind d_prev, in the forward too; together they
+  // hold the bfloat16 copies of the products' B operands in A/B
+  const bool rg = tc && WH;
   L.q = o;   o += up4(h * LD);        // q_c [h][LD]
-  L.dq = o;  o += bwd ? up4(h * LD) : 0;
+  L.dq = o;  o += bwd && !rg ? up4(h * LD) : 0;
   L.sc = o;  o += up4(TB * T * d.C);  // scores, then g, [column][C]
   // encoder view: feats [WD+2][LD], e1 [h][LD], qin [3h+8][LD], d_prev
-  L.enc = o; o += up4((WD + 2 + h + FQ + (bwd ? h : 0)) * LD);
+  L.enc = o; o += up4((WD + 2 + h + FQ + (bwd || rg ? h : 0)) * LD);
+  if (rg) {
+    L.dq = o;  o += up4(h * LD);
+  }
   // token view: x8 [8][G], h1 [32][GS]; d_dyn (tc: dyn first) [G][h+4];
   // backward dh1 [32][G] (and the staged weight slices of the
   // encoder/query products: float, or tc bfloat16 slabs)
@@ -369,12 +418,14 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   // (and phase 0's flag rows and live bits)
   const int flg = (d.N + T) * TB;
   // stream_a: mv_mma's two slabs of h (KSL + 8) bfloat16 and mvt_mma's
-  // of 3h (WH: h) x 24 or h x 72 (WH: 24); mv_tiled: KS h floats (the
-  // backward's mvt_tiled stages JS 3h: within tok at h <= 128; above, the
-  // float32 products but W1's read their weights from L2: mm_tf32)
-  const int slabs = tc ? (WH ? h * (Q::KSL + 8) : 72 * h) : Q::KS * h;
+  // of 3h x 24 or h x 72; WH: the ring's stages; mv_tiled: KS h floats
+  // (the backward's mvt_tiled stages JS 3h: within tok at h <= 128;
+  // above, the float32 products but W1's read their weights from L2:
+  // mm_tf32)
+  const int slabs = tc ? (WH ? RING_S * h * RING_K / 2 : 72 * h) : Q::KS * h;
   const int stage = slabs > flg ? slabs : flg;
   L.tok = o; o += tok > stage ? tok : stage;
+  L.bar = o; o += tc && WH ? up4(3 * RING_S) : 0;  // 8-byte mbarriers, ints
   L.floats = o;
   return L;
 }
@@ -609,20 +660,19 @@ __device__ __forceinline__ void frag_b2(unsigned (&hi)[2], unsigned (&lo)[2],
   split(f(2 * t + 8, g), hi[1], lo[1]);
 }
 
-// out[m][n] = sum_j W[j, m] g[j][n] for m < M (a multiple of 16), n < TP,
-// j < h (a multiple of 32): WT = W transposed, row-major [M][h] bfloat16,
-// streamed through S in slabs of KSL columns (stream_a; at h <= 128 16 for
-// the 3h rows of Wq^T, 64 for the h of W2^T: 72 h floats of S either way;
-// above, 16 for h rows at a time: 24 h); g [h][TP + 1] f32 in shared
-// memory, split into hi and lo passes. With TP = 32 warp wy owns the lanes
-// 16 (wy % 2) .. + 15 and the row tiles wy / 2 + 8 i (i < MAXU); with
-// TP = 16 all 16 lanes and the row tiles wy + 16 i; so its B fragments
-// serve all of them. The caller follows with a barrier.
-template <int TP, int MAXU, int KSL, class Emit>
+// out[m][n] = sum_j W[j, m] g[j][n] for m < M (a multiple of 16), the
+// 32 lanes of the tile and j < h (a multiple of 32; h <= 128): WT = W
+// transposed, row-major [M][h] bfloat16, streamed through S in slabs of
+// KSL columns (stream_a; 16 for the 3h rows of Wq^T, 64 for the h of
+// W2^T: 72 h floats of S either way); g [h][LD] f32 in shared memory,
+// split into hi and lo passes. Warp wy owns the lanes 16 (wy % 2) .. + 15
+// and the row tiles wy / 2 + 8 i (i < MAXU), so its B fragments serve all
+// of them. The caller follows with a barrier.
+template <int MAXU, int KSL, class Emit>
 __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
                         const float* gs, unsigned short* S, int lane, int wy,
                         int tid, Emit emit) {
-  constexpr int LP = TP + 1, NH = TP / 16, WR = NWARP / NH;
+  constexpr int LP = LD, NH = 2, WR = NWARP / NH;
   const int g = lane >> 2, t = lane & 3, n0 = (wy & (NH - 1)) * 16;
   const int MT = M / 16;
   float acc[MAXU][2][4] = {};
@@ -670,16 +720,113 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
   }
 }
 
+// The bfloat16 products above hidden 128 (TC && WH), on the weight ring
+// (ring_bf16.cuh): the pass's TP = 16 instances, warp wy < nw = h / 16
+// owning the row tile 16 wy .. + 15 and both column tiles of 8, as
+// mv_mma<16> does (and mvt_mma did for a pass of 16 before the ring),
+// with the same k-steps in the same order and the same operand values (so
+// the same sums, bit for bit). The
+// A fragments come from the ring's swizzled slabs; the B fragments by
+// one ldmatrix .trans a k-step from a bfloat16 copy of the operand
+// (ring_bf16.cuh `xs_at`), which its writers keep beside the float array:
+// from the float [k][17] arrays, 8 32-bit loads a k-step that met in up
+// to 4 ways on a bank, in all 16 warps, bound these products (PERF.md).
+
+// out[j][n] = sum_k W[j, k] x[k][n]: slabs a .. of chain c hold W [h][K]
+// (K padded to RING_K), xs the bfloat16 x [K16][16] (rows K .. K16 zero).
+// emit(j, n, acc).
+template <class Emit>
+__device__ void ring_mv(const Ring& R, const Chain& c, int a, int K,
+                        const unsigned short* xs, int nw, int lane, int wy,
+                        Emit emit) {
+  const int g = lane >> 2, t = lane & 3, m0 = 16 * wy;
+  float acc[2][4] = {};
+  tapnet::ring_take(R, c, a, (K + RING_K - 1) / RING_K, nw, wy, lane,
+                    [&](const unsigned short* slab, int s) {
+#pragma unroll
+    for (int kc = 0; kc < RING_K / 16; ++kc) {
+      const int k0 = s * RING_K + 16 * kc;
+      if (k0 < K) {
+        unsigned av[4], bx[4];
+        tapnet::ldsm_slab(av, slab, m0, kc, lane);
+        tapnet::ldsm_xs(bx, xs, k0, lane);
+        const unsigned b0[2] = {bx[0], bx[1]}, b1[2] = {bx[2], bx[3]};
+        mma(acc[0], av, b0);
+        mma(acc[1], av, b1);
+      }
+    }
+  });
+  if (wy >= nw) return;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int n = 8 * u + 2 * t;
+    emit(m0 + g, n, acc[u][0]);
+    emit(m0 + g, n + 1, acc[u][1]);
+    emit(m0 + g + 8, n, acc[u][2]);
+    emit(m0 + g + 8, n + 1, acc[u][3]);
+  }
+}
+
+// out_p[m][n] = sum_j W_p[j, m] g[j][n] for `parts` consecutive [h][h]
+// blocks p of transposed weights (Wq^T's thirds; W2^T): slabs a .. of
+// chain c hold each W_p^T [h][h] in turn; xh, xl the bfloat16 copies
+// [h][16] of the f32 gradient g split as hi = bf16(g), lo = bf16(g - hi)
+// (`split`). At the end of each block emit(p, m, t, acc) stores a
+// thread's 8 outputs: acc[u][i] is out_p[m + 8 (i / 2)][8 u + 2 t + i % 2].
+template <class Emit>
+__device__ void ring_mvt(const Ring& R, const Chain& c, int a, int parts,
+                         int h, const unsigned short* xh,
+                         const unsigned short* xl, int nw, int lane, int wy,
+                         Emit emit) {
+  const int g = lane >> 2, t = lane & 3, nsp = h / RING_K;
+  float acc[2][4] = {};
+  tapnet::ring_take(R, c, a, parts * nsp, nw, wy, lane,
+                    [&](const unsigned short* slab, int s) {
+    const int kb = (s % nsp) * RING_K;
+#pragma unroll
+    for (int kc = 0; kc < RING_K / 16; ++kc) {
+      const int k0 = kb + 16 * kc;
+      unsigned av[4], bh[4], bl[4];
+      tapnet::ldsm_xs(bh, xh, k0, lane);
+      tapnet::ldsm_xs(bl, xl, k0, lane);
+      tapnet::ldsm_slab(av, slab, 16 * wy, kc, lane);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const unsigned h2[2] = {bh[2 * u], bh[2 * u + 1]};
+        const unsigned l2[2] = {bl[2 * u], bl[2 * u + 1]};
+        mma(acc[u], av, h2);
+        mma(acc[u], av, l2);
+      }
+    }
+    if ((s + 1) % nsp == 0) {  // the block's last slab
+      emit(s / nsp, 16 * wy + g, t, acc);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[u][i] = 0.f;
+    }
+  });
+}
+
+// the split of an f32 gradient value into xh, xl at (k, n) (`split`)
+__device__ __forceinline__ void put_split(unsigned short* xh,
+                                          unsigned short* xl, int k, int n,
+                                          float x) {
+  const bf16 hi = __float2bfloat16_rn(x);
+  xh[tapnet::xs_at(k, n)] = __bfloat16_as_ushort(hi);
+  xl[tapnet::xs_at(k, n)] = tapnet::bf16_bits(x - __bfloat162float(hi));
+}
+
 // The bfloat16 backward, and the float32 one above hidden 128, defer the
 // encoder/query weight-gradient contractions (gWq += dq qin^T, gW2 += d_hm
 // e1^T, gW1 += de1 feats^T, K = TP lanes a pass) to `grad_outer` (float32:
 // `grad_outer_tf32`): each (step, container) of a block writes one record
 // of their operands, one part per head pass of TP instances, in floats
 // from the part's start: dq, d_hm, de1 [h][TP] f32; qin [3h+8][TP], e1
-// [h][TP], feats [WD+2][TP] bfloat16 (`half`), else f32 and followed by q
-// [h][TP] (the float32 backward writes them in A/B and reads q and e1 back
-// in D). `pass` is a part's floats, `size` the record's (Geo<WH>::NP
-// parts).
+// [h][TP], feats [WD+2][TP] bfloat16 (`half`), else f32; above hidden 128
+// followed by q [h][TP] (bfloat16 or f32 as the others: the backward
+// writes them in A/B and reads q and e1 back in D). `pass` is a part's
+// floats, `size` the record's (Geo<WH>::NP parts).
 struct RecOff {
   int dq, dhm, de1, qin, e1, feats, q, pass, size;
 };
@@ -697,7 +844,7 @@ __host__ __device__ inline RecOff rec_off(const Dims& d, bool half) {
   r.qin = o;   o += FQ * XP;
   r.e1 = o;    o += h * XP;
   r.feats = o; o += WD2 * XP;
-  r.q = o;     o += half ? 0 : h * TP;  // f32: q, for the backward's D
+  r.q = o;     o += WH ? h * XP : 0;  // q, for the backward's D
   r.pass = o;
   r.size = o * Geo<WH>::NP;
   return r;
@@ -727,6 +874,37 @@ template <int TP>
 __device__ void get_f32(float* a, const float* src, int rows, int tid) {
   for (int e = tid; e < rows * TP; e += NT)
     a[((unsigned)e / TP) * (TP + 1) + (unsigned)e % TP] = src[e];
+}
+
+// put_bf16's rows back the same way
+template <int TP>
+__device__ void get_bf16(float* a, const float* src, int rows, int tid) {
+  const __nv_bfloat162* s = reinterpret_cast<const __nv_bfloat162*>(src);
+  for (int e = tid; e < rows * TP / 2; e += NT) {
+    const float2 v = __bfloat1622float2(s[e]);
+    float* p =
+        a + ((unsigned)e / (TP / 2)) * (TP + 1) + 2 * ((unsigned)e % (TP / 2));
+    p[0] = v.x;
+    p[1] = v.y;
+  }
+}
+
+// an activation's rows to a record as bfloat16 (HALF: its values are
+// bfloat16) or f32, and back
+template <bool HALF, int TP>
+__device__ void put_act(float* dst, const float* a, int rows, int tid) {
+  if constexpr (HALF)
+    put_bf16<TP>(dst, a, rows, tid);
+  else
+    put_f32<TP>(dst, a, rows, tid);
+}
+
+template <bool HALF, int TP>
+__device__ void get_act(float* a, const float* src, int rows, int tid) {
+  if constexpr (HALF)
+    get_bf16<TP>(a, src, rows, tid);
+  else
+    get_f32<TP>(a, src, rows, tid);
 }
 
 // STEPS: the step-grid schedule; blockIdx.y is the step chunk and `len` the
@@ -796,6 +974,23 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   float* qin = e1 + h * LP;
   float* d_prev = qin + FQ * LP;
   float* d_hm = qin;                  // enc rows, after the Wq product
+  // tc above 128 (the ring's products): the bfloat16 copies of their B
+  // operands (ring_bf16.cuh xs_at), 16-byte aligned. A/B: qin [FQ16][16],
+  // then e1 [h][16], from d_prev on (d_prev and dq are free until D); feats
+  // [WD16][16] over qin's enc rows, which W2's emit writes after W1 has
+  // read feats. E: dq and then d_hm split into hi and lo [h][16] each, in
+  // qin's rows from h on (there E keeps only d_hm, in its enc rows).
+  auto al16 = [](float* p) {
+    return reinterpret_cast<unsigned short*>(
+        (reinterpret_cast<size_t>(p) + 15) & ~(size_t)15);
+  };
+  unsigned short* xsq = al16(d_prev);
+  unsigned short* xse = xsq + 16 * ((FQ + 15) & ~15);
+  unsigned short* xsf = xsq;
+  unsigned short* xdh = al16(qin + h * LP);
+  unsigned short* xdl = xdh + 16 * h;
+  unsigned short* xmh = xdl + 16 * h;
+  unsigned short* xml = xmh + 16 * h;
   float* stg = smem + L.tok;          // staged weight slices
   // tc: the same as bfloat16 (stream_a's double-buffered slabs)
   unsigned short* stgb = reinterpret_cast<unsigned short*>(stg);
@@ -862,6 +1057,19 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // 1 (row tile wy)
   constexpr int NUW = MAXR / 2;
   float gwa[NUW][4] = {}, g8a[4] = {}, g8b[4] = {};
+  // tc above hidden 128: the encoder/query weights on the ring
+  // (ring_bf16.cuh; its stages in the token view), h / 16 warps consuming;
+  // A/B streams W1, W2, Wq as one chain, E Wq^T's thirds and W2^T
+  constexpr bool RG = TC && WH;
+  const int NWR = h / 16;
+  Ring ring{};
+  Chain chain{};
+  if constexpr (RG) {
+    ring = Ring{stgb, reinterpret_cast<unsigned long long*>(smem + L.bar),
+                reinterpret_cast<int*>(smem + L.bar + 2 * RING_S),
+                h * RING_K, 0u};
+    if (tid == 0) tapnet::ring_init(ring);
+  }
   __syncthreads();
 
   // shared rows of qin for the pass of instances p0 ..: ctx, the previous
@@ -870,23 +1078,30 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     const int l = p0 + vl;
     const int bq = TP == TB ? bb : tile0 + l < B ? tile0 + l : 0;  // clamped
     const int idx = ia[l];
+    // row j of qin (and, tc above 128, of its bfloat16 copy)
+    auto put = [&](int j, float v) {
+      qin[j * LP + vl] = v;
+      if constexpr (RG) xsq[tapnet::xs_at(j, vl)] = tapnet::bf16_bits(v);
+    };
     for (int j = vw; j < h; j += NVW) {
-      qin[(h + j) * LP + vl] = f32(in.ctx[(size_t)j * B + bq]);
-      qin[(2 * h + j) * LP + vl] = ldg(w.et + (size_t)j * (A + 1) + idx);
+      put(h + j, f32(in.ctx[(size_t)j * B + bq]));
+      put(2 * h + j, ldg(w.et + (size_t)j * (A + 1) + idx));
     }
     if (vw == 0) {
       const float fpk = (float)popw(wb[l]);
       const float fa0 = (float)popw(wb[TB + l]);
       const float far = (float)popw(wb[2 * TB + l]);
       const float fwn = (float)popw(wb[3 * TB + l]);
-      float* ds = qin + 3 * h * LP;
-      ds[0 * LP + vl] = rnd<E>(fpk / (float)N);
-      ds[1 * LP + vl] =
-          rnd<E>(R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N);
-      ds[2 * LP + vl] = rnd<E>(fwn / (float)N);
-      ds[3 * LP + vl] = rnd<E>((float)k / (float)S);
+      put(3 * h, rnd<E>(fpk / (float)N));
+      put(3 * h + 1,
+          rnd<E>(R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N));
+      put(3 * h + 2, rnd<E>(fwn / (float)N));
+      put(3 * h + 3, rnd<E>((float)k / (float)S));
       for (int r = 0; r < 4; ++r)
-        ds[(4 + r) * LP + vl] = f32(in.statm[(size_t)r * B + bq]);
+        put(3 * h + 4 + r, f32(in.statm[(size_t)r * B + bq]));
+      if constexpr (RG)  // the copy's rows up to FQ16: zeros
+        for (int j = FQ; j < ((FQ + 15) & ~15); ++j)
+          xsq[tapnet::xs_at(j, vl)] = 0;
     }
   };
 
@@ -896,9 +1111,17 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     const int bq = TP == TB ? bb  // clamped
                             : tile0 + p0 + vl < B ? tile0 + p0 + vl : 0;
     const int* hk = in.hms + ((size_t)k * C * WD + (size_t)c * WD) * B;
-    for (int x = vw; x < WD; x += NVW)
+    for (int x = vw; x < WD; x += NVW) {
       feats[x * LP + vl] = rnd<E>((float)hk[(size_t)x * B + bq] * inv_s);
-    __syncthreads();
+      if constexpr (RG)
+        xsf[tapnet::xs_at(x, vl)] = tapnet::bf16_bits(feats[x * LP + vl]);
+    }
+    if constexpr (RG)  // the barrier, then W1, W2, Wq's first slabs
+      chain = tapnet::ring_open(ring, h, w.w1r, (WD + 2 + RING_K - 1) / RING_K,
+                                w.w2r, h / RING_K, w.wqr,
+                                (FQ + RING_K - 1) / RING_K, tid);
+    else
+      __syncthreads();
     if (vw == 0) {
       float mx = feats[vl], sm = 0.f;
       for (int x = 0; x < WD; ++x) {
@@ -907,12 +1130,22 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       }
       feats[WD * LP + vl] = mx;
       feats[(WD + 1) * LP + vl] = rnd<E>(sm / (float)WD);
+      if constexpr (RG) {  // the copy's last rows, zeros to WD16
+        xsf[tapnet::xs_at(WD, vl)] = tapnet::bf16_bits(mx);
+        xsf[tapnet::xs_at(WD + 1, vl)] =
+            tapnet::bf16_bits(feats[(WD + 1) * LP + vl]);
+        for (int x = WD + 2; x < ((WD + 17) & ~15); ++x)
+          xsf[tapnet::xs_at(x, vl)] = 0;
+      }
     }
     __syncthreads();
     auto e1_out = [&](int j, int n, float acc) {
       e1[j * LP + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(w.b1 + j)), 0.f);
+      if constexpr (RG) xse[tapnet::xs_at(j, n)] = tapnet::bf16_bits(e1[j * LP + n]);
     };
-    if constexpr (TC)
+    if constexpr (RG)
+      ring_mv(ring, chain, 0, WD + 2, xsf, NWR, lane, wy, e1_out);
+    else if constexpr (TC)
       mv_mma<TP, Q::KSL>(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
                          e1_out);
     else  // float32: SIMT (TF too, so that e1's ReLU gates stay as they were)
@@ -920,8 +1153,11 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     __syncthreads();
     auto enc_out = [&](int j, int n, float acc) {
       qin[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
+      if constexpr (RG) xsq[tapnet::xs_at(j, n)] = tapnet::bf16_bits(qin[j * LP + n]);
     };
-    if constexpr (TC)
+    if constexpr (RG)
+      ring_mv(ring, chain, chain.ns[0], h, xse, NWR, lane, wy, enc_out);
+    else if constexpr (TC)
       mv_mma<TP, Q::KSL>(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
     else if constexpr (TF)
       mm_tf32<PF>(w.w2t, h, h, e1, lane, wy, enc_out);
@@ -935,7 +1171,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     auto q_out = [&](int j, int n, float acc) {
       qs[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
     };
-    if constexpr (TC)
+    if constexpr (RG)
+      ring_mv(ring, chain, chain.ns[0] + chain.ns[1], FQ, xsq, NWR, lane,
+              wy, q_out);
+    else if constexpr (TC)
       mv_mma<TP, Q::KSL>(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
     else if constexpr (TF)
       mm_tf32<PF>(w.wqt, h, FQ, qin, lane, wy, q_out);
@@ -1401,12 +1640,12 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       for (int c = 0; c < C; ++c) {
         encode(k, c, p0);
         query();
-        if constexpr (TF && BWD) {  // for D and E: q, e1, and the record
+        if constexpr (WH && BWD) {  // for D and E: q, e1, and the record
           float* rc = rec_at(k, c, p0);
-          put_f32<TP>(rc + ro.q, qs, h, tid);
-          put_f32<TP>(rc + ro.qin, qin, FQ, tid);
-          put_f32<TP>(rc + ro.e1, e1, h, tid);
-          put_f32<TP>(rc + ro.feats, feats, WD + 2, tid);
+          put_act<TC, TP>(rc + ro.q, qs, h, tid);
+          put_act<TC, TP>(rc + ro.qin, qin, FQ, tid);
+          put_act<TC, TP>(rc + ro.e1, e1, h, tid);
+          put_act<TC, TP>(rc + ro.feats, feats, WD + 2, tid);
         }
         scores(k, c, p0, TP == TB ? 0 : off[p0], TP == TB ? n : off[p0 + TP]);
       }
@@ -1454,17 +1693,16 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     // the query and encoder backward (one pass: qin's shared rows are still
     // in place)
     for (int p0 = 0; p0 < TB; p0 += TP) {
-      if (WH && !TF) fill_qin(k, p0);
       for (int j = vw; j < h; j += NVW) d_prev[j * LP + vl] = 0.f;
       for (int c = 0; c < C; ++c) {
         // C == 1 in one pass: feats, e1, enc and q_0 are still in place;
-        // tf: q and e1 back from the record that A/B wrote (the weights
-        // streamed again for their re-run cost more than the reads)
-        if constexpr (TF) {
+        // two passes: q and e1 back from the record that A/B wrote (the
+        // weights streamed again for their re-run cost more than the reads)
+        if constexpr (WH) {
           const float* rc = rec_at(k, c, p0);
-          get_f32<TP>(qs, rc + ro.q, h, tid);
-          get_f32<TP>(e1, rc + ro.e1, h, tid);
-        } else if (C > 1 || WH) {
+          get_act<TC, TP>(qs, rc + ro.q, h, tid);
+          get_act<TC, TP>(e1, rc + ro.e1, h, tid);
+        } else if (C > 1) {
           encode(k, c, p0);
           query();
         }
@@ -1479,6 +1717,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         auto dqin_out = [&](int m, int l, float acc) {
           if (m < h) {
             d_hm[m * LP + l] = acc;  // qin's enc rows: read above, done
+            if constexpr (RG) put_split(xmh, xml, m, l, acc);
           } else if (m < 2 * h) {
             const int bl = tile0 + p0 + l;
             if (bl < B) dctx_o[(size_t)(m - h) * B + bl] += acc;
@@ -1491,43 +1730,64 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         };
         if constexpr (DEFER) {
           // the weight-gradient contractions go to grad_outer: this (step,
-          // container, pass)'s operands to its record (tf: the activations
-          // are there since A/B)
+          // container, pass)'s operands to its record (two passes: the
+          // activations are there since A/B)
           float* rc = rec_at(k, c, p0);
           put_f32<TP>(rc + ro.dq, dqs, h, tid);
-          if constexpr (TC) put_bf16<TP>(rc + ro.qin, qin, FQ, tid);
+          if constexpr (!WH) put_bf16<TP>(rc + ro.qin, qin, FQ, tid);
           rowsum_acc<TP>(prow + go.bq, dqs, LP, h, tid);
-          __syncthreads();
-          if constexpr (WH) {  // Wq^T a third of its rows at a time
+          if constexpr (RG) {  // the barrier; Wq^T's thirds, then W2^T
+            for (int e = tid; e < h * TP; e += NT)
+              put_split(xdh, xdl, e / TP, e % TP, dqs[(e / TP) * LP + e % TP]);
+            const int nsh = h / RING_K;
+            chain = tapnet::ring_open(ring, h, w.wqTr, 3 * nsh, w.w2Tr, nsh,
+                                      nullptr, 0, tid);
+            ring_mvt(ring, chain, 0, 3, h, xdh, xdl, NWR, lane, wy,
+                     [&](int u, int m, int t, const float (&a)[2][4]) {
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  dqin_out(u * h + m + 8 * (i >> 1), 8 * v + 2 * t + (i & 1),
+                           a[v][i]);
+            });
+            __syncthreads();
+          } else if constexpr (WH) {  // Wq^T a third of its rows at a time
+            __syncthreads();
             for (int u = 0; u < 3; ++u) {
-              auto out = [&](int m, int l, float acc) {
-                dqin_out(u * h + m, l, acc);
-              };
-              if constexpr (TC)
-                mvt_mma<TP, 1, 16>(w.wqT + (size_t)u * h * h, h, h, dqs,
-                                   stgb, lane, wy, tid, out);
-              else
-                mm_tf32<PF>(w.wqT + (size_t)u * h * h, h, h, dqs, lane, wy,
-                            out);
+              mm_tf32<PF>(w.wqT + (size_t)u * h * h, h, h, dqs, lane, wy,
+                          [&](int m, int l, float acc) {
+                            dqin_out(u * h + m, l, acc);
+                          });
               __syncthreads();
             }
           } else {
-            mvt_mma<TP, 3, 16>(w.wqT, 3 * h, h, dqs, stgb, lane, wy, tid,
+            __syncthreads();
+            mvt_mma<3, 16>(w.wqT, 3 * h, h, dqs, stgb, lane, wy, tid,
                                dqin_out);
             __syncthreads();
           }
           put_f32<TP>(rc + ro.dhm, d_hm, h, tid);
-          if constexpr (TC) put_bf16<TP>(rc + ro.e1, e1, h, tid);
+          if constexpr (!WH) put_bf16<TP>(rc + ro.e1, e1, h, tid);
           rowsum_acc<TP>(prow + go.b2, d_hm, LP, h, tid);
           __syncthreads();
-          if constexpr (TC)
-            mvt_mma<TP, 1, WH ? 16 : 64>(w.w2T, h, h, d_hm, stgb, lane, wy,
-                                         tid, de1_out);
+          if constexpr (RG)
+            ring_mvt(ring, chain, 3 * (h / RING_K), 1, h, xmh, xml, NWR, lane,
+                     wy, [&](int, int m, int t, const float (&a)[2][4]) {
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  de1_out(m + 8 * (i >> 1), 8 * v + 2 * t + (i & 1), a[v][i]);
+            });
+          else if constexpr (TC)
+            mvt_mma<1, 64>(w.w2T, h, h, d_hm, stgb, lane, wy, tid,
+                               de1_out);
           else
             mm_tf32<PF>(w.w2T, h, h, d_hm, lane, wy, de1_out);
           __syncthreads();
           put_f32<TP>(rc + ro.de1, e1, h, tid);
-          if constexpr (TC) put_bf16<TP>(rc + ro.feats, feats, WD + 2, tid);
+          if constexpr (!WH) put_bf16<TP>(rc + ro.feats, feats, WD + 2, tid);
         } else {
           outer_tiled<TP>(prow + go.wqt, dqs, qin, h, FQ, lane, wy, tid);
           rowsum_acc<TP>(prow + go.bq, dqs, LP, h, tid);
@@ -1616,31 +1876,34 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
 
 // The deferred weight-gradient contractions of the bfloat16 backward
 // (rec_off): for partial row `row` (a tile and step chunk) and a slice of
-// SW = 64 (WH: 32) columns of gWq, gW2 or gW1 (blockIdx.y: Wq's slices,
-// then W2's, then W1's), part[row][off + j*cols + n] = the sum over the
+// SW = 64 columns of gWq, gW2 or gW1 (Wq's slices, then W2's, then W1's),
+// part[row][off + j*cols + n] = the sum over the
 // row's steps with an action (sflag), their containers, the record's
 // passes and their TP lanes of G[j][l] X[n][l] (G = dq, d_hm, de1, split
 // into hi and lo passes; X = qin, e1, feats), TP / 16 k-steps a record
 // part, the parts of two steps loaded before their products (per pair of
 // steps: each container, each pass, then each step). Warp wy owns the row
 // tile wy % (h/16) and the column tiles wy / (h/16) + (16 / (h/16)) u of
-// the slice; the accumulators stay in registers until one store, so each
-// element has one owner and one order.
-template <bool WH>
-__host__ __device__ constexpr int go_slice() { return WH ? 32 : 64; }
+// the slice (up to MAXU = 4; WH: 8, one row tile a warp); the accumulators
+// stay in registers until one store, so each element has one owner and one
+// order. The grid is (rows, slices); WH: (slices, rows), so that the
+// blocks of one partial row run together and its gradient parts, which
+// every slice reads, come from L2 after the first (the records are ~1 GB
+// at 2d-rolling, batch 4096).
+constexpr int GO_SW = 64;
 
 template <bool WH>
 __global__ void __launch_bounds__(NT)
 grad_outer(Dims d, const float* __restrict__ rec,
            const int* __restrict__ sflag, int len, float* __restrict__ part) {
   constexpr int TP = Geo<WH>::TP, NP = Geo<WH>::NP, KST = TP / 16;
-  constexpr int SW = go_slice<WH>();
+  constexpr int SW = GO_SW, MAXU = WH ? 8 : 4;
   const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
   const GOff go = goff(d);
   const RecOff ro = rec_off<WH>(d, true);
-  const size_t row = blockIdx.x;
+  const size_t row = WH ? blockIdx.y : blockIdx.x;
   const int sq = (FQ + SW - 1) / SW, s2 = (h + SW - 1) / SW;
-  int sl = blockIdx.y, cols, off, gof, xof;
+  int sl = WH ? blockIdx.x : blockIdx.y, cols, off, gof, xof;
   if (sl < sq) {
     cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
   } else if (sl < sq + s2) {
@@ -1654,14 +1917,14 @@ grad_outer(Dims d, const float* __restrict__ rec,
   const int MT = h / 16, WPM = NWARP / MT, NU = SW / 8 / WPM;
   if (wy >= MT * WPM) return;
   const int m0 = (wy % MT) * 16, slot = wy / MT, n0 = SW * sl;
-  float acc[4][4] = {};
+  float acc[MAXU][4] = {};
   for (int st = 0; st < len; st += 2) {
     for (int c = 0; c < C; ++c) {
       for (int pp = 0; pp < NP; ++pp) {
         // two steps' operands loaded before their products (zeros for a
         // step without an action, or past the chunk: they add exact zeros)
         float2 ga[2][KST][4];
-        unsigned gb[2][KST][4][2];
+        unsigned gb[2][KST][MAXU][2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const bool on = st + q < len && sflag[row * len + st + q];
@@ -1679,7 +1942,7 @@ grad_outer(Dims d, const float* __restrict__ rec,
                                       + 16 * ks + 2 * t + 8 * (i >> 1)))
                                 : make_float2(0.f, 0.f);
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
+            for (int u = 0; u < MAXU; ++u) {
               const int n = n0 + 8 * (slot + WPM * u) + g;
               const bool in = on && u < NU && n < cols;
               const unsigned* xn = X + n * (TP / 2) + 8 * ks;
@@ -1696,7 +1959,7 @@ grad_outer(Dims d, const float* __restrict__ rec,
 #pragma unroll
             for (int i = 0; i < 4; ++i) split(ga[q][ks][i], ah[i], al[i]);
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
+            for (int u = 0; u < MAXU; ++u) {
               if (u < NU) {
                 mma(acc[u], ah, gb[q][ks][u]);
                 mma(acc[u], al, gb[q][ks][u]);
@@ -1708,7 +1971,7 @@ grad_outer(Dims d, const float* __restrict__ rec,
   }
   float* dst = part + row * go.P + off;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
+  for (int u = 0; u < MAXU; ++u) {
     const int c = n0 + 8 * (slot + WPM * u) + 2 * t, j = m0 + g;
     if (u < NU) {
       if (c < cols) {
@@ -1726,16 +1989,15 @@ grad_outer(Dims d, const float* __restrict__ rec,
 // The deferred weight-gradient contractions of the float32 backward above
 // hidden 128 (rec_off, f32 records): grad_outer's sums as 3xTF32
 // (mma_tf32.cuh), each record part two k-steps of 8 lanes, both operands
-// split on load. Block (slice, row), slices of GO_TF32_SW = 64 columns:
+// split on load. Block (slice, row), slices of GO_SW = 64 columns:
 // blockIdx.x walks the slices of one partial row first, so the blocks
 // that share the row's gradient operands run together and read them from
 // L2; each slice re-reads the row's gradient parts, so a wide slice
-// halves that traffic against grad_outer's 32. Warp wy owns the row tile
-// wy (h/16 of them; warps h/16.. idle) and the slice's 8 column tiles; a
+// halves that traffic against one of 32. Warp wy owns the row tile wy
+// (h/16 of them; warps h/16.. idle) and the slice's 8 column tiles; a
 // (step, container, part)'s operands are loaded before its products. The
 // accumulators stay in registers until one store: one owner and one order
 // per element (steps, containers, parts, k-steps), no atomics.
-constexpr int GO_TF32_SW = 64;
 
 __global__ void __launch_bounds__(NT)
 grad_outer_tf32(Dims d, const float* __restrict__ rec,
@@ -1744,7 +2006,7 @@ grad_outer_tf32(Dims d, const float* __restrict__ rec,
   using tapnet::mma3;
   using tapnet::split_tf32;
   constexpr int TP = Geo<true>::TP, NP = Geo<true>::NP, KST = TP / 8;
-  constexpr int SW = GO_TF32_SW, NU = SW / 8;
+  constexpr int SW = GO_SW, NU = SW / 8;
   const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
   const GOff go = goff(d);
   const RecOff ro = rec_off<true>(d, false);
@@ -1882,7 +2144,9 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                    (const E*)p[12], (const E*)p[13], (const E*)p[14],
                    (const E*)p[15], (const E*)p[16], (const E*)p[17],
                    (const E*)p[18], (const float*)p[19], (const E*)p[29],
-                   (const E*)p[30], (const E*)p[31]};
+                   (const E*)p[30], (const E*)p[31], (const bf16*)p[34],
+                   (const bf16*)p[35], (const bf16*)p[36], (const bf16*)p[37],
+                   (const bf16*)p[38]};
   const size_t smem =
       (size_t)smem_bytes(d, bwd, STEPS, std::is_same_v<E, bf16>);
   const int tiles = (d.B + TB - 1) / TB;
@@ -1927,12 +2191,15 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (defer) {  // the deferred weight-gradient contractions
-    constexpr int SW = tc ? go_slice<WH>() : GO_TF32_SW;
+    constexpr int SW = GO_SW;
     const int slices = (3 * d.h + 8 + SW - 1) / SW + (d.h + SW - 1) / SW
                        + (d.W * d.D + 2 + SW - 1) / SW;
     if (tc)
-      grad_outer<WH><<<dim3(tiles * nc, slices), block, 0, st>>>(
-          d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
+      grad_outer<WH><<<WH ? dim3(slices, tiles * nc)
+                          : dim3(tiles * nc, slices),
+                       block, 0, st>>>(d, (const float*)p[32],
+                                       (const int*)p[33], len,
+                                       (float*)p[23]);
     else
       grad_outer_tf32<<<dim3(slices, tiles * nc), block, 0, st>>>(
           d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
@@ -1995,6 +2262,8 @@ extern "C" int tapnet_replay_record_floats(const int* ints, int bf16) {
 //       bfloat16 backward, and float32 at h > 128: rec [rows, len, C,
 //       rec_off(d).size] f32, sflag [rows, len] i32 zeroed (grad_outer's
 //       records)                                                    (32-33)
+//       bfloat16 at h > 128: w1t, w2t, wqt, wqt^T rows 0..3h as [3][h][h]
+//       and w2t^T as ring slabs (ops/replay.py ring_operands)         (34-38)
 // ints: B, N, W, D, R, C, h, steps, chunks, bf16 (1: se, ctx, statp, statm
 // and the weights other than v are bfloat16; 0: float; the outputs are
 // float either way). Forward (bwd = 0) writes logp_o

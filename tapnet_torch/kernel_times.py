@@ -27,11 +27,14 @@ bit-identical outputs on bit-identical operands there and here, and exits
 change the sums' order.)
 
     python -m tapnet_torch.kernel_times --csrc DIR[,DIR...] [--hidden 256]
+        [--dtype bfloat16]
 
-times only the float32 replay (K5b, K5f, K5b-steps, K5f-steps at batch
-4096), built from this package's replay.cu and from each DIR/replay.cu
-(another checkout's csrc/, or an edited copy with the same C interface),
-in turns: the builds in order, then in reverse (`replay_builds`).
+times only the replay (K5b, K5f, K5b-steps, K5f-steps at batch 4096, in
+float32 or, with `--dtype bfloat16`, the bfloat16 instantiations on the
+same record's bfloat16 operands), built from this package's replay.cu
+and from each DIR/replay.cu (another checkout's csrc/, or an edited copy
+whose C interface takes the same pointers or a prefix of them), in
+turns: the builds in order, then in reverse (`replay_builds`).
 
 To compare two checkouts on one card in one call,
 
@@ -103,9 +106,10 @@ def replay_times(CS, dev, hidden=128) -> dict:
     return out
 
 
-def replay_builds(CS, dev, hidden, dirs) -> dict:
-    """The float32 replay at batch 4096 and hidden width `hidden` (K5b and
-    K5f on 2d-basic, K5b-steps and K5f-steps on 2d-rolling, one float32
+def replay_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
+    """The replay in `dtype` ("float32" or "bfloat16": the operands of
+    `replay_times`) at batch 4096 and hidden width `hidden` (K5b and K5f
+    on 2d-basic, K5b-steps and K5f-steps on 2d-rolling, one float32
     rollout's record each) built from this package's csrc/replay.cu
     ("csrc") and from each DIR/replay.cu of `dirs` with DIR's headers
     (another checkout's csrc/, or an edited copy: the same C interface),
@@ -134,12 +138,16 @@ def replay_builds(CS, dev, hidden, dirs) -> dict:
         fn.argtypes, fn.restype = RP._lib().argtypes, ctypes.c_int
         fns[d] = fn
     order = list(fns) + list(fns)[::-1]
-    lib_of, out = RP._lib, {"builds": list(fns)}
+    lib_of, out = RP._lib, {"builds": list(fns), "dtype": dtype}
+    dt = "bf16" if dtype == "bfloat16" else "f32"
     try:
         for name, steps in (("2d-basic", False), ("2d-rolling", True)):
             cfg, B = CONFIGS[name], 4096
             actor = init_params(0, cfg, hidden, dev)
-            ops, _ = CS.replay_operands(actor, cfg, B, dev, 10, 1.0)
+            ops_f, _, ops_b = CS.replay_operands(
+                actor, cfg, B, dev, 10, 1.0, dtype=torch.float32,
+                also=torch.bfloat16)
+            ops = ops_b if dt == "bf16" else ops_f
             dlp = torch.linspace(-1.0, 1.0, B, device=dev)
             fwd, _, bwd, _ = CS.replay_fns(ops, cfg, 1.0, steps)
             suffix = "-steps" if steps else ""
@@ -147,9 +155,9 @@ def replay_builds(CS, dev, hidden, dirs) -> dict:
                 for tag in order:
                     RP._lib = lambda fn=fns[tag]: fn
                     for k, fn, reps in (
-                            (f"K5b{suffix} f32 {name}", lambda: bwd(dlp),
+                            (f"K5b{suffix} {dt} {name}", lambda: bwd(dlp),
                              5 if steps else 20),
-                            (f"K5f{suffix} f32 {name}", fwd, 10 if steps
+                            (f"K5f{suffix} {dt} {name}", fwd, 10 if steps
                              else 20)):
                         out.setdefault(f"{k} {tag}", []).append(
                             CS.time_gpu(fn, reps=reps))
@@ -186,9 +194,12 @@ def main(argv=None) -> int:
     ap.add_argument("--hidden", type=int, default=128,
                     help="the hidden width of K2 and K5")
     ap.add_argument("--csrc", default="",
-                    help="instead: the float32 replay of this package's "
-                         "replay.cu and of each DIR/replay.cu of this comma "
-                         "list, in turns (replay_builds)")
+                    help="instead: the replay of this package's replay.cu "
+                         "and of each DIR/replay.cu of this comma list, in "
+                         "turns (replay_builds)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="with --csrc: the replay's instantiation")
     args = ap.parse_args(argv)
     if args.tree:
         fwd = ["--tag", args.tag]
@@ -226,7 +237,7 @@ def main(argv=None) -> int:
            "hidden": args.hidden}
     if args.csrc:
         out.update(replay_builds(CS, dev, args.hidden,
-                                 args.csrc.split(",")))
+                                 args.csrc.split(","), args.dtype))
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as f:

@@ -76,6 +76,8 @@ def _ints(cfg: TAPConfig, B: int, h: int):
 
 MAX_N = 62                         # step-grid: 64-bit flag words
 SM_COUNT = 132                     # H100 SXM; `step_chunks` fills them
+RING_K = 32                        # csrc/ring_bf16.cuh: columns of a slab
+RING_S = 3                         # ... and stages of the ring
 
 
 def _steps_grid(cfg: TAPConfig) -> bool:
@@ -94,8 +96,10 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
     instantiations' (`dtype`) weights: their tensor-core plan holds Wp as
     bfloat16 rows of 40 in place of the float Wp^T, h1 rows padded to G +
     4, a dyn array in the forward too, and the encoder/query weight slices
-    as two bfloat16 slabs of 72 h floats (above 128: h (KSL + 8) / 2 each)
-    in the token view."""
+    as two bfloat16 slabs of 72 h floats in the token view; above 128 the
+    weight ring's RING_S stages of h RING_K bfloat16 there, its mbarriers
+    and counts behind the token view, and d_prev and dq in the forward
+    too (with them the room of the products' bfloat16 B operands)."""
     if steps is None:
         steps = _steps_grid(cfg)
     tc = dtype == torch.bfloat16
@@ -106,14 +110,17 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
     up4 = lambda x: (x + 3) & ~3
     tok = (8 * G + 32 * (G + 4 if tc else G)
            + (G * (h + 4) if bwd or tc else 0) + (32 * G if bwd else 0))
+    ring = tc and h > 128
     if tc:
-        slabs = h * (geo["ksl"] + 8) if h > 128 else 72 * h
+        slabs = RING_S * h * RING_K // 2 if ring else 72 * h
     else:
         slabs = geo["ks"] * h
     floats = (up4(20 * h if tc else 32 * h) + 256 + 32 + up4(h)
-              + up4(h * LP) * (2 if bwd else 1) + up4(TB * T * C)
-              + up4((WD + 2 + h + 3 * h + 8 + (h if bwd else 0)) * LP)
-              + max(tok, slabs, (cfg.num_blocks + T) * TB))
+              + up4(h * LP) * (2 if bwd or ring else 1) + up4(TB * T * C)
+              + up4((WD + 2 + h + 3 * h + 8 + (h if bwd or ring else 0))
+                    * LP)
+              + max(tok, slabs, (cfg.num_blocks + T) * TB)
+              + (up4(3 * RING_S) if ring else 0))
     ints = (8 if steps else 4) * TB + 5 * TB + 2 + TB * T
     return 4 * (floats + ints)
 
@@ -629,6 +636,55 @@ def _launch(bwd, ptrs, cfg, B, h, temperature, dev, chunks, dtype):
     return err
 
 
+@functools.cache
+def _ring_index(h: int, K1: int, device) -> tuple:
+    """Indices into W1, W2 and Wq flattened one after another and followed
+    by one zero, that lay out the ring slabs csrc/ring_bf16.cuh streams,
+    and the five slab sets' sizes: W1 [h][K1], W2 [h][h], Wq [h][3h + 8],
+    the first 3h rows of Wq^T as three [h][h] blocks, and W2^T. A matrix
+    [M][K] becomes slabs of RING_K columns, K padded with the zero: per
+    slab its M rows of RING_K values, the 16-byte chunks of row r swizzled
+    (chunk ch at position ch ^ ((r >> 1) & 3)), so that the 8 rows of an
+    ldmatrix matrix fall in 8 bank groups without a pad. Built with device
+    operations, once per width and device."""
+    FQ = 3 * h + 8
+    o2, o3 = h * K1, h * K1 + h * h
+    zero = o3 + h * FQ
+    ar = lambda n: torch.arange(n, device=device)
+
+    def slabs(K, at, lead=1):
+        ns, nch = -(-K // RING_K), RING_K // 8
+        u = ar(lead)[:, None, None, None, None]
+        s = ar(ns)[None, :, None, None, None]
+        r = ar(h)[None, None, :, None, None]
+        ch = ar(nch)[None, None, None, :, None] ^ ((r >> 1) & (nch - 1))
+        k = s * RING_K + 8 * ch + ar(8)[None, None, None, None, :]
+        return torch.where(k < K, at(u, r, k.clamp(max=K - 1)),
+                           zero).reshape(-1)
+
+    parts = [slabs(K1, lambda u, r, k: r * K1 + k),
+             slabs(h, lambda u, r, k: o2 + r * h + k),
+             slabs(FQ, lambda u, r, k: o3 + r * FQ + k),
+             slabs(h, lambda u, r, k: o3 + k * FQ + u * h + r, lead=3),
+             slabs(h, lambda u, r, k: o2 + k * h + r)]
+    return torch.cat(parts), tuple(p.numel() for p in parts)
+
+
+def ring_operands(params, h: int):
+    """The bfloat16 replay's weights above hidden 128 as ring slabs
+    (`_ring_index`): W1, W2, Wq, Wq^T's first 3h rows (three [h, h]
+    blocks) and W2^T, views of one buffer made by one gather; empty
+    tensors for the other instantiations, which read none."""
+    if params[3].dtype != torch.bfloat16 or h <= 128:
+        return tuple(torch.empty(0, device=params[3].device)
+                     for _ in range(5))
+    w1, w2, wq = params[3], params[5], params[8]
+    idx, sizes = _ring_index(h, w1.shape[1], w1.device)
+    src = torch.cat([w1.reshape(-1), w2.reshape(-1), wq.reshape(-1),
+                     w1.new_zeros(1)])
+    return torch.split(src[idx], sizes)
+
+
 def _se_rows(se):
     """se [T, h, B] as [B, T, h]: a live column's keys are one contiguous
     row, gathered coalesced by the kernels."""
@@ -647,7 +703,8 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
             + tuple(params)
             + (logp, none, none, none, none,
                none if prev is None else prev, part, none, none)
-            + transposed(params))
+            + transposed(params) + (none, none)
+            + ring_operands(params, h))
     return logp, _launch(False, ptrs, cfg, B, h, temperature, dev, chunks,
                          se.dtype)
 
@@ -681,7 +738,8 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
             + tuple(params)
             + (none, dse, dctx, part, flat,
                none if prev is None else prev, none, dse_part, dctx_part)
-            + transposed(params) + (rec, sflag))
+            + transposed(params) + (rec, sflag)
+            + ring_operands(params, h))
     err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks, se.dtype)
     grads, off = [], 0
     for a, b in shapes:
@@ -770,17 +828,18 @@ def record_floats(cfg: TAPConfig, h: int, dtype=F32) -> int:
     and container of a partial row), as csrc/replay.cu `rec_off` lays it
     out: per head pass of `geometry(h)["tp"]` instances dq, d_hm and de1
     [h][tp] f32, then qin [3h+8][tp], e1 [h][tp] and feats [W*D+2][tp],
-    bfloat16 pairs in the bfloat16 backward, f32 and followed by q [h][tp]
-    in the float32 one above hidden 128. 0 for float32 at h <= 128, which
-    keeps no records."""
+    bfloat16 pairs in the bfloat16 backward, else f32; above hidden 128
+    followed by q [h][tp] in the same type (A/B writes the activations, D
+    reads q and e1 back). 0 for float32 at h <= 128, which keeps no
+    records."""
     bf = dtype == torch.bfloat16
     if not bf and h <= 128:
         return 0
     tp = geometry(h)["tp"]
     xp = tp // 2 if bf else tp
     WD2 = cfg.target_width * cfg.target_depth + 2
-    return ((3 * h * tp + (3 * h + 8 + h + WD2) * xp + (0 if bf else h * tp))
-            * (TB // tp))
+    q = h * xp if h > 128 else 0
+    return (3 * h * tp + (3 * h + 8 + h + WD2) * xp + q) * (TB // tp)
 
 
 def scratch_bytes(cfg: TAPConfig, B: int, h: int, dtype=F32) -> dict:

@@ -245,8 +245,8 @@ def _once(src: str, texts) -> str:
     raise RuntimeError(f"phase mark not found once: {texts!r}")
 REPLAY_PHASES = [
     "0: flags, bit words, live columns", "A, B: encoder and query (their "
-    "re-run in D too where C > 1 or h > 128; float32 above 128: D reads q "
-    "and e1 back instead)", "B: scores (token forward)",
+    "re-run in D too where C > 1 at h <= 128; above 128 D reads q and e1 "
+    "back instead)", "B: scores (token forward)",
     "C: log pi and g (warp 0)", "D: token backward",
     "E: query and encoder backward", "F: embedding gradient, step end",
     "set-up: staging, zeroing the partials", "epilogue: gradient stores"]

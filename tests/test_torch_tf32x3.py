@@ -151,8 +151,8 @@ def test_wide_float32_plan_and_records(h):
     weights from L2, so the shared-memory plan is the one PR 15 measured;
     every shipped config stays on the kernels in float32; each (step,
     container) of a partial row keeps a record of f32 operands (bfloat16
-    keeps its half-width one; float32 at h <= 128 none), sized by
-    `scratch_bytes`."""
+    keeps its half-width one, q included above 128; float32 at h <= 128
+    none), sized by `scratch_bytes`."""
     f32, bf16 = torch.float32, torch.bfloat16
     tp = 16
     for cfg in CONFIGS.values():
@@ -163,7 +163,7 @@ def test_wide_float32_plan_and_records(h):
         assert RP.record_floats(cfg, h, f32) == \
             2 * (3 * h * tp + (FQ + h + WD2) * tp + h * tp)
         assert RP.record_floats(cfg, h, bf16) == \
-            2 * (3 * h * tp + (FQ + h + WD2) * tp // 2)
+            2 * (3 * h * tp + (FQ + h + WD2 + h) * tp // 2)
         assert RP.record_floats(cfg, 128, f32) == 0
         assert RP.record_floats(cfg, 128, bf16) == \
             3 * 128 * 32 + (3 * 128 + 8 + 128 + WD2) * 16
