@@ -226,8 +226,10 @@ source, all started at once), then runs, and fails on the first fault:
    hidden-128 actor, its forward at batch 4096 bit-equal to the
    replicated one, the spec tree logged. `chip_smoke.phase_25(dev)` runs
    it alone after `ops._build.build_all()`;
-26. K2 and K5 at hidden widths above 128, where their head runs in two
-   passes of 16 instances: the routers take them at hidden 256 on
+26. K2 and K5 at hidden widths above 128 (K5's head in two passes of 16
+   instances; K2's products once over the tile on the weight ring, its
+   query's step-invariant part made once per rollout by `query_parts`):
+   the routers take them at hidden 256 on
    2d-basic and 2d-rolling; at hidden 160, 192, 224 and 256 K2 (both
    modes, both dtypes) and K5 (K5f/K5b where the config is monolithic,
    K5f-steps/K5b-steps always, both dtypes) against their plain versions
@@ -237,25 +239,32 @@ source, all started at once), then runs, and fails on the first fault:
    (the float32 replay above 128: 3xTF32 products and `grad_outer_tf32`;
    the bfloat16 one: the weight ring, `csrc/ring_bf16.cuh`);
    `ops.replay.smem_bytes` and `record_floats` against the kernel's
-   exports; the witness record of a rounding-decided ReLU gate
+   exports; `query_parts` against its plain version at every width on
+   2d-basic and 2d-rolling in both dtypes, repeats bit-identical; the
+   witness record of a rounding-decided ReLU gate
    (2d-rolling, hidden 160, batch 256, seed 10: `grad_witness`), K5b-steps
    f32 against its plain version with the gates within their rounding
    bound of 0 counted and, with the rows they feed left out, within
    GRAD_TOL; at hidden 256: pack() on
    2d-basic at 4096 (greedy K1 x10, sample and best-of-16 K2 x10, no
-   select_step) and against the CPU path; 3 f32 and 3 bf16 train steps at
-   batch 4096 (K2 10, K5b 1, K3 1 a step), each repeated bit for bit, a
+   select_step; `query_parts` once a rollout) and against the CPU path;
+   3 f32 and 3 bf16 train steps at
+   batch 4096 (K2 10, `query_parts` 1, K5b 1, K3 1 a step), each repeated
+   bit for bit, a
    step at batch 256 against the CPU path (the bf16 one under
    scripts/tpu_parity.py's gate); steps_per_call graphs (2d-basic k = 8 in
    both dtypes, 2d-rolling k = 4: phase 21's checks); a 2d-rolling train
-   step in each dtype (K2 50, K5b-steps 1, K3 1); at the main paths'
+   step in each dtype (K2 50, `query_parts` 1, K5b-steps 1, K3 1); at
+   the main paths'
    shapes (batch 4096: 2d-basic, and 2d-rolling's step grid) K2 in bf16
    over a whole rollout and in f32, both modes, at its middle step, and
    K5f/K5b (2d-basic) and K5f-steps/K5b-steps (2d-rolling) in both dtypes
    on one record, each against its plain version at the same tolerances,
    on the operands they are then timed on; K2 f32, K5b bf16 and K5b-steps
    bf16 launched twice bit-identical; times at 4096 of K2's main-path
-   mode and of the four
+   mode (on the kernels line with the full mode's and 2d-rolling's
+   beside it), of `query_parts` (both dtypes, with its plain version) and of
+   the four
    replay kernels in both dtypes, in turns, with their plain versions and
    bounds (the float32 ones also with the products at the 3xTF32 rate)
    and, beside K5b and K5b-steps, the fallback replay (`replay_logp_sum(
@@ -269,7 +278,10 @@ It prints the kernel table as one JSON line (each entry with its "dtype";
 the bf16 instantiations as entries of their own, and the hidden-256
 instantiations too, with a "hidden" key; the float32 hidden-256 replay
 entries add "bound_3xtf32_ms", the backward ones "fallback_ms", and
-K5b-steps' the witness record's "witness"), then the nvidia-smi line,
+K5b-steps' the witness record's "witness"; the float32 hidden-256 K2
+entry adds "bound_3xtf32_ms" too, and its "bound_ms" is the lower of
+that and the bound at the plain f32 rate; `query_parts`' "library_ms"
+is two torch.mm), then the nvidia-smi line,
 then `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -513,26 +525,28 @@ def main_path(cfg, actor, dev):
     from tapnet_torch.ops import policy_step as PS
 
     N = cfg.num_blocks
+    wide = int(actor.v.numel() > 128)  # query_parts: once per rollout
     inst = _instances(cfg, 4096, dev, SEED + 4)
     best_inst = inst.index(slice(0, 256))
-    PS.select_step.launches = 0
-    AS.actor_select_step.launches = 0
+    counters = (PS.select_step, AS.actor_select_step, AS.query_parts)
+    for f in counters:
+        f.launches = 0
     runs = {}
-    for policy, x, want in (("greedy", inst, (N, 0)),
-                            ("sample", inst, (0, N)),
-                            ("best", best_inst, (0, N))):
-        s0, a0 = PS.select_step.launches, AS.actor_select_step.launches
+    for policy, x, want in (("greedy", inst, (N, 0, 0)),
+                            ("sample", inst, (0, N, wide)),
+                            ("best", best_inst, (0, N, wide))):
+        before = [f.launches for f in counters]
         plan = pack(x, cfg, actor, policy=policy, key=SEED + 5,
                     n_samples=16)
-        got = (PS.select_step.launches - s0,
-               AS.actor_select_step.launches - a0)
+        got = tuple(f.launches - b for f, b in zip(counters, before))
         if got != want:
             raise AssertionError(f"pack({policy}) launches "
-                                 f"(select_step, actor_select_step) = {got}, "
-                                 f"expected {want}")
+                                 f"(select_step, actor_select_step, "
+                                 f"query_parts) = {got}, expected {want}")
         runs[policy] = (plan, x)
     launches = {"select_step": PS.select_step.launches,
-                "actor_select_step": AS.actor_select_step.launches}
+                "actor_select_step": AS.actor_select_step.launches,
+                "query_parts": AS.query_parts.launches}
     for policy, (plan, x) in runs.items():
         check_plan(plan, x, cfg, f"pack({policy})")
     return launches, inst
@@ -631,11 +645,13 @@ def actor_ops_split(cfg, B, h, tokens=None):
     tanh, the +v and the score adds of the attention (4 per (token,
     container, unit)). `tokens`: the (instance, token) columns to count for
     the token work instead of B * T (the live columns of the main path's
-    mode)."""
+    mode). Above hidden 128 a step's query multiplies only Wq's enc and
+    dsum columns (K = h + 8): the rest is `query_parts`' once a rollout."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD, T = cfg.target_width * cfg.target_depth, N * R
     tokens = B * T if tokens is None else tokens
-    enc = C * (h * (WD + 2) + h * h + h * (3 * h + 8))
+    fq = h + 8 if h > 128 else 3 * h + 8
+    enc = C * (h * (WD + 2) + h * h + h * fq)
     return (2 * B * enc + tokens * 2 * (32 * 8 + 32 * h),
             tokens * C * h * 4)
 
@@ -643,6 +659,16 @@ def actor_ops_split(cfg, B, h, tokens=None):
 def actor_ops_count(cfg, B, h, tokens=None):
     """f32 operations of one actor_select_step (`actor_ops_split`)."""
     return sum(actor_ops_split(cfg, B, h, tokens))
+
+
+def actor_tf32x3_ops_ms(cfg, B, h, tokens=None):
+    """The least time of a float32 actor_select_step's operations above
+    hidden 128 (`actor_ops_split`), where W2 e1 and Wq' [enc, dsum] run as
+    3xTF32 at TF32X3_OPS_S and W1 feats, the token work and the
+    elementwise at F32_OPS_S."""
+    gemm, elem = actor_ops_split(cfg, B, h, tokens)
+    tc = 2 * B * cfg.num_containers * (h * h + h * (h + 8))
+    return 1e3 * (tc / TF32X3_OPS_S + (gemm - tc + elem) / F32_OPS_S)
 
 
 def ops_ms(split, dtype):
@@ -664,14 +690,18 @@ def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
     dict."""
     from tapnet_torch.ops import actor_step as AS
 
-    pt = AS.transposed(ops[16])  # as the decode loop: once per rollout
+    # as the decode loop: once per rollout
+    pt = AS.transposed(ops[16])
+    wide = AS.wide_operands(ops[16], ops[13])
     ms = time_gpu(lambda: AS.actor_select_step(*ops, cfg, logits=False,
-                                               params_t=pt))
-    full = time_gpu(lambda: AS.actor_select_step(*ops, cfg, params_t=pt))
+                                               params_t=pt, wide=wide))
+    full = time_gpu(lambda: AS.actor_select_step(*ops, cfg, params_t=pt,
+                                                 wide=wide))
     plain = time_gpu(lambda: AS.actor_select_step_ref(*ops, cfg),
                      reps=plain_reps, sleep_cycles=plain_sleep)
-    out = AS.actor_select_step(*ops, cfg, logits=False, params_t=pt)
-    out_full = AS.actor_select_step(*ops, cfg, params_t=pt)
+    out = AS.actor_select_step(*ops, cfg, logits=False, params_t=pt,
+                               wide=wide)
+    out_full = AS.actor_select_step(*ops, cfg, params_t=pt, wide=wide)
     B = ops[1].shape[1]
     b, _ = AS.live_columns(out[5], cfg)
     cols = int(b.numel())
@@ -679,24 +709,40 @@ def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
     valid = int((out[5] == 1).sum())
     se, g = ops[12], ops[11]
     dt = se.dtype
-    rest = nbytes([x for i, x in enumerate(ops[:16]) if i not in (11, 12)])
+    # above hidden 128 the step reads the query's parts in place of ctx,
+    # E and Wq, and the ring's slabs in place of W1, W2
+    skip = (11, 12) if wide is None else (11, 12, 13)
+    rest = nbytes([x for i, x in enumerate(ops[:16]) if i not in skip])
     outs = nbytes([x for x in out if x is not None])
-    live_b = (rest + nbytes(ops[16]) + cols * h * se.element_size()
+    weights = (nbytes(ops[16]) if wide is None else nbytes(wide) + nbytes(
+        [p for i, p in enumerate(ops[16]) if i not in (3, 5, 7, 8)]))
+    live_b = (rest + weights + cols * h * se.element_size()
               + valid * 4 + outs)
-    all_b = nbytes(ops[:16]) + nbytes(ops[16]) + nbytes(out_full)
+    all_b = (nbytes([x for i, x in enumerate(ops[:16])
+                     if wide is None or i != 13])
+             + weights + nbytes(out_full))
     live_s = actor_ops_split(cfg, acting, h, cols)
     live_o = sum(live_s)
     all_s = actor_ops_split(cfg, B, h)
-    live_ops_ms = ops_ms(live_s, dt)
+    live_ops_ms, all_ops_ms = ops_ms(live_s, dt), ops_ms(all_s, dt)
+    res = {}
+    if dt == torch.float32 and wide is not None:
+        # W2 and Wq' run as 3xTF32: the lower of the two operation bounds
+        tf3 = actor_tf32x3_ops_ms(cfg, acting, h, cols)
+        res = {"f32_rate_bound": max(1e3 * live_b / HBM_BYTES_S,
+                                     live_ops_ms),
+               "bound_3xtf32": max(1e3 * live_b / HBM_BYTES_S, tf3)}
+        live_ops_ms = min(live_ops_ms, tf3)
+        all_ops_ms = min(all_ops_ms, actor_tf32x3_ops_ms(cfg, B, h))
     bound = max(1e3 * live_b / HBM_BYTES_S, live_ops_ms)
     return {"ms": ms, "full_ms": full, "plain_ms": plain, "cols": cols,
             "acting": acting, "pairs": B * cfg.num_blocks * cfg.num_rot,
             "bytes": live_b, "ops": live_o, "bound": bound,
             "bound_by": ("operations" if live_ops_ms
                          >= 1e3 * live_b / HBM_BYTES_S else "bytes"),
-            "all_bound": max(1e3 * all_b / HBM_BYTES_S, ops_ms(all_s, dt)),
+            "all_bound": max(1e3 * all_b / HBM_BYTES_S, all_ops_ms),
             "all_ops": sum(all_s), "se_bytes": nbytes([se]), "g_bytes":
-            nbytes([g])}
+            nbytes([g]), **res}
 
 
 def log_actor_times(tag, cfg, k):
@@ -707,7 +753,10 @@ def log_actor_times(tag, cfg, k):
         f"{k['cols']} of {k['pairs']} (instance, token) columns live; "
         f"{k['bytes']} B, {k['ops']} f32 ops over the live columns, bound "
         f"{k['bound']:.5f} ms ({k['bound_by']}); all tokens {k['all_ops']} "
-        f"f32 ops, bound {k['all_bound']:.5f} ms")
+        f"f32 ops, bound {k['all_bound']:.5f} ms"
+        + (f"; with W2 and Wq' as 3xTF32 (taken) {k['bound_3xtf32']:.5f} ms, "
+           f"all at the f32 rate {k['f32_rate_bound']:.5f} ms"
+           if "bound_3xtf32" in k else ""))
 
 
 # ------------------------------------------------------------------ #
@@ -946,6 +995,7 @@ def train_counters():
     from tapnet_torch.ops import reward as RW
     return {"select_step": PS.select_step,
             "actor_select_step": AS.actor_select_step,
+            "query_parts": AS.query_parts,
             "replay_logp_bwd": RP.replay_logp_bwd,
             "replay_logp_fwd": RP.replay_logp_fwd,
             "replay_logp_bwd_steps": RP.replay_logp_bwd_steps,
@@ -2798,8 +2848,9 @@ def time_actor_dtypes(kept, cfg, hidden=HIDDEN):
     run = {}
     for tag, ops in (("bf16", ops_b), ("f32", ops_f)):
         pt = AS.transposed(ops[16])
-        run[tag] = (lambda ops=ops, pt=pt: AS.actor_select_step(
-            *ops, cfg, logits=False, params_t=pt))
+        wide = AS.wide_operands(ops[16], ops[13])
+        run[tag] = (lambda ops=ops, pt=pt, wide=wide: AS.actor_select_step(
+            *ops, cfg, logits=False, params_t=pt, wide=wide))
     turns = [time_gpu(run[t]) for t in ("f32", "bf16", "bf16", "f32")]
     k = time_actor_step(ops_b, cfg, hidden, plain_reps=5,
                         plain_sleep=200_000_000)
@@ -3202,19 +3253,20 @@ def phase_25(dev):
 
 
 # ------------------------------------------------------------------ #
-# phase 26: K2 and K5 at hidden widths above 128 (two head passes)
+# phase 26: K2 and K5 at hidden widths above 128
 
-WIDE = (160, 192, 224, 256)  # the hidden widths of the two-pass head
+WIDE = (160, 192, 224, 256)  # the hidden widths of the WH instantiations
 WIDE_H = 256                 # the widest, at full batch
 
 
 def wide_shapes(h):
-    """(config, batch, temperature) where the two head passes of 16
-    instances can break at hidden h: 2d-basic at 512, a ragged batch of 100
-    (the last tile's second pass empty), multi-container at temperature 0.7
-    (C = 2, W*D + 2 = 66) and, at 160 (5 rows a thread: the odd-row
-    products) and 256, 2d-rolling (window 10, 50 blocks: K2's 64-bit
-    words, K5's step grid)."""
+    """(config, batch, temperature) where the wide bodies can break at
+    hidden h (K5's two head passes of 16 instances, K2's ring products):
+    2d-basic at 512, a ragged batch of 100 (the last tile's second pass
+    empty, a tile of 4 instances), multi-container at temperature 0.7 (C =
+    2, W*D + 2 = 66: three W1 slabs) and, at 160 (odd row counts: 5, 10 a
+    thread) and 256, 2d-rolling (window 10, 50 blocks: K2's 64-bit words,
+    K5's step grid)."""
     return ([("2d-basic", 512, 1.0), ("2d-basic", 100, 1.0),
              ("multi-container", 512, 0.7)]
             + ([("2d-rolling", 512, 1.0)] if h in (160, WIDE_H) else []))
@@ -3313,6 +3365,74 @@ def check_witness(dev):
     return res
 
 
+def check_query_parts(dev):
+    """K2's once-per-rollout query parts (`ops.actor_step.query_parts`, its
+    own launch) against the plain version on the card, both dtypes, every
+    width of WIDE, on 2d-basic and 2d-rolling rollouts' operands at batch
+    512: within TOL of the plain float32 products (TF32 off), two launches
+    bit-identical. Returns the largest error per dtype."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import random as R
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import actor_step as AS
+
+    errs = {"f32": 0.0, "bf16": 0.0}
+    for h in WIDE:
+        for name in ("2d-basic", "2d-rolling"):
+            cfg = CONFIGS[name]
+            actor = init_params(SEED, cfg, h, dev)
+            inst = _instances(cfg, 512, dev, SEED + 2)
+            for dt, tag in ((torch.float32, "f32"), (BF16, "bf16")):
+                with torch.no_grad():
+                    o = actor_operands(actor, inst, cfg,
+                                       R.split(R.key(SEED + 3, dev), 512), dt)
+                    got = AS.query_parts(o["params"], o["ctx"])
+                    again = AS.query_parts(o["params"], o["ctx"])
+                    want = AS.query_parts_ref(o["params"], o["ctx"])
+                for part, g, a, w in zip(("ctx", "emb"), got, again, want):
+                    _equal(f"query_parts {tag} h={h} {name} {part} repeat",
+                           g, a)
+                    d = (g - w).abs()
+                    if not bool((d <= TOL + TOL * w.abs()).all()):
+                        raise AssertionError(
+                            f"query_parts {tag} h={h} {name} {part}: max "
+                            f"err {d.max().item()}")
+                    errs[tag] = max(errs[tag], d.max().item())
+    return errs
+
+
+def time_query_parts(actor, cfg, dev, dtype):
+    """query_parts at batch B_MAIN on one rollout's operands: ms per launch,
+    the plain version's (two torch.mm), the bound (bytes: Wq's ctx and
+    embedding columns, ctx and E read once, the f32 outputs written once;
+    operations: 2 per multiply-add at the dtype's peak, `ops_ms`)."""
+    from tapnet_torch import random as R
+    from tapnet_torch.ops import actor_step as AS
+
+    inst = _instances(cfg, B_MAIN, dev, SEED + 4)
+    with torch.no_grad():
+        o = actor_operands(actor, inst, cfg,
+                           R.split(R.key(SEED + 5, dev), B_MAIN), dtype)
+    p, ctx = o["params"], o["ctx"]
+    h, B, A1 = ctx.shape[0], ctx.shape[1], p[7].shape[1]
+    ms = time_gpu(lambda: AS.query_parts(p, ctx))
+    plain = time_gpu(lambda: AS.query_parts_ref(p, ctx))
+    # the library: one torch.mm an output, on float32 operands (a bfloat16
+    # torch.mm rounds its result to bfloat16, another function), the
+    # casts made before the timing
+    wq, c32, et = p[8].float(), ctx.float(), p[7].float()
+    wc, we = wq[:, h:2 * h], wq[:, 2 * h:3 * h]
+    lib = time_gpu(lambda: (torch.mm(wc, c32), torch.mm(we, et)))
+    size = ctx.element_size()
+    nb = size * (h * 2 * h + h * B + h * A1) + 4 * h * (B + A1)
+    gemm = 2 * h * h * (B + A1)
+    ops = ops_ms((gemm, 0), dtype)
+    by_bytes = 1e3 * nb / HBM_BYTES_S
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound": max(by_bytes, ops),
+            "bound_by": "operations" if ops >= by_bytes else "bytes"}
+
+
 def check_k2_repeat(kept, cfg):
     """Two launches of K2 in float32, each mode, on one step's operands:
     every output bit-identical."""
@@ -3349,6 +3469,11 @@ def phase_26(dev):
     # 1. every wide width against the plain versions; the plan and record
     # mirrors; the witness record
     errs = check_wide_kernels(dev, lambda m: log(f"{stamp()} {m}"))
+    qp_err = check_query_parts(dev)
+    log(f"{stamp()} query_parts (once per rollout) at hidden {WIDE} on "
+        f"2d-basic and 2d-rolling B=512 against the plain version: max abs "
+        f"err f32 {qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
+        "bit-identical")
     log(f"{stamp()} replay plan and record mirrors equal to the kernel's "
         f"on {check_replay_smem_mirror()} and {check_replay_record_mirror()} "
         "cases")
@@ -3367,8 +3492,8 @@ def phase_26(dev):
     log(f"{stamp()} pack() 2d-basic hidden {h}: launches {launches} (greedy "
         "K1 x10; sample and best-of-16 K2 x10 each, no select_step)")
     check_against_cpu(cfg, actor, inst, dev)
-    per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
-                "heightmap_reductions": 1}
+    per_step = {"actor_select_step": cfg.num_blocks, "query_parts": 1,
+                "replay_logp_bwd": 1, "heightmap_reductions": 1}
     train_f, ts, step = train_main_path(cfg, dev, per_step, n_steps=3,
                                         hidden=h)
     log(f"{stamp()} train path 2d-basic hidden {h} batch {B_MAIN} "
@@ -3391,12 +3516,13 @@ def phase_26(dev):
             ("2d-basic", cfg, per_step, 8, None),
             ("2d-basic bf16", cfg, per_step, 8, BF16),
             ("2d-rolling", rcfg, {"actor_select_step": rcfg.num_blocks,
+                                  "query_parts": 1,
                                   "replay_logp_bwd_steps": 1,
                                   "heightmap_reductions": 1}, 4, None)):
         rows[name] = check_graph_steps(f"{name} hidden {h}", c, dev, ps, k,
                                        B_MAIN, hidden=h, compute_dtype=dt,
                                        tag="phase 26")
-    roll_step = {"actor_select_step": rcfg.num_blocks,
+    roll_step = {"actor_select_step": rcfg.num_blocks, "query_parts": 1,
                  "replay_logp_bwd_steps": 1, "heightmap_reductions": 1}
     roll_f, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=1,
                                    hidden=h)
@@ -3430,6 +3556,14 @@ def phase_26(dev):
         log(f"{stamp()} actor_select_step hidden {h} main-path mode {name} "
             f"B={B_MAIN} in turns: f32 {k2[name]['bf16']['f32_turns']}, "
             f"bf16 {k2[name]['bf16']['bf16_turns']} ms/launch")
+    qp = {dt: time_query_parts(actor, cfg, dev, d)
+          for dt, d in (("float32", torch.float32), ("bfloat16", BF16))}
+    for dt, r in qp.items():
+        log(f"{stamp()} query_parts hidden {h} 2d-basic B={B_MAIN} {dt}: "
+            f"{r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}; two "
+            f"torch.mm on f32 operands {r['library_ms']:.4f}; bound "
+            f"{r['bound']:.5f} ms, "
+            f"{r['bound_by']}), once per rollout")
     kb = {}
     for key, c in (("mono", cfg), ("steps", rcfg)):
         a = actor if c is cfg else init_params(SEED, c, h, dev)
@@ -3476,7 +3610,7 @@ def phase_26(dev):
     log(f"{stamp()} done in {time.perf_counter() - t0:.1f} s")
 
     def entry(name, replaces, dt, launches, err, ms, plain, bound, by):
-        src = "actor_step.cu" if name == "actor_select_step" else "replay.cu"
+        src = "replay.cu" if name.startswith("replay") else "actor_step.cu"
         return {"name": name, "route": "cuda",
                 "source": f"tapnet_torch/csrc/{src}",
                 "replaces": f"tapnet_tpu/ops/{replaces}",
@@ -3496,6 +3630,25 @@ def phase_26(dev):
         train_b["actor_select_step"] + roll_b["actor_select_step"],
         errs["K2 bf16"], k2b["ms"], k2b["plain_ms"], k2b["bound"],
         k2b["bound_by"]))
+    # both modes at both shapes beside the 2d-basic main-path figures
+    for e, dt in zip(kernels[-2:], ("f32", "bf16")):
+        e["full_ms"] = k2["2d-basic"][dt]["full_ms"]
+        r = k2["2d-rolling"][dt]
+        e["2d-rolling"] = {"ms": r["ms"], "full_ms": r["full_ms"],
+                           "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+                           "bound_by": r["bound_by"]}
+        if "bound_3xtf32" in r:  # bound_ms is the lower one, 3xTF32's
+            e["bound_3xtf32_ms"] = k2["2d-basic"][dt]["bound_3xtf32"]
+            e["2d-rolling"]["bound_3xtf32_ms"] = r["bound_3xtf32"]
+    for dt, tr in (("float32", (launches, train_f, roll_f)),
+                   ("bfloat16", (train_b, roll_b))):
+        r = qp[dt]
+        kernels.append(entry(
+            "query_parts", "pallas_actor_step.py:243", dt,
+            sum(t["query_parts"] for t in tr), qp_err["f32" if dt ==
+                                                     "float32" else "bf16"],
+            r["ms"], r["plain_ms"], r["bound"], r["bound_by"]))
+        kernels[-1]["library_ms"] = r["library_ms"]
     for key, suffix in (("mono", ""), ("steps", "_steps")):
         lines = {"mono": ("596", "652"), "steps": ("582", "635")}[key]
         for d, line in zip(("fwd", "bwd"), lines):

@@ -88,21 +88,45 @@
 //   be a multiple of 32, at most 256.
 //
 // Hidden widths above 128 (WH, h = 160..256). The tile stays 32
-// instances, so phases 0 and 3, the column list and the placement are the
-// ones above; the head (phases 1-2) runs in two passes of TP = 16
-// instances each (Geo): the encoder view, q and the token view hold one
-// pass, which halves the [feature][instance] arrays that grow with h (at
-// h = 256 and the stride of 33 they alone would fill the block). A pass
-// loads its own rows of qin (ctx, the previous action's embedding, the
-// count summary, which phase 0 writes when one pass covers the tile), and
-// its columns are cols[off[p0] .. off[p0 + 16]), the list being in
-// (instance, token) order. In the products a virtual warp of 16 lanes owns
-// h/32 <= 8 rows of one instance (the register tile of h = 128); the token
-// groups are 32 columns of 2 a warp with 8 rows a lane; the float32 weight
-// slices are 32 rows and the bfloat16 slabs 32 columns (mv_mma with 16
-// lanes: one row tile a warp, both column tiles; its B pairs in rows of 24
-// words). Every sum keeps one owner and one order, so two launches are
-// bit-identical. At h <= 128 the instantiations are the ones above.
+// instances and phases 0 and 3, the column list and the placement are the
+// ones above; the head's products run once over the whole tile, so that a
+// block streams each weight once per container and step:
+// - the query's step-invariant part is made once per rollout by
+//   `query_parts_kernel` (below): Wq_ctx ctx [h][B] and Wq_emb E [h][A+1]
+//   (the ctx and previous-action columns of Wq against the mean static key
+//   and the embedding table), each an f32 sum of exact products. A step
+//   streams only W1, W2 and Wq's enc and dsum columns (Wq', K = h + 8)
+//   and starts the query's accumulators at Wq_ctx ctx + Wq_emb E[:, prev
+//   + 1], then adds Wq' [enc, dsum] and, as before, the bias: about half
+//   of the weights of the full qin (K = 3h + 8), and qin shrinks to h + 8
+//   rows, which is what lets one pass of 32 instances fit the plan.
+// - the weights arrive through the weight ring (ring_bf16.cuh): 16 KB
+//   slabs (h rows x 32 bfloat16 columns, or 16 float32 columns: W1's as
+//   16 rows of W1^T, W2's and Wq''s in A-fragment order), laid out once
+//   per rollout by ops/actor_step.py `ring_slabs`, one bulk copy a slab
+//   into 3 stages with an mbarrier each: no block barrier per slab, and a
+//   container's chain W1, W2, Wq' finds the next matrix's first slabs in
+//   flight.
+// - float32: W1 feats SIMT (it decides e1's ReLU gates): a thread owns RW
+//   = h / 16 rows (10..16) of one instance (lane = instance, warp = row
+//   group), one load of the instance's x feeding RW multiply-adds with the
+//   weights read as float4 / float2 broadcasts; W2 e1 and Wq' [enc, dsum]
+//   as 3xTF32 mma.sync (mma_tf32.cuh), warp wy < h / 16 owning a row tile
+//   and all four column tiles, its A fragments two 16-byte loads a lane
+//   from slabs laid out in fragment order: the SIMT form issued ~190
+//   cycles a k-row (two shared loads per four multiply-adds), 3x the
+//   ring's stream (PERF.md §6).
+// - bfloat16: warp wy < h / 16 owns the row tile 16 wy .. + 15 and all four
+//   column tiles of 8 instances, so each A fragment (ldmatrix from the
+//   swizzled slab) feeds four mma; the B operands are bfloat16 copies
+//   [K16][32] (`xs32_at`, chunks swizzled) read by ldmatrix .trans. feats,
+//   e1 and [enc, dsum] live only as those copies (each value is rounded to
+//   bfloat16 where the JAX kernel casts, so the copy is exact).
+// - the token groups run over the tile's columns in groups of G = 32 (a
+//   warp 2 columns, a lane 8 rows), q [C][h][33] holding the whole tile.
+// Every sum keeps one owner and one order, so two launches are
+// bit-identical and both modes give an acting instance the same scores.
+// At h <= 128 the instantiations are the ones above.
 //
 // Compute dtype (the JAX kernel's static `dtype`): the element type E of
 // the float operands, float or __nv_bfloat16 (v, the gumbel, t/N, the
@@ -159,6 +183,8 @@
 
 #include "geo.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
+#include "ring_bf16.cuh"
 #include "select_place.cuh"
 
 namespace {
@@ -211,6 +237,10 @@ struct HeadW {
   const E *w8t, *b8, *wpt, *w1t, *b1, *w2t, *b2, *et, *wqt, *bq;
   const float* v;
   const E *w1T, *w2T, *wqT;  // W1, W2, Wq transposed: [in][h]
+  // WH: Wq_ctx ctx [h][B] and Wq_emb E [h][A+1] (once per rollout), and
+  // the ring slabs of W1, W2, Wq' (`ring_slabs`; float32 slabs as pairs)
+  const float *qctx, *qemb;
+  const bf16* slabs;
 };
 
 template <class E>
@@ -233,12 +263,12 @@ struct ActorIO {
 
 __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 
-// 32-bit words of the tensor-core plan's B operand as bfloat16 pairs: the
-// longest k of the encoder/query products (W*D + 2, 3h + 8) padded to 16
-template <bool WH>
+// 32-bit words of the tensor-core plan's B operand as bfloat16 pairs (h <=
+// 128): the longest k of the encoder/query products (W*D + 2, 3h + 8)
+// padded to 16
 __host__ __device__ inline int xb_words(int WD, int h) {
   const int k = WD + 2 > 3 * h + 8 ? WD + 2 : 3 * h + 8;
-  return (k + 15) / 16 * 8 * tapnet::mv_mma_xs<Geo<WH>::TP>();
+  return (k + 15) / 16 * 8 * tapnet::MMA_XS;
 }
 
 // Shared-memory plan, in floats from the base (every region 16-byte
@@ -248,10 +278,9 @@ __host__ __device__ inline int xb_words(int WD, int h) {
 // fragment's column reads hit 32 banks; the group's dyn [G][h+4]; the
 // encoder/query weights as two bfloat16 slabs of h (KSL + 8) / 2 floats
 // each, and the product's B operand as bfloat16 pairs, `xb_words`). WH:
-// the head's arrays (q, the encoder view, the token view) hold a pass of
-// TP = 16 instances (Geo).
+// `layout_wh`.
 struct Lay {
-  int ws, w8, b8, v, q, sc, enc, tok, floats;
+  int ws, w8, b8, v, q, sc, enc, tok, bar, floats;
 };
 
 template <bool WH>
@@ -259,10 +288,46 @@ __host__ __device__ inline int h1_stride(bool tc) {
   return tc ? Geo<WH>::G + 4 : Geo<WH>::G;
 }
 
+// rows of the WH encoder view X: feats [WD+2], then [enc, dsum] [h+8]
+__host__ __device__ inline int wh_rows(int WD, int h) {
+  return WD + 2 > h + 8 ? WD + 2 : h + 8;
+}
+
+// The WH plan (the design note): Wp, W8, b8, v as below; q [C][h][LD]; the
+// scores; the encoder view X [wh_rows][LD] and e1 [h][LD] as float or, tc,
+// as bfloat16 copies [rows16][32] (`xs32_at`); then the token view, the
+// weight ring's stages or phase 0's and 3's rows; then the ring's
+// mbarriers and release counts and each instance's column of the
+// query's embedding part (prev + 1).
+__host__ __device__ inline Lay layout_wh(int N, int R, int C, int WD, int h,
+                                         bool tc) {
+  constexpr int G = Geo<true>::G;
+  const int T = N * R, A = T * C, L = (N + 30) / 31, XR = wh_rows(WD, h);
+  Lay y;
+  int o = 0;
+  y.ws = o;  o += tc ? up4(h * WPS / 2) : up4(32 * h);
+  y.w8 = o;  o += 32 * 8;
+  y.b8 = o;  o += 32;
+  y.v = o;   o += up4(h);
+  y.q = o;   o += up4(C * h * LD);
+  y.sc = o;  o += A * TB;
+  y.enc = o; o += tc ? ((XR + 15) / 16 * 16 + h) * 16 : up4((XR + h) * LD);
+  const int tok = 8 * G + 32 * h1_stride<true>(tc) + (tc ? G * (h + 4) : 0);
+  const int ring = tapnet::RING_S * h * tapnet::RING_K / 2;
+  const int rows0 = (N + 2 * L * N + R * N) * TB;
+  const int rows3 = (13 + 8 * NWARP + C * WD + 3 * N) * TB;
+  const int a = tok > ring ? tok : ring, r = rows0 > rows3 ? rows0 : rows3;
+  y.tok = o; o += a > r ? a : r;
+  y.bar = o; o += up4(3 * tapnet::RING_S + TB);
+  y.floats = o;
+  return y;
+}
+
 template <bool WH>
 __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
                                       bool tc) {
-  using Q = Geo<WH>;
+  if constexpr (WH) return layout_wh(N, R, C, WD, h, tc);
+  using Q = Geo<false>;
   constexpr int LP = Q::LP, G = Q::G;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, L = (N + 30) / 31;
   Lay y;
@@ -280,9 +345,9 @@ __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
   // rows (packed, limbs, fits) as ints; or phase 3's decisions [13][TB],
   // the warps' partial results [8][NWARP][TB] and rows (heightmaps
   // [C*W*D], dims [3N]) as ints
-  const int tok = 8 * G + 32 * h1_stride<WH>(tc) + (tc ? G * (h + 4) : 0);
-  const int stage = tc ? h * (Q::KSL + 8) + xb_words<WH>(WD, h)  // mv_mma
-                       : Q::KS * h;                                // mv_tiled
+  const int tok = 8 * G + 32 * h1_stride<false>(tc) + (tc ? G * (h + 4) : 0);
+  const int stage = tc ? h * (Q::KSL + 8) + xb_words(WD, h)  // mv_mma
+                       : Q::KS * h;                            // mv_tiled
   const int rows0 = (N + 2 * L * N + R * N) * TB;
   const int rows3 = (13 + 8 * NWARP + C * WD + 3 * N) * TB;
   const int big = tok > stage ? tok : stage;
@@ -300,24 +365,24 @@ __host__ __device__ inline int n_ints(int N, int R) {
   return 12 * TB + TOKW * TB + TB + 1 + 1 + TB * N * R;
 }
 
-// The float32 products (the bfloat16 instantiations run mv_mma).
-// out[j] = sum_k W[j, k] x[k][n] for every row j < h and instance n of the
-// pass (a virtual warp vw of TP lanes owns the RW = h/NVW rows vw*RW ..),
-// W given transposed, WT [cols][h]: slices of KS of its rows are copied to
-// shared memory S as they lie (16-byte loads, the next slice's loads in
-// flight while this one is multiplied) and read as float4 (h = 64, 128,
-// 256), float2 or (RW odd: h = 160, 224) float broadcasts, so one load of
-// x feeds RW multiply-adds. emit(j, n, acc) stores row j. The caller
-// follows with a barrier before S or the outputs are reused.
-template <bool WH, class Emit>
+// The float32 products at h <= 128 (the bfloat16 instantiations run
+// mv_mma; WH the ring products below).
+// out[j] = sum_k W[j, k] x[k][n] for every row j < h and instance n (warp
+// vw owns the RW = h/NWARP rows vw*RW ..), W given transposed, WT
+// [cols][h]: slices of KS of its rows are copied to shared memory S as
+// they lie (16-byte loads, the next slice's loads in flight while this one
+// is multiplied) and read as float4 (h = 64, 128) or float2 broadcasts, so
+// one load of x feeds RW multiply-adds. emit(j, n, acc) stores row j. The
+// caller follows with a barrier before S or the outputs are reused.
+template <class Emit>
 __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
                          const float* x, float* S, int n, int vw, int tid,
                          Emit emit) {
-  using Q = Geo<WH>;
+  using Q = Geo<false>;
   constexpr int PV = 4;                      // floats per 16 bytes
   constexpr int KS = Q::KS, LP = Q::LP;
   constexpr int NV = KS * 32 * Q::MAXR / PV / NT;  // a slice of KS * h
-  const int RW = h / Q::NVW;  // 2 (h = 32) .. 8 (h = 128); 5 .. 8 (WH)
+  const int RW = h / Q::NVW;  // 2 (h = 32) .. 8 (h = 128)
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const uint4* src = reinterpret_cast<const uint4*>(WT);
   uint4 v[NV];
@@ -357,7 +422,7 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
           }
         }
       }
-    } else if (!WH || RW % 2 == 0) {
+    } else {
 #pragma unroll 4
       for (int kk = 0; kk < nk; ++kk) {
         const float xv = x[(k0 + kk) * LP + n];
@@ -371,20 +436,185 @@ __device__ void mv_tiled(const float* __restrict__ WT, int h, int cols,
           }
         }
       }
-    } else {
-#pragma unroll 4
-      for (int kk = 0; kk < nk; ++kk) {
-        const float xv = x[(k0 + kk) * LP + n];
-        const float* sw = S + kk * h + vw * RW;
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-          if (r < RW) acc[r] = fmaf(sw[r], xv, acc[r]);
-      }
     }
   }
 #pragma unroll
   for (int r = 0; r < 8; ++r)
     if (r < RW) emit(vw * RW + r, n, acc[r]);
+}
+
+// ---- the WH products on the weight ring (the design note)
+using tapnet::Chain;
+using tapnet::Ring;
+using tapnet::RING_K;
+constexpr int KR = RING_K / 2;  // float32: rows of W^T in a slab
+
+// The bfloat16 copy [K16][32] of a B operand (the tile's 32 instances):
+// row k's four 16-byte chunks swizzled (chunk c at c ^ ((k >> 1) & 3)), so
+// that the 8 rows of an ldmatrix matrix (row stride 64 bytes) fall in 8
+// different bank groups. The element (k, n):
+__device__ __forceinline__ int xs32_at(int k, int n) {
+  return 32 * k + 8 * ((n >> 3) ^ ((k >> 1) & 3)) + (n & 7);
+}
+
+// out[j][n] = init(j, n) + sum_k W[j, k] x[k][n], j < h, n < 32: float32,
+// slabs a .. of chain c hold W^T [K][h] in KR rows each; x [K][LD]. Warp wy
+// owns the rows wy RW .. + RW - 1 (RW = h / 16), lane n the instance; every
+// k in order, one fused multiply-add each. emit(j, n, acc).
+template <class Init, class Emit>
+__device__ void ring_mv_f32(const Ring& rg, const Chain& c, int a, int K,
+                            int h, const float* x, int lane, int wy,
+                            Init init, Emit emit) {
+  const int RW = h / NWARP, j0 = wy * RW;
+  float acc[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) acc[r] = r < RW ? init(j0 + r, lane) : 0.f;
+  tapnet::ring_take(rg, c, a, (K + KR - 1) / KR, NWARP, wy, lane,
+                    [&](const unsigned short* slab, int s) {
+    const float* S = reinterpret_cast<const float*>(slab) + j0;
+    const float* xk = x + s * KR * LD + lane;
+    const int nk = min(KR, K - s * KR);
+    if (RW % 4 == 0) {  // h = 192, 256
+#pragma unroll 4
+      for (int kk = 0; kk < nk; ++kk) {
+        const float xv = xk[kk * LD];
+#pragma unroll
+        for (int r = 0; r < 16; r += 4) {
+          if (r < RW) {
+            const float4 w = *reinterpret_cast<const float4*>(S + kk * h + r);
+            acc[r] = fmaf(w.x, xv, acc[r]);
+            acc[r + 1] = fmaf(w.y, xv, acc[r + 1]);
+            acc[r + 2] = fmaf(w.z, xv, acc[r + 2]);
+            acc[r + 3] = fmaf(w.w, xv, acc[r + 3]);
+          }
+        }
+      }
+    } else {  // h = 160, 224: RW = 10, 14
+#pragma unroll 4
+      for (int kk = 0; kk < nk; ++kk) {
+        const float xv = xk[kk * LD];
+#pragma unroll
+        for (int r = 0; r < 16; r += 2) {
+          if (r < RW) {
+            const float2 w = *reinterpret_cast<const float2*>(S + kk * h + r);
+            acc[r] = fmaf(w.x, xv, acc[r]);
+            acc[r + 1] = fmaf(w.y, xv, acc[r + 1]);
+          }
+        }
+      }
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+    if (r < RW) emit(j0 + r, lane, acc[r]);
+}
+
+// The same as 3xTF32 on the tensor cores (mma_tf32.cuh: each f32 operand
+// split into tf32 hi + lo, three passes into an f32 accumulator), for W2
+// and Wq' in float32: slabs a .. of chain c hold W [h][K] in 16 columns
+// each, laid out in the A fragments' order (`ring_slabs`): for the row tile
+// m and lane 4 g + t, the columns 4 t .. 4 t + 3 of row 16 m + g (u), then
+// of row 16 m + 8 + g (v), 16 bytes each, so a warp's A fragments of a slab
+// are two conflict-free 16-byte loads a lane. The two k-steps of a slab
+// take its columns in the order 4 t, 4 t + 1 (the fragment's columns t, t
+// + 4) and 4 t + 2, 4 t + 3, x's rows alike (mm_tf32's order). Warp wy <
+// h / 16 owns the row tile 16 wy .. + 15 and the four column tiles.
+template <class Init, class Emit>
+__device__ void ring_mm_tf32(const Ring& rg, const Chain& c, int a, int K,
+                             int h, const float* x, int lane, int wy,
+                             Init init, Emit emit) {
+  const int nw = h / 16, g = lane >> 2, t = lane & 3, m0 = 16 * wy;
+  if (wy >= nw) return;
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int n = 8 * u + 2 * t;
+    acc[u][0] = init(m0 + g, n);
+    acc[u][1] = init(m0 + g, n + 1);
+    acc[u][2] = init(m0 + g + 8, n);
+    acc[u][3] = init(m0 + g + 8, n + 1);
+  }
+  tapnet::ring_take(rg, c, a, (K + 15) / 16, nw, wy, lane,
+                    [&](const unsigned short* slab, int s) {
+    const float* S = reinterpret_cast<const float*>(slab) + 256 * wy + 4 * lane;
+    const float4 u = *reinterpret_cast<const float4*>(S);
+    const float4 v = *reinterpret_cast<const float4*>(S + 128);
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      unsigned ah[4], al[4];
+      tapnet::split_tf32(st ? u.z : u.x, ah[0], al[0]);
+      tapnet::split_tf32(st ? v.z : v.x, ah[1], al[1]);
+      tapnet::split_tf32(st ? u.w : u.y, ah[2], al[2]);
+      tapnet::split_tf32(st ? v.w : v.y, ah[3], al[3]);
+      const int k = 16 * s + 4 * t + 2 * st;  // x's rows k and k + 1
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned bh[2], bl[2];
+        const float* xp = x + k * LD + 8 * q + g;
+        tapnet::split_tf32(k < K ? xp[0] : 0.f, bh[0], bl[0]);
+        tapnet::split_tf32(k + 1 < K ? xp[LD] : 0.f, bh[1], bl[1]);
+        tapnet::mma3(acc[q], ah, al, bh, bl);
+      }
+    }
+  });
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int n = 8 * u + 2 * t;
+    emit(m0 + g, n, acc[u][0]);
+    emit(m0 + g, n + 1, acc[u][1]);
+    emit(m0 + g + 8, n, acc[u][2]);
+    emit(m0 + g + 8, n + 1, acc[u][3]);
+  }
+}
+
+// The same in bfloat16 on the tensor cores: slabs a .. of chain c hold W
+// [h][K] (ring_bf16.cuh's swizzled slabs of RING_K columns), xs the copy
+// [K16][32] of x (rows K .. K16 zero). Warp wy < h / 16 owns the row tile
+// 16 wy .. + 15 and the four column tiles: per 16 columns of W one A
+// fragment, two ldmatrix .trans of B (column tiles 0-1, 2-3), four mma.
+template <class Init, class Emit>
+__device__ void ring_mv_tc(const Ring& rg, const Chain& c, int a, int K,
+                           int h, const unsigned short* xs, int lane, int wy,
+                           Init init, Emit emit) {
+  const int nw = h / 16, g = lane >> 2, t = lane & 3, m0 = 16 * wy;
+  if (wy >= nw) return;
+  float acc[4][4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int n = 8 * u + 2 * t;
+    acc[u][0] = init(m0 + g, n);
+    acc[u][1] = init(m0 + g, n + 1);
+    acc[u][2] = init(m0 + g + 8, n);
+    acc[u][3] = init(m0 + g + 8, n + 1);
+  }
+  tapnet::ring_take(rg, c, a, (K + RING_K - 1) / RING_K, nw, wy, lane,
+                    [&](const unsigned short* slab, int s) {
+#pragma unroll
+    for (int kc = 0; kc < RING_K / 16; ++kc) {
+      const int k0 = s * RING_K + 16 * kc;
+      if (k0 < K) {
+        unsigned av[4], b01[4], b23[4];
+        tapnet::ldsm_slab(av, slab, m0, kc, lane);
+        const int k = k0 + (lane & 15), c0 = lane >> 4;
+        tapnet::ldsm_t(b01, xs + 32 * k + 8 * (c0 ^ ((k >> 1) & 3)));
+        tapnet::ldsm_t(b23, xs + 32 * k + 8 * ((2 + c0) ^ ((k >> 1) & 3)));
+        const unsigned b0[2] = {b01[0], b01[1]}, b1[2] = {b01[2], b01[3]};
+        const unsigned b2[2] = {b23[0], b23[1]}, b3[2] = {b23[2], b23[3]};
+        mma(acc[0], av, b0);
+        mma(acc[1], av, b1);
+        mma(acc[2], av, b2);
+        mma(acc[3], av, b3);
+      }
+    }
+  });
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int n = 8 * u + 2 * t;
+    emit(m0 + g, n, acc[u][0]);
+    emit(m0 + g, n + 1, acc[u][1]);
+    emit(m0 + g + 8, n, acc[u][2]);
+    emit(m0 + g + 8, n + 1, acc[u][3]);
+  }
 }
 
 __device__ inline float warp_sum(float x) {
@@ -427,6 +657,13 @@ __device__ __forceinline__ Word column(const int* m, int i, int N, int lane) {
 
 using tapnet::PlacePart;
 
+// Phase marks for `python -m tapnet_torch.profile_phases`: K2_MARK(k)
+// ends phase k (K2_PHASES there names them). They expand to nothing here;
+// the profiler's copy defines them as clock reads.
+#ifndef K2_MARK
+#define K2_MARK(k)
+#endif
+
 template <bool MCS, bool WIDE, bool LOGITS, bool WH, class E>
 __global__ void __launch_bounds__(NT, 1)
 actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
@@ -435,19 +672,18 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
   // bfloat16: the products on the tensor cores (the design note)
   constexpr bool TC = std::is_same_v<E, bf16>;
-  // the head's passes (Geo): TP instances each, LP their arrays' stride
+  // the token groups (Geo): G columns, CPW a warp, MAXR rows a lane
   using Q = Geo<WH>;
-  constexpr int TP = Q::TP, LP = Q::LP, NVW = Q::NVW, CPW = Q::CPW;
-  constexpr int G = Q::G, MAXR = Q::MAXR;
+  constexpr int CPW = Q::CPW, G = Q::G, MAXR = Q::MAXR;
+  // the products run over the tile's 32 instances at every h
+  constexpr int TP = TB, LP = LD, NVW = NWARP;
   extern __shared__ __align__(16) float smem[];
   const int N = c.N, R = c.R, C = c.C, WD = c.W * c.D;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, NL = (N + 30) / 31;
   const int RPL = h / 32, GS = h1_stride<WH>(TC), HP = h + 4;
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
   const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  // a pass's instance and virtual warp (lane and warp when TP = TB)
-  const int vl = TP == TB ? lane : lane % TP;
-  const int vw = TP == TB ? wy : wy * (TB / TP) + lane / TP;
+  const int vl = lane, vw = wy;  // an instance and a row group (mv_tiled)
   const int tile0 = blockIdx.x * TB;
   const int b = tile0 + lane;
   const bool active = b < B;
@@ -462,8 +698,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   float* vs = smem + L.v;
   float* qs = smem + L.q;     // [C][h][LP]
   float* sc = smem + L.sc;    // [A][TB]
-  // the pass's instances: feats [WD+2][LP], e1 [h][LP], qin [3h+8][LP]:
-  // enc, ctx, prev, dsum
+  // feats [WD+2][LP], e1 [h][LP], qin [3h+8][LP]: enc, ctx, prev, dsum
   float* feats = smem + L.enc;
   float* e1 = feats + (WD + 2) * LP;
   float* qin = e1 + h * LP;
@@ -482,6 +717,24 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   int* off = (int*)(tw + TOKW * TB);        // [TB+1] column offsets
   int* flag = off + TB + 1;                 // the tile has a column
   int* cols = flag + 1;                     // [TB*T]: t << 5 | lane
+  // WH: the encoder view X [wh_rows][LD] (feats, then [enc, dsum]) and e1
+  // [h][LD]; tc: their bfloat16 copies [rows16][32] only; the weight ring
+  // (stages in the token view) and each instance's query column prev + 1
+  const int XR = wh_rows(WD, h), XR16 = (XR + 15) & ~15;
+  float* X = smem + L.enc;
+  float* e1w = X + XR * LD;
+  unsigned short* Xs = reinterpret_cast<unsigned short*>(smem + L.enc);
+  unsigned short* E1s = Xs + XR16 * 32;
+  int* qcol = nullptr;
+  Ring ring{};
+  if constexpr (WH) {
+    constexpr int NS = tapnet::RING_S;
+    qcol = reinterpret_cast<int*>(smem + L.bar) + 3 * NS;
+    ring = Ring{stgb, reinterpret_cast<unsigned long long*>(smem + L.bar),
+                reinterpret_cast<int*>(smem + L.bar + 2 * NS), h * RING_K,
+                0u};
+    if (tid == 0) tapnet::ring_init(ring);
+  }
 
   const float tf = ai.tf[0];
 
@@ -505,12 +758,9 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       return ai.fits[(size_t)(j - NL * N) * B + bb];
     }, [&](int j, int v) { pkS[j * TB + lane] = v; });
     // qin's rows of ctx, the previous action's embedding and (below) the
-    // count summary: at h <= 128 qin holds the whole tile, so they are
-    // filled here once, their loads in flight beside the rows above and
-    // behind phase 0's barriers; above, qin holds one pass's instances
-    // and each pass fills its own (phase 1). Filling them per pass at
-    // h <= 128 too would give the same values one pass later, a chain of
-    // loads of its own before phase 1's first barrier.
+    // count summary, filled here once, their loads in flight beside the
+    // rows above and behind phase 0's barriers (WH: the query's
+    // step-invariant part comes from the rollout, dsum per container)
     if constexpr (!WH) {
       const int idx = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
       tapnet::rows8<NWARP>(2 * h, wy, [&](int j) {
@@ -550,6 +800,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     if (wy == 0)
       for (int k = 1; k < 6; ++k) wb[k * TB + lane] = 0;
     __syncthreads();
+    K2_MARK(0);
     // every warp: the packed word, then the accessibility and fit bits of
     // its blocks i = wy + NWARP m, OR-ed into the tile's words
     {
@@ -576,6 +827,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       if (f1) atomicOr(&wb[5 * TB + lane], f1);
     }
     __syncthreads();
+    K2_MARK(1);
     if (wy == 0) {
       const Word pk = wb[lane], a0m = wb[TB + lane], arm = wb[2 * TB + lane];
       // the window: the first `window` accessible blocks in index order
@@ -604,7 +856,9 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
         n += __popc(u);
       }
       if (LOGITS) n = active ? T : 0;
-      if constexpr (!WH) {  // WH: per pass (phase 1; see above)
+      if constexpr (WH)
+        qcol[lane] = min(max((active ? ai.prev[b] : -1) + 1, 0), A);
+      else {
         const float fpk = (float)popw(pk), fa0 = (float)popw(a0m);
         const float far = (float)popw(arm);
         const float acc_mean =
@@ -638,6 +892,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       }
     }
     __syncthreads();
+    K2_MARK(2);
   }
   // flags and mask, every warp a share of the rows
   if (active) {
@@ -653,43 +908,109 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     }
   }
 
+  K2_MARK(3);
   if (*flag) {
-    // the head over passes of TP instances (one pass when TP = TB): their
-    // columns are cols[off[p0] .. off[p0 + TP]), the list being in
-    // (instance, token) order
-    for (int p0 = 0; p0 < TB; p0 += TP) {
-      const int bq = TP == TB ? bb  // clamped
-                              : tile0 + p0 + vl < B ? tile0 + p0 + vl : 0;
-      if constexpr (WH) {
-        // qin's shared rows of the pass: ctx, the previous action's
-        // embedding and the count summary (phase 0's, as TP = TB has them)
-        const int l = p0 + vl;
-        const int pv = tile0 + l < B ? ai.prev[bq] : -1;
-        const int idx = min(max(pv + 1, 0), A);
-        for (int j = vw; j < h; j += NVW) {
-          qin[(h + j) * LP + vl] = f32(ai.ctx[(size_t)j * B + bq]);
-          qin[(2 * h + j) * LP + vl] =
-              ldg(hw.et + (size_t)j * (A + 1) + idx);
+    // ---- phase 1: heightmap encoder and query, per container
+    if constexpr (WH) {
+      // X row k of instance n (tc: its bfloat16 copy; the value is
+      // bfloat16-exact there)
+      auto xput = [&](int k, int n, float v) {
+        if constexpr (TC) Xs[xs32_at(k, n)] = tapnet::bf16_bits(v);
+        else X[k * LD + n] = v;
+      };
+      auto xget = [&](int k, int n) {
+        if constexpr (TC)
+          return __bfloat162float(__ushort_as_bfloat16(Xs[xs32_at(k, n)]));
+        else return X[k * LD + n];
+      };
+      // a container's chain: the slabs of W1, W2 and Wq' (`ring_slabs`)
+      constexpr int SK = TC ? RING_K : KR;  // columns of W in a slab
+      const int n1 = (WD + 2 + SK - 1) / SK, n2 = h / SK;
+      const int n3 = (h + 8 + SK - 1) / SK;
+      const bf16* s1 = hw.slabs;
+      const bf16* s2 = s1 + (size_t)n1 * h * RING_K;
+      const bf16* s3 = s2 + (size_t)n2 * h * RING_K;
+      auto none = [](int, int) { return 0.f; };
+      // the query's step-invariant part (once per rollout)
+      auto q_init = [&](int j, int n) {
+        const int bn = tile0 + n < B ? tile0 + n : 0;
+        return hw.qctx[(size_t)j * B + bn] +
+               hw.qemb[(size_t)j * (A + 1) + qcol[n]];
+      };
+      // float32: W1 feats SIMT (it decides e1's ReLU gates, as in the
+      // replay: `simt`), W2 and Wq' as 3xTF32
+      auto product = [&](auto simt, const Chain& ch, int a, int K, int xrow,
+                         auto init, auto emit) {
+        if constexpr (TC)
+          ring_mv_tc(ring, ch, a, K, h, xrow ? E1s : Xs, lane, wy, init,
+                     emit);
+        else if constexpr (decltype(simt)::value)
+          ring_mv_f32(ring, ch, a, K, h, X, lane, wy, init, emit);
+        else
+          ring_mm_tf32(ring, ch, a, K, h, xrow ? e1w : X, lane, wy, init,
+                       emit);
+      };
+      const std::true_type simt;
+      const std::false_type mma;
+      for (int cc = 0; cc < C; ++cc) {
+        for (int k = wy; k < WD; k += NWARP)
+          xput(k, lane, rnd<E>((float)io.hm[(cc * WD + k) * B + bb] * inv_s));
+        // the barrier; then the chain's first slabs
+        const Chain ch =
+            tapnet::ring_open(ring, h, s1, n1, s2, n2, s3, n3, tid);
+        if (wy == 0) {
+          float mx = xget(0, lane), sm = 0.f;
+          for (int k = 0; k < WD; ++k) {
+            mx = fmaxf(mx, xget(k, lane));
+            sm += xget(k, lane);
+          }
+          xput(WD, lane, mx);
+          xput(WD + 1, lane, rnd<E>(sm / (float)WD));
+          if constexpr (TC)  // zeros to the next 16 rows
+            for (int k = WD + 2; k < ((WD + 17) & ~15); ++k) xput(k, lane, 0.f);
         }
-        if (vw == 0) {
-          const float fpk = (float)popw(wb[l]), fa0 = (float)popw(wb[TB + l]);
-          const float far = (float)popw(wb[2 * TB + l]);
-          const float acc_mean =
-              R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N;
-          float* ds = qin + 3 * h * LP;
-          ds[0 * LP + vl] = rnd<E>(fpk / (float)N);
-          ds[1 * LP + vl] = rnd<E>(acc_mean);
-          ds[2 * LP + vl] = rnd<E>((float)popw(wb[3 * TB + l]) / (float)N);
-          ds[3 * LP + vl] = rnd<E>(tf);
+        __syncthreads();
+        K2_MARK(5);
+        product(simt, ch, 0, WD + 2, 0, none, [&](int j, int n, float acc) {
+          const float v = fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
+          if constexpr (TC) E1s[xs32_at(j, n)] = tapnet::bf16_bits(v);
+          else e1w[j * LD + n] = v;
+        });
+        __syncthreads();
+        K2_MARK(6);
+        if (wy == 0) {  // dsum, X rows h .. h + 8 (feats are consumed)
+          const float fpk = (float)popw(wb[lane]);
+          const float fa0 = (float)popw(wb[TB + lane]);
+          const float far = (float)popw(wb[2 * TB + lane]);
+          xput(h, lane, rnd<E>(fpk / (float)N));
+          xput(h + 1, lane,
+               rnd<E>(R == 2 ? (fa0 + far) / (float)T : fa0 / (float)N));
+          xput(h + 2, lane, rnd<E>((float)popw(wb[3 * TB + lane]) / (float)N));
+          xput(h + 3, lane, rnd<E>(tf));
           for (int k = 0; k < 4; ++k)
-            ds[(4 + k) * LP + vl] = f32(ai.statm[(size_t)k * B + bq]);
+            xput(h + 4 + k, lane, f32(ai.statm[(size_t)k * B + bb]));
+          if constexpr (TC)
+            for (int k = h + 8; k < h + 16; ++k) xput(k, lane, 0.f);
         }
+        product(mma, ch, n1, h, 1, none, [&](int j, int n, float acc) {
+          xput(j, n, rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j)));
+        });
+        __syncthreads();
+        K2_MARK(7);
+        float* qc = qs + cc * h * LD;
+        product(mma, ch, n1 + n2, h + 8, 0, q_init,
+                [&](int j, int n, float acc) {
+          qc[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
+        });
+        __syncthreads();
+        K2_MARK(8);
       }
-      // ---- phase 1: heightmap encoder and query, per container
+    } else {
+      K2_MARK(4);
       for (int cc = 0; cc < C; ++cc) {
         for (int k = vw; k < WD; k += NVW)
           feats[k * LP + vl] =
-              rnd<E>((float)io.hm[(cc * WD + k) * B + bq] * inv_s);
+              rnd<E>((float)io.hm[(cc * WD + k) * B + bb] * inv_s);
         __syncthreads();
         if (vw == 0) {
           float mx = feats[vl], sm = 0.f;
@@ -701,39 +1022,45 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
           feats[(WD + 1) * LP + vl] = rnd<E>(sm / (float)WD);
         }
         __syncthreads();
+        K2_MARK(5);
         auto e1_out = [&](int j, int n, float acc) {
           e1[j * LP + n] = fmaxf(rnd<E>(rnd<E>(acc) + ldg(hw.b1 + j)), 0.f);
         };
         if constexpr (TC)
-          mv_mma<TP, Q::KSL>(hw.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
+          mv_mma<Q::KSL>(hw.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
                              e1_out, xbp);
         else
-          mv_tiled<WH>(hw.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
+          mv_tiled(hw.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
         __syncthreads();
+        K2_MARK(6);
         auto enc_out = [&](int j, int n, float acc) {
           qin[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j));
         };
         if constexpr (TC)
-          mv_mma<TP, Q::KSL>(hw.w2t, h, h, e1, stgb, lane, wy, tid, enc_out,
+          mv_mma<Q::KSL>(hw.w2t, h, h, e1, stgb, lane, wy, tid, enc_out,
                              xbp);
         else
-          mv_tiled<WH>(hw.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
+          mv_tiled(hw.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
         __syncthreads();
+        K2_MARK(7);
         float* qc = qs + cc * h * LP;
         auto q_out = [&](int j, int n, float acc) {
           qc[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
         };
         if constexpr (TC)
-          mv_mma<TP, Q::KSL>(hw.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out,
+          mv_mma<Q::KSL>(hw.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out,
                              xbp);
         else
-          mv_tiled<WH>(hw.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
+          mv_tiled(hw.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
         __syncthreads();
+        K2_MARK(8);
       }
+    }
 
-      // ---- phase 2: the token work over the pass's columns, groups of G
-      const int n = off[p0 + TP];
-      for (int g0 = TP == TB ? 0 : off[p0]; g0 < n; g0 += G) {
+    // ---- phase 2: the token work over the tile's columns, groups of G
+    {
+      const int n = off[TB];
+      for (int g0 = 0; g0 < n; g0 += G) {
         const int ng = min(G, n - g0);
         // the keys of this warp's columns, loaded before the group's
         // barriers so that their latency overlaps them
@@ -874,7 +1201,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                 const int j = lane + 32 * r;
                 const float sd = rnd<E>(sev[i][r] + dyn[i][r]);
                 const float act =
-                    rnd<E>(tanhf(rnd<E>(sd + qc[j * LP + l - p0])));
+                    rnd<E>(tanhf(rnd<E>(sd + qc[j * LP + l])));
                 ps = fmaf(act, vs[j], ps);
               }
             }
@@ -886,6 +1213,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     }
   }
   __syncthreads();
+  K2_MARK(9);
 
   // ---- phase 3: masked logits and selection scores, every warp a share of
   // the actions with its partial max and argmax, and the rows the
@@ -936,6 +1264,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     }, [&](int j, int v) { hmS[j * TB + lane] = v; });
   }
   __syncthreads();
+  K2_MARK(10);
   // per instance on warp 0: the max, the argmax, the block and log pi
   if (wy == 0 && active) {
     float mx = NEG, best = 0.f;
@@ -978,6 +1307,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     ai.logp_o[b] = act >= 0 ? lp : 0.f;
   }
   __syncthreads();
+  K2_MARK(11);
   // the placement: every warp a share of the candidate offsets
   if (active) {
     const int cs = dec[TB + lane], w = dec[3 * TB + lane];
@@ -993,6 +1323,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                                            d, hb, s, wy));
   }
   __syncthreads();
+  K2_MARK(12);
   if (wy == 0 && active) {
     PlacePart pb = tapnet::place_gather<MCS, TB, NWARP>(ppl, lane);
     const tapnet::Placement p = tapnet::place_resolve<MCS>(c, pb);
@@ -1001,6 +1332,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     for (int k = 0; k < 6; ++k) dec[(7 + k) * TB + lane] = pv[k];
   }
   __syncthreads();
+  K2_MARK(13);
   // the state writes of select_place, every warp a share of the rows
   if (active) {
     const int blk = dec[lane], cs = dec[TB + lane], w = dec[3 * TB + lane];
@@ -1035,7 +1367,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
 
 // Dynamic shared memory of one block, in bytes (ops/actor_step.py
 // smem_bytes mirrors it); tc: the bfloat16 instantiations; h > 128: the
-// plan of two head passes (Geo).
+// single-pass plan on the weight ring (`layout_wh`).
 static size_t smem_bytes(int N, int R, int C, int WD, int h, bool tc) {
   const int floats = h > 128 ? layout<true>(N, R, C, WD, h, tc).floats
                              : layout<false>(N, R, C, WD, h, tc).floats;
@@ -1080,7 +1412,8 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
                     (const E*)p[19], (const E*)p[20], (const E*)p[21],
                     (const E*)p[22], (const E*)p[23], (const E*)p[24],
                     (const E*)p[25], (const float*)p[26], (const E*)p[35],
-                    (const E*)p[36], (const E*)p[37]};
+                    (const E*)p[36], (const E*)p[37], (const float*)p[38],
+                    (const float*)p[39], (const bf16*)p[40]};
   const size_t smem =
       smem_bytes(c.N, c.R, c.C, c.W * c.D, h, std::is_same_v<E, bf16>);
   const KernelFn<E> kernel = h > 128 ? pick<true, E>(c.mcs, wide, logits)
@@ -1099,6 +1432,8 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
 //       w8t, b8, wpt, w1t, b1, w2t, b2, et, wqt, bq, v,                (16-26)
 //       packed_o, hm_o, plc_o, act_o, flags_o, mask_o, logits_o, logp_o (27-34)
 //       w1t^T, w2t^T, wqt^T                                            (35-37)
+//       h > 128: qctx [h, B], qemb [h, A+1] (f32, query_parts) and the
+//       ring slabs of W1, W2, Wq' (ops/actor_step.py ring_slabs)       (38-40)
 // ints: B, the EnvCfg fields (select_place.cuh env_cfg), h, window, logits
 // (1: the full mode, logits_o written; 0: live columns, logits_o unused),
 // bf16 (1: se, ctx, statp, statm and the weights other than v are
@@ -1129,4 +1464,87 @@ extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
                            stream)
             : launch<float>(p, c, B, h, window, logits, inv_s, temperature,
                             stream);
+}
+
+// ---- the query's step-invariant part, once per rollout (WH)
+//
+// qctx [h][B] = Wq[:, h:2h] ctx and qemb [h][A+1] = Wq[:, 2h:3h] E: the
+// columns of Wq that meet the mean static key and the previous action's
+// embedding (qin's rows h .. 3h of the JAX kernel's query, whose values do
+// not change over a rollout). blockIdx.z picks the product; a block makes
+// a 64 x 64 tile of the output, 256 threads 4 x 4 outputs each, K through
+// shared memory 16 rows at a time; every output one f32 sum of exact
+// products in k order (fmaf from 0), so two launches are bit-identical.
+namespace {
+
+constexpr int QP_T = 64, QP_K = 16;
+
+template <class E>
+__global__ void __launch_bounds__(256)
+query_parts_kernel(const E* wq, const E* ctx, const E* et, float* qctx,
+                   float* qemb, int h, int B, int A1) {
+  const bool emb = blockIdx.z == 1;
+  const int ncol = emb ? A1 : B, koff = emb ? 2 * h : h, FQ = 3 * h + 8;
+  const E* x = emb ? et : ctx;
+  float* out = emb ? qemb : qctx;
+  const int r0 = blockIdx.y * QP_T, c0 = blockIdx.x * QP_T;
+  if (c0 >= ncol) return;
+  __shared__ float ws[QP_K][QP_T + 1];  // [k][row]
+  __shared__ float xs[QP_K][QP_T];      // [k][column]
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < h; k0 += QP_K) {
+    for (int e = tid; e < QP_K * QP_T; e += 256) {
+      const int r = e / QP_K, k = e % QP_K;
+      ws[k][r] = r0 + r < h ? f32(wq[(size_t)(r0 + r) * FQ + koff + k0 + k])
+                            : 0.f;
+      const int kx = e / QP_T, cx = e % QP_T;
+      xs[kx][cx] = c0 + cx < ncol
+                       ? f32(x[(size_t)(k0 + kx) * ncol + c0 + cx]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < QP_K; ++k) {
+      float a[4], v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ws[k][ty + 16 * i];
+        v[i] = xs[k][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + ty + 16 * i, cl = c0 + tx + 16 * j;
+      if (r < h && cl < ncol) out[(size_t)r * ncol + cl] = acc[i][j];
+    }
+}
+
+}  // namespace
+
+// ptrs: wq [h, 3h+8], ctx [h, B], et [h, A+1] (float or, bf16, bfloat16),
+// qctx [h, B], qemb [h, A+1] (float). ints: B, h, A + 1, bf16. Launches on
+// `stream`; returns cudaGetLastError() after the launch.
+extern "C" int tapnet_actor_query_parts(void* const* p, const int* ints,
+                                        void* stream) {
+  const int B = ints[0], h = ints[1], A1 = ints[2];
+  if (B <= 0 || h <= 0 || h % QP_K != 0 || A1 <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((max(B, A1) + QP_T - 1) / QP_T, (h + QP_T - 1) / QP_T, 2);
+  if (ints[3])
+    query_parts_kernel<bf16><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const bf16*)p[0], (const bf16*)p[1], (const bf16*)p[2],
+        (float*)p[3], (float*)p[4], h, B, A1);
+  else
+    query_parts_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)p[0], (const float*)p[1], (const float*)p[2],
+        (float*)p[3], (float*)p[4], h, B, A1);
+  return (int)cudaGetLastError();
 }

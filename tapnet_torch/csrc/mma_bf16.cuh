@@ -6,8 +6,7 @@
 //
 // Both kernels run blocks of 32 lanes x 16 warps (MMA_NT threads) and keep
 // their activations as [k][lane] float arrays of row stride MMA_LD (32
-// lanes), or TP + 1 for a head pass of TP = 16 instances (mv_mma); each
-// includer checks that its own constants agree.
+// lanes); each includer checks that its own constants agree.
 //
 // With lane = 4 g + t a warp's fragments hold (PTX ISA): A [16][16] rows
 // g, g + 8 and columns 2t, 2t+1, 2t+8, 2t+9 (registers {(g, 2t..),
@@ -146,47 +145,37 @@ __device__ void stream_a(unsigned short* S, const __nv_bfloat16* W, int M,
   }
 }
 
-// out[j][n] = sum_k W[j, k] x[k][n] for j < h, n < TP: W row-major [h][K]
-// bfloat16, x [K][TP + 1] (bfloat16 values held as float), K padded to a
-// multiple of 16 with zeros. W streams through S in slabs of KSL columns
-// (stream_a: h (KSL + 8) floats of S). With TP = 32 lanes warp wy owns rows
+// out[j][n] = sum_k W[j, k] x[k][n] for j < h (at most 128), n < 32: W
+// row-major [h][K] bfloat16, x [K][MMA_LD] (bfloat16 values held as float),
+// K padded to a multiple of 16 with zeros. W streams through S in slabs of
+// KSL columns (stream_a: h (KSL + 8) floats of S). Warp wy owns rows
 // 16 (wy / 2) .. + 15 and the lanes 16 (wy % 2) .. + 15 (two column tiles
 // sharing each A fragment); h = 32..96 leave warps 2h/16.. without
-// products. With TP = 16 (the head passes of hidden widths above 128) warp
-// wy owns rows 16 wy .. + 15 and all 16 lanes; h = 160..224 leave warps
-// h/16.. without products. emit(j, n, acc) stores an output. The caller
-// follows with a barrier.
+// products. emit(j, n, acc) stores an output. The caller follows with a
+// barrier.
 //
 // The B fragments: from x itself (four 32-bit loads and two packs each,
 // lanes t and t' of one load up to four ways in one bank), or, given xb,
-// from a copy of x as bfloat16 pairs [K16 / 2][XS] that every thread
+// from a copy of x as bfloat16 pairs [K16 / 2][MMA_XS] that every thread
 // writes first (ordered before the products by stream_a's first barrier):
 // two 32-bit loads each on 32 banks. The warps of a column half load the
 // same fragments, so the copy cuts the shared-memory wavefronts of the
-// product several-fold; it needs K16 / 2 * XS words at xb (XS = mv_mma_xs).
-template <int TP>
-__host__ __device__ constexpr int mv_mma_xs() {
-  // 8 mod 32 for 32 lanes; 24 mod 32 for 16: lanes (g, t) on 32 banks
-  return TP == 32 ? MMA_XS : 24;
-}
-
-template <int TP = 32, int KSL = 64, class Emit>
+// product several-fold; it needs K16 / 2 * MMA_XS words at xb.
+template <int KSL = 64, class Emit>
 __device__ void mv_mma(const __nv_bfloat16* __restrict__ W, int h, int K,
                        const float* x, unsigned short* S, int lane, int wy,
                        int tid, Emit emit, unsigned* xb = nullptr) {
-  static_assert(TP == 32 || TP == 16, "a pass of 32 or 16 lanes");
-  constexpr int LD = TP + 1, XS = mv_mma_xs<TP>(), NH = TP / 16;
-  constexpr int LG = TP == 32 ? 5 : 4;  // log2 TP
-  const bool on = TP == 32 ? wy < h / 8 : wy < h / 16;
+  constexpr int LD = MMA_LD, XS = MMA_XS;
+  const bool on = wy < h / 8;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (wy >> (NH - 1)) * 16, n0 = (wy & (NH - 1)) * 16;
+  const int m0 = (wy >> 1) * 16, n0 = (wy & 1) * 16;
   float acc[2][4] = {};
   if (xb) {  // rows k, k + 1 of x as pairs, zeros past K
     const int kp = (K + 15) / 16 * 8;
-    for (int e = tid; e < kp * TP; e += MMA_NT) {
-      const int k = 2 * (e >> LG), n = e & (TP - 1);
-      xb[(e >> LG) * XS + n] = pack(k < K ? x[k * LD + n] : 0.f,
-                                    k + 1 < K ? x[(k + 1) * LD + n] : 0.f);
+    for (int e = tid; e < kp * 32; e += MMA_NT) {
+      const int k = 2 * (e >> 5), n = e & 31;
+      xb[(e >> 5) * XS + n] = pack(k < K ? x[k * LD + n] : 0.f,
+                                   k + 1 < K ? x[(k + 1) * LD + n] : 0.f);
     }
   }
   stream_a<KSL>(S, W, h, K, tid, [&](const unsigned short* slab, int kb) {

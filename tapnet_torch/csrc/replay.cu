@@ -723,7 +723,7 @@ __device__ void mvt_mma(const bf16* __restrict__ WT, int M, int h,
 // The bfloat16 products above hidden 128 (TC && WH), on the weight ring
 // (ring_bf16.cuh): the pass's TP = 16 instances, warp wy < nw = h / 16
 // owning the row tile 16 wy .. + 15 and both column tiles of 8, as
-// mv_mma<16> does (and mvt_mma did for a pass of 16 before the ring),
+// mv_mma and mvt_mma did for a pass of 16 before the ring,
 // with the same k-steps in the same order and the same operand values (so
 // the same sums, bit for bit). The
 // A fragments come from the ring's swizzled slabs; the B fragments by
@@ -1146,7 +1146,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     if constexpr (RG)
       ring_mv(ring, chain, 0, WD + 2, xsf, NWR, lane, wy, e1_out);
     else if constexpr (TC)
-      mv_mma<TP, Q::KSL>(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
+      mv_mma<Q::KSL>(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
                          e1_out);
     else  // float32: SIMT (TF too, so that e1's ReLU gates stay as they were)
       mv_tiled<WH>(w.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
@@ -1158,7 +1158,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     if constexpr (RG)
       ring_mv(ring, chain, chain.ns[0], h, xse, NWR, lane, wy, enc_out);
     else if constexpr (TC)
-      mv_mma<TP, Q::KSL>(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
+      mv_mma<Q::KSL>(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
     else if constexpr (TF)
       mm_tf32<PF>(w.w2t, h, h, e1, lane, wy, enc_out);
     else
@@ -1175,7 +1175,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       ring_mv(ring, chain, chain.ns[0] + chain.ns[1], FQ, xsq, NWR, lane,
               wy, q_out);
     else if constexpr (TC)
-      mv_mma<TP, Q::KSL>(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
+      mv_mma<Q::KSL>(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
     else if constexpr (TF)
       mm_tf32<PF>(w.wqt, h, FQ, qin, lane, wy, q_out);
     else

@@ -1,5 +1,6 @@
 // The weight ring of the bfloat16 replay above hidden 128 (replay.cu, TC &&
-// WH): the encoder/query weights streamed from device memory into shared
+// WH) and of the actor step above hidden 128 (actor_step.cu, WH, both
+// dtypes): the encoder/query weights streamed from device memory into shared
 // memory by bulk asynchronous copies (cp.async.bulk, the copy engine of
 // TMA), each slab completing on its own mbarrier, with no block-wide
 // barrier per slab.

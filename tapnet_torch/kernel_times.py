@@ -17,24 +17,25 @@ bfloat16 on one record of a sampled float32 rollout
 (`chip_smoke.replay_operands`, dlp a ramp). Each time is the median of 50
 launches (10 for the step-grid backward; CUDA events after a spin kernel,
 `chip_smoke.time_gpu`). K2 and K5 run at hidden width `--hidden` (128 by
-default; above 128 their head runs in two passes of 16 instances), K1 and
-K4 do not depend on it. The line also holds the hidden width and the
-SHA-256 of the operands' and the outputs' bytes of K2 in float32 (both
-modes) and of every K5 kernel in both dtypes: `--expect FILE` (the line
-another run wrote with `--out`) checks that those kernels gave
-bit-identical outputs on bit-identical operands there and here, and exits
-1 if they did not. (K2's bfloat16 outputs are not held: its body may
-change the sums' order.)
+default; above 128 K2 reads its once-per-rollout operands, made once
+here as the decode loop makes them), K1 and K4 do not depend on it. The
+line also holds the hidden width and the SHA-256 of the operands' and the
+outputs' bytes of K2 (both modes) and of every K5 kernel, each in both
+dtypes: `--expect FILE` (the line another run wrote with `--out`) checks
+that those kernels gave bit-identical outputs on bit-identical operands
+there and here, and exits 1 if they did not.
 
     python -m tapnet_torch.kernel_times --csrc DIR[,DIR...] [--hidden 256]
-        [--dtype bfloat16]
+        [--dtype bfloat16] [--kernel replay|actor_select_step]
 
 times only the replay (K5b, K5f, K5b-steps, K5f-steps at batch 4096, in
 float32 or, with `--dtype bfloat16`, the bfloat16 instantiations on the
-same record's bfloat16 operands), built from this package's replay.cu
-and from each DIR/replay.cu (another checkout's csrc/, or an edited copy
-whose C interface takes the same pointers or a prefix of them), in
-turns: the builds in order, then in reverse (`replay_builds`).
+same record's bfloat16 operands), or with `--kernel actor_select_step`
+only K2 (both modes on the middle decode step of 2d-basic and 2d-rolling
+at batch 4096, in the dtype given), built from this package's source
+and from each DIR's (another checkout's csrc/, or an edited copy whose C
+interface takes the same pointers or a prefix of them), in turns: the
+builds in order, then in reverse (`replay_builds`, `actor_builds`).
 
 To compare two checkouts on one card in one call,
 
@@ -166,6 +167,93 @@ def replay_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
     return out
 
 
+def k2_operands(CS, dev, name, hidden):
+    """K2's operands on the middle decode step of a sampled rollout of
+    config `name` at batch 4096 and hidden width `hidden` (the state from
+    the float32 kernel): the float32 and the bfloat16 step operands, the
+    transposed weights and each dtype's once-per-rollout wide operands
+    (None at hidden <= 128)."""
+    import torch
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import random as R
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.train import rollout as RO
+
+    cfg, B, N = CONFIGS[name], 4096, CONFIGS[name].num_blocks
+    actor = init_params(0, cfg, hidden, dev)
+    inst = CS._instances(cfg, B, dev, 9)
+    keys = R.split(R.key(3, dev), B)
+    with torch.no_grad():  # to the middle step on the kernel's outputs
+        o = CS.actor_operands(actor, inst, cfg, keys)
+        (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
+        prev = torch.full((1, B), -1, dtype=torch.int32, device=dev)
+        wide = AS.wide_operands(o["params"], o["ctx"])
+        for t in range(N // 2 + 1):
+            tf = torch.full((1, 1), t / N, device=dev)
+            ops = (tf, packed, hm, plc, prev, dw, dd, dh, o["upm"],
+                   o["rotm"], o["fits"], o["g_all"][t], o["se"],
+                   o["ctx"], o["statp"], o["statm"], o["params"])
+            if t == N // 2:
+                break
+            got = AS.actor_select_step(*ops, cfg, logits=False,
+                                       params_t=o["params_t"], wide=wide)
+            packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
+        ob = CS.actor_operands(actor, inst, cfg, keys, torch.bfloat16)
+        wide_b = AS.wide_operands(ob["params"], ob["ctx"])
+    ops_b = ops[:12] + (ob["se"], ob["ctx"], ob["statp"], ob["statm"],
+                        ob["params"])
+    return ops, ops_b, o["params_t"], wide, wide_b
+
+
+def actor_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
+    """K2 in `dtype` at hidden width `hidden`, both modes, on the middle
+    decode step of 2d-basic and 2d-rolling at batch 4096 (`k2_operands`),
+    built from this package's csrc/actor_step.cu ("csrc") and from each
+    DIR/actor_step.cu of `dirs` with DIR's headers, timed in turns: the
+    builds in order, then in reverse. ms per launch, one reading (the
+    median of 20 launches) a turn."""
+    import ctypes
+
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import actor_step as AS
+
+    procs = []
+    for i, d in enumerate(dirs):
+        so = _build.BUILD / f"actor_turns_{i}.so"
+        _build.BUILD.mkdir(parents=True, exist_ok=True)
+        procs.append((so, subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-o", str(so),
+             os.path.join(d, "actor_step.cu")])))
+    fns = {"csrc": AS._lib()}
+    for d, (so, proc) in zip(dirs, procs):
+        if proc.wait():
+            raise RuntimeError(f"nvcc failed on {d}/actor_step.cu")
+        fn = ctypes.CDLL(str(so)).tapnet_actor_select_step
+        fn.argtypes, fn.restype = AS._lib().argtypes, ctypes.c_int
+        fns[d] = fn
+    order = list(fns) + list(fns)[::-1]
+    lib_of, out = AS._lib, {"builds": list(fns), "dtype": dtype}
+    dt = "bf16" if dtype == "bfloat16" else "f32"
+    try:
+        for name in ("2d-basic", "2d-rolling"):
+            cfg = CONFIGS[name]
+            ops, ops_b, pt, wide, wide_b = k2_operands(CS, dev, name, hidden)
+            o, w, p = ((ops_b, wide_b, None) if dt == "bf16"
+                       else (ops, wide, pt))
+            for tag in order:
+                AS._lib = lambda fn=fns[tag]: fn
+                for mode, lg in (("main", False), ("full", True)):
+                    out.setdefault(f"K2 {mode} {dt} {name} {tag}", []).append(
+                        CS.time_gpu(lambda: AS.actor_select_step(
+                            *o, cfg, logits=lg, params_t=p, wide=w),
+                            reps=20))
+    finally:
+        AS._lib = lib_of
+    return out
+
+
 def check_expected(out: dict, path: str) -> bool:
     """Whether every kernel of `out` with hashes (K2 float32, K5) saw the
     operands and gave the outputs that the run recorded in `path` did, bit
@@ -199,7 +287,10 @@ def main(argv=None) -> int:
                          "turns (replay_builds)")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"),
-                    help="with --csrc: the replay's instantiation")
+                    help="with --csrc: the instantiation timed")
+    ap.add_argument("--kernel", default="replay",
+                    choices=("replay", "actor_select_step"),
+                    help="with --csrc: the kernel timed")
     args = ap.parse_args(argv)
     if args.tree:
         fwd = ["--tag", args.tag]
@@ -226,7 +317,6 @@ def main(argv=None) -> int:
     from tapnet_torch.ops import actor_step as AS
     from tapnet_torch.ops import env as OE
     from tapnet_torch.ops import policy_step as PS
-    from tapnet_torch.train import rollout as RO
 
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -236,8 +326,10 @@ def main(argv=None) -> int:
     out = {"tag": args.tag, "device": torch.cuda.get_device_name(0),
            "hidden": args.hidden}
     if args.csrc:
-        out.update(replay_builds(CS, dev, args.hidden,
-                                 args.csrc.split(","), args.dtype))
+        builds = (actor_builds if args.kernel == "actor_select_step"
+                  else replay_builds)
+        out.update(builds(CS, dev, args.hidden, args.csrc.split(","),
+                          args.dtype))
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as f:
@@ -251,43 +343,25 @@ def main(argv=None) -> int:
         out[f"K1 {name}"] = CS.time_gpu(
             lambda: PS.select_step(*ops, cfg=cfg), reps=50)
     for name in ("2d-basic", "2d-rolling"):
-        cfg, B, N = CONFIGS[name], 4096, CONFIGS[name].num_blocks
-        actor = init_params(0, cfg, args.hidden, dev)
-        inst = CS._instances(cfg, B, dev, 9)
-        keys = R.split(R.key(3, dev), B)
-        with torch.no_grad():  # to the middle step on the kernel's outputs
-            o = CS.actor_operands(actor, inst, cfg, keys)
-            (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
-            prev = torch.full((1, B), -1, dtype=torch.int32, device=dev)
-            for t in range(N // 2 + 1):
-                tf = torch.full((1, 1), t / N, device=dev)
-                ops = (tf, packed, hm, plc, prev, dw, dd, dh, o["upm"],
-                       o["rotm"], o["fits"], o["g_all"][t], o["se"],
-                       o["ctx"], o["statp"], o["statm"], o["params"])
-                if t == N // 2:
-                    break
-                got = AS.actor_select_step(*ops, cfg, logits=False,
-                                           params_t=o["params_t"])
-                packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
-            ob = CS.actor_operands(actor, inst, cfg, keys, torch.bfloat16)
-        ops_b = ops[:12] + (ob["se"], ob["ctx"], ob["statp"], ob["statm"],
-                            ob["params"])
-        pt = o["params_t"]
+        cfg = CONFIGS[name]
+        ops, ops_b, pt, wide, wide_b = k2_operands(CS, dev, name, args.hidden)
         for mode, lg in (("main", False), ("full", True)):
             run = {"f32": lambda: AS.actor_select_step(
-                       *ops, cfg, logits=lg, params_t=pt),
-                   "bf16": lambda: AS.actor_select_step(*ops_b, cfg,
-                                                        logits=lg)}
+                       *ops, cfg, logits=lg, params_t=pt, wide=wide),
+                   "bf16": lambda: AS.actor_select_step(
+                       *ops_b, cfg, logits=lg, wide=wide_b)}
             turns = {"f32": [], "bf16": []}
             for dt in ("f32", "bf16", "bf16", "f32"):
                 turns[dt].append(CS.time_gpu(run[dt], reps=50))
             for dt, ts in turns.items():
                 out[f"K2 {mode} {dt} {name}"] = sum(ts) / 2
             with torch.no_grad():  # the kernel --expect holds
-                got = run["f32"]()
-            out[f"K2 {mode} f32 {name} sha"] = {
-                "operands": _sha([*ops[:16], *ops[16], *pt]),
-                "outputs": _sha([g for g in got if g is not None])}
+                for dt, o in (("f32", [*ops[:16], *ops[16], *pt]),
+                              ("bf16", [*ops_b[:16], *ops_b[16]])):
+                    got = run[dt]()
+                    out[f"K2 {mode} {dt} {name} sha"] = {
+                        "operands": _sha(o),
+                        "outputs": _sha([g for g in got if g is not None])}
     for name, cfg in CONFIGS.items():
         inst = CS._instances(cfg, 4096, dev, 25)
         rbits = E.policy_bits(R.split(R.key(26, dev), 4096), cfg, "random")

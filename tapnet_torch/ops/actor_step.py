@@ -36,8 +36,8 @@ input; the tokens outside the window are masked, which gives the windowed
 head's softmax exactly. A finite height cap is not covered, here as there:
 its mask needs a candidate scan per action, and such configs decode through
 `select_step`. The kernel's own limits (`eligible`): C <= 4, W*D <= 256, a
-hidden width that is a multiple of 32 up to 256 (above 128 the head runs in
-two passes of 16 instances, `geometry`), and a block's shared memory within
+hidden width that is a multiple of 32 up to 256 (above 128 the WH body
+below), and a block's shared memory within
 227 KB; the routers (`train/rollout.py` `routes`) send any other config
 down the step-fused path.
 
@@ -57,6 +57,15 @@ float32. The bfloat16 instantiation runs every product of the head on the
 tensor cores (exact bf16 products summed in float32, in the tensor core's
 order: a score can land one bf16 ulp from the plain version's) and reads
 the weights in their [out, in] layout: it does not read `params_t`.
+
+Above hidden 128 the head's products run once over a block's 32 instances
+and stream the weights through a ring of bulk copies (csrc/actor_step.cu,
+the WH design note). The query's step-invariant part, Wq_ctx ctx [h, B]
+and Wq_emb E [h, A+1], is made once per rollout (`query_parts`, a kernel
+of its own; plain version `query_parts_ref`) together with the ring slabs
+of W1, W2 and Wq' = Wq's enc and dsum columns (`ring_slabs`):
+`wide_operands`, which the decode loop calls beside `transposed` and which
+`actor_select_step` calls itself when they are not given.
 """
 
 from __future__ import annotations
@@ -95,17 +104,15 @@ def rounder(dtype):
 
 def geometry(h: int) -> dict:
     """The head's geometry at hidden width h (csrc/geo.cuh `Geo`, shared
-    by csrc/actor_step.cu and csrc/replay.cu): up to 128 one pass over the tile's 32
-    instances, above two passes of 16 (`tp`), with the row stride of their
-    [feature][instance] arrays (`lp`), the token group (`g` columns), the
-    float32 weight slice (`ks` rows), the bfloat16 weight slab (`ksl`
-    columns) and the row stride in words of the bfloat16 B operand pairs
-    (`xs`, csrc/mma_bf16.cuh `mv_mma_xs`)."""
+    by csrc/actor_step.cu and csrc/replay.cu): up to 128 one pass over the
+    tile's 32 instances, above (the replay's head) two passes of 16
+    (`tp`), with the row stride of their [feature][instance] arrays
+    (`lp`), the token group (`g` columns) and the float32 weight slice
+    (`ks` rows)."""
     wide = h > 128
     tp = 16 if wide else TB
     return {"tp": tp, "lp": tp + 1, "g": 32 if wide else 64,
-            "ks": 32 if wide else 64, "ksl": 32 if wide else 64,
-            "xs": 24 if wide else 40}
+            "ks": 32 if wide else 64}
 
 
 def _covers_config(cfg: TAPConfig) -> bool:
@@ -120,7 +127,10 @@ def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     JAX kernel (rolling windows are cut inside the kernel); the port's own
     limits: float32 or bfloat16, at most 4 containers, W*D <= 256 cells, h
     a multiple of 32 up to 256 and a block that fits in shared memory
-    (`smem_bytes`)."""
+    (`smem_bytes`). The shipped configs fit at every such h; the plan
+    holds each container's queries for the whole tile, so with 3 or 4
+    containers (float32 2d-rolling: 2) the widest widths do not fit
+    (tests/test_torch_k2_wide.py `FIRST_MISS`) and take the next route."""
     return (dtype in DTYPES and _covers_config(cfg) and h % 32 == 0
             and 0 < h <= MAX_H and smem_bytes(cfg, h, dtype) <= SMEM_LIMIT)
 
@@ -148,27 +158,41 @@ def _num_limbs(N: int) -> int:
     return (N + 30) // 31
 
 
+RING_K = 32  # csrc/ring_bf16.cuh: columns of a bfloat16 slab
+RING_S = 3   # its stages
+KR = RING_K // 2  # rows of a float32 slab of W^T (as many bytes)
+
+
+def wh_rows(WD: int, h: int) -> int:
+    """Rows of the WH plan's encoder view (csrc/actor_step.cu wh_rows):
+    feats [W*D + 2], then [enc, dsum] [h + 8]."""
+    return max(WD + 2, h + 8)
+
+
 def xb_words(WD: int, h: int) -> int:
-    """32-bit words of the bfloat16 instantiation's packed B operand: the
-    longest of the encoder/query products' k (W*D + 2 or 3h + 8), padded
-    to 16, as pairs in rows of `geometry(h)["xs"]` words."""
+    """32-bit words of the bfloat16 instantiation's packed B operand at h <=
+    128: the longest of the encoder/query products' k (W*D + 2 or 3h + 8),
+    padded to 16, as pairs in rows of MMA_XS = 40 words
+    (csrc/mma_bf16.cuh)."""
     k = max(WD + 2, 3 * h + 8)
-    return (k + 15) // 16 * 8 * geometry(h)["xs"]
+    return (k + 15) // 16 * 8 * 40
 
 
 def smem_bytes(cfg: TAPConfig, h: int, dtype=F32) -> int:
     """Shared memory of one block, in bytes, as
     csrc/actor_step.cu::smem_bytes computes it for the instantiation of
-    `dtype`. Both hold their activations as float32, the head's arrays (the
-    C queries, the encoder view, the token view) for one pass of
-    `geometry(h)["tp"]` instances; the bfloat16 one's tensor-core plan
-    holds Wp as bfloat16 rows of WPS in place of the float Wp^T, h1 rows
-    padded to G + 4, the token group's dyn [G][h+4], and in the token view
-    the encoder/query weight slices as two bfloat16 slabs of h (KSL + 8) / 2
+    `dtype`. At h <= 128 both hold their activations as float32, the
+    head's arrays (the C queries, the encoder view, the token view) for the
+    tile's 32 instances; the bfloat16 one's tensor-core plan holds Wp as
+    bfloat16 rows of WPS in place of the float Wp^T, h1 rows padded to G +
+    4, the token group's dyn [G][h+4], and in the token view the
+    encoder/query weight slices as two bfloat16 slabs of h (64 + 8) / 2
     floats each beside the product's B operand as bfloat16 pairs
-    (`xb_words`)."""
+    (`xb_words`). Above 128: `_smem_bytes_wh`."""
     up4 = lambda x: (x + 3) & ~3
     tc = dtype == torch.bfloat16
+    if h > 128:
+        return _smem_bytes_wh(cfg, h, tc)
     geo = geometry(h)
     G, LP = geo["g"], geo["lp"]
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
@@ -176,13 +200,38 @@ def smem_bytes(cfg: TAPConfig, h: int, dtype=F32) -> int:
     T = N * R
     A = T * C
     tok = 8 * G + 32 * (G + 4) + G * (h + 4) if tc else 40 * G
-    stage = (h * (geo["ksl"] + 8) + xb_words(WD, h) if tc
-             else geo["ks"] * h)
+    stage = h * (64 + 8) + xb_words(WD, h) if tc else geo["ks"] * h
     floats = (up4(h * WPS // 2 if tc else 32 * h) + 256 + 32 + up4(h)
               + up4(C * h * LP) + A * TB + up4((WD + 2 + h + 3 * h + 8) * LP)
               + max(tok, stage,
                     (N + 2 * _num_limbs(N) * N + R * N) * TB,
                     (13 + 8 * 16 + C * WD + 3 * N) * TB))
+    ints = 12 * TB + 4 * TB + TB + 2 + TB * T
+    return 4 * (floats + ints)
+
+
+def _smem_bytes_wh(cfg: TAPConfig, h: int, tc: bool) -> int:
+    """`smem_bytes` above hidden 128 (csrc/actor_step.cu `layout_wh`): Wp
+    (float Wp^T, or bfloat16 rows of WPS), W8, b8, v, the C queries [h][33]
+    of the whole tile, the scores, the encoder view X [wh_rows][33] and e1
+    [h][33] (bfloat16: copies [rows16][32] and [h][32] only), then the
+    largest of the token view (G = 32), the weight ring's RING_S stages of
+    h x RING_K bfloat16 and phase 0's and 3's rows, then the ring's
+    mbarriers and counts and the 32 query columns."""
+    up4 = lambda x: (x + 3) & ~3
+    N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
+    WD = cfg.target_width * cfg.target_depth
+    T, A, G, LD = N * R, N * R * C, 32, TB + 1
+    XR = wh_rows(WD, h)
+    enc = (((XR + 15) // 16 * 16 + h) * 16 if tc
+           else up4((XR + h) * LD))
+    tok = 8 * G + 32 * (G + 4) + G * (h + 4) if tc else 40 * G
+    floats = (up4(h * WPS // 2 if tc else 32 * h) + 256 + 32 + up4(h)
+              + up4(C * h * LD) + A * TB + enc
+              + max(tok, RING_S * h * RING_K // 2,
+                    (N + 2 * _num_limbs(N) * N + R * N) * TB,
+                    (13 + 8 * 16 + C * WD + 3 * N) * TB)
+              + up4(3 * RING_S + TB))
     ints = 12 * TB + 4 * TB + TB + 2 + TB * T
     return 4 * (floats + ints)
 
@@ -219,9 +268,121 @@ def head_shapes(cfg: TAPConfig, h: int):
 
 def transposed(params):
     """W1, W2 and Wq of `head_operands` as [in, h]: K2's float32
-    instantiation and the K5 kernels stream their rows. The decode loop
-    makes them once per float32 rollout."""
+    instantiation at hidden <= 128 and the K5 kernels stream their rows.
+    The decode loop makes them once per such rollout."""
     return tuple(params[i].T.contiguous() for i in (3, 5, 8))
+
+
+def query_parts_ref(params, ctx):
+    """Plain version of `query_parts`: the query's step-invariant part,
+    (Wq[:, h:2h] ctx [h, B], Wq[:, 2h:3h] E [h, A+1]) in float32 (exact
+    products of the compute dtype's values, float32 sums): qin's rows h ..
+    3h are ctx and the previous action's embedding column, neither of which
+    changes over a rollout."""
+    wq, et = params[8].float(), params[7].float()
+    h = wq.shape[0]
+    return wq[:, h:2 * h] @ ctx.float(), wq[:, 2 * h:3 * h] @ et
+
+
+@functools.cache
+def _qp_lib():
+    fn = _build.load("actor_step").tapnet_actor_query_parts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def query_parts(params, ctx):
+    """`query_parts_ref` on the card: one launch of csrc/actor_step.cu
+    `query_parts_kernel` (counted in `query_parts.launches`), the plain
+    version on CPU tensors. Once per rollout above hidden 128."""
+    if not ctx.is_cuda:
+        return query_parts_ref(params, ctx)
+    wq, et = params[8], params[7]
+    h, B = ctx.shape
+    dev = ctx.device
+    for name, t, shape in (("wq", wq, (h, 3 * h + 8)), ("ctx", ctx, (h, B)),
+                           ("et", et, (h, et.shape[1]))):
+        _check(t, name, shape, ctx.dtype, dev)
+    qctx = torch.empty((h, B), dtype=F32, device=dev)
+    qemb = torch.empty((h, et.shape[1]), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = _build.ptr_array((wq, ctx, et, qctx, qemb))
+        ints = _build.int_array([B, h, et.shape[1],
+                                 int(ctx.dtype == torch.bfloat16)])
+        err = _qp_lib()(ctypes.cast(ptrs, ctypes.c_void_p),
+                        ctypes.cast(ints, ctypes.c_void_p),
+                        ctypes.c_void_p(stream))
+    query_parts.launches += 1
+    _build.check(err, "query_parts")
+    return qctx, qemb
+
+
+query_parts.launches = 0
+
+
+def wq_prime(params):
+    """Wq's columns that a WH step still streams, [h, h + 8]: the enc
+    columns 0 .. h and the dsum columns 3h .. 3h + 8."""
+    wq = params[8]
+    h = wq.shape[0]
+    return torch.cat([wq[:, :h], wq[:, 3 * h:]], 1)
+
+
+@functools.cache
+def _swizzle_index(h: int, ns: int, device):
+    """For a bfloat16 matrix [h][ns RING_K] (K padded), the flat source
+    index of each element of its slabs: slab s holds h rows of RING_K
+    values, row r's 16-byte chunk ch at position ch ^ ((r >> 1) & 3)
+    (csrc/ring_bf16.cuh)."""
+    ar = lambda n: torch.arange(n, device=device)
+    s = ar(ns)[:, None, None, None]
+    r = ar(h)[None, :, None, None]
+    ch = ar(4)[None, None, :, None] ^ ((r >> 1) & 3)
+    k = s * RING_K + 8 * ch + ar(8)[None, None, None, :]
+    return (r * ns * RING_K + k).reshape(-1)
+
+
+def ring_slabs(params, h: int):
+    """The WH products' weights as the ring's slabs, one contiguous buffer:
+    W1 [h][W*D+2], W2 [h][h] and Wq' [h][h+8] (`wq_prime`), in that order,
+    each matrix's columns padded with zeros to whole slabs. bfloat16: a
+    slab is h rows of RING_K columns, 16-byte chunks swizzled
+    (`_swizzle_index`). float32 (as many bytes a slab: KR = 16 columns):
+    W1 transposed, a slab its KR rows of W1^T [K][h] (the SIMT product);
+    W2 and Wq' in the 3xTF32 products' A-fragment order, a slab
+    [h / 16][2][32 lanes][4]: for row tile m, half f and lane 4 g + t, the
+    columns 4 t .. 4 t + 3 of the slab's 16 in row 16 m + 8 f + g.
+    Returned as bfloat16 (float32 slabs reinterpreted), as the kernel's
+    pointer 40 takes them."""
+    mats = (params[3], params[5], wq_prime(params))
+    out = []
+    for i, w in enumerate(mats):
+        K = w.shape[1]
+        sk = RING_K if w.dtype == torch.bfloat16 else KR
+        ns = -(-K // sk)
+        wp = torch.nn.functional.pad(w, (0, ns * sk - K))
+        if w.dtype == torch.bfloat16:
+            out.append(wp.reshape(-1)[_swizzle_index(h, ns, w.device)])
+            continue
+        if i == 0:
+            slab = wp.T                                        # [ns KR][h]
+        else:  # [s][m][f][g][t][e] = W[16 m + 8 f + g][16 s + 4 t + e]
+            slab = wp.reshape(h // 16, 2, 8, ns, 4, 4).permute(3, 0, 1, 2,
+                                                               4, 5)
+        out.append(slab.contiguous().view(torch.bfloat16).reshape(-1))
+    return torch.cat(out)
+
+
+def wide_operands(params, ctx):
+    """What a WH step reads that is made once per rollout: (qctx, qemb)
+    from `query_parts` and the `ring_slabs`; None at hidden <= 128 or on
+    CPU tensors (the plain versions compute the query whole)."""
+    h = params[8].shape[0]
+    if h <= 128 or not ctx.is_cuda:
+        return None
+    return (*query_parts(params, ctx), ring_slabs(params, h))
 
 
 def precedence_bitmasks(instances, cfg: TAPConfig):
@@ -439,7 +600,7 @@ def _lib():
 
 
 def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
-            params_t, stream: int):
+            params_t, stream: int, wide=None):
     """Check the operands, allocate the outputs on their device and launch
     the kernel on `stream`. Returns (outputs, CUDA error code)."""
     (tf, packed, hm, plc, prev, dims_w, dims_d, dims_h, upm, rotm, fits, g,
@@ -463,11 +624,22 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
     shapes += [(f"params[{k}]", p, s, f32 if k == 10 else cdt)
                for k, (p, s) in enumerate(zip(params, head_shapes(cfg, h)))]
     WD = W * D
-    if params_t is None and cdt == F32:
+    if h > 128:  # the ring's slabs in place of params_t
+        params_t = None
+    elif params_t is None and cdt == F32:
         raise ValueError("the float32 instantiation reads params_t")
     if params_t is not None:  # optional in bfloat16, which does not read it
         shapes += [(f"params_t[{k}]", p, s, cdt) for k, (p, s) in enumerate(
             zip(params_t, [(WD + 2, h), (h, h), (3 * h + 8, h)]))]
+    if h > 128:
+        if wide is None:
+            raise ValueError("above hidden 128 the kernel reads "
+                             "wide_operands(params, ctx)")
+        sk = RING_K if cdt == torch.bfloat16 else KR
+        n = sum(-(-k // sk) for k in (WD + 2, h, h + 8)) * h * RING_K
+        shapes += [("qctx", wide[0], (h, B), f32),
+                   ("qemb", wide[1], (h, A + 1), f32),
+                   ("slabs", wide[2], (n,), torch.bfloat16)]
     for name, t, shape, dt in shapes:
         _check(t, name, shape, dt, dev)
     outs = (torch.empty_like(packed), torch.empty_like(hm),
@@ -481,7 +653,8 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
         (packed, hm, plc, dims_w, dims_d, dims_h, tf, prev, upm, rotm, fits,
          g, se, ctx, statp, statm) + tuple(params)
         + tuple(none if o is None else o for o in outs)
-        + (tuple(params_t) if params_t is not None else (none,) * 3))
+        + (tuple(params_t) if params_t is not None else (none,) * 3)
+        + (tuple(wide) if wide is not None else (none,) * 3))
     ints = _build.int_array([B] + env_ints(cfg)
                             + [h, cfg.window, int(logits),
                                int(cdt == torch.bfloat16)])
@@ -495,13 +668,15 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
 def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
                       upm, rotm, fits, g, se, ctx, statp, statm, params,
                       cfg: TAPConfig, temperature: float = 1.0,
-                      logits: bool = True, params_t=None):
+                      logits: bool = True, params_t=None, wide=None):
     """One fused actor + select decode step; operands and results as in
     `actor_select_step_ref`. `logits=False`: the decode loop's mode, the
     token work on the live columns only and None in the logits' slot. The
     dtype of se picks the float32 or the bfloat16 instantiation.
     params_t: `transposed(params)`, which only the float32 instantiation
-    reads (made here when not given)."""
+    reads, at hidden <= 128 (ignored above); wide: `wide_operands(params,
+    ctx)`, which the kernel reads above 128 (each made here when needed
+    and not given; the plain versions read neither)."""
     ops = (tf, packed, hm, plc, prev, dims_w, dims_d, dims_h, upm, rotm,
            fits, g, se, ctx, statp, statm, params)
     if not packed.is_cuda:
@@ -509,9 +684,12 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
         return ref(*ops, cfg, temperature)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
-        if se.dtype == F32 and params_t is None:
+        if se.dtype == F32 and params_t is None and se.shape[2] <= 128:
             params_t = transposed(params)
-        outs, err = _launch(ops, cfg, temperature, logits, params_t, stream)
+        if wide is None:
+            wide = wide_operands(params, ctx)
+        outs, err = _launch(ops, cfg, temperature, logits, params_t, stream,
+                            wide)
     actor_select_step.launches += 1
     _build.check(err, "actor_select_step")
     return outs

@@ -15,11 +15,10 @@ actor_select_step (K2): builds a copy of `csrc/actor_step.cu` (or of
 DIR/actor_step.cu: `--csrc _verify/parent/tapnet_torch/csrc` profiles a
 parent checkout's body on this tree's operands; the C interface is the
 same) in which thread 0 of every block adds the cycles since its last
-read to the phase it just ended, at the phase boundaries (each right
-after the barrier that ends a phase; above hidden 128 also at the top of
-each of the head's two passes, so both passes' encoder, query and token
-groups are summed), rolls a sampled batch out to its middle decode step
-with the real kernel in the compute dtype `--dtype` and hidden width
+read to the phase it just ended, at the source's named marks (`K2_MARK`,
+`K2_PHASES`: each right after the barrier that ends a phase, one per
+product), rolls a sampled batch out to its middle decode step with the
+real kernel in the compute dtype `--dtype` and hidden width
 `--hidden`, then launches the copy on that step's operands in both modes
 and prints, per phase, the mean cycles over the blocks and the share of a
 block's total, with the launch's time (CUDA events, median of 10).
@@ -63,64 +62,40 @@ import sys
 
 import torch
 
-# (text in csrc/actor_step.cu, whether the clock read goes after it) and
-# the phase that ends at each read
-MARKS = [
-    ("  const float tf = ai.tf[0];\n", True),
-    ("    // every warp: the packed word, then the accessibility", False),
-    ("    if (wy == 0) {\n      const Word pk = wb[lane]", False),
-    ("  // flags and mask, every warp a share of the rows\n", False),
-    ("    // ---- phase 2: the token work", False),
-    ("  // ---- phase 3: masked logits", False),
-    ("  // per instance on warp 0: the max, the argmax", False),
-    ("  // the placement: every warp a share of the candidate offsets\n",
-     False),
-    ("  if (wy == 0 && active) {\n    PlacePart pb", False),
-    ("  // the state writes of select_place, every warp a share of the "
-     "rows\n", False),
-]
-PHASES = ["0: staging", "0: bit words (all warps)",
-          "0: tokens, summary, columns (warp 0)", "flags, mask, 1: encoder "
-          "and query", "2: token groups", "3: scores, argmax partials",
-          "3: argmax, log pi (warp 0)", "3: placement (all warps)",
-          "3: placement join (warp 0)", "3: state writes"]
-SLOTS = 16
-# At hidden widths above 128 the head (phases 1-2) runs in two passes of 16
-# instances: a read at the top of each pass charges the cycles since the
-# last read to phase 1 (the first pass: the flags and mask before it) or to
-# the token groups (the second pass: the first pass's groups). Sources
-# without the passes (older checkouts) lack the text and the read.
-PASS_MARK = "      const int bq = TP == TB ? bb  // clamped\n"
+# K2's named marks (csrc/actor_step.cu `K2_MARK(k)`: phase k ends there;
+# nothing in the normal build): the phases, in order.
+K2_PHASES = ["0: staging", "0: bit words (all warps)",
+             "0: tokens, summary, columns (warp 0)", "flags, mask",
+             "1: qin rows", "1: feats (heightmap, max, mean)",
+             "1: W1 feats", "1: W2 e1", "1: Wq qin",
+             "2: token groups", "3: scores, argmax partials",
+             "3: argmax, log pi (warp 0)", "3: placement (all warps)",
+             "3: placement join (warp 0)", "3: state writes"]
+SLOTS = len(K2_PHASES)
+_ACC = ("if (threadIdx.x == 0 && threadIdx.y == 0) {{ long long nw = "
+        "clock64(); {} += nw - prof_last; prof_last = nw; }}\n")
 
 
 def instrumented_source(src: str) -> str:
-    """`src` with thread 0's cycle accumulators per phase: at each mark
-    (and `PASS_MARK`) the cycles since its last read go to the phase that
-    just ended (`PHASES`), the last phase's at the end of the kernel,
-    where they are stored to prof_ts[block * SLOTS + k]."""
-    acc = ("if (threadIdx.x == 0 && threadIdx.y == 0) {{ long long nw = "
-           "clock64(); {} += nw - prof_last; prof_last = nw; }}\n")
-    for k, (text, after) in enumerate(MARKS):
-        if src.count(text) != 1:
-            raise RuntimeError(f"phase mark not found once: {text!r}")
-        r = (f"long long prof_acc[{SLOTS}] = {{0}}; "
-             "long long prof_last = clock64();\n" if k == 0
-             else acc.format(f"prof_acc[{k - 1}]"))
-        src = src.replace(text, text + r if after else r + text)
-    if src.count(PASS_MARK) == 1:
-        src = src.replace(PASS_MARK, acc.format(
-            f"prof_acc[p0 ? {PHASES.index('2: token groups')} : "
-            f"{PHASES.index('flags, mask, 1: encoder and query')}]")
-            + PASS_MARK)
-    end = "\n}\n\n}  // namespace"
+    """`src` with thread 0's cycle accumulators per phase: K2_MARK(k)
+    defined so that the cycles since the last read go to phase k, the last
+    phase's at the end of the kernel, where they are stored to
+    prof_ts[block * SLOTS + k]."""
+    start = "  const float tf = ai.tf[0];\n"
+    if src.count(start) != 1:
+        raise RuntimeError(f"kernel start not found once: {start!r}")
+    src = src.replace(start, start + "long long prof_acc[%d] = {0}; long "
+                      "long prof_last = clock64();\n" % SLOTS)
+    src = "#define K2_MARK(k) " + _ACC.format("prof_acc[k]") + src
+    end = "\n}\n\n}  // namespace\n\n// Dynamic shared memory"
     if src.count(end) != 1:
         raise RuntimeError("the kernel's end not found")
     src = src.replace(end, "\n  __syncthreads();\n  "
-                      + acc.format(f"prof_acc[{len(MARKS) - 1}]")
+                      + _ACC.format(f"prof_acc[{SLOTS - 1}]")
                       + "  if (threadIdx.x == 0 && threadIdx.y == 0) for "
                       f"(int k = 0; k < {SLOTS}; ++k) prof_ts[blockIdx.x * "
                       f"{SLOTS} + k] = prof_acc[k];\n"
-                      + "}\n\n}  // namespace")
+                      + end[1:])
     src = src.replace("namespace {\n", "__device__ long long prof_ts[8192 * "
                       f"{SLOTS}];\nnamespace {{\n", 1)
     return src + '''
@@ -477,7 +452,8 @@ def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0,
                       dtype=torch.float32):
     """The operands of the middle decode step of a sampled rollout on the
     card (`rollout_batch_record`'s actor-fused path in the compute dtype
-    `dtype`) and its transposed weights (None in bfloat16)."""
+    `dtype`), its transposed weights (None in bfloat16) and the rollout's
+    wide operands (None at hidden <= 128)."""
     from tapnet_torch import random as R
     from tapnet_torch.env.sampler import sample_batch
     from tapnet_torch.models.tapnet import init_params
@@ -490,7 +466,8 @@ def mid_step_operands(cfg, batch: int, hidden: int, dev, seed: int = 0,
     launch, calls, mid = AS._launch, [], cfg.num_blocks // 2
 
     def spy(ops, *args):
-        calls.append((ops, args[3]) if len(calls) == mid else None)
+        calls.append((ops, args[3], args[5]) if len(calls) == mid
+                     else None)
         return launch(ops, *args)
 
     AS._launch = spy
@@ -545,8 +522,9 @@ def main(argv=None) -> int:
                 json.dump(res, f, indent=1)
         return 0
     cfg = CONFIGS[args.config]
-    ops, params_t = mid_step_operands(cfg, args.batch, args.hidden, dev,
-                                      dtype=getattr(torch, args.dtype))
+    ops, params_t, wide = mid_step_operands(cfg, args.batch, args.hidden,
+                                            dev, dtype=getattr(torch,
+                                                               args.dtype))
     # another checkout's bfloat16 body may read the transposed weights
     params_t = params_t or AS.transposed(ops[16])
     lib = build(args.csrc or None)
@@ -564,7 +542,7 @@ def main(argv=None) -> int:
         for logits in (False, True):
             stream = torch.cuda.current_stream(dev).cuda_stream
             launch = lambda: AS._launch(ops, cfg, 1.0, logits, params_t,
-                                        stream)
+                                        stream, wide)
             times = []
             for _ in range(13):
                 start = torch.cuda.Event(enable_timing=True)
@@ -580,14 +558,12 @@ def main(argv=None) -> int:
             buf = (ctypes.c_longlong * (SLOTS * nb))()
             if lib.tapnet_prof_read(buf, nb):
                 raise RuntimeError("reading the clocks failed")
-            accs = [buf[b * SLOTS:b * SLOTS + len(PHASES)]
-                    for b in range(nb)]
+            accs = [buf[b * SLOTS:(b + 1) * SLOTS] for b in range(nb)]
             total = statistics.mean(sum(a) for a in accs)
-            phases = [statistics.mean(a[k] for a in accs)
-                      for k in range(len(PHASES))]
             mode = {"logits": logits, "ms": statistics.median(times[3:]),
                     "block_cycles": total,
-                    "phases": dict(zip(PHASES, phases))}
+                    "phases": {n: statistics.mean(a[k] for a in accs)
+                               for k, n in enumerate(K2_PHASES)}}
             res["modes"].append(mode)
             print(f"{args.config} B={args.batch} hidden {args.hidden} "
                   f"{args.dtype} ({res['source']}) "

@@ -369,8 +369,10 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     """One `actor_select_step` per decode step in its live-column mode
     (`logits=False`): flags, mask, the head over the live columns, the
     gumbel argmax, select/place and log pi in one launch. Only the static
-    embedding (as the kernel's [B, T, h] rows, built once), in float32 the
-    transposed W1, W2, Wq (once) and the gumbel sweep run as PyTorch ops.
+    embedding (as the kernel's [B, T, h] rows, built once), in float32 up
+    to hidden 128 the transposed W1, W2, Wq (once), above it the weight
+    ring's slabs (once) and the gumbel sweep run as PyTorch ops; above hidden 128 the
+    query's step-invariant part is one `query_parts` launch a rollout.
     The float operands are in the compute dtype `dtype` (the head's v and
     the gumbel stay float32), which picks the kernel's instantiation."""
     B = instances.dims.shape[0]
@@ -387,7 +389,9 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     upm, rotm = AS.precedence_bitmasks(instances, cfg)
     fits = AS.fits_planes(instances, cfg)
     params = AS.head_operands(actor, cfg, dtype)
-    params_t = AS.transposed(params) if dtype == torch.float32 else None
+    params_t = (AS.transposed(params) if dtype == torch.float32
+                and params[8].shape[0] <= 128 else None)
+    wide = AS.wide_operands(params, ctx)  # above hidden 128, on the card
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = (torch.zeros((N, A, B), device=dev) if greedy
              else _gumbel_all(keys, cfg).transpose(1, 2).contiguous())
@@ -399,7 +403,7 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
         packed_n, hm_n, plc, a, flags, mask, _, lp = AS.actor_select_step(
             tf, packed, hm, plc, prev, dw, dd, dh, upm, rotm, fits, g_all[t],
             se, ctx, statp, statm, params, cfg, temperature, logits=False,
-            params_t=params_t)
+            params_t=params_t, wide=wide)
         if with_logp:
             logp_sum = logp_sum + lp
         recs.append((flags.T.to(torch.uint8), _hm_batch_major(hm, cfg),

@@ -254,8 +254,8 @@ def test_rolling_rollout_matches_jax_kernel_rollout(monkeypatch):
 
 @pytest.mark.parametrize("live", [False, True])
 def test_hidden_256_matches_jax_kernel(live):
-    """Hidden 256, the widest the CUDA kernel covers (its head runs in two
-    passes of 16 instances there): the plain full mode (logits and logp
+    """Hidden 256, the widest the CUDA kernel covers (its head runs once
+    over the tile on the weight ring there): the plain full mode (logits and logp
     within 1e-5) and the plain live mode (logp within 1e-5 relative, no
     logits) against the Pallas kernel in interpret mode on one sampled
     2d-basic step at batch 128; integer outputs bit-equal."""
@@ -318,32 +318,40 @@ def _smem_rule(cfg, h, dtype):
     float regions (Wp, W8, b8, v, the C queries, the scores, the encoder's
     [feature][instance] arrays, the token view) and the ints behind them.
     Up to hidden 128 the head's arrays hold the tile's 32 instances (row
-    stride 33) and a token group is 64 columns; above, one pass of 16
-    (stride 17) and 32 columns. The float32 token view also holds a weight
-    slice of 64 (above 128: 32) rows of h. The bfloat16 instantiation holds
-    Wp as bfloat16 rows of 40 (20 h floats), and its token view holds x8
-    [8][G], h1 [32][G+4] and dyn [G][h+4], or two weight slabs of h x 72
-    (above 128: h x 40) bfloat16 beside the B operand as bfloat16 pairs (k
-    of W*D + 2 or 3h + 8 padded to 16, rows of 40 words; above 128: 24)."""
+    stride 33) and a token group is 64 columns; the float32 token view
+    also holds a weight slice of 64 rows of h; the bfloat16 instantiation
+    holds Wp as bfloat16 rows of 40 (20 h floats), and its token view holds
+    x8 [8][G], h1 [32][G+4] and dyn [G][h+4], or two weight slabs of h x 72
+    bfloat16 beside the B operand as bfloat16 pairs (k of W*D + 2 or 3h +
+    8 padded to 16, rows of 40 words). Above 128 (`layout_wh`) the queries
+    still hold 32 instances; the encoder view X [max(W*D + 2, h + 8)][33]
+    and e1 [h][33] (bfloat16: copies of 32 bfloat16 a row, X's rows padded
+    to 16); a token group is 32 columns; the token view holds the weight
+    ring's 3 stages of 16 h floats; then 9 words of the ring's mbarriers
+    and counts and 32 query columns."""
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD = cfg.target_width * cfg.target_depth
     T, L = N * R, (N + 30) // 31
     up4 = lambda x: (x + 3) // 4 * 4
     bf = dtype == torch.bfloat16
     wide = h > 128
-    lp, g = (17, 32) if wide else (33, 64)
+    g = 32 if wide else 64
     rows = max((N + 2 * L * N + R * N) * 32,             # phase 0's rows
                (13 + 8 * 16 + C * WD + 3 * N) * 32)      # phase 3's
-    if bf:
-        k = max(WD + 2, 3 * h + 8)
-        view = max(8 * g + 32 * (g + 4) + g * (h + 4),
-                   (40 if wide else 72) * h
-                   + (k + 15) // 16 * 8 * (24 if wide else 40), rows)
+    tok = 8 * g + 32 * (g + 4) + g * (h + 4) if bf else 40 * g
+    if wide:
+        xr = max(WD + 2, h + 8)
+        enc = ((xr + 15) // 16 * 16 + h) * 16 if bf else up4((xr + h) * 33)
+        view = max(tok, 3 * 16 * h, rows)
+        tail = up4(9 + 32)
     else:
-        view = max(40 * g, (32 if wide else 64) * h, rows)
+        k = max(WD + 2, 3 * h + 8)
+        enc = up4((WD + 4 * h + 10) * 33)
+        view = max(tok, 72 * h + (k + 15) // 16 * 8 * 40 if bf else 64 * h,
+                   rows)
+        tail = 0
     floats = (up4(20 * h if bf else 32 * h) + 256 + 32 + up4(h)
-              + up4(C * h * lp) + T * C * 32 + up4((WD + 4 * h + 10) * lp)
-              + view)
+              + up4(C * h * 33) + T * C * 32 + enc + view + tail)
     ints = 17 * 32 + 2 + 32 * T
     return 4 * (floats + ints)
 
@@ -356,7 +364,7 @@ def test_smem_plan_and_eligible(h, dtype):
     height, N <= 62, C <= 4, W*D <= 256) with a block within 227 KB: every
     config but the capped one at every width up to 256 in both dtypes. The
     float32 plan at 128 is unchanged (142,680 B at 2d-basic, 178,552 B at
-    2d-rolling); at 256 the widest block is K2 bf16 on multi-container."""
+    2d-rolling); at 256 the widest block is K2 f32 on multi-container."""
     for name, cfg in CONFIGS.items():
         smem = AS.smem_bytes(cfg, h, dtype)
         assert smem == _smem_rule(cfg, h, dtype), name
@@ -369,6 +377,6 @@ def test_smem_plan_and_eligible(h, dtype):
     if h == 128 and dtype == torch.float32:
         assert AS.smem_bytes(CONFIGS["2d-basic"], h) == 142680
         assert AS.smem_bytes(CONFIGS["2d-rolling"], h) == 178552
-    if h == 256 and dtype == torch.bfloat16:
+    if h == 256:
         assert max(AS.smem_bytes(c, h, dtype) for c in CONFIGS.values()) \
             == AS.smem_bytes(CONFIGS["multi-container"], h, dtype)

@@ -26,14 +26,20 @@ def test_phase_marks_found_once(source, instrument):
 
 
 def test_k2_pass_mark_found_once():
-    """Above hidden 128 K2's head runs in two passes: the package's source
-    holds the pass mark once, and the copy charges each pass's start to
-    phase 1 (the first) or to the token groups (the second)."""
+    """K2's named marks (`K2_MARK(k)`, nothing in the normal build): the
+    package's source ends every phase of K2_PHASES but the last (stored at
+    the kernel's end) with a mark, and the copy defines the marks as clock
+    reads into slot k."""
+    import re
     src = (_build.CSRC / "actor_step.cu").read_text()
-    assert src.count(PP.PASS_MARK) == 1
+    slots = {int(m) for m in re.findall(r"K2_MARK\((\d+)\);", src)}
+    assert slots == set(range(len(PP.K2_PHASES) - 1))
+    assert "#ifndef K2_MARK\n#define K2_MARK(k)\n#endif" in src
     out = PP.instrumented_source(src)
-    assert out.count("prof_acc[p0 ? ") == 1
-    assert out.count(f"prof_acc[{len(PP.MARKS) - 1}] +=") == 1
+    assert out.startswith("#define K2_MARK(k) ")
+    assert "prof_acc[k] +=" in out
+    assert out.count(f"prof_acc[{len(PP.K2_PHASES) - 1}] +=") == 1
+    assert PP.SLOTS == len(PP.K2_PHASES)
 
 
 def test_replay_marks_cover_every_phase():

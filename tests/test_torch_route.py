@@ -137,8 +137,8 @@ def test_train_step_inside_the_kernels_takes_them(card_rules):
 
 
 def test_train_step_inside_the_kernels_takes_them_at_hidden_256(card_rules):
-    """Hidden 256, the widest the kernels cover (two head passes of 16
-    instances on the card): the same routes as at hidden 32, K2 once a
+    """Hidden 256, the widest the kernels cover (their wide bodies on the
+    card): the same routes as at hidden 32, K2 once a
     decode step and the replay kernel path, with the reference path's
     losses."""
     _takes_the_kernels(card_rules, 256)
