@@ -239,8 +239,10 @@ source, all started at once), then runs, and fails on the first fault:
    (the float32 replay above 128: 3xTF32 products and `grad_outer_tf32`;
    the bfloat16 one: the weight ring, `csrc/ring_bf16.cuh`);
    `ops.replay.smem_bytes` and `record_floats` against the kernel's
-   exports; `query_parts` against its plain version at every width on
-   2d-basic and 2d-rolling in both dtypes, repeats bit-identical; the
+   exports; `query_parts` (the tensor cores; 3xTF32 in float32) against
+   its plain version at every width on 2d-basic and 2d-rolling, a ragged
+   batch of 100 and BASELINE.json config 5 (multi-container mixed) in both
+   dtypes, repeats bit-identical; the
    witness record of a rounding-decided ReLU gate
    (2d-rolling, hidden 160, batch 256, seed 10: `grad_witness`), K5b-steps
    f32 against its plain version with the gates within their rounding
@@ -279,9 +281,9 @@ the bf16 instantiations as entries of their own, and the hidden-256
 instantiations too, with a "hidden" key; the float32 hidden-256 replay
 entries add "bound_3xtf32_ms", the backward ones "fallback_ms", and
 K5b-steps' the witness record's "witness"; the float32 hidden-256 K2
-entry adds "bound_3xtf32_ms" too, and its "bound_ms" is the lower of
-that and the bound at the plain f32 rate; `query_parts`' "library_ms"
-is two torch.mm), then the nvidia-smi line,
+and `query_parts` entries add "bound_3xtf32_ms" too, and their
+"bound_ms" is the lower of that and the bound at the plain f32 rate;
+`query_parts`' "library_ms" is two torch.mm), then the nvidia-smi line,
 then `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -3365,11 +3367,20 @@ def check_witness(dev):
     return res
 
 
+# (config, batch, p2d) on which `check_query_parts` holds query_parts:
+# 2d-basic (A + 1 = 11) and 2d-rolling (101) at batch 512, a ragged batch
+# of 100 (rows of ctx that are not whole 16-byte chunks: element loads, a
+# last column tile of 100) and BASELINE.json config 5, multi-container
+# mixed p2d 0.5 (A + 1 = 41)
+QP_CASES = (("2d-basic", 512, 0.0), ("2d-rolling", 512, 0.0),
+            ("2d-basic", 100, 0.0), ("multi-container", 512, 0.5))
+
+
 def check_query_parts(dev):
     """K2's once-per-rollout query parts (`ops.actor_step.query_parts`, its
     own launch) against the plain version on the card, both dtypes, every
-    width of WIDE, on 2d-basic and 2d-rolling rollouts' operands at batch
-    512: within TOL of the plain float32 products (TF32 off), two launches
+    width of WIDE, on the rollouts' operands of `QP_CASES`: within
+    TOL of the plain float32 products (TF32 off), two launches
     bit-identical. Returns the largest error per dtype."""
     from tapnet_torch import CONFIGS
     from tapnet_torch import random as R
@@ -3378,24 +3389,24 @@ def check_query_parts(dev):
 
     errs = {"f32": 0.0, "bf16": 0.0}
     for h in WIDE:
-        for name in ("2d-basic", "2d-rolling"):
+        for name, B, p2d in QP_CASES:
             cfg = CONFIGS[name]
             actor = init_params(SEED, cfg, h, dev)
-            inst = _instances(cfg, 512, dev, SEED + 2)
+            inst = _instances(cfg, B, dev, SEED + 2, p2d)
+            case = f"h={h} {name} B={B}" + (f" p2d {p2d}" if p2d else "")
             for dt, tag in ((torch.float32, "f32"), (BF16, "bf16")):
                 with torch.no_grad():
                     o = actor_operands(actor, inst, cfg,
-                                       R.split(R.key(SEED + 3, dev), 512), dt)
+                                       R.split(R.key(SEED + 3, dev), B), dt)
                     got = AS.query_parts(o["params"], o["ctx"])
                     again = AS.query_parts(o["params"], o["ctx"])
                     want = AS.query_parts_ref(o["params"], o["ctx"])
                 for part, g, a, w in zip(("ctx", "emb"), got, again, want):
-                    _equal(f"query_parts {tag} h={h} {name} {part} repeat",
-                           g, a)
+                    _equal(f"query_parts {tag} {case} {part} repeat", g, a)
                     d = (g - w).abs()
                     if not bool((d <= TOL + TOL * w.abs()).all()):
                         raise AssertionError(
-                            f"query_parts {tag} h={h} {name} {part}: max "
+                            f"query_parts {tag} {case} {part}: max "
                             f"err {d.max().item()}")
                     errs[tag] = max(errs[tag], d.max().item())
     return errs
@@ -3405,7 +3416,9 @@ def time_query_parts(actor, cfg, dev, dtype):
     """query_parts at batch B_MAIN on one rollout's operands: ms per launch,
     the plain version's (two torch.mm), the bound (bytes: Wq's ctx and
     embedding columns, ctx and E read once, the f32 outputs written once;
-    operations: 2 per multiply-add at the dtype's peak, `ops_ms`)."""
+    operations: 2 per multiply-add at the dtype's peak, `ops_ms`; in
+    float32 also at 3xTF32's rate, the products as the kernel runs them,
+    "bound_3xtf32", and the bound the lower of the two)."""
     from tapnet_torch import random as R
     from tapnet_torch.ops import actor_step as AS
 
@@ -3428,8 +3441,13 @@ def time_query_parts(actor, cfg, dev, dtype):
     gemm = 2 * h * h * (B + A1)
     ops = ops_ms((gemm, 0), dtype)
     by_bytes = 1e3 * nb / HBM_BYTES_S
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound": max(by_bytes, ops),
+    res = {"ms": ms, "plain_ms": plain, "library_ms": lib}
+    if dtype == torch.float32:
+        tf3 = 1e3 * gemm / TF32X3_OPS_S
+        res["f32_rate_bound"] = max(by_bytes, ops)
+        res["bound_3xtf32"] = max(by_bytes, tf3)
+        ops = min(ops, tf3)
+    return {**res, "bound": max(by_bytes, ops),
             "bound_by": "operations" if ops >= by_bytes else "bytes"}
 
 
@@ -3471,8 +3489,9 @@ def phase_26(dev):
     errs = check_wide_kernels(dev, lambda m: log(f"{stamp()} {m}"))
     qp_err = check_query_parts(dev)
     log(f"{stamp()} query_parts (once per rollout) at hidden {WIDE} on "
-        f"2d-basic and 2d-rolling B=512 against the plain version: max abs "
-        f"err f32 {qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
+        f"2d-basic and 2d-rolling B=512, 2d-basic B=100 and multi-container "
+        f"mixed p2d 0.5 B=512 against the plain version: max abs err f32 "
+        f"{qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
         "bit-identical")
     log(f"{stamp()} replay plan and record mirrors equal to the kernel's "
         f"on {check_replay_smem_mirror()} and {check_replay_record_mirror()} "
@@ -3563,7 +3582,9 @@ def phase_26(dev):
             f"{r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}; two "
             f"torch.mm on f32 operands {r['library_ms']:.4f}; bound "
             f"{r['bound']:.5f} ms, "
-            f"{r['bound_by']}), once per rollout")
+            f"{r['bound_by']}"
+            + (f"; at the f32 rate {r['f32_rate_bound']:.5f}"
+               if "f32_rate_bound" in r else "") + "), once per rollout")
     kb = {}
     for key, c in (("mono", cfg), ("steps", rcfg)):
         a = actor if c is cfg else init_params(SEED, c, h, dev)
@@ -3649,6 +3670,8 @@ def phase_26(dev):
                                                      "float32" else "bf16"],
             r["ms"], r["plain_ms"], r["bound"], r["bound_by"]))
         kernels[-1]["library_ms"] = r["library_ms"]
+        if "bound_3xtf32" in r:  # bound_ms is the lower one, 3xTF32's
+            kernels[-1]["bound_3xtf32_ms"] = r["bound_3xtf32"]
     for key, suffix in (("mono", ""), ("steps", "_steps")):
         lines = {"mono": ("596", "652"), "steps": ("582", "635")}[key]
         for d, line in zip(("fwd", "bwd"), lines):

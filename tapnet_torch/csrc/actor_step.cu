@@ -94,7 +94,8 @@
 // - the query's step-invariant part is made once per rollout by
 //   `query_parts_kernel` (below): Wq_ctx ctx [h][B] and Wq_emb E [h][A+1]
 //   (the ctx and previous-action columns of Wq against the mean static key
-//   and the embedding table), each an f32 sum of exact products. A step
+//   and the embedding table) on the tensor cores: in bfloat16 f32 sums of
+//   exact products, in float32 3xTF32 sums (each product to ~2^-22). A step
 //   streams only W1, W2 and Wq's enc and dsum columns (Wq', K = h + 8)
 //   and starts the query's accumulators at Wq_ctx ctx + Wq_emb E[:, prev
 //   + 1], then adds Wq' [enc, dsum] and, as before, the bias: about half
@@ -1470,81 +1471,349 @@ extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
 //
 // qctx [h][B] = Wq[:, h:2h] ctx and qemb [h][A+1] = Wq[:, 2h:3h] E: the
 // columns of Wq that meet the mean static key and the previous action's
-// embedding (qin's rows h .. 3h of the JAX kernel's query, whose values do
-// not change over a rollout). blockIdx.z picks the product; a block makes
-// a 64 x 64 tile of the output, 256 threads 4 x 4 outputs each, K through
-// shared memory 16 rows at a time; every output one f32 sum of exact
-// products in k order (fmaf from 0), so two launches are bit-identical.
+// embedding (qin's rows h .. 3h of the JAX kernel's query,
+// tapnet_tpu/ops/pallas_actor_step.py:242-243, whose values do not change
+// over a rollout). No TPU kernel of its own: K2's WH steps start their
+// query accumulators from qctx + qemb (the note above `launch`).
+//
+// Bound: at h = 256, B = 4096 it is 2 h h (B + A + 1) = 0.54 GFLOP. In
+// bfloat16 the bytes bind (Wq's two column blocks, ctx and E read once,
+// the float32 outputs written once: 6.3 MB, ~1.9 us at 3.35 TB/s; the
+// products take 0.55 us at the dense bf16 peak); in float32 the products
+// as 3xTF32 (~3.3 us at 495/3 TFLOP/s) against ~2.7 us of bytes.
+//
+// Design: one block of 8 warps per 64 x 128 tile of an output, on the
+// tensor cores. The grid is one flat list of tiles, the emb product's
+// ceil(h/64) x ceil((A+1)/128) first, then the ctx product's ceil(h/64) x
+// ceil(B/128) (132 blocks at h = 256, B = 4096: one wave); a tile's
+// blocks share its row tile of Wq and walk the columns. K runs in stages
+// (64 rows in bfloat16, 32 in float32) through a ring of QP_NB buffers,
+// one barrier a stage; the cp.async copies run QP_NB - 1 stages ahead of
+// the products (at h = 256 in bfloat16 the whole of K at once), those
+// that pass through registers (float32 A, B by element) one stage ahead.
+// Warp w owns rows 32 (w & 1) .. + 31 and columns 32 (w >> 1) .. + 31 of
+// the tile: two m-tiles by four n-tiles, so an A fragment feeds four
+// products and a B fragment two.
+// - A (Wq's rows, [m][k]) lies in rows of 8 chunks of 16 bytes, chunk c
+//   of row r at c ^ (r & 7), read by ldmatrix: the 8 rows of an ldmatrix
+//   matrix fall in 8 bank groups.
+// - bfloat16: mma.sync m16n8k16 bf16 x bf16 -> f32 (exact products, f32
+//   sums). A comes by 16-byte cp.async; B (ctx or E, [k][n] row-major)
+//   into [KS][128] rows of 16 chunks, chunk c of row k at c ^ (k & 7),
+//   read by ldmatrix.trans.
+// - float32: 3xTF32 (mma_tf32.cuh: mma.sync m16n8k8 on x = hi + lo, the
+//   small terms first, lo.lo dropped). A is loaded into registers a stage
+//   ahead and split once as it is staged, hi and lo in two arrays that
+//   ldmatrix reads (its 8 x 8 b16 matrices are 8 x 4 f32 in the tf32 A
+//   fragment's order); B comes by cp.async into [32][136] rows (136 = 8
+//   mod 32: the fragment's 32 loads hit 32 banks) and is split on load.
+//   (Splitting A as its fragment is read, with A on the cp.async ring,
+//   took 0.0248 ms a launch against this body's 0.0209 at h = 256, B =
+//   4096 on an H100 SXM: the four warps of a row tile split the same A.)
+// - Edges: rows >= h are zeros and not stored; columns past B or A + 1
+//   are zeros and not stored; a bfloat16 stage past K (h = 160, 224)
+//   skips its k-steps. Where a row of ctx or E is not a whole number of
+//   16-byte chunks (B = 100, A + 1 = 11) B is loaded by element into
+//   registers a stage ahead. Outputs are stored as float2 from the
+//   accumulators, 32 bytes of a row per 4 lanes.
+// Every output is one warp's, summed in k order (a stage's k-steps in
+// order, each mma's sum the tensor core's), so two launches are
+// bit-identical. Launches on the caller's stream and allocates nothing
+// (a CUDA graph captures it).
 namespace {
 
-constexpr int QP_T = 64, QP_K = 16;
+constexpr int QP_BM = 64, QP_BN = 128;  // rows, columns of a block's tile
+constexpr int QP_NT = 256;              // threads: 8 warps
+constexpr int QP_NB = 4;                // buffers of the stage ring
+constexpr int QP_BLD = QP_BN + 8;       // float32 B stage row stride
 
 template <class E>
-__global__ void __launch_bounds__(256)
-query_parts_kernel(const E* wq, const E* ctx, const E* et, float* qctx,
-                   float* qemb, int h, int B, int A1) {
-  const bool emb = blockIdx.z == 1;
+struct QpPlan {
+  static constexpr bool BF = std::is_same_v<E, bf16>;
+  static constexpr int KS = BF ? 64 : 32;  // k rows of a stage
+  static constexpr int VEC = 16 / sizeof(E);  // elements of a chunk
+  // A: bfloat16 as copied; float32 split, hi then lo
+  static constexpr int A_BYTES = QP_BM * KS * (BF ? 2 : 8);
+  static constexpr int STAGE =
+      A_BYTES + KS * (BF ? 2 * QP_BN : 4 * QP_BLD);
+  static constexpr int SMEM = QP_NB * STAGE;
+};
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <class E>
+__global__ void __launch_bounds__(QP_NT)
+query_parts_kernel(const E* __restrict__ wq, const E* __restrict__ ctx,
+                   const E* __restrict__ et, float* __restrict__ qctx,
+                   float* __restrict__ qemb, int h, int B, int A1) {
+  using Plan = QpPlan<E>;
+  constexpr bool BF = Plan::BF;
+  constexpr int KS = Plan::KS, VEC = Plan::VEC;
+  extern __shared__ __align__(128) unsigned char qp_smem[];
+  const int nrb = (h + QP_BM - 1) / QP_BM, ne = (A1 + QP_BN - 1) / QP_BN;
+  int bid = blockIdx.x;
+  const bool emb = bid < nrb * ne;
+  if (!emb) bid -= nrb * ne;
   const int ncol = emb ? A1 : B, koff = emb ? 2 * h : h, FQ = 3 * h + 8;
+  const int ncb = (ncol + QP_BN - 1) / QP_BN;
+  const int r0 = bid / ncb * QP_BM, c0 = bid % ncb * QP_BN;
   const E* x = emb ? et : ctx;
   float* out = emb ? qemb : qctx;
-  const int r0 = blockIdx.y * QP_T, c0 = blockIdx.x * QP_T;
-  if (c0 >= ncol) return;
-  __shared__ float ws[QP_K][QP_T + 1];  // [k][row]
-  __shared__ float xs[QP_K][QP_T];      // [k][column]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < h; k0 += QP_K) {
-    for (int e = tid; e < QP_K * QP_T; e += 256) {
-      const int r = e / QP_K, k = e % QP_K;
-      ws[k][r] = r0 + r < h ? f32(wq[(size_t)(r0 + r) * FQ + koff + k0 + k])
-                            : 0.f;
-      const int kx = e / QP_T, cx = e % QP_T;
-      xs[kx][cx] = c0 + cx < ncol
-                       ? f32(x[(size_t)(k0 + kx) * ncol + c0 + cx]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < QP_K; ++k) {
-      float a[4], v[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ws[k][ty + 16 * i];
-        v[i] = xs[k][tx + 16 * i];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (w & 1), wn = 32 * (w >> 1);
+  // B's rows as whole 16-byte chunks (else element loads)
+  const bool bal =
+      ncol % VEC == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const int ns = (h + KS - 1) / KS;
+  auto stage_of = [&](int s) {
+    return qp_smem + s % QP_NB * Plan::STAGE;
+  };
+  // where chunk c (VEC columns) of B's stage row k goes
+  auto b_at = [&](int s, int k, int c) {
+    unsigned char* b = stage_of(s) + Plan::A_BYTES;
+    return BF ? b + 2 * (k * QP_BN + 8 * (c ^ (k & 7)))
+              : b + 4 * (k * QP_BLD + 4 * c);
+  };
+
+  // stage s's copies: in bfloat16 A (Wq's rows r0 .., columns koff + KS s
+  // ..) and, where its rows are whole chunks, B (rows KS s .., the tile's
+  // columns)
+  auto copy = [&](int s) {
+    const int k0 = KS * s;
+    if constexpr (BF) {
+      unsigned char* as = stage_of(s);
+      for (int e = tid; e < QP_BM * 8; e += QP_NT) {
+        const int r = e >> 3, c = e & 7, k = k0 + VEC * c;
+        const bool in = r0 + r < h && k < h;
+        tapnet::cp16(as + 16 * (r * 8 + (c ^ (r & 7))),
+                     in ? wq + (size_t)(r0 + r) * FQ + koff + k : wq,
+                     in ? 16 : 0);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
     }
-    __syncthreads();
+    if (!bal) return;
+    for (int e = tid; e < KS * (QP_BN / VEC); e += QP_NT) {
+      const int k = e / (QP_BN / VEC), c = e % (QP_BN / VEC);
+      const int n = c0 + VEC * c;
+      const bool in = k0 + k < h && n < ncol;
+      tapnet::cp16(b_at(s, k, c),
+                   in ? x + (size_t)(k0 + k) * ncol + n : x, in ? 16 : 0);
+    }
+  };
+  // B by element (rows not whole chunks): this thread's 4 chunks of stage
+  // s into registers, zeros past the edges, and from there to the ring
+  uint4 rb[4];
+  auto load_b = [&](int s) {
+    const int k0 = KS * s;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + QP_NT * i;
+      const int k = e / (QP_BN / VEC), c = e % (QP_BN / VEC);
+      const int n = c0 + VEC * c;
+      const E* src = x + (size_t)(k0 + k) * ncol + n;
+      unsigned v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (BF) {
+          const bool in = k0 + k < h;
+          const unsigned lo = in && n + 2 * j < ncol
+                                  ? __bfloat16_as_ushort(src[2 * j]) : 0u;
+          const unsigned hi = in && n + 2 * j + 1 < ncol
+                                  ? __bfloat16_as_ushort(src[2 * j + 1])
+                                  : 0u;
+          v[j] = lo | hi << 16;
+        } else {
+          v[j] = n + j < ncol ? __float_as_uint(src[j]) : 0u;
+        }
+      }
+      rb[i] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+  auto put_b = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + QP_NT * i;
+      *reinterpret_cast<uint4*>(
+          b_at(s, e / (QP_BN / VEC), e % (QP_BN / VEC))) = rb[i];
+    }
+  };
+
+  // float32 A: this thread's two chunks of stage s into registers, then
+  // split into hi and lo as they go to the ring (once for the block)
+  float4 ra[2];
+  auto load_a = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + QP_NT * i, r = e >> 3, c = e & 7;
+      ra[i] = r0 + r < h
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        wq + (size_t)(r0 + r) * FQ + koff + KS * s + 4 * c))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto put_a = [&](int s) {
+    unsigned* hi = reinterpret_cast<unsigned*>(stage_of(s));
+    unsigned* lo = hi + QP_BM * KS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + QP_NT * i, r = e >> 3, c = e & 7;
+      const float v[4] = {ra[i].x, ra[i].y, ra[i].z, ra[i].w};
+      unsigned uh[4], ul[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tapnet::split_tf32(v[j], uh[j], ul[j]);
+      const int at = 4 * (r * 8 + (c ^ (r & 7)));
+      *reinterpret_cast<uint4*>(hi + at) =
+          make_uint4(uh[0], uh[1], uh[2], uh[3]);
+      *reinterpret_cast<uint4*>(lo + at) =
+          make_uint4(ul[0], ul[1], ul[2], ul[3]);
+    }
+  };
+
+  float acc[2][4][4] = {};
+  // stage s's products: KS / 16 (bf16) or KS / 8 (f32) k-steps
+  auto products = [&](int s) {
+    const unsigned short* as =
+        reinterpret_cast<const unsigned short*>(stage_of(s));
+    const unsigned char* bs = stage_of(s) + Plan::A_BYTES;
+    // lane l's ldmatrix row of A's m-tile mt at chunk pair kk: row
+    // wm + 16 mt + l % 16, chunk 2 kk + l / 16
+    auto a_row = [&](int mt, int kk) {
+      const int r = wm + 16 * mt + (lane & 15);
+      return as + 8 * (r * 8 + ((2 * kk + (lane >> 4)) ^ (r & 7)));
+    };
+    if constexpr (BF) {
+      const unsigned short* b16 =
+          reinterpret_cast<const unsigned short*>(bs);
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        if (KS * s + 16 * kk >= h) break;
+        unsigned a[2][4], b[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) tapnet::ldsm(a[mt], a_row(mt, kk));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int k = 16 * kk + (lane & 15);
+          const int c = (wn + 16 * np) / 8 + (lane >> 4);
+          tapnet::ldsm_t(b[np], b16 + k * QP_BN + 8 * (c ^ (k & 7)));
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const unsigned bb[2] = {b[nt >> 1][2 * (nt & 1)],
+                                    b[nt >> 1][2 * (nt & 1) + 1]};
+            mma(acc[mt][nt], a[mt], bb);
+          }
+      }
+    } else {
+      const float* b32 = reinterpret_cast<const float*>(bs);
+#pragma unroll
+      for (int kk = 0; kk < KS / 8; ++kk) {
+        unsigned ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          tapnet::ldsm(ah[mt], a_row(mt, kk));
+          tapnet::ldsm(al[mt], a_row(mt, kk) + 2 * QP_BM * KS);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* bp = b32 + (8 * kk + t) * QP_BLD + wn + 8 * nt + g;
+          unsigned bh[2], bl[2];
+          tapnet::split_tf32(bp[0], bh[0], bl[0]);
+          tapnet::split_tf32(bp[4 * QP_BLD], bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            tapnet::mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
+        }
+      }
+    }
+  };
+
+  // the ring: stages 0 .. QP_NB - 2 in flight before the first products;
+  // a commit group a stage, empty past K, so that wait_group counts hold
+  if constexpr (!BF) {
+    load_a(0);
+    put_a(0);
+  }
+  if (!bal) {
+    load_b(0);
+    put_b(0);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int s = 0; s < QP_NB - 1; ++s) {
+    if (s < ns) copy(s);
+    tapnet::cp_commit();
+  }
+  for (int s = 0; s < ns; ++s) {
+    cp_wait<QP_NB - 2>();  // this thread's copies of stage s have landed
+    __syncthreads();       // ... everyone's, and stage s - 1 is read
+    if (s + QP_NB - 1 < ns) copy(s + QP_NB - 1);  // into s - 1's buffer
+    tapnet::cp_commit();
+    // the register stages of s + 1, read after the next barrier
+    const bool more = s + 1 < ns;
+    if constexpr (!BF)
+      if (more) load_a(s + 1);
+    if (more && !bal) load_b(s + 1);
+    products(s);
+    if constexpr (!BF)
+      if (more) put_a(s + 1);
+    if (more && !bal) put_b(s + 1);
+  }
+
+  const bool pair = ncol % 2 == 0;  // float2 stores stay 8-byte aligned
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + ty + 16 * i, cl = c0 + tx + 16 * j;
-      if (r < h && cl < ncol) out[(size_t)r * ncol + cl] = acc[i][j];
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = c0 + wn + 8 * nt + 2 * t;
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        const int r = r0 + wm + 16 * mt + g + 8 * f;
+        if (r >= h) continue;
+        float* o = out + (size_t)r * ncol + c;
+        const float v0 = acc[mt][nt][2 * f], v1 = acc[mt][nt][2 * f + 1];
+        if (pair && c + 1 < ncol) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (c < ncol) o[0] = v0;
+          if (c + 1 < ncol) o[1] = v1;
+        }
+      }
     }
+}
+
+template <class E>
+static int launch_query_parts(void* const* p, int B, int h, int A1,
+                              void* stream) {
+  const auto kernel = query_parts_kernel<E>;
+  const int smem = QpPlan<E>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nrb = (h + QP_BM - 1) / QP_BM;
+  const int blocks =
+      nrb * ((B + QP_BN - 1) / QP_BN + (A1 + QP_BN - 1) / QP_BN);
+  kernel<<<blocks, QP_NT, smem, (cudaStream_t)stream>>>(
+      (const E*)p[0], (const E*)p[1], (const E*)p[2], (float*)p[3],
+      (float*)p[4], h, B, A1);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ptrs: wq [h, 3h+8], ctx [h, B], et [h, A+1] (float or, bf16, bfloat16),
-// qctx [h, B], qemb [h, A+1] (float). ints: B, h, A + 1, bf16. Launches on
-// `stream`; returns cudaGetLastError() after the launch.
+// ptrs: wq [h, 3h+8] (16-byte aligned), ctx [h, B], et [h, A+1] (float
+// or, bf16, bfloat16), qctx [h, B], qemb [h, A+1] (float). ints: B, h,
+// A + 1, bf16; h a multiple of 32. Launches on `stream`; returns
+// cudaGetLastError() after the launch.
 extern "C" int tapnet_actor_query_parts(void* const* p, const int* ints,
                                         void* stream) {
   const int B = ints[0], h = ints[1], A1 = ints[2];
-  if (B <= 0 || h <= 0 || h % QP_K != 0 || A1 <= 0)
+  if (B <= 0 || h <= 0 || h % 32 != 0 || A1 <= 0 ||
+      (reinterpret_cast<size_t>(p[0]) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((max(B, A1) + QP_T - 1) / QP_T, (h + QP_T - 1) / QP_T, 2);
-  if (ints[3])
-    query_parts_kernel<bf16><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const bf16*)p[0], (const bf16*)p[1], (const bf16*)p[2],
-        (float*)p[3], (float*)p[4], h, B, A1);
-  else
-    query_parts_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)p[0], (const float*)p[1], (const float*)p[2],
-        (float*)p[3], (float*)p[4], h, B, A1);
-  return (int)cudaGetLastError();
+  return ints[3] ? launch_query_parts<bf16>(p, B, h, A1, stream)
+                 : launch_query_parts<float>(p, B, h, A1, stream);
 }

@@ -37,6 +37,25 @@ and from each DIR's (another checkout's csrc/, or an edited copy whose C
 interface takes the same pointers or a prefix of them), in turns: the
 builds in order, then in reverse (`replay_builds`, `actor_builds`).
 
+    python -m tapnet_torch.kernel_times --kernel query_parts
+        [--csrc DIR[,DIR...]] [--hidden 256] [--dtype bfloat16]
+
+times K2's once-per-rollout `query_parts` on one sampled rollout's
+operands of 2d-basic and 2d-rolling at batch 4096, at hidden `--hidden`
+(every width of `chip_smoke.WIDE` when it is 128, the default), in the
+dtype given, built from this package's csrc/actor_step.cu and from each
+DIR's, beside the library's two `torch.mm` on float32 operands, in turns
+(`query_parts_builds`).
+
+    python -m tapnet_torch.kernel_times --kernel replay_helpers
+
+times the replay backward's helper kernels (`grad_outer`,
+`grad_outer_tf32`, `reduce_tiles`, `sum_transpose`) launch by launch from
+a torch.profiler trace of K5b (2d-basic) and K5b-steps (2d-rolling) at
+batch 4096, hidden 128 and 256, float32 and bfloat16, each beside its
+bound, its launches a train step and the one PyTorch call that computes
+its function, where there is one (`replay_helpers`).
+
 To compare two checkouts on one card in one call,
 
     python -m tapnet_torch.kernel_times --tree ../parent --tag parent
@@ -107,6 +126,31 @@ def replay_times(CS, dev, hidden=128) -> dict:
     return out
 
 
+def _turn_fns(dirs, source, symbol, like) -> dict:
+    """{DIR: the C function `symbol` of DIR/<source>.cu} for each DIR of
+    `dirs`, built with DIR's headers (one nvcc each, started together)
+    into _build/<source>_turns_<i>.so and typed as `like`."""
+    import ctypes
+
+    from tapnet_torch.ops import _build
+
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, d in enumerate(dirs):
+        so = _build.BUILD / f"{source}_turns_{i}.so"
+        procs.append((d, so, subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-o", str(so),
+             os.path.join(d, f"{source}.cu")])))
+    fns = {}
+    for d, so, proc in procs:
+        if proc.wait():
+            raise RuntimeError(f"nvcc failed on {d}/{source}.cu")
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        fn.argtypes, fn.restype = like.argtypes, ctypes.c_int
+        fns[d] = fn
+    return fns
+
+
 def replay_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
     """The replay in `dtype` ("float32" or "bfloat16": the operands of
     `replay_times`) at batch 4096 and hidden width `hidden` (K5b and K5f
@@ -116,28 +160,13 @@ def replay_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
     (another checkout's csrc/, or an edited copy: the same C interface),
     timed in turns: the builds in order, then in reverse. ms per launch,
     one reading a turn."""
-    import ctypes
-
     import torch
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
-    from tapnet_torch.ops import _build
     from tapnet_torch.ops import replay as RP
 
-    procs = []
-    for i, d in enumerate(dirs):
-        so = _build.BUILD / f"replay_turns_{i}.so"
-        _build.BUILD.mkdir(parents=True, exist_ok=True)
-        procs.append((so, subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, "-o", str(so),
-             os.path.join(d, "replay.cu")])))
-    fns = {"csrc": RP._lib()}
-    for d, (so, proc) in zip(dirs, procs):
-        if proc.wait():
-            raise RuntimeError(f"nvcc failed on {d}/replay.cu")
-        fn = ctypes.CDLL(str(so)).tapnet_replay_logp
-        fn.argtypes, fn.restype = RP._lib().argtypes, ctypes.c_int
-        fns[d] = fn
+    fns = {"csrc": RP._lib(),
+           **_turn_fns(dirs, "replay", "tapnet_replay_logp", RP._lib())}
     order = list(fns) + list(fns)[::-1]
     lib_of, out = RP._lib, {"builds": list(fns), "dtype": dtype}
     dt = "bf16" if dtype == "bfloat16" else "f32"
@@ -213,26 +242,12 @@ def actor_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
     DIR/actor_step.cu of `dirs` with DIR's headers, timed in turns: the
     builds in order, then in reverse. ms per launch, one reading (the
     median of 20 launches) a turn."""
-    import ctypes
-
     from tapnet_torch import CONFIGS
-    from tapnet_torch.ops import _build
     from tapnet_torch.ops import actor_step as AS
 
-    procs = []
-    for i, d in enumerate(dirs):
-        so = _build.BUILD / f"actor_turns_{i}.so"
-        _build.BUILD.mkdir(parents=True, exist_ok=True)
-        procs.append((so, subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, "-o", str(so),
-             os.path.join(d, "actor_step.cu")])))
-    fns = {"csrc": AS._lib()}
-    for d, (so, proc) in zip(dirs, procs):
-        if proc.wait():
-            raise RuntimeError(f"nvcc failed on {d}/actor_step.cu")
-        fn = ctypes.CDLL(str(so)).tapnet_actor_select_step
-        fn.argtypes, fn.restype = AS._lib().argtypes, ctypes.c_int
-        fns[d] = fn
+    fns = {"csrc": AS._lib(),
+           **_turn_fns(dirs, "actor_step", "tapnet_actor_select_step",
+                       AS._lib())}
     order = list(fns) + list(fns)[::-1]
     lib_of, out = AS._lib, {"builds": list(fns), "dtype": dtype}
     dt = "bf16" if dtype == "bfloat16" else "f32"
@@ -251,6 +266,194 @@ def actor_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
                             reps=20))
     finally:
         AS._lib = lib_of
+    return out
+
+
+def query_parts_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
+    """`query_parts` in `dtype` at hidden `hidden` (every width of
+    `chip_smoke.WIDE` when it is 128 or less) on one sampled rollout's
+    operands of 2d-basic and 2d-rolling at batch 4096, built from this
+    package's csrc/actor_step.cu ("csrc") and from each DIR/actor_step.cu
+    of `dirs`, and the library's two `torch.mm` on float32 operands
+    ("library"; the casts made before the timing), timed in turns: the
+    builds and the library in order, then in reverse. ms per launch, one
+    reading (the median of 25 launches) a turn."""
+    import torch
+    from tapnet_torch import CONFIGS
+    from tapnet_torch import random as R
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import actor_step as AS
+
+    fns = {"csrc": AS._qp_lib(),
+           **_turn_fns(dirs, "actor_step", "tapnet_actor_query_parts",
+                       AS._qp_lib())}
+    order = list(fns) + ["library"]
+    order += order[::-1]
+    lib_of, out = AS._qp_lib, {"builds": list(fns), "dtype": dtype}
+    dt = "bf16" if dtype == "bfloat16" else "f32"
+    cdt = getattr(torch, dtype)
+    widths = (hidden,) if hidden > 128 else CS.WIDE
+    try:
+        for h in widths:
+            for name in ("2d-basic", "2d-rolling"):
+                cfg, B = CONFIGS[name], 4096
+                actor = init_params(0, cfg, h, dev)
+                inst = CS._instances(cfg, B, dev, 9)
+                with torch.no_grad():
+                    o = CS.actor_operands(actor, inst, cfg,
+                                          R.split(R.key(3, dev), B), cdt)
+                p, ctx = o["params"], o["ctx"]
+                wq, et = p[8].float(), p[7].float()
+                wc, we, c32 = wq[:, h:2 * h], wq[:, 2 * h:3 * h], ctx.float()
+                for tag in order:
+                    if tag == "library":
+                        fn = lambda: (torch.mm(wc, c32), torch.mm(we, et))
+                    else:
+                        AS._qp_lib = lambda fn=fns[tag]: fn
+                        fn = lambda: AS.query_parts(p, ctx)
+                    out.setdefault(f"query_parts {dt} h{h} {name} {tag}",
+                                   []).append(CS.time_gpu(fn))
+    finally:
+        AS._qp_lib = lib_of
+    return out
+
+
+HELPERS = r"grad_outer_tf32|grad_outer|reduce_tiles|sum_transpose"
+
+
+def helper_launches(fn, calls: int = 5) -> dict:
+    """{kernel: [device ms of each launch]} of the replay's helper kernels
+    over `calls` calls of fn() under torch.profiler, read from its trace in
+    launch order. `reduce_tiles` launched after `sum_transpose` in a call
+    (the step-grid schedule's d_ctx partials) is "reduce_tiles d_ctx"."""
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("ph") == "X"
+                      and e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    out, after_sum = {}, False
+    for e in kernels:
+        if "replay_kernel" in e["name"]:
+            after_sum = False
+        m = re.search(HELPERS, e["name"])
+        if m is None:
+            continue
+        key = m.group(0)
+        if key == "sum_transpose":
+            after_sum = True
+        elif key == "reduce_tiles" and after_sum:
+            key = "reduce_tiles d_ctx"
+        out.setdefault(key, []).append(float(e["dur"]) / 1e3)
+    return out
+
+
+def helper_work(CS, kernel, cfg, B, h, acts, nc) -> tuple:
+    """(bytes, operations, ops/s, input shape) of one launch of a replay
+    helper kernel at these shapes: each input read once and each output
+    written once; `grad_outer`'s products over the (tile, step) pairs in
+    which an instance of the tile acts (`acts` [N, B], this record's), at
+    the rate of the passes it runs: bfloat16 hi and lo passes at the dense
+    bf16 peak, 3xTF32 at 495/3 TFLOP/s; the sums' additions at the f32
+    rate (`chip_smoke`'s peaks). The input shape is that of the summed
+    partials (None for `grad_outer`)."""
+    import torch.nn.functional as Fn
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import replay as RP
+
+    tiles = (B + RP.TB - 1) // RP.TB
+    P = sum(a * b for a, b in AS.head_shapes(cfg, h))
+    E = cfg.num_blocks * cfg.num_rot * h  # sum_transpose's rows
+    if kernel == "reduce_tiles":
+        n = tiles * nc * P
+        return 4 * (n + P), n, CS.F32_OPS_S, (tiles * nc, P)
+    if kernel == "reduce_tiles d_ctx":
+        n = nc * h * B
+        return 4 * (n + h * B), n, CS.F32_OPS_S, (nc, h * B)
+    if kernel == "sum_transpose":
+        n = nc * B * E
+        return 4 * (n + E * B), n, CS.F32_OPS_S, (nc, B, E)
+    tp = AS.geometry(h)["tp"]
+    pad = Fn.pad(acts, (0, tiles * RP.TB - B), value=-1)
+    active = int((pad.view(acts.shape[0], tiles, RP.TB) >= 0).any(-1)
+                 .sum())
+    parts = active * cfg.num_containers * (RP.TB // tp)
+    cols = 3 * h + 8 + h + cfg.target_width * cfg.target_depth + 2
+    xs = 2 if kernel == "grad_outer" else 4  # bfloat16 activations
+    nb = parts * tp * (3 * h * 4 + cols * xs) + 4 * tiles * nc * h * cols
+    mac = parts * h * cols * tp
+    if kernel == "grad_outer":
+        return nb, 2 * 2 * mac, CS.BF16_TC_OPS_S, None
+    return nb, 2 * mac, CS.TF32X3_OPS_S, None
+
+
+def replay_helpers(CS, dev) -> dict:
+    """The replay backward's helper kernels at the train step's shapes:
+    K5b on 2d-basic and K5b-steps on 2d-rolling at batch 4096, hidden 128
+    and 256, float32 and bfloat16, on one sampled float32 rollout's record
+    (`chip_smoke.replay_operands`, dlp a ramp). For each kernel that runs:
+    ms per launch (the median of `helper_launches` over 5 calls), its
+    launches per train step, its bound (`helper_work`), the loss a step and
+    the one PyTorch call that computes its function on a tensor of its
+    input's shape (`torch.sum(part, 0)`; for `sum_transpose`, `torch.sum`
+    over the chunk axis of the transposed view into an [E, B] output), or
+    None for `grad_outer`: it reads the records' interleaved (step,
+    container, pass) parts and skips the steps without an action
+    (`sflag`), which no single call does."""
+    import torch
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import replay as RP
+
+    out, B, calls = {}, 4096, 5
+    for h in (128, 256):
+        for name, steps in (("2d-basic", False), ("2d-rolling", True)):
+            cfg = CONFIGS[name]
+            actor = init_params(0, cfg, h, dev)
+            ops_f, _, ops_b = CS.replay_operands(
+                actor, cfg, B, dev, 10, 1.0, dtype=torch.float32,
+                also=torch.bfloat16)
+            dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+            nc = RP.step_chunks(cfg, B) if steps else 1
+            for dt, ops in (("f32", ops_f), ("bf16", ops_b)):
+                bwd = CS.replay_fns(ops, cfg, 1.0, steps)[2]
+                with torch.no_grad():
+                    got = helper_launches(lambda: bwd(dlp), calls)
+                for k, times in got.items():
+                    nb, n_ops, rate, shape = helper_work(CS, k, cfg, B, h,
+                                                         ops[3], nc)
+                    by_b, by_o = 1e3 * nb / CS.HBM_BYTES_S, 1e3 * n_ops / rate
+                    bound, per = max(by_b, by_o), len(times) // calls
+                    ms = sorted(times)[len(times) // 2]
+                    lib = None
+                    if shape is not None:
+                        x = torch.randn(shape, device=dev)
+                        if k == "sum_transpose":
+                            y = torch.empty(shape[2], B, device=dev)
+                            lib = CS.time_gpu(lambda: torch.sum(
+                                x.permute(0, 2, 1), 0, out=y))
+                        else:
+                            lib = CS.time_gpu(lambda: torch.sum(x, 0))
+                    out[f"{k} {dt} h{h} {name}"] = {
+                        "ms": ms, "launches_per_step": per,
+                        "bound_ms": bound,
+                        "bound_by": "bytes" if by_b >= by_o else "operations",
+                        "loss_ms_per_step": per * (ms - bound),
+                        "library_ms": lib}
     return out
 
 
@@ -289,8 +492,10 @@ def main(argv=None) -> int:
                     choices=("float32", "bfloat16"),
                     help="with --csrc: the instantiation timed")
     ap.add_argument("--kernel", default="replay",
-                    choices=("replay", "actor_select_step"),
-                    help="with --csrc: the kernel timed")
+                    choices=("replay", "actor_select_step", "query_parts",
+                             "replay_helpers"),
+                    help="with --csrc: the kernel timed; query_parts and "
+                         "replay_helpers also without")
     args = ap.parse_args(argv)
     if args.tree:
         fwd = ["--tag", args.tag]
@@ -325,11 +530,15 @@ def main(argv=None) -> int:
     _build.build_all()
     out = {"tag": args.tag, "device": torch.cuda.get_device_name(0),
            "hidden": args.hidden}
-    if args.csrc:
-        builds = (actor_builds if args.kernel == "actor_select_step"
-                  else replay_builds)
-        out.update(builds(CS, dev, args.hidden, args.csrc.split(","),
-                          args.dtype))
+    dirs = args.csrc.split(",") if args.csrc else []
+    if args.csrc or args.kernel in ("query_parts", "replay_helpers"):
+        if args.kernel == "replay_helpers":
+            out.update(replay_helpers(CS, dev))
+        else:
+            builds = {"actor_select_step": actor_builds,
+                      "query_parts": query_parts_builds}.get(args.kernel,
+                                                             replay_builds)
+            out.update(builds(CS, dev, args.hidden, dirs, args.dtype))
         print(json.dumps(out), flush=True)
         if args.out:
             with open(args.out, "w") as f:

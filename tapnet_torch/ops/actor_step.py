@@ -294,8 +294,9 @@ def _qp_lib():
 
 def query_parts(params, ctx):
     """`query_parts_ref` on the card: one launch of csrc/actor_step.cu
-    `query_parts_kernel` (counted in `query_parts.launches`), the plain
-    version on CPU tensors. Once per rollout above hidden 128."""
+    `query_parts_kernel` (counted in `query_parts.launches`; the tensor
+    cores, 3xTF32 in float32), the plain version on CPU tensors. Once per
+    rollout above hidden 128; h a multiple of 32."""
     if not ctx.is_cuda:
         return query_parts_ref(params, ctx)
     wq, et = params[8], params[7]
@@ -304,6 +305,8 @@ def query_parts(params, ctx):
     for name, t, shape in (("wq", wq, (h, 3 * h + 8)), ("ctx", ctx, (h, B)),
                            ("et", et, (h, et.shape[1]))):
         _check(t, name, shape, ctx.dtype, dev)
+    if wq.data_ptr() % 16:  # the kernel copies Wq's rows in 16-byte chunks
+        wq = wq.clone()
     qctx = torch.empty((h, B), dtype=F32, device=dev)
     qemb = torch.empty((h, et.shape[1]), dtype=F32, device=dev)
     with torch.cuda.device(dev):
