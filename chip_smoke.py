@@ -242,8 +242,15 @@ source, all started at once), then runs, and fails on the first fault:
    exports; `query_parts` (the tensor cores; 3xTF32 in float32) against
    its plain version at every width on 2d-basic and 2d-rolling, a ragged
    batch of 100 and BASELINE.json config 5 (multi-container mixed) in both
-   dtypes, repeats bit-identical; the
-   witness record of a rounding-decided ReLU gate
+   dtypes, repeats bit-identical; the replay backward's helpers alone
+   (`ops.replay.grad_outer_tf32`, `ops.replay.reduce_tiles`) on the
+   operands of real backward launches (`kept_backward`): `grad_outer_tf32`
+   (wgmma 3xTF32) at hidden 160 and 256 on `GO_CASES` within GRAD_TOL of
+   its plain version and equal to the backward's own launch,
+   `reduce_tiles` bit for bit against its plain version and the
+   backward's own sums (batch 4096, hidden 128 and 256, both dtypes,
+   2d-basic and 2d-rolling, and a [chunks, 100] sum; each of its load
+   widths taken, as the library counts its launches); the witness record of a rounding-decided ReLU gate
    (2d-rolling, hidden 160, batch 256, seed 10: `grad_witness`), K5b-steps
    f32 against its plain version with the gates within their rounding
    bound of 0 counted and, with the rows they feed left out, within
@@ -251,7 +258,10 @@ source, all started at once), then runs, and fails on the first fault:
    2d-basic at 4096 (greedy K1 x10, sample and best-of-16 K2 x10, no
    select_step; `query_parts` once a rollout) and against the CPU path;
    3 f32 and 3 bf16 train steps at
-   batch 4096 (K2 10, `query_parts` 1, K5b 1, K3 1 a step), each repeated
+   batch 4096 (K2 10, `query_parts` 1, K5b 1, K3 1 a step; the helper
+   kernels' launches counted over these and the 2d-rolling steps:
+   `grad_outer_tf32` 1 a f32 step, `reduce_tiles` 1, 2 on the step
+   grid), each repeated
    bit for bit, a
    step at batch 256 against the CPU path (the bf16 one under
    scripts/tpu_parity.py's gate); steps_per_call graphs (2d-basic k = 8 in
@@ -266,7 +276,9 @@ source, all started at once), then runs, and fails on the first fault:
    bf16 launched twice bit-identical; times at 4096 of K2's main-path
    mode (on the kernels line with the full mode's and 2d-rolling's
    beside it), of `query_parts` (both dtypes, with its plain version) and of
-   the four
+   `grad_outer_tf32` and `reduce_tiles` alone on a f32 backward's
+   operands of 2d-basic and 2d-rolling (with `torch.sum(part, 0)` beside
+   `reduce_tiles`), and of the four
    replay kernels in both dtypes, in turns, with their plain versions and
    bounds (the float32 ones also with the products at the 3xTF32 rate)
    and, beside K5b and K5b-steps, the fallback replay (`replay_logp_sum(
@@ -283,7 +295,10 @@ entries add "bound_3xtf32_ms", the backward ones "fallback_ms", and
 K5b-steps' the witness record's "witness"; the float32 hidden-256 K2
 and `query_parts` entries add "bound_3xtf32_ms" too, and their
 "bound_ms" is the lower of that and the bound at the plain f32 rate;
-`query_parts`' "library_ms" is two torch.mm), then the nvidia-smi line,
+`query_parts`' "library_ms" is two torch.mm; `grad_outer_tf32` and
+`reduce_tiles` are hidden-256 entries with 2d-rolling's figures beside
+2d-basic's, `reduce_tiles`' "library_ms" `torch.sum(part, 0)`), then the
+nvidia-smi line,
 then `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -3032,7 +3047,7 @@ def phase_24(dev):
             f"bf16 bound counts the products at {BF16_TC_OPS_S:.3g} op/s "
             f"(H100 SXM dense bf16 tensor cores, data sheet), the rest at "
             f"{F32_OPS_S:.3g}")
-    kb = {}
+    kb, ht = {}, {}
     for key, c in (("mono", cfg), ("steps", rcfg)):
         ops, ops32, dlp = k5[key]["ops"]
         kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps")
@@ -3467,6 +3482,191 @@ def check_k2_repeat(kept, cfg):
                        f"output {i}", x, y)
 
 
+# (config, batch, p2d) on which `check_grad_outer` holds grad_outer_tf32
+# to its plain version: those of `query_parts` (2d-basic's monolithic rows,
+# 2d-rolling's step-grid rows, a ragged batch of 100, config 5 with C = 2)
+GO_CASES = QP_CASES
+GO_WIDTHS = (160, WIDE_H)
+
+
+def kept_backward(bwd, dlp):
+    """bwd(dlp) with `ops.replay.kept` on: (its gradients, the operands
+    and outputs of its helper kernels)."""
+    from tapnet_torch.ops import replay as RP
+
+    RP.kept = []
+    try:
+        with torch.no_grad():
+            got = bwd(dlp)
+        return got, RP.kept[-1]
+    finally:
+        RP.kept = None
+
+
+def _hold_grad_outer(k, cfg, h, what):
+    """grad_outer_tf32 alone on the records of one float32 backward (`k`,
+    `kept_backward`'s) against its plain version within GRAD_TOL of the
+    plain result's max magnitude, two launches bit-identical and equal to
+    the columns the backward's own launch wrote. The max scaled error."""
+    from tapnet_torch.ops import replay as RP
+
+    args = (k["rec"], k["sflag"], cfg, h, k["length"])
+    got, again = RP.grad_outer_tf32(*args), RP.grad_outer_tf32(*args)
+    want = RP.grad_outer_ref(*args)
+    rows, worst = k["part"].shape[0], 0.0
+    for (i, cols, off), g, a, w in zip(RP._grad_blocks(cfg, h), got, again,
+                                       want):
+        _equal(f"{what} params[{i}] repeat", g, a)
+        _equal(f"{what} params[{i}] against the backward's own launch", g,
+               k["part"][:, off:off + h * cols].view(rows, h, cols))
+        e = ((g - w).abs().max() / (w.abs().max() + 1e-12)).item()
+        if not e <= GRAD_TOL:
+            raise AssertionError(f"{what} params[{i}]: scaled err {e}")
+        worst = max(worst, e)
+    return worst
+
+
+def check_grad_outer(dev, log_fn):
+    """grad_outer_tf32 held alone on the records of the float32 backward
+    (K5b, or K5b-steps where the config takes the step grid) at hidden
+    GO_WIDTHS on GO_CASES (`_hold_grad_outer`). Returns the largest scaled
+    error."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import replay as RP
+
+    worst = 0.0
+    for h in GO_WIDTHS:
+        for name, B, p2d in GO_CASES:
+            cfg = CONFIGS[name]
+            ops, _ = replay_operands(init_params(SEED, cfg, h, dev), cfg, B,
+                                     dev, SEED + 10, 1.0, p2d)
+            bwd = replay_fns(ops, cfg, 1.0, RP._steps_grid(cfg))[2]
+            _, k = kept_backward(bwd, torch.linspace(-1.0, 1.0, B,
+                                                     device=dev))
+            case = f"h={h} {name} B={B}" + (f" p2d {p2d}" if p2d else "")
+            e = _hold_grad_outer(k, cfg, h, f"grad_outer_tf32 {case}")
+            log_fn(f"grad_outer_tf32 {case} ({k['part'].shape[0]} rows of "
+                   f"{k['length']} steps, {int((k['sflag'] != 0).sum())} "
+                   f"acting): max scaled err {e:.2e}")
+            worst = max(worst, e)
+    return worst
+
+
+def _held_reduce_tiles(x):
+    """reduce_tiles alone on x: (its sum, its plain version's, the load
+    width the library launched it with)."""
+    from tapnet_torch.ops import replay as RP
+
+    before = dict(RP.reduce_tiles.widths)
+    got = RP.reduce_tiles(x)
+    v = [w for w, n in RP.reduce_tiles.widths.items() if n != before[w]]
+    if len(v) != 1:
+        raise AssertionError(f"reduce_tiles {tuple(x.shape)}: launches by "
+                             f"width {RP.reduce_tiles.widths}, before "
+                             f"{before}")
+    return got, RP.reduce_tiles_ref(x), v[0]
+
+
+def _hold_reduce_tiles(k, what):
+    """reduce_tiles alone on one backward's partial rows (and d_ctx chunk
+    partials, where there are several chunks) bit for bit against its
+    plain version and the backward's own sums. {what held: (shape, load
+    width, held against the backward's own sum)}."""
+    pairs = [(k["part"], k["grads"], "partial rows")]
+    if k["dctx_part"].numel():
+        nc = k["dctx_part"].shape[0]
+        pairs.append((k["dctx_part"].view(nc, -1), k["dctx"].view(-1),
+                      "d_ctx partials"))
+    held = {}
+    for x, own, part in pairs:
+        got, want, v = _held_reduce_tiles(x)
+        _equal(f"{what} {part} against the plain version", got, want)
+        _equal(f"{what} {part} against the backward's own", got, own)
+        held[f"{what} {part}"] = (list(x.shape), v, True)
+    return held
+
+
+def check_reduce_tiles(dev, log_fn):
+    """reduce_tiles held bit for bit (`_hold_reduce_tiles`) on the partial
+    rows of K5b (2d-basic) and K5b-steps (2d-rolling, also its d_ctx chunk
+    partials) at the main paths' batch, hidden 128 and 256, float32 and
+    bfloat16, and on the logp chunk partials' shape of a ragged batch
+    (100: P not a multiple of 4, the scalar instantiation); fails unless
+    each load width (`ops.replay.RT_WIDTHS`) was held. Returns the cases
+    held."""
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import replay as RP
+
+    held = {}
+    for h in (HIDDEN, WIDE_H):
+        for name in ("2d-basic", "2d-rolling"):
+            cfg = CONFIGS[name]
+            ops, _, ops_b = replay_operands(
+                init_params(SEED, cfg, h, dev), cfg, B_MAIN, dev, SEED + 10,
+                1.0, also=BF16)
+            dlp = torch.linspace(-1.0, 1.0, B_MAIN, device=dev)
+            for dt, o in (("f32", ops), ("bf16", ops_b)):
+                bwd = replay_fns(o, cfg, 1.0, RP._steps_grid(cfg))[2]
+                held.update(_hold_reduce_tiles(
+                    kept_backward(bwd, dlp)[1],
+                    f"reduce_tiles {dt} h={h} {name} B={B_MAIN}"))
+            del ops, ops_b
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    x = torch.randn(RP.step_chunks(CONFIGS["2d-rolling"], 100), 100,
+                    generator=g, device=dev)
+    got, want, v = _held_reduce_tiles(x)
+    _equal("reduce_tiles [chunks, 100]", got, want)
+    held["reduce_tiles [chunks, 100]"] = (list(x.shape), v, False)
+    taken = {w for _, w, _ in held.values()}
+    if taken != set(RP.RT_WIDTHS):
+        raise AssertionError(f"reduce_tiles held at load widths {taken}, "
+                             f"not every one of {RP.RT_WIDTHS}: {held}")
+    for what, (shape, w, own) in held.items():
+        log_fn(f"{what} {shape}: bit for bit against its plain version"
+               + (" and the backward's own sum" if own else "")
+               + f", {w}-float loads")
+    return len(held)
+
+
+def time_helpers(k, cfg, h):
+    """grad_outer_tf32 and reduce_tiles alone on one float32 backward's
+    operands at hidden h (`kept_backward`'s `k`): ms per launch (the
+    kernel writing into a kept buffer), their plain versions', the library's
+    `torch.sum(part, 0)` for reduce_tiles, and each bound: grad_outer's
+    records read once (the G and X sections of the acting parts) and its
+    gradients written once, against its products at the 3xTF32 rate;
+    reduce_tiles' partial rows read and the sum written once, against an
+    add each at the f32 rate."""
+    from tapnet_torch.ops import replay as RP
+
+    rec, sflag, length, part = k["rec"], k["sflag"], k["length"], k["part"]
+    args = (rec, sflag, cfg, h, length)
+    buf = torch.zeros_like(part)
+    go = {"ms": time_gpu(lambda: RP.grad_outer_tf32(*args, part=buf)),
+          "plain_ms": time_gpu(lambda: RP.grad_outer_ref(*args), reps=5)}
+    parts = int((sflag != 0).sum()) * cfg.num_containers * 2
+    cols = 4 * h + 8 + cfg.target_width * cfg.target_depth + 2
+    nb = 4 * parts * 16 * (3 * h + cols) + 4 * part.shape[0] * h * cols
+    by_b = 1e3 * nb / HBM_BYTES_S
+    by_o = 1e3 * 2 * parts * 16 * h * cols / TF32X3_OPS_S
+    go.update(bound=max(by_b, by_o),
+              bound_by="bytes" if by_b >= by_o else "operations",
+              library_ms=None)
+    out = torch.empty(part.shape[1], device=part.device)
+    rt = {"ms": time_gpu(lambda: RP.reduce_tiles(part, out=out)),
+          "plain_ms": time_gpu(lambda: RP.reduce_tiles_ref(part), reps=5),
+          "library_ms": time_gpu(lambda: torch.sum(part, 0))}
+    by_b = 1e3 * 4 * (part.numel() + part.shape[1]) / HBM_BYTES_S
+    by_o = 1e3 * part.numel() / F32_OPS_S
+    rt.update(bound=max(by_b, by_o),
+              bound_by="bytes" if by_b >= by_o else "operations",
+              shape=list(part.shape))
+    return {"grad_outer_tf32": go, "reduce_tiles": rt}
+
+
 def phase_26(dev):
     """Phase 26 (module docstring): K2 and K5 at hidden widths above 128.
     Returns the kernels-line entries of the hidden-256 instantiations."""
@@ -3493,6 +3693,8 @@ def phase_26(dev):
         f"mixed p2d 0.5 B=512 against the plain version: max abs err f32 "
         f"{qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
         "bit-identical")
+    go_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"))
+    check_reduce_tiles(dev, lambda m: log(f"{stamp()} {m}"))
     log(f"{stamp()} replay plan and record mirrors equal to the kernel's "
         f"on {check_replay_smem_mirror()} and {check_replay_record_mirror()} "
         "cases")
@@ -3513,16 +3715,29 @@ def phase_26(dev):
     check_against_cpu(cfg, actor, inst, dev)
     per_step = {"actor_select_step": cfg.num_blocks, "query_parts": 1,
                 "replay_logp_bwd": 1, "heightmap_reductions": 1}
-    train_f, ts, step = train_main_path(cfg, dev, per_step, n_steps=3,
-                                        hidden=h)
+    from tapnet_torch.ops import replay as RP
+    helpers = {"grad_outer_tf32": RP.grad_outer_tf32,
+               "reduce_tiles": RP.reduce_tiles}
+    helper_n = dict.fromkeys(helpers, 0)
+
+    def counted(run):  # the helper kernels' launches on a main-path run
+        for f in helpers.values():
+            f.launches = 0
+        res = run()
+        for k, f in helpers.items():
+            helper_n[k] += f.launches
+        return res
+
+    train_f, ts, step = counted(lambda: train_main_path(
+        cfg, dev, per_step, n_steps=3, hidden=h))
     log(f"{stamp()} train path 2d-basic hidden {h} batch {B_MAIN} "
         f"launches (3 steps): {train_f}")
     assert_deterministic(step, ts)
     check_train_against_cpu(cfg, ts, dev, B=256, hidden=h)
     log(f"{stamp()} f32 train step hidden {h}: a repeat bit-identical, a "
         "step at batch 256 against the CPU path")
-    train_b, ts_b, step_b = train_main_path(cfg, dev, per_step, n_steps=3,
-                                            hidden=h, compute_dtype=BF16)
+    train_b, ts_b, step_b = counted(lambda: train_main_path(
+        cfg, dev, per_step, n_steps=3, hidden=h, compute_dtype=BF16))
     log(f"{stamp()} bf16 train path 2d-basic hidden {h} batch {B_MAIN} "
         f"launches (3 steps): {train_b}")
     assert_deterministic(step_b, ts_b)
@@ -3543,12 +3758,20 @@ def phase_26(dev):
                                        tag="phase 26")
     roll_step = {"actor_select_step": rcfg.num_blocks, "query_parts": 1,
                  "replay_logp_bwd_steps": 1, "heightmap_reductions": 1}
-    roll_f, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=1,
-                                   hidden=h)
-    roll_b, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=1,
-                                   hidden=h, compute_dtype=BF16)
+    roll_f, _, _ = counted(lambda: train_main_path(
+        rcfg, dev, roll_step, n_steps=1, hidden=h))
+    roll_b, _, _ = counted(lambda: train_main_path(
+        rcfg, dev, roll_step, n_steps=1, hidden=h, compute_dtype=BF16))
     log(f"{stamp()} rolling train step hidden {h} batch {B_MAIN} launches: "
         f"f32 {roll_f}, bf16 {roll_b}")
+    # a f32 step: one contraction launch; every step: the partial rows'
+    # sum, and on the step grid d_ctx's
+    want = {"grad_outer_tf32": 3 + 1, "reduce_tiles": 3 + 3 + 2 + 2}
+    if helper_n != want:
+        raise AssertionError(f"helper launches on the hidden-{h} main "
+                             f"paths: {helper_n}, expected {want}")
+    log(f"{stamp()} helper kernels on those main paths (f32 and bf16, "
+        f"2d-basic x3 and 2d-rolling x1): {helper_n}")
     # 3. the main paths' shapes at hidden 256, batch 4096: every kernel
     # against its plain version on the operands it is timed on, then times
     bump = lambda k, v: errs.__setitem__(k, max(errs[k], v))
@@ -3585,7 +3808,7 @@ def phase_26(dev):
             f"{r['bound_by']}"
             + (f"; at the f32 rate {r['f32_rate_bound']:.5f}"
                if "f32_rate_bound" in r else "") + "), once per rollout")
-    kb = {}
+    kb, ht = {}, {}
     for key, c in (("mono", cfg), ("steps", rcfg)):
         a = actor if c is cfg else init_params(SEED, c, h, dev)
         ops, _, ops32 = replay_operands(a, c, B_MAIN, dev, SEED + 10, 1.0,
@@ -3597,6 +3820,19 @@ def phase_26(dev):
                                    torch.float32 if dt == "f32" else BF16)
             bump(f"K5f {key} {dt}", held[dt][0])
             bump(f"K5b {key} {dt}", held[dt][1])
+        _, kf = kept_backward(replay_fns(ops32, c, 1.0, key == "steps")[2],
+                              dlp)
+        go_err = max(go_err, _hold_grad_outer(
+            kf, c, h, f"grad_outer_tf32 h={h} {key} B={B_MAIN}"))
+        ht[key] = time_helpers(kf, c, h)
+        del kf
+        for kn, r in ht[key].items():
+            log(f"{stamp()} {kn} hidden {h} "
+                f"{'2d-rolling' if key == 'steps' else '2d-basic'} "
+                f"B={B_MAIN} f32 (held to its plain version): "
+                f"{r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}, "
+                f"library {r['library_ms']}, bound {r['bound']:.4f} ms, "
+                f"{r['bound_by']})")
         bwd_b = replay_fns(ops, c, 1.0, key == "steps")[2]
         with torch.no_grad():  # the bf16 backward on the ring, twice
             for gn, x, y in zip(GRAD_NAMES, _flat_grads(bwd_b(dlp)),
@@ -3672,6 +3908,20 @@ def phase_26(dev):
         kernels[-1]["library_ms"] = r["library_ms"]
         if "bound_3xtf32" in r:  # bound_ms is the lower one, 3xTF32's
             kernels[-1]["bound_3xtf32_ms"] = r["bound_3xtf32"]
+    # the backward's helper kernels: 2d-basic's figures, 2d-rolling's
+    # beside them
+    for kn, err in (("grad_outer_tf32", go_err), ("reduce_tiles", 0.0)):
+        r, rr = ht["mono"][kn], ht["steps"][kn]
+        kernels.append(entry(kn, "pallas_replay.py:610", "float32",
+                             helper_n[kn], err, r["ms"], r["plain_ms"],
+                             r["bound"], r["bound_by"]))
+        kernels[-1].update(
+            source="tapnet_torch/csrc/replay.cu",
+            library_ms=r["library_ms"],
+            **{"2d-rolling": {"ms": rr["ms"], "plain_ms": rr["plain_ms"],
+                              "bound_ms": rr["bound"],
+                              "bound_by": rr["bound_by"],
+                              "library_ms": rr["library_ms"]}})
     for key, suffix in (("mono", ""), ("steps", "_steps")):
         lines = {"mono": ("596", "652"), "steps": ("582", "635")}[key]
         for d, line in zip(("fwd", "bwd"), lines):

@@ -191,7 +191,8 @@
 // - what runs on the tensor cores (`python -m tapnet_torch.ops._build
 //   --sass replay`, the sm_90a build): 138 HMMA in each bfloat16 backward
 //   instantiation, 30 in each bfloat16 forward, 32 in grad_outer; none in
-//   the float32 ones at h <= 128 (above: the 3xTF32 design).
+//   the float32 ones at h <= 128 (above: the 3xTF32 design, with
+//   grad_outer_tf32 on wgmma: HGMMA, no HMMA).
 //
 // Design, bfloat16 above hidden 128 (RG = TC && WH). Two passes of 16
 // instances halve the MMA work behind each weight byte, and at h = 256
@@ -262,6 +263,7 @@
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "ring_bf16.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -1987,109 +1989,439 @@ grad_outer(Dims d, const float* __restrict__ rec,
 }
 
 // The deferred weight-gradient contractions of the float32 backward above
-// hidden 128 (rec_off, f32 records): grad_outer's sums as 3xTF32
-// (mma_tf32.cuh), each record part two k-steps of 8 lanes, both operands
-// split on load. Block (slice, row), slices of GO_SW = 64 columns:
-// blockIdx.x walks the slices of one partial row first, so the blocks
-// that share the row's gradient operands run together and read them from
-// L2; each slice re-reads the row's gradient parts, so a wide slice
-// halves that traffic against one of 32. Warp wy owns the row tile wy
-// (h/16 of them; warps h/16.. idle) and the slice's 8 column tiles; a
-// (step, container, part)'s operands are loaded before its products. The
-// accumulators stay in registers until one store: one owner and one order
-// per element (steps, containers, parts, k-steps), no atomics.
+// hidden 128 (rec_off, f32 records) on wgmma (wgmma.cuh), as 3xTF32:
+// part[row][off + j cols + n] = the sum over the row's steps with an
+// action (sflag), their containers and the record's two passes of 16
+// lanes of G[j][l] X[n][l] (G = dq, d_hm, de1; X = qin, e1, feats: a part
+// of the record is a K-major tile of each, [rows][16] f32).
+//
+// Bound: operations, 3 tf32 products a multiply-add (~0.66 ms of tensor
+// work at 2d-rolling, hidden 256, batch 4096, against ~0.45 ms to read the
+// records once). An mma.sync body, each warp loading and splitting its
+// own fragments from L2 (16 warps re-splitting the same X columns, each
+// 64-column slice re-reading the row's G), reached 0.2 of the bound.
+//
+// A block owns one partial row and a tile of GO_NT = 128 columns of one
+// section (the last tile of a section takes the rest: 32, 64 or 128 wide,
+// or GO_NX = 136 where 8 columns are left over, as of Wq's 3h + 8 at h =
+// 256; N = the wgmma width) and all h rows of G: ceil(h / 64) warpgroups
+// of 64 rows each (rows h .. of the last one read whatever follows G in
+// shared memory and are never stored; every output element depends on its
+// own row and column only). The tiles of a row are neighbours in the grid
+// (blockIdx.x), so the row's G parts, which every tile reads, come from
+// L2 after the first read. The steps of the row with an action are listed
+// once (warp 0, a ballot); each (step, container, pass) is a stage: thread
+// 0 copies its G part (h x 64 bytes) and its tile of X (one contiguous run
+// of rows) with two cp.async.bulk into a ring of GO_RS raw stages, each
+// completing on its mbarrier. Per stage every thread splits its share of
+// X once into tf32 hi and lo (cvt.rna) in the swizzled B tile, then loads
+// its A fragments (G rows j, j + 8, lanes 4t .. 4t + 3: one 16-byte load
+// each, no bank conflict) and splits them in registers; after one barrier
+// thread 0 refills the stage's raw slot (GO_RS stages on) and each
+// warpgroup issues 6 wgmma (two k-steps x lo.hi, hi.lo, hi.hi) and
+// commits them without waiting. A k-step takes the lanes 4t + 2ks (as k
+// = t) and 4t + 2ks + 1 (as k = t + 4), so the split puts lane 4q + c of
+// an X row at position q of its chunk c. A warpgroup waits for its
+// products of stage s - 2 only, before it writes stage s's fragments: the
+// tensor cores run stage s - 1 across the barrier, the B tiles rotate
+// through three buffers, the A fragments through two register sets. The
+// copies bind it beside the products (each tile block copies the row's
+// whole G part): refilling a slot a stage later was 1.04-1.06x slower,
+// after the products are issued 1.09-1.14x, and blocks that walk two rows
+// or many (row, tile) items as one stream of stages 1.1-1.4x (the tiles of
+// a row no longer ran side by side: PERF.md §6). The accumulators stay in
+// registers until one store, through a small staging array a warp so that
+// the rows leave as 16-byte runs: one owner and one order per element
+// (stages in step, container, pass order; k-steps; the three products),
+// no atomics.
+constexpr int GO_NT = 128;  // columns of a tile
+constexpr int GO_NX = 136;  // at most, the last tile of a section
+constexpr int GO_RS = 5;    // raw stages
+constexpr int GO_NB = 3;    // B tile buffers
+constexpr int GO_KP = 16;   // lanes of a record part (Geo<true>::TP)
+constexpr int GO_SL = 40;   // floats of a staging row (32 columns and 8)
+static_assert(GO_KP == Geo<true>::TP, "a record part is [rows][16]");
 
-__global__ void __launch_bounds__(NT)
-grad_outer_tf32(Dims d, const float* __restrict__ rec,
-                const int* __restrict__ sflag, int len,
-                float* __restrict__ part) {
-  using tapnet::mma3;
-  using tapnet::split_tf32;
-  constexpr int TP = Geo<true>::TP, NP = Geo<true>::NP, KST = TP / 8;
-  constexpr int SW = GO_SW, NU = SW / 8;
-  const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
-  const GOff go = goff(d);
-  const RecOff ro = rec_off<true>(d, false);
-  const size_t row = blockIdx.y;
-  const int sq = (FQ + SW - 1) / SW, s2 = (h + SW - 1) / SW;
-  int sl = blockIdx.x, cols, off, gof, xof;
-  if (sl < sq) {
-    cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
-  } else if (sl < sq + s2) {
-    sl -= sq;
-    cols = h; off = go.w2t; gof = ro.dhm; xof = ro.e1;
-  } else {
-    sl -= sq + s2;
-    cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
-  }
-  const int lane = threadIdx.x, wy = threadIdx.y, g = lane >> 2, t = lane & 3;
-  if (wy >= h / 16) return;
-  const int m0 = wy * 16, n0 = SW * sl;
-  float acc[NU][4] = {};
-  for (int st = 0; st < len; ++st) {
-    if (!sflag[row * len + st]) continue;  // a step without an action
-    for (int c = 0; c < C; ++c) {
-      for (int pp = 0; pp < NP; ++pp) {
-        const float* r = rec + ((row * len + st) * C + c) * (size_t)ro.size
-                         + pp * ro.pass;
-        const float* G = r + gof;
-        const float* X = r + xof;
-        // ga in A fragment order: (g, t), (g + 8, t), (g, t + 4), (g + 8,
-        // t + 4); gb in B's: rows t, t + 4 of column g
-        float ga[KST][4], gb[KST][NU][2];
+// The shared-memory plan of grad_outer_tf32 at hidden h, in bytes from a
+// 1024-byte aligned base (`bytes` includes the slack of that alignment):
+// the raw ring, the B tiles, the mbarriers, the acting steps, and a
+// [16][GO_SL] float staging array a warp for the stores.
+struct GoPlan {
+  int wg, raw_g, stage, b, bar, cnt, act, stg, bytes;
+};
+
+__host__ __device__ constexpr GoPlan go_plan(int h) {
+  GoPlan p{};
+  p.wg = (h + 63) / 64;             // warpgroups
+  p.raw_g = h * GO_KP * 4;          // a G part; X's tile follows
+  p.stage = (p.raw_g + GO_NX * GO_KP * 4 + 1023) & ~1023;
+  p.b = GO_NX * GO_KP * 4;          // a B tile, hi (then lo)
+  p.bar = GO_RS * p.stage + GO_NB * 2 * p.b;  // GO_RS mbarriers
+  p.cnt = p.bar + 8 * GO_RS;        // the count of acting steps
+  p.act = p.cnt + 16;               // their list: MAX_N_STEPS ints
+  p.stg = p.act + 4 * MAX_N_STEPS;
+  p.bytes = p.stg + 4 * p.wg * 16 * GO_SL * 4 + 1024;
+  return p;
+}
+
+// A block fits at every width the kernel takes (160 .. 256, the widest
+// plan the largest); ops/replay.py::grad_outer_smem mirrors the plan, and
+// tests/test_torch_grad_outer.py holds its hidden-256 size to this one.
+static_assert(go_plan(MAX_H).bytes <= 227 * 1024, "grad_outer_tf32 plan");
+static_assert(go_plan(256).bytes == 222512, "ops/replay.py grad_outer_smem");
+
+// The tiles of a section of `cols` columns: GO_NT wide, the last one up
+// to GO_NX (a rest of 8 columns, as Wq's 3h + 8 at h = 256, joins the
+// tile before it instead of costing a block that copies all of G for 8
+// columns).
+__host__ __device__ inline int go_ntiles(int cols) {
+  return cols <= GO_NX ? 1 : (cols - (GO_NX - GO_NT) + GO_NT - 1) / GO_NT;
+}
+
+// Block (tile, row): the tiles of a row are Wq's section's (3h + 8
+// columns), then W2's (h), then W1's (W*D + 2).
+__host__ __device__ inline int go_tiles(const Dims& d) {
+  return go_ntiles(3 * d.h + 8) + go_ntiles(d.h) + go_ntiles(d.W * d.D + 2);
+}
+
+// chunk q (lanes 4q .. 4q + 3) of row r of a raw [rows][16] f32 X part
+// split into tf32 hi and lo: lane 4q + c to position q of chunk c
+__device__ __forceinline__ void go_split(const unsigned char* raw,
+                                         unsigned char* hi,
+                                         unsigned char* lo, int i) {
+  const int r = i >> 2, q = i & 3;
+  const float4 v = *reinterpret_cast<const float4*>(raw + 64 * r + 16 * q);
+  const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int ks = 0; ks < KST; ++ks) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            ga[ks][i] = __ldg(G + (m0 + g + 8 * (i & 1)) * TP + 8 * ks + t
-                              + 4 * (i >> 1));
-#pragma unroll
-          for (int u = 0; u < NU; ++u) {
-            const int n = n0 + 8 * u + g;
-            const float* xn = X + n * TP + 8 * ks + t;
-            gb[ks][u][0] = n < cols ? __ldg(xn) : 0.f;
-            gb[ks][u][1] = n < cols ? __ldg(xn + 4) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int ks = 0; ks < KST; ++ks) {
-          unsigned ah[4], al[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) split_tf32(ga[ks][i], ah[i], al[i]);
-#pragma unroll
-          for (int u = 0; u < NU; ++u) {
-            unsigned bh[2], bl[2];
-            split_tf32(gb[ks][u][0], bh[0], bl[0]);
-            split_tf32(gb[ks][u][1], bh[1], bl[1]);
-            mma3(acc[u], ah, al, bh, bl);
-          }
-        }
-      }
-    }
-  }
-  float* dst = part + row * go.P + off;
-#pragma unroll
-  for (int u = 0; u < NU; ++u) {
-    const int c = n0 + 8 * u + 2 * t, j = m0 + g;
-    if (c < cols) {
-      dst[j * cols + c] = acc[u][0];
-      dst[(j + 8) * cols + c] = acc[u][2];
-    }
-    if (c + 1 < cols) {
-      dst[j * cols + c + 1] = acc[u][1];
-      dst[(j + 8) * cols + c + 1] = acc[u][3];
-    }
+  for (int c = 0; c < 4; ++c) {
+    unsigned xh, xl;
+    tapnet::split_tf32(x[c], xh, xl);
+    const int o = tapnet::sw64(r, c) + 4 * q;
+    *reinterpret_cast<unsigned*>(hi + o) = xh;
+    *reinterpret_cast<unsigned*>(lo + o) = xl;
   }
 }
 
-// out[e] = sum over tiles, in tile order, of part[tile, e].
-__global__ void reduce_tiles(const float* __restrict__ part, int tiles, int P,
-                             float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+// keeps the compiler from moving writes of a fragment set across the
+// products that read it
+__device__ __forceinline__ void go_fence_a(unsigned (&a)[2][4]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// one block's tile of N columns (n0 .., `cols` in the section) of the
+// section whose G and X parts start `gof`, `xof` floats into a record
+// part, summed over the ns stages of `act`, stored to dst (the section's
+// gradient in the row: [h][cols])
+template <int N>
+__device__ void go_tile(const Dims& d, const float* __restrict__ rec,
+                        const RecOff& ro, size_t row, int len, int gof,
+                        int xof, int n0, int cols, float* __restrict__ dst,
+                        unsigned char* sm, const GoPlan& pl,
+                        unsigned long long* bar, const int* act, int ns) {
+  using namespace tapnet;
+  constexpr int NP = Geo<true>::NP;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int j = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;  // and j + 8
+  const int h = d.h, C = d.C;
+  const unsigned gbytes = h * GO_KP * 4,
+                 xbytes = min(N, cols - n0) * GO_KP * 4;
+  auto issue = [&](int s) {
+    const int st = act[s / (C * NP)], c = (s / NP) % C, pp = s % NP;
+    const float* r = rec + ((row * len + st) * C + c) * (size_t)ro.size
+                     + pp * ro.pass;
+    unsigned char* raw = sm + (s % GO_RS) * pl.stage;
+    unsigned long long* b = bar + s % GO_RS;
+    mbar_expect(b, gbytes + xbytes);
+    bulk_copy(raw, r + gof, gbytes, b);
+    bulk_copy(raw + pl.raw_g, r + xof + (size_t)n0 * GO_KP, xbytes, b);
+  };
+  if (tid == 0)
+    for (int s = 0; s < min(ns, GO_RS); ++s) issue(s);
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  unsigned ah0[2][4], al0[2][4], ah1[2][4], al1[2][4];
+  auto stage = [&](int s, unsigned (&ah)[2][4], unsigned (&al)[2][4]) {
+    const unsigned char* raw = sm + (s % GO_RS) * pl.stage;
+    unsigned char* bh = sm + GO_RS * pl.stage + (s % GO_NB) * 2 * pl.b;
+    unsigned char* bl = bh + pl.b;
+    mbar_wait(bar + s % GO_RS, (s / GO_RS) & 1);
+    for (int i = tid; i < 4 * N; i += nthr)
+      go_split(raw + pl.raw_g, bh, bl, i);
+    fence_proxy_async();  // the splits, before the tensor cores read them
+    wg_wait<1>();         // this warpgroup's products of stage s - 2
+    const float4 u = *reinterpret_cast<const float4*>(raw + 64 * j + 16 * t);
+    const float4 v =
+        *reinterpret_cast<const float4*>(raw + 64 * (j + 8) + 16 * t);
+    go_fence_a(ah);
+    go_fence_a(al);
+    split_tf32(u.x, ah[0][0], al[0][0]);
+    split_tf32(v.x, ah[0][1], al[0][1]);
+    split_tf32(u.y, ah[0][2], al[0][2]);
+    split_tf32(v.y, ah[0][3], al[0][3]);
+    split_tf32(u.z, ah[1][0], al[1][0]);
+    split_tf32(v.z, ah[1][1], al[1][1]);
+    split_tf32(u.w, ah[1][2], al[1][2]);
+    split_tf32(v.w, ah[1][3], al[1][3]);
+    __syncthreads();  // every split of s, every read of raw stage s, every
+                      // product of s - 2
+    if (tid == 0 && s + GO_RS < ns) issue(s + GO_RS);
+    wg_fence_acc(acc);
+    wg_fence();
+    wg_mma3<N>(acc, ah, al, bh, bl);
+    wg_commit();
+    go_fence_a(ah);
+    go_fence_a(al);
+  };
+  for (int s = 0; s < ns; s += 2) {
+    stage(s, ah0, al0);
+    if (s + 1 < ns) stage(s + 1, ah1, al1);
+  }
+  wg_wait<0>();
+  wg_fence_acc(acc);
+  // the stores through this warp's [16][GO_SL] staging rows, 32 columns at
+  // a time, each row written back as 16-byte runs where the section's rows
+  // allow (scattered 4-byte stores straight from the fragments took a
+  // sixth of the time at 2d-basic, PERF.md §6)
+  float* stg = reinterpret_cast<float*>(sm + pl.stg) + (tid >> 5) * 16 * GO_SL;
+  const int wr = j - g;
+  const bool vec = (cols & 3) == 0;
+#pragma unroll
+  for (int c0 = 0; c0 < N; c0 += 32) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = c0 / 8 + u;
+      if (i < N / 8) {
+        *reinterpret_cast<float2*>(stg + g * GO_SL + 8 * u + 2 * t) =
+            make_float2(acc[4 * i], acc[4 * i + 1]);
+        *reinterpret_cast<float2*>(stg + (g + 8) * GO_SL + 8 * u + 2 * t) =
+            make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int r = (lane >> 3) + 4 * p, jj = wr + r;
+      const int nn = n0 + c0 + 4 * (lane & 7);
+      const float4 v = *reinterpret_cast<const float4*>(stg + r * GO_SL
+                                                        + 4 * (lane & 7));
+      if (jj < h && nn < min(cols, n0 + N)) {
+        float* o = dst + (size_t)jj * cols + nn;
+        if (vec && nn + 3 < cols) {
+          *reinterpret_cast<float4*>(o) = v;
+        } else {
+          o[0] = v.x;
+          if (nn + 1 < cols) o[1] = v.y;
+          if (nn + 2 < cols) o[2] = v.z;
+          if (nn + 3 < cols) o[3] = v.w;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(512, 1)
+grad_outer_tf32(Dims d, const float* __restrict__ rec,
+                const int* __restrict__ sflag, int len,
+                float* __restrict__ part) {
+  extern __shared__ unsigned char go_dyn[];
+  unsigned char* sm = go_dyn + ((1024 - (tapnet::smem_addr(go_dyn) & 1023))
+                                & 1023);
+  const int h = d.h, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
+  const GoPlan pl = go_plan(h);
+  const GOff go = goff(d);
+  const RecOff ro = rec_off<true>(d, false);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm + pl.bar);
+  int* cnt = reinterpret_cast<int*>(sm + pl.cnt);
+  int* act = reinterpret_cast<int*>(sm + pl.act);
+  const size_t row = blockIdx.y;
+  const int tid = threadIdx.x;
+  if (tid < 32) {  // the row's steps with an action, in order
+    int n = 0;
+    for (int s0 = 0; s0 < len; s0 += 32) {
+      const int st = s0 + tid;
+      const bool on = st < len && sflag[row * len + st] != 0;
+      const unsigned m = __ballot_sync(~0u, on);
+      if (on) act[n + __popc(m & ((1u << tid) - 1))] = st;
+      n += __popc(m);
+    }
+    if (tid == 0) {
+      *cnt = n;
+      for (int i = 0; i < GO_RS; ++i) tapnet::mbar_init(bar + i, 1);
+      tapnet::mbar_init_fence();
+    }
+  }
+  __syncthreads();
+  const int ns = *cnt * d.C * Geo<true>::NP;
+  const int tq = go_ntiles(FQ), t2 = go_ntiles(h);
+  int tile = blockIdx.x, cols, off, gof, xof;
+  if (tile < tq) {
+    cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
+  } else if (tile < tq + t2) {
+    tile -= tq;
+    cols = h; off = go.w2t; gof = ro.dhm; xof = ro.e1;
+  } else {
+    tile -= tq + t2;
+    cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
+  }
+  const int n0 = GO_NT * tile;
+  const int width = tile + 1 == go_ntiles(cols) ? cols - n0 : GO_NT;
+  float* dst = part + row * go.P + off;
+  if (width > GO_NT)
+    go_tile<GO_NX>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl,
+                   bar, act, ns);
+  else if (width > 64)
+    go_tile<128>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl, bar,
+                 act, ns);
+  else if (width > 32)
+    go_tile<64>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl, bar,
+                act, ns);
+  else
+    go_tile<32>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl, bar,
+                act, ns);
+}
+
+// Launches of the helper kernels since the library was loaded, counted
+// where each is launched: grad_outer_tf32, then reduce_tiles with 1-, 2-
+// and 4-float loads (tapnet_replay_helper_launches reads them).
+long long helper_launches[4] = {0, 0, 0, 0};
+
+// grad_outer_tf32 over `rows` partial rows of `len` steps (its own
+// attribute and block shape: ceil(h / 64) warpgroups)
+static cudaError_t launch_grad_outer_tf32(const Dims& d, const float* rec,
+                                          const int* sflag, int rows,
+                                          int len, float* part,
+                                          cudaStream_t st) {
+  const GoPlan pl = go_plan(d.h);
+  cudaError_t err = cudaFuncSetAttribute(
+      grad_outer_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pl.bytes);
+  if (err != cudaSuccess) return err;
+  grad_outer_tf32<<<dim3(go_tiles(d), rows), 128 * pl.wg, pl.bytes, st>>>(
+      d, rec, sflag, len, part);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++helper_launches[0];
+  return err;
+}
+
+// out[e] = sum over tiles, in tile order, of part[tile, e]: each element a
+// left-to-right f32 sum (the bits of `acc += x` from 0 in tile order),
+// bound by bytes. V = 4, 2 or 1 columns a thread (16-, 8- or 4-byte
+// loads; P a multiple of V, so every row starts aligned) and 32 / V tile
+// rows loaded before their adds (32 values in flight a thread), which
+// stay in tile order; the loads read each byte once, so they skip L1 and
+// ask L2 for 256-byte runs. A column a thread with one load at a time
+// lost to torch.sum(part, 0) by up to 1.24x.
+constexpr int RT_UV = 32;
+
+template <int V>
+struct RtVec;
+template <>
+struct RtVec<1> {
+  using T = float;
+  static __device__ T zero() { return 0.f; }
+};
+template <>
+struct RtVec<2> {
+  using T = float2;
+  static __device__ T zero() { return make_float2(0.f, 0.f); }
+};
+template <>
+struct RtVec<4> {
+  using T = float4;
+  static __device__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+
+__device__ __forceinline__ void add_to(float2& a, const float2& b) {
+  a.x += b.x;
+  a.y += b.y;
+}
+
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+__device__ __forceinline__ void ld_stream(float& v, const float* p) {
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.f32 %0, [%1];"
+               : "=f"(v)
+               : "l"(p));
+}
+
+__device__ __forceinline__ void ld_stream(float2& v, const float2* p) {
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "l"(p));
+}
+
+__device__ __forceinline__ void ld_stream(float4& v, const float4* p) {
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 "
+               "{%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+}
+
+template <int V>
+__global__ void __launch_bounds__(128)
+reduce_tiles(const float* __restrict__ part, int tiles, int P,
+             float* __restrict__ out) {
+  using T = typename RtVec<V>::T;
+  constexpr int RT_U = RT_UV / V;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
   if (e >= P) return;
-  float acc = 0.f;
-  for (int t = 0; t < tiles; ++t) acc += part[(size_t)t * P + e];
-  out[e] = acc;
+  const T* p = reinterpret_cast<const T*>(part + e);
+  const size_t stride = (size_t)P / V;
+  T acc = RtVec<V>::zero();
+  for (int t = 0; t < tiles; t += RT_U) {
+    T v[RT_U];
+#pragma unroll
+    for (int u = 0; u < RT_U; ++u)
+      if (t + u < tiles) ld_stream(v[u], p + (t + u) * stride);
+#pragma unroll
+    for (int u = 0; u < RT_U; ++u)
+      if (t + u < tiles) add_to(acc, v[u]);
+  }
+  *reinterpret_cast<T*>(out + e) = acc;
+}
+
+// reduce_tiles on [tiles, P] at `part`. The widths, from the fastest of
+// those timed on the backward's sums and on the library's input (PERF.md
+// §6): 16-byte loads where they still give 16 warps an SM (132 of them:
+// the weight-gradient rows above hidden 128, d_ctx's chunks); below that,
+// 8-byte loads where the rows exceed ~40 MB, which L2 (50 MB) does not
+// keep (hidden 128 on 2d-rolling), else 4-byte loads of 32 rows, which
+// wait on L2 round trips and want the most of them in flight (hidden 128
+// on 2d-basic, the logp chunks). Blocks of 128 threads halved down to 32
+// until there are two an SM, so that small sums spread over the card.
+static cudaError_t launch_reduce_tiles(const float* part, int tiles, int P,
+                                       float* out, cudaStream_t st) {
+  constexpr int WANT = 132 * 16 * 32;  // threads
+  const bool dram = 4ll * tiles * P > (40ll << 20);
+  const int V = P % 4 == 0 && P / 4 >= WANT ? 4
+                : P % 2 == 0 && dram        ? 2
+                                            : 1;
+  const int threads = P / V;
+  int bs = 128;
+  while (bs > 32 && (threads + bs - 1) / bs < 2 * 132) bs /= 2;
+  const int blocks = (threads + bs - 1) / bs;
+  if (V == 4)
+    reduce_tiles<4><<<blocks, bs, 0, st>>>(part, tiles, P, out);
+  else if (V == 2)
+    reduce_tiles<2><<<blocks, bs, 0, st>>>(part, tiles, P, out);
+  else
+    reduce_tiles<1><<<blocks, bs, 0, st>>>(part, tiles, P, out);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++helper_launches[V == 4 ? 3 : V];
+  return err;
 }
 
 // out[e, b] = sum over chunks, in chunk order, of part[chunk, b, e] for
@@ -2170,9 +2502,7 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                                       nullptr, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess || nc == 1) return (int)err;
-    reduce_tiles<<<(d.B + 255) / 256, 256, 0, st>>>(lp, nc, d.B,
-                                                    (float*)p[20]);
-    return (int)cudaGetLastError();
+    return (int)launch_reduce_tiles(lp, nc, d.B, (float*)p[20], st);
   }
   auto kernel = replay_kernel<true, STEPS, WH, E>;
   err = cudaFuncSetAttribute(
@@ -2194,32 +2524,29 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
     constexpr int SW = GO_SW;
     const int slices = (3 * d.h + 8 + SW - 1) / SW + (d.h + SW - 1) / SW
                        + (d.W * d.D + 2 + SW - 1) / SW;
-    if (tc)
+    if (tc) {
       grad_outer<WH><<<WH ? dim3(slices, tiles * nc)
                           : dim3(tiles * nc, slices),
                        block, 0, st>>>(d, (const float*)p[32],
                                        (const int*)p[33], len,
                                        (float*)p[23]);
-    else
-      grad_outer_tf32<<<dim3(slices, tiles * nc), block, 0, st>>>(
-          d, (const float*)p[32], (const int*)p[33], len, (float*)p[23]);
-    err = cudaGetLastError();
+      err = cudaGetLastError();
+    } else {
+      err = launch_grad_outer_tf32(d, (const float*)p[32], (const int*)p[33],
+                                   tiles * nc, len, (float*)p[23], st);
+    }
     if (err != cudaSuccess) return (int)err;
   }
   const int P = goff(d).P;
-  reduce_tiles<<<(P + 255) / 256, 256, 0, st>>>((const float*)p[23],
-                                                tiles * nc, P, (float*)p[24]);
-  err = cudaGetLastError();
+  err = launch_reduce_tiles((const float*)p[23], tiles * nc, P,
+                            (float*)p[24], st);
   if (err != cudaSuccess) return (int)err;
   const int rows = T * d.h;
   sum_transpose<<<dim3((rows + 31) / 32, (d.B + 31) / 32), dim3(32, 8), 0,
                   st>>>((const float*)p[27], nc, d.B, rows, (float*)p[21]);
   err = cudaGetLastError();
   if (err != cudaSuccess || nc == 1) return (int)err;
-  const int n_ctx = d.h * d.B;
-  reduce_tiles<<<(n_ctx + 255) / 256, 256, 0, st>>>(dctx, nc, n_ctx,
-                                                    (float*)p[22]);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce_tiles(dctx, nc, d.h * d.B, (float*)p[22], st);
 }
 
 // the instantiation of the schedule (steps), the dtype (bf) and the head's
@@ -2253,6 +2580,38 @@ extern "C" long long tapnet_replay_smem_bytes(const int* ints, int bwd,
 extern "C" int tapnet_replay_record_floats(const int* ints, int bf16) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
   return record_floats(d, bf16 != 0);
+}
+
+// out[0 .. 3] = the launches since the library was loaded of
+// grad_outer_tf32 and of reduce_tiles with 1-, 2- and 4-float loads, on
+// the backward's and forward's paths and through the entries below alike.
+extern "C" void tapnet_replay_helper_launches(long long* out) {
+  for (int i = 0; i < 4; ++i) out[i] = helper_launches[i];
+}
+
+// grad_outer_tf32 alone: from f32 records rec [rows, len, C,
+// record_floats(ints, 0)] and sflag [rows, len] (nonzero: the step has an
+// action), write the W1, W2 and Wq gradient columns of part [rows, P]
+// (goff: P and the offsets; the other columns untouched). ints = B, N, W,
+// D, R, C, h with h a multiple of 32 in 160 .. 256; len <= 62.
+extern "C" int tapnet_replay_grad_outer(const float* rec, const int* sflag,
+                                        const int* ints, int rows, int len,
+                                        float* part, void* stream) {
+  const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
+  if (d.h <= 128 || d.h > MAX_H || d.h % 32 != 0 || d.C < 1 ||
+      d.C > MAX_C || rows < 1 || len < 1 || len > MAX_N_STEPS)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_grad_outer_tf32(d, rec, sflag, rows, len, part,
+                                     (cudaStream_t)stream);
+}
+
+// reduce_tiles alone: out [P] = the sum over rows, in row order, of part
+// [tiles, P] (float32).
+extern "C" int tapnet_replay_reduce_tiles(const float* part, int tiles,
+                                          int P, float* out, void* stream) {
+  if (tiles < 1 || P < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_reduce_tiles(part, tiles, P, out,
+                                  (cudaStream_t)stream);
 }
 
 // ptrs: flags, hms, masks, acts, se [B, T, h], ctx, statp, statm, dlp (0-8)

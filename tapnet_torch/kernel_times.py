@@ -48,13 +48,16 @@ DIR's, beside the library's two `torch.mm` on float32 operands, in turns
 (`query_parts_builds`).
 
     python -m tapnet_torch.kernel_times --kernel replay_helpers
+        [--csrc DIR[,DIR...]]
 
 times the replay backward's helper kernels (`grad_outer`,
 `grad_outer_tf32`, `reduce_tiles`, `sum_transpose`) launch by launch from
 a torch.profiler trace of K5b (2d-basic) and K5b-steps (2d-rolling) at
 batch 4096, hidden 128 and 256, float32 and bfloat16, each beside its
 bound, its launches a train step and the one PyTorch call that computes
-its function, where there is one (`replay_helpers`).
+its function, where there is one, read from the same trace; with
+`--csrc`, those of this package's replay.cu and of each DIR's in turns
+(`replay_helpers`).
 
 To compare two checkouts on one card in one call,
 
@@ -321,33 +324,65 @@ def query_parts_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
 HELPERS = r"grad_outer_tf32|grad_outer|reduce_tiles|sum_transpose"
 
 
-def helper_launches(fn, calls: int = 5) -> dict:
-    """{kernel: [device ms of each launch]} of the replay's helper kernels
-    over `calls` calls of fn() under torch.profiler, read from its trace in
-    launch order. `reduce_tiles` launched after `sum_transpose` in a call
-    (the step-grid schedule's d_ctx partials) is "reduce_tiles d_ctx"."""
-    import re
+def _trace_events(prof) -> list:
     import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def helper_launches(fn, calls: int = 5, library=None) -> tuple:
+    """({kernel: [device ms of each launch]}, {label: [device ms of each
+    call]}): the replay's helper kernels over `calls` calls of fn() and the
+    kernels of `calls` calls of each library function of `library`
+    ({label: fn}), all under one torch.profiler session, so that both are
+    read by the same clock from the same trace. Helpers are found by name
+    in launch order (`reduce_tiles` launched after `sum_transpose` in a
+    call, the step-grid schedule's d_ctx partials, is "reduce_tiles
+    d_ctx"); a library call's kernels by the correlation of each kernel
+    with its launch, which lies inside that call's record_function range
+    (a call's time is the sum of its kernels')."""
+    import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    library = library or {}
     fn()
+    for f in library.values():
+        f()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
             torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+        for label, f in library.items():
+            for _ in range(calls):
+                with record_function(f"library {label}"):
+                    f()
+                torch.cuda.synchronize()
+    events = _trace_events(prof)
     kernels = sorted((e for e in events if e.get("ph") == "X"
                       and e.get("cat") == "kernel"), key=lambda e: e["ts"])
-    out, after_sum = {}, False
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"][len("library "):])
+              for e in events if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and e["name"].startswith("library ")]
+    out, lib, after_sum = {}, {}, False
     for e in kernels:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        inside = [r for r in ranges if ts is not None and r[0] <= ts <= r[1]]
+        if inside:
+            r = inside[0]
+            lib.setdefault(r[2], {}).setdefault(r[0], 0.0)
+            lib[r[2]][r[0]] += float(e["dur"]) / 1e3
+            continue
         if "replay_kernel" in e["name"]:
             after_sum = False
         m = re.search(HELPERS, e["name"])
@@ -359,7 +394,7 @@ def helper_launches(fn, calls: int = 5) -> dict:
         elif key == "reduce_tiles" and after_sum:
             key = "reduce_tiles d_ctx"
         out.setdefault(key, []).append(float(e["dur"]) / 1e3)
-    return out
+    return out, {k: list(v.values()) for k, v in lib.items()}
 
 
 def helper_work(CS, kernel, cfg, B, h, acts, nc) -> tuple:
@@ -401,59 +436,110 @@ def helper_work(CS, kernel, cfg, B, h, acts, nc) -> tuple:
     return nb, 2 * mac, CS.TF32X3_OPS_S, None
 
 
-def replay_helpers(CS, dev) -> dict:
+def replay_helpers(CS, dev, dirs=()) -> dict:
     """The replay backward's helper kernels at the train step's shapes:
     K5b on 2d-basic and K5b-steps on 2d-rolling at batch 4096, hidden 128
     and 256, float32 and bfloat16, on one sampled float32 rollout's record
-    (`chip_smoke.replay_operands`, dlp a ramp). For each kernel that runs:
-    ms per launch (the median of `helper_launches` over 5 calls), its
-    launches per train step, its bound (`helper_work`), the loss a step and
-    the one PyTorch call that computes its function on a tensor of its
-    input's shape (`torch.sum(part, 0)`; for `sum_transpose`, `torch.sum`
+    (`chip_smoke.replay_operands`, dlp a ramp), built from this package's
+    csrc/replay.cu ("csrc") and from each DIR/replay.cu of `dirs`, in
+    turns: the builds in order, then in reverse. For each kernel that
+    runs: ms per launch a turn and build (the median of `helper_launches`
+    over 5 calls), its launches per train step, its bound (`helper_work`),
+    the loss a step and the one PyTorch call that computes its function on
+    a tensor of its input's shape, timed in the same trace as the kernel
+    each turn (`torch.sum(part, 0)`; for `sum_transpose`, `torch.sum`
     over the chunk axis of the transposed view into an [E, B] output), or
     None for `grad_outer`: it reads the records' interleaved (step,
     container, pass) parts and skips the steps without an action
-    (`sflag`), which no single call does."""
+    (`sflag`), which no single call does. "ms" and "library_ms" are this
+    package's and the library's medians over their turns; for
+    `reduce_tiles`, "alone_ms" is this package's kernel launched alone
+    (`ops.replay.reduce_tiles`) on the library's own input right after
+    the library's calls in the same trace, so that both read a tensor in
+    the same state of the caches (the library's input, read five times
+    over, stays in L2 where it fits; the kernel's, in the backward, was
+    written by the kernels before it)."""
+    import statistics
+
     import torch
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
     from tapnet_torch.ops import replay as RP
 
-    out, B, calls = {}, 4096, 5
-    for h in (128, 256):
-        for name, steps in (("2d-basic", False), ("2d-rolling", True)):
-            cfg = CONFIGS[name]
-            actor = init_params(0, cfg, h, dev)
-            ops_f, _, ops_b = CS.replay_operands(
-                actor, cfg, B, dev, 10, 1.0, dtype=torch.float32,
-                also=torch.bfloat16)
-            dlp = torch.linspace(-1.0, 1.0, B, device=dev)
-            nc = RP.step_chunks(cfg, B) if steps else 1
-            for dt, ops in (("f32", ops_f), ("bf16", ops_b)):
-                bwd = CS.replay_fns(ops, cfg, 1.0, steps)[2]
-                with torch.no_grad():
-                    got = helper_launches(lambda: bwd(dlp), calls)
-                for k, times in got.items():
-                    nb, n_ops, rate, shape = helper_work(CS, k, cfg, B, h,
-                                                         ops[3], nc)
-                    by_b, by_o = 1e3 * nb / CS.HBM_BYTES_S, 1e3 * n_ops / rate
-                    bound, per = max(by_b, by_o), len(times) // calls
-                    ms = sorted(times)[len(times) // 2]
-                    lib = None
-                    if shape is not None:
-                        x = torch.randn(shape, device=dev)
-                        if k == "sum_transpose":
-                            y = torch.empty(shape[2], B, device=dev)
-                            lib = CS.time_gpu(lambda: torch.sum(
-                                x.permute(0, 2, 1), 0, out=y))
-                        else:
-                            lib = CS.time_gpu(lambda: torch.sum(x, 0))
-                    out[f"{k} {dt} h{h} {name}"] = {
-                        "ms": ms, "launches_per_step": per,
-                        "bound_ms": bound,
-                        "bound_by": "bytes" if by_b >= by_o else "operations",
-                        "loss_ms_per_step": per * (ms - bound),
-                        "library_ms": lib}
+    fns = {"csrc": RP._lib(),
+           **_turn_fns(dirs, "replay", "tapnet_replay_logp", RP._lib())}
+    order = list(fns) + list(fns)[::-1]
+    lib_of = RP._lib
+    out, B, calls = {"builds": list(fns)}, 4096, 5
+    try:
+        for h in (128, 256):
+            for name, steps in (("2d-basic", False), ("2d-rolling", True)):
+                cfg = CONFIGS[name]
+                actor = init_params(0, cfg, h, dev)
+                ops_f, _, ops_b = CS.replay_operands(
+                    actor, cfg, B, dev, 10, 1.0, dtype=torch.float32,
+                    also=torch.bfloat16)
+                dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+                nc = RP.step_chunks(cfg, B) if steps else 1
+                shapes = {k: helper_work(CS, k, cfg, B, h, ops_f[3], nc)[3]
+                          for k in ("reduce_tiles", "reduce_tiles d_ctx",
+                                    "sum_transpose")}
+                xs = {k: torch.randn(s, device=dev)
+                      for k, s in shapes.items() if k != "reduce_tiles d_ctx"
+                      or nc > 1}
+                y = torch.empty(shapes["sum_transpose"][2], B, device=dev)
+                # sum_transpose's first (its input passes through L2);
+                # then each sum by the library and, right after it on the
+                # same input, this package's kernel alone
+                library = {"sum_transpose": lambda: torch.sum(
+                    xs["sum_transpose"].permute(0, 2, 1), 0, out=y)}
+                for k, x in xs.items():
+                    if k.startswith("reduce_tiles"):
+                        o = torch.empty(x.shape[1], device=dev)
+                        library[k] = lambda x=x: torch.sum(x, 0)
+                        library[f"{k} alone"] = (
+                            lambda x=x, o=o: RP.reduce_tiles(x, out=o))
+                for dt, ops in (("f32", ops_f), ("bf16", ops_b)):
+                    bwd = CS.replay_fns(ops, cfg, 1.0, steps)[2]
+                    for tag in order:
+                        RP._lib = lambda fn=fns[tag]: fn
+                        with torch.no_grad():
+                            got, libt = helper_launches(lambda: bwd(dlp),
+                                                        calls, library)
+                        for k, times in got.items():
+                            key = f"{k} {dt} h{h} {name}"
+                            if key not in out:
+                                nb, n_ops, rate, _ = helper_work(
+                                    CS, k, cfg, B, h, ops[3], nc)
+                                by_b = 1e3 * nb / CS.HBM_BYTES_S
+                                by_o = 1e3 * n_ops / rate
+                                out[key] = {
+                                    "launches_per_step": len(times) // calls,
+                                    "bound_ms": max(by_b, by_o),
+                                    "bound_by": "bytes" if by_b >= by_o
+                                    else "operations",
+                                    "turns": {}, "library_turns": [],
+                                    "alone_turns": []}
+                            r = out[key]
+                            r["turns"].setdefault(tag, []).append(
+                                sorted(times)[len(times) // 2])
+                            for lk, rk in ((k, "library_turns"),
+                                           (f"{k} alone", "alone_turns")):
+                                if lk in libt:
+                                    lt = libt[lk]
+                                    r[rk].append(sorted(lt)[len(lt) // 2])
+    finally:
+        RP._lib = lib_of
+    for k, r in out.items():
+        if k == "builds":
+            continue
+        r["ms"] = statistics.median(r["turns"]["csrc"])
+        r["library_ms"] = (statistics.median(r["library_turns"])
+                           if r["library_turns"] else None)
+        r["alone_ms"] = (statistics.median(r["alone_turns"])
+                         if r["alone_turns"] else None)
+        r["loss_ms_per_step"] = r["launches_per_step"] * (r["ms"]
+                                                          - r["bound_ms"])
     return out
 
 
@@ -533,7 +619,7 @@ def main(argv=None) -> int:
     dirs = args.csrc.split(",") if args.csrc else []
     if args.csrc or args.kernel in ("query_parts", "replay_helpers"):
         if args.kernel == "replay_helpers":
-            out.update(replay_helpers(CS, dev))
+            out.update(replay_helpers(CS, dev, dirs))
         else:
             builds = {"actor_select_step": actor_builds,
                       "query_parts": query_parts_builds}.get(args.kernel,

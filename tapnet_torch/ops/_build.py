@@ -19,9 +19,11 @@ the package's `csrc/`): registers, spills, stack and shared memory.
 
     python -m tapnet_torch.ops._build --sass replay
 
-counts each kernel's HMMA instructions in the built library (`cuobjdump
--sass`): the tensor-core products of the bfloat16 instantiations of
-replay.cu (and, `--sass actor_step`, of actor_step.cu).
+counts each kernel's tensor-core instructions in the built library
+(`cuobjdump -sass`): HMMA (`mma.sync`: the bfloat16 instantiations of
+replay.cu and actor_step.cu, the 3xTF32 products of the float32 ones
+above hidden 128) beside HGMMA (`wgmma`: replay.cu's `grad_outer_tf32`),
+so the SASS shows which tensor-core path each kernel takes.
 """
 
 from __future__ import annotations
@@ -145,10 +147,11 @@ def ptxas_report(csrc: Path = CSRC, names=None) -> str:
     return "\n".join(lines)
 
 
-def hmma_counts(name: str) -> dict:
-    """{kernel: count} of the tensor-core (HMMA) SASS instructions in each
-    kernel of the built library of csrc/<name>.cu (`cuobjdump -sass`;
-    kernel names demangled by `cu++filt` where the toolkit has it)."""
+def mma_counts(name: str) -> dict:
+    """{kernel: {"HMMA": n, "HGMMA": m}}: the tensor-core SASS instructions
+    (`mma.sync` and `wgmma`) in each kernel of the built library of
+    csrc/<name>.cu (`cuobjdump -sass`; kernel names demangled by
+    `cu++filt` where the toolkit has it)."""
     import re
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(_target(name))], check=True,
@@ -158,9 +161,11 @@ def hmma_counts(name: str) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bHMMA\b", line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            m = re.search(r"\b(HGMMA|HMMA)\b", line)
+            if m:
+                counts[fn][m.group(1)] += 1
     filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
     if os.path.exists(filt) and counts:
         names = subprocess.run([filt], input="\n".join(counts), check=True,
@@ -176,11 +181,11 @@ if __name__ == "__main__":
     ap.add_argument("--csrc", default=str(CSRC))
     ap.add_argument("--sass", default="",
                     help="instead: build the package's csrc/<NAME>.cu and "
-                         "count each kernel's HMMA instructions")
+                         "count each kernel's HMMA and HGMMA instructions")
     args = ap.parse_args()
     if args.sass:
         load(args.sass)
-        for k, v in hmma_counts(args.sass).items():
-            print(f"{args.sass} {k}: {v} HMMA")
+        for k, v in mma_counts(args.sass).items():
+            print(f"{args.sass} {k}: {v['HMMA']} HMMA, {v['HGMMA']} HGMMA")
     else:
         print(ptxas_report(Path(args.csrc)))

@@ -13,7 +13,9 @@ gradients of the 11 head weights summed over the batch.
   formula; used on CPU tensors and as the reference the kernels are held to;
 - `replay_logp_fwd` / `replay_logp_bwd`: on CUDA tensors they launch
   `csrc/replay.cu` (the backward is the kernel plus a fixed-order sum of
-  its per-tile weight-gradient partials) and count their launches;
+  its per-tile weight-gradient partials) and count their launches (the
+  helper kernels' launches, counted by csrc/replay.cu where it launches
+  them, go to `grad_outer_tf32.launches` and `reduce_tiles.launches`);
 - `replay_logp_fwd_steps` / `replay_logp_bwd_steps`: the step-grid schedule
   (`_steps_grid`: rolling windows and N > 31, up to N = 62). The same value
   and gradients from the same record plus `prev` [S, B] (the actions
@@ -705,8 +707,19 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
                none if prev is None else prev, part, none, none)
             + transposed(params) + (none, none)
             + ring_operands(params, h))
-    return logp, _launch(False, ptrs, cfg, B, h, temperature, dev, chunks,
-                         se.dtype)
+    before = _helper_counts()
+    err = _launch(False, ptrs, cfg, B, h, temperature, dev, chunks,
+                  se.dtype)
+    _count_helpers(before)  # the chunks' logp partials' sum, if any
+    return logp, err
+
+
+# None, or a list to which every backward launch appends the operands of
+# its helper kernels: the records and sflag of the deferred contractions
+# (empty where it keeps none) with their steps a row, the weight-gradient
+# partial rows and their sum, the d_ctx chunk partials (empty for one
+# chunk) and d_ctx
+kept = None
 
 
 def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
@@ -740,7 +753,14 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
                none if prev is None else prev, none, dse_part, dctx_part)
             + transposed(params) + (rec, sflag)
             + ring_operands(params, h))
+    before = _helper_counts()
     err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks, se.dtype)
+    _count_helpers(before)  # the helper kernels this launch ran
+    if kept is not None:  # the helpers' operands, to hold them alone
+        kept.append({"rec": rec, "sflag": sflag, "part": part,
+                     "dctx_part": dctx_part, "dctx": dctx, "grads": flat,
+                     "length": _steps_per_row(cfg, chunks) if rec.numel()
+                     else 0})
     grads, off = [], 0
     for a, b in shapes:
         grads.append(flat[off:off + a * b].view(a, b))
@@ -842,6 +862,24 @@ def record_floats(cfg: TAPConfig, h: int, dtype=F32) -> int:
     return (3 * h * tp + (3 * h + 8 + h + WD2) * xp + q) * (TB // tp)
 
 
+def rec_offsets(cfg: TAPConfig, h: int, dtype=F32) -> dict:
+    """csrc/replay.cu `rec_off` in Python: the floats from a record part's
+    start of its sections dq, dhm, de1 (f32 [h][tp]), qin [3h+8][xp], e1
+    [h][xp], feats [W*D+2][xp] and, above hidden 128, q [h][xp] (xp = tp
+    in float32, tp / 2 bfloat16 pairs in bfloat16), the part's floats
+    ("pass") and the record's ("size": one part per head pass)."""
+    tp = geometry(h)["tp"]
+    xp = tp // 2 if dtype == torch.bfloat16 else tp
+    WD2 = cfg.target_width * cfg.target_depth + 2
+    out, o = {}, 0
+    for name, n in (("dq", h * tp), ("dhm", h * tp), ("de1", h * tp),
+                    ("qin", (3 * h + 8) * xp), ("e1", h * xp),
+                    ("feats", WD2 * xp), ("q", h * xp if h > 128 else 0)):
+        out[name], o = o, o + n
+    out["pass"], out["size"] = o, o * (TB // tp)
+    return out
+
+
 def scratch_bytes(cfg: TAPConfig, B: int, h: int, dtype=F32) -> dict:
     """Device scratch of one step-grid backward call, in bytes: the [B, T,
     h] copy of se (float32: the bfloat16 one is half), the d_se partials
@@ -910,3 +948,176 @@ class ReplayLogp(torch.autograd.Function):
                                                (se, ctx, *params))]
         return (None, None, None, None, None, None, None, None, None,
                 *grads)
+
+
+# ------------------------------------------------------------------ #
+# the backward's helper kernels alone (csrc/replay.cu): the main path
+# launches them inside `tapnet_replay_logp`; these wrappers launch one on
+# given operands, to hold it to its plain version and to time it
+
+GO_NT, GO_NX, GO_RS, GO_NB, GO_SL = 128, 136, 5, 3, 40  # csrc/replay.cu:
+#   grad_outer_tf32's tile, widest last tile, raw stages, B tile buffers
+#   and floats of a staging row
+
+
+def grad_outer_smem(h: int) -> int:
+    """Bytes of dynamic shared memory of one `grad_outer_tf32` block at
+    hidden h, as csrc/replay.cu `go_plan` lays it out: GO_RS raw stages
+    (a G part, h rows of 16 f32, and up to GO_NX X rows, 1024-byte
+    aligned), GO_NB buffers of the split B tile (hi and lo), the
+    mbarriers, the count and the list of acting steps, a [16][GO_SL]
+    float staging array a warp, and the slack of aligning the base to
+    1024 bytes."""
+    row, wg = 16 * 4, -(-h // 64)
+    stage = (h * row + GO_NX * row + 1023) & ~1023
+    return (GO_RS * stage + GO_NB * 2 * GO_NX * row + 8 * GO_RS + 16
+            + 4 * MAX_N + 4 * wg * 16 * GO_SL * 4 + 1024)
+
+
+def _grad_blocks(cfg: TAPConfig, h: int):
+    """(param index, columns) of the three weight gradients grad_outer
+    writes, W1 [h][W*D+2], W2 [h][h], Wq [h][3h+8], and each one's offset
+    in a partial row of [tiles, P] (the head operands' order)."""
+    shapes = head_shapes(cfg, h)
+    offs = [sum(a * b for a, b in shapes[:i]) for i in range(len(shapes))]
+    return [(i, shapes[i][1], offs[i]) for i in (3, 5, 8)]
+
+
+def grad_outer_ref(rec, sflag, cfg: TAPConfig, h: int, length: int):
+    """Plain version of `grad_outer_tf32`: from the float32 records rec
+    [rows * length * C * record_floats] (`rec_offsets`) and sflag [rows *
+    length] (nonzero: the step has an action), per partial row the
+    gradients of W1, W2 and Wq [rows, h, cols]: the sums over the row's
+    acting steps, their containers, the record's passes and lanes of
+    de1 feats^T, d_hm e1^T and dq qin^T (float32 products; a step without
+    an action, whose record the kernel never wrote, adds nothing)."""
+    ro = rec_offsets(cfg, h)
+    C, tp = cfg.num_containers, geometry(h)["tp"]
+    rows = sflag.numel() // length
+    r = rec.view(rows, length, C, TB // tp, ro["pass"])
+    on = (sflag.view(rows, length) != 0)[:, :, None, None, None, None]
+
+    def sec(name, n):
+        x = r[..., ro[name]:ro[name] + n * tp].reshape(rows, length, C,
+                                                       TB // tp, n, tp)
+        return torch.where(on, x, torch.zeros((), dtype=x.dtype,
+                                              device=x.device))
+
+    WD2 = cfg.target_width * cfg.target_depth + 2
+    return tuple(torch.einsum("rscpjl,rscpnl->rjn", sec(g, h), sec(x, n))
+                 for g, x, n in (("de1", "feats", WD2), ("dhm", "e1", h),
+                                 ("dq", "qin", 3 * h + 8)))
+
+
+@functools.cache
+def _helper_lib():
+    lib = _build.load("replay")
+    go = lib.tapnet_replay_grad_outer
+    go.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    rt = lib.tapnet_replay_reduce_tiles
+    rt.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    for fn in (go, rt):
+        fn.restype = ctypes.c_int
+    n = lib.tapnet_replay_helper_launches
+    n.argtypes, n.restype = [ctypes.c_void_p], None
+    return go, rt, n
+
+
+RT_WIDTHS = (1, 2, 4)  # reduce_tiles' loads: floats a thread
+
+
+def _helper_counts() -> tuple:
+    """The launches of grad_outer_tf32 and of reduce_tiles at each of
+    RT_WIDTHS since the library was loaded, as csrc/replay.cu counts them
+    where it launches each."""
+    buf = (ctypes.c_longlong * 4)()
+    _helper_lib()[2](buf)
+    return tuple(buf)
+
+
+def _count_helpers(before):
+    """Add the helper launches since `before` (`_helper_counts()`) to the
+    wrappers' counters: `grad_outer_tf32.launches`, `reduce_tiles.launches`
+    and `reduce_tiles.widths` (launches by load width)."""
+    d = [a - b for a, b in zip(_helper_counts(), before)]
+    grad_outer_tf32.launches += d[0]
+    reduce_tiles.launches += sum(d[1:])
+    for v, k in zip(RT_WIDTHS, d[1:]):
+        reduce_tiles.widths[v] += k
+
+
+def grad_outer_tf32(rec, sflag, cfg: TAPConfig, h: int, length: int,
+                    part=None):
+    """The deferred weight-gradient contractions of the float32 backward
+    above hidden 128 (csrc/replay.cu `grad_outer_tf32`, wgmma 3xTF32) on
+    given records; operands and results as in `grad_outer_ref` (the
+    results are views of `part`, a float32 [rows, P] partial-row buffer
+    of which the kernel writes the three gradients' columns: zeros by
+    default). On CPU tensors the plain version."""
+    if not rec.is_cuda:
+        return grad_outer_ref(rec, sflag, cfg, h, length)
+    if h <= 128 or h > MAX_H or h % 32:
+        raise NotImplementedError(f"grad_outer_tf32: hidden {h}")
+    rows, dev = sflag.numel() // length, rec.device
+    _check(rec, "rec", (rows * length * cfg.num_containers
+                        * record_floats(cfg, h),), torch.float32, dev)
+    _check(sflag, "sflag", (rows * length,), torch.int32, dev)
+    blocks = _grad_blocks(cfg, h)
+    P = sum(a * b for a, b in head_shapes(cfg, h))
+    if part is None:
+        part = torch.zeros((rows, P), dtype=torch.float32, device=dev)
+    _check(part, "part", (rows, P), torch.float32, dev)
+    before = _helper_counts()
+    with torch.cuda.device(dev):
+        err = _helper_lib()[0](
+            rec.data_ptr(), sflag.data_ptr(),
+            ctypes.cast(_build.int_array(_ints(cfg, 1, h)), ctypes.c_void_p),
+            rows, length, part.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _count_helpers(before)
+    _build.check(err, "grad_outer_tf32")
+    return tuple(part[:, o:o + h * k].view(rows, h, k) for _, k, o in blocks)
+
+
+grad_outer_tf32.launches = 0
+
+
+def reduce_tiles_ref(part):
+    """Plain version of `reduce_tiles`: out [P] = part[0] + part[1] + ...,
+    a left-to-right float32 sum over the rows of part [tiles, P] from 0,
+    in row order (the kernel's bits)."""
+    out = torch.zeros(part.shape[1], dtype=torch.float32, device=part.device)
+    for t in range(part.shape[0]):
+        out += part[t]
+    return out
+
+
+def reduce_tiles(part, out=None):
+    """The ordered sum of partial rows (csrc/replay.cu `reduce_tiles`) of a
+    float32 [tiles, P] into `out` [P] (a new tensor by default): bit for
+    bit `reduce_tiles_ref`. On CPU tensors the plain version."""
+    if not part.is_cuda:
+        return reduce_tiles_ref(part)
+    if part.dim() != 2 or part.dtype != torch.float32 \
+            or not part.is_contiguous():
+        raise ValueError("reduce_tiles: part must be a contiguous float32 "
+                         f"[tiles, P], got {part.dtype} {tuple(part.shape)}")
+    if out is None:
+        out = torch.empty(part.shape[1], dtype=torch.float32,
+                          device=part.device)
+    _check(out, "out", (part.shape[1],), torch.float32, part.device)
+    before = _helper_counts()
+    with torch.cuda.device(part.device):
+        err = _helper_lib()[1](
+            part.data_ptr(), part.shape[0], part.shape[1], out.data_ptr(),
+            torch.cuda.current_stream(part.device).cuda_stream)
+    _count_helpers(before)
+    _build.check(err, "reduce_tiles")
+    return out
+
+
+reduce_tiles.launches = 0
+reduce_tiles.widths = dict.fromkeys(RT_WIDTHS, 0)
