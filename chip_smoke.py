@@ -197,7 +197,12 @@ source, all started at once), then runs, and fails on the first fault:
    record), with the largest scaled gradient error over all of them, and
    `ops.replay.smem_bytes` against the kernel's own plan
    (`tapnet_replay_smem_bytes`) for the six CONFIGS, every hidden width
-   32-256, both kernels, schedules and dtypes; the bf16
+   32-256, both kernels, schedules and dtypes; the bf16 backward's
+   deferred contractions alone (`ops.replay.grad_outer_bf16`, wgmma) on
+   the records of real bf16 backwards (`kept_backward`) at hidden 32, 96
+   and 128 on `GO_CASES` and at batch 4096 on 2d-basic and 2d-rolling,
+   each within GRAD_TOL of its plain version, two launches bit-identical
+   and equal to the backward's own launch; the bf16
    train step at
    2d-basic, hidden 128, batch 4096: 5 steps with K2 10, K5b 1, K3 1 and no
    K5f a step, finite metrics, a bit-identical repeat, a step at batch 256
@@ -205,7 +210,10 @@ source, all started at once), then runs, and fails on the first fault:
    > 0.9, mean rewards within 0.02; reward, C, P, S within 0.02, loss_critic
    within 10%), steps_per_call=8 as a graph bit-equal to 8 eager bf16 steps
    (phase 21's checks), 3 bf16 steps of 2d-rolling (K2 50, K5b-steps 1, K3
-   1 a step); times: K2's main-path mode (2d-basic and 2d-rolling) and
+   1 a step), `grad_outer_bf16` launched once a step in both (counted
+   where csrc/replay.cu launches it); times: `grad_outer_bf16` alone at
+   4096 with its plain version and its bound (the records' bytes against
+   its hi and lo products at the dense bf16 peak), and K2's main-path mode (2d-basic and 2d-rolling) and
    K5f/K5b, K5f-steps/K5b-steps per launch in bf16 and f32 on the same
    inputs in turns, their plain bf16
    versions and bf16 bounds (bytes at each operand's width; the products at
@@ -243,10 +251,11 @@ source, all started at once), then runs, and fails on the first fault:
    its plain version at every width on 2d-basic and 2d-rolling, a ragged
    batch of 100 and BASELINE.json config 5 (multi-container mixed) in both
    dtypes, repeats bit-identical; the replay backward's helpers alone
-   (`ops.replay.grad_outer_tf32`, `ops.replay.reduce_tiles`) on the
-   operands of real backward launches (`kept_backward`): `grad_outer_tf32`
-   (wgmma 3xTF32) at hidden 160 and 256 on `GO_CASES` within GRAD_TOL of
-   its plain version and equal to the backward's own launch,
+   (`ops.replay.grad_outer_tf32`, `grad_outer_bf16`, `reduce_tiles`) on
+   the operands of real backward launches (`kept_backward`):
+   `grad_outer_tf32` (wgmma 3xTF32) and `grad_outer_bf16` (wgmma bf16)
+   at hidden 160 and 256 on `GO_CASES` and at 4096 within GRAD_TOL of
+   their plain versions and equal to the backward's own launch,
    `reduce_tiles` bit for bit against its plain version and the
    backward's own sums (batch 4096, hidden 128 and 256, both dtypes,
    2d-basic and 2d-rolling, and a [chunks, 100] sum; each of its load
@@ -260,8 +269,8 @@ source, all started at once), then runs, and fails on the first fault:
    3 f32 and 3 bf16 train steps at
    batch 4096 (K2 10, `query_parts` 1, K5b 1, K3 1 a step; the helper
    kernels' launches counted over these and the 2d-rolling steps:
-   `grad_outer_tf32` 1 a f32 step, `reduce_tiles` 1, 2 on the step
-   grid), each repeated
+   `grad_outer_tf32` 1 a f32 step, `grad_outer_bf16` 1 a bf16 step,
+   `reduce_tiles` 1, 2 on the step grid), each repeated
    bit for bit, a
    step at batch 256 against the CPU path (the bf16 one under
    scripts/tpu_parity.py's gate); steps_per_call graphs (2d-basic k = 8 in
@@ -278,7 +287,8 @@ source, all started at once), then runs, and fails on the first fault:
    beside it), of `query_parts` (both dtypes, with its plain version) and of
    `grad_outer_tf32` and `reduce_tiles` alone on a f32 backward's
    operands of 2d-basic and 2d-rolling (with `torch.sum(part, 0)` beside
-   `reduce_tiles`), and of the four
+   `reduce_tiles`) and of `grad_outer_bf16` on a bf16 one's, and of the
+   four
    replay kernels in both dtypes, in turns, with their plain versions and
    bounds (the float32 ones also with the products at the 3xTF32 rate)
    and, beside K5b and K5b-steps, the fallback replay (`replay_logp_sum(
@@ -295,7 +305,8 @@ entries add "bound_3xtf32_ms", the backward ones "fallback_ms", and
 K5b-steps' the witness record's "witness"; the float32 hidden-256 K2
 and `query_parts` entries add "bound_3xtf32_ms" too, and their
 "bound_ms" is the lower of that and the bound at the plain f32 rate;
-`query_parts`' "library_ms" is two torch.mm; `grad_outer_tf32` and
+`query_parts`' "library_ms" is two torch.mm; `grad_outer_tf32`,
+`grad_outer` (bfloat16; also a hidden-128 entry from phase 24) and
 `reduce_tiles` are hidden-256 entries with 2d-rolling's figures beside
 2d-basic's, `reduce_tiles`' "library_ms" `torch.sum(part, 0)`), then the
 nvidia-smi line,
@@ -3017,12 +3028,19 @@ def phase_24(dev):
         f"{BF16_GRAD_TOL})")
     log(f"{stamp()} replay smem_bytes mirror == the "
         f"kernel's on {check_replay_smem_mirror()} cases")
+    # 2c. the backward's deferred contractions alone (grad_outer_bf16,
+    # wgmma) on the records of real bf16 backwards
+    go_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"),
+                              GO_BF16_WIDTHS, BF16)
     torch.cuda.synchronize()
     # 3. the bf16 train step at full width
+    from tapnet_torch.ops import replay as RP
     per_step = {"actor_select_step": cfg.num_blocks, "replay_logp_bwd": 1,
                 "heightmap_reductions": 1}
+    go_n = RP.grad_outer_bf16.launches
     train_l, ts, step = train_main_path(cfg, dev, n_steps=5,
                                         compute_dtype=BF16)
+    go_n = RP.grad_outer_bf16.launches - go_n
     log(f"{stamp()} bf16 train path launches (5 steps): {train_l}")
     assert_deterministic(step, ts)
     log(f"{stamp()} one bf16 train step run twice from a copy of one state: "
@@ -3034,9 +3052,18 @@ def phase_24(dev):
                              compute_dtype=BF16, tag="phase 24")
     roll_step = {"actor_select_step": rcfg.num_blocks,
                  "replay_logp_bwd_steps": 1, "heightmap_reductions": 1}
+    go_r = RP.grad_outer_bf16.launches
     roll_l, _, _ = train_main_path(rcfg, dev, roll_step, n_steps=3,
                                    compute_dtype=BF16)
+    go_r = RP.grad_outer_bf16.launches - go_r
     log(f"{stamp()} bf16 rolling train path launches (3 steps): {roll_l}")
+    # one contraction launch a bf16 step, counted where it launches
+    if (go_n, go_r) != (5, 3):
+        raise AssertionError(f"grad_outer_bf16 launches on the bf16 train "
+                             f"paths: {go_n} in 5 steps, {go_r} in 3 "
+                             "rolling steps")
+    log(f"{stamp()} grad_outer_bf16 launches: {go_n} in the 5 steps, {go_r} "
+        "in the 3 rolling steps")
     # 4. times
     for name, c in (("2d-rolling", rcfg), ("2d-basic", cfg)):
         k2 = time_actor_dtypes(kept[name], c)
@@ -3047,9 +3074,22 @@ def phase_24(dev):
             f"bf16 bound counts the products at {BF16_TC_OPS_S:.3g} op/s "
             f"(H100 SXM dense bf16 tensor cores, data sheet), the rest at "
             f"{F32_OPS_S:.3g}")
-    kb, ht = {}, {}
+    kb, gt = {}, {}
     for key, c in (("mono", cfg), ("steps", rcfg)):
         ops, ops32, dlp = k5[key]["ops"]
+        what = (f"grad_outer_bf16 h={HIDDEN} "
+                f"{'2d-rolling' if key == 'steps' else '2d-basic'} "
+                f"B={B_MAIN}")
+        _, kg = kept_backward(replay_fns(ops, c, 1.0, key == "steps")[2],
+                              dlp)
+        go_err = max(go_err, _hold_grad_outer(kg, c, HIDDEN, what))
+        gt[key] = time_grad_outer(kg, c, HIDDEN)
+        del kg
+        r = gt[key]
+        log(f"{stamp()} {what} (held to its plain version, a repeat and the "
+            f"backward's own launch): {r['ms']:.4f} ms/launch (plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound']:.4f} ms, "
+            f"{r['bound_by']})")
         kb[key] = time_replay_dtypes(ops, ops32, dlp, c, key == "steps")
         for d in ("fwd", "bwd"):
             r = kb[key][d]
@@ -3090,6 +3130,15 @@ def phase_24(dev):
                 train_l[name] + roll_l[name],
                 k5[key]["fwd_err" if d == "fwd" else "bwd_abs"],
                 kb[key][d]))
+    # the backward's deferred contractions: 2d-basic's figures,
+    # 2d-rolling's beside them
+    r, rr = gt["mono"], gt["steps"]
+    kernels.append(entry("grad_outer", "replay.cu", "pallas_replay.py:610",
+                         go_n + go_r, go_err, r))
+    kernels[-1]["2d-rolling"] = {"ms": rr["ms"], "plain_ms": rr["plain_ms"],
+                                 "bound_ms": rr["bound"],
+                                 "bound_by": rr["bound_by"],
+                                 "library_ms": None}
     return kernels, rows
 
 
@@ -3483,10 +3532,12 @@ def check_k2_repeat(kept, cfg):
 
 
 # (config, batch, p2d) on which `check_grad_outer` holds grad_outer_tf32
-# to its plain version: those of `query_parts` (2d-basic's monolithic rows,
-# 2d-rolling's step-grid rows, a ragged batch of 100, config 5 with C = 2)
+# and grad_outer_bf16 to their plain versions: those of `query_parts`
+# (2d-basic's monolithic rows, 2d-rolling's step-grid rows, a ragged
+# batch of 100, config 5 with C = 2)
 GO_CASES = QP_CASES
 GO_WIDTHS = (160, WIDE_H)
+GO_BF16_WIDTHS = (32, 96, HIDDEN)  # phase 24's; phase 26 adds GO_WIDTHS
 
 
 def kept_backward(bwd, dlp):
@@ -3503,16 +3554,28 @@ def kept_backward(bwd, dlp):
         RP.kept = None
 
 
-def _hold_grad_outer(k, cfg, h, what):
-    """grad_outer_tf32 alone on the records of one float32 backward (`k`,
-    `kept_backward`'s) against its plain version within GRAD_TOL of the
-    plain result's max magnitude, two launches bit-identical and equal to
-    the columns the backward's own launch wrote. The max scaled error."""
+def _go_fns(k):
+    """(the helper kernel, its plain version) of the records in `k` (a
+    `kept_backward` entry) by the dtype of the backward that wrote them."""
     from tapnet_torch.ops import replay as RP
 
+    if k["dtype"] == BF16:
+        return RP.grad_outer_bf16, lambda *a: RP.grad_outer_ref(*a, BF16)
+    return RP.grad_outer_tf32, RP.grad_outer_ref
+
+
+def _hold_grad_outer(k, cfg, h, what):
+    """grad_outer_tf32 or grad_outer_bf16 alone on the records of one
+    backward (`k`, `kept_backward`'s) against its plain version within
+    GRAD_TOL of the plain result's max magnitude, two launches
+    bit-identical and equal to the columns the backward's own launch
+    wrote. The max scaled error."""
+    from tapnet_torch.ops import replay as RP
+
+    fn, ref = _go_fns(k)
     args = (k["rec"], k["sflag"], cfg, h, k["length"])
-    got, again = RP.grad_outer_tf32(*args), RP.grad_outer_tf32(*args)
-    want = RP.grad_outer_ref(*args)
+    got, again = fn(*args), fn(*args)
+    want = ref(*args)
     rows, worst = k["part"].shape[0], 0.0
     for (i, cols, off), g, a, w in zip(RP._grad_blocks(cfg, h), got, again,
                                        want):
@@ -3526,29 +3589,31 @@ def _hold_grad_outer(k, cfg, h, what):
     return worst
 
 
-def check_grad_outer(dev, log_fn):
-    """grad_outer_tf32 held alone on the records of the float32 backward
-    (K5b, or K5b-steps where the config takes the step grid) at hidden
-    GO_WIDTHS on GO_CASES (`_hold_grad_outer`). Returns the largest scaled
-    error."""
+def check_grad_outer(dev, log_fn, widths=GO_WIDTHS, dtype=torch.float32):
+    """grad_outer_tf32 (float32) or grad_outer_bf16 (bfloat16) held alone
+    on the records of that dtype's backward (K5b, or K5b-steps where the
+    config takes the step grid) at hidden `widths` on GO_CASES
+    (`_hold_grad_outer`). Returns the largest scaled error."""
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
     from tapnet_torch.ops import replay as RP
 
+    name_of = "grad_outer_bf16" if dtype == BF16 else "grad_outer_tf32"
     worst = 0.0
-    for h in GO_WIDTHS:
+    for h in widths:
         for name, B, p2d in GO_CASES:
             cfg = CONFIGS[name]
             ops, _ = replay_operands(init_params(SEED, cfg, h, dev), cfg, B,
-                                     dev, SEED + 10, 1.0, p2d)
+                                     dev, SEED + 10, 1.0, p2d, dtype=dtype)
             bwd = replay_fns(ops, cfg, 1.0, RP._steps_grid(cfg))[2]
             _, k = kept_backward(bwd, torch.linspace(-1.0, 1.0, B,
                                                      device=dev))
             case = f"h={h} {name} B={B}" + (f" p2d {p2d}" if p2d else "")
-            e = _hold_grad_outer(k, cfg, h, f"grad_outer_tf32 {case}")
-            log_fn(f"grad_outer_tf32 {case} ({k['part'].shape[0]} rows of "
+            e = _hold_grad_outer(k, cfg, h, f"{name_of} {case}")
+            log_fn(f"{name_of} {case} ({k['part'].shape[0]} rows of "
                    f"{k['length']} steps, {int((k['sflag'] != 0).sum())} "
-                   f"acting): max scaled err {e:.2e}")
+                   f"acting): max scaled err {e:.2e}; repeat and the "
+                   "backward's own launch bit-identical")
             worst = max(worst, e)
     return worst
 
@@ -3631,30 +3696,44 @@ def check_reduce_tiles(dev, log_fn):
     return len(held)
 
 
-def time_helpers(k, cfg, h):
-    """grad_outer_tf32 and reduce_tiles alone on one float32 backward's
-    operands at hidden h (`kept_backward`'s `k`): ms per launch (the
-    kernel writing into a kept buffer), their plain versions', the library's
-    `torch.sum(part, 0)` for reduce_tiles, and each bound: grad_outer's
-    records read once (the G and X sections of the acting parts) and its
-    gradients written once, against its products at the 3xTF32 rate;
-    reduce_tiles' partial rows read and the sum written once, against an
-    add each at the f32 rate."""
-    from tapnet_torch.ops import replay as RP
-
+def time_grad_outer(k, cfg, h):
+    """grad_outer_tf32 or grad_outer_bf16 (by the dtype of `k`) alone on
+    one backward's records at hidden h (`kept_backward`'s `k`): ms per
+    launch (the kernel writing into a kept buffer), its plain version's,
+    and its bound: the records read once (the G and X sections of the
+    acting (row, step) pairs' 32 lanes, X bfloat16 or f32) and its
+    gradients written once, against its products at the rate of its
+    passes (bf16 hi and lo at the dense bf16 peak, 3xTF32 at 495/3
+    TFLOP/s)."""
+    fn, ref = _go_fns(k)
     rec, sflag, length, part = k["rec"], k["sflag"], k["length"], k["part"]
     args = (rec, sflag, cfg, h, length)
     buf = torch.zeros_like(part)
-    go = {"ms": time_gpu(lambda: RP.grad_outer_tf32(*args, part=buf)),
-          "plain_ms": time_gpu(lambda: RP.grad_outer_ref(*args), reps=5)}
-    parts = int((sflag != 0).sum()) * cfg.num_containers * 2
+    go = {"ms": time_gpu(lambda: fn(*args, part=buf)),
+          "plain_ms": time_gpu(lambda: ref(*args), reps=5)}
+    bf = k["dtype"] == BF16
+    lanes = int((sflag != 0).sum()) * cfg.num_containers * 32
     cols = 4 * h + 8 + cfg.target_width * cfg.target_depth + 2
-    nb = 4 * parts * 16 * (3 * h + cols) + 4 * part.shape[0] * h * cols
+    nb = (lanes * (4 * 3 * h + (2 if bf else 4) * cols)
+          + 4 * part.shape[0] * h * cols)
     by_b = 1e3 * nb / HBM_BYTES_S
-    by_o = 1e3 * 2 * parts * 16 * h * cols / TF32X3_OPS_S
+    by_o = (1e3 * 2 * 2 * lanes * h * cols / BF16_TC_OPS_S if bf
+            else 1e3 * 2 * lanes * h * cols / TF32X3_OPS_S)
     go.update(bound=max(by_b, by_o),
               bound_by="bytes" if by_b >= by_o else "operations",
               library_ms=None)
+    return go
+
+
+def time_helpers(k, cfg, h):
+    """grad_outer_tf32 (`time_grad_outer`) and reduce_tiles alone on one
+    float32 backward's operands at hidden h (`kept_backward`'s `k`):
+    reduce_tiles' ms per launch, its plain version's, the library's
+    `torch.sum(part, 0)`, and its bound: the partial rows read and the
+    sum written once, against an add each at the f32 rate."""
+    from tapnet_torch.ops import replay as RP
+
+    part = k["part"]
     out = torch.empty(part.shape[1], device=part.device)
     rt = {"ms": time_gpu(lambda: RP.reduce_tiles(part, out=out)),
           "plain_ms": time_gpu(lambda: RP.reduce_tiles_ref(part), reps=5),
@@ -3664,7 +3743,8 @@ def time_helpers(k, cfg, h):
     rt.update(bound=max(by_b, by_o),
               bound_by="bytes" if by_b >= by_o else "operations",
               shape=list(part.shape))
-    return {"grad_outer_tf32": go, "reduce_tiles": rt}
+    return {"grad_outer_tf32": time_grad_outer(k, cfg, h),
+            "reduce_tiles": rt}
 
 
 def phase_26(dev):
@@ -3694,6 +3774,8 @@ def phase_26(dev):
         f"{qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
         "bit-identical")
     go_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"))
+    gb_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"),
+                              GO_WIDTHS, BF16)
     check_reduce_tiles(dev, lambda m: log(f"{stamp()} {m}"))
     log(f"{stamp()} replay plan and record mirrors equal to the kernel's "
         f"on {check_replay_smem_mirror()} and {check_replay_record_mirror()} "
@@ -3717,6 +3799,7 @@ def phase_26(dev):
                 "replay_logp_bwd": 1, "heightmap_reductions": 1}
     from tapnet_torch.ops import replay as RP
     helpers = {"grad_outer_tf32": RP.grad_outer_tf32,
+               "grad_outer_bf16": RP.grad_outer_bf16,
                "reduce_tiles": RP.reduce_tiles}
     helper_n = dict.fromkeys(helpers, 0)
 
@@ -3764,9 +3847,10 @@ def phase_26(dev):
         rcfg, dev, roll_step, n_steps=1, hidden=h, compute_dtype=BF16))
     log(f"{stamp()} rolling train step hidden {h} batch {B_MAIN} launches: "
         f"f32 {roll_f}, bf16 {roll_b}")
-    # a f32 step: one contraction launch; every step: the partial rows'
-    # sum, and on the step grid d_ctx's
-    want = {"grad_outer_tf32": 3 + 1, "reduce_tiles": 3 + 3 + 2 + 2}
+    # a step: one contraction launch of its dtype; every step: the partial
+    # rows' sum, and on the step grid d_ctx's
+    want = {"grad_outer_tf32": 3 + 1, "grad_outer_bf16": 3 + 1,
+            "reduce_tiles": 3 + 3 + 2 + 2}
     if helper_n != want:
         raise AssertionError(f"helper launches on the hidden-{h} main "
                              f"paths: {helper_n}, expected {want}")
@@ -3826,10 +3910,17 @@ def phase_26(dev):
             kf, c, h, f"grad_outer_tf32 h={h} {key} B={B_MAIN}"))
         ht[key] = time_helpers(kf, c, h)
         del kf
+        _, kg = kept_backward(replay_fns(ops, c, 1.0, key == "steps")[2],
+                              dlp)
+        gb_err = max(gb_err, _hold_grad_outer(
+            kg, c, h, f"grad_outer_bf16 h={h} {key} B={B_MAIN}"))
+        ht[key]["grad_outer_bf16"] = time_grad_outer(kg, c, h)
+        del kg
         for kn, r in ht[key].items():
             log(f"{stamp()} {kn} hidden {h} "
                 f"{'2d-rolling' if key == 'steps' else '2d-basic'} "
-                f"B={B_MAIN} f32 (held to its plain version): "
+                f"B={B_MAIN} {'bf16' if kn.endswith('bf16') else 'f32'} "
+                "(held to its plain version): "
                 f"{r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}, "
                 f"library {r['library_ms']}, bound {r['bound']:.4f} ms, "
                 f"{r['bound_by']})")
@@ -3910,12 +4001,15 @@ def phase_26(dev):
             kernels[-1]["bound_3xtf32_ms"] = r["bound_3xtf32"]
     # the backward's helper kernels: 2d-basic's figures, 2d-rolling's
     # beside them
-    for kn, err in (("grad_outer_tf32", go_err), ("reduce_tiles", 0.0)):
+    for kn, err, dt in (("grad_outer_tf32", go_err, "float32"),
+                        ("grad_outer_bf16", gb_err, "bfloat16"),
+                        ("reduce_tiles", 0.0, "float32")):
         r, rr = ht["mono"][kn], ht["steps"][kn]
-        kernels.append(entry(kn, "pallas_replay.py:610", "float32",
+        kernels.append(entry(kn, "pallas_replay.py:610", dt,
                              helper_n[kn], err, r["ms"], r["plain_ms"],
                              r["bound"], r["bound_by"]))
         kernels[-1].update(
+            name="grad_outer" if kn == "grad_outer_bf16" else kn,
             source="tapnet_torch/csrc/replay.cu",
             library_ms=r["library_ms"],
             **{"2d-rolling": {"ms": rr["ms"], "plain_ms": rr["plain_ms"],

@@ -96,8 +96,8 @@
 //   a lane; the other float32 products read their weights from L2
 //   (mm_tf32, below), the bfloat16 ones stream them through the weight
 //   ring (below); Wq^T runs a third of its rows at a time; a grad_outer
-//   record holds one part per pass and grad_outer slices 64 columns. Each
-//   sum keeps one owner and one order.
+//   record holds one part per pass, and a grad_outer stage both passes of
+//   a (step, container). Each sum keeps one owner and one order.
 //
 // Design, float32 above hidden 128 (TF: WH and E = float). At h = 256 the
 // SIMT body spent 0.89 of a block in the encoder/query products (A/B 0.31)
@@ -163,9 +163,9 @@
 //   read and write the block's whole partial row (gWq alone is 50K floats
 //   at h = 128), 40% of the kernel at 2d-basic. Each (step, container)
 //   writes its operands once to a record (rec_off: dq, d_hm, de1 f32; qin,
-//   e1, feats bfloat16) and `grad_outer`, a second launch, contracts each
-//   partial row over all its steps (K = 32 x steps) with the accumulators
-//   in registers, storing each element once. Token groups: dyn = Wp
+//   e1, feats bfloat16) and `grad_outer`, a second launch (on wgmma,
+//   below), contracts each partial row over all its steps (K = 32 x steps)
+//   with the accumulators in registers, storing each element once. Token groups: dyn = Wp
 //   h1 into a [G][h+4] array (a warp: one column tile, up to 4 row tiles),
 //   read back per column by the SIMT score code; gWp^T += h1 d_dyn (K =
 //   the group's columns; accumulators in registers for the whole block,
@@ -190,9 +190,9 @@
 //   de1 over e1).
 // - what runs on the tensor cores (`python -m tapnet_torch.ops._build
 //   --sass replay`, the sm_90a build): 138 HMMA in each bfloat16 backward
-//   instantiation, 30 in each bfloat16 forward, 32 in grad_outer; none in
-//   the float32 ones at h <= 128 (above: the 3xTF32 design, with
-//   grad_outer_tf32 on wgmma: HGMMA, no HMMA).
+//   instantiation, 30 in each bfloat16 forward; none in the float32 ones
+//   at h <= 128 (above: the 3xTF32 design); grad_outer and
+//   grad_outer_tf32 on wgmma: HGMMA, no HMMA.
 //
 // Design, bfloat16 above hidden 128 (RG = TC && WH). Two passes of 16
 // instances halve the MMA work behind each weight byte, and at h = 256
@@ -1876,118 +1876,6 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   }
 }
 
-// The deferred weight-gradient contractions of the bfloat16 backward
-// (rec_off): for partial row `row` (a tile and step chunk) and a slice of
-// SW = 64 columns of gWq, gW2 or gW1 (Wq's slices, then W2's, then W1's),
-// part[row][off + j*cols + n] = the sum over the
-// row's steps with an action (sflag), their containers, the record's
-// passes and their TP lanes of G[j][l] X[n][l] (G = dq, d_hm, de1, split
-// into hi and lo passes; X = qin, e1, feats), TP / 16 k-steps a record
-// part, the parts of two steps loaded before their products (per pair of
-// steps: each container, each pass, then each step). Warp wy owns the row
-// tile wy % (h/16) and the column tiles wy / (h/16) + (16 / (h/16)) u of
-// the slice (up to MAXU = 4; WH: 8, one row tile a warp); the accumulators
-// stay in registers until one store, so each element has one owner and one
-// order. The grid is (rows, slices); WH: (slices, rows), so that the
-// blocks of one partial row run together and its gradient parts, which
-// every slice reads, come from L2 after the first (the records are ~1 GB
-// at 2d-rolling, batch 4096).
-constexpr int GO_SW = 64;
-
-template <bool WH>
-__global__ void __launch_bounds__(NT)
-grad_outer(Dims d, const float* __restrict__ rec,
-           const int* __restrict__ sflag, int len, float* __restrict__ part) {
-  constexpr int TP = Geo<WH>::TP, NP = Geo<WH>::NP, KST = TP / 16;
-  constexpr int SW = GO_SW, MAXU = WH ? 8 : 4;
-  const int h = d.h, C = d.C, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
-  const GOff go = goff(d);
-  const RecOff ro = rec_off<WH>(d, true);
-  const size_t row = WH ? blockIdx.y : blockIdx.x;
-  const int sq = (FQ + SW - 1) / SW, s2 = (h + SW - 1) / SW;
-  int sl = WH ? blockIdx.x : blockIdx.y, cols, off, gof, xof;
-  if (sl < sq) {
-    cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
-  } else if (sl < sq + s2) {
-    sl -= sq;
-    cols = h; off = go.w2t; gof = ro.dhm; xof = ro.e1;
-  } else {
-    sl -= sq + s2;
-    cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
-  }
-  const int lane = threadIdx.x, wy = threadIdx.y, g = lane >> 2, t = lane & 3;
-  const int MT = h / 16, WPM = NWARP / MT, NU = SW / 8 / WPM;
-  if (wy >= MT * WPM) return;
-  const int m0 = (wy % MT) * 16, slot = wy / MT, n0 = SW * sl;
-  float acc[MAXU][4] = {};
-  for (int st = 0; st < len; st += 2) {
-    for (int c = 0; c < C; ++c) {
-      for (int pp = 0; pp < NP; ++pp) {
-        // two steps' operands loaded before their products (zeros for a
-        // step without an action, or past the chunk: they add exact zeros)
-        float2 ga[2][KST][4];
-        unsigned gb[2][KST][MAXU][2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const bool on = st + q < len && sflag[row * len + st + q];
-          const float* r = rec
-                           + ((row * len + st + q) * C + c) * (size_t)ro.size
-                           + pp * ro.pass;
-          const float* G = r + gof;
-          const unsigned* X = reinterpret_cast<const unsigned*>(r + xof);
-#pragma unroll
-          for (int ks = 0; ks < KST; ++ks) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              ga[q][ks][i] = on ? __ldg(reinterpret_cast<const float2*>(
-                                      G + (m0 + g + 8 * (i & 1)) * TP
-                                      + 16 * ks + 2 * t + 8 * (i >> 1)))
-                                : make_float2(0.f, 0.f);
-#pragma unroll
-            for (int u = 0; u < MAXU; ++u) {
-              const int n = n0 + 8 * (slot + WPM * u) + g;
-              const bool in = on && u < NU && n < cols;
-              const unsigned* xn = X + n * (TP / 2) + 8 * ks;
-              gb[q][ks][u][0] = in ? __ldg(xn + t) : 0u;
-              gb[q][ks][u][1] = in ? __ldg(xn + 4 + t) : 0u;
-            }
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int ks = 0; ks < KST; ++ks) {
-            unsigned ah[4], al[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) split(ga[q][ks][i], ah[i], al[i]);
-#pragma unroll
-            for (int u = 0; u < MAXU; ++u) {
-              if (u < NU) {
-                mma(acc[u], ah, gb[q][ks][u]);
-                mma(acc[u], al, gb[q][ks][u]);
-              }
-            }
-          }
-      }
-    }
-  }
-  float* dst = part + row * go.P + off;
-#pragma unroll
-  for (int u = 0; u < MAXU; ++u) {
-    const int c = n0 + 8 * (slot + WPM * u) + 2 * t, j = m0 + g;
-    if (u < NU) {
-      if (c < cols) {
-        dst[j * cols + c] = acc[u][0];
-        dst[(j + 8) * cols + c] = acc[u][2];
-      }
-      if (c + 1 < cols) {
-        dst[j * cols + c + 1] = acc[u][1];
-        dst[(j + 8) * cols + c + 1] = acc[u][3];
-      }
-    }
-  }
-}
-
 // The deferred weight-gradient contractions of the float32 backward above
 // hidden 128 (rec_off, f32 records) on wgmma (wgmma.cuh), as 3xTF32:
 // part[row][off + j cols + n] = the sum over the row's steps with an
@@ -2084,6 +1972,121 @@ __host__ __device__ inline int go_tiles(const Dims& d) {
   return go_ntiles(3 * d.h + 8) + go_ntiles(d.h) + go_ntiles(d.W * d.D + 2);
 }
 
+// A block's tile: columns n0 .. n0 + width of a section of `cols`
+// columns, the section's offset in a partial row (`off`) and its G and X
+// parts' offsets in a record part (`gof`, `xof`, floats)
+struct GoTile {
+  int cols, off, gof, xof, n0, width;
+};
+
+__device__ inline GoTile go_tile_of(const Dims& d, const RecOff& ro,
+                                    int tile) {
+  const GOff go = goff(d);
+  const int h = d.h, FQ = 3 * h + 8;
+  const int tq = go_ntiles(FQ), t2 = go_ntiles(h);
+  GoTile t;
+  if (tile < tq) {
+    t = {FQ, go.wqt, ro.dq, ro.qin, 0, 0};
+  } else if (tile < tq + t2) {
+    tile -= tq;
+    t = {h, go.w2t, ro.dhm, ro.e1, 0, 0};
+  } else {
+    tile -= tq + t2;
+    t = {d.W * d.D + 2, go.w1t, ro.de1, ro.feats, 0, 0};
+  }
+  t.n0 = GO_NT * tile;
+  t.width = tile + 1 == go_ntiles(t.cols) ? t.cols - t.n0 : GO_NT;
+  return t;
+}
+
+// The steps of partial row `row` with an action, in order (warp 0, a
+// ballot), into act and their count into *cnt; thread 0 then inits the
+// ring's `rs` mbarriers. Ends with a block barrier.
+__device__ void go_begin(const int* __restrict__ sflag, size_t row, int len,
+                         int* cnt, int* act, unsigned long long* bar,
+                         int rs) {
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    int n = 0;
+    for (int s0 = 0; s0 < len; s0 += 32) {
+      const int st = s0 + tid;
+      const bool on = st < len && sflag[row * len + st] != 0;
+      const unsigned m = __ballot_sync(~0u, on);
+      if (on) act[n + __popc(m & ((1u << tid) - 1))] = st;
+      n += __popc(m);
+    }
+    if (tid == 0) {
+      *cnt = n;
+      for (int i = 0; i < rs; ++i) tapnet::mbar_init(bar + i, 1);
+      tapnet::mbar_init_fence();
+    }
+  }
+  __syncthreads();
+}
+
+// the block's dynamic shared memory from a 1024-byte aligned base
+__device__ __forceinline__ unsigned char* go_base(unsigned char* dyn) {
+  return dyn + ((1024 - (tapnet::smem_addr(dyn) & 1023)) & 1023);
+}
+
+// keeps the compiler from moving writes of a fragment set across the
+// products that read it
+__device__ __forceinline__ void go_fence_a(unsigned (&a)[2][4]) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// The accumulators of a tile of N columns (n0 .., `cols` in the section;
+// this thread's rows j, j + 8 of the 64 of its warpgroup, those below h
+// kept) stored to dst (the section's gradient in the row: [h][cols])
+// through this warp's [16][GO_SL] staging rows stg, 32 columns at a time,
+// each row written back as 16-byte runs where the section's rows allow
+// (scattered 4-byte stores straight from the fragments took a sixth of
+// the time at 2d-basic, PERF.md §6)
+template <int N>
+__device__ __forceinline__ void go_store(float (&acc)[N / 2], float* stg,
+                                         float* __restrict__ dst, int h,
+                                         int j, int n0, int cols) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = j - g;
+  const bool vec = (cols & 3) == 0;
+#pragma unroll
+  for (int c0 = 0; c0 < N; c0 += 32) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = c0 / 8 + u;
+      if (i < N / 8) {
+        *reinterpret_cast<float2*>(stg + g * GO_SL + 8 * u + 2 * t) =
+            make_float2(acc[4 * i], acc[4 * i + 1]);
+        *reinterpret_cast<float2*>(stg + (g + 8) * GO_SL + 8 * u + 2 * t) =
+            make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int r = (lane >> 3) + 4 * p, jj = wr + r;
+      const int nn = n0 + c0 + 4 * (lane & 7);
+      const float4 v = *reinterpret_cast<const float4*>(stg + r * GO_SL
+                                                        + 4 * (lane & 7));
+      if (jj < h && nn < min(cols, n0 + N)) {
+        float* o = dst + (size_t)jj * cols + nn;
+        if (vec && nn + 3 < cols) {
+          *reinterpret_cast<float4*>(o) = v;
+        } else {
+          o[0] = v.x;
+          if (nn + 1 < cols) o[1] = v.y;
+          if (nn + 2 < cols) o[2] = v.z;
+          if (nn + 3 < cols) o[3] = v.w;
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
 // chunk q (lanes 4q .. 4q + 3) of row r of a raw [rows][16] f32 X part
 // split into tf32 hi and lo: lane 4q + c to position q of chunk c
 __device__ __forceinline__ void go_split(const unsigned char* raw,
@@ -2102,23 +2105,12 @@ __device__ __forceinline__ void go_split(const unsigned char* raw,
   }
 }
 
-// keeps the compiler from moving writes of a fragment set across the
-// products that read it
-__device__ __forceinline__ void go_fence_a(unsigned (&a)[2][4]) {
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-}
-
-// one block's tile of N columns (n0 .., `cols` in the section) of the
-// section whose G and X parts start `gof`, `xof` floats into a record
-// part, summed over the ns stages of `act`, stored to dst (the section's
-// gradient in the row: [h][cols])
+// one block's tile (tl) of N columns, summed over the ns stages of `act`,
+// stored to dst (the section's gradient in the row: [h][cols])
 template <int N>
 __device__ void go_tile(const Dims& d, const float* __restrict__ rec,
-                        const RecOff& ro, size_t row, int len, int gof,
-                        int xof, int n0, int cols, float* __restrict__ dst,
+                        const RecOff& ro, size_t row, int len,
+                        const GoTile& tl, float* __restrict__ dst,
                         unsigned char* sm, const GoPlan& pl,
                         unsigned long long* bar, const int* act, int ns) {
   using namespace tapnet;
@@ -2127,8 +2119,7 @@ __device__ void go_tile(const Dims& d, const float* __restrict__ rec,
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int j = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;  // and j + 8
   const int h = d.h, C = d.C;
-  const unsigned gbytes = h * GO_KP * 4,
-                 xbytes = min(N, cols - n0) * GO_KP * 4;
+  const unsigned gbytes = h * GO_KP * 4, xbytes = tl.width * GO_KP * 4;
   auto issue = [&](int s) {
     const int st = act[s / (C * NP)], c = (s / NP) % C, pp = s % NP;
     const float* r = rec + ((row * len + st) * C + c) * (size_t)ro.size
@@ -2136,8 +2127,8 @@ __device__ void go_tile(const Dims& d, const float* __restrict__ rec,
     unsigned char* raw = sm + (s % GO_RS) * pl.stage;
     unsigned long long* b = bar + s % GO_RS;
     mbar_expect(b, gbytes + xbytes);
-    bulk_copy(raw, r + gof, gbytes, b);
-    bulk_copy(raw + pl.raw_g, r + xof + (size_t)n0 * GO_KP, xbytes, b);
+    bulk_copy(raw, r + tl.gof, gbytes, b);
+    bulk_copy(raw + pl.raw_g, r + tl.xof + (size_t)tl.n0 * GO_KP, xbytes, b);
   };
   if (tid == 0)
     for (int s = 0; s < min(ns, GO_RS); ++s) issue(s);
@@ -2183,46 +2174,9 @@ __device__ void go_tile(const Dims& d, const float* __restrict__ rec,
   }
   wg_wait<0>();
   wg_fence_acc(acc);
-  // the stores through this warp's [16][GO_SL] staging rows, 32 columns at
-  // a time, each row written back as 16-byte runs where the section's rows
-  // allow (scattered 4-byte stores straight from the fragments took a
-  // sixth of the time at 2d-basic, PERF.md §6)
-  float* stg = reinterpret_cast<float*>(sm + pl.stg) + (tid >> 5) * 16 * GO_SL;
-  const int wr = j - g;
-  const bool vec = (cols & 3) == 0;
-#pragma unroll
-  for (int c0 = 0; c0 < N; c0 += 32) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = c0 / 8 + u;
-      if (i < N / 8) {
-        *reinterpret_cast<float2*>(stg + g * GO_SL + 8 * u + 2 * t) =
-            make_float2(acc[4 * i], acc[4 * i + 1]);
-        *reinterpret_cast<float2*>(stg + (g + 8) * GO_SL + 8 * u + 2 * t) =
-            make_float2(acc[4 * i + 2], acc[4 * i + 3]);
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int r = (lane >> 3) + 4 * p, jj = wr + r;
-      const int nn = n0 + c0 + 4 * (lane & 7);
-      const float4 v = *reinterpret_cast<const float4*>(stg + r * GO_SL
-                                                        + 4 * (lane & 7));
-      if (jj < h && nn < min(cols, n0 + N)) {
-        float* o = dst + (size_t)jj * cols + nn;
-        if (vec && nn + 3 < cols) {
-          *reinterpret_cast<float4*>(o) = v;
-        } else {
-          o[0] = v.x;
-          if (nn + 1 < cols) o[1] = v.y;
-          if (nn + 2 < cols) o[2] = v.z;
-          if (nn + 3 < cols) o[3] = v.w;
-        }
-      }
-    }
-    __syncwarp();
-  }
+  go_store<N>(acc,
+              reinterpret_cast<float*>(sm + pl.stg) + (tid >> 5) * 16 * GO_SL,
+              dst, h, j, tl.n0, tl.cols);
 }
 
 __global__ void __launch_bounds__(512, 1)
@@ -2230,82 +2184,290 @@ grad_outer_tf32(Dims d, const float* __restrict__ rec,
                 const int* __restrict__ sflag, int len,
                 float* __restrict__ part) {
   extern __shared__ unsigned char go_dyn[];
-  unsigned char* sm = go_dyn + ((1024 - (tapnet::smem_addr(go_dyn) & 1023))
-                                & 1023);
-  const int h = d.h, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
-  const GoPlan pl = go_plan(h);
-  const GOff go = goff(d);
+  unsigned char* sm = go_base(go_dyn);
+  const GoPlan pl = go_plan(d.h);
   const RecOff ro = rec_off<true>(d, false);
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm + pl.bar);
   int* cnt = reinterpret_cast<int*>(sm + pl.cnt);
   int* act = reinterpret_cast<int*>(sm + pl.act);
   const size_t row = blockIdx.y;
-  const int tid = threadIdx.x;
-  if (tid < 32) {  // the row's steps with an action, in order
-    int n = 0;
-    for (int s0 = 0; s0 < len; s0 += 32) {
-      const int st = s0 + tid;
-      const bool on = st < len && sflag[row * len + st] != 0;
-      const unsigned m = __ballot_sync(~0u, on);
-      if (on) act[n + __popc(m & ((1u << tid) - 1))] = st;
-      n += __popc(m);
-    }
-    if (tid == 0) {
-      *cnt = n;
-      for (int i = 0; i < GO_RS; ++i) tapnet::mbar_init(bar + i, 1);
-      tapnet::mbar_init_fence();
-    }
-  }
-  __syncthreads();
+  go_begin(sflag, row, len, cnt, act, bar, GO_RS);
   const int ns = *cnt * d.C * Geo<true>::NP;
-  const int tq = go_ntiles(FQ), t2 = go_ntiles(h);
-  int tile = blockIdx.x, cols, off, gof, xof;
-  if (tile < tq) {
-    cols = FQ; off = go.wqt; gof = ro.dq; xof = ro.qin;
-  } else if (tile < tq + t2) {
-    tile -= tq;
-    cols = h; off = go.w2t; gof = ro.dhm; xof = ro.e1;
-  } else {
-    tile -= tq + t2;
-    cols = WD2; off = go.w1t; gof = ro.de1; xof = ro.feats;
-  }
-  const int n0 = GO_NT * tile;
-  const int width = tile + 1 == go_ntiles(cols) ? cols - n0 : GO_NT;
-  float* dst = part + row * go.P + off;
-  if (width > GO_NT)
-    go_tile<GO_NX>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl,
-                   bar, act, ns);
-  else if (width > 64)
-    go_tile<128>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl, bar,
-                 act, ns);
-  else if (width > 32)
-    go_tile<64>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl, bar,
-                act, ns);
+  const GoTile tl = go_tile_of(d, ro, blockIdx.x);
+  float* dst = part + row * goff(d).P + tl.off;
+  if (tl.width > GO_NT)
+    go_tile<GO_NX>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
+  else if (tl.width > 64)
+    go_tile<128>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
+  else if (tl.width > 32)
+    go_tile<64>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
   else
-    go_tile<32>(d, rec, ro, row, len, gof, xof, n0, cols, dst, sm, pl, bar,
-                act, ns);
+    go_tile<32>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
+}
+
+// The deferred weight-gradient contractions of the bfloat16 backward
+// (rec_off, bfloat16 records; every hidden width 32 .. 256) on wgmma
+// (wgmma.cuh): part[row][off + j cols + n] = the sum over the row's steps
+// with an action (sflag), their containers, the record's passes and lanes
+// l of G[j][l] X[n][l] (G = dq, d_hm, de1 f32, split into bf16 hi + lo; X
+// = qin, e1, feats bfloat16), as hi.X + lo.X summed in f32 (`split`: x to
+// a relative 2^-16, each product exact).
+//
+// Bound: bytes (the records read once: at 2d-rolling, hidden 256, batch
+// 4096, ~0.40 ms against ~0.25 ms of bf16 tensor work). An mma.sync body
+// ran at 0.22-0.25 of the bound: every
+// warp loaded its own fragments straight from L2 (the X columns of a slice
+// fed by all h / 16 warps), each 64-column slice re-read the row's G, the
+// slices of a row ran apart at h <= 128 (grid (rows, slices)) so that the
+// re-reads came from device memory, and the stores were scattered 4-byte
+// writes.
+//
+// The design is grad_outer_tf32's (above): a block owns a partial row,
+// one tile (GoTile: up to GO_NT columns, GO_NX for the last) of one
+// section and all h rows of G, ceil(h / 64) warpgroups; the tiles of a row
+// are neighbours in the grid (blockIdx.x), at every width; the acting
+// steps listed once; a ring of raw stages filled by cp.async.bulk, each
+// on its mbarrier, refilled right after the barrier of the stage that read
+// it; `wait_group 1` with three B buffers and two register sets; the
+// stores through go_store. What differs:
+// - a stage is one acting (step, container) with both passes above hidden
+//   128, so K = 32 lanes at every width: two k-steps of 16. Its G is [h]
+//   rows of 32 lanes f32 (h <= 128: one copy of the record's part; above:
+//   the two passes' [h][16] parts, one after the other), its X the tile's
+//   rows of 32 bf16 (above: the two passes' rows of 16, each its own run
+//   of the raw stage, the second 64 bytes further on so that a quarter
+//   warp reading a row of each meets no bank conflict).
+// - B: the raw X rows moved in 16-byte chunks into the swizzled tile
+//   [N][32] bf16 (a k-step of 16 lanes is 32 bytes of a row, as tf32's 8:
+//   `sw64`, `wg_desc`); above 128 pass p's chunks become chunks 2p, 2p +
+//   1 of the row. No split: X is bfloat16 already.
+// - A: a thread's fragment holds rows j, j + 8 and, per k-step, lanes 2t,
+//   2t + 1 and 2t + 8, 2t + 9 (in the record's order, so that X needs no
+//   permutation): four 8-byte loads a row, (k-step, half) = q. Rows of 128
+//   bytes (h <= 128) put a lane on the same bank in every row, rows of 64
+//   bytes in every other one, so load i of a thread reads q = i ^ rot (rot
+//   = g & 3, or (g >> 1) & 1 above 128): the 16 threads of a half warp meet
+//   no bank conflict. Two conditional swaps put the values back in q
+//   order; each is split in registers into hi and lo (`split`) in wgmma's
+//   fragment layout.
+// - products: per k-step lo.X, then hi.X (wg_mma2), 4 wgmma a stage.
+// - the shared-memory plan (gb_plan): 3 raw stages at h <= 128, so that
+//   two blocks (8 warps each at h = 128) share an SM, 4 above; the stores'
+//   staging arrays reuse the raw ring once every stage is read.
+// Each output element has one owner and one order (stages in step,
+// container order; k-steps; lo before hi), no atomics: two launches are
+// bit-identical.
+
+// The shared-memory plan of grad_outer at hidden h, in bytes from a
+// 1024-byte aligned base (`bytes` includes the slack of that alignment):
+// the raw ring (rs stages of G [h][32] f32, then X's raw rows, up to
+// GO_NX of 64 bytes and 64 bytes between the two passes' runs), the B
+// tiles, the mbarriers, the count and the list of acting steps. A's reads
+// of the last warpgroup's rows h .. 64 wg stay in the stage (they run into
+// X at most 64 wg - h <= 32 rows of 128 bytes, or, in the second pass of
+// 64-byte rows, into X by 32 rows); the staging arrays of the stores (wg x
+// 4 warps x [16][GO_SL] floats) fit in the ring they reuse.
+struct GbPlan {
+  int wg, rs, g, stage, b, bar, cnt, act, bytes;
+};
+
+__host__ __device__ constexpr GbPlan gb_plan(int h) {
+  GbPlan p{};
+  p.wg = (h + 63) / 64;
+  p.rs = h <= 128 ? 3 : 4;
+  p.g = h * 32 * 4;
+  p.stage = (p.g + GO_NX * 64 + 64 + 1023) & ~1023;
+  p.b = GO_NX * 64;
+  p.bar = p.rs * p.stage + GO_NB * p.b;
+  p.cnt = p.bar + 8 * p.rs;
+  p.act = p.cnt + 16;
+  p.bytes = p.act + 4 * MAX_N_STEPS + 1024;
+  return p;
+}
+
+// A block fits at every width (the widest plan the largest), two an SM
+// (228 KB, 1 KB of it reserved a block) at h <= 128, and the staging
+// arrays fit in the ring; ops/replay.py::grad_outer_bf16_smem mirrors the
+// plan, and tests/test_torch_grad_outer_bf16.py holds its sizes at hidden
+// 128 and 256 to these.
+static_assert(gb_plan(MAX_H).bytes <= 227 * 1024, "grad_outer plan");
+static_assert(2 * (gb_plan(128).bytes + 1024) <= 228 * 1024,
+              "two grad_outer blocks an SM at h <= 128");
+static_assert(4 * gb_plan(MAX_H).wg * 16 * GO_SL * 4
+                  <= gb_plan(MAX_H).rs * gb_plan(MAX_H).stage,
+              "grad_outer's staging in the ring");
+static_assert(gb_plan(128).bytes == 104224 && gb_plan(256).bytes == 195368,
+              "ops/replay.py grad_outer_bf16_smem");
+
+// a conditional swap (no local memory: the selects stay in registers)
+__device__ __forceinline__ void gb_swap(float2& a, float2& b, bool s) {
+  const float2 x = s ? b : a, y = s ? a : b;
+  a = x;
+  b = y;
+}
+
+// one block's tile (tl) of N columns, summed over the ns stages of `act`,
+// stored to dst (the section's gradient in the row: [h][cols])
+template <int N, bool WH>
+__device__ void gb_tile(const Dims& d, const float* __restrict__ rec,
+                        const RecOff& ro, size_t row, int len,
+                        const GoTile& tl, float* __restrict__ dst,
+                        unsigned char* sm, const GbPlan& pl,
+                        unsigned long long* bar, const int* act, int ns) {
+  using namespace tapnet;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int j = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;  // and j + 8
+  const int h = d.h, C = d.C, rs = pl.rs;
+  // X's second pass's run in a raw stage (above 128)
+  constexpr int X1 = GO_NX * 32 + 64;
+  auto issue = [&](int s) {
+    const int st = act[s / C], c = s % C;
+    const float* r = rec + ((row * len + st) * C + c) * (size_t)ro.size;
+    unsigned char* raw = sm + (s % rs) * pl.stage;
+    unsigned long long* b = bar + s % rs;
+    mbar_expect(b, pl.g + tl.width * 64);
+    if (WH) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        bulk_copy(raw + p * h * 64, r + p * ro.pass + tl.gof, h * 64, b);
+        bulk_copy(raw + pl.g + p * X1,
+                  r + p * ro.pass + tl.xof + (size_t)tl.n0 * 8,
+                  tl.width * 32, b);
+      }
+    } else {
+      bulk_copy(raw, r + tl.gof, pl.g, b);
+      bulk_copy(raw + pl.g, r + tl.xof + (size_t)tl.n0 * 16, tl.width * 64,
+                b);
+    }
+  };
+  if (tid == 0)
+    for (int s = 0; s < min(ns, rs); ++s) issue(s);
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  unsigned ah0[2][4], al0[2][4], ah1[2][4], al1[2][4];
+  // A's load i of a row reads (k-step, half) q = i ^ rot
+  const int rot = WH ? (g >> 1) & 1 : g & 3;
+  const int xrows = (tl.width + 7) & ~7;  // B rows that reach a stored
+                                          // column
+  auto stage = [&](int s, unsigned (&ah)[2][4], unsigned (&al)[2][4]) {
+    const unsigned char* raw = sm + (s % rs) * pl.stage;
+    unsigned char* bt = sm + rs * pl.stage + (s % GO_NB) * pl.b;
+    mbar_wait(bar + s % rs, (s / rs) & 1);
+    for (int i = tid; i < 4 * xrows; i += nthr) {  // X's rows to the B tile
+      const int n = i >> 2, c = i & 3;
+      const unsigned char* x = WH ? raw + pl.g + (c >> 1) * X1 + 32 * n
+                                        + 16 * (c & 1)
+                                  : raw + pl.g + 64 * n + 16 * c;
+      *reinterpret_cast<uint4*>(bt + sw64(n, c)) =
+          *reinterpret_cast<const uint4*>(x);
+    }
+    fence_proxy_async();  // the B tile, before the tensor cores read it
+    wg_wait<1>();         // this warpgroup's products of stage s - 2
+    go_fence_a(ah);
+    go_fence_a(al);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {  // rows j, j + 8
+      const int jr = j + 8 * u;
+      float2 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = i ^ rot;
+        v[i] = *reinterpret_cast<const float2*>(
+            WH ? raw + (q >> 1) * h * 64 + 64 * jr + 32 * (q & 1) + 8 * t
+               : raw + 128 * jr + 32 * q + 8 * t);
+      }
+      if (!WH) {
+        gb_swap(v[0], v[2], rot & 2);
+        gb_swap(v[1], v[3], rot & 2);
+      }
+      gb_swap(v[0], v[1], rot & 1);
+      gb_swap(v[2], v[3], rot & 1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split(v[q], ah[q >> 1][u + 2 * (q & 1)], al[q >> 1][u + 2 * (q & 1)]);
+    }
+    __syncthreads();  // every B row of s, every read of raw stage s, every
+                      // product of s - 2
+    if (tid == 0 && s + rs < ns) issue(s + rs);
+    wg_fence_acc(acc);
+    wg_fence();
+    wg_mma2<N>(acc, ah, al, bt);
+    wg_commit();
+    go_fence_a(ah);
+    go_fence_a(al);
+  };
+  for (int s = 0; s < ns; s += 2) {
+    stage(s, ah0, al0);
+    if (s + 1 < ns) stage(s + 1, ah1, al1);
+  }
+  wg_wait<0>();
+  wg_fence_acc(acc);
+  // the raw ring is read: every stage passed its barrier
+  go_store<N>(acc, reinterpret_cast<float*>(sm) + (tid >> 5) * 16 * GO_SL,
+              dst, h, j, tl.n0, tl.cols);
+}
+
+template <bool WH>
+__global__ void __launch_bounds__(512, 1)
+grad_outer(Dims d, const float* __restrict__ rec,
+           const int* __restrict__ sflag, int len, float* __restrict__ part) {
+  extern __shared__ unsigned char go_dyn[];
+  unsigned char* sm = go_base(go_dyn);
+  const GbPlan pl = gb_plan(d.h);
+  const RecOff ro = rec_off<WH>(d, true);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm + pl.bar);
+  int* cnt = reinterpret_cast<int*>(sm + pl.cnt);
+  int* act = reinterpret_cast<int*>(sm + pl.act);
+  const size_t row = blockIdx.y;
+  go_begin(sflag, row, len, cnt, act, bar, pl.rs);
+  const int ns = *cnt * d.C;
+  const GoTile tl = go_tile_of(d, ro, blockIdx.x);
+  float* dst = part + row * goff(d).P + tl.off;
+  if (tl.width > GO_NT)
+    gb_tile<GO_NX, WH>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
+  else if (tl.width > 64)
+    gb_tile<128, WH>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
+  else if (tl.width > 32)
+    gb_tile<64, WH>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
+  else
+    gb_tile<32, WH>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
 }
 
 // Launches of the helper kernels since the library was loaded, counted
-// where each is launched: grad_outer_tf32, then reduce_tiles with 1-, 2-
-// and 4-float loads (tapnet_replay_helper_launches reads them).
-long long helper_launches[4] = {0, 0, 0, 0};
+// where each is launched: grad_outer_tf32, reduce_tiles with 1-, 2- and
+// 4-float loads, then grad_outer (tapnet_replay_helper_launches reads
+// them).
+long long helper_launches[5] = {0, 0, 0, 0, 0};
 
-// grad_outer_tf32 over `rows` partial rows of `len` steps (its own
-// attribute and block shape: ceil(h / 64) warpgroups)
-static cudaError_t launch_grad_outer_tf32(const Dims& d, const float* rec,
-                                          const int* sflag, int rows,
-                                          int len, float* part,
-                                          cudaStream_t st) {
-  const GoPlan pl = go_plan(d.h);
-  cudaError_t err = cudaFuncSetAttribute(
-      grad_outer_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      pl.bytes);
-  if (err != cudaSuccess) return err;
-  grad_outer_tf32<<<dim3(go_tiles(d), rows), 128 * pl.wg, pl.bytes, st>>>(
-      d, rec, sflag, len, part);
+// grad_outer_tf32 (bf = false) or grad_outer over `rows` partial rows of
+// `len` steps (its own attribute and block shape: ceil(h / 64)
+// warpgroups)
+static cudaError_t launch_grad_outer(const Dims& d, bool bf,
+                                     const float* rec, const int* sflag,
+                                     int rows, int len, float* part,
+                                     cudaStream_t st) {
+  const dim3 grid(go_tiles(d), rows);
+  cudaError_t err;
+  if (!bf) {
+    const GoPlan pl = go_plan(d.h);
+    err = cudaFuncSetAttribute(grad_outer_tf32,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               pl.bytes);
+    if (err != cudaSuccess) return err;
+    grad_outer_tf32<<<grid, 128 * pl.wg, pl.bytes, st>>>(d, rec, sflag, len,
+                                                         part);
+  } else {
+    const GbPlan pl = gb_plan(d.h);
+    auto kernel = d.h > 128 ? grad_outer<true> : grad_outer<false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, 128 * pl.wg, pl.bytes, st>>>(d, rec, sflag, len, part);
+  }
   err = cudaGetLastError();
-  if (err == cudaSuccess) ++helper_launches[0];
+  if (err == cudaSuccess) ++helper_launches[bf ? 4 : 0];
   return err;
 }
 
@@ -2521,20 +2683,8 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (defer) {  // the deferred weight-gradient contractions
-    constexpr int SW = GO_SW;
-    const int slices = (3 * d.h + 8 + SW - 1) / SW + (d.h + SW - 1) / SW
-                       + (d.W * d.D + 2 + SW - 1) / SW;
-    if (tc) {
-      grad_outer<WH><<<WH ? dim3(slices, tiles * nc)
-                          : dim3(tiles * nc, slices),
-                       block, 0, st>>>(d, (const float*)p[32],
-                                       (const int*)p[33], len,
-                                       (float*)p[23]);
-      err = cudaGetLastError();
-    } else {
-      err = launch_grad_outer_tf32(d, (const float*)p[32], (const int*)p[33],
-                                   tiles * nc, len, (float*)p[23], st);
-    }
+    err = launch_grad_outer(d, tc, (const float*)p[32], (const int*)p[33],
+                            tiles * nc, len, (float*)p[23], st);
     if (err != cudaSuccess) return (int)err;
   }
   const int P = goff(d).P;
@@ -2582,27 +2732,30 @@ extern "C" int tapnet_replay_record_floats(const int* ints, int bf16) {
   return record_floats(d, bf16 != 0);
 }
 
-// out[0 .. 3] = the launches since the library was loaded of
-// grad_outer_tf32 and of reduce_tiles with 1-, 2- and 4-float loads, on
-// the backward's and forward's paths and through the entries below alike.
+// out[0 .. 4] = the launches since the library was loaded of
+// grad_outer_tf32, of reduce_tiles with 1-, 2- and 4-float loads and of
+// grad_outer, on the backward's and forward's paths and through the
+// entries below alike.
 extern "C" void tapnet_replay_helper_launches(long long* out) {
-  for (int i = 0; i < 4; ++i) out[i] = helper_launches[i];
+  for (int i = 0; i < 5; ++i) out[i] = helper_launches[i];
 }
 
-// grad_outer_tf32 alone: from f32 records rec [rows, len, C,
-// record_floats(ints, 0)] and sflag [rows, len] (nonzero: the step has an
-// action), write the W1, W2 and Wq gradient columns of part [rows, P]
-// (goff: P and the offsets; the other columns untouched). ints = B, N, W,
-// D, R, C, h with h a multiple of 32 in 160 .. 256; len <= 62.
+// grad_outer_tf32 (bf16 = 0) or grad_outer (bf16 = 1) alone: from the
+// records rec [rows, len, C, record_floats(ints, bf16)] of that backward
+// and sflag [rows, len] (nonzero: the step has an action), write the W1,
+// W2 and Wq gradient columns of part [rows, P] (goff: P and the offsets;
+// the other columns untouched). ints = B, N, W, D, R, C, h with h a
+// multiple of 32 in 160 .. 256 (bf16: 32 .. 256); len <= 62.
 extern "C" int tapnet_replay_grad_outer(const float* rec, const int* sflag,
                                         const int* ints, int rows, int len,
-                                        float* part, void* stream) {
+                                        int bf16, float* part,
+                                        void* stream) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
-  if (d.h <= 128 || d.h > MAX_H || d.h % 32 != 0 || d.C < 1 ||
+  if (d.h < (bf16 ? 32 : 160) || d.h > MAX_H || d.h % 32 != 0 || d.C < 1 ||
       d.C > MAX_C || rows < 1 || len < 1 || len > MAX_N_STEPS)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_grad_outer_tf32(d, rec, sflag, rows, len, part,
-                                     (cudaStream_t)stream);
+  return (int)launch_grad_outer(d, bf16 != 0, rec, sflag, rows, len, part,
+                                (cudaStream_t)stream);
 }
 
 // reduce_tiles alone: out [P] = the sum over rows, in row order, of part

@@ -59,6 +59,15 @@ its function, where there is one, read from the same trace; with
 `--csrc`, those of this package's replay.cu and of each DIR's in turns
 (`replay_helpers`).
 
+    python -m tapnet_torch.kernel_times --kernel fresh_sum
+
+times, at the same shapes, the sum of the backward's partial rows as the
+backward launches it (`reduce_tiles`, right after the kernels that wrote
+the rows) beside `torch.sum(part, 0)` launched right after the backward
+of an edited copy of csrc/ whose launch() skips that sum, then again on
+the same rows, in turns (`fresh_sums`): whether rows just written, not
+the kernel, make `reduce_tiles` trail the library in the backward.
+
 To compare two checkouts on one card in one call,
 
     python -m tapnet_torch.kernel_times --tree ../parent --tag parent
@@ -333,31 +342,36 @@ def _trace_events(prof) -> list:
             return json.load(f)["traceEvents"]
 
 
-def helper_launches(fn, calls: int = 5, library=None) -> tuple:
+def helper_launches(fn, calls: int = 5, library=None, after=None) -> tuple:
     """({kernel: [device ms of each launch]}, {label: [device ms of each
     call]}): the replay's helper kernels over `calls` calls of fn() and the
     kernels of `calls` calls of each library function of `library`
     ({label: fn}), all under one torch.profiler session, so that both are
-    read by the same clock from the same trace. Helpers are found by name
-    in launch order (`reduce_tiles` launched after `sum_transpose` in a
-    call, the step-grid schedule's d_ctx partials, is "reduce_tiles
-    d_ctx"); a library call's kernels by the correlation of each kernel
-    with its launch, which lies inside that call's record_function range
-    (a call's time is the sum of its kernels')."""
+    read by the same clock from the same trace; `after` ({label: fn}) are
+    library functions called right after each call of fn(), before the
+    next. Helpers are found by name in launch order (`reduce_tiles`
+    launched after `sum_transpose` in a call, the step-grid schedule's
+    d_ctx partials, is "reduce_tiles d_ctx"); a library call's kernels by
+    the correlation of each kernel with its launch, which lies inside that
+    call's record_function range (a call's time is the sum of its
+    kernels')."""
     import re
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    library = library or {}
+    library, after = library or {}, after or {}
     fn()
-    for f in library.values():
+    for f in (*library.values(), *after.values()):
         f()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
+            for label, f in after.items():
+                with record_function(f"library {label}"):
+                    f()
             torch.cuda.synchronize()
         for label, f in library.items():
             for _ in range(calls):
@@ -543,6 +557,85 @@ def replay_helpers(CS, dev, dirs=()) -> dict:
     return out
 
 
+def fresh_sums(CS, dev) -> dict:
+    """Whether rows just written slow their sum (`reduce_tiles` trails
+    `torch.sum(part, 0)` in the backward, but not alone on the library's
+    input): K5b on 2d-basic and K5b-steps on 2d-rolling at batch 4096,
+    hidden 128 and 256, float32 and bfloat16, on one sampled float32
+    rollout's record, each from its own profiler traces (`helper_launches`)
+    in turns: "reduce_tiles", the sum of the partial rows as this
+    package's backward launches it (right after the kernels that wrote
+    them); "fresh", `torch.sum(part, 0)` launched right after the backward
+    of an edited copy of this package's csrc/ whose launch() skips that
+    sum, so that the library, too, is the first to read the rows; "again",
+    the same call on the same rows right after it (their second read).
+    Median ms per call of 5 calls a turn, each key's turns."""
+    import shutil
+
+    import torch
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import replay as RP
+
+    edited = _build.BUILD / "csrc_no_row_sum"
+    shutil.rmtree(edited, ignore_errors=True)
+    shutil.copytree(_build.CSRC, edited)
+    src = (edited / "replay.cu").read_text()
+    skip = ("  err = launch_reduce_tiles((const float*)p[23], tiles * nc, P,\n"
+            "                            (float*)p[24], st);\n")
+    if src.count(skip) != 1:
+        raise RuntimeError("fresh_sums: launch()'s sum of the partial rows "
+                           "not found in csrc/replay.cu")
+    (edited / "replay.cu").write_text(src.replace(skip, "  (void)P;\n"))
+    fns = {"csrc": RP._lib(),
+           "edited": _turn_fns([str(edited)], "replay",
+                               "tapnet_replay_logp", RP._lib())[str(edited)]}
+    lib_of, B, out = RP._lib, 4096, {}
+    med = lambda v: sorted(v)[len(v) // 2]
+    try:
+        for h in (128, 256):
+            for name, steps in (("2d-basic", False), ("2d-rolling", True)):
+                cfg = CONFIGS[name]
+                ops_f, _, ops_b = CS.replay_operands(
+                    init_params(0, cfg, h, dev), cfg, B, dev, 10, 1.0,
+                    dtype=torch.float32, also=torch.bfloat16)
+                dlp = torch.linspace(-1.0, 1.0, B, device=dev)
+                for dt, ops in (("f32", ops_f), ("bf16", ops_b)):
+                    bwd = CS.replay_fns(ops, cfg, 1.0, steps)[2]
+                    r = out.setdefault(f"{dt} h{h} {name}", {
+                        "reduce_tiles": [], "fresh": [], "again": []})
+
+                    def run():
+                        RP.kept.clear()
+                        bwd(dlp)
+
+                    def total():
+                        return torch.sum(RP.kept[-1]["part"], 0)
+
+                    for tag in ("csrc", "edited", "edited", "csrc"):
+                        RP._lib = lambda fn=fns[tag]: fn
+                        RP.kept = []
+                        try:
+                            with torch.no_grad():
+                                if tag == "csrc":
+                                    got, _ = helper_launches(run)
+                                    r["reduce_tiles"].append(
+                                        med(got["reduce_tiles"]))
+                                else:
+                                    _, lib = helper_launches(
+                                        run, after={"fresh": total,
+                                                    "again": total})
+                                    r["fresh"].append(med(lib["fresh"]))
+                                    r["again"].append(med(lib["again"]))
+                        finally:
+                            RP.kept = None
+                del ops_f, ops_b
+    finally:
+        RP._lib = lib_of
+    return out
+
+
 def check_expected(out: dict, path: str) -> bool:
     """Whether every kernel of `out` with hashes (K2 float32, K5) saw the
     operands and gave the outputs that the run recorded in `path` did, bit
@@ -579,7 +672,7 @@ def main(argv=None) -> int:
                     help="with --csrc: the instantiation timed")
     ap.add_argument("--kernel", default="replay",
                     choices=("replay", "actor_select_step", "query_parts",
-                             "replay_helpers"),
+                             "replay_helpers", "fresh_sum"),
                     help="with --csrc: the kernel timed; query_parts and "
                          "replay_helpers also without")
     args = ap.parse_args(argv)
@@ -617,9 +710,12 @@ def main(argv=None) -> int:
     out = {"tag": args.tag, "device": torch.cuda.get_device_name(0),
            "hidden": args.hidden}
     dirs = args.csrc.split(",") if args.csrc else []
-    if args.csrc or args.kernel in ("query_parts", "replay_helpers"):
+    if args.csrc or args.kernel in ("query_parts", "replay_helpers",
+                                    "fresh_sum"):
         if args.kernel == "replay_helpers":
             out.update(replay_helpers(CS, dev, dirs))
+        elif args.kernel == "fresh_sum":
+            out.update(fresh_sums(CS, dev))
         else:
             builds = {"actor_select_step": actor_builds,
                       "query_parts": query_parts_builds}.get(args.kernel,

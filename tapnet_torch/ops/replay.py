@@ -15,7 +15,8 @@ gradients of the 11 head weights summed over the batch.
   `csrc/replay.cu` (the backward is the kernel plus a fixed-order sum of
   its per-tile weight-gradient partials) and count their launches (the
   helper kernels' launches, counted by csrc/replay.cu where it launches
-  them, go to `grad_outer_tf32.launches` and `reduce_tiles.launches`);
+  them, go to `grad_outer_bf16.launches`, `grad_outer_tf32.launches` and
+  `reduce_tiles.launches`);
 - `replay_logp_fwd_steps` / `replay_logp_bwd_steps`: the step-grid schedule
   (`_steps_grid`: rolling windows and N > 31, up to N = 62). The same value
   and gradients from the same record plus `prev` [S, B] (the actions
@@ -716,9 +717,9 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
 
 # None, or a list to which every backward launch appends the operands of
 # its helper kernels: the records and sflag of the deferred contractions
-# (empty where it keeps none) with their steps a row, the weight-gradient
-# partial rows and their sum, the d_ctx chunk partials (empty for one
-# chunk) and d_ctx
+# (empty where it keeps none) with their steps a row and the compute dtype
+# that laid them out, the weight-gradient partial rows and their sum, the
+# d_ctx chunk partials (empty for one chunk) and d_ctx
 kept = None
 
 
@@ -760,7 +761,7 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
         kept.append({"rec": rec, "sflag": sflag, "part": part,
                      "dctx_part": dctx_part, "dctx": dctx, "grads": flat,
                      "length": _steps_per_row(cfg, chunks) if rec.numel()
-                     else 0})
+                     else 0, "dtype": se.dtype})
     grads, off = [], 0
     for a, b in shapes:
         grads.append(flat[off:off + a * b].view(a, b))
@@ -957,7 +958,8 @@ class ReplayLogp(torch.autograd.Function):
 
 GO_NT, GO_NX, GO_RS, GO_NB, GO_SL = 128, 136, 5, 3, 40  # csrc/replay.cu:
 #   grad_outer_tf32's tile, widest last tile, raw stages, B tile buffers
-#   and floats of a staging row
+#   and floats of a staging row (grad_outer's too, but for its raw
+#   stages: `grad_outer_bf16_plan`)
 
 
 def grad_outer_smem(h: int) -> int:
@@ -974,6 +976,23 @@ def grad_outer_smem(h: int) -> int:
             + 4 * MAX_N + 4 * wg * 16 * GO_SL * 4 + 1024)
 
 
+def grad_outer_bf16_plan(h: int) -> dict:
+    """csrc/replay.cu `gb_plan`, the shared-memory plan of one bfloat16
+    `grad_outer` block at hidden h, in bytes: warpgroups ("wg"), raw
+    stages ("rs": 3 at h <= 128, so that two blocks share an SM; 4
+    above), a stage's G (h rows of 32 lanes f32), a raw stage (G, then X's
+    rows: up to GO_NX of 64 bytes, the two passes' runs 64 bytes apart;
+    1024-byte aligned), a B tile, and the block's whole plan ("bytes": the
+    ring, GO_NB B tiles, the mbarriers, the count and the list of acting
+    steps and the slack of aligning the base to 1024 bytes)."""
+    p = {"wg": -(-h // 64), "rs": 3 if h <= 128 else 4, "g": h * 32 * 4,
+         "b": GO_NX * 64}
+    p["stage"] = (p["g"] + GO_NX * 64 + 64 + 1023) & ~1023
+    p["bytes"] = (p["rs"] * p["stage"] + GO_NB * p["b"] + 8 * p["rs"] + 16
+                  + 4 * MAX_N + 1024)
+    return p
+
+
 def _grad_blocks(cfg: TAPConfig, h: int):
     """(param index, columns) of the three weight gradients grad_outer
     writes, W1 [h][W*D+2], W2 [h][h], Wq [h][3h+8], and each one's offset
@@ -983,28 +1002,36 @@ def _grad_blocks(cfg: TAPConfig, h: int):
     return [(i, shapes[i][1], offs[i]) for i in (3, 5, 8)]
 
 
-def grad_outer_ref(rec, sflag, cfg: TAPConfig, h: int, length: int):
-    """Plain version of `grad_outer_tf32`: from the float32 records rec
-    [rows * length * C * record_floats] (`rec_offsets`) and sflag [rows *
-    length] (nonzero: the step has an action), per partial row the
-    gradients of W1, W2 and Wq [rows, h, cols]: the sums over the row's
-    acting steps, their containers, the record's passes and lanes of
-    de1 feats^T, d_hm e1^T and dq qin^T (float32 products; a step without
-    an action, whose record the kernel never wrote, adds nothing)."""
-    ro = rec_offsets(cfg, h)
+def grad_outer_ref(rec, sflag, cfg: TAPConfig, h: int, length: int,
+                   dtype=F32):
+    """Plain version of `grad_outer_tf32` (dtype float32) and of
+    `grad_outer_bf16` (bfloat16): from the records rec [rows * length * C
+    * record_floats(cfg, h, dtype)] float32 (`rec_offsets`: the gradient
+    sections f32, the activation sections f32 or bfloat16 pairs) and
+    sflag [rows * length] (nonzero: the step has an action), per partial
+    row the gradients of W1, W2 and Wq [rows, h, cols]: the sums over the
+    row's acting steps, their containers, the record's passes and lanes
+    of de1 feats^T, d_hm e1^T and dq qin^T (float32 products; a step
+    without an action, whose record the kernel never wrote, adds
+    nothing)."""
+    ro = rec_offsets(cfg, h, dtype)
     C, tp = cfg.num_containers, geometry(h)["tp"]
     rows = sflag.numel() // length
     r = rec.view(rows, length, C, TB // tp, ro["pass"])
     on = (sflag.view(rows, length) != 0)[:, :, None, None, None, None]
 
-    def sec(name, n):
-        x = r[..., ro[name]:ro[name] + n * tp].reshape(rows, length, C,
-                                                       TB // tp, n, tp)
-        return torch.where(on, x, torch.zeros((), dtype=x.dtype,
-                                              device=x.device))
+    def sec(name, n, half=False):  # half: bfloat16 pairs, 2 values a float
+        o = ro[name]
+        v = (r.view(torch.bfloat16)[..., 2 * o:2 * o + n * tp].float()
+             if half else r[..., o:o + n * tp])
+        v = v.reshape(rows, length, C, TB // tp, n, tp)
+        return torch.where(on, v, torch.zeros((), dtype=v.dtype,
+                                              device=v.device))
 
     WD2 = cfg.target_width * cfg.target_depth + 2
-    return tuple(torch.einsum("rscpjl,rscpnl->rjn", sec(g, h), sec(x, n))
+    half = dtype == torch.bfloat16
+    return tuple(torch.einsum("rscpjl,rscpnl->rjn", sec(g, h),
+                              sec(x, n, half))
                  for g, x, n in (("de1", "feats", WD2), ("dhm", "e1", h),
                                  ("dq", "qin", 3 * h + 8)))
 
@@ -1014,7 +1041,7 @@ def _helper_lib():
     lib = _build.load("replay")
     go = lib.tapnet_replay_grad_outer
     go.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
     rt = lib.tapnet_replay_reduce_tiles
     rt.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -1030,10 +1057,10 @@ RT_WIDTHS = (1, 2, 4)  # reduce_tiles' loads: floats a thread
 
 
 def _helper_counts() -> tuple:
-    """The launches of grad_outer_tf32 and of reduce_tiles at each of
-    RT_WIDTHS since the library was loaded, as csrc/replay.cu counts them
-    where it launches each."""
-    buf = (ctypes.c_longlong * 4)()
+    """The launches of grad_outer_tf32, of reduce_tiles at each of
+    RT_WIDTHS and of grad_outer (bfloat16) since the library was loaded,
+    as csrc/replay.cu counts them where it launches each."""
+    buf = (ctypes.c_longlong * 5)()
     _helper_lib()[2](buf)
     return tuple(buf)
 
@@ -1041,12 +1068,42 @@ def _helper_counts() -> tuple:
 def _count_helpers(before):
     """Add the helper launches since `before` (`_helper_counts()`) to the
     wrappers' counters: `grad_outer_tf32.launches`, `reduce_tiles.launches`
-    and `reduce_tiles.widths` (launches by load width)."""
+    and `reduce_tiles.widths` (launches by load width),
+    `grad_outer_bf16.launches`."""
     d = [a - b for a, b in zip(_helper_counts(), before)]
     grad_outer_tf32.launches += d[0]
-    reduce_tiles.launches += sum(d[1:])
-    for v, k in zip(RT_WIDTHS, d[1:]):
+    reduce_tiles.launches += sum(d[1:4])
+    for v, k in zip(RT_WIDTHS, d[1:4]):
         reduce_tiles.widths[v] += k
+    grad_outer_bf16.launches += d[4]
+
+
+def _grad_outer(rec, sflag, cfg, h, length, part, dtype):
+    """Launch csrc/replay.cu's `grad_outer_tf32` or `grad_outer` (dtype)
+    on given records; checks the operands, returns the views of part."""
+    bf = dtype == torch.bfloat16
+    name = "grad_outer_bf16" if bf else "grad_outer_tf32"
+    if h < (32 if bf else 160) or h > MAX_H or h % 32:
+        raise NotImplementedError(f"{name}: hidden {h}")
+    rows, dev = sflag.numel() // length, rec.device
+    _check(rec, "rec", (rows * length * cfg.num_containers
+                        * record_floats(cfg, h, dtype),), torch.float32, dev)
+    _check(sflag, "sflag", (rows * length,), torch.int32, dev)
+    blocks = _grad_blocks(cfg, h)
+    P = sum(a * b for a, b in head_shapes(cfg, h))
+    if part is None:
+        part = torch.zeros((rows, P), dtype=torch.float32, device=dev)
+    _check(part, "part", (rows, P), torch.float32, dev)
+    before = _helper_counts()
+    with torch.cuda.device(dev):
+        err = _helper_lib()[0](
+            rec.data_ptr(), sflag.data_ptr(),
+            ctypes.cast(_build.int_array(_ints(cfg, 1, h)), ctypes.c_void_p),
+            rows, length, int(bf), part.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _count_helpers(before)
+    _build.check(err, name)
+    return tuple(part[:, o:o + h * k].view(rows, h, k) for _, k, o in blocks)
 
 
 def grad_outer_tf32(rec, sflag, cfg: TAPConfig, h: int, length: int,
@@ -1059,30 +1116,26 @@ def grad_outer_tf32(rec, sflag, cfg: TAPConfig, h: int, length: int,
     default). On CPU tensors the plain version."""
     if not rec.is_cuda:
         return grad_outer_ref(rec, sflag, cfg, h, length)
-    if h <= 128 or h > MAX_H or h % 32:
-        raise NotImplementedError(f"grad_outer_tf32: hidden {h}")
-    rows, dev = sflag.numel() // length, rec.device
-    _check(rec, "rec", (rows * length * cfg.num_containers
-                        * record_floats(cfg, h),), torch.float32, dev)
-    _check(sflag, "sflag", (rows * length,), torch.int32, dev)
-    blocks = _grad_blocks(cfg, h)
-    P = sum(a * b for a, b in head_shapes(cfg, h))
-    if part is None:
-        part = torch.zeros((rows, P), dtype=torch.float32, device=dev)
-    _check(part, "part", (rows, P), torch.float32, dev)
-    before = _helper_counts()
-    with torch.cuda.device(dev):
-        err = _helper_lib()[0](
-            rec.data_ptr(), sflag.data_ptr(),
-            ctypes.cast(_build.int_array(_ints(cfg, 1, h)), ctypes.c_void_p),
-            rows, length, part.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _count_helpers(before)
-    _build.check(err, "grad_outer_tf32")
-    return tuple(part[:, o:o + h * k].view(rows, h, k) for _, k, o in blocks)
+    return _grad_outer(rec, sflag, cfg, h, length, part, F32)
 
 
 grad_outer_tf32.launches = 0
+
+
+def grad_outer_bf16(rec, sflag, cfg: TAPConfig, h: int, length: int,
+                    part=None):
+    """The deferred weight-gradient contractions of the bfloat16 backward
+    at every hidden width 32 .. 256 (csrc/replay.cu `grad_outer`, wgmma,
+    the f32 gradients split into bf16 hi + lo) on given bfloat16 records;
+    operands and results as in `grad_outer_ref(..., dtype=bfloat16)` (the
+    results views of `part`, as `grad_outer_tf32`'s). On CPU tensors the
+    plain version."""
+    if not rec.is_cuda:
+        return grad_outer_ref(rec, sflag, cfg, h, length, torch.bfloat16)
+    return _grad_outer(rec, sflag, cfg, h, length, part, torch.bfloat16)
+
+
+grad_outer_bf16.launches = 0
 
 
 def reduce_tiles_ref(part):
