@@ -100,9 +100,10 @@ source, all started at once), then runs, and fails on the first fault:
    train step (host clock);
 18. past a kernel's coverage, the fallbacks the routers pick
    (`train.rollout.routes`) on the card: 2 train steps of 2d-basic at
-   hidden 48 (not a multiple of 32), batch 256 (K1 x10 and K3 x1 per step,
-   no K2, no K5: the general replay) and a step against the CPU path;
-   sampled pack() at hidden 48 (K1 x10) against the CPU path;
+   hidden 544 (past the widest width K2 and K5 take, 512), batch 256 (K1
+   x10 and K3 x1 per step, no K2, no K5: the general replay) and a step
+   against the CPU path; sampled pack() at hidden 544 (K1 x10) against the
+   CPU path;
    pack(first/random) on a 17 x 16 3D target (no K4) equal to the CPU
    path; and K2, K5b, K1 and K4
    called directly outside their coverage raise NotImplementedError;
@@ -122,7 +123,7 @@ source, all started at once), then runs, and fails on the first fault:
    replaced (the reductions, then the composition as PyTorch ops);
 21. `make_train_step(steps_per_call=k)` as a CUDA graph: 2d-basic at batch
    4096 (k = 8), 2d-rolling at 4096 (k = 4), multi-container-capped at 256
-   (k = 4, the K1 route) and 2d-basic at hidden 48, batch 256 (k = 2, the
+   (k = 4, the K1 route) and 2d-basic at hidden 544, batch 256 (k = 2, the
    fallback route): one step captured and replayed k times, the launches
    counted by the capture (1 x the per-step counts; the eager warm-up step
    on a copy the same), none counted by a call of k replays, one call
@@ -297,19 +298,61 @@ source, all started at once), then runs, and fails on the first fault:
    `ops._build.build_all()`. (The train step against the fallback it
    replaced: `python -m tapnet_torch.profile_pack --train --hidden 256
    --routes kernels,fallback`.)
+27. K2 and K5 at every hidden width up to 512: the kernels take the
+   multiples of 32 up to 256 and of 64 up to 512 (the WX form above 256,
+   csrc/geo.cuh), any other width on operands padded with zeros
+   (`ops.actor_step.kernel_width`, `pad_head`). At hidden 48 (run at 64),
+   288 (at 320), 384 and 512 on `wx_shapes` (2d-basic at 512,
+   multi-container at temperature 0.7; at 288 and 512 also 2d-rolling and
+   a ragged batch of 100): K2 (both modes, both dtypes) and K5 (all four
+   schedules, forward and backward, both dtypes) against their plain
+   versions under phases 3, 7, 24 and 26's TOL and GRAD_TOL, backward and
+   bf16 K2 repeats bit-identical; `grad_outer_tf32` and the bf16
+   `grad_outer` alone at 512 on `GO_CASES` (a block takes a row half of
+   G); `query_parts` alone at 384 and 512 on `QP_CASES` (in f32 3xTF32
+   with each 16 columns of K summed apart) within TOL; the plan and WX
+   scratch mirrors against the kernels' own at every multiple of 32 up to 512.
+   The main path at 512 and 48:
+   sampled `pack()` at batch 4096 (K2 x10, `query_parts` x1 at 512, no
+   select_step), one train step each of
+   2d-basic and 2d-rolling at 512 in f32 and bf16 and of 2d-basic at 48,
+   batch 4096, with every launch counted (K2 N, `query_parts` 1 above
+   128, K5b or K5b-steps 1, K3 1 a step, the helpers' launches; no
+   select_step, no general replay) and each path kernel launched;
+   `python -m tapnet_torch.cli train --hidden 512` (2d-basic, batch 4096,
+   4 steps), whose trace names K2's, `query_parts`' and K5's kernels and
+   not K1's; `steps_per_call` graphs (phase 21's checks but for the
+   profiler's breakdown, which `profile_pack` gives: 2d-basic k = 8 at 512
+   in both dtypes, batch 4096; 2d-rolling k = 4 at 512 in both dtypes at
+   batch 1024, for time); then at batch 4096, on the operands
+   they are timed on, K2 (512 both dtypes, 48) at its middle step with a
+   sampled decode step on K2's route and on the fallback's (K1 and the
+   head as PyTorch ops) beside it, `query_parts` at 512, K5f/K5b
+   (2d-basic, 512 and 48) and K5f-steps/K5b-steps (2d-rolling, 512) in
+   both dtypes with the fallback replay beside the backward, and
+   `grad_outer_tf32`, `grad_outer` and `reduce_tiles` at 512
+   (`reduce_tiles` bit for bit on the f32 backwards' partial rows and
+   d_ctx chunk partials), each held to its plain version and timed with
+   its plain version and bound. `chip_smoke.phase_27(dev)` runs it alone
+   after `ops._build.build_all()` (~100 s).
 
 It prints the kernel table as one JSON line (each entry with its "dtype";
 the bf16 instantiations as entries of their own, and the hidden-256
 instantiations too, with a "hidden" key; the float32 hidden-256 replay
 entries add "bound_3xtf32_ms", the backward ones "fallback_ms", and
-K5b-steps' the witness record's "witness"; the float32 hidden-256 K2
-and `query_parts` entries add "bound_3xtf32_ms" too, and their
-"bound_ms" is the lower of that and the bound at the plain f32 rate;
+K5b-steps' the witness record's "witness"; the float32 K2 and
+`query_parts` entries above hidden 128 add "bound_3xtf32_ms" too (at
+512 also "f32_rate_bound_ms"), and their "bound_ms" is the lower of
+that and the bound at the plain f32 rate;
 `query_parts`' "library_ms" is two torch.mm; `grad_outer_tf32`,
 `grad_outer` (bfloat16; also a hidden-128 entry from phase 24) and
 `reduce_tiles` are hidden-256 entries with 2d-rolling's figures beside
-2d-basic's, `reduce_tiles`' "library_ms" `torch.sum(part, 0)`), then the
-nvidia-smi line,
+2d-basic's, `reduce_tiles`' "library_ms" `torch.sum(part, 0)`; phase 27
+adds entries with "hidden" 512 and 48 (and "kernel_width" where the
+kernel ran on padded operands), K2's with "fallback_ms" and
+"kernel_route_ms", a sampled decode step on the fallback's route and on
+K2's, the backward replays' with the fallback replay's "fallback_ms"),
+then the nvidia-smi line,
 then `{"ok": true, "device": {...}}` as the last line. Without a CUDA device it
 exits non-zero and prints no result.
 """
@@ -412,7 +455,9 @@ def check_select_step(cfg, B, actor, dev, keep=None, p2d=0.0):
 
 def actor_operands(actor, inst, cfg, keys, dtype=torch.float32):
     """Per-rollout operands of actor_select_step (as the rollout builds),
-    the float ones in the compute dtype `dtype`."""
+    the float ones in the compute dtype `dtype`; at a hidden width the
+    kernel does not take, se, ctx and the head operands padded with zeros
+    to `kernel_width` (`pad_head`), as the rollout pads them."""
     from tapnet_torch.models.features import static_tokens
     from tapnet_torch.models.tapnet import embed_static_T
     from tapnet_torch.ops import actor_step as AS
@@ -425,12 +470,14 @@ def actor_operands(actor, inst, cfg, keys, dtype=torch.float32):
     se_htb = embed_static_T(actor, static_t4, dtype).reshape(-1, T, B)
     upm, rotm = AS.precedence_bitmasks(inst, cfg)
     g_all = RO._gumbel_all(keys, cfg).transpose(1, 2).contiguous()
-    o = dict(se=se_htb.permute(2, 1, 0).contiguous(),
-             ctx=se_htb.mean(1).contiguous(),
+    hk = AS.kernel_width(actor.hidden)
+    o = dict(se=AS.pad_hidden(se_htb.permute(2, 1, 0), hk, 2).contiguous(),
+             ctx=AS.pad_hidden(se_htb.mean(1), hk, 0).contiguous(),
              statp=static_t4.to(dtype).reshape(4, T, B).contiguous(),
              statm=static.to(dtype).mean(1).T.contiguous(), upm=upm,
              rotm=rotm, fits=AS.fits_planes(inst, cfg),
-             params=AS.head_operands(actor, cfg, dtype), g_all=g_all)
+             params=AS.pad_head(AS.head_operands(actor, cfg, dtype), hk),
+             g_all=g_all)
     o["params_t"] = AS.transposed(o["params"])
     return o
 
@@ -720,7 +767,7 @@ def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
 
     # as the decode loop: once per rollout
     pt = AS.transposed(ops[16])
-    wide = AS.wide_operands(ops[16], ops[13])
+    wide = AS.wide_operands(ops[16], ops[13], cfg)
     ms = time_gpu(lambda: AS.actor_select_step(*ops, cfg, logits=False,
                                                params_t=pt, wide=wide))
     full = time_gpu(lambda: AS.actor_select_step(*ops, cfg, params_t=pt,
@@ -742,8 +789,10 @@ def time_actor_step(ops, cfg, h, plain_reps=REPS, plain_sleep=100_000_000):
     skip = (11, 12) if wide is None else (11, 12, 13)
     rest = nbytes([x for i, x in enumerate(ops[:16]) if i not in skip])
     outs = nbytes([x for x in out if x is not None])
-    weights = (nbytes(ops[16]) if wide is None else nbytes(wide) + nbytes(
-        [p for i, p in enumerate(ops[16]) if i not in (3, 5, 7, 8)]))
+    # (wide's scratch is the kernel's own, not an operand it reads)
+    weights = (nbytes(ops[16]) if wide is None else nbytes(wide[:3])
+               + nbytes([p for i, p in enumerate(ops[16])
+                         if i not in (3, 5, 7, 8)]))
     live_b = (rest + weights + cols * h * se.element_size()
               + valid * 4 + outs)
     all_b = (nbytes([x for i, x in enumerate(ops[:16])
@@ -820,8 +869,11 @@ def replay_operands(actor, cfg, B, dev, seed, temperature, p2d=0.0,
     """Replay operands in `replay_logp_fwd` order from a sampled rollout on
     the card at `temperature` in the compute dtype `dtype`, and the
     rollout's own logp [B]. `also`: another dtype whose operands of the
-    same record are returned third."""
+    same record are returned third. At a hidden width the kernels do not
+    take, se, ctx and the head operands padded with zeros to
+    `kernel_width`, as `ReplayLogp` pads them."""
     from tapnet_torch import random as R
+    from tapnet_torch.ops import replay as RP
     from tapnet_torch.train import rollout as RO
 
     inst = _instances(cfg, B, dev, seed, p2d)
@@ -829,6 +881,7 @@ def replay_operands(actor, cfg, B, dev, seed, temperature, p2d=0.0,
     def ops_in(dt):
         (flags, hms, masks, acts, statp, statm), se, ctx, params = \
             RO.replay_operands(actor, inst, rec, cfg, grad=False, dtype=dt)
+        se, ctx, params = RP._padded(se, ctx, params)
         return (flags, hms, masks, acts, se, ctx, statp, statm, params)
 
     with torch.no_grad():
@@ -1424,8 +1477,8 @@ def rolling_cases():
 def check_fallback_routes(dev):
     """On the card, configs a kernel does not cover run through the path
     `routes` picks instead, with the CPU path's results: a train step and
-    sampled pack() at hidden 48 (not a multiple of 32: past K2 and the
-    replay kernels, so K1 and the general replay), pack(first/random) on
+    sampled pack() at hidden 544 (past the widest width of K2 and the
+    replay kernels, 512: K1 and the general replay), pack(first/random) on
     a 17 x 16 target (past K4, K1 and K2: the env's own rollout). The
     wrappers called directly outside their coverage still raise. Returns
     the launch counts of the run."""
@@ -1438,7 +1491,7 @@ def check_fallback_routes(dev):
     from tapnet_torch.ops import replay as RP
     from tapnet_torch.train import rollout as RO
 
-    cfg, h = CONFIGS["2d-basic"], 48
+    cfg, h = CONFIGS["2d-basic"], 544
     want = RO.Routes("step", False, True)
     if RO.routes(cfg, True, h) != want:
         raise AssertionError(f"routes at hidden {h}: "
@@ -1768,13 +1821,15 @@ def time_fused_reward(hm, plc, dims, cfg):
 # phase 21: steps_per_call as a CUDA graph over the train step
 
 def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
-                      p2d=0.0, compute_dtype=None, tag="phase 21"):
+                      p2d=0.0, compute_dtype=None, tag="phase 21",
+                      profile=True):
     """make_train_step(steps_per_call=k) on the card: the launches counted
     by its eager warm-up step (on a copy of the state) and by the capture
     of one step, each `per_step`; none counted by a call (k replays); one
     call bit-identical to k single steps (params, Adam state, key,
     metrics); assert_deterministic; wall ms per step and the device's idle
-    share at k and at 1 (profiler)."""
+    share at k and at 1 (profiler; `profile` False: the device ms per
+    step by events only)."""
     import copy
 
     from tapnet_torch import init_train_state, make_train_step
@@ -1820,6 +1875,8 @@ def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
     rows = {}
     for label, run, steps in ((f"k={k}", lambda: multi(b), k),
                               ("k=1", lambda: single(a), 1)):
+        if not profile:
+            break
         res = profile_calls(label, run, 3)
         rows[label] = (res["wall_ms"] / steps, res["idle_share"],
                        res["device_busy_ms"] / steps)
@@ -1832,6 +1889,9 @@ def check_graph_steps(name, cfg, dev, per_step, k, batch, hidden=HIDDEN,
         f"same), a call counts none; one call == "
         f"{k} single steps bit for bit (params, Adam state, key, metrics); "
         f"deterministic")
+    if not profile:
+        log(f"{tag} {name}: device ms/step by events {dev_ms:.3f} at k={k}")
+        return {f"k={k}": (None, None, dev_ms)}
     log(f"{tag} {name}: wall ms/step {rows[f'k={k}'][0]:.3f} at k={k} "
         f"(idle share {rows[f'k={k}'][1]:.3f}, busy ms/step "
         f"{rows[f'k={k}'][2]:.3f}; device ms/step by events {dev_ms:.3f}) "
@@ -2651,8 +2711,9 @@ def check_actor_bf16_shapes(dev, log_fn):
 
 def check_actor_smem_mirror():
     """ops.actor_step.smem_bytes against the kernel's own plan
-    (`tapnet_actor_smem_bytes`) for the six CONFIGS, every hidden width
-    the kernel covers (32-256), both dtypes. Returns the cases."""
+    (`tapnet_actor_smem_bytes`) for the six CONFIGS, every multiple of 32
+    up to MAX_H (512; the kernel takes those of 64 above 256), both
+    dtypes. Returns the cases."""
     import ctypes
 
     from tapnet_torch import CONFIGS
@@ -2757,9 +2818,9 @@ def check_replay_bf16_shapes(dev, log_fn):
 
 def check_replay_smem_mirror():
     """ops.replay.smem_bytes against the kernel's own plan
-    (`tapnet_replay_smem_bytes`) for the six CONFIGS, every hidden width
-    the kernels cover (32-256), both schedules, forward and backward, both
-    dtypes. Returns the cases."""
+    (`tapnet_replay_smem_bytes`) for the six CONFIGS, every multiple of 32
+    up to MAX_H (512), both schedules, forward and backward, both dtypes.
+    Returns the cases."""
     import ctypes
 
     from tapnet_torch import CONFIGS
@@ -2876,7 +2937,7 @@ def time_actor_dtypes(kept, cfg, hidden=HIDDEN):
     run = {}
     for tag, ops in (("bf16", ops_b), ("f32", ops_f)):
         pt = AS.transposed(ops[16])
-        wide = AS.wide_operands(ops[16], ops[13])
+        wide = AS.wide_operands(ops[16], ops[13], cfg)
         run[tag] = (lambda ops=ops, pt=pt, wide=wide: AS.actor_select_step(
             *ops, cfg, logits=False, params_t=pt, wide=wide))
     turns = [time_gpu(run[t]) for t in ("f32", "bf16", "bf16", "f32")]
@@ -3338,12 +3399,13 @@ def wide_shapes(h):
             + ([("2d-rolling", 512, 1.0)] if h in (160, WIDE_H) else []))
 
 
-def check_wide_kernels(dev, log_fn):
+def check_wide_kernels(dev, log_fn, widths=WIDE, shapes=wide_shapes):
     """K2 (both modes, both dtypes) and K5 (K5f/K5b monolithic where the
     config allows it, K5f-steps/K5b-steps always, both dtypes) against
-    their plain versions at every width of WIDE on each case of
-    `wide_shapes`, at the tolerances of phases 3, 7, 15 and 24, with two
-    backward launches (and two K2 bf16 launches) bit-identical. Returns the
+    their plain versions at every width of `widths` on each case of
+    `shapes(h)`, at the tolerances of phases 3, 7, 15 and 24, with two
+    backward launches (and two K2 bf16 launches) bit-identical (a width the
+    kernels do not take on operands padded to `kernel_width`). Returns the
     largest errors per kernel and dtype."""
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
@@ -3351,8 +3413,8 @@ def check_wide_kernels(dev, log_fn):
 
     errs = {}
     bump = lambda k, v: errs.__setitem__(k, max(errs.get(k, 0.0), v))
-    for h in WIDE:
-        for name, B, temp in wide_shapes(h):
+    for h in widths:
+        for name, B, temp in shapes(h):
             cfg = CONFIGS[name]
             actor = init_params(SEED, cfg, h, dev)
             _, e2 = check_actor_step(cfg, B, actor, dev, temperature=temp)
@@ -3383,14 +3445,15 @@ def check_wide_kernels(dev, log_fn):
     return errs
 
 
-def time_fallback_replay(actor, cfg, B, dev, seed):
+def time_fallback_replay(actor, cfg, B, dev, seed, dtype=torch.float32):
     """The replay that the routers fall back on, `replay_logp_sum(kernel=
     False)` (the general autograd replay; the windowed one on a rolling
-    config), on the record that `replay_operands(actor, cfg, B, dev, seed,
-    1.0)` replays: its value and every actor parameter's gradient under a
-    ramp dlp, forward and backward as the fallback train step runs them.
-    ms per call (CUDA events, median of 3): the comparator of K5b, which
-    the kernel route runs alone (its value is the rollout's logp)."""
+    config) in the compute dtype `dtype`, on the record that
+    `replay_operands(actor, cfg, B, dev, seed, 1.0)` replays: its value and
+    every actor parameter's gradient under a ramp dlp, forward and backward
+    as the fallback train step runs them. ms per call (CUDA events, median
+    of 3): the comparator of K5b, which the kernel route runs alone (its
+    value is the rollout's logp)."""
     from tapnet_torch import random as R
     from tapnet_torch.train import rollout as RO
 
@@ -3403,7 +3466,8 @@ def time_fallback_replay(actor, cfg, B, dev, seed):
 
     def run():
         actor.zero_grad(set_to_none=True)
-        lp = RO.replay_logp_sum(actor, inst, rec, cfg, 1.0, kernel=False)
+        lp = RO.replay_logp_sum(actor, inst, rec, cfg, 1.0, kernel=False,
+                                dtype=dtype)
         (lp * dlp).sum().backward()
 
     ms = time_gpu(run, reps=3, sleep_cycles=100_000_000, warm=1)
@@ -3440,19 +3504,22 @@ QP_CASES = (("2d-basic", 512, 0.0), ("2d-rolling", 512, 0.0),
             ("2d-basic", 100, 0.0), ("multi-container", 512, 0.5))
 
 
-def check_query_parts(dev):
+def check_query_parts(dev, widths=WIDE):
     """K2's once-per-rollout query parts (`ops.actor_step.query_parts`, its
     own launch) against the plain version on the card, both dtypes, every
-    width of WIDE, on the rollouts' operands of `QP_CASES`: within
+    width of `widths`, on the rollouts' operands of `QP_CASES`: within
     TOL of the plain float32 products (TF32 off), two launches
-    bit-identical. Returns the largest error per dtype."""
+    bit-identical. Returns the largest error per dtype, and under "f64"
+    each width's largest float32 errors, scaled by the output's max
+    magnitude, of the kernel and of the plain version from the products
+    in float64 (the tensor cores' sums against f32 fused multiply-adds)."""
     from tapnet_torch import CONFIGS
     from tapnet_torch import random as R
     from tapnet_torch.models.tapnet import init_params
     from tapnet_torch.ops import actor_step as AS
 
-    errs = {"f32": 0.0, "bf16": 0.0}
-    for h in WIDE:
+    errs = {"f32": 0.0, "bf16": 0.0, "f64": {}}
+    for h in widths:
         for name, B, p2d in QP_CASES:
             cfg = CONFIGS[name]
             actor = init_params(SEED, cfg, h, dev)
@@ -3465,7 +3532,13 @@ def check_query_parts(dev):
                     got = AS.query_parts(o["params"], o["ctx"])
                     again = AS.query_parts(o["params"], o["ctx"])
                     want = AS.query_parts_ref(o["params"], o["ctx"])
-                for part, g, a, w in zip(("ctx", "emb"), got, again, want):
+                    wq, hh = o["params"][8].double(), o["ctx"].shape[0]
+                    exact = ((wq[:, hh:2 * hh] @ o["ctx"].double(),
+                              wq[:, 2 * hh:3 * hh]
+                              @ o["params"][7].double())
+                             if tag == "f32" else None)
+                for i, (part, g, a, w) in enumerate(zip(("ctx", "emb"), got,
+                                                        again, want)):
                     _equal(f"query_parts {tag} {case} {part} repeat", g, a)
                     d = (g - w).abs()
                     if not bool((d <= TOL + TOL * w.abs()).all()):
@@ -3473,6 +3546,12 @@ def check_query_parts(dev):
                             f"query_parts {tag} {case} {part}: max "
                             f"err {d.max().item()}")
                     errs[tag] = max(errs[tag], d.max().item())
+                    if exact is not None:
+                        x = exact[i]
+                        sc = x.abs().max().item() + 1e-30
+                        f = errs["f64"].setdefault(h, [0.0, 0.0])
+                        f[0] = max(f[0], (g - x).abs().max().item() / sc)
+                        f[1] = max(f[1], (w - x).abs().max().item() / sc)
     return errs
 
 
@@ -3637,7 +3716,8 @@ def _hold_reduce_tiles(k, what):
     """reduce_tiles alone on one backward's partial rows (and d_ctx chunk
     partials, where there are several chunks) bit for bit against its
     plain version and the backward's own sums. {what held: (shape, load
-    width, held against the backward's own sum)}."""
+    width, held against the backward's own sum, max abs err against the
+    plain version)}."""
     pairs = [(k["part"], k["grads"], "partial rows")]
     if k["dctx_part"].numel():
         nc = k["dctx_part"].shape[0]
@@ -3648,7 +3728,8 @@ def _hold_reduce_tiles(k, what):
         got, want, v = _held_reduce_tiles(x)
         _equal(f"{what} {part} against the plain version", got, want)
         _equal(f"{what} {part} against the backward's own", got, own)
-        held[f"{what} {part}"] = (list(x.shape), v, True)
+        held[f"{what} {part}"] = (list(x.shape), v, True,
+                                  (got - want).abs().max().item())
     return held
 
 
@@ -3658,8 +3739,8 @@ def check_reduce_tiles(dev, log_fn):
     partials) at the main paths' batch, hidden 128 and 256, float32 and
     bfloat16, and on the logp chunk partials' shape of a ragged batch
     (100: P not a multiple of 4, the scalar instantiation); fails unless
-    each load width (`ops.replay.RT_WIDTHS`) was held. Returns the cases
-    held."""
+    each load width (`ops.replay.RT_WIDTHS`) was held. Returns (the cases
+    held, the largest abs error against the plain version)."""
     from tapnet_torch import CONFIGS
     from tapnet_torch.models.tapnet import init_params
     from tapnet_torch.ops import replay as RP
@@ -3684,16 +3765,17 @@ def check_reduce_tiles(dev, log_fn):
                     generator=g, device=dev)
     got, want, v = _held_reduce_tiles(x)
     _equal("reduce_tiles [chunks, 100]", got, want)
-    held["reduce_tiles [chunks, 100]"] = (list(x.shape), v, False)
-    taken = {w for _, w, _ in held.values()}
+    held["reduce_tiles [chunks, 100]"] = (list(x.shape), v, False,
+                                          (got - want).abs().max().item())
+    taken = {w for _, w, _, _ in held.values()}
     if taken != set(RP.RT_WIDTHS):
         raise AssertionError(f"reduce_tiles held at load widths {taken}, "
                              f"not every one of {RP.RT_WIDTHS}: {held}")
-    for what, (shape, w, own) in held.items():
+    for what, (shape, w, own, _) in held.items():
         log_fn(f"{what} {shape}: bit for bit against its plain version"
                + (" and the backward's own sum" if own else "")
                + f", {w}-float loads")
-    return len(held)
+    return len(held), max(e for _, _, _, e in held.values())
 
 
 def time_grad_outer(k, cfg, h):
@@ -3772,11 +3854,13 @@ def phase_26(dev):
         f"2d-basic and 2d-rolling B=512, 2d-basic B=100 and multi-container "
         f"mixed p2d 0.5 B=512 against the plain version: max abs err f32 "
         f"{qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
-        "bit-identical")
+        "bit-identical; f32 from float64 products, scaled (kernel, plain): "
+        + ", ".join(f"h={h} {k:.2e}, {p:.2e}"
+                    for h, (k, p) in qp_err["f64"].items()))
     go_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"))
     gb_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"),
                               GO_WIDTHS, BF16)
-    check_reduce_tiles(dev, lambda m: log(f"{stamp()} {m}"))
+    _, rt_err = check_reduce_tiles(dev, lambda m: log(f"{stamp()} {m}"))
     log(f"{stamp()} replay plan and record mirrors equal to the kernel's "
         f"on {check_replay_smem_mirror()} and {check_replay_record_mirror()} "
         "cases")
@@ -4003,7 +4087,7 @@ def phase_26(dev):
     # beside them
     for kn, err, dt in (("grad_outer_tf32", go_err, "float32"),
                         ("grad_outer_bf16", gb_err, "bfloat16"),
-                        ("reduce_tiles", 0.0, "float32")):
+                        ("reduce_tiles", rt_err, "float32")):
         r, rr = ht["mono"][kn], ht["steps"][kn]
         kernels.append(entry(kn, "pallas_replay.py:610", dt,
                              helper_n[kn], err, r["ms"], r["plain_ms"],
@@ -4044,6 +4128,408 @@ def phase_26(dev):
                         "max_scaled_err": max(wit["scaled_errors"].values()),
                         "max_scaled_err_without_them": max(
                             wit["scaled_errors_without_them"].values())}
+    return kernels, rows
+
+
+# ------------------------------------------------------------------ #
+# phase 27: K2 and K5 at every hidden width up to 512
+
+WX_WIDTHS = (48, 288, 384, 512)  # 48 runs at 64 and 288 at 320 (padded)
+WX_H, WX_OFF = 512, 48           # at full batch: the widest and an off-32
+
+
+def wx_shapes(h):
+    """(config, batch, temperature) where phase 27 holds K2 and K5 at
+    hidden h: 2d-basic at 512 and multi-container at temperature 0.7 (C =
+    2) at every width; at 288 and 512 also 2d-rolling (K2's 64-bit words,
+    K5's step grid: the WX form in both of its widths' cases) and a ragged
+    batch of 100."""
+    return ([("2d-basic", 512, 1.0), ("multi-container", 512, 0.7)]
+            + ([("2d-rolling", 512, 1.0), ("2d-basic", 100, 1.0)]
+               if h in (288, WX_H) else []))
+
+
+def check_wx_scratch_mirror():
+    """The per-block device scratch above hidden 256, ops.actor_step and
+    ops.replay `wx_scratch`, against the kernels' own (`tapnet_actor_scratch`,
+    `tapnet_replay_scratch`) for the six CONFIGS at every multiple of 32 up
+    to 512 (0 up to 256), K2's in both dtypes. Returns the cases."""
+    import ctypes
+
+    from tapnet_torch import CONFIGS
+    from tapnet_torch.ops import _build
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import replay as RP
+    from tapnet_torch.ops.policy_step import env_ints
+
+    fa = _build.load("actor_step").tapnet_actor_scratch
+    fr = _build.load("replay").tapnet_replay_scratch
+    for fn in (fa, fr):
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+    n = 0
+    for cfg in CONFIGS.values():
+        for h in range(32, AS.MAX_H + 1, 32):
+            ia = [_build.int_array([1] + env_ints(cfg)
+                                   + [h, cfg.window, 0, bf]) for bf in (0, 1)]
+            ir = _build.int_array(RP._ints(cfg, 1, h))
+            got = (AS.wx_scratch(cfg, h), AS.wx_scratch(cfg, h, BF16),
+                   RP.wx_scratch(cfg, h))
+            want = (*(fa(ctypes.cast(i, ctypes.c_void_p)) for i in ia),
+                    fr(ctypes.cast(ir, ctypes.c_void_p)))
+            if got != want:
+                raise AssertionError(f"wx_scratch {cfg} h={h}: mirrors "
+                                     f"{got}, kernels {want}")
+            n += 3
+    return n
+
+
+def wx_per_step(cfg, h, steps):
+    """The kernel launches of a train step at hidden h: K2 a decode step,
+    `query_parts` once a rollout above 128 (at the kernels' width), the
+    replay backward of the config's schedule once, the reward once."""
+    from tapnet_torch.ops import actor_step as AS
+
+    return {"actor_select_step": cfg.num_blocks,
+            "query_parts": int(AS.kernel_width(h) > 128),
+            "replay_logp_bwd_steps" if steps else "replay_logp_bwd": 1,
+            "heightmap_reductions": 1}
+
+
+def time_fallback_decode(actor, cfg, B, dev, seed, dtype=torch.float32):
+    """ms per decode step of a sampled rollout at batch B in the compute
+    dtype `dtype` on the route the decoder falls back on past K2 (the head
+    as PyTorch ops, K1 a step) and on K2's route, whole rollouts (the
+    once-a-rollout operands included) over N steps (CUDA events, median of
+    3)."""
+    from tapnet_torch import random as R
+    from tapnet_torch.train import rollout as RO
+
+    inst = _instances(cfg, B, dev, seed)
+    keys = R.split(R.key(seed + 1, dev), B)
+    N = cfg.num_blocks
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("fallback", RO._rollout_record_stepfused),
+                         ("kernel", RO._rollout_record_actorfused)):
+            out[name] = time_gpu(lambda: fn(actor, inst, keys, cfg, False,
+                                            1.0, True, dtype),
+                                 reps=3, sleep_cycles=50_000_000,
+                                 warm=1) / N
+    return out
+
+
+def phase_27(dev):
+    """Phase 27 (module docstring): K2 and K5 at every hidden width up to
+    512. Returns the kernels-line entries of hidden 512 and 48."""
+    from tapnet_torch import CONFIGS, pack
+    from tapnet_torch.models.tapnet import init_params
+    from tapnet_torch.ops import actor_step as AS
+    from tapnet_torch.ops import policy_step as PS
+    from tapnet_torch.ops import replay as RP
+    from tapnet_torch.train import rollout as RO
+
+    t0 = time.perf_counter()
+    stamp = lambda: f"phase 27 [{time.perf_counter() - t0:.0f} s]"
+    cfg, rcfg = CONFIGS["2d-basic"], CONFIGS["2d-rolling"]
+    for h in WX_WIDTHS + (100,):
+        for c in (cfg, rcfg):
+            if RO.routes(c, True, h) != RO.Routes("actor", True, True):
+                raise AssertionError(f"routes {c} hidden {h}: "
+                                     f"{RO.routes(c, True, h)}")
+    # 1. every width against the plain versions; the helpers alone at 512
+    errs = check_wide_kernels(dev, lambda m: log(f"{stamp()} {m}"),
+                              WX_WIDTHS, wx_shapes)
+    go_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"),
+                              (WX_H,))
+    gb_err = check_grad_outer(dev, lambda m: log(f"{stamp()} {m}"),
+                              (WX_H,), BF16)
+    log(f"{stamp()} the WX scratch mirrors equal to the kernels' on "
+        f"{check_wx_scratch_mirror()} cases, the plan mirrors on "
+        f"{check_actor_smem_mirror()} (K2) and {check_replay_smem_mirror()} "
+        f"(K5) cases at every multiple of 32 up to 512")
+    qp_err = check_query_parts(dev, (384, WX_H))
+    log(f"{stamp()} query_parts at hidden 384 and {WX_H} on QP_CASES "
+        f"against the plain version: max abs err f32 "
+        f"{qp_err['f32']:.2e}, bf16 {qp_err['bf16']:.2e}; repeats "
+        "bit-identical; f32 from float64 products, scaled (kernel, plain): "
+        + ", ".join(f"h={h} {k:.2e}, {p:.2e}"
+                    for h, (k, p) in qp_err["f64"].items()))
+    # 2. the main path at hidden 512 and 48: sampled pack(), then the
+    # train steps, every launch counted
+    helpers = {"grad_outer_tf32": RP.grad_outer_tf32,
+               "grad_outer_bf16": RP.grad_outer_bf16,
+               "reduce_tiles": RP.reduce_tiles}
+    counters = {**train_counters(), **helpers}
+    path = dict.fromkeys(counters, 0)  # every launch of phase 27's path
+    for h in (WX_H, WX_OFF):
+        actor = init_params(SEED, cfg, h, dev)
+        inst = _instances(cfg, B_MAIN, dev, SEED + 4)
+        before = {k: f.launches for k, f in counters.items()}
+        plan = pack(inst, cfg, actor, policy="sample", key=SEED + 5)
+        got = {k: f.launches - before[k] for k, f in counters.items()
+               if f.launches - before[k]}
+        for k, n in got.items():
+            path[k] += n
+        want = {"actor_select_step": cfg.num_blocks}
+        if AS.kernel_width(h) > 128:
+            want["query_parts"] = 1
+        if got != want:
+            raise AssertionError(f"pack(sample) hidden {h}: launches {got}, "
+                                 f"expected {want}")
+        check_plan(plan, inst, cfg, f"phase 27 pack(sample) hidden {h}")
+        log(f"{stamp()} pack(sample) 2d-basic hidden {h} B={B_MAIN}: "
+            f"launches {got} (no select_step)")
+    trains = {}
+    for name, c, h, dt in (("2d-basic", cfg, WX_H, None),
+                           ("2d-basic bf16", cfg, WX_H, BF16),
+                           ("2d-rolling", rcfg, WX_H, None),
+                           ("2d-rolling bf16", rcfg, WX_H, BF16),
+                           ("2d-basic", cfg, WX_OFF, None)):
+        steps = c is rcfg
+        before = {k: f.launches for k, f in helpers.items()}
+        trains[(name, h)], _, _ = train_main_path(
+            c, dev, wx_per_step(c, h, steps), n_steps=1, hidden=h,
+            compute_dtype=dt)
+        hl = {k: f.launches - before[k] for k, f in helpers.items()}
+        for k, n in {**trains[(name, h)], **hl}.items():
+            path[k] += n
+        want = {"grad_outer_tf32": int(dt is None and h > 128),
+                "grad_outer_bf16": int(dt is not None),
+                "reduce_tiles": 2 if steps else 1}
+        if hl != want:
+            raise AssertionError(f"train step {name} hidden {h}: helper "
+                                 f"launches {hl}, expected {want}")
+    for k, n in path.items():
+        if k not in ("select_step", "replay_logp_fwd",
+                     "replay_logp_fwd_steps") and n == 0:
+            raise AssertionError(f"phase 27's main path launched {k} no "
+                                 f"time: {path}")
+    if path["select_step"]:
+        raise AssertionError(f"phase 27's main path launched select_step")
+    log(f"{stamp()} train steps (2d-basic and 2d-rolling hidden {WX_H} f32 "
+        f"and bf16, 2d-basic hidden {WX_OFF}; batch {B_MAIN}; no "
+        f"select_step, no general replay): launches of the main path "
+        f"{path}")
+    # the command line at hidden 512: its traced calls name K2's and K5's
+    # kernels and not K1's
+    import glob
+    import os
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "cli")
+        _run_cli(["train", "--config", "2d-basic", "--hidden", str(WX_H),
+                  "--epochs", "1", "--steps-per-epoch", "4", "--batch",
+                  str(B_MAIN), "--valid-batch", "256", "--ckpt-dir", d,
+                  "--metrics", os.path.join(d, "m.jsonl"), "--trace-dir",
+                  os.path.join(d, "trace")], tmp)
+        lines = [json.loads(x) for x in open(os.path.join(d, "m.jsonl"))]
+        traces = glob.glob(os.path.join(d, "trace", "*.json"))
+        text = open(traces[0]).read() if len(traces) == 1 else ""
+        names = {k: k in text for k in ("actor_step_kernel", "replay_kernel",
+                                        "query_parts", "select_step_kernel")}
+        if (not lines or not np.isfinite(lines[-1]["loss_actor"])
+                or names != {"actor_step_kernel": True, "replay_kernel": True,
+                             "query_parts": True,
+                             "select_step_kernel": False}):
+            raise AssertionError(f"cli train --hidden {WX_H}: {lines}, "
+                                 f"kernels in its trace {names}")
+    log(f"{stamp()} cli train --hidden {WX_H} (2d-basic, batch {B_MAIN}, 4 "
+        f"steps): reward {lines[-1]['reward']:.6f}; its trace names "
+        "actor_step_kernel, query_parts and replay_kernel, not "
+        "select_step_kernel")
+    # (2d-rolling's graphs at batch 1024, for time: its steps at 4096 ran
+    # above, and `profile_pack --train --config 2d-rolling --hidden 512
+    # --steps-per-call 4` times them)
+    rows = {}
+    for name, c, h, k, dt in (("2d-basic", cfg, WX_H, 8, None),
+                              ("2d-basic bf16", cfg, WX_H, 8, BF16),
+                              ("2d-rolling", rcfg, WX_H, 4, None),
+                              ("2d-rolling bf16", rcfg, WX_H, 4, BF16)):
+        rows[(name, h)] = check_graph_steps(
+            f"{name} hidden {h}", c, dev, wx_per_step(c, h, c is rcfg), k,
+            1024 if c is rcfg else B_MAIN, hidden=h, compute_dtype=dt,
+            tag="phase 27", profile=False)
+    # 3. the main paths' shapes at batch 4096: each kernel against its
+    # plain version on the operands it is then timed on, beside the
+    # fallback it replaces
+    bump = lambda k, v: errs.__setitem__(k, max(errs[k], v))
+    k2 = {}
+    for h in (WX_H, WX_OFF):
+        a = init_params(SEED, cfg, h, dev)
+        kept, err, rate = check_actor_step_bf16(cfg, B_MAIN, a, dev,
+                                                keep=True)
+        bump("K2 bf16", err)
+        with torch.no_grad():
+            _, err32 = hold_k2(kept[1], cfg, 1.0, AS.transposed(kept[1][16]),
+                               f"hidden {h} 2d-basic B={B_MAIN}")
+        bump("K2 f32", err32)
+        k2[h] = {"f32": time_actor_step(kept[1], cfg, h, plain_reps=5,
+                                        plain_sleep=200_000_000),
+                 "turns": time_actor_dtypes(kept, cfg, h),
+                 "fallback": time_fallback_decode(a, cfg, B_MAIN, dev,
+                                                  SEED + 6),
+                 "fallback_bf16": time_fallback_decode(a, cfg, B_MAIN, dev,
+                                                       SEED + 6, BF16)}
+        k2[h]["bf16"] = k2[h]["turns"]
+        log_actor_times(f"{stamp()} hidden {h} f32", cfg, k2[h]["f32"])
+        log_actor_times(f"{stamp()} hidden {h} bf16", cfg, k2[h]["bf16"])
+        fb, fbb = k2[h]["fallback"], k2[h]["fallback_bf16"]
+        log(f"{stamp()} actor_select_step hidden {h} 2d-basic B={B_MAIN}: "
+            f"bf16 rollout against the plain bf16 version, max err "
+            f"{err:.2e} (action agreement {rate:.6f}); f32 at its middle "
+            f"step, max err {err32:.2e}; in turns f32 "
+            f"{k2[h]['turns']['f32_turns']}, bf16 "
+            f"{k2[h]['turns']['bf16_turns']} ms/launch; a sampled decode "
+            f"step, whole rollouts: {fb['kernel']:.4f} ms on K2's route, "
+            f"{fb['fallback']:.4f} on the fallback (K1 and the head as "
+            f"PyTorch ops); bf16 {fbb['kernel']:.4f} and "
+            f"{fbb['fallback']:.4f}")
+    qp = {}
+    a512 = init_params(SEED, cfg, WX_H, dev)
+    for dt, d in (("float32", torch.float32), ("bfloat16", BF16)):
+        qp[dt] = time_query_parts(a512, cfg, dev, d)
+        r = qp[dt]
+        log(f"{stamp()} query_parts hidden {WX_H} 2d-basic B={B_MAIN} {dt}: "
+            f"{r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}; two "
+            f"torch.mm {r['library_ms']:.4f}; bound {r['bound']:.5f} ms, "
+            f"{r['bound_by']})")
+    kb, ht, rt_err = {}, {}, 0.0
+    for key, c, h in (("mono", cfg, WX_H), ("steps", rcfg, WX_H),
+                      ("mono", cfg, WX_OFF)):
+        a = init_params(SEED, c, h, dev)
+        steps = key == "steps"
+        ops, _, ops32 = replay_operands(a, c, B_MAIN, dev, SEED + 10, 1.0,
+                                        dtype=BF16, also=torch.float32)
+        dlp = torch.linspace(-1.0, 1.0, B_MAIN, device=dev)
+        held = {}
+        for dt, o in (("f32", ops32), ("bf16", ops)):
+            held[dt] = hold_replay(o, dlp, c, steps,
+                                   torch.float32 if dt == "f32" else BF16)
+            bump(f"K5f {key} {dt}", held[dt][0])
+            bump(f"K5b {key} {dt}", held[dt][1])
+        if h == WX_H:
+            _, kf = kept_backward(replay_fns(ops32, c, 1.0, steps)[2], dlp)
+            go_err = max(go_err, _hold_grad_outer(
+                kf, c, h, f"grad_outer_tf32 h={h} {key} B={B_MAIN}"))
+            for what, (shape, w, _, e) in _hold_reduce_tiles(
+                    kf, f"reduce_tiles f32 h={h} {key} B={B_MAIN}").items():
+                rt_err = max(rt_err, e)
+                log(f"{stamp()} {what} {shape}: bit for bit against its "
+                    f"plain version and the backward's own sum, {w}-float "
+                    "loads")
+            ht[key] = time_helpers(kf, c, h)
+            del kf
+            _, kg = kept_backward(replay_fns(ops, c, 1.0, steps)[2], dlp)
+            gb_err = max(gb_err, _hold_grad_outer(
+                kg, c, h, f"grad_outer_bf16 h={h} {key} B={B_MAIN}"))
+            ht[key]["grad_outer_bf16"] = time_grad_outer(kg, c, h)
+            del kg
+        r = kb[(key, h)] = time_replay_dtypes(ops, ops32, dlp, c, steps,
+                                              hidden=h, f32=True)
+        r["bwd"]["fallback_ms"] = time_fallback_replay(a, c, B_MAIN, dev,
+                                                       SEED + 10)
+        if h == WX_H:
+            r["bwd"]["fallback_bf16_ms"] = time_fallback_replay(
+                a, c, B_MAIN, dev, SEED + 10, BF16)
+        for d in ("fwd", "bwd"):
+            x = r[d]
+            log(f"{stamp()} replay_logp_{d}{'_steps' if steps else ''} "
+                f"hidden {h} {c is rcfg and '2d-rolling' or '2d-basic'} "
+                f"B={B_MAIN} (max abs err f32 {held['f32'][d == 'bwd']:.2e}"
+                f", bf16 {held['bf16'][d == 'bwd']:.2e}): f32 "
+                f"{x['f32_ms']:.4f} ms/call (plain {x['f32_plain_ms']:.3f}, "
+                f"bound {x['f32_bound']:.4f} ms, {x['f32_bound_by']}), bf16 "
+                f"{x['ms']:.4f} (plain {x['plain_ms']:.3f}, bound "
+                f"{x['bound']:.4f} ms, {x['bound_by']}); turns f32, bf16, "
+                f"bf16, f32: {x['turns']}"
+                + (f"; the fallback replay (forward and backward) f32 "
+                   f"{x['fallback_ms']:.3f} ms" if d == "bwd" else "")
+                + (f", bf16 {x['fallback_bf16_ms']:.3f} ms"
+                   if "fallback_bf16_ms" in x and d == "bwd" else ""))
+    for key, t in ht.items():
+        for kn, x in t.items():
+            log(f"{stamp()} {kn} hidden {WX_H} "
+                f"{'2d-rolling' if key == 'steps' else '2d-basic'} "
+                f"B={B_MAIN}: {x['ms']:.4f} ms/launch (plain "
+                f"{x['plain_ms']:.4f}, library {x['library_ms']}, bound "
+                f"{x['bound']:.4f} ms, {x['bound_by']})")
+    log(f"{stamp()} done in {time.perf_counter() - t0:.1f} s")
+
+    def entry(name, replaces, dt, h, launches, err, r, src="actor_step.cu"):
+        return {"name": name, "route": "cuda",
+                "source": f"tapnet_torch/csrc/{src}",
+                "replaces": f"tapnet_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound"],
+                "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms"), "dtype": dt, "hidden": h,
+                # float32: bound_ms is the lower of 3xTF32's and the f32
+                # rate's, both kept
+                **{f"{k}_ms": r[k] for k in ("bound_3xtf32",
+                                             "f32_rate_bound") if k in r}}
+
+    t = lambda *keys: sum(trains[k][n] for k in keys
+                          for n in ("actor_select_step",))
+    k2_launch = {
+        (WX_H, "float32"): cfg.num_blocks + t(("2d-basic", WX_H),
+                                              ("2d-rolling", WX_H)),
+        (WX_H, "bfloat16"): t(("2d-basic bf16", WX_H),
+                              ("2d-rolling bf16", WX_H)),
+        (WX_OFF, "float32"): cfg.num_blocks + t(("2d-basic", WX_OFF))}
+    kernels = []
+    for (h, dt), n in k2_launch.items():
+        r = k2[h]["f32" if dt == "float32" else "bf16"]
+        kernels.append(entry("actor_select_step", "pallas_actor_step.py:316",
+                             dt, h, n, errs["K2 f32" if dt == "float32"
+                                            else "K2 bf16"], r))
+        fb = k2[h]["fallback" if dt == "float32" else "fallback_bf16"]
+        kernels[-1]["fallback_ms"] = fb["fallback"]
+        kernels[-1]["kernel_route_ms"] = fb["kernel"]
+        if h != AS.kernel_width(h):
+            kernels[-1]["kernel_width"] = AS.kernel_width(h)
+    for dt in ("float32", "bfloat16"):  # pack(sample) f32, then the steps
+        bf = dt == "bfloat16"
+        n = int(not bf) + sum(trains[k]["query_parts"] for k in trains
+                              if k[1] == WX_H and k[0].endswith("bf16") == bf)
+        kernels.append(entry("query_parts", "pallas_actor_step.py:243", dt,
+                             WX_H, n, qp_err["bf16" if bf else "f32"],
+                             qp[dt]))
+    for kn, err, dt in (("grad_outer_tf32", go_err, "float32"),
+                        ("grad_outer_bf16", gb_err, "bfloat16"),
+                        ("reduce_tiles", rt_err, "float32")):
+        r, rr = ht["mono"][kn], ht["steps"][kn]
+        kernels.append(entry("grad_outer" if kn == "grad_outer_bf16" else kn,
+                             "pallas_replay.py:610", dt, WX_H, path[kn],
+                             err, r, "replay.cu"))
+        kernels[-1]["2d-rolling"] = {
+            "ms": rr["ms"], "plain_ms": rr["plain_ms"],
+            "bound_ms": rr["bound"], "bound_by": rr["bound_by"],
+            "library_ms": rr["library_ms"]}
+    lines = {"replay_logp_fwd": "596", "replay_logp_bwd": "652",
+             "replay_logp_fwd_steps": "582", "replay_logp_bwd_steps": "635"}
+    for (key, h), r in kb.items():
+        for d in ("fwd", "bwd"):
+            name = f"replay_logp_{d}{'_steps' if key == 'steps' else ''}"
+            for dt in ("float32", "bfloat16"):
+                f32 = dt == "float32"
+                if h != WX_H and not f32:
+                    continue
+                x = r[d]
+                n = sum(trains[k][name] for k in trains if k[1] == h
+                        and k[0].endswith("bf16") != f32)
+                kernels.append(entry(
+                    name, f"pallas_replay.py:{lines[name]}", dt, h, n,
+                    errs[f"K5{d[0]} {key} {'f32' if f32 else 'bf16'}"],
+                    {"ms": x["f32_ms" if f32 else "ms"],
+                     "plain_ms": x["f32_plain_ms" if f32 else "plain_ms"],
+                     "bound": x["f32_bound" if f32 else "bound"],
+                     "bound_by": x["f32_bound_by" if f32 else "bound_by"]},
+                    "replay.cu"))
+                if d == "bwd":
+                    kernels[-1]["fallback_ms"] = x.get(
+                        "fallback_ms" if f32 else "fallback_bf16_ms")
+                if h != AS.kernel_width(h):
+                    kernels[-1]["kernel_width"] = AS.kernel_width(h)
     return kernels, rows
 
 
@@ -4454,9 +4940,9 @@ def main() -> int:
                                "heightmap_reductions": 1}, 8, B_MAIN, HIDDEN),
             ("2d-rolling", rcfg, roll_step, 4, B_MAIN, HIDDEN),
             ("multi-container-capped", ccfg, capped_step, 4, 256, HIDDEN),
-            ("2d-basic hidden 48", cfg, {"select_step": cfg.num_blocks,
-                                         "heightmap_reductions": 1},
-             2, 256, 48)):
+            ("2d-basic hidden 544", cfg, {"select_step": cfg.num_blocks,
+                                          "heightmap_reductions": 1},
+             2, 256, 544)):
         check_graph_steps(name, c, dev, per_step, k, Bg, h)
     with tempfile.TemporaryDirectory() as tmp:
         check_trainer(cfg, dev, tmp, spe=3, spc=2, batch=256)
@@ -4484,6 +4970,9 @@ def main() -> int:
 
     # ---- phase 26: K2 and K5 at hidden widths above 128
     wide_kernels, _ = phase_26(dev)
+
+    # ---- phase 27: K2 and K5 at every hidden width up to 512
+    wx_kernels, _ = phase_27(dev)
 
     kernels = [
         {"name": "select_step", "route": "cuda",
@@ -4565,7 +5054,7 @@ def main() -> int:
     ]
     for k in kernels:
         k["dtype"] = "float32"
-    kernels += bf16_kernels + wide_kernels
+    kernels += bf16_kernels + wide_kernels + wx_kernels
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s"
         " (build included)")
     print(json.dumps({"kernels": kernels}), flush=True)

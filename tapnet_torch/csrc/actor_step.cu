@@ -85,7 +85,7 @@
 //   tells ptxas (without it, ptxas may trade registers for a second block
 //   that can never be resident, and spill).
 //   The wrapper refuses a plan above the 227 KB a block may hold; h must
-//   be a multiple of 32, at most 256.
+//   be a multiple of 32 up to 256, of 64 up to 512 (WX, below).
 //
 // Hidden widths above 128 (WH, h = 160..256). The tile stays 32
 // instances and phases 0 and 3, the column list and the placement are the
@@ -128,6 +128,28 @@
 // Every sum keeps one owner and one order, so two launches are
 // bit-identical and both modes give an acting instance the same scores.
 // At h <= 128 the instantiations are the ones above.
+//
+// Hidden widths above 256 (WX, h = 320..512, a multiple of 64; the
+// wrapper's callers pad other widths with zeros, ops/actor_step.py
+// `kernel_width`). The WH design, with three changes so that the plan
+// fits a block (at h = 512 the WH plan would take 376 KB in float32):
+// - each product runs over its weight's two row halves of HR = h / 2 rows
+//   in turn, each half a WH product of HR rows (warps wy < HR / 16 own its
+//   row tiles): `ring_slabs` lays each matrix out as its two halves' slabs
+//   one after the other, so a slab is HR x 32 bfloat16 (16 KB at h = 512)
+//   and a container's chain streams 2 (n1 + n2 + n3) of them;
+// - the C queries q [C][h][LD] (and, in float32, the encoder view X and
+//   e1) live in a scratch of the block's own in device memory (`scr`,
+//   `wx_scratch` floats a block), read back through L1 / L2; the bfloat16
+//   copies that ldmatrix reads stay in shared memory;
+// - the token groups are G = 16 columns, one a warp, MAXR = 16 rows a
+//   lane (geo.cuh);
+// - float32: W2 e1 and Wq' as 3xTF32 with each slab's sums in an
+//   accumulator of their own, added into the sum in f32 (ring_mm_tf32's
+//   CH), and `query_parts_kernel` alike for each 16 columns of K: one
+//   accumulator over K = 512 (192 mma) put K2's logits 1.35e-5 from the
+//   plain version's, past the 1e-5 they are held to (mma_tf32.cuh).
+// A simple design that is right; its speed is work for later (PERF.md).
 //
 // Compute dtype (the JAX kernel's static `dtype`): the element type E of
 // the float operands, float or __nv_bfloat16 (v, the gumbel, t/N, the
@@ -194,7 +216,7 @@ constexpr int TB = 32;      // instances per block
 constexpr int LD = TB + 1;  // padded row stride of [feature][lane] arrays
 constexpr int NWARP = 16;   // warps per block
 constexpr int NT = TB * NWARP;
-constexpr int MAX_H = 256;  // hidden: a multiple of 32, at most 256
+constexpr int MAX_H = 512;  // hidden: a multiple of 32 up to 256, of 64 above
 constexpr int WPS = 40;     // tc: bfloat16 row stride of Wp [h][32]
 constexpr int MAX_C = 4;        // containers
 constexpr int MAX_N = 62;       // blocks: two 31-bit precedence limbs
@@ -242,6 +264,7 @@ struct HeadW {
   // the ring slabs of W1, W2, Wq' (`ring_slabs`; float32 slabs as pairs)
   const float *qctx, *qemb;
   const bf16* slabs;
+  float* scr;  // WX: the blocks' scratch, `wx_scratch` floats each
 };
 
 template <class E>
@@ -284,9 +307,9 @@ struct Lay {
   int ws, w8, b8, v, q, sc, enc, tok, bar, floats;
 };
 
-template <bool WH>
+template <int WC>
 __host__ __device__ inline int h1_stride(bool tc) {
-  return tc ? Geo<WH>::G + 4 : Geo<WH>::G;
+  return tc ? Geo<WC>::G + 4 : Geo<WC>::G;
 }
 
 // rows of the WH encoder view X: feats [WD+2], then [enc, dsum] [h+8]
@@ -299,10 +322,14 @@ __host__ __device__ inline int wh_rows(int WD, int h) {
 // as bfloat16 copies [rows16][32] (`xs32_at`); then the token view, the
 // weight ring's stages or phase 0's and 3's rows; then the ring's
 // mbarriers and release counts and each instance's column of the
-// query's embedding part (prev + 1).
+// query's embedding part (prev + 1). WX (WC = 2): q and the float X and
+// e1 in the block's scratch (`wx_scratch`), the ring's stages of HR = h /
+// 2 rows.
+template <int WC>
 __host__ __device__ inline Lay layout_wh(int N, int R, int C, int WD, int h,
                                          bool tc) {
-  constexpr int G = Geo<true>::G;
+  using Q = Geo<WC>;
+  constexpr int G = Q::G;
   const int T = N * R, A = T * C, L = (N + 30) / 31, XR = wh_rows(WD, h);
   Lay y;
   int o = 0;
@@ -310,11 +337,12 @@ __host__ __device__ inline Lay layout_wh(int N, int R, int C, int WD, int h,
   y.w8 = o;  o += 32 * 8;
   y.b8 = o;  o += 32;
   y.v = o;   o += up4(h);
-  y.q = o;   o += up4(C * h * LD);
+  y.q = o;   o += Q::WX ? 0 : up4(C * h * LD);
   y.sc = o;  o += A * TB;
-  y.enc = o; o += tc ? ((XR + 15) / 16 * 16 + h) * 16 : up4((XR + h) * LD);
-  const int tok = 8 * G + 32 * h1_stride<true>(tc) + (tc ? G * (h + 4) : 0);
-  const int ring = tapnet::RING_S * h * tapnet::RING_K / 2;
+  y.enc = o; o += tc ? ((XR + 15) / 16 * 16 + h) * 16
+                     : Q::WX ? 0 : up4((XR + h) * LD);
+  const int tok = 8 * G + 32 * h1_stride<WC>(tc) + (tc ? G * (h + 4) : 0);
+  const int ring = tapnet::RING_S * (h / Q::NH) * tapnet::RING_K / 2;
   const int rows0 = (N + 2 * L * N + R * N) * TB;
   const int rows3 = (13 + 8 * NWARP + C * WD + 3 * N) * TB;
   const int a = tok > ring ? tok : ring, r = rows0 > rows3 ? rows0 : rows3;
@@ -324,11 +352,18 @@ __host__ __device__ inline Lay layout_wh(int N, int R, int C, int WD, int h,
   return y;
 }
 
-template <bool WH>
+// WX: the floats of a block's scratch in device memory, q [C][h][LD], then
+// in float32 X [wh_rows][LD] and e1 [h][LD] (the bfloat16 instantiations,
+// tc, keep their copies in shared memory)
+__host__ __device__ inline int wx_scratch(int C, int WD, int h, bool tc) {
+  return up4(C * h * LD) + (tc ? 0 : up4((wh_rows(WD, h) + h) * LD));
+}
+
+template <int WC>
 __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
                                       bool tc) {
-  if constexpr (WH) return layout_wh(N, R, C, WD, h, tc);
-  using Q = Geo<false>;
+  if constexpr (WC > 0) return layout_wh<WC>(N, R, C, WD, h, tc);
+  using Q = Geo<0>;
   constexpr int LP = Q::LP, G = Q::G;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, L = (N + 30) / 31;
   Lay y;
@@ -346,7 +381,7 @@ __host__ __device__ inline Lay layout(int N, int R, int C, int WD, int h,
   // rows (packed, limbs, fits) as ints; or phase 3's decisions [13][TB],
   // the warps' partial results [8][NWARP][TB] and rows (heightmaps
   // [C*W*D], dims [3N]) as ints
-  const int tok = 8 * G + 32 * h1_stride<false>(tc) + (tc ? G * (h + 4) : 0);
+  const int tok = 8 * G + 32 * h1_stride<0>(tc) + (tc ? G * (h + 4) : 0);
   const int stage = tc ? h * (Q::KSL + 8) + xb_words(WD, h)  // mv_mma
                        : Q::KS * h;                            // mv_tiled
   const int rows0 = (N + 2 * L * N + R * N) * TB;
@@ -520,7 +555,9 @@ __device__ void ring_mv_f32(const Ring& rg, const Chain& c, int a, int K,
 // take its columns in the order 4 t, 4 t + 1 (the fragment's columns t, t
 // + 4) and 4 t + 2, 4 t + 3, x's rows alike (mm_tf32's order). Warp wy <
 // h / 16 owns the row tile 16 wy .. + 15 and the four column tiles.
-template <class Init, class Emit>
+// CH (WX): each slab's products go into an accumulator of their own, from
+// zero, that is added into the sum in f32 after the slab (`mma_tf32.cuh`).
+template <bool CH, class Init, class Emit>
 __device__ void ring_mm_tf32(const Ring& rg, const Chain& c, int a, int K,
                              int h, const float* x, int lane, int wy,
                              Init init, Emit emit) {
@@ -540,6 +577,7 @@ __device__ void ring_mm_tf32(const Ring& rg, const Chain& c, int a, int K,
     const float* S = reinterpret_cast<const float*>(slab) + 256 * wy + 4 * lane;
     const float4 u = *reinterpret_cast<const float4*>(S);
     const float4 v = *reinterpret_cast<const float4*>(S + 128);
+    float p[4][4] = {};  // CH: the slab's sums
 #pragma unroll
     for (int st = 0; st < 2; ++st) {
       unsigned ah[4], al[4];
@@ -554,8 +592,14 @@ __device__ void ring_mm_tf32(const Ring& rg, const Chain& c, int a, int K,
         const float* xp = x + k * LD + 8 * q + g;
         tapnet::split_tf32(k < K ? xp[0] : 0.f, bh[0], bl[0]);
         tapnet::split_tf32(k + 1 < K ? xp[LD] : 0.f, bh[1], bl[1]);
-        tapnet::mma3(acc[q], ah, al, bh, bl);
+        tapnet::mma3(CH ? p[q] : acc[q], ah, al, bh, bl);
       }
+    }
+    if constexpr (CH) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][e] += p[q][e];
     }
   });
 #pragma unroll
@@ -665,7 +709,7 @@ using tapnet::PlacePart;
 #define K2_MARK(k)
 #endif
 
-template <bool MCS, bool WIDE, bool LOGITS, bool WH, class E>
+template <bool MCS, bool WIDE, bool LOGITS, int WC, class E>
 __global__ void __launch_bounds__(NT, 1)
 actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                   HeadW<E> hw, int B, int h, float inv_s, float temperature,
@@ -673,15 +717,17 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   using Word = std::conditional_t<WIDE, unsigned long long, unsigned>;
   // bfloat16: the products on the tensor cores (the design note)
   constexpr bool TC = std::is_same_v<E, bf16>;
+  // the width class (geo.cuh): WH above hidden 128, WX above 256
+  constexpr bool WH = WC > 0, WX = WC > 1;
   // the token groups (Geo): G columns, CPW a warp, MAXR rows a lane
-  using Q = Geo<WH>;
+  using Q = Geo<WC>;
   constexpr int CPW = Q::CPW, G = Q::G, MAXR = Q::MAXR;
   // the products run over the tile's 32 instances at every h
   constexpr int TP = TB, LP = LD, NVW = NWARP;
   extern __shared__ __align__(16) float smem[];
   const int N = c.N, R = c.R, C = c.C, WD = c.W * c.D;
   const int T = N * R, A = T * C, FQ = 3 * h + 8, NL = (N + 30) / 31;
-  const int RPL = h / 32, GS = h1_stride<WH>(TC), HP = h + 4;
+  const int RPL = h / 32, GS = h1_stride<WC>(TC), HP = h + 4;
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
   const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
   const int vl = lane, vw = wy;  // an instance and a row group (mv_tiled)
@@ -689,7 +735,10 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   const int b = tile0 + lane;
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
-  const Lay L = layout<WH>(N, R, C, WD, h, TC);
+  const Lay L = layout<WC>(N, R, C, WD, h, TC);
+  // WX: this block's scratch in device memory (q, then the float X and e1)
+  float* const scr =
+      WX ? hw.scr + (size_t)blockIdx.x * wx_scratch(C, WD, h, TC) : nullptr;
 
   float* Ws = smem + L.ws;  // Ws[k*h + j] = Wp[j, k]
   // tc: Wp [h][32] as bfloat16 rows of WPS (the A operand of dyn)
@@ -697,7 +746,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   float* W8s = smem + L.w8;
   float* b8s = smem + L.b8;
   float* vs = smem + L.v;
-  float* qs = smem + L.q;     // [C][h][LP]
+  float* qs = WX ? scr : smem + L.q;  // [C][h][LP]
   float* sc = smem + L.sc;    // [A][TB]
   // feats [WD+2][LP], e1 [h][LP], qin [3h+8][LP]: enc, ctx, prev, dsum
   float* feats = smem + L.enc;
@@ -722,7 +771,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
   // [h][LD]; tc: their bfloat16 copies [rows16][32] only; the weight ring
   // (stages in the token view) and each instance's query column prev + 1
   const int XR = wh_rows(WD, h), XR16 = (XR + 15) & ~15;
-  float* X = smem + L.enc;
+  float* X = WX && !TC ? scr + up4(C * h * LD) : smem + L.enc;
   float* e1w = X + XR * LD;
   unsigned short* Xs = reinterpret_cast<unsigned short*>(smem + L.enc);
   unsigned short* E1s = Xs + XR16 * 32;
@@ -732,8 +781,8 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
     constexpr int NS = tapnet::RING_S;
     qcol = reinterpret_cast<int*>(smem + L.bar) + 3 * NS;
     ring = Ring{stgb, reinterpret_cast<unsigned long long*>(smem + L.bar),
-                reinterpret_cast<int*>(smem + L.bar + 2 * NS), h * RING_K,
-                0u};
+                reinterpret_cast<int*>(smem + L.bar + 2 * NS),
+                h / Q::NH * RING_K, 0u};
     if (tid == 0) tapnet::ring_init(ring);
   }
 
@@ -924,8 +973,12 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
           return __bfloat162float(__ushort_as_bfloat16(Xs[xs32_at(k, n)]));
         else return X[k * LD + n];
       };
-      // a container's chain: the slabs of W1, W2 and Wq' (`ring_slabs`)
+      // a container's chain: the slabs of W1, W2 and Wq' (`ring_slabs`),
+      // n1, n2, n3 of each row half of HR rows (WX: two halves, one after
+      // the other)
       constexpr int SK = TC ? RING_K : KR;  // columns of W in a slab
+      constexpr int NH = Q::NH;
+      const int HR = h / NH;
       const int n1 = (WD + 2 + SK - 1) / SK, n2 = h / SK;
       const int n3 = (h + 8 + SK - 1) / SK;
       const bf16* s1 = hw.slabs;
@@ -940,16 +993,23 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
       };
       // float32: W1 feats SIMT (it decides e1's ReLU gates, as in the
       // replay: `simt`), W2 and Wq' as 3xTF32
+      // (each row half in turn: slabs a + hr ns .., rows hr HR ..)
       auto product = [&](auto simt, const Chain& ch, int a, int K, int xrow,
                          auto init, auto emit) {
-        if constexpr (TC)
-          ring_mv_tc(ring, ch, a, K, h, xrow ? E1s : Xs, lane, wy, init,
-                     emit);
-        else if constexpr (decltype(simt)::value)
-          ring_mv_f32(ring, ch, a, K, h, X, lane, wy, init, emit);
-        else
-          ring_mm_tf32(ring, ch, a, K, h, xrow ? e1w : X, lane, wy, init,
-                       emit);
+        const int ns = (K + SK - 1) / SK;
+        for (int hr = 0; hr < NH; ++hr) {
+          const int j0 = hr * HR, ah = a + hr * ns;
+          auto in = [&](int j, int n) { return init(j0 + j, n); };
+          auto out = [&](int j, int n, float acc) { emit(j0 + j, n, acc); };
+          if constexpr (TC)
+            ring_mv_tc(ring, ch, ah, K, HR, xrow ? E1s : Xs, lane, wy, in,
+                       out);
+          else if constexpr (decltype(simt)::value)
+            ring_mv_f32(ring, ch, ah, K, HR, X, lane, wy, in, out);
+          else
+            ring_mm_tf32<WX>(ring, ch, ah, K, HR, xrow ? e1w : X, lane, wy,
+                             in, out);
+        }
       };
       const std::true_type simt;
       const std::false_type mma;
@@ -957,8 +1017,8 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
         for (int k = wy; k < WD; k += NWARP)
           xput(k, lane, rnd<E>((float)io.hm[(cc * WD + k) * B + bb] * inv_s));
         // the barrier; then the chain's first slabs
-        const Chain ch =
-            tapnet::ring_open(ring, h, s1, n1, s2, n2, s3, n3, tid);
+        const Chain ch = tapnet::ring_open(ring, HR, s1, NH * n1, s2,
+                                           NH * n2, s3, NH * n3, tid);
         if (wy == 0) {
           float mx = xget(0, lane), sm = 0.f;
           for (int k = 0; k < WD; ++k) {
@@ -993,13 +1053,13 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
           if constexpr (TC)
             for (int k = h + 8; k < h + 16; ++k) xput(k, lane, 0.f);
         }
-        product(mma, ch, n1, h, 1, none, [&](int j, int n, float acc) {
+        product(mma, ch, NH * n1, h, 1, none, [&](int j, int n, float acc) {
           xput(j, n, rnd<E>(rnd<E>(acc) + ldg(hw.b2 + j)));
         });
         __syncthreads();
         K2_MARK(7);
         float* qc = qs + cc * h * LD;
-        product(mma, ch, n1 + n2, h + 8, 0, q_init,
+        product(mma, ch, NH * (n1 + n2), h + 8, 0, q_init,
                 [&](int j, int n, float acc) {
           qc[j * LD + n] = rnd<E>(rnd<E>(acc) + ldg(hw.bq + j));
         });
@@ -1110,7 +1170,8 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
           // row tiles wy / NCT + (NWARP / NCT) i of the column tiles that
           // hold a column), a barrier, then this warp's columns read back
           // from DD
-          constexpr int NCT = G / 8, LN = NCT == 8 ? 3 : 2;  // LN: log2 NCT
+          constexpr int NCT = G / 8;
+          constexpr int LN = NCT == 8 ? 3 : NCT == 4 ? 2 : 1;  // log2 NCT
           const int nt = wy & (NCT - 1);
           if (8 * nt < ng) {
             const int col = 8 * nt + g8;
@@ -1168,7 +1229,7 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                 dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
                 dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
               }
-            } else {  // two columns a warp (WH)
+            } else if constexpr (CPW == 2) {  // two columns a warp (WH)
               const float2 hv =
                   *reinterpret_cast<const float2*>(h1 + k * G + wy * CPW);
               float wv[MAXR];
@@ -1180,6 +1241,12 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
                 dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
                 dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
               }
+            } else {  // one column a warp (WX)
+              const float hv = h1[k * G + wy];
+#pragma unroll
+              for (int r = 0; r < MAXR; ++r)
+                if (r < RPL)
+                  dyn[0][r] = fmaf(Ws[k * h + lane + 32 * r], hv, dyn[0][r]);
             }
           }
 #pragma unroll
@@ -1370,8 +1437,10 @@ actor_step_kernel(tapnet::EnvCfg c, tapnet::StepIO io, ActorIO<E> ai,
 // smem_bytes mirrors it); tc: the bfloat16 instantiations; h > 128: the
 // single-pass plan on the weight ring (`layout_wh`).
 static size_t smem_bytes(int N, int R, int C, int WD, int h, bool tc) {
-  const int floats = h > 128 ? layout<true>(N, R, C, WD, h, tc).floats
-                             : layout<false>(N, R, C, WD, h, tc).floats;
+  const int wc = tapnet::geo_class(h);
+  const int floats = wc == 2   ? layout<2>(N, R, C, WD, h, tc).floats
+                     : wc == 1 ? layout<1>(N, R, C, WD, h, tc).floats
+                               : layout<0>(N, R, C, WD, h, tc).floats;
   return 4 * (size_t)(floats + n_ints(N, R));
 }
 
@@ -1379,18 +1448,18 @@ template <class E>
 using KernelFn = void (*)(tapnet::EnvCfg, tapnet::StepIO, ActorIO<E>,
                           HeadW<E>, int, int, float, float, int);
 
-template <bool MCS, bool WIDE, bool WH, class E>
+template <bool MCS, bool WIDE, int WC, class E>
 static KernelFn<E> pick(bool logits) {
-  if (logits) return actor_step_kernel<MCS, WIDE, true, WH, E>;
-  return actor_step_kernel<MCS, WIDE, false, WH, E>;
+  if (logits) return actor_step_kernel<MCS, WIDE, true, WC, E>;
+  return actor_step_kernel<MCS, WIDE, false, WC, E>;
 }
 
-template <bool WH, class E>
+template <int WC, class E>
 static KernelFn<E> pick(bool mcs, bool wide, bool logits) {
-  return wide ? (mcs ? pick<true, true, WH, E>(logits)
-                     : pick<false, true, WH, E>(logits))
-              : (mcs ? pick<true, false, WH, E>(logits)
-                     : pick<false, false, WH, E>(logits));
+  return wide ? (mcs ? pick<true, true, WC, E>(logits)
+                     : pick<false, true, WC, E>(logits))
+              : (mcs ? pick<true, false, WC, E>(logits)
+                     : pick<false, false, WC, E>(logits));
 }
 
 template <class E>
@@ -1414,11 +1483,13 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
                     (const E*)p[22], (const E*)p[23], (const E*)p[24],
                     (const E*)p[25], (const float*)p[26], (const E*)p[35],
                     (const E*)p[36], (const E*)p[37], (const float*)p[38],
-                    (const float*)p[39], (const bf16*)p[40]};
+                    (const float*)p[39], (const bf16*)p[40], (float*)p[41]};
   const size_t smem =
       smem_bytes(c.N, c.R, c.C, c.W * c.D, h, std::is_same_v<E, bf16>);
-  const KernelFn<E> kernel = h > 128 ? pick<true, E>(c.mcs, wide, logits)
-                                     : pick<false, E>(c.mcs, wide, logits);
+  const int wc = tapnet::geo_class(h);
+  const KernelFn<E> kernel = wc == 2   ? pick<2, E>(c.mcs, wide, logits)
+                             : wc == 1 ? pick<1, E>(c.mcs, wide, logits)
+                                       : pick<0, E>(c.mcs, wide, logits);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1435,17 +1506,29 @@ static int launch(void* const* p, const tapnet::EnvCfg& c, int B, int h,
 //       w1t^T, w2t^T, wqt^T                                            (35-37)
 //       h > 128: qctx [h, B], qemb [h, A+1] (f32, query_parts) and the
 //       ring slabs of W1, W2, Wq' (ops/actor_step.py ring_slabs)       (38-40)
+//       h > 256: the blocks' scratch, ceil(B / 32) tapnet_actor_scratch
+//       floats (f32; made once a rollout, `wide_operands`)             (41)
 // ints: B, the EnvCfg fields (select_place.cuh env_cfg), h, window, logits
 // (1: the full mode, logits_o written; 0: live columns, logits_o unused),
 // bf16 (1: se, ctx, statp, statm and the weights other than v are
-// bfloat16; 0: float). h: a multiple of 32, at most 256. Launches on
-// `stream`; returns cudaGetLastError() after the launch.
+// bfloat16; 0: float). h: a multiple of 32 up to 256, of 64 up to 512.
+// Launches on `stream`; returns cudaGetLastError() after the launch.
 // The dynamic shared memory of one block for the ints of a launch (below)
 // and the instantiation (bf16): what ops/actor_step.py::smem_bytes mirrors.
 extern "C" long long tapnet_actor_smem_bytes(const int* ints, int bf16) {
   const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
   return (long long)smem_bytes(c.N, c.R, c.C, c.W * c.D,
                                ints[1 + tapnet::ENV_INTS], bf16 != 0);
+}
+
+// The floats of one block's scratch (pointer 41) for the ints of a launch
+// (the bf16 flag included): what ops/actor_step.py::wx_scratch mirrors; 0
+// at h <= 256.
+extern "C" long long tapnet_actor_scratch(const int* ints) {
+  const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
+  const int h = ints[1 + tapnet::ENV_INTS];
+  const bool bf = ints[4 + tapnet::ENV_INTS] != 0;
+  return tapnet::geo_class(h) == 2 ? wx_scratch(c.C, c.W * c.D, h, bf) : 0;
 }
 
 extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
@@ -1457,7 +1540,8 @@ extern "C" int tapnet_actor_select_step(void* const* p, const int* ints,
   const bool bf = ints[4 + tapnet::ENV_INTS] != 0;
   const tapnet::EnvCfg c = tapnet::env_cfg(ints + 1);
   if (c.N > MAX_N || c.C > MAX_C || c.W * c.D > tapnet::MAX_WD ||
-      h % 32 != 0 || h <= 0 || h > MAX_H || B <= 0)
+      h % 32 != 0 || h <= 0 || h > MAX_H || (h > 256 && h % 64 != 0) ||
+      B <= 0)
     return (int)cudaErrorInvalidValue;
   if ((long long)c.N * c.R * h * B >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
@@ -1544,7 +1628,7 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <class E>
+template <class E, bool CH>
 __global__ void __launch_bounds__(QP_NT)
 query_parts_kernel(const E* __restrict__ wq, const E* __restrict__ ctx,
                    const E* __restrict__ et, float* __restrict__ qctx,
@@ -1710,8 +1794,15 @@ query_parts_kernel(const E* __restrict__ wq, const E* __restrict__ ctx,
       }
     } else {
       const float* b32 = reinterpret_cast<const float*>(bs);
+      float p[2][4][4];  // CH: the sums of 16 columns of K (two k-steps)
 #pragma unroll
       for (int kk = 0; kk < KS / 8; ++kk) {
+        if constexpr (CH) {
+          if (kk % 2 == 0) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e) (&p[0][0][0])[e] = 0.f;
+          }
+        }
         unsigned ah[2][4], al[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
@@ -1726,7 +1817,15 @@ query_parts_kernel(const E* __restrict__ wq, const E* __restrict__ ctx,
           tapnet::split_tf32(bp[4 * QP_BLD], bh[1], bl[1]);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
-            tapnet::mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
+            tapnet::mma3(CH ? p[mt][nt] : acc[mt][nt], ah[mt], al[mt], bh,
+                         bl);
+        }
+        if constexpr (CH) {
+          if (kk % 2 == 1) {
+#pragma unroll
+            for (int e = 0; e < 32; ++e)
+              (&acc[0][0][0])[e] += (&p[0][0][0])[e];
+          }
         }
       }
     }
@@ -1788,7 +1887,10 @@ query_parts_kernel(const E* __restrict__ wq, const E* __restrict__ ctx,
 template <class E>
 static int launch_query_parts(void* const* p, int B, int h, int A1,
                               void* stream) {
-  const auto kernel = query_parts_kernel<E>;
+  // float32 above hidden 256: the sums of 16 columns added in f32 (CH)
+  auto kernel = query_parts_kernel<E, false>;
+  if constexpr (std::is_same_v<E, float>)
+    if (h > 256) kernel = query_parts_kernel<E, true>;
   const int smem = QpPlan<E>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -5,7 +5,14 @@
 // away), and the three passes lo.hi, hi.lo, hi.hi added into one f32
 // accumulator. hi + lo is x to a relative 2^-22, and the dropped lo.lo term
 // is below 2^-22 of the product, so a product is f32's to a few units of
-// its last place; the sums stay f32 (the tensor core's order).
+// its last place; the sums stay f32 (the tensor core's order). The tensor
+// core adds into its accumulator by aligning the terms to the largest and
+// dropping the bits below f32's (toward zero, not to nearest as an FMA
+// rounds), so that error grows with the mma that add into one
+// accumulator, and all one way. Over K = 512 (192 mma) it took K2's
+// logits past their tolerance, so the callers at such K (actor_step.cu,
+// hidden above 256) sum each 16 columns of K from zero into an
+// accumulator of their own and add those into the sum in f32.
 //
 // Blocks of 32 lanes x 16 warps; the B operand is a head pass of 16
 // instances held as a [k][17] float array in shared memory. With lane =

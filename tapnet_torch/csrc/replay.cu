@@ -78,7 +78,7 @@
 //   the kernel is bound by instruction issue and barrier waits, ~14x its
 //   operations bound counted over live columns (PERF.md §6).
 //   Configs above the 227 KB a block may hold are refused by the wrapper;
-//   h must be a multiple of 32, at most 256.
+//   h must be a multiple of 32 up to 256, of 64 up to 512 (WX, below).
 // - hidden widths above 128 (WH, h = 160..256): the tile stays 32
 //   instances (phase 0, the column list, the softmax, the partial rows,
 //   the chunks and the records' count are the ones above), and the head
@@ -226,6 +226,27 @@
 //   in place of the two padded slabs, its mbarriers and counts behind it;
 //   d_prev and dq in the forward too: 222.8 KB at 2d-rolling, h = 256.
 //
+// Hidden widths above 256 (WX, h = 320..512, a multiple of 64; other
+// widths reach the kernels padded with zeros, ops/replay.py `ReplayLogp`).
+// The WH design above, with three changes so that the plan fits a block
+// (the WH plan would take 391-417 KB at h = 512):
+// - the products whose warps own 16-row tiles (RG's ring_mv and ring_mvt,
+//   TF's mm_tf32) run over the weights' two row halves of HR = h / 2 rows
+//   in turn, each a WH product of HR rows (`rg_mv`, `rg_mvt`, `tf_mm`);
+//   the ring's slabs hold a row half (`ring_operands` lays each matrix,
+//   and each of Wq^T's blocks, out as its halves' slabs in turn);
+// - q, dq and the encoder view (feats, e1, qin, d_prev) live in a scratch
+//   of the block's own in device memory (`wx_scratch`, laid out as the
+//   shared-memory arrays), read back through L1 / L2; RG's bfloat16
+//   copies that ldmatrix reads keep shared memory of their own (`wx_xs`:
+//   A/B's and E's in turn);
+// - token groups of G = 16 columns, one a warp, 16 rows a lane (geo.cuh);
+//   the float32 W1 feats stages KS = 16 rows of W1^T.
+// grad_outer_tf32 and grad_outer give a block one row half of G
+// (`go_rows`, blockIdx.z), so their plans and warpgroups stay those of
+// h = 256. A simple design that is right; its speed is work for later
+// (PERF.md §6).
+//
 // Step-grid schedule (STEPS instantiations; rolling windows, N <= 62). The
 // TPU ran a grid (batch tiles, S) in order and carried logp, d_se and d_ctx
 // across the step axis and the weight gradients across the whole grid. CUDA
@@ -271,7 +292,8 @@ constexpr int TB = 32;      // instances per block
 constexpr int LD = TB + 1;  // padded row stride of [feature][lane] arrays
 constexpr int NWARP = 16;   // warps per block
 constexpr int NT = TB * NWARP;
-constexpr int MAX_H = 256;  // hidden: a multiple of 32, at most 256
+constexpr int MAX_H = 512;  // hidden: a multiple of 32 up to 256, of 64 above
+constexpr int GO_MAXR = 256;  // rows of G a grad_outer block takes
 constexpr int WPS = 40;    // tc: bf16 row stride of Wp [h][32] staged
 constexpr int MAX_C = 4;
 constexpr int MAX_N_MONO = 31;   // monolithic: one 32-bit word per block set
@@ -382,17 +404,36 @@ __host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
 // RING_S stages of h RING_K bfloat16 in the token view and its mbarriers
 // and counts (`bar`, ring_bf16.cuh).
 struct Lay {
-  int ws, w8, b8, v, q, dq, sc, enc, tok, bar, floats;
+  int ws, w8, b8, v, q, dq, sc, enc, xs, tok, bar, floats;
 };
 
-template <bool WH>
+template <int WC>
 __host__ __device__ inline int h1_stride(bool tc) {
-  return tc ? Geo<WH>::G + 4 : Geo<WH>::G;
+  return tc ? Geo<WC>::G + 4 : Geo<WC>::G;
 }
 
-template <bool WH>
+// WX: the floats of a block's scratch in device memory, q [h][LP], dq
+// [h][LP], then the encoder view feats [WD+2][LP], e1 [h][LP], qin
+// [3h+8][LP], d_prev [h][LP] (the shared-memory plan's arrays, laid out
+// alike)
+__host__ __device__ inline int wx_scratch(const Dims& d) {
+  constexpr int LP = Geo<2>::LP;
+  const int h = d.h;
+  return 2 * up4(h * LP) + up4((d.W * d.D + 2 + h + 3 * h + 8 + h) * LP);
+}
+
+// WX, tc: the floats of the bfloat16 copies of the products' B operands
+// (ring_bf16.cuh xs_at), 16-byte aligned: A/B's qin [FQ16][16] and e1
+// [h][16], or E's four [h][16] (dq and d_hm split into hi and lo)
+__host__ __device__ inline int wx_xs(int h) {
+  const int ab = 16 * (((3 * h + 8 + 15) & ~15) + h), e = 64 * h;
+  return (ab > e ? ab : e) / 2 + 4;
+}
+
+template <int WC>
 __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
-  using Q = Geo<WH>;
+  using Q = Geo<WC>;
+  constexpr bool WH = Q::WH, WX = Q::WX;
   constexpr int LD = Q::LP, G = Q::G;
   const int h = d.h, T = d.N * d.R, WD = d.W * d.D, FQ = 3 * h + 8;
   Lay L;
@@ -404,18 +445,21 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   // tc above 128: dq behind d_prev, in the forward too; together they
   // hold the bfloat16 copies of the products' B operands in A/B
   const bool rg = tc && WH;
-  L.q = o;   o += up4(h * LD);        // q_c [h][LD]
-  L.dq = o;  o += bwd && !rg ? up4(h * LD) : 0;
+  // (WX: q, dq and the encoder view in the block's scratch, `wx_scratch`;
+  // tc the bfloat16 copies of the B operands in `xs`)
+  L.q = o;   o += WX ? 0 : up4(h * LD);        // q_c [h][LD]
+  L.dq = o;  o += bwd && !rg && !WX ? up4(h * LD) : 0;
   L.sc = o;  o += up4(TB * T * d.C);  // scores, then g, [column][C]
   // encoder view: feats [WD+2][LD], e1 [h][LD], qin [3h+8][LD], d_prev
-  L.enc = o; o += up4((WD + 2 + h + FQ + (bwd || rg ? h : 0)) * LD);
+  L.enc = o; o += WX ? 0 : up4((WD + 2 + h + FQ + (bwd || rg ? h : 0)) * LD);
   if (rg) {
-    L.dq = o;  o += up4(h * LD);
+    L.dq = o;  o += WX ? 0 : up4(h * LD);
   }
+  L.xs = o;  o += WX && rg ? wx_xs(h) : 0;
   // token view: x8 [8][G], h1 [32][GS]; d_dyn (tc: dyn first) [G][h+4];
   // backward dh1 [32][G] (and the staged weight slices of the
   // encoder/query products: float, or tc bfloat16 slabs)
-  const int tok = 8 * G + 32 * h1_stride<WH>(tc)
+  const int tok = 8 * G + 32 * h1_stride<WC>(tc)
                   + (bwd || tc ? G * (h + 4) : 0) + (bwd ? 32 * G : 0);
   // (and phase 0's flag rows and live bits)
   const int flg = (d.N + T) * TB;
@@ -424,7 +468,8 @@ __host__ __device__ inline Lay layout(const Dims& d, bool bwd, bool tc) {
   // (the backward's mvt_tiled stages JS 3h: within tok at h <= 128;
   // above, the float32 products but W1's read their weights from L2:
   // mm_tf32)
-  const int slabs = tc ? (WH ? RING_S * h * RING_K / 2 : 72 * h) : Q::KS * h;
+  const int slabs =
+      tc ? (WH ? RING_S * (h / Q::NH) * RING_K / 2 : 72 * h) : Q::KS * h;
   const int stage = slabs > flg ? slabs : flg;
   L.tok = o; o += tok > stage ? tok : stage;
   L.bar = o; o += tc && WH ? up4(3 * RING_S) : 0;  // 8-byte mbarriers, ints
@@ -462,15 +507,19 @@ __device__ __forceinline__ void put16(float* dst, const uint4& v) {
 // (RW odd, h = 160 or 224: float) broadcasts, so one load of x feeds RW
 // multiply-adds. emit(j, n, acc) stores row j. The caller follows with a
 // barrier before S or the outputs are reused.
-template <bool WH, class E, class Emit>
+template <int WC, class E, class Emit>
 __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
                          const float* x, float* S, int n, int vw, int tid,
                          Emit emit) {
-  using Q = Geo<WH>;
+  using Q = Geo<WC>;
+  constexpr bool WH = Q::WH;
   constexpr int PV = 16 / sizeof(E);  // elements per 16 bytes
-  constexpr int KS = Q::KS, LP = Q::LP;
-  const int RW = h / Q::NVW;  // 2 (h = 32) .. 8 (h = 128); 5 .. 8 (WH)
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  constexpr int KS = Q::KS, LP = Q::LP, RM = Q::RWMAX;
+  // 2 (h = 32) .. 8 (h = 128); 5 .. 8 (WH); 10 .. 16 (WX)
+  const int RW = h / Q::NVW;
+  float acc[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) acc[r] = 0.f;
   for (int k0 = 0; k0 < cols; k0 += KS) {
     const int nk = min(KS, cols - k0);
     __syncthreads();  // S is free
@@ -483,7 +532,7 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
       const float* sw = S + kk * h + vw * RW;
       if (!WH || RW % 2 == 0) {
 #pragma unroll
-        for (int r = 0; r < 8; r += 2) {
+        for (int r = 0; r < RM; r += 2) {
           if (r < RW) {
             const float2 w2 = *reinterpret_cast<const float2*>(sw + r);
             acc[r] = fmaf(w2.x, xv, acc[r]);
@@ -492,13 +541,13 @@ __device__ void mv_tiled(const E* __restrict__ WT, int h, int cols,
         }
       } else {
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int r = 0; r < RM; ++r)
           if (r < RW) acc[r] = fmaf(sw[r], xv, acc[r]);
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int r = 0; r < RM; ++r)
     if (r < RW) emit(vw * RW + r, n, acc[r]);
 }
 
@@ -511,7 +560,7 @@ template <int MAXCW, class E, class Emit>
 __device__ void mvt_tiled(const E* __restrict__ Wm, int rows, int cols,
                           int ld, const float* g, float* S, int n, int vw,
                           int tid, Emit emit) {
-  using Q = Geo<false>;
+  using Q = Geo<0>;
   constexpr int JS = Q::JS, LP = Q::LP;
   const int CW = cols / Q::NVW;
   float acc[MAXCW];
@@ -833,9 +882,10 @@ struct RecOff {
   int dq, dhm, de1, qin, e1, feats, q, pass, size;
 };
 
-template <bool WH>
+template <int WC>
 __host__ __device__ inline RecOff rec_off(const Dims& d, bool half) {
-  constexpr int TP = Geo<WH>::TP;
+  constexpr bool WH = WC > 0;
+  constexpr int TP = Geo<WC>::TP;
   const int h = d.h, FQ = 3 * h + 8, WD2 = d.W * d.D + 2;
   const int XP = half ? TP / 2 : TP;  // floats of an activation row
   RecOff r;
@@ -848,7 +898,7 @@ __host__ __device__ inline RecOff rec_off(const Dims& d, bool half) {
   r.feats = o; o += WD2 * XP;
   r.q = o;     o += WH ? h * XP : 0;  // q, for the backward's D
   r.pass = o;
-  r.size = o * Geo<WH>::NP;
+  r.size = o * Geo<WC>::NP;
   return r;
 }
 
@@ -913,12 +963,14 @@ __device__ void get_act(float* a, const float* src, int rows, int tid) {
 // steps per chunk. Monolithic: one chunk of all S steps. The backward
 // writes d_se into `dse_o` [chunks, B, T, h] (zeroed here) and d_ctx into
 // `dctx_o` (its chunk's [h, B], zeroed here).
-template <bool BWD, bool STEPS, bool WH, class E>
+template <bool BWD, bool STEPS, int WC, class E>
 __global__ void __launch_bounds__(NT)
 replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
               float temperature, float inv_temp, float* logp_o, float* dse_o,
               float* dctx_o, float* part_o, int len, float* rec_o,
-              int* sflag_o) {
+              int* sflag_o, float* scr_o) {
+  // the width class (geo.cuh): WH above hidden 128, WX above 256
+  constexpr bool WH = WC > 0, WX = WC > 1;
   using Word = std::conditional_t<STEPS, unsigned long long, int>;
   // bfloat16: the products on the tensor cores (the design note)
   constexpr bool TC = std::is_same_v<E, bf16>;
@@ -931,13 +983,15 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // and 4 hold more registers, spill more and ran 1.06-1.15x slower)
   constexpr int PF = 1;
   // the head's passes (Geo): TP instances each, LP their arrays' stride
-  using Q = Geo<WH>;
+  using Q = Geo<WC>;
   constexpr int TP = Q::TP, LP = Q::LP, NVW = Q::NVW, CPW = Q::CPW;
+  // WX: the products over the weights' NH row halves of HR rows in turn
+  constexpr int NH = Q::NH;
   constexpr int G = Q::G, MAXR = Q::MAXR;
   extern __shared__ __align__(16) float smem[];
   const int N = d.N, R = d.R, C = d.C, h = d.h, B = d.B;
   const int WD = d.W * d.D, T = N * R, A = T * C, FQ = 3 * h + 8, S = N;
-  const int HP = h + 4, RPL = h / 32, GS = h1_stride<WH>(TC);
+  const int HP = h + 4, RPL = h / 32, GS = h1_stride<WC>(TC), HR = h / NH;
   const int lane = threadIdx.x, wy = threadIdx.y, tid = wy * TB + lane;
   const int g8 = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
   // a pass's instance and virtual warp (lane and warp when TP = TB)
@@ -948,7 +1002,12 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   const bool active = b < B;
   const int bb = active ? b : 0;  // clamped index for loads
   const GOff go = goff(d);
-  const Lay L = layout<WH>(d, BWD, TC);
+  const Lay L = layout<WC>(d, BWD, TC);
+  // WX: this block's scratch in device memory (`wx_scratch`)
+  float* const scr =
+      WX ? scr_o + ((size_t)blockIdx.x * gridDim.y + blockIdx.y)
+                       * wx_scratch(d)
+         : nullptr;
   const int chunk = STEPS ? blockIdx.y : 0;
   const int k0 = STEPS ? chunk * len : 0;
   const int k1 = STEPS ? min(k0 + len, S) : S;
@@ -968,10 +1027,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // the pass's instances: q_c [h][LP], dq [h][LP] (bwd), feats [WD+2][LP],
   // e1 [h][LP] (de1 in place, bwd), qin [3h+8][LP]: enc, ctx, prev, dsum;
   // d_prev [h][LP] (bwd)
-  float* qs = smem + L.q;
-  float* dqs = smem + L.dq;
+  float* qs = WX ? scr : smem + L.q;
+  float* dqs = WX ? scr + up4(h * LP) : smem + L.dq;
   float* sc = smem + L.sc;   // [column][C]
-  float* feats = smem + L.enc;
+  float* feats = WX ? scr + 2 * up4(h * LP) : smem + L.enc;
   float* e1 = feats + (WD + 2) * LP;
   float* qin = e1 + h * LP;
   float* d_prev = qin + FQ * LP;
@@ -986,10 +1045,11 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
     return reinterpret_cast<unsigned short*>(
         (reinterpret_cast<size_t>(p) + 15) & ~(size_t)15);
   };
-  unsigned short* xsq = al16(d_prev);
+  // (WX: both in `xs`, E's over A/B's, which D and E no longer read)
+  unsigned short* xsq = al16(WX ? smem + L.xs : d_prev);
   unsigned short* xse = xsq + 16 * ((FQ + 15) & ~15);
   unsigned short* xsf = xsq;
-  unsigned short* xdh = al16(qin + h * LP);
+  unsigned short* xdh = WX ? xsq : al16(qin + h * LP);
   unsigned short* xdl = xdh + 16 * h;
   unsigned short* xmh = xdl + 16 * h;
   unsigned short* xml = xmh + 16 * h;
@@ -1011,7 +1071,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // the block's partial row: its tile and step chunk
   const size_t prow_i = (size_t)blockIdx.x * (STEPS ? gridDim.y : 1) + chunk;
   float* prow = BWD ? part_o + prow_i * go.P : nullptr;
-  const RecOff ro = rec_off<WH>(d, TC);
+  const RecOff ro = rec_off<WC>(d, TC);
   // the record of step k, container c and the pass of instances p0 ..
   auto rec_at = [&](int k, int c, int p0) {
     return rec_o + ((prow_i * len + (k - k0)) * C + c) * (size_t)ro.size
@@ -1063,16 +1123,46 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // (ring_bf16.cuh; its stages in the token view), h / 16 warps consuming;
   // A/B streams W1, W2, Wq as one chain, E Wq^T's thirds and W2^T
   constexpr bool RG = TC && WH;
-  const int NWR = h / 16;
+  const int NWR = HR / 16;
   Ring ring{};
   Chain chain{};
   if constexpr (RG) {
     ring = Ring{stgb, reinterpret_cast<unsigned long long*>(smem + L.bar),
                 reinterpret_cast<int*>(smem + L.bar + 2 * RING_S),
-                h * RING_K, 0u};
+                HR * RING_K, 0u};
     if (tid == 0) tapnet::ring_init(ring);
   }
   __syncthreads();
+
+  // the products by row halves (one at h <= 256): RG's ring_mv over slabs
+  // a .. of chain (each half's in turn), TF's mm_tf32 over A [h][K], RG's
+  // ring_mvt over `parts` [h][h] blocks (each block's halves in turn)
+  auto rg_mv = [&](int a, int K, const unsigned short* xs, auto emit) {
+    const int ns = (K + RING_K - 1) / RING_K;
+    for (int hr = 0; hr < NH; ++hr)
+      ring_mv(ring, chain, a + hr * ns, K, xs, NWR, lane, wy,
+              [&](int j, int n, float acc) { emit(hr * HR + j, n, acc); });
+  };
+  auto tf_mm = [&](const auto* A, int K, const float* x, auto emit) {
+    for (int hr = 0; hr < NH; ++hr)
+      mm_tf32<PF>(A + (size_t)hr * HR * K, HR, K, x, lane, wy,
+                  [&](int m, int n, float acc) { emit(hr * HR + m, n, acc); });
+  };
+  auto rg_mvt = [&](int a, int parts, const unsigned short* xh,
+                    const unsigned short* xl, auto emit) {
+    if constexpr (NH == 1) {
+      ring_mvt(ring, chain, a, parts, h, xh, xl, NWR, lane, wy, emit);
+    } else {
+      const int nsh = h / RING_K;
+      for (int u = 0; u < parts; ++u)
+        for (int hr = 0; hr < NH; ++hr)
+          ring_mvt(ring, chain, a + (u * NH + hr) * nsh, 1, h, xh, xl, NWR,
+                   lane, wy,
+                   [&](int, int m, int t, const float (&acc)[2][4]) {
+                     emit(u, hr * HR + m, t, acc);
+                   });
+    }
+  };
 
   // shared rows of qin for the pass of instances p0 ..: ctx, the previous
   // action's embedding, dsum
@@ -1119,9 +1209,9 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         xsf[tapnet::xs_at(x, vl)] = tapnet::bf16_bits(feats[x * LP + vl]);
     }
     if constexpr (RG)  // the barrier, then W1, W2, Wq's first slabs
-      chain = tapnet::ring_open(ring, h, w.w1r, (WD + 2 + RING_K - 1) / RING_K,
-                                w.w2r, h / RING_K, w.wqr,
-                                (FQ + RING_K - 1) / RING_K, tid);
+      chain = tapnet::ring_open(
+          ring, HR, w.w1r, NH * ((WD + 2 + RING_K - 1) / RING_K), w.w2r,
+          NH * (h / RING_K), w.wqr, NH * ((FQ + RING_K - 1) / RING_K), tid);
     else
       __syncthreads();
     if (vw == 0) {
@@ -1146,25 +1236,25 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       if constexpr (RG) xse[tapnet::xs_at(j, n)] = tapnet::bf16_bits(e1[j * LP + n]);
     };
     if constexpr (RG)
-      ring_mv(ring, chain, 0, WD + 2, xsf, NWR, lane, wy, e1_out);
+      rg_mv(0, WD + 2, xsf, e1_out);
     else if constexpr (TC)
       mv_mma<Q::KSL>(w.w1t, h, WD + 2, feats, stgb, lane, wy, tid,
                          e1_out);
     else  // float32: SIMT (TF too, so that e1's ReLU gates stay as they were)
-      mv_tiled<WH>(w.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
+      mv_tiled<WC>(w.w1T, h, WD + 2, feats, stg, vl, vw, tid, e1_out);
     __syncthreads();
     auto enc_out = [&](int j, int n, float acc) {
       qin[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(w.b2 + j));
       if constexpr (RG) xsq[tapnet::xs_at(j, n)] = tapnet::bf16_bits(qin[j * LP + n]);
     };
     if constexpr (RG)
-      ring_mv(ring, chain, chain.ns[0], h, xse, NWR, lane, wy, enc_out);
+      rg_mv(chain.ns[0], h, xse, enc_out);
     else if constexpr (TC)
       mv_mma<Q::KSL>(w.w2t, h, h, e1, stgb, lane, wy, tid, enc_out);
     else if constexpr (TF)
-      mm_tf32<PF>(w.w2t, h, h, e1, lane, wy, enc_out);
+      tf_mm(w.w2t, h, e1, enc_out);
     else
-      mv_tiled<WH>(w.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
+      mv_tiled<WC>(w.w2T, h, h, e1, stg, vl, vw, tid, enc_out);
     __syncthreads();
   };
 
@@ -1174,14 +1264,13 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
       qs[j * LP + n] = rnd<E>(rnd<E>(acc) + ldg(w.bq + j));
     };
     if constexpr (RG)
-      ring_mv(ring, chain, chain.ns[0] + chain.ns[1], FQ, xsq, NWR, lane,
-              wy, q_out);
+      rg_mv(chain.ns[0] + chain.ns[1], FQ, xsq, q_out);
     else if constexpr (TC)
       mv_mma<Q::KSL>(w.wqt, h, FQ, qin, stgb, lane, wy, tid, q_out);
     else if constexpr (TF)
-      mm_tf32<PF>(w.wqt, h, FQ, qin, lane, wy, q_out);
+      tf_mm(w.wqt, FQ, qin, q_out);
     else
-      mv_tiled<WH>(w.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
+      mv_tiled<WC>(w.wqT, h, FQ, qin, stg, vl, vw, tid, q_out);
     __syncthreads();
   };
 
@@ -1222,7 +1311,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
   // then this warp's columns read back from DD.
   auto group_dyn = [&](float (&dyn)[CPW][MAXR], int ng) {
     if constexpr (TC) {
-      constexpr int NCT = G / 8, LN = NCT == 8 ? 3 : 2;  // LN: log2 NCT
+      constexpr int NCT = G / 8;
+      constexpr int LN = NCT == 8 ? 3 : NCT == 4 ? 2 : 1;  // log2 NCT
       const int nt = wy & (NCT - 1);
       if (8 * nt < ng) {
         const int col = 8 * nt + g8;
@@ -1281,7 +1371,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           dyn[2][r] = fmaf(wv[r], hv.z, dyn[2][r]);
           dyn[3][r] = fmaf(wv[r], hv.w, dyn[3][r]);
         }
-      } else {  // two columns a warp (WH)
+      } else if constexpr (CPW == 2) {  // two columns a warp (WH)
         const float2 hv =
             *reinterpret_cast<const float2*>(h1 + k * GS + wy * CPW);
         float wv[MAXR];
@@ -1293,6 +1383,12 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           dyn[0][r] = fmaf(wv[r], hv.x, dyn[0][r]);
           dyn[1][r] = fmaf(wv[r], hv.y, dyn[1][r]);
         }
+      } else {  // one column a warp (WX)
+        const float hv = h1[k * GS + wy];
+#pragma unroll
+        for (int r = 0; r < MAXR; ++r)
+          if (r < RPL)
+            dyn[0][r] = fmaf(Ws[k * h + lane + 32 * r], hv, dyn[0][r]);
       }
     }
 #pragma unroll
@@ -1391,8 +1487,9 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
         // columns, B the 0/1 membership, d_dyn split; warp wy owns the
         // lane tile wy % NLT and the row tiles wy / NLT + (NWARP / NLT) u
         constexpr int NLT = TP / 8, LL = NLT == 4 ? 2 : 1;  // LL: log2 NLT
+        constexpr int NDU = WX ? 4 : 2;  // row tiles a warp
         const int nt = wy & (NLT - 1);
-        float dacc[2][4] = {};
+        float dacc[NDU][4] = {};
         for (int c0 = 0; c0 < ng; c0 += 16) {
           unsigned bo[2];
           frag_b(bo, g8, t4, [&](int k, int n) {
@@ -1402,7 +1499,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
             return make_float2(a0 ? 1.f : 0.f, a1 ? 1.f : 0.f);
           });
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
+          for (int u = 0; u < NDU; ++u) {
             const int mt = (wy >> LL) + (NWARP / NLT) * u;
             if (mt < h / 16) {
               unsigned ah[4], al[4];
@@ -1416,7 +1513,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           }
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < NDU; ++u) {
           const int mt = (wy >> LL) + (NWARP / NLT) * u;
           if (mt < h / 16) {
             float* dq0 = dqs + (16 * mt + g8) * LP + 8 * nt + 2 * t4;
@@ -1527,11 +1624,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           }
         }
       }
-      {  // dh1 = (Wp^T d_dyn) * (h1 > 0): column lane + 32 (wy % CH),
-         // rows RT (wy / CH) .. + RT - 1 (G = 64: CH = 2, RT = 4; G = 32:
-         // CH = 1, RT = 2)
-        constexpr int CH = G / 32, RT = 32 * G / NT;
-        const int cc = lane + 32 * (wy % CH), m0 = RT * (wy / CH);
+      {  // dh1 = (Wp^T d_dyn) * (h1 > 0): column tid % G, rows RT (tid /
+         // G) .. + RT - 1 (G = 64: RT = 4; G = 32: RT = 2; G = 16: RT = 1)
+        constexpr int RT = 32 * G / NT;
+        const int cc = tid % G, m0 = RT * (tid / G);
         float acc[RT];
 #pragma unroll
         for (int mi = 0; mi < RT; ++mi) acc[mi] = 0.f;
@@ -1742,10 +1838,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
             for (int e = tid; e < h * TP; e += NT)
               put_split(xdh, xdl, e / TP, e % TP, dqs[(e / TP) * LP + e % TP]);
             const int nsh = h / RING_K;
-            chain = tapnet::ring_open(ring, h, w.wqTr, 3 * nsh, w.w2Tr, nsh,
-                                      nullptr, 0, tid);
-            ring_mvt(ring, chain, 0, 3, h, xdh, xdl, NWR, lane, wy,
-                     [&](int u, int m, int t, const float (&a)[2][4]) {
+            chain = tapnet::ring_open(ring, HR, w.wqTr, 3 * NH * nsh, w.w2Tr,
+                                      NH * nsh, nullptr, 0, tid);
+            rg_mvt(0, 3, xdh, xdl,
+                   [&](int u, int m, int t, const float (&a)[2][4]) {
 #pragma unroll
               for (int v = 0; v < 2; ++v)
 #pragma unroll
@@ -1757,10 +1853,10 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           } else if constexpr (WH) {  // Wq^T a third of its rows at a time
             __syncthreads();
             for (int u = 0; u < 3; ++u) {
-              mm_tf32<PF>(w.wqT + (size_t)u * h * h, h, h, dqs, lane, wy,
-                          [&](int m, int l, float acc) {
-                            dqin_out(u * h + m, l, acc);
-                          });
+              tf_mm(w.wqT + (size_t)u * h * h, h, dqs,
+                    [&](int m, int l, float acc) {
+                      dqin_out(u * h + m, l, acc);
+                    });
               __syncthreads();
             }
           } else {
@@ -1774,8 +1870,8 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
           rowsum_acc<TP>(prow + go.b2, d_hm, LP, h, tid);
           __syncthreads();
           if constexpr (RG)
-            ring_mvt(ring, chain, 3 * (h / RING_K), 1, h, xmh, xml, NWR, lane,
-                     wy, [&](int, int m, int t, const float (&a)[2][4]) {
+            rg_mvt(3 * NH * (h / RING_K), 1, xmh, xml,
+                   [&](int, int m, int t, const float (&a)[2][4]) {
 #pragma unroll
               for (int v = 0; v < 2; ++v)
 #pragma unroll
@@ -1786,7 +1882,7 @@ replay_kernel(Dims d, ReplayIn<E> in, HeadW<E> w, float inv_s,
             mvt_mma<1, 64>(w.w2T, h, h, d_hm, stgb, lane, wy, tid,
                                de1_out);
           else
-            mm_tf32<PF>(w.w2T, h, h, d_hm, lane, wy, de1_out);
+            tf_mm(w.w2T, h, d_hm, de1_out);
           __syncthreads();
           put_f32<TP>(rc + ro.de1, e1, h, tid);
           if constexpr (!WH) put_bf16<TP>(rc + ro.feats, feats, WD + 2, tid);
@@ -1953,9 +2049,10 @@ __host__ __device__ constexpr GoPlan go_plan(int h) {
 }
 
 // A block fits at every width the kernel takes (160 .. 256, the widest
-// plan the largest); ops/replay.py::grad_outer_smem mirrors the plan, and
+// plan the largest; above 256 a block takes one row half of G, `go_rows`);
+// ops/replay.py::grad_outer_smem mirrors the plan, and
 // tests/test_torch_grad_outer.py holds its hidden-256 size to this one.
-static_assert(go_plan(MAX_H).bytes <= 227 * 1024, "grad_outer_tf32 plan");
+static_assert(go_plan(GO_MAXR).bytes <= 227 * 1024, "grad_outer_tf32 plan");
 static_assert(go_plan(256).bytes == 222512, "ops/replay.py grad_outer_smem");
 
 // The tiles of a section of `cols` columns: GO_NT wide, the last one up
@@ -1972,11 +2069,19 @@ __host__ __device__ inline int go_tiles(const Dims& d) {
   return go_ntiles(3 * d.h + 8) + go_ntiles(d.h) + go_ntiles(d.W * d.D + 2);
 }
 
+// The rows of G a block of grad_outer_tf32 or grad_outer takes: all h up
+// to GO_MAXR, above (h = 320 .. 512) one of the two row halves
+// (blockIdx.z), so that the plan and the warpgroups stay those of h / 2.
+__host__ __device__ inline int go_rows(int h) {
+  return h > GO_MAXR ? h / 2 : h;
+}
+
 // A block's tile: columns n0 .. n0 + width of a section of `cols`
 // columns, the section's offset in a partial row (`off`) and its G and X
-// parts' offsets in a record part (`gof`, `xof`, floats)
+// parts' offsets in a record part (`gof`, `xof`, floats); the block's
+// rows r0 .. r0 + rows of G and of the gradient
 struct GoTile {
-  int cols, off, gof, xof, n0, width;
+  int cols, off, gof, xof, n0, width, rows, r0;
 };
 
 __device__ inline GoTile go_tile_of(const Dims& d, const RecOff& ro,
@@ -1996,6 +2101,8 @@ __device__ inline GoTile go_tile_of(const Dims& d, const RecOff& ro,
   }
   t.n0 = GO_NT * tile;
   t.width = tile + 1 == go_ntiles(t.cols) ? t.cols - t.n0 : GO_NT;
+  t.rows = go_rows(h);
+  t.r0 = blockIdx.z * t.rows;
   return t;
 }
 
@@ -2118,7 +2225,7 @@ __device__ void go_tile(const Dims& d, const float* __restrict__ rec,
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int j = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;  // and j + 8
-  const int h = d.h, C = d.C;
+  const int h = tl.rows, C = d.C;  // the block's rows of G
   const unsigned gbytes = h * GO_KP * 4, xbytes = tl.width * GO_KP * 4;
   auto issue = [&](int s) {
     const int st = act[s / (C * NP)], c = (s / NP) % C, pp = s % NP;
@@ -2127,7 +2234,7 @@ __device__ void go_tile(const Dims& d, const float* __restrict__ rec,
     unsigned char* raw = sm + (s % GO_RS) * pl.stage;
     unsigned long long* b = bar + s % GO_RS;
     mbar_expect(b, gbytes + xbytes);
-    bulk_copy(raw, r + tl.gof, gbytes, b);
+    bulk_copy(raw, r + tl.gof + (size_t)tl.r0 * GO_KP, gbytes, b);
     bulk_copy(raw + pl.raw_g, r + tl.xof + (size_t)tl.n0 * GO_KP, xbytes, b);
   };
   if (tid == 0)
@@ -2185,8 +2292,8 @@ grad_outer_tf32(Dims d, const float* __restrict__ rec,
                 float* __restrict__ part) {
   extern __shared__ unsigned char go_dyn[];
   unsigned char* sm = go_base(go_dyn);
-  const GoPlan pl = go_plan(d.h);
-  const RecOff ro = rec_off<true>(d, false);
+  const GoPlan pl = go_plan(go_rows(d.h));
+  const RecOff ro = rec_off<1>(d, false);
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm + pl.bar);
   int* cnt = reinterpret_cast<int*>(sm + pl.cnt);
   int* act = reinterpret_cast<int*>(sm + pl.act);
@@ -2194,7 +2301,7 @@ grad_outer_tf32(Dims d, const float* __restrict__ rec,
   go_begin(sflag, row, len, cnt, act, bar, GO_RS);
   const int ns = *cnt * d.C * Geo<true>::NP;
   const GoTile tl = go_tile_of(d, ro, blockIdx.x);
-  float* dst = part + row * goff(d).P + tl.off;
+  float* dst = part + row * goff(d).P + tl.off + (size_t)tl.r0 * tl.cols;
   if (tl.width > GO_NT)
     go_tile<GO_NX>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
   else if (tl.width > 64)
@@ -2290,11 +2397,11 @@ __host__ __device__ constexpr GbPlan gb_plan(int h) {
 // arrays fit in the ring; ops/replay.py::grad_outer_bf16_smem mirrors the
 // plan, and tests/test_torch_grad_outer_bf16.py holds its sizes at hidden
 // 128 and 256 to these.
-static_assert(gb_plan(MAX_H).bytes <= 227 * 1024, "grad_outer plan");
+static_assert(gb_plan(GO_MAXR).bytes <= 227 * 1024, "grad_outer plan");
 static_assert(2 * (gb_plan(128).bytes + 1024) <= 228 * 1024,
               "two grad_outer blocks an SM at h <= 128");
-static_assert(4 * gb_plan(MAX_H).wg * 16 * GO_SL * 4
-                  <= gb_plan(MAX_H).rs * gb_plan(MAX_H).stage,
+static_assert(4 * gb_plan(GO_MAXR).wg * 16 * GO_SL * 4
+                  <= gb_plan(GO_MAXR).rs * gb_plan(GO_MAXR).stage,
               "grad_outer's staging in the ring");
 static_assert(gb_plan(128).bytes == 104224 && gb_plan(256).bytes == 195368,
               "ops/replay.py grad_outer_bf16_smem");
@@ -2318,7 +2425,7 @@ __device__ void gb_tile(const Dims& d, const float* __restrict__ rec,
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int j = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + g;  // and j + 8
-  const int h = d.h, C = d.C, rs = pl.rs;
+  const int h = tl.rows, C = d.C, rs = pl.rs;  // the block's rows of G
   // X's second pass's run in a raw stage (above 128)
   constexpr int X1 = GO_NX * 32 + 64;
   auto issue = [&](int s) {
@@ -2330,7 +2437,8 @@ __device__ void gb_tile(const Dims& d, const float* __restrict__ rec,
     if (WH) {
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        bulk_copy(raw + p * h * 64, r + p * ro.pass + tl.gof, h * 64, b);
+        bulk_copy(raw + p * h * 64,
+                  r + p * ro.pass + tl.gof + (size_t)tl.r0 * 16, h * 64, b);
         bulk_copy(raw + pl.g + p * X1,
                   r + p * ro.pass + tl.xof + (size_t)tl.n0 * 8,
                   tl.width * 32, b);
@@ -2415,7 +2523,7 @@ grad_outer(Dims d, const float* __restrict__ rec,
            const int* __restrict__ sflag, int len, float* __restrict__ part) {
   extern __shared__ unsigned char go_dyn[];
   unsigned char* sm = go_base(go_dyn);
-  const GbPlan pl = gb_plan(d.h);
+  const GbPlan pl = gb_plan(go_rows(d.h));
   const RecOff ro = rec_off<WH>(d, true);
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(sm + pl.bar);
   int* cnt = reinterpret_cast<int*>(sm + pl.cnt);
@@ -2424,7 +2532,7 @@ grad_outer(Dims d, const float* __restrict__ rec,
   go_begin(sflag, row, len, cnt, act, bar, pl.rs);
   const int ns = *cnt * d.C;
   const GoTile tl = go_tile_of(d, ro, blockIdx.x);
-  float* dst = part + row * goff(d).P + tl.off;
+  float* dst = part + row * goff(d).P + tl.off + (size_t)tl.r0 * tl.cols;
   if (tl.width > GO_NT)
     gb_tile<GO_NX, WH>(d, rec, ro, row, len, tl, dst, sm, pl, bar, act, ns);
   else if (tl.width > 64)
@@ -2448,10 +2556,11 @@ static cudaError_t launch_grad_outer(const Dims& d, bool bf,
                                      const float* rec, const int* sflag,
                                      int rows, int len, float* part,
                                      cudaStream_t st) {
-  const dim3 grid(go_tiles(d), rows);
+  // (above GO_MAXR: blockIdx.z takes a row half of G)
+  const dim3 grid(go_tiles(d), rows, d.h / go_rows(d.h));
   cudaError_t err;
   if (!bf) {
-    const GoPlan pl = go_plan(d.h);
+    const GoPlan pl = go_plan(go_rows(d.h));
     err = cudaFuncSetAttribute(grad_outer_tf32,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                pl.bytes);
@@ -2459,7 +2568,7 @@ static cudaError_t launch_grad_outer(const Dims& d, bool bf,
     grad_outer_tf32<<<grid, 128 * pl.wg, pl.bytes, st>>>(d, rec, sflag, len,
                                                          part);
   } else {
-    const GbPlan pl = gb_plan(d.h);
+    const GbPlan pl = gb_plan(go_rows(d.h));
     auto kernel = d.h > 128 ? grad_outer<true> : grad_outer<false>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
@@ -2614,18 +2723,20 @@ __global__ void sum_transpose(const float* __restrict__ part, int nc, int B,
 // 128: the plan of two head passes, Geo); the wrapper refuses configs above
 // the limit.
 static long long smem_bytes(const Dims& d, int bwd, bool steps, bool tc) {
-  const int floats = d.h > 128 ? layout<true>(d, bwd != 0, tc).floats
-                               : layout<false>(d, bwd != 0, tc).floats;
+  const int wc = tapnet::geo_class(d.h);
+  const int floats = wc == 2   ? layout<2>(d, bwd != 0, tc).floats
+                     : wc == 1 ? layout<1>(d, bwd != 0, tc).floats
+                               : layout<0>(d, bwd != 0, tc).floats;
   return 4ll * (floats + n_ints(d, steps));
 }
 
 // 0 where the instantiation keeps no records (float32 at h <= 128)
 static int record_floats(const Dims& d, bool bf) {
-  if (d.h > 128) return rec_off<true>(d, bf).size;
-  return bf ? rec_off<false>(d, true).size : 0;
+  if (d.h > 128) return rec_off<1>(d, bf).size;
+  return bf ? rec_off<0>(d, true).size : 0;
 }
 
-template <bool STEPS, bool WH, class E>
+template <bool STEPS, int WC, class E>
 static int launch(int bwd, void* const* p, const Dims& d, int chunks,
                   float inv_s, float temperature, float inv_temp,
                   void* stream) {
@@ -2653,7 +2764,7 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   const int T = d.N * d.R;
   cudaError_t err;
   if (!bwd) {
-    auto kernel = replay_kernel<false, STEPS, WH, E>;
+    auto kernel = replay_kernel<false, STEPS, WC, E>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -2661,12 +2772,12 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
     float* lp = nc > 1 ? (float*)p[26] : (float*)p[20];
     kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
                                       lp, nullptr, nullptr, nullptr, len,
-                                      nullptr, nullptr);
+                                      nullptr, nullptr, (float*)p[39]);
     err = cudaGetLastError();
     if (err != cudaSuccess || nc == 1) return (int)err;
     return (int)launch_reduce_tiles(lp, nc, d.B, (float*)p[20], st);
   }
-  auto kernel = replay_kernel<true, STEPS, WH, E>;
+  auto kernel = replay_kernel<true, STEPS, WC, E>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -2674,12 +2785,13 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
   // more write partials [nc, h, B] to p[28]
   float* dctx = nc > 1 ? (float*)p[28] : (float*)p[22];
   constexpr bool tc = std::is_same_v<E, bf16>;
-  constexpr bool defer = tc || WH;  // the records (rec_off)
+  constexpr bool defer = tc || WC > 0;  // the records (rec_off)
   kernel<<<grid, block, smem, st>>>(d, in, w, inv_s, temperature, inv_temp,
                                     nullptr, (float*)p[27], dctx,
                                     (float*)p[23], len,
                                     defer ? (float*)p[32] : nullptr,
-                                    defer ? (int*)p[33] : nullptr);
+                                    defer ? (int*)p[33] : nullptr,
+                                    (float*)p[39]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (defer) {  // the deferred weight-gradient contractions
@@ -2700,20 +2812,27 @@ static int launch(int bwd, void* const* p, const Dims& d, int chunks,
 }
 
 // the instantiation of the schedule (steps), the dtype (bf) and the head's
-// passes (WH)
-template <bool WH>
+// width class (WC, geo.cuh)
+template <int WC>
 static int pick(int steps, int bf, int bwd, void* const* p, const Dims& d,
                 int chunks, float inv_s, float temperature, float inv_temp,
                 void* stream) {
   if (bf)
-    return steps ? launch<true, WH, bf16>(bwd, p, d, chunks, inv_s,
+    return steps ? launch<true, WC, bf16>(bwd, p, d, chunks, inv_s,
                                           temperature, inv_temp, stream)
-                 : launch<false, WH, bf16>(bwd, p, d, 1, inv_s, temperature,
+                 : launch<false, WC, bf16>(bwd, p, d, 1, inv_s, temperature,
                                            inv_temp, stream);
-  return steps ? launch<true, WH, float>(bwd, p, d, chunks, inv_s,
+  return steps ? launch<true, WC, float>(bwd, p, d, chunks, inv_s,
                                          temperature, inv_temp, stream)
-               : launch<false, WH, float>(bwd, p, d, 1, inv_s, temperature,
+               : launch<false, WC, float>(bwd, p, d, 1, inv_s, temperature,
                                           inv_temp, stream);
+}
+
+// The floats of one block's scratch (pointer 39) at ints = B, N, W, D, R,
+// C, h: what ops/replay.py::wx_scratch mirrors; 0 at h <= 256.
+extern "C" long long tapnet_replay_scratch(const int* ints) {
+  const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
+  return tapnet::geo_class(d.h) == 2 ? wx_scratch(d) : 0;
 }
 
 // Shared memory of one block in bytes for ints = B, N, W, D, R, C, h (as
@@ -2745,13 +2864,15 @@ extern "C" void tapnet_replay_helper_launches(long long* out) {
 // and sflag [rows, len] (nonzero: the step has an action), write the W1,
 // W2 and Wq gradient columns of part [rows, P] (goff: P and the offsets;
 // the other columns untouched). ints = B, N, W, D, R, C, h with h a
-// multiple of 32 in 160 .. 256 (bf16: 32 .. 256); len <= 62.
+// multiple of 32 in 160 .. 256 (bf16: 32 .. 256) or of 64 up to 512;
+// len <= 62.
 extern "C" int tapnet_replay_grad_outer(const float* rec, const int* sflag,
                                         const int* ints, int rows, int len,
                                         int bf16, float* part,
                                         void* stream) {
   const Dims d{ints[0], ints[1], ints[2], ints[3], ints[4], ints[5], ints[6]};
-  if (d.h < (bf16 ? 32 : 160) || d.h > MAX_H || d.h % 32 != 0 || d.C < 1 ||
+  if (d.h < (bf16 ? 32 : 160) || d.h > MAX_H || d.h % 32 != 0 ||
+      (d.h > 256 && d.h % 64 != 0) || d.C < 1 ||
       d.C > MAX_C || rows < 1 || len < 1 || len > MAX_N_STEPS)
     return (int)cudaErrorInvalidValue;
   return (int)launch_grad_outer(d, bf16 != 0, rec, sflag, rows, len, part,
@@ -2776,6 +2897,8 @@ extern "C" int tapnet_replay_reduce_tiles(const float* part, int tiles,
 //       records)                                                    (32-33)
 //       bfloat16 at h > 128: w1t, w2t, wqt, wqt^T rows 0..3h as [3][h][h]
 //       and w2t^T as ring slabs (ops/replay.py ring_operands)         (34-38)
+//       h > 256: the blocks' scratch, tiles x chunks blocks of
+//       tapnet_replay_scratch floats (f32)                             (39)
 // ints: B, N, W, D, R, C, h, steps, chunks, bf16 (1: se, ctx, statp, statm
 // and the weights other than v are bfloat16; 0: float; the outputs are
 // float either way). Forward (bwd = 0) writes logp_o
@@ -2784,7 +2907,8 @@ extern "C" int tapnet_replay_reduce_tiles(const float* part, int tiles,
 // steps = 0: the monolithic schedule (chunks ignored, prev unused); steps =
 // 1: the step-grid schedule over `chunks` step chunks with prev [S, B] and,
 // for more than one chunk, the partials logp_part [chunks, B] (forward) and
-// dctx_part [chunks, h, B] (backward). h: a multiple of 32, at most 256.
+// dctx_part [chunks, h, B] (backward). h: a multiple of 32 up to 256, of
+// 64 up to 512.
 // Launches on `stream`; returns the first CUDA error of the launches.
 extern "C" int tapnet_replay_logp(int bwd, void* const* p, const int* ints,
                                   float inv_s, float temperature,
@@ -2793,12 +2917,16 @@ extern "C" int tapnet_replay_logp(int bwd, void* const* p, const int* ints,
   const int steps = ints[7], chunks = ints[8], bf = ints[9];
   if (d.N > (steps ? MAX_N_STEPS : MAX_N_MONO) || d.C > MAX_C || d.B <= 0 ||
       d.h % 32 != 0 || d.h <= 0 || d.h > MAX_H ||
+      (d.h > 256 && d.h % 64 != 0) ||
       (steps && (chunks < 1 || chunks > d.N)))
     return (int)cudaErrorInvalidValue;
   if ((long long)d.N * d.R * d.h * d.B >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  if (d.h > 128) return pick<true>(steps, bf, bwd, p, d, chunks, inv_s,
-                                   temperature, inv_temp, stream);
-  return pick<false>(steps, bf, bwd, p, d, chunks, inv_s, temperature,
-                     inv_temp, stream);
+  const int wc = tapnet::geo_class(d.h);
+  if (wc == 2) return pick<2>(steps, bf, bwd, p, d, chunks, inv_s,
+                              temperature, inv_temp, stream);
+  if (wc == 1) return pick<1>(steps, bf, bwd, p, d, chunks, inv_s,
+                              temperature, inv_temp, stream);
+  return pick<0>(steps, bf, bwd, p, d, chunks, inv_s, temperature,
+                 inv_temp, stream);
 }

@@ -18,7 +18,10 @@ bfloat16 on one record of a sampled float32 rollout
 launches (10 for the step-grid backward; CUDA events after a spin kernel,
 `chip_smoke.time_gpu`). K2 and K5 run at hidden width `--hidden` (128 by
 default; above 128 K2 reads its once-per-rollout operands, made once
-here as the decode loop makes them), K1 and K4 do not depend on it. The
+here as the decode loop makes them; any width up to 512, one the kernels
+do not take, such as 48 or 288, on operands padded with zeros to
+`ops.actor_step.kernel_width` as the routes pad them), K1 and K4 do not
+depend on it. The
 line also holds the hidden width and the SHA-256 of the operands' and the
 outputs' bytes of K2 (both modes) and of every K5 kernel, each in both
 dtypes: `--expect FILE` (the line another run wrote with `--out`) checks
@@ -208,6 +211,16 @@ def replay_builds(CS, dev, hidden, dirs, dtype="float32") -> dict:
     return out
 
 
+def _wide_operands(AS, params, ctx, cfg):
+    """`AS.wide_operands` of this checkout or, under `--tree`, of another,
+    whose version before hidden 512 takes (params, ctx)."""
+    import inspect
+
+    if len(inspect.signature(AS.wide_operands).parameters) == 2:
+        return AS.wide_operands(params, ctx)
+    return AS.wide_operands(params, ctx, cfg)
+
+
 def k2_operands(CS, dev, name, hidden):
     """K2's operands on the middle decode step of a sampled rollout of
     config `name` at batch 4096 and hidden width `hidden` (the state from
@@ -229,7 +242,7 @@ def k2_operands(CS, dev, name, hidden):
         o = CS.actor_operands(actor, inst, cfg, keys)
         (dw, dd, dh), packed, hm, plc = RO._batch_last(inst, cfg)
         prev = torch.full((1, B), -1, dtype=torch.int32, device=dev)
-        wide = AS.wide_operands(o["params"], o["ctx"])
+        wide = _wide_operands(AS, o["params"], o["ctx"], cfg)
         for t in range(N // 2 + 1):
             tf = torch.full((1, 1), t / N, device=dev)
             ops = (tf, packed, hm, plc, prev, dw, dd, dh, o["upm"],
@@ -241,7 +254,7 @@ def k2_operands(CS, dev, name, hidden):
                                        params_t=o["params_t"], wide=wide)
             packed, hm, plc, prev = got[0], got[1], got[2], got[3][None]
         ob = CS.actor_operands(actor, inst, cfg, keys, torch.bfloat16)
-        wide_b = AS.wide_operands(ob["params"], ob["ctx"])
+        wide_b = _wide_operands(AS, ob["params"], ob["ctx"], cfg)
     ops_b = ops[:12] + (ob["se"], ob["ctx"], ob["statp"], ob["statm"],
                         ob["params"])
     return ops, ops_b, o["params_t"], wide, wide_b

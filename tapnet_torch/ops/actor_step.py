@@ -36,10 +36,12 @@ input; the tokens outside the window are masked, which gives the windowed
 head's softmax exactly. A finite height cap is not covered, here as there:
 its mask needs a candidate scan per action, and such configs decode through
 `select_step`. The kernel's own limits (`eligible`): C <= 4, W*D <= 256, a
-hidden width that is a multiple of 32 up to 256 (above 128 the WH body
-below), and a block's shared memory within
-227 KB; the routers (`train/rollout.py` `routes`) send any other config
-down the step-fused path.
+hidden width up to 512 (the kernel's widths, `kernel_width`, are the
+multiples of 32 up to 256 and of 64 above: the WH body above 128 and its
+WX form above 256; a width between them runs on operands padded with
+zeros, `pad_head`, which changes no output), and a block's shared memory
+within 227 KB; the routers (`train/rollout.py` `routes`) send any other
+config down the step-fused path.
 
 The static keys `se` are [B, T, h]: a column's keys are one contiguous row
 (the JAX kernel's [T, h, B] transposed), built once per rollout.
@@ -85,7 +87,7 @@ from tapnet_torch.ops.policy_step import (MAX_WD, _check, env_ints,
 NEG = -1e9
 MAX_C = 4  # csrc/actor_step.cu
 MAX_N = 62  # two 31-bit precedence limbs
-MAX_H = 256  # hidden: a multiple of 32, at most 256
+MAX_H = 512  # hidden: at most 512 (`kernel_width`)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may hold
 TB = 32   # csrc/actor_step.cu: instances per block
 WPS = 40  # csrc/actor_step.cu: bfloat16 row stride of the staged Wp
@@ -102,17 +104,25 @@ def rounder(dtype):
     return lambda x: x.to(dtype).float()
 
 
+def kernel_width(h: int) -> int:
+    """The width the kernels run hidden h at: h rounded up to a multiple of
+    32 up to 256, of 64 above (the WX products split the rows into two
+    halves of a multiple of 32). The head operands of another width are
+    padded to it with zeros (`pad_head`): hidden 48 does the work of 64."""
+    return -(-h // 32) * 32 if h <= 256 else -(-h // 64) * 64
+
+
 def geometry(h: int) -> dict:
     """The head's geometry at hidden width h (csrc/geo.cuh `Geo`, shared
     by csrc/actor_step.cu and csrc/replay.cu): up to 128 one pass over the
     tile's 32 instances, above (the replay's head) two passes of 16
     (`tp`), with the row stride of their [feature][instance] arrays
-    (`lp`), the token group (`g` columns) and the float32 weight slice
-    (`ks` rows)."""
-    wide = h > 128
-    tp = 16 if wide else TB
-    return {"tp": tp, "lp": tp + 1, "g": 32 if wide else 64,
-            "ks": 32 if wide else 64}
+    (`lp`), the token group (`g` columns), the float32 weight slice (`ks`
+    rows) and the products' row halves (`nh`: two above 256, WX)."""
+    wc = 0 if h <= 128 else 1 if h <= 256 else 2
+    tp = 16 if wc else TB
+    return {"tp": tp, "lp": tp + 1, "g": (64, 32, 16)[wc],
+            "ks": (64, 32, 16)[wc], "nh": 2 if wc == 2 else 1}
 
 
 def _covers_config(cfg: TAPConfig) -> bool:
@@ -125,14 +135,15 @@ def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     """Configs the kernel covers at hidden width h and compute dtype
     `dtype`: unbounded height and bitmask-size precedence (N <= 62), as the
     JAX kernel (rolling windows are cut inside the kernel); the port's own
-    limits: float32 or bfloat16, at most 4 containers, W*D <= 256 cells, h
-    a multiple of 32 up to 256 and a block that fits in shared memory
-    (`smem_bytes`). The shipped configs fit at every such h; the plan
-    holds each container's queries for the whole tile, so with 3 or 4
-    containers (float32 2d-rolling: 2) the widest widths do not fit
-    (tests/test_torch_k2_wide.py `FIRST_MISS`) and take the next route."""
-    return (dtype in DTYPES and _covers_config(cfg) and h % 32 == 0
-            and 0 < h <= MAX_H and smem_bytes(cfg, h, dtype) <= SMEM_LIMIT)
+    limits: float32 or bfloat16, at most 4 containers, W*D <= 256 cells,
+    1 <= h <= 512 (run at `kernel_width(h)` on padded operands) and a block
+    that fits in shared memory (`smem_bytes`). The shipped configs fit at
+    every such h; up to 256 the plan holds each container's queries for
+    the whole tile, so with 3 or 4 containers (float32 2d-rolling: 2) the
+    widest of those widths do not fit (tests/test_torch_k2_wide.py
+    `FIRST_MISS`) and take the next route."""
+    return (dtype in DTYPES and _covers_config(cfg) and 0 < h <= MAX_H
+            and smem_bytes(cfg, kernel_width(h), dtype) <= SMEM_LIMIT)
 
 
 def _check_cfg(cfg: TAPConfig, h: int = None, dtype=F32):
@@ -145,12 +156,15 @@ def _check_cfg(cfg: TAPConfig, h: int = None, dtype=F32):
     if dtype not in DTYPES:
         raise NotImplementedError(
             f"actor_select_step computes in float32 or bfloat16, not {dtype}")
-    if h is not None and not eligible(cfg, h, dtype):
+    if h is not None and (h != kernel_width(h) or not eligible(cfg, h,
+                                                                dtype)):
         raise NotImplementedError(
             f"actor_select_step kernel covers a hidden width that is a "
-            f"multiple of 32 up to {MAX_H} with at most {SMEM_LIMIT} B of "
-            f"shared memory per block, not hidden {h} "
-            f"({smem_bytes(cfg, h, dtype)} B in {dtype}) on {cfg}")
+            f"multiple of 32 up to 256 or of 64 up to {MAX_H} (pad_head "
+            f"pads the others) with at most {SMEM_LIMIT} B of shared "
+            f"memory per block, not hidden {h} "
+            f"({smem_bytes(cfg, kernel_width(h), dtype)} B in {dtype}) on "
+            f"{cfg}")
 
 
 def _num_limbs(N: int) -> int:
@@ -217,23 +231,93 @@ def _smem_bytes_wh(cfg: TAPConfig, h: int, tc: bool) -> int:
     [h][33] (bfloat16: copies [rows16][32] and [h][32] only), then the
     largest of the token view (G = 32), the weight ring's RING_S stages of
     h x RING_K bfloat16 and phase 0's and 3's rows, then the ring's
-    mbarriers and counts and the 32 query columns."""
+    mbarriers and counts and the 32 query columns. Above 256 (WX) the
+    queries and the float X and e1 are in the block's scratch in device
+    memory (`wx_scratch`), G = 16, and a stage holds a row half (h / 2
+    rows)."""
     up4 = lambda x: (x + 3) & ~3
     N, R, C = cfg.num_blocks, cfg.num_rot, cfg.num_containers
     WD = cfg.target_width * cfg.target_depth
-    T, A, G, LD = N * R, N * R * C, 32, TB + 1
+    geo = geometry(h)
+    wx = geo["nh"] == 2
+    T, A, G, LD = N * R, N * R * C, geo["g"], TB + 1
     XR = wh_rows(WD, h)
     enc = (((XR + 15) // 16 * 16 + h) * 16 if tc
-           else up4((XR + h) * LD))
+           else 0 if wx else up4((XR + h) * LD))
     tok = 8 * G + 32 * (G + 4) + G * (h + 4) if tc else 40 * G
     floats = (up4(h * WPS // 2 if tc else 32 * h) + 256 + 32 + up4(h)
-              + up4(C * h * LD) + A * TB + enc
-              + max(tok, RING_S * h * RING_K // 2,
+              + (0 if wx else up4(C * h * LD)) + A * TB + enc
+              + max(tok, RING_S * (h // geo["nh"]) * RING_K // 2,
                     (N + 2 * _num_limbs(N) * N + R * N) * TB,
                     (13 + 8 * 16 + C * WD + 3 * N) * TB)
               + up4(3 * RING_S + TB))
     ints = 12 * TB + 4 * TB + TB + 2 + TB * T
     return 4 * (floats + ints)
+
+
+def wx_scratch(cfg: TAPConfig, h: int, dtype=F32) -> int:
+    """Floats of one block's scratch in device memory above hidden 256
+    (csrc/actor_step.cu `wx_scratch`): the C queries [h][33], then in
+    float32 the encoder view X [wh_rows][33] and e1 [h][33] (bfloat16
+    keeps its copies in shared memory); 0 up to 256."""
+    if h <= 256:
+        return 0
+    up4 = lambda x: (x + 3) & ~3
+    WD = cfg.target_width * cfg.target_depth
+    return (up4(cfg.num_containers * h * (TB + 1))
+            + (0 if dtype == torch.bfloat16
+               else up4((wh_rows(WD, h) + h) * (TB + 1))))
+
+
+def pad_head(params, hk: int):
+    """The head operands (`head_operands` order) of hidden width h padded
+    with zeros to the width hk >= h the kernels run it at (`kernel_width`):
+    the rows of Wp, W1, b1, W2, b2, E, Wq, bq and v, W2's columns and each
+    of Wq's three h-wide column blocks (enc, ctx, embedding; the 8 dsum
+    columns stay last). Inside K2 and K5 the head is affine maps, ReLU and
+    tanh with no normalisation over the hidden axis, so a padded unit is 0
+    everywhere (relu(0) = tanh(0) = 0, its v is 0): every score, log pi and
+    the real units' values and gradients are those of hidden h (up to the
+    order of f32 sums), and the pads' gradients are exactly 0. The
+    operands themselves when hk = h."""
+    h = params[8].shape[0]
+    if hk == h:
+        return tuple(params)
+    F = torch.nn.functional
+    rows = lambda t: F.pad(t, (0, 0, 0, hk - h))
+    w2 = F.pad(params[5], (0, hk - h, 0, hk - h))
+    wq = params[8]
+    blk = [F.pad(wq[:, i * h:(i + 1) * h], (0, hk - h)) for i in range(3)]
+    wq = rows(torch.cat(blk + [wq[:, 3 * h:]], 1))
+    return (params[0], params[1], rows(params[2]), rows(params[3]),
+            rows(params[4]), w2, rows(params[6]), rows(params[7]), wq,
+            rows(params[9]), rows(params[10]))
+
+
+def unpad_head(grads, h: int):
+    """The gradients of `pad_head`'s operands sliced back to hidden h (the
+    inverse of its padding)."""
+    hk = grads[8].shape[0]
+    if hk == h:
+        return tuple(grads)
+    g = list(grads)
+    for i in (2, 3, 4, 6, 7, 9, 10):
+        g[i] = g[i][:h]
+    g[5] = g[5][:h, :h]
+    wq = g[8][:h]
+    g[8] = torch.cat([wq[:, i * hk:i * hk + h] for i in range(3)]
+                     + [wq[:, 3 * hk:]], 1)
+    return tuple(g)
+
+
+def pad_hidden(x, hk: int, dim: int):
+    """x padded with zeros along `dim` (its hidden axis) to width hk: se
+    and ctx at the kernels' width."""
+    n = hk - x.shape[dim]
+    if n == 0:
+        return x
+    pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [0, n]
+    return torch.nn.functional.pad(x, pad)
 
 
 def head_operands(actor, cfg: TAPConfig, dtype=F32, grad: bool = False):
@@ -357,35 +441,43 @@ def ring_slabs(params, h: int):
     W2 and Wq' in the 3xTF32 products' A-fragment order, a slab
     [h / 16][2][32 lanes][4]: for row tile m, half f and lane 4 g + t, the
     columns 4 t .. 4 t + 3 of the slab's 16 in row 16 m + 8 f + g.
+    Above 256 (WX) each matrix is its two row halves' slabs (h / 2 rows
+    each, laid out alike), the first half's then the second's.
     Returned as bfloat16 (float32 slabs reinterpreted), as the kernel's
     pointer 40 takes them."""
-    mats = (params[3], params[5], wq_prime(params))
+    nh = geometry(h)["nh"]
+    hr = h // nh
     out = []
-    for i, w in enumerate(mats):
-        K = w.shape[1]
-        sk = RING_K if w.dtype == torch.bfloat16 else KR
-        ns = -(-K // sk)
-        wp = torch.nn.functional.pad(w, (0, ns * sk - K))
-        if w.dtype == torch.bfloat16:
-            out.append(wp.reshape(-1)[_swizzle_index(h, ns, w.device)])
-            continue
-        if i == 0:
-            slab = wp.T                                        # [ns KR][h]
-        else:  # [s][m][f][g][t][e] = W[16 m + 8 f + g][16 s + 4 t + e]
-            slab = wp.reshape(h // 16, 2, 8, ns, 4, 4).permute(3, 0, 1, 2,
-                                                               4, 5)
-        out.append(slab.contiguous().view(torch.bfloat16).reshape(-1))
+    for i, wm in enumerate((params[3], params[5], wq_prime(params))):
+        for w in wm.chunk(nh, 0):
+            K = w.shape[1]
+            sk = RING_K if w.dtype == torch.bfloat16 else KR
+            ns = -(-K // sk)
+            wp = torch.nn.functional.pad(w, (0, ns * sk - K))
+            if w.dtype == torch.bfloat16:
+                out.append(wp.reshape(-1)[_swizzle_index(hr, ns, w.device)])
+                continue
+            if i == 0:
+                slab = wp.T                                    # [ns KR][hr]
+            else:  # [s][m][f][g][t][e] = W[16 m + 8 f + g][16 s + 4 t + e]
+                slab = wp.reshape(hr // 16, 2, 8, ns, 4, 4).permute(
+                    3, 0, 1, 2, 4, 5)
+            out.append(slab.contiguous().view(torch.bfloat16).reshape(-1))
     return torch.cat(out)
 
 
-def wide_operands(params, ctx):
+def wide_operands(params, ctx, cfg: TAPConfig):
     """What a WH step reads that is made once per rollout: (qctx, qemb)
-    from `query_parts` and the `ring_slabs`; None at hidden <= 128 or on
-    CPU tensors (the plain versions compute the query whole)."""
+    from `query_parts`, the `ring_slabs` and, above 256, the blocks'
+    scratch (`wx_scratch` floats a block of TB instances; empty up to
+    256); None at hidden <= 128 or on CPU tensors (the plain versions
+    compute the query whole)."""
     h = params[8].shape[0]
     if h <= 128 or not ctx.is_cuda:
         return None
-    return (*query_parts(params, ctx), ring_slabs(params, h))
+    n = -(-ctx.shape[1] // TB) * wx_scratch(cfg, h, ctx.dtype)
+    return (*query_parts(params, ctx), ring_slabs(params, h),
+            torch.empty(n, dtype=torch.float32, device=ctx.device))
 
 
 def precedence_bitmasks(instances, cfg: TAPConfig):
@@ -637,12 +729,14 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
     if h > 128:
         if wide is None:
             raise ValueError("above hidden 128 the kernel reads "
-                             "wide_operands(params, ctx)")
+                             "wide_operands(params, ctx, cfg)")
         sk = RING_K if cdt == torch.bfloat16 else KR
         n = sum(-(-k // sk) for k in (WD + 2, h, h + 8)) * h * RING_K
         shapes += [("qctx", wide[0], (h, B), f32),
                    ("qemb", wide[1], (h, A + 1), f32),
-                   ("slabs", wide[2], (n,), torch.bfloat16)]
+                   ("slabs", wide[2], (n,), torch.bfloat16),
+                   ("scratch", wide[3],
+                    (-(-B // TB) * wx_scratch(cfg, h, cdt),), f32)]
     for name, t, shape, dt in shapes:
         _check(t, name, shape, dt, dev)
     outs = (torch.empty_like(packed), torch.empty_like(hm),
@@ -657,7 +751,7 @@ def _launch(ops, cfg: TAPConfig, temperature: float, logits: bool,
          g, se, ctx, statp, statm) + tuple(params)
         + tuple(none if o is None else o for o in outs)
         + (tuple(params_t) if params_t is not None else (none,) * 3)
-        + (tuple(wide) if wide is not None else (none,) * 3))
+        + (tuple(wide) if wide is not None else (none,) * 4))
     ints = _build.int_array([B] + env_ints(cfg)
                             + [h, cfg.window, int(logits),
                                int(cdt == torch.bfloat16)])
@@ -678,7 +772,7 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
     dtype of se picks the float32 or the bfloat16 instantiation.
     params_t: `transposed(params)`, which only the float32 instantiation
     reads, at hidden <= 128 (ignored above); wide: `wide_operands(params,
-    ctx)`, which the kernel reads above 128 (each made here when needed
+    ctx, cfg)`, which the kernel reads above 128 (each made here when needed
     and not given; the plain versions read neither)."""
     ops = (tf, packed, hm, plc, prev, dims_w, dims_d, dims_h, upm, rotm,
            fits, g, se, ctx, statp, statm, params)
@@ -690,7 +784,7 @@ def actor_select_step(tf, packed, hm, plc, prev, dims_w, dims_d, dims_h,
         if se.dtype == F32 and params_t is None and se.shape[2] <= 128:
             params_t = transposed(params)
         if wide is None:
-            wide = wide_operands(params, ctx)
+            wide = wide_operands(params, ctx, cfg)
         outs, err = _launch(ops, cfg, temperature, logits, params_t, stream,
                             wide)
     actor_select_step.launches += 1

@@ -44,8 +44,12 @@ rounded forward and the float32 values of the bfloat16 weights, as
 to its operand's dtype, as the JAX `_bwd_impl` does).
 
 Coverage: every unbounded or capped config with N <= 62, at most 4
-containers and a hidden width that is a multiple of 32 up to 256 whose
-shared-memory plan fits a block (`eligible`). A rolling window enters the
+containers and a hidden width up to 512 whose shared-memory plan fits a
+block (`eligible`). The kernels take the multiples of 32 up to 256 and of
+64 above (`actor_step.kernel_width`; above 256 the WX form of the head,
+csrc/geo.cuh); `ReplayLogp` runs any other width on operands padded with
+zeros to the next of them (`actor_step.pad_head`) and slices the
+gradients back, which changes no value. A rolling window enters the
 replay only through the recorded flag bit 3 and the recorded mask: a token
 outside the window is masked to -1e9, which is the windowed softmax
 exactly, and is not a live column.
@@ -62,13 +66,14 @@ from tapnet_torch.config import TAPConfig
 from tapnet_torch.models.features import _scale
 from tapnet_torch.ops import _build
 from tapnet_torch.ops.actor_step import (DTYPES, F32, geometry, head_shapes,
-                                         rounder, transposed)
+                                         kernel_width, pad_head, pad_hidden,
+                                         rounder, transposed, unpad_head)
 from tapnet_torch.ops.policy_step import _check
 
 NEG = -1e9
 MAX_C = 4
 TB = 32                            # csrc/replay.cu: instances per block
-MAX_H = 256                        # hidden: a multiple of 32, at most 256
+MAX_H = 512                        # hidden: at most 512 (`kernel_width`)
 SMEM_LIMIT = 232448                # bytes of shared memory a block may hold
 
 
@@ -102,12 +107,17 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
     as two bfloat16 slabs of 72 h floats in the token view; above 128 the
     weight ring's RING_S stages of h RING_K bfloat16 there, its mbarriers
     and counts behind the token view, and d_prev and dq in the forward
-    too (with them the room of the products' bfloat16 B operands)."""
+    too (with them the room of the products' bfloat16 B operands). Above
+    256 (WX) q, dq and the encoder view are in the block's scratch in
+    device memory (`wx_scratch`), the bfloat16 copies of the ring
+    products' B operands in shared memory of their own (`_wx_xs`), G = 16
+    and a ring stage holds a row half (h / 2 rows)."""
     if steps is None:
         steps = _steps_grid(cfg)
     tc = dtype == torch.bfloat16
     geo = geometry(h)
     G, LP = geo["g"], geo["lp"]
+    wx = geo["nh"] == 2
     C, T = cfg.num_containers, cfg.num_blocks * cfg.num_rot
     WD = cfg.target_width * cfg.target_depth
     up4 = lambda x: (x + 3) & ~3
@@ -115,30 +125,52 @@ def smem_bytes(cfg: TAPConfig, h: int, bwd: bool, steps=None,
            + (G * (h + 4) if bwd or tc else 0) + (32 * G if bwd else 0))
     ring = tc and h > 128
     if tc:
-        slabs = RING_S * h * RING_K // 2 if ring else 72 * h
+        slabs = RING_S * (h // geo["nh"]) * RING_K // 2 if ring else 72 * h
     else:
         slabs = geo["ks"] * h
+    head = (up4(h * LP) * (2 if bwd or ring else 1)
+            + up4((WD + 2 + h + 3 * h + 8 + (h if bwd or ring else 0)) * LP))
     floats = (up4(20 * h if tc else 32 * h) + 256 + 32 + up4(h)
-              + up4(h * LP) * (2 if bwd or ring else 1) + up4(TB * T * C)
-              + up4((WD + 2 + h + 3 * h + 8 + (h if bwd or ring else 0))
-                    * LP)
+              + (0 if wx else head) + up4(TB * T * C)
+              + (_wx_xs(h) if wx and ring else 0)
               + max(tok, slabs, (cfg.num_blocks + T) * TB)
               + (up4(3 * RING_S) if ring else 0))
     ints = (8 if steps else 4) * TB + 5 * TB + 2 + TB * T
     return 4 * (floats + ints)
 
 
+def _wx_xs(h: int) -> int:
+    """Floats of the bfloat16 copies of the ring products' B operands above
+    hidden 256 (csrc/replay.cu `wx_xs`): A/B's qin [FQ16][16] and e1
+    [h][16], or E's four [h][16], bfloat16, and 16 bytes of alignment."""
+    ab, e = 16 * ((3 * h + 8 + 15) // 16 * 16 + h), 64 * h
+    return max(ab, e) // 2 + 4
+
+
+def wx_scratch(cfg: TAPConfig, h: int) -> int:
+    """Floats of one block's scratch in device memory above hidden 256
+    (csrc/replay.cu `wx_scratch`): q and dq [h][17], then the encoder view
+    feats [W*D+2][17], e1 [h][17], qin [3h+8][17] and d_prev [h][17]; 0 up
+    to 256."""
+    if h <= 256:
+        return 0
+    up4 = lambda x: (x + 3) & ~3
+    WD2 = cfg.target_width * cfg.target_depth + 2
+    return 2 * up4(h * 17) + up4((WD2 + 5 * h + 8) * 17)
+
+
 def eligible(cfg: TAPConfig, h: int = 128, dtype=F32) -> bool:
     """Configs the replay kernels cover: float32 or bfloat16, N <= 62
     (N > 31 and rolling windows on the step-grid schedule), C <= 4, hidden
-    a multiple of 32 up to 256 (above 128 the head runs in two passes of 16
-    instances, `actor_step.geometry`), and a backward block of the dtype's
-    plan that fits. A finite height cap is covered: the mask is the
-    recorded one."""
+    1 .. 512 (run at `kernel_width(h)` on padded operands; above 128 the
+    head runs in two passes of 16 instances, above 256 over the weights'
+    row halves, `actor_step.geometry`), and a backward block of the
+    dtype's plan that fits. A finite height cap is covered: the mask is
+    the recorded one."""
     return (dtype in DTYPES and cfg.num_blocks <= MAX_N
-            and cfg.num_containers <= MAX_C
-            and h % 32 == 0 and 0 < h <= MAX_H
-            and smem_bytes(cfg, h, True, dtype=dtype) <= SMEM_LIMIT)
+            and cfg.num_containers <= MAX_C and 0 < h <= MAX_H
+            and smem_bytes(cfg, kernel_width(h), True, dtype=dtype)
+            <= SMEM_LIMIT)
 
 
 def _check_cfg(cfg: TAPConfig, h: int, steps: bool, dtype=F32):
@@ -149,12 +181,13 @@ def _check_cfg(cfg: TAPConfig, h: int, steps: bool, dtype=F32):
         raise NotImplementedError(
             "replay_logp: the monolithic schedule holds N <= 31; N > 31 "
             "runs the step-grid schedule (replay_logp_fwd_steps)")
-    smem = smem_bytes(cfg, h, True, steps, dtype)
-    if not eligible(cfg, h, dtype):
+    smem = smem_bytes(cfg, kernel_width(h), True, steps, dtype)
+    if h != kernel_width(h) or not eligible(cfg, h, dtype):
         raise NotImplementedError(
             f"replay_logp kernels cover N <= {MAX_N} and C <= {MAX_C} at a "
-            f"hidden width that is a multiple of 32 up to {MAX_H}, with at "
-            f"most {SMEM_LIMIT} B of shared memory per block, not {cfg} at "
+            f"hidden width that is a multiple of 32 up to 256 or of 64 up to "
+            f"{MAX_H} (ReplayLogp pads the others), with at most "
+            f"{SMEM_LIMIT} B of shared memory per block, not {cfg} at "
             f"hidden {h} ({smem} B); pass kernel=False")
 
 
@@ -648,20 +681,27 @@ def _ring_index(h: int, K1: int, device) -> tuple:
     [M][K] becomes slabs of RING_K columns, K padded with the zero: per
     slab its M rows of RING_K values, the 16-byte chunks of row r swizzled
     (chunk ch at position ch ^ ((r >> 1) & 3)), so that the 8 rows of an
-    ldmatrix matrix fall in 8 bank groups without a pad. Built with device
-    operations, once per width and device."""
+    ldmatrix matrix fall in 8 bank groups without a pad. Above hidden 256
+    (WX) a matrix's M rows are two halves, each its own slabs of M / 2 rows
+    (the first half's, then the second's; each of Wq^T's blocks so). Built
+    with device operations, once per width and device."""
     FQ = 3 * h + 8
     o2, o3 = h * K1, h * K1 + h * h
     zero = o3 + h * FQ
+    nh = geometry(h)["nh"]
+    hr = h // nh
     ar = lambda n: torch.arange(n, device=device)
 
     def slabs(K, at, lead=1):
         ns, nch = -(-K // RING_K), RING_K // 8
-        u = ar(lead)[:, None, None, None, None]
-        s = ar(ns)[None, :, None, None, None]
-        r = ar(h)[None, None, :, None, None]
-        ch = ar(nch)[None, None, None, :, None] ^ ((r >> 1) & (nch - 1))
-        k = s * RING_K + 8 * ch + ar(8)[None, None, None, None, :]
+        u = ar(lead)[:, None, None, None, None, None]
+        q = ar(nh)[None, :, None, None, None, None]
+        s = ar(ns)[None, None, :, None, None, None]
+        rr = ar(hr)[None, None, None, :, None, None]
+        r = q * hr + rr
+        ch = ar(nch)[None, None, None, None, :, None] ^ ((rr >> 1)
+                                                        & (nch - 1))
+        k = s * RING_K + 8 * ch + ar(8)[None, None, None, None, None, :]
         return torch.where(k < K, at(u, r, k.clamp(max=K - 1)),
                            zero).reshape(-1)
 
@@ -688,6 +728,14 @@ def ring_operands(params, h: int):
     return torch.split(src[idx], sizes)
 
 
+def _scratch(cfg, B, h, chunks, dev):
+    """The blocks' scratch above hidden 256 (pointer 39): one `wx_scratch`
+    a block of the grid (tiles x chunks); empty at other widths."""
+    blocks = -(-B // TB) * max(chunks, 1)
+    return torch.empty(blocks * wx_scratch(cfg, h), dtype=torch.float32,
+                       device=dev)
+
+
 def _se_rows(se):
     """se [T, h, B] as [B, T, h]: a live column's keys are one contiguous
     row, gathered coalesced by the kernels."""
@@ -707,7 +755,8 @@ def _fwd_kernel(ops, prev, cfg, temperature, chunks):
             + (logp, none, none, none, none,
                none if prev is None else prev, part, none, none)
             + transposed(params) + (none, none)
-            + ring_operands(params, h))
+            + ring_operands(params, h)
+            + (_scratch(cfg, B, h, chunks, dev),))
     before = _helper_counts()
     err = _launch(False, ptrs, cfg, B, h, temperature, dev, chunks,
                   se.dtype)
@@ -753,7 +802,8 @@ def _bwd_kernel(dlp, ops, prev, cfg, temperature, chunks):
             + (none, dse, dctx, part, flat,
                none if prev is None else prev, none, dse_part, dctx_part)
             + transposed(params) + (rec, sflag)
-            + ring_operands(params, h))
+            + ring_operands(params, h)
+            + (_scratch(cfg, B, h, chunks, dev),))
     before = _helper_counts()
     err = _launch(True, ptrs, cfg, B, h, temperature, dev, chunks, se.dtype)
     _count_helpers(before)  # the helper kernels this launch ran
@@ -885,15 +935,16 @@ def scratch_bytes(cfg: TAPConfig, B: int, h: int, dtype=F32) -> dict:
     """Device scratch of one step-grid backward call, in bytes: the [B, T,
     h] copy of se (float32: the bfloat16 one is half), the d_se partials
     (one per chunk), the d_ctx partials (none for one chunk), the
-    weight-gradient partial rows and the records of the deferred weight
+    weight-gradient partial rows, the records of the deferred weight
     gradients (the bfloat16 backward, and the float32 one above hidden
-    128: `record_floats`)."""
+    128: `record_floats`) and, above hidden 256, the blocks' head arrays
+    (`wx_scratch`)."""
     chunks = step_chunks(cfg, B)
     tiles = (B + TB - 1) // TB
     T = cfg.num_blocks * cfg.num_rot
     P = sum(a * b for a, b in head_shapes(cfg, h))
     rows, length = tiles * chunks, _steps_per_row(cfg, chunks)
-    return {"chunks": chunks,
+    return {"chunks": chunks, "head_scratch": 4 * rows * wx_scratch(cfg, h),
             "se_rows": (2 if dtype == torch.bfloat16 else 4) * B * T * h,
             "d_se_partials": 4 * chunks * T * h * B,
             "d_ctx_partials": 4 * chunks * h * B * (chunks > 1),
@@ -915,7 +966,13 @@ class ReplayLogp(torch.autograd.Function):
 
     With `logp0` (a tensor [B]) the forward returns it and launches
     nothing; the gradients are the same either way, since the backward
-    re-runs the head itself."""
+    re-runs the head itself.
+
+    A hidden width the kernels do not take (`kernel_width(h)` != h: 48,
+    100, 288, ...) runs on se, ctx and the head operands padded with zeros
+    to the kernels' width (`_padded`, once a call), and the gradients are
+    sliced back to h: the pads add exact zeros to every value, and their
+    own gradients are exactly 0."""
 
     @staticmethod
     def forward(ctx_, cfg, temperature, logp0, flags, hms, masks, acts,
@@ -925,6 +982,7 @@ class ReplayLogp(torch.autograd.Function):
                                ctx, *params)
         if logp0 is not None:
             return logp0.detach().clone()
+        se, ctx, params = _padded(se, ctx, params)
         if _steps_grid(cfg):
             return replay_logp_fwd_steps(flags, hms, masks, acts,
                                          _prev_rows(acts), se, ctx, statp,
@@ -934,9 +992,11 @@ class ReplayLogp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx_, dlp):
-        flags, hms, masks, acts, statp, statm, se, ctx, *params = \
+        flags, hms, masks, acts, statp, statm, se0, ctx0, *params0 = \
             ctx_.saved_tensors
         dlp = dlp.contiguous().float()
+        h = se0.shape[1]
+        se, ctx, params = _padded(se0, ctx0, params0)
         if _steps_grid(ctx_.cfg):
             dse, dctx, dparams = replay_logp_bwd_steps(
                 dlp, flags, hms, masks, acts, _prev_rows(acts), se, ctx,
@@ -945,10 +1005,23 @@ class ReplayLogp(torch.autograd.Function):
             dse, dctx, dparams = replay_logp_bwd(
                 dlp, flags, hms, masks, acts, se, ctx, statp, statm,
                 tuple(params), ctx_.cfg, ctx_.temperature)
-        grads = [g.to(x.dtype) for g, x in zip((dse, dctx, *dparams),
-                                               (se, ctx, *params))]
+        dse, dctx = dse[:, :h], dctx[:h]
+        grads = [g.to(x.dtype) for g, x in zip(
+            (dse, dctx, *unpad_head(dparams, h)), (se0, ctx0, *params0))]
         return (None, None, None, None, None, None, None, None, None,
                 *grads)
+
+
+def _padded(se, ctx, params):
+    """se [T, h, B], ctx [h, B] and the head operands padded with zeros to
+    the kernels' width `kernel_width(h)` (themselves when it is h)."""
+    h = se.shape[1]
+    hk = kernel_width(h)
+    if hk == h:
+        return se, ctx, tuple(params)
+    return (pad_hidden(se, hk, 1).contiguous(),
+            pad_hidden(ctx, hk, 0).contiguous(),
+            tuple(p.contiguous() for p in pad_head(params, hk)))
 
 
 # ------------------------------------------------------------------ #
@@ -962,6 +1035,13 @@ GO_NT, GO_NX, GO_RS, GO_NB, GO_SL = 128, 136, 5, 3, 40  # csrc/replay.cu:
 #   stages: `grad_outer_bf16_plan`)
 
 
+def go_rows(h: int) -> int:
+    """Rows of G one block of `grad_outer_tf32` / `grad_outer` takes
+    (csrc/replay.cu `go_rows`): all h up to 256, a row half above (the
+    grid's third axis)."""
+    return h // 2 if h > 256 else h
+
+
 def grad_outer_smem(h: int) -> int:
     """Bytes of dynamic shared memory of one `grad_outer_tf32` block at
     hidden h, as csrc/replay.cu `go_plan` lays it out: GO_RS raw stages
@@ -969,7 +1049,9 @@ def grad_outer_smem(h: int) -> int:
     aligned), GO_NB buffers of the split B tile (hi and lo), the
     mbarriers, the count and the list of acting steps, a [16][GO_SL]
     float staging array a warp, and the slack of aligning the base to
-    1024 bytes."""
+    1024 bytes. Above hidden 256 a block takes a row half of G (`go_rows`),
+    and the plan is that of h / 2."""
+    h = go_rows(h)
     row, wg = 16 * 4, -(-h // 64)
     stage = (h * row + GO_NX * row + 1023) & ~1023
     return (GO_RS * stage + GO_NB * 2 * GO_NX * row + 8 * GO_RS + 16
@@ -984,7 +1066,9 @@ def grad_outer_bf16_plan(h: int) -> dict:
     rows: up to GO_NX of 64 bytes, the two passes' runs 64 bytes apart;
     1024-byte aligned), a B tile, and the block's whole plan ("bytes": the
     ring, GO_NB B tiles, the mbarriers, the count and the list of acting
-    steps and the slack of aligning the base to 1024 bytes)."""
+    steps and the slack of aligning the base to 1024 bytes). Above hidden
+    256 a block takes a row half of G (`go_rows`): the plan of h / 2."""
+    h = go_rows(h)
     p = {"wg": -(-h // 64), "rs": 3 if h <= 128 else 4, "g": h * 32 * 4,
          "b": GO_NX * 64}
     p["stage"] = (p["g"] + GO_NX * 64 + 64 + 1023) & ~1023
@@ -1083,7 +1167,7 @@ def _grad_outer(rec, sflag, cfg, h, length, part, dtype):
     on given records; checks the operands, returns the views of part."""
     bf = dtype == torch.bfloat16
     name = "grad_outer_bf16" if bf else "grad_outer_tf32"
-    if h < (32 if bf else 160) or h > MAX_H or h % 32:
+    if h < (32 if bf else 160) or h > MAX_H or h != kernel_width(h):
         raise NotImplementedError(f"{name}: hidden {h}")
     rows, dev = sflag.numel() // length, rec.device
     _check(rec, "rec", (rows * length * cfg.num_containers

@@ -238,7 +238,8 @@ def replay_source(src: str) -> str:
         text = _once(src, texts)
         src = src.replace(text, text + mark.format(k) if after
                           else mark.format(k) + text)
-    start = _once(src, ("  const Lay L = layout<WH>(d, BWD",
+    start = _once(src, ("  const Lay L = layout<WC>(d, BWD",
+                        "  const Lay L = layout<WH>(d, BWD",
                         "  const Lay L = layout(d, BWD"))
     src = src.replace(start, f"  long long prof_acc[{KSLOTS}] = {{0}}; "
                       "long long prof_last = clock64();\n" + start)

@@ -374,7 +374,10 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     ring's slabs (once) and the gumbel sweep run as PyTorch ops; above hidden 128 the
     query's step-invariant part is one `query_parts` launch a rollout.
     The float operands are in the compute dtype `dtype` (the head's v and
-    the gumbel stay float32), which picks the kernel's instantiation."""
+    the gumbel stay float32), which picks the kernel's instantiation. A
+    hidden width the kernel does not take runs at `kernel_width` on se,
+    ctx and head operands padded with zeros once a rollout (`pad_head`),
+    which changes no output."""
     B = instances.dims.shape[0]
     dev = instances.dims.device
     N, R_, A = cfg.num_blocks, cfg.num_rot, cfg.num_actions
@@ -389,9 +392,14 @@ def _rollout_record_actorfused(actor, instances, keys, cfg, greedy,
     upm, rotm = AS.precedence_bitmasks(instances, cfg)
     fits = AS.fits_planes(instances, cfg)
     params = AS.head_operands(actor, cfg, dtype)
+    hk = AS.kernel_width(actor.hidden)
+    if hk != actor.hidden:  # the kernel's width: zero units, once
+        params = AS.pad_head(params, hk)
+        se = AS.pad_hidden(se, hk, 2).contiguous()
+        ctx = AS.pad_hidden(ctx, hk, 0).contiguous()
     params_t = (AS.transposed(params) if dtype == torch.float32
                 and params[8].shape[0] <= 128 else None)
-    wide = AS.wide_operands(params, ctx)  # above hidden 128, on the card
+    wide = AS.wide_operands(params, ctx, cfg)  # above 128, on the card
     (dw, dd, dh), packed, hm, plc = _batch_last(instances, cfg)
     g_all = (torch.zeros((N, A, B), device=dev) if greedy
              else _gumbel_all(keys, cfg).transpose(1, 2).contiguous())

@@ -32,7 +32,7 @@ import chip_smoke as CS
 from tapnet_torch import grad_witness as GW
 from tapnet_torch.config import CONFIGS
 from tapnet_torch.ops import replay as RP
-from tapnet_torch.ops.actor_step import geometry
+from tapnet_torch.ops.actor_step import geometry, kernel_width
 
 SRC = Path(RP.__file__).resolve().parent.parent / "csrc" / "replay.cu"
 BF = torch.bfloat16
@@ -168,9 +168,10 @@ def test_grad_outer_bf16_model(name, h, B):
 
 
 def test_grad_outer_bf16_plan_fits_every_routed_config():
-    """At every hidden width 32-256 and every config the replay router
-    sends to the bfloat16 kernels, a grad_outer block's plan fits the 227
-    KB a block may hold, and two of them an SM (228 KB, 1 KB reserved a
+    """At every hidden width the kernels take (32-256, and 320-512, where a
+    block takes a row half of G, `go_rows`) and every config the replay
+    router sends to the bfloat16 kernels, a grad_outer block's plan fits
+    the 227 KB a block may hold, and two of them an SM (228 KB, 1 KB reserved a
     block) at h <= 128; A's reads of the last warpgroup's rows past h stay
     in the raw stage and the stores' staging arrays fit in the ring; the
     bulk copies' sources and sizes are 16-byte multiples and the B tiles
@@ -186,8 +187,10 @@ def test_grad_outer_bf16_plan_fits_every_routed_config():
     assert (f"static_assert(gb_plan(128).bytes == {p128['bytes']} && "
             f"gb_plan(256).bytes == {p256['bytes']}") in src
     routed = 0
-    for h in range(32, RP.MAX_H + 1, 32):
+    widths = [h for h in range(32, RP.MAX_H + 1, 32) if kernel_width(h) == h]
+    for h in widths:
         p = RP.grad_outer_bf16_plan(h)
+        rows = RP.go_rows(h)  # of G, a block
         assert p["bytes"] <= RP.SMEM_LIMIT, h
         if h <= 128:
             assert 2 * (p["bytes"] + 1024) <= 228 * 1024, h
@@ -195,7 +198,7 @@ def test_grad_outer_bf16_plan_fits_every_routed_config():
         # A's rows: [64 wg][32] f32 (h <= 128) or the second pass's
         # [64 wg][16] from h * 64 bytes on; X's second run ends at
         # g + 64 NX + 64
-        reach = 64 * wg * 128 if h <= 128 else h * 64 + 64 * wg * 64
+        reach = 64 * wg * 128 if h <= 128 else rows * 64 + 64 * wg * 64
         assert reach <= p["stage"] and p["g"] + 64 * RP.GO_NX + 64 \
             <= p["stage"]
         assert 4 * wg * 16 * RP.GO_SL * 4 <= p["rs"] * p["stage"]
@@ -210,7 +213,7 @@ def test_grad_outer_bf16_plan_fits_every_routed_config():
                       "size"):
                 assert ro[k] % 4 == 0, (k, h)
             assert (4 * xp) % 16 == 0 and (h * 4 * 2 * xp) % 16 == 0
-    assert routed == 8 * len(CONFIGS)
+    assert routed == len(widths) * len(CONFIGS) == 12 * len(CONFIGS)
 
 
 def test_grad_outer_bf16_source():

@@ -189,8 +189,10 @@ def _read_slab(buf, h, k, j, bf16, simt):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF])
-@pytest.mark.parametrize("h", [160, 256])
+@pytest.mark.parametrize("h", [160, 256, 320])
 def test_ring_slabs_hold_the_weights(h, dtype):
+    """Above 256 (WX) each matrix is its two row halves' slabs in turn,
+    each laid out as a matrix of h / 2 rows."""
     cfg = CONFIGS["multi-container"]
     g = torch.Generator().manual_seed(h)
     params = [torch.randn(s, generator=g).to(dtype)
@@ -201,16 +203,22 @@ def test_ring_slabs_hold_the_weights(h, dtype):
     flat = slabs if bf16 else slabs.view(torch.float32)
     unit = 1 if bf16 else 2  # bfloat16 units per element
     sk = AS.RING_K if bf16 else AS.KR
+    nh = AS.geometry(h)["nh"]
+    assert nh == (2 if h > 256 else 1)
+    hr = h // nh
     off = 0
-    for i, w in enumerate((params[3], params[5], AS.wq_prime(params))):
-        K = w.shape[1]
-        ns = -(-K // sk)
-        buf = flat[off // unit:(off + ns * h * AS.RING_K) // unit]
-        back = torch.tensor([[float(_read_slab(buf, h, k, j, bf16, i == 0))
-                              for k in range(ns * sk)] for j in range(h)])
-        assert torch.equal(back[:, :K], w.float())
-        assert not back[:, K:].any()
-        off += ns * h * AS.RING_K
+    for i, wm in enumerate((params[3], params[5], AS.wq_prime(params))):
+        for w in wm.chunk(nh, 0):
+            K = w.shape[1]
+            ns = -(-K // sk)
+            buf = flat[off // unit:(off + ns * hr * AS.RING_K) // unit]
+            back = torch.tensor([[float(_read_slab(buf, hr, k, j, bf16,
+                                                   i == 0))
+                                  for k in range(ns * sk)]
+                                 for j in range(hr)])
+            assert torch.equal(back[:, :K], w.float())
+            assert not back[:, K:].any()
+            off += ns * hr * AS.RING_K
     assert off == slabs.numel()
     assert torch.equal(AS.wq_prime(params), torch.cat(
         [params[8][:, :h], params[8][:, 3 * h:]], 1))

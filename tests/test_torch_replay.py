@@ -365,12 +365,20 @@ def test_live_replay_matches_jax_replay(name, temperature, monkeypatch):
 
 
 def test_kernel_hidden_widths():
-    """The kernels tile hidden rows by 32 lanes: widths that are multiples
-    of 32 up to 256 are covered, others are refused (raise, no fallback)."""
+    """The kernels tile hidden rows by 32 lanes (by 64 above 256): widths
+    that are multiples of 32 up to 256 and of 64 up to 512 are theirs;
+    the routers cover every other width up to 512 on operands padded to
+    the next of them (`ReplayLogp`), but the kernels themselves refuse it
+    (raise, no fallback), and every width past 512."""
     cfg = CONFIGS["2d-basic"]
-    for h in (32, 64, 96, 128, 160, 192, 224, 256):
+    for h in (32, 64, 96, 128, 160, 192, 224, 256, 320, 384, 448, 512):
         assert RP.eligible(cfg, h), h
+        RP._check_cfg(cfg, h, False)
     for h in (16, 48, 288):
+        assert RP.eligible(cfg, h), h
+        with pytest.raises(NotImplementedError, match="multiple of 32"):
+            RP._check_cfg(cfg, h, False)
+    for h in (544, 576):
         assert not RP.eligible(cfg, h), h
         with pytest.raises(NotImplementedError, match="multiple of 32"):
             RP._check_cfg(cfg, h, False)

@@ -57,7 +57,7 @@ def card_rules(monkeypatch):
     return taken
 
 
-@pytest.mark.parametrize("hidden", [32, 48, 128, 256])
+@pytest.mark.parametrize("hidden", [32, 48, 100, 128, 256, 288, 512, 544])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_routes_follow_eligible(name, hidden):
     """Each kernel exactly where the port's `eligible` says; none on the
@@ -72,8 +72,9 @@ def test_routes_follow_eligible(name, hidden):
         assert RO.routes(cfg, False, hidden, greedy) == RO.Routes(
             "general", False, False)
     # the six configs: K1 and K4 cover all; K2 all but the capped one at
-    # hidden widths that are multiples of 32 up to 256, K5 all at those
-    tiled = hidden in (32, 128, 256)
+    # every hidden width 1-512 (the plan fits; widths the kernels do not
+    # take run on zero-padded operands), K5 all at those; none past 512
+    tiled = 1 <= hidden <= 512
     assert PS.eligible(cfg) and OE.eligible(cfg)
     assert AS.eligible(cfg, hidden) == (tiled and cfg.target_height == 0)
     assert RP.eligible(cfg, hidden) == tiled
@@ -96,17 +97,17 @@ def _metrics(cfg, hidden, batch=8):
 
 
 def test_train_step_past_the_kernels_falls_back(card_rules):
-    """Hidden 48 is past K2 and the replay kernels: the card's route is the
-    step-fused rollout (K1's plain version) and the general replay, with
-    the reference path's metrics."""
+    """Hidden 544 is past K2 and the replay kernels (they take up to 512):
+    the card's route is the step-fused rollout (K1's plain version) and
+    the general replay, with the reference path's metrics."""
     cfg = CONFIGS["2d-basic"]
-    got = _metrics(cfg, 48)
+    got = _metrics(cfg, 544)
     assert card_rules == ["_rollout_record_stepfused",
                           "_replay_logp_general"]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(RO, "routes", lambda cfg, on_card, *a, **k: RO.Routes(
             "general", False, False))
-        want = _metrics(cfg, 48)
+        want = _metrics(cfg, 544)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-7,
